@@ -1,0 +1,289 @@
+"""Config-driven SD UNet (SD1.x) as an ``nn.Module``, NCHW.
+
+Port of ``sdwebui_tpu/models/unet.py``.  Parameter names equal the
+``model.diffusion_model.*`` state-dict keys with the prefix stripped:
+
+    input_blocks.0.0          conv_in
+    input_blocks.i.{0,1}      ResBlock [, SpatialTransformer] | Downsample
+    middle_block.{0,1,2}      ResBlock, SpatialTransformer, ResBlock
+    output_blocks.i.{0,1,2}   ResBlock [, SpatialTransformer] [, Upsample]
+    out.{0,2}                 GroupNorm+SiLU, conv
+
+Self-attention runs through ``ops.attention`` (the flash kernel for the
+4096- and 1024-token levels on CUDA).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from sdwebui_tpu.models.configs import UNetConfig
+from sdwebui_tpu_torch.models.layers import (Conv2d, GroupNorm, LayerNorm,
+                                             Linear, linear,
+                                             timestep_embedding,
+                                             upsample_nearest_2x)
+from sdwebui_tpu_torch.ops.attention import attention
+
+
+def build_plan(cfg: UNetConfig):
+    """Returns (input_plan, middle_depth, output_plan, input_chs); a copy of
+    the JAX package's ``build_plan`` (unet.py:39-86)."""
+    depth = list(cfg.transformer_depth)
+    while len(depth) < len(cfg.channel_mult):
+        depth.append(depth[-1])
+
+    input_plan = [[("conv_in", cfg.in_channels, cfg.model_channels)]]
+    ch = cfg.model_channels
+    input_chs = [ch]
+    ds = 1
+    for level, mult in enumerate(cfg.channel_mult):
+        out_ch = cfg.model_channels * mult
+        for _ in range(cfg.num_res_blocks):
+            layers = [("res", ch, out_ch)]
+            ch = out_ch
+            if ds in cfg.attention_resolutions and depth[level] > 0:
+                layers.append(("attn", ch, depth[level]))
+            input_plan.append(layers)
+            input_chs.append(ch)
+        if level != len(cfg.channel_mult) - 1:
+            input_plan.append([("down", ch)])
+            input_chs.append(ch)
+            ds *= 2
+
+    if cfg.transformer_depth_middle >= 0:
+        middle_depth = cfg.transformer_depth_middle
+    else:
+        middle_depth = depth[-1] if depth[-1] > 0 else 1
+
+    output_plan = []
+    chs = list(input_chs)
+    for level in reversed(range(len(cfg.channel_mult))):
+        out_ch = cfg.model_channels * cfg.channel_mult[level]
+        for i in range(cfg.num_res_blocks + 1):
+            skip = chs.pop()
+            layers = [("res", ch + skip, out_ch)]
+            ch = out_ch
+            if ds in cfg.attention_resolutions and depth[level] > 0:
+                layers.append(("attn", ch, depth[level]))
+            if level > 0 and i == cfg.num_res_blocks:
+                layers.append(("up", ch))
+                ds //= 2
+            output_plan.append(layers)
+    return input_plan, middle_depth, output_plan, input_chs
+
+
+class ResBlock(nn.Module):
+    def __init__(self, cin, cout, emb_dim, *, device, dtype):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.in_layers = nn.Sequential(GroupNorm(cin, **kw), nn.SiLU(),
+                                       Conv2d(cin, cout, 3, **kw))
+        self.emb_layers = nn.Sequential(nn.SiLU(), Linear(emb_dim, cout, **kw))
+        self.out_layers = nn.Sequential(GroupNorm(cout, **kw), nn.SiLU(),
+                                        nn.Dropout(0.0), Conv2d(cout, cout, 3, **kw))
+        self.skip_connection = Conv2d(cin, cout, 1, **kw) if cin != cout else None
+
+    def forward(self, x, emb):
+        h = self.in_layers[0](x, silu=True)
+        h = self.in_layers[2](h)
+        e = self.emb_layers[1](F.silu(emb)).to(h.dtype)
+        h = h + e[:, :, None, None]
+        h = self.out_layers[0](h, silu=True)
+        h = self.out_layers[3](h)
+        if self.skip_connection is not None:
+            x = self.skip_connection(x)
+        return x + h
+
+
+class CrossAttention(nn.Module):
+    def __init__(self, c, context_dim, heads, *, device, dtype):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.heads = heads
+        self.to_q = Linear(c, c, bias=False, **kw)
+        self.to_k = Linear(context_dim, c, bias=False, **kw)
+        self.to_v = Linear(context_dim, c, bias=False, **kw)
+        self.to_out = nn.Sequential(Linear(c, c, **kw), nn.Dropout(0.0))
+
+    def forward(self, x, context=None):
+        if context is None:
+            # self-attention: one fused qkv matmul (unet.py:112-121)
+            w = torch.cat([self.to_q.weight, self.to_k.weight,
+                           self.to_v.weight], dim=0)
+            q, k, v = linear(x, w).chunk(3, dim=-1)
+        else:
+            q, k, v = self.to_q(x), self.to_k(context), self.to_v(context)
+        return self.to_out[0](attention(q, k, v, num_heads=self.heads))
+
+
+class GEGLU(nn.Module):
+    def __init__(self, cin, cout, *, device, dtype):
+        super().__init__()
+        self.proj = Linear(cin, cout * 2, device=device, dtype=dtype)
+
+    def forward(self, x):
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        return h * F.gelu(gate)
+
+
+class FeedForward(nn.Module):
+    def __init__(self, c, *, device, dtype):
+        super().__init__()
+        self.net = nn.Sequential(GEGLU(c, c * 4, device=device, dtype=dtype),
+                                 nn.Dropout(0.0),
+                                 Linear(c * 4, c, device=device, dtype=dtype))
+
+    def forward(self, x):
+        return self.net[2](self.net[0](x))
+
+
+class BasicTransformerBlock(nn.Module):
+    def __init__(self, c, context_dim, heads, *, device, dtype):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.attn1 = CrossAttention(c, c, heads, **kw)
+        self.ff = FeedForward(c, **kw)
+        self.attn2 = CrossAttention(c, context_dim, heads, **kw)
+        self.norm1 = LayerNorm(c, **kw)
+        self.norm2 = LayerNorm(c, **kw)
+        self.norm3 = LayerNorm(c, **kw)
+
+    def forward(self, x, context):
+        x = x + self.attn1(self.norm1(x))
+        x = x + self.attn2(self.norm2(x), context)
+        return x + self.ff(self.norm3(x))
+
+
+class SpatialTransformer(nn.Module):
+    def __init__(self, c, depth, cfg: UNetConfig, *, device, dtype):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        heads = cfg.heads_for(c)
+        self.norm = GroupNorm(c, eps=1e-6, **kw)
+        self.proj_in = Conv2d(c, c, 1, **kw)
+        self.transformer_blocks = nn.ModuleList(
+            BasicTransformerBlock(c, cfg.context_dim, heads, **kw)
+            for _ in range(depth))
+        self.proj_out = Conv2d(c, c, 1, **kw)
+
+    def forward(self, x, context):
+        b, c, h, w = x.shape
+        residual = x
+        x = self.proj_in(self.norm(x))
+        x = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        for block in self.transformer_blocks:
+            x = block(x, context)
+        x = x.reshape(b, h, w, c).permute(0, 3, 1, 2)
+        return self.proj_out(x) + residual
+
+
+class Downsample(nn.Module):
+    def __init__(self, c, *, device, dtype):
+        super().__init__()
+        self.op = Conv2d(c, c, 3, stride=2, device=device, dtype=dtype)
+
+    def forward(self, x):
+        return self.op(x)
+
+
+class Upsample(nn.Module):
+    def __init__(self, c, *, device, dtype):
+        super().__init__()
+        self.conv = Conv2d(c, c, 3, device=device, dtype=dtype)
+
+    def forward(self, x):
+        return self.conv(upsample_nearest_2x(x))
+
+
+def _unsupported(cfg: UNetConfig) -> str | None:
+    if cfg.adm_in_channels:
+        return "vector conditioning (adm_in_channels, SDXL)"
+    if cfg.use_linear_in_transformer:
+        return "linear transformer projections (SD2/SDXL)"
+    if cfg.hypertile_tile:
+        return "hypertile"
+    if cfg.tome_ratio:
+        return "token merging (ToMe)"
+    if cfg.upcast_attn:
+        return "upcast_attn"
+    if cfg.tiling:
+        return "tiling"
+    return None
+
+
+class UNetModel(nn.Module):
+    def __init__(self, cfg: UNetConfig, *, device, dtype):
+        super().__init__()
+        missing = _unsupported(cfg)
+        if missing:
+            raise NotImplementedError(f"UNet option not ported yet: {missing}")
+        self.cfg = cfg
+        kw = dict(device=device, dtype=dtype)
+        input_plan, middle_depth, output_plan, _ = build_plan(cfg)
+        ted = cfg.time_embed_dim
+        mc = cfg.model_channels
+        self.time_embed = nn.Sequential(Linear(mc, ted, **kw), nn.SiLU(),
+                                        Linear(ted, ted, **kw))
+
+        def make(layer):
+            kind = layer[0]
+            if kind == "conv_in":
+                return Conv2d(layer[1], layer[2], 3, **kw)
+            if kind == "res":
+                return ResBlock(layer[1], layer[2], ted, **kw)
+            if kind == "attn":
+                return SpatialTransformer(layer[1], layer[2], cfg, **kw)
+            if kind == "down":
+                return Downsample(layer[1], **kw)
+            return Upsample(layer[1], **kw)
+
+        self.input_blocks = nn.ModuleList(
+            nn.ModuleList(make(layer) for layer in plan) for plan in input_plan)
+        mid = mc * cfg.channel_mult[-1]
+        self.middle_block = nn.ModuleList([
+            ResBlock(mid, mid, ted, **kw),
+            SpatialTransformer(mid, middle_depth, cfg, **kw),
+            ResBlock(mid, mid, ted, **kw)])
+        self.output_blocks = nn.ModuleList(
+            nn.ModuleList(make(layer) for layer in plan) for plan in output_plan)
+        self.out = nn.Sequential(GroupNorm(mc, **kw), nn.SiLU(),
+                                 Conv2d(mc, cfg.out_channels, 3, **kw))
+
+    def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
+        if any(k.endswith(".qkv.weight") for k in state_dict):
+            raise NotImplementedError("the legacy AttentionBlock (fused qkv, "
+                                      "context-free UNets) is not ported yet")
+        return super().load_state_dict(state_dict, strict, assign)
+
+    @staticmethod
+    def _run(layers, h, emb, context):
+        for layer in layers:
+            if isinstance(layer, ResBlock):
+                h = layer(h, emb)
+            elif isinstance(layer, SpatialTransformer):
+                h = layer(h, context)
+            else:
+                h = layer(h)
+        return h
+
+    def forward(self, x, timesteps, context, control=None, hypernet=None):
+        """x: (B, C_in, H, W) latent; timesteps: (B,); context: (B, S, D).
+        Activations run channels-last in memory (NCHW indexing)."""
+        if control is not None:
+            raise NotImplementedError("ControlNet residuals (control=) are not ported yet")
+        if hypernet is not None:
+            raise NotImplementedError("hypernetworks (hypernet=) are not ported yet")
+        t_emb = timestep_embedding(timesteps, self.cfg.model_channels)
+        emb = self.time_embed[2](F.silu(self.time_embed[0](t_emb))).to(x.dtype)
+        context = context.to(x.dtype)
+        hs = []
+        h = x.contiguous(memory_format=torch.channels_last)
+        for block in self.input_blocks:
+            h = self._run(block, h, emb, context)
+            hs.append(h)
+        h = self._run(self.middle_block, h, emb, context)
+        for block in self.output_blocks:
+            h = self._run(block, torch.cat([h, hs.pop()], dim=1), emb, context)
+        return self.out[2](self.out[0](h, silu=True))

@@ -1,0 +1,52 @@
+"""GroupNorm(+SiLU) and LayerNorm with one-pass fp32 statistics (NCHW).
+
+Port of ``sdwebui_tpu/ops/norms.py:22-108``: (Σx, Σx²) in fp32 in one pass,
+then the per-channel affine folded to ``x * scale + shift`` with scale and
+shift cast to the input dtype, so bf16 rounds where the JAX code rounds.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def group_norm(x, weight, bias, num_groups: int = 32, eps: float = 1e-5,
+               silu: bool = False):
+    """x: (B, C, ...) channels-first; weight/bias: (C,).  Stats in fp32 over
+    all but the batch dim, per channel group."""
+    b, c = x.shape[:2]
+    g = num_groups
+    xf = x.float()
+    red = tuple(range(2, x.dim()))
+    s1 = xf.sum(dim=red)                     # (B, C)
+    s2 = (xf * xf).sum(dim=red)
+    n_spatial = 1
+    for a in red:
+        n_spatial *= x.shape[a]
+    cnt = n_spatial * (c // g)
+    mean_g = s1.reshape(b, g, c // g).sum(-1) / cnt
+    var_g = s2.reshape(b, g, c // g).sum(-1) / cnt - mean_g * mean_g
+    rstd_g = torch.rsqrt(var_g + eps)
+    mean_c = mean_g.repeat_interleave(c // g, dim=-1)
+    rstd_c = rstd_g.repeat_interleave(c // g, dim=-1)
+    wf = weight.float()
+    shape = (b, c) + (1,) * (x.dim() - 2)
+    scale = (rstd_c * wf).to(x.dtype).reshape(shape)
+    shift = (bias.float() - mean_c * rstd_c * wf).to(x.dtype).reshape(shape)
+    out = x * scale + shift
+    return F.silu(out) if silu else out
+
+
+def layer_norm(x, weight=None, bias=None, eps: float = 1e-5):
+    """LayerNorm over the last dim with one-pass fp32 stats."""
+    c = x.shape[-1]
+    xf = x.float()
+    mean = xf.sum(-1, keepdim=True) / c
+    var = (xf * xf).sum(-1, keepdim=True) / c - mean * mean
+    rstd = torch.rsqrt(var + eps)
+    wf = weight.float() if weight is not None else 1.0
+    bf = bias.float() if bias is not None else 0.0
+    scale = (rstd * wf).to(x.dtype)
+    shift = (bf - mean * rstd * wf).to(x.dtype)
+    return x * scale + shift

@@ -1,0 +1,374 @@
+"""txt2img orchestration — the txt2img half of ``sdwebui_tpu/pipeline/processing.py``.
+
+Host side: seeds, prompt schedules, infotext.  Device side: a Python step
+loop of batched CFG UNet calls (cond + uncond in one call) and a VAE
+decode to uint8 with an fp32 retry on NaN.  Images leave as uint8 HWC
+numpy arrays.  Options and request fields outside the slice raise
+``NotImplementedError`` naming them; nothing falls back to a different
+computation.
+"""
+
+from __future__ import annotations
+
+import math
+import random
+import re
+from typing import Callable
+
+import numpy as np
+import torch
+
+from sdwebui_tpu.pipeline.params import GenerationParams, Processed
+from sdwebui_tpu.rng.image_rng import ImageRNG, TorchCPUGenerator
+from sdwebui_tpu.rng.philox import PhiloxGenerator
+from sdwebui_tpu.text.prompt_parser import strip_comments
+from sdwebui_tpu.utils import infotext as infotext_util
+from sdwebui_tpu.utils.options import opts
+from sdwebui_tpu_torch import __version__
+from sdwebui_tpu_torch.pipeline.sd_model import SDModel
+from sdwebui_tpu_torch.sampling.cfg import CondSchedule, make_cfg_denoiser
+from sdwebui_tpu_torch.sampling.registry import build_sigmas, get_sampler
+from sdwebui_tpu_torch.sampling.sampler import prepare_noise, sample
+from sdwebui_tpu_torch.sampling.solvers import get_solver
+from sdwebui_tpu_torch.text.conditioner import build_cond_schedule
+from sdwebui_tpu_torch.utils import devices
+
+MAX_SEED = 2 ** 32 - 1
+
+#: options the JAX pipeline reads whose other values are not ported yet,
+#: with the value the slice runs
+UNPORTED_OPTIONS = {
+    "sgm_noise_multiplier": False,
+    "use_downcasted_alpha_bar": False,
+    "sd_noise_schedule": "Default",
+    "hypertile_enable_unet": False,
+    "token_merging_ratio": 0.0,
+    "upcast_attn": False,
+    "sd_vae_decode_method": "Full",
+    "fp8_storage": "Disable",
+    "sd_hypernetwork": "None",
+    "live_preview_fast_interrupt": False,
+}
+
+_NETWORK_TAG = re.compile(r"<(\w+):([^>]+)>")
+
+
+def _check_slice(p: GenerationParams) -> None:
+    """Raise for every request field and option the slice does not run."""
+    fields = {
+        "enable_hr": p.enable_hr,
+        "refiner_checkpoint": p.refiner_checkpoint and 0 < (p.refiner_switch_at or 0) < 1,
+        "controlnet_units": p.controlnet_units,
+        "tiling": p.tiling,
+        "restore_faces": p.restore_faces,
+        "styles": p.styles,
+        "init_images": p.init_images is not None,
+        "mask": p.mask is not None,
+        "hypernet_override": p.hypernet_override is not None,
+        "postprocessing": p.postprocessing,
+    }
+    for name, used in fields.items():
+        if used:
+            raise NotImplementedError(f"{name!r} is not ported yet")
+    for text in (p.prompt, p.negative_prompt):
+        m = _NETWORK_TAG.search(text or "")
+        if m:
+            raise NotImplementedError(f"extra network tag <{m.group(1)}:...> is not ported yet")
+    for name, value in UNPORTED_OPTIONS.items():
+        if opts.get(name, value) != value:
+            raise NotImplementedError(f"option {name!r} is not ported yet")
+    if str(opts.get("randn_source", "NV")) not in ("NV", "CPU"):
+        raise NotImplementedError(
+            f"randn_source {opts.get('randn_source')!r} is not ported yet (use NV or CPU)")
+
+
+# --------------------------------------------------------------------------
+# denoising
+# --------------------------------------------------------------------------
+
+def sigma_to_t(sigma: float, log_sigmas: np.ndarray, quantize: bool) -> float:
+    """σ → model timestep in float32 (processing.py:105-123): nearest table
+    entry when quantized, else interpolated in log σ."""
+    log_sigma = np.log(np.maximum(np.float32(sigma), np.float32(1e-12)))
+    dists = log_sigma - log_sigmas
+    if quantize:
+        return float(np.argmin(np.abs(dists)))
+    low_idx = int(np.clip(np.argmax(np.cumsum(dists >= 0)), 0, len(log_sigmas) - 2))
+    low, high = log_sigmas[low_idx], log_sigmas[low_idx + 1]
+    w = np.clip((low - log_sigma) / (low - high), np.float32(0), np.float32(1))
+    return float((1 - w) * np.float32(low_idx) + w * np.float32(low_idx + 1))
+
+
+def make_denoise_fn(model: SDModel, quantize_t: bool, compute_dtype):
+    """denoise(x, sigma, ctx) → denoised: k-diffusion CompVis(V)Denoiser
+    scalings around the UNet (processing.py:150-202)."""
+    log_sigmas = np.asarray(model.disc.log_sigmas, np.float32)
+    prediction_type = model.disc.prediction_type
+
+    def denoise(x, sigma: float, ctx):
+        s = np.float32(sigma)
+        t = sigma_to_t(s, log_sigmas, quantize_t)
+        c_in = float(np.float32(1.0) / np.sqrt(s * s + np.float32(1.0)))
+        x_in = (x * c_in).to(compute_dtype)
+        timesteps = torch.full((x.shape[0],), t, dtype=torch.float32, device=x.device)
+        out = model.unet(x_in, timesteps, ctx).float()
+        if prediction_type == "v":
+            return x / float(s * s + 1) - out * float(s / np.sqrt(s * s + 1))
+        return x - out * float(s)
+
+    return denoise
+
+
+def sample_latents(model: SDModel, sched: CondSchedule, x, sigmas, noise,
+                   solver: str, extra: dict | None = None,
+                   step_callback: Callable | None = None):
+    quantize = bool(opts.get("enable_quantization", False))
+    denoise = make_denoise_fn(model, quantize, devices.get_policy().compute_dtype)
+    model_fn = make_cfg_denoiser(denoise, sched)
+    sig = np.asarray(sigmas, np.float32)
+    n = len(sig) - 1
+    callback = None
+    if step_callback is not None:
+        callback = lambda i, xc: step_callback(i, n, xc)  # noqa: E731
+    return sample(model_fn, x, sig, solver, noise, extra, callback=callback)
+
+
+def _decode_u8(model: SDModel, latents, dtype):
+    img = model.vae.decode(latents.to(dtype))
+    bad = not devices.all_finite(img)
+    img = torch.clamp(img.float() / 2.0 + 0.5, 0.0, 1.0)
+    u8 = (img * 255.0 + 0.5).to(torch.uint8).permute(0, 2, 3, 1)
+    return u8.cpu().numpy(), bad
+
+
+def decode_first_stage_u8(model: SDModel, latents) -> np.ndarray:
+    """latents (B, C, h, w) → uint8 (B, H, W, 3).  bf16 decode first when
+    opts.sdtpu_vae_bf16, retried in fp32 on NaN/inf unless
+    opts.auto_vae_precision is off (processing.py:523-546)."""
+    if opts.get("sdtpu_vae_bf16", True):
+        u8, bad = _decode_u8(model, latents, torch.bfloat16)
+        if not bad or not opts.get("auto_vae_precision", True):
+            return u8
+    return _decode_u8(model, latents, devices.get_policy().vae_dtype)[0]
+
+
+# --------------------------------------------------------------------------
+# orchestration
+# --------------------------------------------------------------------------
+
+def _resolve_seeds(p: GenerationParams):
+    if p.seed in (-1, None):
+        p.seed = random.randrange(MAX_SEED)
+    if p.subseed in (-1, None):
+        p.subseed = random.randrange(MAX_SEED)
+    n = p.batch_size * p.n_iter
+    p.all_seeds = [int(p.seed) + (i if p.subseed_strength == 0 else 0) for i in range(n)]
+    p.all_subseeds = [int(p.subseed) + i for i in range(n)]
+    p.all_prompts = [p.prompt] * n
+    p.all_negative_prompts = [p.negative_prompt] * n
+
+
+def _strip_prompt_comments(p: GenerationParams):
+    if not opts.get("enable_prompt_comments", True):
+        return
+    if "#" not in p.prompt and "#" not in p.negative_prompt:
+        return
+    p.prompt = strip_comments(p.prompt)
+    p.negative_prompt = strip_comments(p.negative_prompt)
+    p.all_prompts = [strip_comments(x) for x in p.all_prompts]
+    p.all_negative_prompts = [strip_comments(x) for x in p.all_negative_prompts]
+
+
+def create_rng(shape, seeds, subseeds=None, subseed_strength=0.0,
+               seed_resize_from_h=0, seed_resize_from_w=0, eta_noise_seed_delta=0):
+    """Host noise streams in NCHW: "NV" (Philox, the reference's NVIDIA
+    bits) or "CPU" (the torch CPU generator) — image_rng.py:181-209."""
+    source = str(opts.get("randn_source", "NV"))
+    gen_cls = TorchCPUGenerator if source == "CPU" else PhiloxGenerator
+    return ImageRNG(shape, seeds, subseeds=subseeds, subseed_strength=subseed_strength,
+                    seed_resize_from_h=seed_resize_from_h,
+                    seed_resize_from_w=seed_resize_from_w,
+                    eta_noise_seed_delta=eta_noise_seed_delta,
+                    channels_last=False, gen_cls=gen_cls)
+
+
+def _solver_extra(p: GenerationParams) -> dict:
+    """eta (request > eta_ancestral option) and s_noise for Euler a."""
+    extra = {}
+    if p.eta is not None and p.eta > 0:
+        extra["eta"] = float(p.eta)
+    else:
+        v = float(opts.get("eta_ancestral", 1.0))
+        if v != 1.0:
+            extra["eta"] = v
+    if p.s_noise not in (None, 1.0):
+        extra["s_noise"] = float(p.s_noise)
+    return extra
+
+
+def _skip_uncond_mask(sigmas, p: GenerationParams):
+    """NGMS (s_min_uncond) and skip_early_cond per step (processing.py:1232)."""
+    smu = float(p.s_min_uncond or opts.get("s_min_uncond", 0.0) or 0.0)
+    early = float(opts.get("skip_early_cond", 0.0) or 0.0)
+    if smu <= 0 and early <= 0:
+        return None
+    all_steps = bool(opts.get("s_min_uncond_all", False))
+    n = len(sigmas) - 1
+    mask = np.zeros((n,), bool)
+    for i in range(n):
+        if early > 0 and i / n <= early:
+            mask[i] = True
+            p.extra_generation_params["Skip Early CFG"] = early
+        elif smu > 0 and (i % 2 or all_steps) and float(sigmas[i]) < smu:
+            mask[i] = True
+            p.extra_generation_params["NGMS"] = smu
+            if all_steps:
+                p.extra_generation_params["NGMS all steps"] = "True"
+    return mask if mask.any() else None
+
+
+def _build_conds(model: SDModel, p: GenerationParams, steps: int) -> CondSchedule:
+    model.conditioner.clip_skip = max(p.clip_skip, 1)
+    return build_cond_schedule(
+        model.encode_texts, p.prompt, p.negative_prompt, steps,
+        cond_scale=p.cfg_scale,
+        use_old_scheduling=bool(opts.get("use_old_scheduling", False)))
+
+
+def create_infotext(p: GenerationParams, model: SDModel, index: int = 0) -> str:
+    """The generation-parameters text (processing.py:914), restricted to the
+    fields the slice can produce."""
+    pairs = {
+        "Steps": p.steps,
+        "Sampler": p.sampler_name,
+        "Schedule type": p.scheduler if p.scheduler != "Automatic" else None,
+        "CFG scale": p.cfg_scale,
+        "Seed": p.all_seeds[index] if p.all_seeds else p.seed,
+        "Size": f"{p.width}x{p.height}",
+        "Model hash": (model.sha256[:10] if model.sha256
+                       and opts.get("add_model_hash_to_info", True) else None),
+        "Model": (model.title.split(" [")[0] if model.title
+                  and opts.get("add_model_name_to_info", True) else None),
+        "Denoising strength": p.denoising_strength,
+        "Clip skip": p.clip_skip if p.clip_skip > 1 else None,
+        "Version": (f"sdwebui-tpu-{__version__}"
+                    if opts.get("add_version_to_infotext", True) else None),
+    }
+    if p.subseed_strength > 0:
+        pairs["Variation seed"] = p.all_subseeds[index] if p.all_subseeds else p.subseed
+        pairs["Variation seed strength"] = p.subseed_strength
+    if p.eta:
+        pairs["Eta"] = p.eta
+    ensd = p.override_settings.get("eta_noise_seed_delta",
+                                   opts.get("eta_noise_seed_delta", 0))
+    if ensd:
+        pairs["ENSD"] = ensd
+    emphasis = opts.get("emphasis", "Original")
+    if emphasis != "Original":
+        pairs["Emphasis"] = emphasis
+    if p.user and opts.get("add_user_name_to_info", False):
+        pairs["User"] = p.user
+    pairs.update(p.extra_generation_params)
+    return infotext_util.build(
+        p.all_prompts[index] if p.all_prompts else p.prompt,
+        p.all_negative_prompts[index] if p.all_negative_prompts else p.negative_prompt,
+        pairs)
+
+
+def _grid_rows(n: int, batch_size: int) -> int:
+    n_rows = int(opts.get("n_rows", -1))
+    if n_rows > 0:
+        rows = n_rows
+    elif n_rows == 0:
+        rows = batch_size
+    elif opts.get("grid_prevent_empty_spots", False):
+        rows = max(math.floor(math.sqrt(n)), 1)
+        while n % rows != 0:
+            rows -= 1
+    else:
+        rows = max(round(math.sqrt(n)), 1)
+    return min(rows, n)
+
+
+def image_grid(images: list, batch_size: int) -> np.ndarray:
+    """Equal-sized uint8 HWC images → one grid image, row-major, empty
+    cells in opts.grid_background_color (utils/images.py:333)."""
+    rows = _grid_rows(len(images), batch_size)
+    cols = -(-len(images) // rows)
+    h, w, c = images[0].shape
+    color = str(opts.get("grid_background_color", "#ffffff") or "#ffffff").lstrip("#")
+    try:
+        bg = [int(color[i:i + 2], 16) for i in (0, 2, 4)]
+    except ValueError:
+        bg = [255, 255, 255]
+    grid = np.empty((rows * h, cols * w, c), np.uint8)
+    grid[...] = np.asarray(bg, np.uint8)
+    for i, img in enumerate(images):
+        r, col = divmod(i, cols)
+        grid[r * h:(r + 1) * h, col * w:(col + 1) * w] = img
+    return grid
+
+
+def _apply_grid(all_images: list, infotexts: list, p: GenerationParams,
+                model: SDModel) -> int:
+    """Prepend a grid when opts.return_grid asks for one (processing.py:858);
+    grids are returned, never saved."""
+    unwanted = len(all_images) < 2 and opts.get("grid_only_if_multiple", True)
+    if not opts.get("return_grid", True) or p.do_not_save_grid or unwanted:
+        return 0
+    infotexts.insert(0, infotexts[0] if infotexts else create_infotext(p, model, 0))
+    all_images.insert(0, image_grid(all_images, p.batch_size))
+    return 1
+
+
+def process_txt2img(model: SDModel, p: GenerationParams,
+                    step_callback: Callable | None = None) -> Processed:
+    """txt2img with per-request override_settings applied and restored
+    (processing.py:1304).  ``step_callback(i, n, latents)`` returning False
+    stops sampling."""
+    with opts.override(p.override_settings):
+        return _process_txt2img(model, p, step_callback)
+
+
+@torch.inference_mode()
+def _process_txt2img(model: SDModel, p: GenerationParams,
+                     step_callback: Callable | None) -> Processed:
+    _check_slice(p)
+    _resolve_seeds(p)
+    _strip_prompt_comments(p)
+    sampler = get_sampler(p.sampler_name)
+    spec = get_solver(sampler.solver)
+    h, w = p.latent_size()
+    c = model.latent_channels
+    sigmas = build_sigmas(sampler, p.scheduler, p.steps, model.disc)
+    solver_extra = _solver_extra(p)
+
+    all_images, infotexts = [], []
+    for n in range(p.n_iter):
+        lo = n * p.batch_size
+        seeds = p.all_seeds[lo: lo + p.batch_size]
+        subseeds = p.all_subseeds[lo: lo + p.batch_size]
+        sched = _build_conds(model, p, p.steps)
+        sched.skip_uncond = _skip_uncond_mask(sigmas, p)
+        rng = create_rng((c, h, w), seeds, subseeds=subseeds,
+                         subseed_strength=p.subseed_strength,
+                         seed_resize_from_h=max(p.seed_resize_from_h, 0),
+                         seed_resize_from_w=max(p.seed_resize_from_w, 0),
+                         eta_noise_seed_delta=p.override_settings.get(
+                             "eta_noise_seed_delta", 0))
+        x = torch.from_numpy(rng.first()).to(model.device) * float(np.float32(sigmas[0]))
+        noise = prepare_noise(spec, len(sigmas) - 1, rng, model.device)
+        latents = sample_latents(model, sched, x, sigmas, noise, sampler.solver,
+                                 solver_extra, step_callback=step_callback)
+        images = list(decode_first_stage_u8(model, latents))
+        infotexts.extend(create_infotext(p, model, lo + i) for i in range(len(images)))
+        all_images.extend(images)
+
+    first_idx = _apply_grid(all_images, infotexts, p, model)
+    return Processed(
+        images=all_images, params=p, seed=p.all_seeds[0], subseed=p.all_subseeds[0],
+        infotexts=infotexts, all_seeds=p.all_seeds, all_subseeds=p.all_subseeds,
+        all_prompts=p.all_prompts, width=p.width, height=p.height,
+        index_of_first_image=first_idx,
+        sd_model_name=(model.title or "").split(" [")[0],
+        sd_model_hash=model.sha256[:10] if model.sha256 else "")

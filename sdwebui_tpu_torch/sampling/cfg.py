@@ -1,0 +1,77 @@
+"""Classifier-free-guidance denoiser — the per-step hot loop.
+
+Port of ``sdwebui_tpu/sampling/cfg.py:30-205``.  Prompt-edit schedules are
+pre-gathered cond banks indexed per step; cond and uncond ride one batched
+UNet call; AND weights and skip-uncond steps are applied in the combine.
+The per-step indices stay on the host (the step loop is Python), the banks
+on the device.
+
+Cond layout (per run):
+    cond_bank    (K, n_sched, S, D)  K composable prompts (AND), each with a
+                                     prompt-edit schedule bank
+    cond_idx     (K, n_steps)        host ints: schedule entry per step
+    cond_weights (K,)                host floats: AND weights
+    uncond_bank  (n_sched_u, S, D) + uncond_idx (n_steps,)
+x is (B, C, H, W) and the UNet call carries B·(K+1) items.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class CondSchedule:
+    cond_bank: torch.Tensor
+    cond_idx: np.ndarray
+    cond_weights: np.ndarray
+    uncond_bank: torch.Tensor
+    uncond_idx: np.ndarray
+    cond_scale: float = 7.5
+    # NGMS: per-step bool, True = uncond contribution skipped this step
+    skip_uncond: np.ndarray | None = None
+    # inpainting-model image conditioning / instruct-pix2pix 3-way CFG:
+    # fields of the JAX schedule the slice does not run
+    c_concat: Any = None
+    image_cfg_scale: Any = None
+
+
+def make_cfg_denoiser(denoise_fn: Callable, sched: CondSchedule,
+                      mask=None, soft_inpainting=None) -> Callable:
+    """Build model(x, sigma, i) -> denoised for the solver loop.
+
+    denoise_fn(x, sigma, context) -> denoised for x (N, C, H, W) at the
+    scalar noise level sigma (shared by the whole CFG batch).
+    """
+    if sched.image_cfg_scale is not None:
+        raise NotImplementedError("edit-model (instruct-pix2pix) CFG is not ported yet")
+    if sched.c_concat is not None:
+        raise NotImplementedError("inpainting-model conditioning (c_concat) is not ported yet")
+    if mask is not None or soft_inpainting is not None:
+        raise NotImplementedError("masked / soft inpainting is not ported yet")
+    k = sched.cond_bank.shape[0]
+    rows = torch.arange(k, device=sched.cond_bank.device)
+
+    def model(x, sigma: float, i: int):
+        b = x.shape[0]
+        conds = sched.cond_bank[rows, torch.as_tensor(sched.cond_idx[:, i],
+                                                      device=rows.device)]
+        uncond = sched.uncond_bank[int(sched.uncond_idx[i])]
+        # context: K cond copies per image, then uncond — (B·(K+1), S, D)
+        ctx = torch.cat([conds, uncond[None]], dim=0).repeat_interleave(b, dim=0)
+        x_in = x.repeat(k + 1, 1, 1, 1)
+        out = denoise_fn(x_in, sigma, ctx)
+        out = out.reshape(k + 1, b, *out.shape[1:])
+        out_conds, out_uncond = out[:k], out[k]
+        w = torch.as_tensor(np.asarray(sched.cond_weights, np.float32),
+                            device=out.device).to(out.dtype)[:, None, None, None, None]
+        if sched.skip_uncond is not None and bool(sched.skip_uncond[i]):
+            # NGMS: the skipped-uncond step returns the weighted cond mean
+            return (w * out_conds).sum(0) / float(np.sum(sched.cond_weights))
+        return out_uncond + (w * (out_conds - out_uncond[None])).sum(0) * sched.cond_scale
+
+    return model

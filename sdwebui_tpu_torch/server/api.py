@@ -1,0 +1,200 @@
+"""HTTP API: ``/sdapi/v1/txt2img`` and friends on a stdlib server.
+
+Port of the txt2img route of ``sdwebui_tpu/server/api.py:133,252-267``.
+Requests are plain JSON mapped onto ``GenerationParams`` (no pydantic);
+responses have the reference's shape, ``{"images": [b64 png], "parameters":
+{...}, "info": "<json>"}``.  A request field or override the slice does
+not run answers 422 naming it — it is never silently ignored.
+"""
+
+from __future__ import annotations
+
+import base64
+import json
+import traceback
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from sdwebui_tpu.pipeline.params import GenerationParams
+from sdwebui_tpu_torch.pipeline.processing import UNPORTED_OPTIONS
+from sdwebui_tpu_torch.sampling.registry import SAMPLER_MAP, SAMPLERS, UNPORTED
+from sdwebui_tpu_torch.sampling.schedulers import ALIASES, SCHEDULERS
+from sdwebui_tpu_torch.server.app import Engine
+from sdwebui_tpu_torch.utils.png import encode_png
+
+_NUM = (int, float)
+
+#: request fields the slice runs: the reference schema's default and type
+FIELDS = {
+    "prompt": ("", str), "negative_prompt": ("", str), "seed": (-1, int),
+    "subseed": (-1, int), "subseed_strength": (0.0, _NUM),
+    "seed_resize_from_h": (-1, int), "seed_resize_from_w": (-1, int),
+    "sampler_name": (None, str), "sampler_index": (None, str), "scheduler": (None, str),
+    "batch_size": (1, int), "n_iter": (1, int), "steps": (50, int), "cfg_scale": (7.0, _NUM),
+    "width": (512, int), "height": (512, int), "eta": (None, _NUM),
+    "s_min_uncond": (None, _NUM), "s_churn": (None, _NUM), "s_tmax": (None, _NUM),
+    "s_tmin": (None, _NUM), "s_noise": (None, _NUM), "override_settings": ({}, dict),
+    "do_not_save_samples": (False, bool), "do_not_save_grid": (False, bool),
+    "send_images": (True, bool),
+}
+
+#: fields of the reference schema outside the slice: accepted only at
+#: these values (their defaults)
+NEUTRAL = {
+    "styles": ([],), "restore_faces": (None, False), "tiling": (None, False),
+    "denoising_strength": (None,), "refiner_checkpoint": (None, ""),
+    "refiner_switch_at": (None, 0, 0.0), "disable_extra_networks": (False,),
+    "comments": ({},), "enable_hr": (False,), "firstphase_width": (0,),
+    "firstphase_height": (0,), "hr_scale": (2.0, 2), "hr_upscaler": (None,),
+    "hr_second_pass_steps": (0,), "hr_resize_x": (0,), "hr_resize_y": (0,),
+    "hr_checkpoint_name": (None,), "hr_sampler_name": (None,),
+    "hr_scheduler": (None,), "hr_prompt": ("",), "hr_negative_prompt": ("",),
+    "hr_cfg": (0.0, 0), "script_name": (None,), "script_args": ([],),
+    "save_images": (False,), "alwayson_scripts": ({},), "infotext": (None,),
+    "postprocessing": ({},), "override_settings_restore_afterwards": (True,),
+}
+
+#: override_settings keys the slice reads; UNPORTED_OPTIONS keys are
+#: accepted too and raise in the pipeline unless at their neutral value
+OVERRIDES = {
+    "CLIP_stop_at_last_layers", "eta_noise_seed_delta", "randn_source",
+    "enable_quantization", "emphasis", "enable_emphasis", "comma_padding_backtrack",
+    "sdtpu_vae_bf16", "auto_vae_precision", "eta_ancestral", "s_min_uncond",
+    "s_min_uncond_all", "skip_early_cond", "use_old_scheduling",
+    "enable_prompt_comments", "return_grid", "n_rows", "grid_background_color",
+    "grid_only_if_multiple", "grid_prevent_empty_spots", "add_model_hash_to_info",
+    "add_model_name_to_info", "add_version_to_infotext", "add_user_name_to_info",
+    "cross_attention_optimization", *UNPORTED_OPTIONS,
+}
+
+
+class ApiError(Exception):
+    def __init__(self, status: int, message: str):
+        super().__init__(message)
+        self.status = status
+        self.message = message
+
+
+def _params_from_request(body: dict) -> GenerationParams:
+    for key, value in body.items():
+        if key in FIELDS:
+            continue
+        if key in NEUTRAL:
+            if value not in NEUTRAL[key]:
+                raise ApiError(422, f"field {key!r} is not supported by this server yet")
+            continue
+        raise ApiError(422, f"unknown or unsupported field {key!r}")
+    req = {key: default for key, (default, _) in FIELDS.items()}
+    req.update(body)
+    for key, (_, typ) in FIELDS.items():
+        value = req[key]
+        if value is not None and (not isinstance(value, typ)
+                                  or isinstance(value, bool) and typ is not bool):
+            raise ApiError(422, f"field {key!r} has the wrong type")
+    req["override_settings"] = dict(req["override_settings"] or {})
+    for key in req["override_settings"]:
+        if key not in OVERRIDES:
+            raise ApiError(422, f"override_settings key {key!r} is not supported yet")
+    sampler = req["sampler_name"] or req["sampler_index"] or "Euler a"
+    if sampler != "Automatic" and sampler not in SAMPLER_MAP:
+        if sampler in UNPORTED:
+            raise ApiError(422, f"sampler {sampler!r} is not ported yet")
+        raise ApiError(400, "Sampler not found")
+    scheduler = req["scheduler"] or "Automatic"
+    if ALIASES.get(scheduler, scheduler.lower()) not in SCHEDULERS:
+        raise ApiError(422, f"scheduler {scheduler!r} is unknown or not ported yet")
+    if req["steps"] < 1:
+        raise ApiError(400, f"steps must be >= 1, got {req['steps']}")
+    if req["width"] < 8 or req["height"] < 8:
+        raise ApiError(400, f"invalid image size {req['width']}x{req['height']}")
+    if req["batch_size"] < 1 or req["n_iter"] < 1:
+        raise ApiError(400, "batch_size and n_iter must be >= 1")
+    gp_fields = set(GenerationParams.__dataclass_fields__)
+    kw = {k: v for k, v in req.items() if k in gp_fields and v is not None}
+    kw["sampler_name"] = sampler
+    kw["scheduler"] = scheduler
+    if "CLIP_stop_at_last_layers" in req["override_settings"]:
+        kw["clip_skip"] = int(req["override_settings"]["CLIP_stop_at_last_layers"])
+    # save_images is off: nothing is written, no grid is assembled
+    kw["do_not_save_grid"] = True
+    return GenerationParams(**kw)
+
+
+class Api:
+    def __init__(self, engine: Engine):
+        self.engine = engine
+        self.routes = {
+            ("POST", "/sdapi/v1/txt2img"): self.txt2img,
+            ("GET", "/sdapi/v1/samplers"): self.samplers,
+            ("GET", "/internal/ping"): lambda body: {},
+        }
+
+    def txt2img(self, body: dict):
+        if not isinstance(body, dict):
+            raise ApiError(422, "request body must be a JSON object")
+        p = _params_from_request(body)
+        try:
+            res = self.engine.txt2img(p)
+        except NotImplementedError as e:
+            raise ApiError(422, str(e)) from e
+        images = None
+        if body.get("send_images", True):
+            images = [base64.b64encode(encode_png(
+                img, {"parameters": res.infotexts[i]} if i < len(res.infotexts) else None)
+            ).decode("ascii") for i, img in enumerate(res.images)]
+        return {"images": images, "parameters": body, "info": json.dumps(res.js())}
+
+    def samplers(self, body=None):
+        return [{"name": s.name, "aliases": list(s.aliases), "options": {}}
+                for s in SAMPLERS]
+
+    def handle(self, method: str, path: str, body):
+        """→ (status, JSON-able payload)."""
+        handler = self.routes.get((method, path.split("?", 1)[0]))
+        if handler is None:
+            return 404, {"detail": "Not Found"}
+        try:
+            return 200, handler(body)
+        except ApiError as e:
+            return e.status, {"detail": e.message}
+        except Exception as e:   # surfaced as a 500 with its message
+            traceback.print_exc()
+            return 500, {"detail": f"{type(e).__name__}: {e}"}
+
+
+def make_handler(api: Api):
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def _respond(self, status: int, payload):
+            data = json.dumps(payload).encode("utf-8")
+            self.send_response(status)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def do_GET(self):
+            self._respond(*api.handle("GET", self.path, None))
+
+        def do_POST(self):
+            length = int(self.headers.get("Content-Length") or 0)
+            raw = self.rfile.read(length) if length else b"{}"
+            try:
+                body = json.loads(raw or b"{}")
+            except json.JSONDecodeError as e:
+                self._respond(400, {"detail": f"invalid JSON: {e}"})
+                return
+            self._respond(*api.handle("POST", self.path, body))
+
+        def log_message(self, fmt, *args):   # quiet by default
+            pass
+
+    return Handler
+
+
+def make_server(engine: Engine, host: str = "127.0.0.1",
+                port: int = 7860) -> ThreadingHTTPServer:
+    """The bound server (port 0 picks a free one); run ``serve_forever()``."""
+    server = ThreadingHTTPServer((host, port), make_handler(Api(engine)))
+    server.daemon_threads = True
+    return server

@@ -1,0 +1,178 @@
+"""The port's HTTP server (tiny model, CPU), its PNG codec, and its import
+hygiene: the slice imports and runs with jax, PIL and pydantic blocked."""
+
+import base64
+import json
+import os
+import subprocess
+import sys
+import threading
+import urllib.error
+import urllib.request
+
+import numpy as np
+import pytest
+
+from sdwebui_tpu_torch.utils.png import decode_png, encode_png
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def server_url():
+    from sdwebui_tpu_torch.server.api import make_server
+    from sdwebui_tpu_torch.server.app import Engine
+
+    server = make_server(Engine(device="cpu", tiny=True, seed=1), "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    yield f"http://127.0.0.1:{server.server_address[1]}"
+    server.shutdown()
+    server.server_close()
+    thread.join(timeout=10)
+
+
+def _call(url, path, body=None):
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def test_txt2img_returns_png_with_infotext(server_url):
+    status, res = _call(server_url, "/sdapi/v1/txt2img", {
+        "prompt": "a cat", "seed": 42, "steps": 2, "width": 64, "height": 64,
+        "batch_size": 2, "cfg_scale": 7.5, "sampler_name": "Euler a"})
+    assert status == 200
+    info = json.loads(res["info"])
+    assert info["all_seeds"] == [42, 43] and info["index_of_first_image"] == 0
+    assert len(res["images"]) == 2
+    for i, b64 in enumerate(res["images"]):
+        img, text = decode_png(base64.b64decode(b64))
+        assert img.shape == (64, 64, 3) and img.dtype == np.uint8
+        assert f"Seed: {42 + i}" in text["parameters"]
+        assert "Sampler: Euler a" in text["parameters"]
+
+
+@pytest.mark.parametrize("body,field", [
+    ({"enable_hr": True}, "enable_hr"),
+    ({"styles": ["x"]}, "styles"),
+    ({"no_such_field": 1}, "no_such_field"),
+    ({"sampler_name": "DPM++ 2M"}, "DPM++ 2M"),
+    ({"override_settings": {"sd_model_checkpoint": "x"}}, "sd_model_checkpoint"),
+    ({"override_settings": {"token_merging_ratio": 0.5}}, "token_merging_ratio"),
+    ({"prompt": "a <lora:x:1>"}, "lora"),
+])
+def test_out_of_slice_fields_answer_422(server_url, body, field):
+    status, res = _call(server_url, "/sdapi/v1/txt2img",
+                        {"steps": 1, "width": 64, "height": 64, **body})
+    assert status == 422
+    assert field in res["detail"]
+
+
+def test_engine_keeps_job_state():
+    from sdwebui_tpu.pipeline.params import GenerationParams
+    from sdwebui_tpu_torch.server.app import Engine
+
+    engine = Engine(device="cpu", tiny=True, seed=2)
+    seen = []
+    real = engine._step_callback
+
+    def spy(i, n, latents):
+        seen.append((engine.state.job, engine.state.job_count))
+        return real(i, n, latents)
+
+    engine._step_callback = spy
+    res = engine.txt2img(GenerationParams(prompt="a cat", seed=5, steps=2,
+                                          width=64, height=64))
+    assert res.images[0].shape == (64, 64, 3)
+    assert seen == [("txt2img", 1)] * 2
+    assert (engine.state.sampling_step, engine.state.sampling_steps) == (2, 2)
+    assert engine.state.job == "" and engine.state.job_count == 0
+
+
+def test_bad_requests_and_listing(server_url):
+    assert _call(server_url, "/sdapi/v1/txt2img", {"sampler_name": "nope"})[0] == 400
+    assert _call(server_url, "/sdapi/v1/txt2img", {"steps": 0})[0] == 400
+    for body in ({"steps": "20"}, {"prompt": 3}, {"override_settings": []},
+                 {"seed": True}):
+        status, res = _call(server_url, "/sdapi/v1/txt2img", body)
+        assert status == 422 and next(iter(body)) in res["detail"]
+    assert _call(server_url, "/internal/ping") == (200, {})
+    status, samplers = _call(server_url, "/sdapi/v1/samplers")
+    assert status == 200 and [s["name"] for s in samplers] == ["Euler a"]
+    assert _call(server_url, "/sdapi/v1/nothing")[0] == 404
+
+
+def test_png_roundtrip_and_pil_interop():
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, (13, 17, 3), dtype=np.uint8)
+    data = encode_png(img, {"parameters": "Steps: 20, Sampler: Euler a — ü"})
+    out, text = decode_png(data)
+    np.testing.assert_array_equal(out, img)
+    assert text["parameters"].endswith("— ü")
+    import io
+
+    pil = Image.open(io.BytesIO(data))
+    np.testing.assert_array_equal(np.asarray(pil), img)
+    assert pil.text["parameters"] == text["parameters"]
+    rgba = rng.integers(0, 256, (5, 4, 4), dtype=np.uint8)
+    np.testing.assert_array_equal(decode_png(encode_png(rgba))[0], rgba)
+    # PIL writes filtered rows, which the reader refuses rather than misreads
+    buf = io.BytesIO()
+    smooth = np.cumsum(rng.integers(0, 3, (9, 11, 3)), axis=1).astype(np.uint8)
+    Image.fromarray(smooth, "RGB").save(buf, format="PNG", optimize=True)
+    with pytest.raises(ValueError, match="filtered"):
+        decode_png(buf.getvalue())
+
+
+_HYGIENE = r"""
+import importlib, pkgutil, sys
+BLOCKED = ("jax", "jaxlib", "PIL", "pydantic", "ml_dtypes")
+
+
+class Recorder:
+    # blocks like sys.modules[name] = None, and also records every attempt
+    # to import a blocked package, even one that a caller catches and ignores
+    attempts = []
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            self.attempts.append(name)
+            raise ImportError(f"{name} is blocked")
+        return None
+
+
+sys.meta_path.insert(0, Recorder())
+import sdwebui_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(sdwebui_tpu_torch.__path__, "sdwebui_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+from sdwebui_tpu.pipeline.params import GenerationParams
+from sdwebui_tpu_torch.pipeline.processing import process_txt2img
+from sdwebui_tpu_torch.pipeline.sd_model import create_tiny_sd
+from sdwebui_tpu_torch.server.api import Api
+from sdwebui_tpu_torch.server.app import Engine
+res = process_txt2img(create_tiny_sd(0, "cpu"), GenerationParams(
+    prompt="a cat", seed=3, steps=2, width=64, height=64))
+assert res.images[0].shape == (64, 64, 3)
+status, out = Api(Engine(device="cpu", tiny=True)).handle(
+    "POST", "/sdapi/v1/txt2img", {"steps": 1, "width": 64, "height": 64})
+assert status == 200, out
+assert not Recorder.attempts, Recorder.attempts
+print("OK", len(mods))
+"""
+
+
+def test_port_runs_without_jax_pil_pydantic():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _HYGIENE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("OK")
