@@ -1,10 +1,16 @@
 // Flash attention for NVIDIA Hopper (sm_90a), bound to Python with ctypes.
 //
-// Replaces the TPU kernel sdwebui_tpu/ops/flash_attention.py:111
-// (`flash_attention`, bodies `_kernel` and `_kernel_single_kv`):
+// Replaces the TPU kernels of sdwebui_tpu/ops/flash_attention.py, whose
+// Pallas bodies all share `_kernel` / `_kernel_single_kv`:
+//   :111 `flash_attention`         (BH, S, D)    batch = BH, heads = 1
+//   :308 `flash_attention_packed`  (B, S, H*D)   head stride D
+//   :429 `flash_attention_4d`      (B, S, H, D)  head stride D, row stride H*D
 //   out = softmax(q k^T * scale) v   over (batch, heads, S, D) views
 // with an fp32 running max, denominator and accumulator, padded KV columns
-// masked with -1e30 and the denominator floored at 1e-30.
+// masked with -1e30 and the denominator floored at 1e-30.  The TPU's
+// 128-lane head packing (B2) and its per-head blocks (B3) become the head
+// and sequence strides of one launch: no head split or merge copy, and
+// q/k/v may be the chunk views of a fused qkv projection (row stride 3*H*D).
 //
 // What bounds it on the H100: at the Stable Diffusion shapes (S = 1024 or
 // 4096, D = 40 or 80) attention does 4*S*S*D flops per head over only

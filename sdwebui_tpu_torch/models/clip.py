@@ -1,11 +1,14 @@
-"""CLIP-L text encoder as an ``nn.Module``.
+"""CLIP text encoders (CLIP-L, OpenCLIP-bigG) as an ``nn.Module``.
 
 Port of ``sdwebui_tpu/models/clip.py:26-95``.  Parameter names are the HF
 ``CLIPTextModel`` keys with ``text_model.`` stripped
 (``embeddings.token_embedding``, ``encoder.layers.N.self_attn.q_proj``,
-``final_layer_norm``, ...).  ``encode`` returns the hidden state at the
-clip-skip layer (with or without the final norm) and the EOT-pooled final
-state; the 77-token causal attention is plain torch, as in JAX.
+``final_layer_norm``, ...), plus bigG's ``text_projection`` as HF's
+``CLIPTextModelWithProjection`` holds it (a bias-free linear, (out, in)).
+``encode`` returns the hidden state at the clip-skip layer (with or
+without the final norm) and the EOT-pooled final state, projected when the
+model has a projection; the 77-token causal attention is plain torch, as
+in JAX.
 """
 
 from __future__ import annotations
@@ -75,8 +78,6 @@ class EncoderLayer(nn.Module):
 class CLIPTextModel(nn.Module):
     def __init__(self, cfg: CLIPTextConfig, *, device, dtype):
         super().__init__()
-        if cfg.projection_dim:
-            raise NotImplementedError("text_projection (OpenCLIP-bigG) is not ported yet")
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.embeddings = nn.ModuleDict({
@@ -87,13 +88,16 @@ class CLIPTextModel(nn.Module):
         self.encoder.layers = nn.ModuleList(EncoderLayer(cfg, **kw)
                                             for _ in range(cfg.layers))
         self.final_layer_norm = LayerNorm(cfg.width, **kw)
+        if cfg.projection_dim:
+            self.text_projection = Linear(cfg.width, cfg.projection_dim, bias=False, **kw)
 
     def encode(self, tokens, stop_at_layer: int = 0, apply_final_norm: bool = True):
         """tokens (B, S) int → (hidden (B, S, width), pooled (B, width)).
 
         stop_at_layer: 0 = all layers (clip_skip 1); n > 0 stops n layers
         before the end (clip_skip n+1).  pooled: final layer, final norm, at
-        the EOT token (argmax of the ids)."""
+        the EOT token (argmax of the ids), through text_projection when
+        the model has one (bigG)."""
         s = tokens.shape[1]
         x = self.embeddings["token_embedding"](tokens)
         x = x + self.embeddings["position_embedding"].weight[:s].to(x.dtype)
@@ -112,4 +116,6 @@ class CLIPTextModel(nn.Module):
         final = self.final_layer_norm(x)
         eot = tokens.argmax(dim=-1)
         pooled = final[torch.arange(final.shape[0], device=final.device), eot]
+        if self.cfg.projection_dim:
+            pooled = self.text_projection(pooled)
         return hidden, pooled

@@ -1,4 +1,4 @@
-"""Config-driven SD UNet (SD1.x) as an ``nn.Module``, NCHW.
+"""Config-driven SD UNet (SD1.x, SDXL base and refiner) as an ``nn.Module``, NCHW.
 
 Port of ``sdwebui_tpu/models/unet.py``.  Parameter names equal the
 ``model.diffusion_model.*`` state-dict keys with the prefix stripped:
@@ -8,9 +8,11 @@ Port of ``sdwebui_tpu/models/unet.py``.  Parameter names equal the
     middle_block.{0,1,2}      ResBlock, SpatialTransformer, ResBlock
     output_blocks.i.{0,1,2}   ResBlock [, SpatialTransformer] [, Upsample]
     out.{0,2}                 GroupNorm+SiLU, conv
+    label_emb.0.{0,2}         SDXL: linear, SiLU, linear on the adm vector y
 
-Self-attention runs through ``ops.attention`` (the flash kernel for the
-4096- and 1024-token levels on CUDA).
+Self-attention runs through ``ops.attention`` (on CUDA the flash kernel
+for the 4096- and 1024-token levels: per head for SD1.5's d = 40 and 80,
+head-packed for SDXL's d = 64).
 """
 
 from __future__ import annotations
@@ -72,6 +74,25 @@ def build_plan(cfg: UNetConfig):
                 ds //= 2
             output_plan.append(layers)
     return input_plan, middle_depth, output_plan, input_chs
+
+
+def self_attention_calls(cfg: UNetConfig, latent: int):
+    """(tokens, heads, head_dim) of every self-attention one forward makes
+    at a latent×latent input, in call order: the launch plan of the
+    attention kernels."""
+    input_plan, middle_depth, output_plan, _ = build_plan(cfg)
+    middle = [("attn", cfg.model_channels * cfg.channel_mult[-1], middle_depth)]
+    calls, res = [], latent
+    for layer in [layer for plan in input_plan for layer in plan] + middle + \
+            [layer for plan in output_plan for layer in plan]:
+        if layer[0] == "down":
+            res //= 2
+        elif layer[0] == "up":
+            res *= 2
+        elif layer[0] == "attn":
+            heads = cfg.heads_for(layer[1])
+            calls += [(res * res, heads, layer[1] // heads)] * layer[2]
+    return calls
 
 
 class ResBlock(nn.Module):
@@ -157,26 +178,35 @@ class BasicTransformerBlock(nn.Module):
 
 
 class SpatialTransformer(nn.Module):
+    """proj_in / proj_out are 1×1 convs (SD1.x) or, with
+    ``use_linear_in_transformer`` (SD2, SDXL), linears over (B, HW, C)
+    (unet.py:214-236)."""
+
     def __init__(self, c, depth, cfg: UNetConfig, *, device, dtype):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         heads = cfg.heads_for(c)
+        self.use_linear = cfg.use_linear_in_transformer
         self.norm = GroupNorm(c, eps=1e-6, **kw)
-        self.proj_in = Conv2d(c, c, 1, **kw)
+        self.proj_in = Linear(c, c, **kw) if self.use_linear else Conv2d(c, c, 1, **kw)
         self.transformer_blocks = nn.ModuleList(
             BasicTransformerBlock(c, cfg.context_dim, heads, **kw)
             for _ in range(depth))
-        self.proj_out = Conv2d(c, c, 1, **kw)
+        self.proj_out = Linear(c, c, **kw) if self.use_linear else Conv2d(c, c, 1, **kw)
 
     def forward(self, x, context):
         b, c, h, w = x.shape
         residual = x
-        x = self.proj_in(self.norm(x))
-        x = x.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        x = self.norm(x)
+        if self.use_linear:
+            x = self.proj_in(x.permute(0, 2, 3, 1).reshape(b, h * w, c))
+        else:
+            x = self.proj_in(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
         for block in self.transformer_blocks:
             x = block(x, context)
-        x = x.reshape(b, h, w, c).permute(0, 3, 1, 2)
-        return self.proj_out(x) + residual
+        if self.use_linear:
+            return self.proj_out(x).reshape(b, h, w, c).permute(0, 3, 1, 2) + residual
+        return self.proj_out(x.reshape(b, h, w, c).permute(0, 3, 1, 2)) + residual
 
 
 class Downsample(nn.Module):
@@ -198,10 +228,6 @@ class Upsample(nn.Module):
 
 
 def _unsupported(cfg: UNetConfig) -> str | None:
-    if cfg.adm_in_channels:
-        return "vector conditioning (adm_in_channels, SDXL)"
-    if cfg.use_linear_in_transformer:
-        return "linear transformer projections (SD2/SDXL)"
     if cfg.hypertile_tile:
         return "hypertile"
     if cfg.tome_ratio:
@@ -226,6 +252,9 @@ class UNetModel(nn.Module):
         mc = cfg.model_channels
         self.time_embed = nn.Sequential(Linear(mc, ted, **kw), nn.SiLU(),
                                         Linear(ted, ted, **kw))
+        if cfg.adm_in_channels:
+            self.label_emb = nn.Sequential(nn.Sequential(
+                Linear(cfg.adm_in_channels, ted, **kw), nn.SiLU(), Linear(ted, ted, **kw)))
 
         def make(layer):
             kind = layer[0]
@@ -268,15 +297,22 @@ class UNetModel(nn.Module):
                 h = layer(h)
         return h
 
-    def forward(self, x, timesteps, context, control=None, hypernet=None):
-        """x: (B, C_in, H, W) latent; timesteps: (B,); context: (B, S, D).
-        Activations run channels-last in memory (NCHW indexing)."""
+    def forward(self, x, timesteps, context, y=None, control=None, hypernet=None):
+        """x: (B, C_in, H, W) latent; timesteps: (B,); context: (B, S, D);
+        y: (B, adm_in_channels) SDXL vector conds.  Activations run
+        channels-last in memory (NCHW indexing)."""
         if control is not None:
             raise NotImplementedError("ControlNet residuals (control=) are not ported yet")
         if hypernet is not None:
             raise NotImplementedError("hypernetworks (hypernet=) are not ported yet")
         t_emb = timestep_embedding(timesteps, self.cfg.model_channels)
-        emb = self.time_embed[2](F.silu(self.time_embed[0](t_emb))).to(x.dtype)
+        emb = self.time_embed[2](F.silu(self.time_embed[0](t_emb)))
+        if self.cfg.adm_in_channels:
+            if y is None:
+                raise ValueError("this model requires vector conditioning y")
+            le = self.label_emb[0]
+            emb = emb + le[2](F.silu(le[0](y.to(emb.dtype))))
+        emb = emb.to(x.dtype)
         context = context.to(x.dtype)
         hs = []
         h = x.contiguous(memory_format=torch.channels_last)

@@ -1,12 +1,22 @@
-"""Flash attention: the hand-written Hopper kernel and its plain version.
+"""Flash attention: the hand-written Hopper kernel and its plain versions.
 
-Port of the TPU kernel ``sdwebui_tpu/ops/flash_attention.py:111``
-(``flash_attention``) with the same public signature over ``(BH, S, D)``
-tensors.  On a CUDA tensor the wrapper launches the CUDA kernel in
+Ports of the three TPU kernels of ``sdwebui_tpu/ops/flash_attention.py``,
+each with the same math and one entry point per layout:
+
+    flash_attention         (BH, S, D)       B1, ``flash_attention.py:111``
+    flash_attention_packed  (B, S, H·D)      B2, ``flash_attention.py:308``
+    flash_attention_4d      (B, S, H, D)     B3, ``flash_attention.py:429``
+
+On a CUDA tensor each wrapper launches the one CUDA kernel in
 ``csrc/flash_attention.cu`` (built with nvcc at first use, see
-``ops/_build.py``) or raises; on a CPU tensor it computes the plain
-version below, which is also what tests and ``chip_smoke.py`` hold the
-kernel against.
+``ops/_build.py``) or raises.  The kernel reads q, k and v through batch,
+head and sequence strides, so B2 and B3 are launches with ``heads = H`` and
+no head split or merge copy: q, k and v may be the ``chunk`` views of a
+fused qkv projection as they are.  On a CPU tensor each wrapper computes
+its plain version below, which is also what tests and ``chip_smoke.py``
+hold the kernel against.  The TPU tiling arguments (``block_q``,
+``block_kv``, ``interpret``) and the 128-lane head-packing rule have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -19,27 +29,50 @@ import torch
 from sdwebui_tpu_torch.ops import _build
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-_launches = 0
+ENTRY_POINTS = ("flash_attention", "flash_attention_packed", "flash_attention_4d")
+_launches = dict.fromkeys(ENTRY_POINTS, 0)
 
 
-def launch_count() -> int:
-    """Kernel launches made by :func:`flash_attention` since the last reset."""
-    return _launches
+def launch_count(name: str = "flash_attention") -> int:
+    """Kernel launches made by the entry point `name` since the last reset."""
+    return _launches[name]
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    """Set every entry point's launch count to 0."""
+    for name in _launches:
+        _launches[name] = 0
 
 
 def flash_attention_plain(q, k, v, scale=None):
-    """softmax(q kᵀ · scale) v with explicit matmuls: fp32 scores and
-    softmax, p cast to v's dtype, p·v accumulated in fp32, out in q's dtype."""
+    """softmax(q kᵀ · scale) v with explicit matmuls over the last two dims:
+    fp32 scores and softmax, p cast to v's dtype, p·v accumulated in fp32,
+    out in q's dtype."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.matmul(p.float(), v.float()).to(q.dtype)
+
+
+def flash_attention_packed_plain(q, k, v, *, num_heads: int, scale=None):
+    """The plain version of :func:`flash_attention_packed`: per-head views
+    of the (B, S, H·D) tensors through :func:`flash_attention_plain`."""
+    b, sq, hd = q.shape
+    d = hd // num_heads
+
+    def heads(t):   # (B, S, H·D) → (B, H, S, D) view
+        return t.unflatten(-1, (num_heads, d)).transpose(1, 2)
+
+    out = flash_attention_plain(heads(q), heads(k), heads(v), scale)
+    return out.transpose(1, 2).reshape(b, sq, hd)
+
+
+def flash_attention_4d_plain(q, k, v, *, scale=None):
+    """The plain version of :func:`flash_attention_4d` over (B, S, H, D)."""
+    out = flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), scale)
+    return out.transpose(1, 2).contiguous()
 
 
 def _lib():
@@ -52,16 +85,10 @@ def _lib():
     return fn
 
 
-def _check(q, k, v):
-    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
-        raise ValueError("flash_attention takes (BH, S, D) tensors")
-    bh, _, d = q.shape
-    if k.shape[0] != bh or v.shape[0] != bh or k.shape[2] != d \
-            or v.shape[2] != d or k.shape[1] != v.shape[1]:
-        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+def _check_args(q, k, v, d: int):
+    """What every layout shares: dtype, device, head dim, contiguous last dim."""
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
-        raise TypeError(f"flash_attention takes bf16 or f32, got "
+        raise TypeError(f"flash attention takes bf16 or f32, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if d > 512 or d % 8 != 0:
         raise ValueError(f"head dim {d} unsupported (multiple of 8, <= 512)")
@@ -72,33 +99,101 @@ def _check(q, k, v):
             raise ValueError(f"{name} must be contiguous in its last dim")
 
 
+def _check_shapes(q, k, v, rank: int, layout: str):
+    if q.dim() != rank or k.dim() != rank or v.dim() != rank:
+        raise ValueError(f"this entry point takes {layout} tensors")
+    # q and k/v share every dim but the sequence (dim 1); k and v match
+    if (k.shape != v.shape or q.shape[0] != k.shape[0]
+            or q.shape[2:] != k.shape[2:]):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+
+
+def _check(q, k, v):
+    """B1's checks over (BH, S, D)."""
+    _check_shapes(q, k, v, 3, "(BH, S, D)")
+    _check_args(q, k, v, q.shape[2])
+
+
+def _check_packed(q, k, v, num_heads: int):
+    _check_shapes(q, k, v, 3, "(B, S, H·D)")
+    if num_heads < 1 or q.shape[2] % num_heads != 0:
+        raise ValueError(f"width {q.shape[2]} is not a multiple of {num_heads} heads")
+    _check_args(q, k, v, q.shape[2] // num_heads)
+
+
+def _check_4d(q, k, v):
+    _check_shapes(q, k, v, 4, "(B, S, H, D)")
+    _check_args(q, k, v, q.shape[3])
+
+
+def _on_cuda(q, name: str) -> bool:
+    """False for a CPU tensor (the plain version runs); True for CUDA."""
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} has no kernel for {q.device}")
+    return True
+
+
+def _launch(name, q, k, v, out, batch, heads, head_dim, strides, scale):
+    """One launch of the CUDA kernel; strides holds the (batch, head,
+    sequence) element strides of q, k, v and out, in that order."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(head_dim)
+    fn = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 _DTYPES[q.dtype], batch, heads, q.shape[1], k.shape[1], head_dim,
+                 *(s for t in strides for s in t), float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    _launches[name] += 1
+    return out
+
+
 def flash_attention(q, k, v, scale=None):
     """Softmax(q kᵀ · scale) v over (BH, S, D) tensors.
 
     q: (BH, Sq, D); k, v: (BH, Skv, D).  Returns (BH, Sq, D) in q's dtype.
     """
-    if q.device.type == "cpu":
+    if not _on_cuda(q, "flash_attention"):
         return flash_attention_plain(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention has no kernel for {q.device}")
     _check(q, k, v)
-    global _launches
     bh, sq, d = q.shape
-    skv = k.shape[1]
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
     out = torch.empty((bh, sq, d), dtype=q.dtype, device=q.device)
-    fn = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 _DTYPES[q.dtype], bh, 1, sq, skv, d,
-                 q.stride(0), 0, q.stride(1),
-                 k.stride(0), 0, k.stride(1),
-                 v.stride(0), 0, v.stride(1),
-                 out.stride(0), 0, out.stride(1),
-                 float(scale), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
-    _launches += 1
-    return out
+    strides = [(t.stride(0), 0, t.stride(1)) for t in (q, k, v, out)]
+    return _launch("flash_attention", q, k, v, out, bh, 1, d, strides, scale)
+
+
+def flash_attention_packed(q, k, v, *, num_heads: int, scale=None):
+    """Softmax(q kᵀ · scale) v per head over head-packed (B, S, H·D) tensors,
+    as the qkv projections produce them.
+
+    q: (B, Sq, H·D); k, v: (B, Skv, H·D), each with any row stride (the
+    chunks of a fused (B, S, 3·H·D) projection included).  Head h is the
+    column slice [h·D, (h+1)·D).  Returns a contiguous (B, Sq, H·D).
+    """
+    if not _on_cuda(q, "flash_attention_packed"):
+        return flash_attention_packed_plain(q, k, v, num_heads=num_heads, scale=scale)
+    _check_packed(q, k, v, num_heads)
+    b, sq, hd = q.shape
+    d = hd // num_heads
+    out = torch.empty((b, sq, hd), dtype=q.dtype, device=q.device)
+    strides = [(t.stride(0), d, t.stride(1)) for t in (q, k, v, out)]
+    return _launch("flash_attention_packed", q, k, v, out, b, num_heads, d,
+                   strides, scale)
+
+
+def flash_attention_4d(q, k, v, *, scale=None):
+    """Softmax(q kᵀ · scale) v per head over head-interleaved (B, S, H, D)
+    tensors, read through their strides.  Returns a contiguous (B, Sq, H, D).
+    """
+    if not _on_cuda(q, "flash_attention_4d"):
+        return flash_attention_4d_plain(q, k, v, scale=scale)
+    _check_4d(q, k, v)
+    b, sq, h, d = q.shape
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    strides = [(t.stride(0), t.stride(2), t.stride(1)) for t in (q, k, v, out)]
+    return _launch("flash_attention_4d", q, k, v, out, b, h, d, strides, scale)

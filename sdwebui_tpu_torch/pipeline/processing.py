@@ -1,7 +1,8 @@
 """txt2img orchestration — the txt2img half of ``sdwebui_tpu/pipeline/processing.py``.
 
 Host side: seeds, prompt schedules, infotext.  Device side: a Python step
-loop of batched CFG UNet calls (cond + uncond in one call) and a VAE
+loop of batched CFG UNet calls (cond + uncond in one call), for SDXL
+handed from the base to the refiner at the switch-point sigma, and a VAE
 decode to uint8 with an fp32 retry on NaN.  Images leave as uint8 HWC
 numpy arrays.  Options and request fields outside the slice raise
 ``NotImplementedError`` naming them; nothing falls back to a different
@@ -25,7 +26,7 @@ from sdwebui_tpu.text.prompt_parser import strip_comments
 from sdwebui_tpu.utils import infotext as infotext_util
 from sdwebui_tpu.utils.options import opts
 from sdwebui_tpu_torch import __version__
-from sdwebui_tpu_torch.pipeline.sd_model import SDModel
+from sdwebui_tpu_torch.pipeline.sd_model import SDModel, sdxl_vector_maker
 from sdwebui_tpu_torch.sampling.cfg import CondSchedule, make_cfg_denoiser
 from sdwebui_tpu_torch.sampling.registry import build_sigmas, get_sampler
 from sdwebui_tpu_torch.sampling.sampler import prepare_noise, sample
@@ -57,7 +58,6 @@ def _check_slice(p: GenerationParams) -> None:
     """Raise for every request field and option the slice does not run."""
     fields = {
         "enable_hr": p.enable_hr,
-        "refiner_checkpoint": p.refiner_checkpoint and 0 < (p.refiner_switch_at or 0) < 1,
         "controlnet_units": p.controlnet_units,
         "tiling": p.tiling,
         "restore_faces": p.restore_faces,
@@ -100,18 +100,19 @@ def sigma_to_t(sigma: float, log_sigmas: np.ndarray, quantize: bool) -> float:
 
 
 def make_denoise_fn(model: SDModel, quantize_t: bool, compute_dtype):
-    """denoise(x, sigma, ctx) → denoised: k-diffusion CompVis(V)Denoiser
-    scalings around the UNet (processing.py:150-202)."""
+    """denoise(x, sigma, ctx, y=None) → denoised: k-diffusion
+    CompVis(V)Denoiser scalings around the UNet (processing.py:150-202);
+    y is the SDXL vector cond."""
     log_sigmas = np.asarray(model.disc.log_sigmas, np.float32)
     prediction_type = model.disc.prediction_type
 
-    def denoise(x, sigma: float, ctx):
+    def denoise(x, sigma: float, ctx, y=None):
         s = np.float32(sigma)
         t = sigma_to_t(s, log_sigmas, quantize_t)
         c_in = float(np.float32(1.0) / np.sqrt(s * s + np.float32(1.0)))
         x_in = (x * c_in).to(compute_dtype)
         timesteps = torch.full((x.shape[0],), t, dtype=torch.float32, device=x.device)
-        out = model.unet(x_in, timesteps, ctx).float()
+        out = model.unet(x_in, timesteps, ctx, y).float()
         if prediction_type == "v":
             return x / float(s * s + 1) - out * float(s / np.sqrt(s * s + 1))
         return x - out * float(s)
@@ -121,15 +122,19 @@ def make_denoise_fn(model: SDModel, quantize_t: bool, compute_dtype):
 
 def sample_latents(model: SDModel, sched: CondSchedule, x, sigmas, noise,
                    solver: str, extra: dict | None = None,
-                   step_callback: Callable | None = None):
+                   step_callback: Callable | None = None, first_step: int = 0,
+                   total_steps: int | None = None):
+    """Sample from sigmas[0] to sigmas[-1].  step_callback(i, n, x) sees
+    step first_step + i of total_steps (a refiner run continues the base's
+    count)."""
     quantize = bool(opts.get("enable_quantization", False))
     denoise = make_denoise_fn(model, quantize, devices.get_policy().compute_dtype)
     model_fn = make_cfg_denoiser(denoise, sched)
     sig = np.asarray(sigmas, np.float32)
-    n = len(sig) - 1
+    n = total_steps or len(sig) - 1
     callback = None
     if step_callback is not None:
-        callback = lambda i, xc: step_callback(i, n, xc)  # noqa: E731
+        callback = lambda i, xc: step_callback(first_step + i, n, xc)  # noqa: E731
     return sample(model_fn, x, sig, solver, noise, extra, callback=callback)
 
 
@@ -228,11 +233,46 @@ def _skip_uncond_mask(sigmas, p: GenerationParams):
 
 
 def _build_conds(model: SDModel, p: GenerationParams, steps: int) -> CondSchedule:
-    model.conditioner.clip_skip = max(p.clip_skip, 1)
+    """The CFG schedule (processing.py:1061-1102).  SDXL keeps CLIP-L at the
+    penultimate layer unless opts.sdxl_clip_l_skip, and adds the y vectors
+    (sizes, crop, and for the refiner the aesthetic scores)."""
+    if model.is_sdxl and not opts.get("sdxl_clip_l_skip", False):
+        model.conditioner.clip_skip = 2
+    else:
+        model.conditioner.clip_skip = max(p.clip_skip, 1 if model.kind == "sd1" else 2)
+    if model.conditioner2 is not None:
+        model.conditioner2.clip_skip = max(p.clip_skip, 2)
+    vector_maker = None
+    if model.is_sdxl:
+        vector_maker = sdxl_vector_maker(
+            model, p.width, p.height,
+            crop=(int(opts.get("sdxl_crop_top", 0)), int(opts.get("sdxl_crop_left", 0))),
+            aesthetic_score=float(opts.get("sdxl_refiner_high_aesthetic_score", 6.0)),
+            negative_aesthetic_score=float(opts.get("sdxl_refiner_low_aesthetic_score", 2.5)))
     return build_cond_schedule(
         model.encode_texts, p.prompt, p.negative_prompt, steps,
-        cond_scale=p.cfg_scale,
+        cond_scale=p.cfg_scale, vector_maker=vector_maker,
         use_old_scheduling=bool(opts.get("use_old_scheduling", False)))
+
+
+def _refiner_split_idx(model: SDModel, sigmas, switch_at: float, max_steps: int) -> int:
+    """Step index of the base → refiner handoff (processing.py:640-661): the
+    first step whose timestep has completed `switch_at` of the schedule,
+    (999 - t(σ)) / 1000 >= switch_at, or int(steps · switch_at) with
+    opts.refiner_switch_by_sample_steps; kept within [1, max_steps - 1]."""
+    if opts.get("refiner_switch_by_sample_steps", False):
+        n = len(sigmas) - 1
+        return min(max(int(n * switch_at), 1), max_steps - 1)
+    log_s = np.log(np.maximum(np.asarray(sigmas[:-1]), 1e-12))
+    tsteps = np.argmin(np.abs(log_s[:, None]
+                              - np.asarray(model.disc.log_sigmas)[None, :]), axis=1)
+    hit = np.nonzero((999.0 - tsteps) / 1000.0 >= switch_at)[0]
+    s_idx = int(hit[0]) if hit.size else len(log_s) - 1
+    return min(max(s_idx, 1), max_steps - 1)
+
+
+def uses_refiner(p: GenerationParams) -> bool:
+    return bool(p.refiner_checkpoint) and 0 < (p.refiner_switch_at or 0) < 1
 
 
 def create_infotext(p: GenerationParams, model: SDModel, index: int = 0) -> str:
@@ -257,6 +297,9 @@ def create_infotext(p: GenerationParams, model: SDModel, index: int = 0) -> str:
     if p.subseed_strength > 0:
         pairs["Variation seed"] = p.all_subseeds[index] if p.all_subseeds else p.subseed
         pairs["Variation seed strength"] = p.subseed_strength
+    if uses_refiner(p):
+        pairs["Refiner"] = p.refiner_checkpoint
+        pairs["Refiner switch at"] = p.refiner_switch_at
     if p.eta:
         pairs["Eta"] = p.eta
     ensd = p.override_settings.get("eta_noise_seed_delta",
@@ -322,25 +365,31 @@ def _apply_grid(all_images: list, infotexts: list, p: GenerationParams,
 
 
 def process_txt2img(model: SDModel, p: GenerationParams,
-                    step_callback: Callable | None = None) -> Processed:
+                    step_callback: Callable | None = None,
+                    refiner_model: SDModel | None = None) -> Processed:
     """txt2img with per-request override_settings applied and restored
     (processing.py:1304).  ``step_callback(i, n, latents)`` returning False
-    stops sampling."""
+    stops sampling.  A request with ``refiner_checkpoint`` and
+    0 < ``refiner_switch_at`` < 1 needs `refiner_model`."""
     with opts.override(p.override_settings):
-        return _process_txt2img(model, p, step_callback)
+        return _process_txt2img(model, p, step_callback, refiner_model)
 
 
 @torch.inference_mode()
 def _process_txt2img(model: SDModel, p: GenerationParams,
-                     step_callback: Callable | None) -> Processed:
+                     step_callback: Callable | None,
+                     refiner_model: SDModel | None) -> Processed:
     _check_slice(p)
+    if uses_refiner(p) and refiner_model is None:
+        raise ValueError(f"refiner {p.refiner_checkpoint!r} was requested, "
+                         "but no refiner model was given")
     _resolve_seeds(p)
     _strip_prompt_comments(p)
     sampler = get_sampler(p.sampler_name)
     spec = get_solver(sampler.solver)
     h, w = p.latent_size()
     c = model.latent_channels
-    sigmas = build_sigmas(sampler, p.scheduler, p.steps, model.disc)
+    sigmas = build_sigmas(sampler, p.scheduler, p.steps, model.disc, is_sdxl=model.is_sdxl)
     solver_extra = _solver_extra(p)
 
     all_images, infotexts = [], []
@@ -358,8 +407,24 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
                              "eta_noise_seed_delta", 0))
         x = torch.from_numpy(rng.first()).to(model.device) * float(np.float32(sigmas[0]))
         noise = prepare_noise(spec, len(sigmas) - 1, rng, model.device)
-        latents = sample_latents(model, sched, x, sigmas, noise, sampler.solver,
-                                 solver_extra, step_callback=step_callback)
+        if uses_refiner(p):
+            # base → refiner at the switch-point sigma; the refiner's run is
+            # a fresh sampler, so multistep history restarts there
+            # (processing.py:1447-1468)
+            s_idx = _refiner_split_idx(model, sigmas, p.refiner_switch_at, p.steps)
+            latents = sample_latents(model, sched, x, sigmas[: s_idx + 1], noise[:s_idx],
+                                     sampler.solver, solver_extra,
+                                     step_callback=step_callback, total_steps=p.steps)
+            r_sched = _build_conds(refiner_model, p, p.steps - s_idx)
+            if sched.skip_uncond is not None:
+                r_sched.skip_uncond = sched.skip_uncond[s_idx:]
+            latents = sample_latents(refiner_model, r_sched, latents, sigmas[s_idx:],
+                                     noise[s_idx:], sampler.solver, solver_extra,
+                                     step_callback=step_callback, first_step=s_idx,
+                                     total_steps=p.steps)
+        else:
+            latents = sample_latents(model, sched, x, sigmas, noise, sampler.solver,
+                                     solver_extra, step_callback=step_callback)
         images = list(decode_first_stage_u8(model, latents))
         infotexts.extend(create_infotext(p, model, lo + i) for i in range(len(images)))
         all_images.extend(images)

@@ -1,7 +1,8 @@
-"""The loaded-model bundle: UNet + VAE + text encoder + discretization.
+"""The loaded-model bundle: UNet + VAE + text encoder(s) + discretization.
 
-Port of ``sdwebui_tpu/pipeline/sd_model.py:29-113,319-335,445-464``.  The
-bundle holds ``nn.Module``s on one explicit device.  Random weights come
+Port of ``sdwebui_tpu/pipeline/sd_model.py:29-113,223-258,319-411,445-464``
+for SD1.5 and the SDXL base and refiner.  The bundle holds ``nn.Module``s
+on one explicit device.  Random weights come
 from an explicit ``torch.Generator`` on that device, with the
 distributions of the JAX package's ``HostInit`` (normal·1/√fan_in, zero
 bias, unit norms); the bits differ from JAX's.  ``from_jax`` carries a JAX
@@ -15,12 +16,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from sdwebui_tpu.models.configs import (CLIP_L, SD15_UNET, SD_VAE,
-                                        CLIPTextConfig, UNetConfig, VAEConfig)
+from sdwebui_tpu.models.configs import (CLIP_L, OPEN_CLIP_BIGG, SD15_UNET,
+                                        SD_VAE, SDXL_REFINER_UNET, SDXL_UNET,
+                                        SDXL_VAE, CLIPTextConfig, UNetConfig,
+                                        VAEConfig)
 from sdwebui_tpu.text.tokenizer import get_tokenizer
 from sdwebui_tpu.utils.pytree import flatten
 from sdwebui_tpu_torch.models.clip import CLIPTextModel
-from sdwebui_tpu_torch.models.layers import reset_random
+from sdwebui_tpu_torch.models.layers import reset_random, timestep_embedding
 from sdwebui_tpu_torch.models.unet import UNetModel
 from sdwebui_tpu_torch.models.vae import AutoencoderKL
 from sdwebui_tpu_torch.sampling.discretization import (Discretization,
@@ -28,9 +31,10 @@ from sdwebui_tpu_torch.sampling.discretization import (Discretization,
 from sdwebui_tpu_torch.text.conditioner import TextConditioner
 from sdwebui_tpu_torch.utils.devices import get_device, get_policy
 
-# 2-D leaves stored (rows, width) in both layouts (loader/convert.py:25)
-_NO_TRANSPOSE_2D = ("token_embedding", "position_embedding", "positional_embedding",
-                    "text_projection")
+# 2-D leaves stored (rows, width) in both layouts (loader/convert.py:25).
+# text_projection is not among them: the JAX tree holds it (in, out), the
+# port as HF's bias-free Linear, (out, in).
+_NO_TRANSPOSE_2D = ("token_embedding", "position_embedding", "positional_embedding")
 
 
 @dataclasses.dataclass
@@ -40,19 +44,63 @@ class SDModel:
     vae: AutoencoderKL
     vae_cfg: VAEConfig
     disc: Discretization
-    conditioner: TextConditioner
+    conditioner: TextConditioner          # primary text encoder
     device: torch.device
     title: str = "random-sd15"
     sha256: str = ""
+    kind: str = "sd1"                     # sd1 | sdxl | sdxl-refiner
+    conditioner2: TextConditioner | None = None   # SDXL base's OpenCLIP-bigG
+
+    @property
+    def is_sdxl(self) -> bool:
+        return self.kind.startswith("sdxl")
 
     @property
     def latent_channels(self) -> int:
         return self.vae_cfg.embed_dim
 
-    def encode_texts(self, texts):
-        """texts → (N, S, D) crossattn conds."""
-        cond, _ = self.conditioner.encode(texts)
+    def encode_texts(self, texts, target_chunks=None):
+        """texts → (N, S, D) crossattn conds, or (conds, pooled) for SDXL:
+        the base concatenates CLIP-L and bigG on features and pools bigG;
+        the refiner has bigG alone (sd_model.py:80-113)."""
+        cond, pooled = self.conditioner.encode(texts, target_chunks=target_chunks)
+        if self.kind == "sdxl":
+            cond2, pooled = self.conditioner2.encode(texts, target_chunks=target_chunks)
+            return torch.cat([cond, cond2], dim=-1), pooled
+        if self.kind == "sdxl-refiner":
+            return cond, pooled
         return cond
+
+
+def sdxl_vector_maker(model: SDModel, width: int, height: int, crop: tuple = (0, 0),
+                      aesthetic_score: float = 6.0,
+                      negative_aesthetic_score: float = 2.5):
+    """SDXL adm vector builder (sd_model.py:223-258):
+
+    base:    [pooled | emb(orig_h, orig_w) | emb(crop_t, crop_l) | emb(target_h, target_w)]
+    refiner: [pooled | emb(orig_h, orig_w) | emb(crop_t, crop_l) | emb(aesthetic score)]
+
+    each scalar sinusoid-embedded at dim 256 (the sgm layout), all fp32.
+    Returns maker(pooled (N, Dp), is_uncond (N,) bool) -> (N, D_adm)."""
+    refiner = model.kind == "sdxl-refiner"
+
+    def emb_scalars(values, device):
+        t = torch.tensor([float(v) for v in values], dtype=torch.float32, device=device)
+        return timestep_embedding(t, 256).reshape(-1)
+
+    sizes = [height, width, crop[0], crop[1]] + ([] if refiner else [height, width])
+
+    def maker(pooled, is_uncond):
+        n = pooled.shape[0]
+        tail = emb_scalars(sizes, pooled.device)[None].expand(n, -1)
+        if refiner:
+            pos, neg = emb_scalars([aesthetic_score], pooled.device), \
+                emb_scalars([negative_aesthetic_score], pooled.device)
+            tail = torch.cat([tail, torch.where(is_uncond[:, None], neg[None], pos[None])],
+                             dim=-1)
+        return torch.cat([pooled.float(), tail], dim=-1)
+
+    return maker
 
 
 def _bundle(unet, vae, clip, clip_cfg, device, title, disc) -> SDModel:
@@ -85,6 +133,63 @@ def create_random_sd15(seed: int = 0, device="cuda", dtype: torch.dtype | None =
                    Discretization(make_alphas_cumprod(), prediction_type=prediction_type))
 
 
+def _sdxl_conditioner(cfg: CLIPTextConfig, seed: int, device, dtype) -> TextConditioner:
+    """An SDXL text encoder: penultimate layer, no final norm."""
+    clip = _random(CLIPTextModel(cfg, device=device, dtype=dtype), seed, device)
+    return TextConditioner(clip, cfg, get_tokenizer(), clip_skip=2, apply_final_norm=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class _SDXLFamily:
+    """The configs, dtype and titles of one SDXL base + refiner pair."""
+    unet: UNetConfig
+    refiner_unet: UNetConfig
+    clip_l: CLIPTextConfig
+    clip_g: CLIPTextConfig
+    vae: VAEConfig
+    dtype: torch.dtype | None         # None: the policy's param_dtype
+    title: str
+    refiner_title: str
+
+
+def _build_sdxl(fam: _SDXLFamily, seed: int, device, refiner: bool,
+                shared: SDModel | None) -> SDModel:
+    """An SDXL base (CLIP-L ⊕ bigG) or refiner (bigG alone) of `fam`.  UNet
+    and text encoders in `fam.dtype`; VAE in fp32.  shared: a base model
+    whose bigG conditioner and VAE the refiner takes instead of making its
+    own, as the JAX bench does (bench.py:476-477)."""
+    device = get_device(device)
+    dtype = fam.dtype or get_policy().param_dtype
+    if shared is not None:
+        cond_g, vae = shared.conditioner2, shared.vae
+    else:
+        cond_g = _sdxl_conditioner(fam.clip_g, seed + 3, device, dtype)
+        vae = _random(AutoencoderKL(fam.vae, device=device, dtype=torch.float32),
+                      seed + 2, device)
+    unet_cfg = fam.refiner_unet if refiner else fam.unet
+    unet = _random(UNetModel(unet_cfg, device=device, dtype=dtype), seed, device)
+    common = dict(unet=unet, unet_cfg=unet.cfg, vae=vae, vae_cfg=vae.cfg,
+                  disc=Discretization(make_alphas_cumprod()), device=device)
+    if refiner:
+        return SDModel(**common, conditioner=cond_g, kind="sdxl-refiner",
+                       title=fam.refiner_title)
+    return SDModel(**common, conditioner=_sdxl_conditioner(fam.clip_l, seed + 1, device, dtype),
+                   conditioner2=cond_g, kind="sdxl", title=fam.title)
+
+
+_RANDOM_SDXL = _SDXLFamily(SDXL_UNET, SDXL_REFINER_UNET, CLIP_L, OPEN_CLIP_BIGG, SDXL_VAE,
+                           None, "random-sdxl.safetensors [0000000000]",
+                           "random-sdxl-refiner.safetensors [0000000001]")
+
+
+def create_random_sdxl(seed: int = 0, device="cuda", refiner: bool = False,
+                       shared: SDModel | None = None) -> SDModel:
+    """Random-weight SDXL base (2816-wide adm) or refiner (2560-wide adm) at
+    full width: the compute graph of BASELINE config 5 (sd_model.py:338-381).
+    UNet and text encoders in the policy's param_dtype (bf16); VAE in fp32."""
+    return _build_sdxl(_RANDOM_SDXL, seed, device, refiner, shared)
+
+
 TINY_UNET = UNetConfig(model_channels=32, channel_mult=(1, 2),
                        attention_resolutions=(2, 1), transformer_depth=(1, 1),
                        context_dim=64, num_heads=4)
@@ -102,6 +207,32 @@ def create_tiny_sd(seed: int = 0, device="cpu") -> SDModel:
     vae = _random(AutoencoderKL(TINY_VAE, device=device, dtype=f32), seed + 2, device)
     return _bundle(unet, vae, clip, TINY_CLIP, device, "tiny-test-model [0000000000]",
                    Discretization(make_alphas_cumprod()))
+
+
+TINY_SDXL_UNET = UNetConfig(model_channels=32, channel_mult=(1, 2),
+                            attention_resolutions=(2,), transformer_depth=(0, 1),
+                            context_dim=96, num_heads=4, use_linear_in_transformer=True,
+                            adm_in_channels=64 + 6 * 256)
+TINY_SDXL_REFINER_UNET = dataclasses.replace(TINY_SDXL_UNET, context_dim=64,
+                                             transformer_depth_middle=2,
+                                             adm_in_channels=64 + 5 * 256)
+TINY_SDXL_VAE = dataclasses.replace(TINY_VAE, scale_factor=0.13025)
+TINY_CLIP_L = CLIPTextConfig(width=32, layers=2, heads=2)
+TINY_CLIP_G = CLIPTextConfig(width=64, layers=2, heads=2, projection_dim=64)
+
+
+_TINY_SDXL = _SDXLFamily(TINY_SDXL_UNET, TINY_SDXL_REFINER_UNET, TINY_CLIP_L, TINY_CLIP_G,
+                         TINY_SDXL_VAE, torch.float32, "tiny-sdxl-test [0000000000]",
+                         "tiny-sdxl-refiner-test [0000000001]")
+
+
+def create_tiny_sdxl(seed: int = 0, device="cpu", refiner: bool = False,
+                     shared: SDModel | None = None) -> SDModel:
+    """Miniature SDXL-shaped model (dual encoders, adm vectors, linear
+    projections; the configs of the JAX package's ``create_tiny_sdxl``), or
+    a miniature refiner (bigG alone, aesthetic-score adm, an explicit
+    middle depth), in fp32."""
+    return _build_sdxl(_TINY_SDXL, seed, device, refiner, shared)
 
 
 # --------------------------------------------------------------------------
@@ -134,24 +265,33 @@ def state_dict_from_tree(tree: dict) -> dict:
     return out
 
 
+def _conditioner_from_jax(jax_cond, device) -> TextConditioner:
+    """A JAX ``TextConditioner``'s encoder (in its tree's dtype) and its
+    clip-skip and final-norm settings."""
+    sd = state_dict_from_tree(jax_cond.params)
+    clip = CLIPTextModel(jax_cond.cfg, device=device, dtype=next(iter(sd.values())).dtype)
+    clip.load_state_dict(sd, strict=True)
+    return TextConditioner(clip, jax_cond.cfg, get_tokenizer(), clip_skip=jax_cond.clip_skip,
+                           apply_final_norm=jax_cond.apply_final_norm)
+
+
 def from_jax(jax_model, device="cpu") -> SDModel:
-    """Build the port's SDModel from a JAX ``SDModel`` (or any object with
-    its ``unet_params/unet_cfg/vae_params/vae_cfg/conditioner/disc/title/
-    sha256`` fields).  The UNet keeps the tree's dtype.  Every key of every
-    tree is consumed and every module parameter filled:
-    ``load_state_dict(strict=True)``."""
+    """Build the port's SDModel from a JAX ``SDModel`` (sd1, sdxl or
+    sdxl-refiner).  The UNet and text encoders keep their trees' dtypes;
+    the VAE is fp32.  Every key of every tree is consumed and every module
+    parameter filled: ``load_state_dict(strict=True)``."""
     device = get_device(device)
     unet_sd = state_dict_from_tree(jax_model.unet_params)
     unet = UNetModel(jax_model.unet_cfg, device=device,
                      dtype=next(iter(unet_sd.values())).dtype)
     vae = AutoencoderKL(jax_model.vae_cfg, device=device, dtype=torch.float32)
-    clip_cfg = jax_model.conditioner.cfg
-    clip = CLIPTextModel(clip_cfg, device=device, dtype=torch.float32)
     unet.load_state_dict(unet_sd, strict=True)
     vae.load_state_dict(state_dict_from_tree(jax_model.vae_params), strict=True)
-    clip.load_state_dict(state_dict_from_tree(jax_model.conditioner.params), strict=True)
     disc = Discretization(np.asarray(jax_model.disc.alphas_cumprod),
                           prediction_type=jax_model.disc.prediction_type)
-    model = _bundle(unet, vae, clip, clip_cfg, device, jax_model.title, disc)
-    model.sha256 = jax_model.sha256
-    return model
+    cond2 = jax_model.conditioner2
+    return SDModel(unet=unet, unet_cfg=unet.cfg, vae=vae, vae_cfg=vae.cfg, disc=disc,
+                   conditioner=_conditioner_from_jax(jax_model.conditioner, device),
+                   conditioner2=None if cond2 is None else _conditioner_from_jax(cond2, device),
+                   device=device, title=jax_model.title, sha256=jax_model.sha256,
+                   kind=jax_model.kind)

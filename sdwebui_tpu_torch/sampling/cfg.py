@@ -12,6 +12,8 @@ Cond layout (per run):
     cond_idx     (K, n_steps)        host ints: schedule entry per step
     cond_weights (K,)                host floats: AND weights
     uncond_bank  (n_sched_u, S, D) + uncond_idx (n_steps,)
+    vector_bank  (K, n_sched, D_adm)  SDXL y vectors, indexed like the
+                                     conds; vector_uncond_bank (n_sched_u, D_adm)
 x is (B, C, H, W) and the UNet call carries B·(K+1) items.
 """
 
@@ -34,6 +36,10 @@ class CondSchedule:
     cond_scale: float = 7.5
     # NGMS: per-step bool, True = uncond contribution skipped this step
     skip_uncond: np.ndarray | None = None
+    # SDXL vector conds (pooled text + size/crop embeds), scheduled like the
+    # crossattn banks
+    vector_bank: torch.Tensor | None = None
+    vector_uncond_bank: torch.Tensor | None = None
     # inpainting-model image conditioning / instruct-pix2pix 3-way CFG:
     # fields of the JAX schedule the slice does not run
     c_concat: Any = None
@@ -45,7 +51,9 @@ def make_cfg_denoiser(denoise_fn: Callable, sched: CondSchedule,
     """Build model(x, sigma, i) -> denoised for the solver loop.
 
     denoise_fn(x, sigma, context) -> denoised for x (N, C, H, W) at the
-    scalar noise level sigma (shared by the whole CFG batch).
+    scalar noise level sigma (shared by the whole CFG batch); with vector
+    banks it is called as denoise_fn(x, sigma, context, y), y (N, D_adm) in
+    the context's row order.
     """
     if sched.image_cfg_scale is not None:
         raise NotImplementedError("edit-model (instruct-pix2pix) CFG is not ported yet")
@@ -58,13 +66,18 @@ def make_cfg_denoiser(denoise_fn: Callable, sched: CondSchedule,
 
     def model(x, sigma: float, i: int):
         b = x.shape[0]
-        conds = sched.cond_bank[rows, torch.as_tensor(sched.cond_idx[:, i],
-                                                      device=rows.device)]
-        uncond = sched.uncond_bank[int(sched.uncond_idx[i])]
+        idx = torch.as_tensor(sched.cond_idx[:, i], device=rows.device)
+        u = int(sched.uncond_idx[i])
         # context: K cond copies per image, then uncond — (B·(K+1), S, D)
-        ctx = torch.cat([conds, uncond[None]], dim=0).repeat_interleave(b, dim=0)
+        ctx = torch.cat([sched.cond_bank[rows, idx], sched.uncond_bank[u][None]],
+                        dim=0).repeat_interleave(b, dim=0)
         x_in = x.repeat(k + 1, 1, 1, 1)
-        out = denoise_fn(x_in, sigma, ctx)
+        if sched.vector_bank is None:
+            out = denoise_fn(x_in, sigma, ctx)
+        else:
+            y = torch.cat([sched.vector_bank[rows, idx], sched.vector_uncond_bank[u][None]],
+                          dim=0).repeat_interleave(b, dim=0)
+            out = denoise_fn(x_in, sigma, ctx, y)
         out = out.reshape(k + 1, b, *out.shape[1:])
         out_conds, out_uncond = out[:k], out[k]
         w = torch.as_tensor(np.asarray(sched.cond_weights, np.float32),

@@ -1,8 +1,8 @@
-"""Sampler names the slice runs, copied from ``sdwebui_tpu/sampling/registry.py``.
+"""Sampler names the port runs, copied from ``sdwebui_tpu/sampling/registry.py``.
 
-Only Euler a is ported; every other name of the JAX registry raises
-``NotImplementedError`` naming its solver, so a request never falls back
-to a different sampler.
+DPM++ 2M and Euler a are ported; every other name of the JAX registry
+raises ``NotImplementedError`` naming its solver, so a request never falls
+back to a different sampler.
 """
 
 from __future__ import annotations
@@ -19,13 +19,14 @@ class SamplerData:
     aliases: tuple = ()
 
 
-SAMPLERS = [
+SAMPLERS = [   # in the JAX registry's order
+    SamplerData("DPM++ 2M", "dpmpp_2m", ("k_dpmpp_2m",)),
     SamplerData("Euler a", "euler_ancestral", ("k_euler_a", "k_euler_ancestral")),
 ]
 
 #: names of the JAX registry whose solvers are not ported yet
 UNPORTED = {
-    "DPM++ 2M": "dpmpp_2m", "DPM++ SDE": "dpmpp_sde", "DPM++ 2M SDE": "dpmpp_2m_sde",
+    "DPM++ SDE": "dpmpp_sde", "DPM++ 2M SDE": "dpmpp_2m_sde",
     "DPM++ 2M SDE Heun": "dpmpp_2m_sde", "DPM++ 2S a": "dpmpp_2s_ancestral",
     "DPM++ 3M SDE": "dpmpp_3m_sde", "Euler": "euler", "LMS": "lms", "Heun": "heun",
     "DPM2": "dpm_2", "DPM2 a": "dpm_2_ancestral", "LCM": "lcm",
@@ -53,13 +54,14 @@ def get_sampler(name: str) -> SamplerData:
     raise ValueError(f"unknown sampler {name!r}")
 
 
-def build_sigmas(sampler: SamplerData, scheduler: str, steps: int, disc):
+def build_sigmas(sampler: SamplerData, scheduler: str, steps: int, disc,
+                 is_sdxl: bool = False):
     """Schedule for `steps` steps (the JAX build_sigmas post-passes —
     penultimate-sigma discard and the old Karras clamp — belong to options
-    the slice rejects)."""
+    the port rejects); is_sdxl picks Align Your Steps' SDXL table."""
     from sdwebui_tpu.utils.options import opts
 
     for opt in ("always_discard_next_to_last_sigma", "use_old_karras_scheduler_sigmas"):
         if opts.get(opt, False):
             raise NotImplementedError(f"option {opt!r} is not ported yet")
-    return get_schedule(scheduler, steps, disc)
+    return get_schedule(scheduler, steps, disc, is_sdxl=is_sdxl)

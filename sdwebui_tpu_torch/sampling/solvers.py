@@ -4,10 +4,10 @@ Port of ``sdwebui_tpu/sampling/solvers.py``: every solver is
 
     step(model, x, i, sigmas, noise, state, extra) -> (x_next, state)
 
-with ``model(x, sigma, i) -> denoised``.  The slice ports Euler ancestral
-(``solvers.py:39-47,85-92``); the sigma arithmetic runs on the host in
-float32, as the JAX scan does on device.  Other solvers raise
-``NotImplementedError`` naming the solver.
+with ``model(x, sigma, i) -> denoised``.  Ported: Euler ancestral
+(``solvers.py:39-47,85-92``) and DPM++ 2M (``solvers.py:199-215``); the
+sigma arithmetic runs on the host in float32, as the JAX scan does on
+device.  Other solvers raise ``NotImplementedError`` naming the solver.
 """
 
 from __future__ import annotations
@@ -18,6 +18,10 @@ from typing import Callable
 import numpy as np
 
 _EPS = np.float32(1e-12)
+
+
+def _log(s):
+    return np.log(np.maximum(np.float32(s), _EPS))
 
 
 def _ancestral(sigma_from, sigma_to, eta):
@@ -38,6 +42,25 @@ def euler_ancestral_step(model, x, i, sigmas, noise, state, extra):
     return x, state
 
 
+def dpmpp_2m_step(model, x, i, sigmas, noise, state, extra):
+    """DPM-Solver++(2M): one model call, the previous denoised carried in
+    `state`.  The first step (and a step to σ = 0) is first order, so a
+    fresh ``sample`` call — the refiner handoff — restarts the history."""
+    s, s_next = np.float32(sigmas[i]), np.float32(sigmas[i + 1])
+    denoised = model(x, float(s), i)
+    t, t_next = -_log(s), -_log(s_next)
+    h = t_next - t
+    if i > 0 and s_next != 0:
+        h_last = t + _log(sigmas[i - 1])
+        r = h_last / (h if h != 0 else _EPS)
+        c = np.float32(1) / (np.float32(2) * r)
+        denoised_d = denoised * float(np.float32(1) + c) - state["old_denoised"] * float(c)
+    else:
+        denoised_d = denoised
+    x = x * float(s_next / np.maximum(s, _EPS)) - denoised_d * float(np.expm1(-h))
+    return x, {"old_denoised": denoised}
+
+
 @dataclasses.dataclass(frozen=True)
 class SolverSpec:
     name: str
@@ -51,6 +74,7 @@ class SolverSpec:
 SOLVERS = {
     "euler_ancestral": SolverSpec("euler_ancestral", euler_ancestral_step,
                                   noises_per_step=1),
+    "dpmpp_2m": SolverSpec("dpmpp_2m", dpmpp_2m_step),
 }
 
 

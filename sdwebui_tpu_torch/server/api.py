@@ -34,15 +34,15 @@ FIELDS = {
     "s_min_uncond": (None, _NUM), "s_churn": (None, _NUM), "s_tmax": (None, _NUM),
     "s_tmin": (None, _NUM), "s_noise": (None, _NUM), "override_settings": ({}, dict),
     "do_not_save_samples": (False, bool), "do_not_save_grid": (False, bool),
-    "send_images": (True, bool),
+    "send_images": (True, bool), "refiner_checkpoint": (None, str),
+    "refiner_switch_at": (None, _NUM),
 }
 
 #: fields of the reference schema outside the slice: accepted only at
 #: these values (their defaults)
 NEUTRAL = {
     "styles": ([],), "restore_faces": (None, False), "tiling": (None, False),
-    "denoising_strength": (None,), "refiner_checkpoint": (None, ""),
-    "refiner_switch_at": (None, 0, 0.0), "disable_extra_networks": (False,),
+    "denoising_strength": (None,), "disable_extra_networks": (False,),
     "comments": ({},), "enable_hr": (False,), "firstphase_width": (0,),
     "firstphase_height": (0,), "hr_scale": (2.0, 2), "hr_upscaler": (None,),
     "hr_second_pass_steps": (0,), "hr_resize_x": (0,), "hr_resize_y": (0,),
@@ -63,7 +63,10 @@ OVERRIDES = {
     "enable_prompt_comments", "return_grid", "n_rows", "grid_background_color",
     "grid_only_if_multiple", "grid_prevent_empty_spots", "add_model_hash_to_info",
     "add_model_name_to_info", "add_version_to_infotext", "add_user_name_to_info",
-    "cross_attention_optimization", *UNPORTED_OPTIONS,
+    "cross_attention_optimization", "sdxl_clip_l_skip", "sdxl_crop_top",
+    "sdxl_crop_left", "sdxl_refiner_high_aesthetic_score",
+    "sdxl_refiner_low_aesthetic_score", "refiner_switch_by_sample_steps",
+    *UNPORTED_OPTIONS,
 }
 
 

@@ -117,11 +117,12 @@ class TextConditioner:
         return chunks, token_count
 
     @torch.inference_mode()
-    def encode(self, lines: List[str]):
-        """lines → (cond (B, 77·C, D), pooled (B, D)), every line padded to a
-        common chunk count."""
+    def encode(self, lines: List[str], target_chunks: int | None = None):
+        """lines → (cond (B, 77·C, D), pooled (B, Dp)), every line padded to a
+        common chunk count (and to `target_chunks` when given).  pooled is
+        the first chunk's EOT pool (conditioner.py:233-265)."""
         per_line = [self.tokenize_line(line) for line in lines]
-        n_chunks = max(len(c) for c, _ in per_line)
+        n_chunks = max(max(len(c) for c, _ in per_line), target_chunks or 1)
         empty = PromptChunk([EOS] * CHUNK_LEN, [1.0] * CHUNK_LEN)
         all_tokens, all_mults = [], []
         for chunks, _ in per_line:
@@ -142,11 +143,14 @@ class TextConditioner:
 
 def build_cond_schedule(encode_fn: Callable, prompt: str, negative_prompt: str,
                         steps: int, cond_scale: float = 7.5,
+                        vector_maker: Callable | None = None,
                         use_old_scheduling: bool = False) -> CondSchedule:
     """Parse prompt-edit/AND syntax, encode every unique schedule text once,
     assemble the banks and per-step index tables (conditioner.py:272-352).
 
-    encode_fn(list_of_texts) -> (N, S, D) conds."""
+    encode_fn(list_of_texts) -> (N, S, D) conds, or (conds, pooled (N, Dp))
+    for SDXL.  vector_maker(pooled, is_uncond (N,) bool) -> (N, D_adm)
+    builds the SDXL y vectors, banked like the conds."""
     subprompts = prompt_parser.split_multicond(prompt)
     k = len(subprompts)
     pos_scheds = [prompt_parser.get_prompt_schedule(
@@ -156,6 +160,9 @@ def build_cond_schedule(encode_fn: Callable, prompt: str, negative_prompt: str,
 
     texts = [t for sched in pos_scheds for _, t in sched] + [t for _, t in neg_sched]
     conds = encode_fn(texts)          # (total, S, D), one batch: chunk counts match
+    pooled = None
+    if isinstance(conds, tuple):
+        conds, pooled = conds
 
     max_sched = max(max(len(s) for s in pos_scheds), 1)
     row_ids = np.zeros((k, max_sched), np.int64)
@@ -171,7 +178,8 @@ def build_cond_schedule(encode_fn: Callable, prompt: str, negative_prompt: str,
             while si < len(sched) - 1 and sched[si][0] < step:
                 si += 1
             cond_idx[ki, step - 1] = si
-    cond_bank = conds[torch.as_tensor(row_ids, device=conds.device)]
+    rows = torch.as_tensor(row_ids, device=conds.device)
+    cond_bank = conds[rows]
 
     n_u = len(neg_sched)
     uncond_bank = conds[ptr: ptr + n_u]
@@ -182,7 +190,16 @@ def build_cond_schedule(encode_fn: Callable, prompt: str, negative_prompt: str,
             si += 1
         uncond_idx[step - 1] = si
 
+    vector_bank = vector_uncond_bank = None
+    if pooled is not None and vector_maker is not None:
+        is_uncond = torch.zeros(pooled.shape[0], dtype=torch.bool, device=pooled.device)
+        is_uncond[ptr:] = True
+        vectors = vector_maker(pooled, is_uncond)       # (total, D_adm)
+        vector_bank = vectors[rows]
+        vector_uncond_bank = vectors[ptr: ptr + n_u]
+
     return CondSchedule(
         cond_bank=cond_bank, cond_idx=cond_idx,
         cond_weights=np.asarray([sp.weight for sp in subprompts], np.float32),
-        uncond_bank=uncond_bank, uncond_idx=uncond_idx, cond_scale=cond_scale)
+        uncond_bank=uncond_bank, uncond_idx=uncond_idx, cond_scale=cond_scale,
+        vector_bank=vector_bank, vector_uncond_bank=vector_uncond_bank)

@@ -87,7 +87,6 @@ def test_from_jax_consumes_every_key(models):
     ("hypertile_tile", 32, "hypertile"),
     ("upcast_attn", True, "upcast_attn"),
     ("tiling", True, "tiling"),
-    ("adm_in_channels", 2816, "SDXL"),
 ])
 def test_unsupported_unet_options_raise(field, value, match):
     cfg = dataclasses.replace(port_sd.TINY_UNET, **{field: value})

@@ -49,8 +49,9 @@ def test_build_sigmas_matches_jax_registry():
 
 
 def test_unported_samplers_raise_with_solver_name():
-    with pytest.raises(NotImplementedError, match="dpmpp_2m"):
-        get_sampler("DPM++ 2M")
+    with pytest.raises(NotImplementedError, match="dpmpp_sde"):
+        get_sampler("DPM++ SDE")
+    assert get_sampler("DPM++ 2M").solver == "dpmpp_2m"
     with pytest.raises(ValueError):
         get_sampler("no such sampler")
     assert get_sampler("Automatic").name == "Euler a"

@@ -62,7 +62,7 @@ def test_txt2img_returns_png_with_infotext(server_url):
     ({"enable_hr": True}, "enable_hr"),
     ({"styles": ["x"]}, "styles"),
     ({"no_such_field": 1}, "no_such_field"),
-    ({"sampler_name": "DPM++ 2M"}, "DPM++ 2M"),
+    ({"sampler_name": "DPM++ SDE"}, "DPM++ SDE"),
     ({"override_settings": {"sd_model_checkpoint": "x"}}, "sd_model_checkpoint"),
     ({"override_settings": {"token_merging_ratio": 0.5}}, "token_merging_ratio"),
     ({"prompt": "a <lora:x:1>"}, "lora"),
@@ -104,7 +104,7 @@ def test_bad_requests_and_listing(server_url):
         assert status == 422 and next(iter(body)) in res["detail"]
     assert _call(server_url, "/internal/ping") == (200, {})
     status, samplers = _call(server_url, "/sdapi/v1/samplers")
-    assert status == 200 and [s["name"] for s in samplers] == ["Euler a"]
+    assert status == 200 and [s["name"] for s in samplers] == ["DPM++ 2M", "Euler a"]
     assert _call(server_url, "/sdapi/v1/nothing")[0] == 404
 
 
@@ -176,3 +176,20 @@ def test_port_runs_without_jax_pil_pydantic():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("OK")
+
+
+def test_chip_smoke_imports_only_the_port():
+    # the smoke script names torch, the stdlib and sdwebui_tpu_torch only:
+    # never jax nor a module of the JAX package
+    import ast
+
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    third_party = roots - set(sys.stdlib_module_names) - {"__future__"}
+    assert third_party == {"torch", "sdwebui_tpu_torch"}, third_party
