@@ -4,30 +4,42 @@
 
 Phases, in order; any failure exits non-zero:
   0. environment: torch/CUDA versions, the card's name and power limit, and
-     the flash-attention kernel built from csrc/ with nvcc (build seconds);
+     the three kernel sources of csrc/ built with nvcc, all at once;
   1. each kernel entry point vs its plain PyTorch version at the main
-     paths' shapes (tolerance 2e-2 in bf16, 1e-4 in f32; TF32 off), with
-     both times: B1 (per head, SD1.5 UNet and the SD1.5/SDXL VAE mid-block),
-     B2 (head-packed, SDXL base and refiner, also on fused-qkv chunk views)
-     and B3 (4-D, the same shapes);
+     paths' shapes (tolerance 2e-2 in bf16, 1e-4 in f32; TF32 off; B4 by
+     max|Δ|/max|ref| <= 1e-2 bf16, 1e-5 f32; B5 in bf16 within one bf16
+     ulp of the larger magnitude), with the kernel's, the plain
+     version's and one library call's time and the card's bound for the
+     work: B1 (per head, SD1.5 UNet and the SD1.5/SDXL VAE mid-block), B2
+     (head-packed, SDXL base and refiner, also on fused-qkv chunk views),
+     B3 (4-D, the same shapes), B5 (LayerNorm at every UNet and CLIP width
+     of both families) and B4 (3x3 conv at the JAX docstring's shapes and
+     the SD1.5 UNet's B=2 shapes);
   2. the full-width SD1.5 UNet CFG step (B=2, latent 64², ctx 2x77x768,
-     bf16, random weights) through the kernel and with the plain attention
-     forced: finite, max|Δ|/max|ref| <= 5e-2;
-  3. the txt2img HTTP server with random-weight SD1.5 answering BASELINE
-     config 1 requests (512², Euler a, 20 steps, CFG 7.5; batch 1, batch 4
+     bf16, random weights) in three arms: the kernels (B1 + B5), plain
+     LayerNorm (B1 only), and plain attention and LayerNorm: finite,
+     max|Δ|/max|ref| <= 5e-2, ms and device events per call in each arm;
+  3. the HTTP server with random-weight SD1.5 answering BASELINE config 1
+     txt2img requests (512², Euler a, 20 steps, CFG 7.5; batch 1, batch 4
      and a repeated seed): PNGs decoded with the standard library, infotext
-     checked, the repeat's image within 2 uint8 levels, and the B1 launch
-     count equal to the plan's;
-  4. the full-width SDXL base step (B=2, latent 128², ctx 2x77x2048, y
-     2x2816) and refiner step (ctx 2x77x1280, y 2x2560), bf16, kernels vs
-     plain attention forced (same bound as phase 2), and the SDXL VAE
-     decode at 1024² in bf16 and in its fp32 retry dtype;
-  5. the server with random SDXL base + refiner answering two BASELINE
+     checked, the repeat's image within 2 uint8 levels, and the B1 and B5
+     launch counts equal to the plan's;
+  4. the same server answering BASELINE config 2 on /sdapi/v1/img2img: two
+     img2img requests (denoising 0.75, one seed) on a phase-3 PNG and one
+     inpaint request (rectangle mask, mask_blur 4, inpainting_fill 1): the
+     repeat within 2 levels, the inpaint's pixels outside the blurred mask
+     within 1 level of the init image and changed inside it, and B1 and B5
+     launches equal to the plan's (encode and decode included);
+  5. the full-width SDXL base step (B=2, latent 128², ctx 2x77x2048, y
+     2x2816) and refiner step (ctx 2x77x1280, y 2x2560), bf16, in the
+     three arms of phase 2, and the SDXL VAE decode at 1024² in bf16 and in
+     its fp32 retry dtype;
+  6. the server with random SDXL base + refiner answering two BASELINE
      config 5 requests with one seed (1024², DPM++ 2M Karras, 20 steps,
      CFG 7.0, refiner switch at 0.8): 1024x1024 PNGs, infotext naming the
      sampler, seed and refiner, the repeat within 2 uint8 levels, an image
-     that is not flat, and B2 and B1 launch counts equal to the plan's;
-  6. one more in-process SDXL request under torch.profiler (CUDA activity
+     that is not flat, and B2, B1 and B5 launch counts equal to the plan's;
+  7. one more in-process SDXL request under torch.profiler (CUDA activity
      only): wall (median of two untraced requests), device busy (union of
      the kernel intervals), idle share, device time by kernel class and
      the top kernels.
@@ -38,6 +50,7 @@ Needs a CUDA card; without one it exits 1 and prints no result.
 from __future__ import annotations
 
 import base64
+import contextlib
 import gc
 import json
 import statistics
@@ -46,16 +59,34 @@ import sys
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
+import torch.nn.functional as F
 
 BF16_TOL = 2e-2
 F32_TOL = 1e-4
+CONV_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}   # max|Δ| / max|ref|
+# B5 in bf16: kernel and plain version both round the fp32 result once, so
+# they may differ by one bf16 ulp where their fp32 sums differ in the last
+# bit (plus 1e-5 near zero); at outputs in [4, 8) one ulp is 3.1e-2, above
+# an absolute 2e-2
+LN_ULP_TOL = 1.0
 UNET_REL_TOL = 5e-2
+UNET_ROUNDS = 3         # interleaved timing rounds per UNet arm
 REPEAT_TOL = 2          # uint8 levels
+OVERLAY_TOL = 1         # uint8 levels, inpaint pixels outside the blurred mask
 STEPS = 20
+DENOISE = 0.75
+MASK_BLUR = 4
 SDXL_SWITCH_AT = 0.8
 VAE_MEAN_DIFF_TOL = 2.0   # uint8 levels, SDXL VAE bf16 vs fp32 decode
+
+# The card's rates for the bound of each kernel row (H100 SXM data sheet,
+# dense, at the 700 W limit): bf16 tensor cores, fp32 outside the tensor
+# cores (the f32 kernels and every LayerNorm, whose math is fp32), HBM3.
+PEAK_FLOPS = {"bf16_tensor": 989e12, "fp32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
 
 # B1 rows: (name, BH, Sq, Skv, D, dtype)
 B1_SHAPES = [
@@ -74,23 +105,65 @@ HEAD_SHAPES = [
     ("sdxl_refiner_64x64", 2, 4096, 12, 64),
     ("sdxl_refiner_32x32", 2, 1024, 24, 64),
 ]
+# B4 rows: (name, B, H, W, Cin, Cout): the shapes of the JAX kernel's
+# docstring (sdwebui_tpu/ops/conv.py:6-8) and the SD1.5 UNet's at B = 2
+CONV_SHAPES = [
+    ("jax_doc_64x64x320", 8, 64, 64, 320, 320),
+    ("jax_doc_32x32x640", 8, 32, 32, 640, 640),
+    ("jax_doc_16x16x1280", 8, 16, 16, 1280, 1280),
+    ("sd15_64x64x320", 2, 64, 64, 320, 320),
+    ("sd15_32x32x640", 2, 32, 32, 640, 640),
+    ("sd15_16x16x1280", 2, 16, 16, 1280, 1280),
+]
+LAUNCH_COUNTERS = ("flash_attention", "flash_attention_packed", "flash_attention_4d",
+                   "layer_norm", "conv3x3")
 
 
 def log(*args):
     print(*args, flush=True)
 
 
-def cuda_ms(fn, iters: int = 5, warmup: int = 2) -> float:
+def cuda_ms(fn, iters: int = 5, warmup: int = 2, hide_host: bool = True) -> float:
+    """ms per call from CUDA events around `iters` back-to-back calls.  With
+    hide_host a sleep kernel holds the stream while the host enqueues them,
+    so a call whose launch costs the host more than its kernels cost the
+    device is timed on the device (kernel rows); without it the time
+    includes the host's launch rate (UNet calls, which are host-bound)."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if hide_host:
+        torch.cuda._sleep(50_000_000)      # ~25 ms at the H100's clocks
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(flops: float, nbytes: float, rate: str):
+    """(ms, "operations" | "bytes"): the least time the card could take."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[rate], nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def reset_counts():
+    from sdwebui_tpu_torch.ops import conv, flash_attention, layer_norm
+
+    flash_attention.reset_launch_count()
+    layer_norm.reset_launch_count()
+    conv.reset_launch_count()
+
+
+def read_counts() -> dict:
+    from sdwebui_tpu_torch.ops import conv, flash_attention, layer_norm
+
+    out = {name: flash_attention.launch_count(name) for name in flash_attention.ENTRY_POINTS}
+    out["layer_norm"] = layer_norm.launch_count()
+    out["conv3x3"] = conv.launch_count()
+    return out
 
 
 def phase_env():
@@ -102,34 +175,93 @@ def phase_env():
                          check=True, timeout=60).stdout.strip()
     log(smi)
     t0 = time.perf_counter()
-    _build.load_library("flash_attention", rebuild=True)
-    log(f"built flash_attention.cu for sm_90a in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {_build.build_seconds['flash_attention']:.2f} s)")
+    with ThreadPoolExecutor(len(_build.KERNELS)) as pool:   # one nvcc per source, together
+        list(pool.map(lambda name: _build.load_library(name, rebuild=True), _build.KERNELS))
+    log(f"built {', '.join(f'{n}.cu' for n in _build.KERNELS)} for sm_90a in "
+        f"{time.perf_counter() - t0:.2f} s (nvcc "
+        + ", ".join(f"{n} {_build.build_seconds[n]:.2f} s" for n in _build.KERNELS) + ")")
     return smi
 
 
-def _compare(entry, name, shape, dtype, kernel, plain, rows):
+def bf16_ulps(out, ref) -> float:
+    """max |Δ| in bf16 units in the last place of the larger magnitude,
+    after 1e-5 absolute for outputs near zero (where x − mean cancels)."""
+    a = torch.maximum(out.float().abs(), ref.float().abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(a)) - 7)
+    return (((out.float() - ref.float()).abs() - 1e-5).clamp_min(0) / ulp).max().item()
+
+
+def _compare(entry, name, shape, dtype, kernel, plain, library, work, rows, rel_tol=None,
+             ulp_tol=None):
+    """One kernel row: the kernel vs its plain version on the same inputs,
+    then the kernel's, the plain version's and the library call's times;
+    work = (flops, bytes, rate) for the bound.  The bound on the difference
+    is absolute (BF16_TOL / F32_TOL), relative to max|ref| (rel_tol), or in
+    bf16 ulps (ulp_tol, bf16 only)."""
     out = kernel()
     ref = plain()
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
+    rel = err / max(ref.float().abs().max().item(), 1e-30)
+    ulps = bf16_ulps(out, ref) if ulp_tol is not None and dtype == torch.bfloat16 else None
     del out, ref
-    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    if ulps is not None:
+        tol = ulp_tol
+        ok = ulps <= tol
+        tol_text = f"max|Δ| {err:.3e}, {ulps:.2f} bf16 ulps (tol {tol:g} ulp)"
+    elif rel_tol is None:
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        ok = err <= tol
+        tol_text = f"max|Δ| {err:.3e} (tol {tol:g})"
+    else:
+        tol = rel_tol
+        ok = rel <= tol
+        tol_text = f"max|Δ| {err:.3e}, /max|ref| {rel:.3e} (tol {tol:g})"
     ms = cuda_ms(kernel)
     plain_ms = cuda_ms(plain)
-    log(f"{entry} {name} {tuple(shape)} {str(dtype)[6:]}: max|Δ| {err:.3e} (tol {tol:g}), "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    if not err <= tol:
+    library_ms = cuda_ms(library)
+    bound_ms, bound_by = bound(*work)
+    log(f"{entry} {name} {tuple(shape)} {str(dtype)[6:]}: {tol_text}, kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by})")
+    if not ok:
         raise AssertionError(f"{entry} disagrees with its plain version at {name}: "
-                             f"max|Δ| {err} > {tol}")
+                             f"{tol_text}")
     rows.append(dict(entry=entry, name=name, shape=list(shape), dtype=str(dtype)[6:],
-                     max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms))
+                     max_abs_err=err, rel_err=rel, tol=tol, ms=ms, plain_ms=plain_ms,
+                     library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+
+
+def _attn_work(bh, sq, skv, d, dtype):
+    size = 2 if dtype == torch.bfloat16 else 4
+    rate = "bf16_tensor" if dtype == torch.bfloat16 else "fp32"
+    return 4.0 * bh * sq * skv * d, size * bh * (2 * sq + 2 * skv) * d, rate
+
+
+def layer_norm_shapes():
+    """(name, rows, width) of every LayerNorm on the SD1.5 and SDXL paths:
+    three per transformer block at B = 2 (from the configs' build plans),
+    and the CLIP-L / bigG encoders over cond + uncond (2 x 77 tokens)."""
+    from sdwebui_tpu_torch.models.configs import (CLIP_L, OPEN_CLIP_BIGG, SD15_UNET,
+                                                  SDXL_REFINER_UNET, SDXL_UNET)
+    from sdwebui_tpu_torch.models.unet import self_attention_calls
+
+    shapes = []
+    for fam, cfg, latent in (("sd15", SD15_UNET, 64), ("sdxl_base", SDXL_UNET, 128),
+                             ("sdxl_refiner", SDXL_REFINER_UNET, 128)):
+        for s, h, d in dict.fromkeys(self_attention_calls(cfg, latent)):
+            shapes.append((f"{fam}_s{s}_c{h * d}", 2 * s, h * d))
+    shapes += [("clip_l", 2 * 77, CLIP_L.width), ("clip_bigg", 2 * 77, OPEN_CLIP_BIGG.width)]
+    return shapes
 
 
 def phase_kernel(device):
+    from sdwebui_tpu_torch.ops import conv as conv_mod
     from sdwebui_tpu_torch.ops import flash_attention as fa
+    from sdwebui_tpu_torch.ops import layer_norm as ln_mod
 
     rows = []
+    sdpa = F.scaled_dot_product_attention
 
     def randn(shape, g, dtype):
         return torch.randn(shape, generator=g, device=device).to(dtype)
@@ -140,52 +272,136 @@ def phase_kernel(device):
             randn((bh, skv, d), g, dtype)
         _compare("flash_attention", name, (bh, sq, skv, d), dtype,
                  lambda: fa.flash_attention(q, k, v),
-                 lambda: fa.flash_attention_plain(q, k, v), rows)
+                 lambda: fa.flash_attention_plain(q, k, v),
+                 lambda: sdpa(q[None], k[None], v[None]),
+                 _attn_work(bh, sq, skv, d, dtype), rows)
         del q, k, v
         torch.cuda.empty_cache()
     bf16 = torch.bfloat16
     for name, b, s, h, d in HEAD_SHAPES:
         g = torch.Generator(device=device).manual_seed(1)
         q, k, v = (randn((b, s, h * d), g, bf16) for _ in range(3))
+        heads = [t.unflatten(-1, (h, d)).transpose(1, 2) for t in (q, k, v)]
+        work = _attn_work(b * h, s, s, d, bf16)
         _compare("flash_attention_packed", name, (b, s, h, d), bf16,
                  lambda: fa.flash_attention_packed(q, k, v, num_heads=h),
-                 lambda: fa.flash_attention_packed_plain(q, k, v, num_heads=h), rows)
+                 lambda: fa.flash_attention_packed_plain(q, k, v, num_heads=h),
+                 lambda: sdpa(*heads), work, rows)
         q4, k4, v4 = (t.unflatten(-1, (h, d)) for t in (q, k, v))
         _compare("flash_attention_4d", name, (b, s, h, d), bf16,
                  lambda: fa.flash_attention_4d(q4, k4, v4),
-                 lambda: fa.flash_attention_4d_plain(q4, k4, v4), rows)
+                 lambda: fa.flash_attention_4d_plain(q4, k4, v4),
+                 lambda: sdpa(*heads), work, rows)
         if name == "sdxl_base_64x64":   # the chunk views of a fused projection
             qkv = randn((b, s, 3 * h * d), g, bf16)
             qc, kc, vc = qkv.chunk(3, dim=-1)
+            chunk_heads = [t.unflatten(-1, (h, d)).transpose(1, 2) for t in (qc, kc, vc)]
             _compare("flash_attention_packed", name + "_fused_qkv", (b, s, h, d), bf16,
                      lambda: fa.flash_attention_packed(qc, kc, vc, num_heads=h),
-                     lambda: fa.flash_attention_packed_plain(qc, kc, vc, num_heads=h), rows)
-            del qkv, qc, kc, vc
-        del q, k, v, q4, k4, v4
+                     lambda: fa.flash_attention_packed_plain(qc, kc, vc, num_heads=h),
+                     lambda: sdpa(*chunk_heads), work, rows)
+            del qkv, qc, kc, vc, chunk_heads
+        del q, k, v, q4, k4, v4, heads
+        torch.cuda.empty_cache()
+
+    for dtype in (bf16, torch.float32):
+        size = 2 if dtype == bf16 else 4
+        for name, n_rows, c in layer_norm_shapes():
+            g = torch.Generator(device=device).manual_seed(2)
+            x = (randn((n_rows, c), g, torch.float32) * 2 + 0.5).to(dtype)
+            w, b = randn((c,), g, dtype), randn((c,), g, dtype)
+            _compare("layer_norm", name, (n_rows, c), dtype,
+                     lambda: ln_mod.layer_norm(x, w, b),
+                     lambda: ln_mod.layer_norm_plain(x, w, b),
+                     lambda: F.layer_norm(x, (c,), w, b, 1e-5),
+                     (7.0 * n_rows * c, size * (2 * n_rows * c + 2 * c), "fp32"), rows,
+                     ulp_tol=LN_ULP_TOL)
+        for name, bsz, hh, ww, cin, cout in CONV_SHAPES:
+            g = torch.Generator(device=device).manual_seed(3)
+            cl = torch.channels_last
+            x = randn((bsz, cin, hh, ww), g, dtype).contiguous(memory_format=cl)
+            w = (randn((cout, cin, 3, 3), g, dtype) * 0.05).contiguous(memory_format=cl)
+            b = randn((cout,), g, dtype)
+            flops = 2.0 * bsz * hh * ww * 9 * cin * cout
+            nbytes = size * (bsz * hh * ww * (cin + cout) + 9 * cin * cout + cout)
+            _compare("conv3x3", name, (bsz, hh, ww, cin, cout), dtype,
+                     lambda: conv_mod.conv3x3(x, w, b),
+                     lambda: conv_mod.conv3x3_plain(x, w, b),
+                     lambda: F.conv2d(x, w, b, 1, 1),
+                     (flops, nbytes, "bf16_tensor" if dtype == bf16 else "fp32"), rows,
+                     rel_tol=CONV_REL_TOL[dtype])
+            del x, w, b
         torch.cuda.empty_cache()
     return rows
 
 
-def _unet_step(label, unet, x, t, ctx, y=None):
+def device_events(fn) -> int:
+    """Device activities (kernels, copies, sets) of one call of fn."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type.name == "CUDA")
+
+
+@contextlib.contextmanager
+def _all_plain():
+    """Plain attention and plain LayerNorm: the yardstick arm."""
+    from sdwebui_tpu_torch.ops import norms
     from sdwebui_tpu_torch.ops.attention import forced_impl
 
+    with forced_impl("plain"), norms.forced_plain():
+        yield
+
+
+def _unet_step(label, unet, cfg, latent, x, t, ctx, y=None):
+    """The UNet call in three arms: the kernels (attention kernels + B5),
+    plain LayerNorm, and plain attention with plain LayerNorm."""
+    from sdwebui_tpu_torch.models.unet import self_attention_calls
+    from sdwebui_tpu_torch.ops import layer_norm as ln_mod
+    from sdwebui_tpu_torch.ops import norms
+
+    arms = {"kernels": contextlib.nullcontext, "plain_layer_norm": norms.forced_plain,
+            "plain": _all_plain}
+    step = lambda: unet(x, t, ctx, y)  # noqa: E731
+    res, outs = {}, {}
     with torch.inference_mode():
-        step = lambda: unet(x, t, ctx, y)  # noqa: E731
-        out = step().float()
-        ms = cuda_ms(step, iters=10)
-        with forced_impl("plain"):
-            ref = step().float()
-            plain_ms = cuda_ms(step, iters=10)
-    torch.cuda.synchronize()
-    if not (torch.isfinite(out).all() and torch.isfinite(ref).all()):
-        raise AssertionError(f"non-finite {label} UNet output")
-    rel = ((out - ref).abs().max() / ref.abs().max()).item()
-    log(f"unet {label}: {tuple(out.shape)}, max|Δ|/max|ref| {rel:.3e} "
-        f"(bound {UNET_REL_TOL:g}); {ms:.2f} ms/call with the kernels, "
-        f"{plain_ms:.2f} ms/call plain")
-    if tuple(out.shape) != tuple(x.shape) or not rel <= UNET_REL_TOL:
-        raise AssertionError(f"{label} UNet kernel path disagrees with the plain path: {rel}")
-    return dict(rel_err=rel, ms=ms, plain_ms=plain_ms)
+        for arm, ctx_mgr in arms.items():
+            with ctx_mgr():
+                ln_mod.reset_launch_count()
+                outs[arm] = step().float()
+                torch.cuda.synchronize()
+                if arm == "kernels":
+                    planned = 3 * len(self_attention_calls(cfg, latent))
+                    if ln_mod.launch_count() != planned:
+                        raise AssertionError(f"{label}: {ln_mod.launch_count()} B5 launches "
+                                             f"per call, planned {planned}")
+                res[f"{arm}_events"] = device_events(step)
+        # the step is host-bound and the host's pace drifts within a run, so
+        # the arms take turns and each reports its median round
+        times = {arm: [] for arm in arms}
+        for _ in range(UNET_ROUNDS):
+            for arm, ctx_mgr in arms.items():
+                with ctx_mgr():
+                    times[arm].append(cuda_ms(step, iters=5, hide_host=False))
+        for arm, ts in times.items():
+            res[f"{arm}_ms"] = statistics.median(ts)
+    ref = outs["plain"]
+    for arm in ("kernels", "plain_layer_norm"):
+        out = outs[arm]
+        if not (torch.isfinite(out).all() and torch.isfinite(ref).all()):
+            raise AssertionError(f"non-finite {label} UNet output ({arm})")
+        rel = ((out - ref).abs().max() / ref.abs().max()).item()
+        res[f"{arm}_rel_err"] = rel
+        if tuple(out.shape) != tuple(x.shape) or not rel <= UNET_REL_TOL:
+            raise AssertionError(f"{label} UNet {arm} arm disagrees with the plain arm: {rel}")
+    log(f"unet {label}: max|Δ|/max|ref| vs plain {res['kernels_rel_err']:.3e} "
+        f"(bound {UNET_REL_TOL:g}); ms/call kernels {res['kernels_ms']:.2f}, plain LayerNorm "
+        f"{res['plain_layer_norm_ms']:.2f}, plain {res['plain_ms']:.2f}; device events/call "
+        f"{res['kernels_events']}, {res['plain_layer_norm_events']}, {res['plain_events']}")
+    return res
 
 
 def phase_unet(model, device):
@@ -193,7 +409,7 @@ def phase_unet(model, device):
     x = torch.randn((2, 4, 64, 64), generator=g, device=device).to(torch.bfloat16)
     t = torch.tensor([500.0, 500.0], device=device)
     ctx = torch.randn((2, 77, 768), generator=g, device=device).to(torch.bfloat16)
-    return _unet_step("SD1.5 B=2 64x64 bf16", model.unet, x, t, ctx)
+    return _unet_step("SD1.5 B=2 64x64 bf16", model.unet, model.unet_cfg, 64, x, t, ctx)
 
 
 def launch_plan(cfg, latent: int):
@@ -207,6 +423,20 @@ def launch_plan(cfg, latent: int):
     return packed, len(long) - packed
 
 
+def ln_plan(cfg, latent: int) -> int:
+    """B5 launches of one UNet forward: three per transformer block."""
+    from sdwebui_tpu_torch.models.unet import self_attention_calls
+
+    return 3 * len(self_attention_calls(cfg, latent))
+
+
+def clip_ln_plan(model) -> int:
+    """B5 launches of one prompt encode: two per CLIP layer, the final norm
+    on the pooled state, and on the hidden state when it is applied."""
+    return sum(2 * c.cfg.layers + 1 + int(c.apply_final_norm)
+               for c in (model.conditioner, model.conditioner2) if c is not None)
+
+
 def _post(url, body):
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -214,39 +444,39 @@ def _post(url, body):
         return json.loads(resp.read())
 
 
-def _serve(engine, requests, warmup, check, size):
-    """POST `requests` to a server around `engine`; returns per request
-    (seconds, decoded last image, launches by entry point)."""
-    from sdwebui_tpu_torch.ops import flash_attention as fa
+def _serve(engine, route, requests, warmup, check, size):
+    """POST `requests` to `route` of a server around `engine`; returns per
+    request (seconds, the last image decoded and as sent, launches)."""
     from sdwebui_tpu_torch.server.api import make_server
     from sdwebui_tpu_torch.utils.png import decode_png
 
     server = make_server(engine, "127.0.0.1", 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
-    url = f"http://127.0.0.1:{server.server_address[1]}/sdapi/v1/txt2img"
+    url = f"http://127.0.0.1:{server.server_address[1]}/sdapi/v1/{route}"
     results = []
     try:
         _post(url, warmup)                        # not timed, not counted
         for body in requests:
-            fa.reset_launch_count()
+            reset_counts()
             t0 = time.perf_counter()
             res = _post(url, body)
             dt = time.perf_counter() - t0
-            launches = {name: fa.launch_count(name) for name in fa.ENTRY_POINTS}
+            launches = read_counts()
             info = json.loads(res["info"])
-            images = [decode_png(base64.b64decode(b)) for b in res["images"]]
-            images = images[info["index_of_first_image"]:]
-            if len(images) != body["batch_size"]:
-                raise AssertionError(f"{len(images)} images for batch {body['batch_size']}")
+            first = info["index_of_first_image"]
+            images = [decode_png(base64.b64decode(b)) for b in res["images"][first:]]
+            if len(images) != body.get("batch_size", 1):
+                raise AssertionError(f"{len(images)} images for batch {body.get('batch_size')}")
             for i, (img, text) in enumerate(images):
                 if img.shape != (size, size, 3):
                     raise AssertionError(f"image shape {img.shape}")
                 check(text.get("parameters", ""), body["seed"] + i)
-            results.append(dict(batch=body["batch_size"], seed=body["seed"], seconds=dt,
-                                images_per_s=len(images) / dt, launches=launches,
-                                image=images[-1][0]))
-            log(f"request {size}² batch {body['batch_size']} seed {body['seed']}: {dt:.3f} s, "
+            results.append(dict(route=route, batch=len(images), seed=body["seed"],
+                                seconds=dt, images_per_s=len(images) / dt,
+                                launches=launches, image=images[-1][0],
+                                png_b64=res["images"][-1]))
+            log(f"{route} {size}² batch {len(images)} seed {body['seed']}: {dt:.3f} s, "
                 f"{len(images) / dt:.3f} images/s, launches {launches}")
     finally:
         server.shutdown()
@@ -265,30 +495,81 @@ def _check_repeat(results, i, j):
         raise AssertionError("the generated image is flat")
 
 
-def phase_serve(model):
-    from sdwebui_tpu_torch.server.app import Engine
-
-    base = dict(prompt="a photograph of an astronaut riding a horse",
-                negative_prompt="blurry, lowres", width=512, height=512,
-                sampler_name="Euler a", steps=STEPS, cfg_scale=7.5)
-    requests = [dict(base, seed=1234, batch_size=1), dict(base, seed=99, batch_size=4),
-                dict(base, seed=1234, batch_size=1)]
-
-    def check(params, seed):
-        if f"Seed: {seed}" not in params or "Sampler: Euler a" not in params:
-            raise AssertionError(f"infotext lacks seed/sampler: {params!r}")
-
-    results = _serve(Engine(model=model, device=model.device), requests,
-                     dict(base, seed=1, batch_size=1, steps=2), check, 512)
-    _check_repeat(results, 0, 2)
-    per_call = launch_plan(model.unet_cfg, 64)[1]
-    expected = [dict(flash_attention=STEPS * per_call + 1, flash_attention_packed=0,
-                     flash_attention_4d=0)] * len(requests)
+def _check_launches(results, expected):
     launches = [r["launches"] for r in results]
     log(f"kernel launches per request {launches}, planned {expected}")
     if launches != expected:
         raise AssertionError(f"launch count {launches} != planned {expected}")
+
+
+def _plan(b1=0, b2=0, b5=0) -> dict:
+    return dict(flash_attention=b1, flash_attention_packed=b2, flash_attention_4d=0,
+                layer_norm=b5, conv3x3=0)
+
+
+SD15_BASE = dict(prompt="a photograph of an astronaut riding a horse",
+                 negative_prompt="blurry, lowres", width=512, height=512,
+                 sampler_name="Euler a", steps=STEPS, cfg_scale=7.5)
+
+
+def _sd15_check(params, seed):
+    if f"Seed: {seed}" not in params or "Sampler: Euler a" not in params:
+        raise AssertionError(f"infotext lacks seed/sampler: {params!r}")
+
+
+def phase_serve(engine, model):
+    requests = [dict(SD15_BASE, seed=1234, batch_size=1),
+                dict(SD15_BASE, seed=99, batch_size=4),
+                dict(SD15_BASE, seed=1234, batch_size=1)]
+    results = _serve(engine, "txt2img", requests, dict(SD15_BASE, seed=1, batch_size=1, steps=2),
+                     _sd15_check, 512)
+    _check_repeat(results, 0, 2)
+    per_call = launch_plan(model.unet_cfg, 64)[1]
+    expected = [_plan(b1=STEPS * per_call + 1,
+                      b5=STEPS * ln_plan(model.unet_cfg, 64) + clip_ln_plan(model))
+                ] * len(requests)
+    _check_launches(results, expected)
     return results
+
+
+def phase_img2img(engine, model, init_png: str):
+    """BASELINE config 2: img2img twice with one seed, then an inpaint."""
+    from sdwebui_tpu_torch.pipeline.img2img import setup_img2img_steps
+    from sdwebui_tpu_torch.utils.masking import blur_mask
+    from sdwebui_tpu_torch.utils.png import decode_png, encode_png
+
+    init = decode_png(base64.b64decode(init_png))[0]
+    mask_rgb = torch.zeros((512, 512, 3), dtype=torch.uint8)
+    mask_rgb[160:352, 128:384] = 255                 # a rectangle, sent as an RGB PNG
+    mask = mask_rgb[:, :, 0].numpy()
+    base = dict(SD15_BASE, init_images=[init_png], denoising_strength=DENOISE, batch_size=1)
+    inpaint = dict(base, seed=4321, mask=base64.b64encode(encode_png(mask_rgb.numpy())).decode(
+        "ascii"), mask_blur=MASK_BLUR, inpainting_fill=1, inpaint_full_res=False)
+
+    def check(params, seed):
+        _sd15_check(params, seed)
+        if f"Denoising strength: {DENOISE}" not in params:
+            raise AssertionError(f"infotext lacks the denoising strength: {params!r}")
+
+    results = _serve(engine, "img2img", [dict(base, seed=1234), dict(base, seed=1234), inpaint],
+                     dict(base, seed=1, steps=2), check, 512)
+    _check_repeat(results, 0, 1)
+    out = results[2]["image"].astype(int)
+    blurred = blur_mask(mask, MASK_BLUR)
+    outside = int(abs(out - init.astype(int))[blurred == 0].max())
+    inside = float(abs(out - init.astype(int))[mask > 0].mean())
+    log(f"inpaint: outside the blurred mask max|Δ| {outside} uint8 levels from the init "
+        f"image (bound {OVERLAY_TOL}); inside mean|Δ| {inside:.2f}")
+    if outside > OVERLAY_TOL or not inside > 1.0:
+        raise AssertionError(f"inpaint overlay wrong: outside {outside}, inside {inside}")
+    _, t_enc = setup_img2img_steps(STEPS, DENOISE)
+    calls = t_enc + 1                  # the last t_enc + 2 sigmas; Euler a: one call per step
+    per_call = launch_plan(model.unet_cfg, 64)[1]
+    expected = [_plan(b1=calls * per_call + 2,          # + the encode's and the decode's
+                      b5=calls * ln_plan(model.unet_cfg, 64) + clip_ln_plan(model))
+                ] * 3
+    _check_launches(results, expected)
+    return results, calls
 
 
 def phase_sdxl_unet(base, refiner, device):
@@ -312,7 +593,8 @@ def phase_sdxl_unet(base, refiner, device):
         log(f"SDXL {label} UNet call: (B2, B1) launches {counted}, planned {planned}")
         if counted != planned:
             raise AssertionError(f"SDXL {label} launches {counted} != planned {planned}")
-        out[label] = _unet_step(f"SDXL {label} B=2 128x128 bf16", m.unet, x, t, ctx, y)
+        out[label] = _unet_step(f"SDXL {label} B=2 128x128 bf16", m.unet, cfg, 128, x, t,
+                                ctx, y)
         out[label]["launches_per_call"] = planned[0]
     # the SDXL VAE at 1024²: the bf16 decode and the fp32 retry dtype
     z = torch.randn((1, 4, 128, 128), generator=g, device=device)
@@ -357,23 +639,24 @@ def phase_sdxl_serve(engine, base, refiner):
             if want not in params:
                 raise AssertionError(f"infotext lacks {want!r}: {params!r}")
 
-    results = _serve(engine, [body, body], dict(body, steps=2, seed=1), check, 1024)
+    results = _serve(engine, "txt2img", [body, body], dict(body, steps=2, seed=1), check, 1024)
     _check_repeat(results, 0, 1)
     sigmas = build_sigmas(get_sampler("DPM++ 2M"), "Karras", STEPS, base.disc, is_sdxl=True)
     s_idx = _refiner_split_idx(base, sigmas, SDXL_SWITCH_AT, STEPS)
     packed = (s_idx * launch_plan(base.unet_cfg, 128)[0]
               + (STEPS - s_idx) * launch_plan(refiner.unet_cfg, 128)[0])
-    expected = dict(flash_attention=1, flash_attention_packed=packed, flash_attention_4d=0)
-    log(f"refiner takes over after step {s_idx}; planned launches per request {expected}")
-    for r in results:
-        if r["launches"] != expected:
-            raise AssertionError(f"launch count {r['launches']} != planned {expected}")
+    b5 = (s_idx * ln_plan(base.unet_cfg, 128) + (STEPS - s_idx) * ln_plan(refiner.unet_cfg, 128)
+          + clip_ln_plan(base) + clip_ln_plan(refiner))
+    log(f"refiner takes over after step {s_idx}")
+    _check_launches(results, [_plan(b1=1, b2=packed, b5=b5)] * 2)
     return results, s_idx
 
 
 def kernel_class(name: str) -> str:
     if "flash_attention" in name:
         return "flash_attn"
+    if "layer_norm_kernel" in name:
+        return "layer_norm"
     if "fprop" in name or "conv" in name.lower():
         return "conv"
     if "gemm" in name.lower() or "nvjet" in name or "cutlass" in name:
@@ -439,6 +722,21 @@ def phase_profile(engine, refiner):
     return summary
 
 
+# each kernel of the kernels line: its TPU source line, its CUDA source and
+# the phase-1 row whose times it reports (its dominant main-path shape)
+KERNEL_ENTRIES = [
+    ("flash_attention", "flash_attention.cu", "sdwebui_tpu/ops/flash_attention.py:111",
+     "unet_64x64_d40", "bfloat16"),
+    ("flash_attention_packed", "flash_attention.cu", "sdwebui_tpu/ops/flash_attention.py:308",
+     "sdxl_base_64x64", "bfloat16"),
+    ("flash_attention_4d", "flash_attention.cu", "sdwebui_tpu/ops/flash_attention.py:429",
+     "sdxl_base_64x64", "bfloat16"),
+    ("conv3x3", "conv3x3.cu", "sdwebui_tpu/ops/conv.py:75", "jax_doc_64x64x320", "bfloat16"),
+    ("layer_norm", "layer_norm.cu", "sdwebui_tpu/ops/pallas_norms.py:65", "sd15_s4096_c320",
+     "bfloat16"),
+]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -448,15 +746,17 @@ def main() -> int:
     from sdwebui_tpu_torch.server.app import Engine, random_models
 
     device = torch.device("cuda")
-    phase_env()
+    smi = phase_env()
     rows = phase_kernel(device)
     t0 = time.perf_counter()
     model = create_random_sd15(seed=0, device=device)
     torch.cuda.synchronize()
     log(f"random SD1.5 on the card in {time.perf_counter() - t0:.2f} s")
     unet = phase_unet(model, device)
-    results = phase_serve(model)
-    del model
+    engine = Engine(model=model, device=device)
+    results = phase_serve(engine, model)
+    i2i_results, i2i_calls = phase_img2img(engine, model, results[0]["png_b64"])
+    del model, engine
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -471,31 +771,31 @@ def main() -> int:
     sdxl_results, s_idx = phase_sdxl_serve(engine, base, refiner)
     profile = phase_profile(engine, refiner)
 
-    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "sdwebui_tpu"))
     if leaked:
-        raise AssertionError(f"the port imported JAX: {leaked[:5]}")
-    requests = [{k: v for k, v in r.items() if k != "image"} for r in results + sdxl_results]
-    log(json.dumps({"kernel_shapes": rows, "unet_step": unet, "sdxl_unet_step": sdxl_unet,
+        raise AssertionError(f"the port imported JAX or the JAX package: {leaked[:5]}")
+    requests = [{k: v for k, v in r.items() if k not in ("image", "png_b64")}
+                for r in results + i2i_results + sdxl_results]
+    log(json.dumps({"card": smi, "kernel_shapes": rows, "unet_step": unet,
+                    "sdxl_unet_step": sdxl_unet, "img2img_unet_calls": i2i_calls,
                     "sdxl_refiner_after_step": s_idx, "requests": requests,
                     "sdxl_profile": profile}))
 
-    def entry(name, source_line, dominant):
+    def entry(name, source, replaces, dominant, dtype):
         mine = [r for r in rows if r["entry"] == name]
-        row = next(r for r in mine if r["name"] == dominant)
-        return {"name": name, "route": "cuda",
-                "source": "sdwebui_tpu_torch/csrc/flash_attention.cu",
-                "replaces": f"sdwebui_tpu/ops/flash_attention.py:{source_line}",
+        row = next(r for r in mine if r["name"] == dominant and r["dtype"] == dtype)
+        return {"name": name, "route": "cuda", "source": f"sdwebui_tpu_torch/csrc/{source}",
+                "replaces": replaces,
                 "launches": sum(r["launches"][name] for r in requests),
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
-                "ms": row["ms"], "plain_ms": row["plain_ms"]}
+                "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
-    # launches: both paths' timed requests (SD1.5 and SDXL); ms / plain_ms
-    # at each entry's dominant shape; max_abs_err over all its compared shapes
-    print(json.dumps({"kernels": [
-        entry("flash_attention", 111, "unet_64x64_d40"),
-        entry("flash_attention_packed", 308, "sdxl_base_64x64"),
-        entry("flash_attention_4d", 429, "sdxl_base_64x64"),
-    ]}), flush=True)
+    # launches: every timed request of the main paths (SD1.5 txt2img and
+    # img2img, SDXL); the times at each entry's dominant shape; max_abs_err
+    # over all its compared shapes
+    print(json.dumps({"kernels": [entry(*e) for e in KERNEL_ENTRIES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sdwebui_tpu.models.configs import CLIPTextConfig
+from sdwebui_tpu_torch.models.configs import CLIPTextConfig
 from sdwebui_tpu_torch.models.layers import Embedding, LayerNorm, Linear
 
 

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sdwebui_tpu.models.configs import UNetConfig
+from sdwebui_tpu_torch.models.configs import UNetConfig
 from sdwebui_tpu_torch.models.layers import (Conv2d, GroupNorm, LayerNorm,
                                              Linear, linear,
                                              timestep_embedding,

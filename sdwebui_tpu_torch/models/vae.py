@@ -1,21 +1,22 @@
-"""AutoencoderKL (the ``first_stage_model``) — decode, NCHW.
+"""AutoencoderKL (the ``first_stage_model``) — encode and decode, NCHW.
 
-Port of ``sdwebui_tpu/models/vae.py:29-62,115-139``.  Parameter names are
-the ``first_stage_model.*`` keys with the prefix stripped; the encoder's
-parameters are held so a whole checkpoint loads strictly, but encode is not
-ported yet (it comes with img2img).  The ldm decoder runs ``up`` in reverse
-(``up.3`` first, at the lowest resolution); all norms are GroupNorm(32,
-eps=1e-6); the mid-block attention is single-head over H·W tokens and goes
-through ``ops.attention`` (the flash kernel at 512² decode sizes).
+Port of ``sdwebui_tpu/models/vae.py:29-139``.  Parameter names are the
+``first_stage_model.*`` keys with the prefix stripped.  The ldm encoder
+pads each downsample asymmetrically (0, 1, 0, 1) before a stride-2 VALID
+conv; the decoder runs ``up`` in reverse (``up.3`` first, at the lowest
+resolution); all norms are GroupNorm(32, eps=1e-6); the mid-block
+attention is single-head over H·W tokens and goes through
+``ops.attention`` (the flash kernel B1 at 512² encode and decode sizes).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from sdwebui_tpu.models.configs import VAEConfig
-from sdwebui_tpu_torch.models.layers import (Conv2d, GroupNorm,
+from sdwebui_tpu_torch.models.configs import VAEConfig
+from sdwebui_tpu_torch.models.layers import (Conv2d, GroupNorm, conv2d,
                                              upsample2x_conv)
 from sdwebui_tpu_torch.ops.attention import attention
 
@@ -80,7 +81,6 @@ class _Resample(nn.Module):
 
 
 class Encoder(nn.Module):
-    """Parameter holder for ``encoder.*`` (encode is not ported yet)."""
 
     def __init__(self, cfg: VAEConfig, *, device, dtype):
         super().__init__()
@@ -102,6 +102,20 @@ class Encoder(nn.Module):
         self.mid = _mid(chs[-1], kw)
         self.norm_out = GroupNorm(chs[-1], eps=1e-6, **kw)
         self.conv_out = Conv2d(chs[-1], 2 * cfg.z_channels, 3, **kw)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for lp in self.down:
+            for block in lp.block:
+                h = block(h)
+            if hasattr(lp, "downsample"):
+                conv = lp.downsample.conv
+                h = conv2d(F.pad(h, (0, 1, 0, 1)), conv.weight, conv.bias, stride=2,
+                           padding=0)
+        h = self.mid["block_1"](h)
+        h = self.mid["attn_1"](h)
+        h = self.mid["block_2"](h)
+        return self.conv_out(self.norm_out(h, silu=True))
 
 
 class Decoder(nn.Module):
@@ -159,5 +173,19 @@ class AutoencoderKL(nn.Module):
         z = z / self.cfg.scale_factor + self.cfg.shift_factor
         return self.decoder(self.post_quant_conv(z))
 
-    def encode(self, x):
-        raise NotImplementedError("VAE encode is not ported yet (it comes with img2img)")
+    def encode_moments(self, x):
+        """image (B, 3, H, W) in [-1, 1] → moments (B, 2·z, H/8, W/8)
+        (mean, logvar); activations run channels-last in memory."""
+        x = x.contiguous(memory_format=torch.channels_last)
+        return self.quant_conv(self.encoder(x))
+
+    def encode_mode(self, moments):
+        """The deterministic encode the img2img path uses: the scaled mean."""
+        mean = moments.chunk(2, dim=1)[0]
+        return (mean - self.cfg.shift_factor) * self.cfg.scale_factor
+
+    def sample_latent(self, moments, noise):
+        """moments + N(0, 1) noise → a scaled latent sample."""
+        mean, logvar = moments.chunk(2, dim=1)
+        z = mean + torch.exp(0.5 * torch.clamp(logvar, -30.0, 20.0)) * noise
+        return (z - self.cfg.shift_factor) * self.cfg.scale_factor

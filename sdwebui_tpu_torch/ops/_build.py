@@ -1,12 +1,13 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C interface,
-compiled for Hopper (``sm_90a``) into a shared library under
+Each kernel is one ``csrc/<name>.cu`` file with a plain C interface
+(``KERNELS``), compiled for Hopper (``sm_90a``) into a shared library under
 ``build/sdwebui_tpu_torch/`` at the repository root (override with
 ``SDTPU_TORCH_BUILD_DIR``).  The library's file name carries a hash of the
-sources and flags, so an edit to a source rebuilds it and an unchanged
-source loads the existing build.  Nothing here runs at import time: the
-first CUDA call of a kernel's wrapper triggers the build.
+source, the shared headers and the flags, so an edit rebuilds it and an
+unchanged source loads the existing build.  Nothing here runs at import
+time: the first CUDA call of a kernel's wrapper triggers the build.
+Different kernels build concurrently (one lock per kernel).
 """
 
 from __future__ import annotations
@@ -25,7 +26,10 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_lock = threading.Lock()
+#: the kernel sources of csrc/, one library each
+KERNELS = ("flash_attention", "layer_norm", "conv3x3")
+
+_locks = {name: threading.Lock() for name in KERNELS}
 _libs: dict[str, ctypes.CDLL] = {}
 #: seconds the last nvcc run took, per kernel (0.0 when loaded from a build)
 build_seconds: dict[str, float] = {}
@@ -59,7 +63,9 @@ def _digest(name: str) -> str:
 def load_library(name: str, rebuild: bool = False) -> ctypes.CDLL:
     """Return the loaded library for ``csrc/<name>.cu``, building it first
     when no build of the current sources exists (or when ``rebuild``)."""
-    with _lock:
+    if name not in _locks:
+        raise ValueError(f"unknown kernel {name!r}; one of {KERNELS}")
+    with _locks[name]:
         if name in _libs and not rebuild:
             return _libs[name]
         out_dir = build_dir()

@@ -1,14 +1,23 @@
 """GroupNorm(+SiLU) and LayerNorm with one-pass fp32 statistics (NCHW).
 
-Port of ``sdwebui_tpu/ops/norms.py:22-108``: (Σx, Σx²) in fp32 in one pass,
-then the per-channel affine folded to ``x * scale + shift`` with scale and
-shift cast to the input dtype, so bf16 rounds where the JAX code rounds.
+Port of ``sdwebui_tpu/ops/norms.py:22-108``.  GroupNorm: (Σx, Σx²) in fp32
+in one pass, then the per-channel affine folded to ``x * scale + shift``
+with scale and shift cast to the input dtype, so bf16 rounds where the JAX
+code rounds.  LayerNorm dispatches to B5 (``ops/layer_norm.py``): the
+kernel for CUDA tensors, its plain version on the CPU, or the plain version
+everywhere inside :func:`forced_plain` (the yardstick arm of a comparison).
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
+
+from sdwebui_tpu_torch.ops import layer_norm as _ln
+
+_PLAIN = False
 
 
 def group_norm(x, weight, bias, num_groups: int = 32, eps: float = 1e-5,
@@ -38,15 +47,20 @@ def group_norm(x, weight, bias, num_groups: int = 32, eps: float = 1e-5,
     return F.silu(out) if silu else out
 
 
+@contextlib.contextmanager
+def forced_plain():
+    """Run every LayerNorm inside the block through the plain version."""
+    global _PLAIN
+    prev = _PLAIN
+    _PLAIN = True
+    try:
+        yield
+    finally:
+        _PLAIN = prev
+
+
 def layer_norm(x, weight=None, bias=None, eps: float = 1e-5):
-    """LayerNorm over the last dim with one-pass fp32 stats."""
-    c = x.shape[-1]
-    xf = x.float()
-    mean = xf.sum(-1, keepdim=True) / c
-    var = (xf * xf).sum(-1, keepdim=True) / c - mean * mean
-    rstd = torch.rsqrt(var + eps)
-    wf = weight.float() if weight is not None else 1.0
-    bf = bias.float() if bias is not None else 0.0
-    scale = (rstd * wf).to(x.dtype)
-    shift = (bf - mean * rstd * wf).to(x.dtype)
-    return x * scale + shift
+    """LayerNorm over the last dim with one-pass fp32 stats (B5)."""
+    if _PLAIN:
+        return _ln.layer_norm_plain(x, weight, bias, eps)
+    return _ln.layer_norm(x, weight, bias, eps)

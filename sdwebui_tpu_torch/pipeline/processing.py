@@ -1,4 +1,5 @@
-"""txt2img orchestration — the txt2img half of ``sdwebui_tpu/pipeline/processing.py``.
+"""txt2img orchestration — the txt2img half of ``sdwebui_tpu/pipeline/processing.py``,
+plus the VAE encode that img2img (``pipeline/img2img.py``) builds on.
 
 Host side: seeds, prompt schedules, infotext.  Device side: a Python step
 loop of batched CFG UNet calls (cond + uncond in one call), for SDXL
@@ -19,20 +20,20 @@ from typing import Callable
 import numpy as np
 import torch
 
-from sdwebui_tpu.pipeline.params import GenerationParams, Processed
-from sdwebui_tpu.rng.image_rng import ImageRNG, TorchCPUGenerator
-from sdwebui_tpu.rng.philox import PhiloxGenerator
-from sdwebui_tpu.text.prompt_parser import strip_comments
-from sdwebui_tpu.utils import infotext as infotext_util
-from sdwebui_tpu.utils.options import opts
 from sdwebui_tpu_torch import __version__
+from sdwebui_tpu_torch.pipeline.params import GenerationParams, Processed
 from sdwebui_tpu_torch.pipeline.sd_model import SDModel, sdxl_vector_maker
+from sdwebui_tpu_torch.rng.image_rng import ImageRNG, TorchCPUGenerator
+from sdwebui_tpu_torch.rng.philox import PhiloxGenerator
 from sdwebui_tpu_torch.sampling.cfg import CondSchedule, make_cfg_denoiser
 from sdwebui_tpu_torch.sampling.registry import build_sigmas, get_sampler
 from sdwebui_tpu_torch.sampling.sampler import prepare_noise, sample
 from sdwebui_tpu_torch.sampling.solvers import get_solver
 from sdwebui_tpu_torch.text.conditioner import build_cond_schedule
+from sdwebui_tpu_torch.text.prompt_parser import strip_comments
 from sdwebui_tpu_torch.utils import devices
+from sdwebui_tpu_torch.utils import infotext as infotext_util
+from sdwebui_tpu_torch.utils.options import opts
 
 MAX_SEED = 2 ** 32 - 1
 
@@ -62,8 +63,6 @@ def _check_slice(p: GenerationParams) -> None:
         "tiling": p.tiling,
         "restore_faces": p.restore_faces,
         "styles": p.styles,
-        "init_images": p.init_images is not None,
-        "mask": p.mask is not None,
         "hypernet_override": p.hypernet_override is not None,
         "postprocessing": p.postprocessing,
     }
@@ -123,19 +122,31 @@ def make_denoise_fn(model: SDModel, quantize_t: bool, compute_dtype):
 def sample_latents(model: SDModel, sched: CondSchedule, x, sigmas, noise,
                    solver: str, extra: dict | None = None,
                    step_callback: Callable | None = None, first_step: int = 0,
-                   total_steps: int | None = None):
+                   total_steps: int | None = None, mask=None, nmask=None,
+                   init_latent=None):
     """Sample from sigmas[0] to sigmas[-1].  step_callback(i, n, x) sees
     step first_step + i of total_steps (a refiner run continues the base's
-    count)."""
+    count).  mask / nmask / init_latent: the img2img latent blend."""
     quantize = bool(opts.get("enable_quantization", False))
     denoise = make_denoise_fn(model, quantize, devices.get_policy().compute_dtype)
-    model_fn = make_cfg_denoiser(denoise, sched)
+    model_fn = make_cfg_denoiser(denoise, sched, mask=mask, nmask=nmask,
+                                 init_latent=init_latent)
     sig = np.asarray(sigmas, np.float32)
     n = total_steps or len(sig) - 1
     callback = None
     if step_callback is not None:
         callback = lambda i, xc: step_callback(first_step + i, n, xc)  # noqa: E731
     return sample(model_fn, x, sig, solver, noise, extra, callback=callback)
+
+
+def encode_first_stage(model: SDModel, images: np.ndarray):
+    """images (B, H, W, 3) float in [0, 1] → scaled latents (B, z, H/8, W/8)
+    in fp32: the encoder's mean at the policy's vae_dtype
+    (processing.py:348-351,588-594; no TAESD)."""
+    x = torch.from_numpy(np.ascontiguousarray(images.transpose(0, 3, 1, 2)))
+    x = x.to(model.device, devices.get_policy().vae_dtype) * 2.0 - 1.0
+    vae = model.vae
+    return vae.encode_mode(vae.encode_moments(x)).float()
 
 
 def _decode_u8(model: SDModel, latents, dtype):

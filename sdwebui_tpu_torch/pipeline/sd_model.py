@@ -16,20 +16,20 @@ import dataclasses
 import numpy as np
 import torch
 
-from sdwebui_tpu.models.configs import (CLIP_L, OPEN_CLIP_BIGG, SD15_UNET,
+from sdwebui_tpu_torch.models.clip import CLIPTextModel
+from sdwebui_tpu_torch.models.configs import (CLIP_L, OPEN_CLIP_BIGG, SD15_UNET,
                                         SD_VAE, SDXL_REFINER_UNET, SDXL_UNET,
                                         SDXL_VAE, CLIPTextConfig, UNetConfig,
                                         VAEConfig)
-from sdwebui_tpu.text.tokenizer import get_tokenizer
-from sdwebui_tpu.utils.pytree import flatten
-from sdwebui_tpu_torch.models.clip import CLIPTextModel
 from sdwebui_tpu_torch.models.layers import reset_random, timestep_embedding
 from sdwebui_tpu_torch.models.unet import UNetModel
 from sdwebui_tpu_torch.models.vae import AutoencoderKL
 from sdwebui_tpu_torch.sampling.discretization import (Discretization,
                                                        make_alphas_cumprod)
 from sdwebui_tpu_torch.text.conditioner import TextConditioner
+from sdwebui_tpu_torch.text.tokenizer import get_tokenizer
 from sdwebui_tpu_torch.utils.devices import get_device, get_policy
+from sdwebui_tpu_torch.utils.pytree import flatten
 
 # 2-D leaves stored (rows, width) in both layouts (loader/convert.py:25).
 # text_projection is not among them: the JAX tree holds it (in, out), the

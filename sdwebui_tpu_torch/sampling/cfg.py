@@ -47,24 +47,39 @@ class CondSchedule:
 
 
 def make_cfg_denoiser(denoise_fn: Callable, sched: CondSchedule,
-                      mask=None, soft_inpainting=None) -> Callable:
+                      mask=None, nmask=None, init_latent=None,
+                      mask_before_denoising: bool = False,
+                      soft_inpainting=None) -> Callable:
     """Build model(x, sigma, i) -> denoised for the solver loop.
 
     denoise_fn(x, sigma, context) -> denoised for x (N, C, H, W) at the
     scalar noise level sigma (shared by the whole CFG batch); with vector
     banks it is called as denoise_fn(x, sigma, context, y), y (N, D_adm) in
-    the context's row order.
+    the context's row order.  mask (keep weight) / nmask (repaint weight)
+    / init_latent are the latent mask blend: on the denoised output, or on
+    the input with mask_before_denoising (cfg.py:145-146,195-197).
     """
     if sched.image_cfg_scale is not None:
         raise NotImplementedError("edit-model (instruct-pix2pix) CFG is not ported yet")
     if sched.c_concat is not None:
         raise NotImplementedError("inpainting-model conditioning (c_concat) is not ported yet")
-    if mask is not None or soft_inpainting is not None:
-        raise NotImplementedError("masked / soft inpainting is not ported yet")
+    if soft_inpainting is not None:
+        raise NotImplementedError("soft inpainting is not ported yet")
     k = sched.cond_bank.shape[0]
     rows = torch.arange(k, device=sched.cond_bank.device)
 
+    def combine(out, i):
+        out_conds, out_uncond = out[:k], out[k]
+        w = torch.as_tensor(np.asarray(sched.cond_weights, np.float32),
+                            device=out.device).to(out.dtype)[:, None, None, None, None]
+        if sched.skip_uncond is not None and bool(sched.skip_uncond[i]):
+            # NGMS: the skipped-uncond step returns the weighted cond mean
+            return (w * out_conds).sum(0) / float(np.sum(sched.cond_weights))
+        return out_uncond + (w * (out_conds - out_uncond[None])).sum(0) * sched.cond_scale
+
     def model(x, sigma: float, i: int):
+        if mask is not None and mask_before_denoising:
+            x = init_latent * mask + nmask * x
         b = x.shape[0]
         idx = torch.as_tensor(sched.cond_idx[:, i], device=rows.device)
         u = int(sched.uncond_idx[i])
@@ -78,13 +93,9 @@ def make_cfg_denoiser(denoise_fn: Callable, sched: CondSchedule,
             y = torch.cat([sched.vector_bank[rows, idx], sched.vector_uncond_bank[u][None]],
                           dim=0).repeat_interleave(b, dim=0)
             out = denoise_fn(x_in, sigma, ctx, y)
-        out = out.reshape(k + 1, b, *out.shape[1:])
-        out_conds, out_uncond = out[:k], out[k]
-        w = torch.as_tensor(np.asarray(sched.cond_weights, np.float32),
-                            device=out.device).to(out.dtype)[:, None, None, None, None]
-        if sched.skip_uncond is not None and bool(sched.skip_uncond[i]):
-            # NGMS: the skipped-uncond step returns the weighted cond mean
-            return (w * out_conds).sum(0) / float(np.sum(sched.cond_weights))
-        return out_uncond + (w * (out_conds - out_uncond[None])).sum(0) * sched.cond_scale
+        cfg = combine(out.reshape(k + 1, b, *out.shape[1:]), i)
+        if mask is not None and not mask_before_denoising:
+            cfg = cfg * nmask + init_latent * mask
+        return cfg
 
     return model

@@ -59,7 +59,7 @@ def build_sigmas(sampler: SamplerData, scheduler: str, steps: int, disc,
     """Schedule for `steps` steps (the JAX build_sigmas post-passes —
     penultimate-sigma discard and the old Karras clamp — belong to options
     the port rejects); is_sdxl picks Align Your Steps' SDXL table."""
-    from sdwebui_tpu.utils.options import opts
+    from sdwebui_tpu_torch.utils.options import opts
 
     for opt in ("always_discard_next_to_last_sigma", "use_old_karras_scheduler_sigmas"):
         if opts.get(opt, False):

@@ -121,7 +121,7 @@ def schedule_key(name: str) -> str:
 
 
 def get_schedule(name: str, n: int, disc: Discretization, **kw) -> np.ndarray:
-    from sdwebui_tpu.utils.options import opts
+    from sdwebui_tpu_torch.utils.options import opts
 
     for opt in _SCHEDULE_OPTS:
         if float(opts.get(opt, 0.0) or 0.0) > 0:

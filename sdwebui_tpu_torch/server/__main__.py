@@ -1,4 +1,4 @@
-"""Run the txt2img API server.
+"""Run the API server (txt2img, img2img).
 
     python -m sdwebui_tpu_torch.server --port 7860 --device cuda [--model sdxl] [--tiny]
 

@@ -1,25 +1,32 @@
-"""HTTP API: ``/sdapi/v1/txt2img`` and friends on a stdlib server.
+"""HTTP API: ``/sdapi/v1/txt2img``, ``/sdapi/v1/img2img`` and friends on a
+stdlib server.
 
-Port of the txt2img route of ``sdwebui_tpu/server/api.py:133,252-267``.
-Requests are plain JSON mapped onto ``GenerationParams`` (no pydantic);
-responses have the reference's shape, ``{"images": [b64 png], "parameters":
-{...}, "info": "<json>"}``.  A request field or override the slice does
-not run answers 422 naming it — it is never silently ignored.
+Port of the txt2img and img2img routes of
+``sdwebui_tpu/server/api.py:133,252-291``.  Requests are plain JSON mapped
+onto ``GenerationParams`` (no pydantic); responses have the reference's
+shape, ``{"images": [b64 png], "parameters": {...}, "info": "<json>"}``.
+img2img's ``init_images`` and ``mask`` are base64 PNGs (a ``data:image/png``
+URL prefix is accepted); another image format answers 400 naming it, and
+``parameters`` leaves them out unless ``include_init_images`` is set, as
+the reference does.  A request field or override the slice does not run
+answers 422 naming it — it is never silently ignored.
 """
 
 from __future__ import annotations
 
 import base64
+import binascii
 import json
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from sdwebui_tpu.pipeline.params import GenerationParams
+from sdwebui_tpu_torch.pipeline.img2img import UNPORTED_IMG2IMG_OPTIONS
+from sdwebui_tpu_torch.pipeline.params import GenerationParams
 from sdwebui_tpu_torch.pipeline.processing import UNPORTED_OPTIONS
 from sdwebui_tpu_torch.sampling.registry import SAMPLER_MAP, SAMPLERS, UNPORTED
 from sdwebui_tpu_torch.sampling.schedulers import ALIASES, SCHEDULERS
 from sdwebui_tpu_torch.server.app import Engine
-from sdwebui_tpu_torch.utils.png import encode_png
+from sdwebui_tpu_torch.utils.png import decode_png, encode_png
 
 _NUM = (int, float)
 
@@ -70,6 +77,31 @@ OVERRIDES = {
 }
 
 
+#: img2img request fields beyond txt2img's: the reference schema's default
+#: and type (Img2ImgRequest: the mask applies inpaint_full_res and
+#: inpainting_fill only when a mask is given)
+IMG2IMG_FIELDS = {
+    "init_images": (None, list), "mask": (None, str), "mask_blur": (None, int),
+    "denoising_strength": (0.75, _NUM), "inpainting_fill": (0, int),
+    "inpaint_full_res": (True, bool), "inpaint_full_res_padding": (0, int),
+    "inpainting_mask_invert": (0, int), "resize_mode": (0, int),
+    "initial_noise_multiplier": (None, _NUM), "include_init_images": (False, bool),
+}
+
+#: img2img fields of the reference schema accepted only at these values
+IMG2IMG_NEUTRAL = {
+    "image_cfg_scale": (None,), "mask_blur_x": (4,), "mask_blur_y": (4,),
+    "mask_round": (True,), "latent_mask": (None,),
+}
+
+IMG2IMG_OVERRIDES = {"img2img_extra_noise", "img2img_background_color", "overlay_inpaint",
+                     *UNPORTED_IMG2IMG_OPTIONS}
+
+#: magic bytes of the image formats a client may send instead of PNG
+_FORMATS = ((b"\xff\xd8\xff", "JPEG"), (b"GIF8", "GIF"), (b"BM", "BMP"),
+            (b"RIFF", "WEBP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
+
+
 class ApiError(Exception):
     def __init__(self, status: int, message: str):
         super().__init__(message)
@@ -77,25 +109,30 @@ class ApiError(Exception):
         self.message = message
 
 
-def _params_from_request(body: dict) -> GenerationParams:
+def _params_from_request(body: dict, img2img: bool = False) -> GenerationParams:
+    fields, neutral, overrides = FIELDS, NEUTRAL, OVERRIDES
+    if img2img:
+        fields = {**FIELDS, **IMG2IMG_FIELDS}
+        neutral = {**{k: v for k, v in NEUTRAL.items() if k not in fields}, **IMG2IMG_NEUTRAL}
+        overrides = OVERRIDES | IMG2IMG_OVERRIDES
     for key, value in body.items():
-        if key in FIELDS:
+        if key in fields:
             continue
-        if key in NEUTRAL:
-            if value not in NEUTRAL[key]:
+        if key in neutral:
+            if value not in neutral[key]:
                 raise ApiError(422, f"field {key!r} is not supported by this server yet")
             continue
         raise ApiError(422, f"unknown or unsupported field {key!r}")
-    req = {key: default for key, (default, _) in FIELDS.items()}
+    req = {key: default for key, (default, _) in fields.items()}
     req.update(body)
-    for key, (_, typ) in FIELDS.items():
+    for key, (_, typ) in fields.items():
         value = req[key]
         if value is not None and (not isinstance(value, typ)
                                   or isinstance(value, bool) and typ is not bool):
             raise ApiError(422, f"field {key!r} has the wrong type")
     req["override_settings"] = dict(req["override_settings"] or {})
     for key in req["override_settings"]:
-        if key not in OVERRIDES:
+        if key not in overrides:
             raise ApiError(422, f"override_settings key {key!r} is not supported yet")
     sampler = req["sampler_name"] or req["sampler_index"] or "Euler a"
     if sampler != "Automatic" and sampler not in SAMPLER_MAP:
@@ -119,7 +156,37 @@ def _params_from_request(body: dict) -> GenerationParams:
         kw["clip_skip"] = int(req["override_settings"]["CLIP_stop_at_last_layers"])
     # save_images is off: nothing is written, no grid is assembled
     kw["do_not_save_grid"] = True
+    if img2img:
+        if not req["init_images"]:
+            raise ApiError(404, "Init image not found")
+        kw["init_images"] = [_decode_image(x, "init_images") for x in req["init_images"]]
+        if req["mask"]:
+            kw["mask"] = _decode_image(req["mask"], "mask")
+        else:
+            kw.pop("mask", None)
     return GenerationParams(**kw)
+
+
+def _decode_image(encoding, field: str):
+    """A base64 PNG (optionally a data: URL) → uint8 (H, W, C)."""
+    if not isinstance(encoding, str):
+        raise ApiError(422, f"field {field!r} must hold base64 strings")
+    if encoding.startswith(("http://", "https://")):
+        raise ApiError(422, f"image URLs in {field!r} are not supported by this server yet")
+    if encoding.startswith("data:"):
+        encoding = encoding.split(",", 1)[-1]
+    try:
+        data = base64.b64decode(encoding, validate=True)
+    except (binascii.Error, ValueError) as e:
+        raise ApiError(400, f"field {field!r} is not valid base64: {e}") from e
+    for magic, fmt in _FORMATS:
+        if data.startswith(magic):
+            raise ApiError(400, f"field {field!r} holds a {fmt} image; this server reads "
+                                "PNG only")
+    try:
+        return decode_png(data)[0]
+    except ValueError as e:
+        raise ApiError(400, f"field {field!r}: {e}") from e
 
 
 class Api:
@@ -127,16 +194,18 @@ class Api:
         self.engine = engine
         self.routes = {
             ("POST", "/sdapi/v1/txt2img"): self.txt2img,
+            ("POST", "/sdapi/v1/img2img"): self.img2img,
             ("GET", "/sdapi/v1/samplers"): self.samplers,
             ("GET", "/internal/ping"): lambda body: {},
         }
 
-    def txt2img(self, body: dict):
+    def _generate(self, body, img2img: bool):
         if not isinstance(body, dict):
             raise ApiError(422, "request body must be a JSON object")
-        p = _params_from_request(body)
+        p = _params_from_request(body, img2img)
+        run = self.engine.img2img if img2img else self.engine.txt2img
         try:
-            res = self.engine.txt2img(p)
+            res = run(p)
         except NotImplementedError as e:
             raise ApiError(422, str(e)) from e
         images = None
@@ -144,7 +213,15 @@ class Api:
             images = [base64.b64encode(encode_png(
                 img, {"parameters": res.infotexts[i]} if i < len(res.infotexts) else None)
             ).decode("ascii") for i, img in enumerate(res.images)]
+        if img2img and not body.get("include_init_images", False):
+            body = {k: v for k, v in body.items() if k not in ("init_images", "mask")}
         return {"images": images, "parameters": body, "info": json.dumps(res.js())}
+
+    def txt2img(self, body: dict):
+        return self._generate(body, img2img=False)
+
+    def img2img(self, body: dict):
+        return self._generate(body, img2img=True)
 
     def samplers(self, body=None):
         return [{"name": s.name, "aliases": list(s.aliases), "options": {}}

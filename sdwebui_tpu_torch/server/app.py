@@ -1,7 +1,7 @@
 """Server application state: the models, the queue lock and the job state.
 
-Port of the txt2img part of ``sdwebui_tpu/server/app.py:24-361``: an
-``Engine`` owns one base ``SDModel`` (random-weight SD1.5 or SDXL, or a
+Port of the txt2img and img2img parts of ``sdwebui_tpu/server/app.py:24-379``:
+an ``Engine`` owns one base ``SDModel`` (random-weight SD1.5 or SDXL, or a
 tiny test model) on an explicit device, plus resident extra models keyed
 by checkpoint title (the SDXL refiner, ``app.py:343-361``), and runs
 generations one at a time under its queue lock, keeping the job's
@@ -12,18 +12,18 @@ switching come later.
 from __future__ import annotations
 
 import threading
-import time
 
-from sdwebui_tpu.pipeline.params import GenerationParams, Processed
-from sdwebui_tpu.runtime.state import State
-from sdwebui_tpu.utils.options import opts
 from sdwebui_tpu_torch.ops.attention import set_attention_impl
+from sdwebui_tpu_torch.pipeline.img2img import process_img2img
+from sdwebui_tpu_torch.pipeline.params import GenerationParams, Processed
 from sdwebui_tpu_torch.pipeline.processing import process_txt2img, uses_refiner
 from sdwebui_tpu_torch.pipeline.sd_model import (SDModel, create_random_sd15,
                                                  create_random_sdxl,
                                                  create_tiny_sd,
                                                  create_tiny_sdxl)
+from sdwebui_tpu_torch.runtime.state import State
 from sdwebui_tpu_torch.utils.devices import get_device
+from sdwebui_tpu_torch.utils.options import opts
 
 #: opts.cross_attention_optimization → attention impl
 ATTENTION_IMPLS = {"Automatic": None, "flash": "flash", "flash-packed": "flash-packed",
@@ -94,20 +94,24 @@ class Engine:
         self.state.sampling_steps = n
         return not (self.state.interrupted or self.state.skipped)
 
-    def txt2img(self, p: GenerationParams) -> Processed:
+    def _run(self, job: str, p: GenerationParams, fn) -> Processed:
+        """One generation under the queue lock, with the job state set."""
         with self.queue_lock:
             with opts.override(p.override_settings):
                 self._apply_runtime_opts()
-            # State.begin/end also drive the JAX memory monitor, so the job
-            # fields are set here directly
-            s = self.state
-            s.job, s.job_no, s.job_count = "txt2img", 0, p.n_iter
-            s.sampling_step = s.sampling_steps = 0
-            s.interrupted = s.skipped = s.stopping_generation = False
-            s.time_start = time.time()
+            self.state.begin(job)
+            self.state.job_count = p.n_iter
             try:
-                return process_txt2img(self.sd_model, p,
-                                       step_callback=self._step_callback,
-                                       refiner_model=self._resolve_refiner(p))
+                return fn()
             finally:
-                s.job, s.job_count = "", 0
+                self.state.end()
+
+    def txt2img(self, p: GenerationParams) -> Processed:
+        return self._run("txt2img", p, lambda: process_txt2img(
+            self.sd_model, p, step_callback=self._step_callback,
+            refiner_model=self._resolve_refiner(p)))
+
+    def img2img(self, p: GenerationParams) -> Processed:
+        """app.py:363-379: img2img and inpainting on the base model."""
+        return self._run("img2img", p, lambda: process_img2img(
+            self.sd_model, p, step_callback=self._step_callback))

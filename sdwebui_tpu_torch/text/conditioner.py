@@ -4,7 +4,7 @@ Port of ``sdwebui_tpu/text/conditioner.py``: 75-token chunks with BOS/EOS
 framing, comma backtracking, the BREAK keyword, per-token emphasis with
 per-item mean renormalisation, clip skip; then the prompt-edit/AND
 schedules assembled into a ``CondSchedule``.  Tokenizer and prompt parser
-are the JAX package's own jax-free modules.
+are the port's copies (``text/tokenizer.py``, ``text/prompt_parser.py``).
 """
 
 from __future__ import annotations
@@ -15,10 +15,10 @@ from typing import Callable, List
 import numpy as np
 import torch
 
-from sdwebui_tpu.models.configs import CLIPTextConfig
-from sdwebui_tpu.text import prompt_parser
-from sdwebui_tpu.text.tokenizer import BOS, COMMA, EOS
+from sdwebui_tpu_torch.models.configs import CLIPTextConfig
 from sdwebui_tpu_torch.sampling.cfg import CondSchedule
+from sdwebui_tpu_torch.text import prompt_parser
+from sdwebui_tpu_torch.text.tokenizer import BOS, COMMA, EOS
 
 CHUNK_LEN = 75
 
@@ -63,7 +63,7 @@ class TextConditioner:
     def tokenize_line(self, line: str):
         """line → (List[PromptChunk], token_count) (reference
         sd_hijack_clip.py:81 semantics)."""
-        from sdwebui_tpu.utils.options import opts
+        from sdwebui_tpu_torch.utils.options import opts
 
         if bool(opts.get("use_old_emphasis_implementation", False)):
             raise NotImplementedError(

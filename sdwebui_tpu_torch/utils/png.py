@@ -1,9 +1,12 @@
-"""A small PNG writer and reader on the standard library (zlib + struct).
+"""A small PNG writer and reader on numpy and the standard library.
 
 Writes 8-bit RGB/RGBA images with text chunks — the ``parameters`` chunk
 carries the infotext, as the JAX server writes it through PIL
-(``sdwebui_tpu/server/app.py:499``).  The reader takes what the writer
-produces: non-interlaced 8-bit RGB/RGBA with unfiltered rows.
+(``sdwebui_tpu/server/app.py:499``).  The reader takes the non-interlaced
+8-bit PNGs clients send, PIL's included: colour types 0 (grey), 2 (RGB), 3
+(palette, expanded to RGB as PIL's ``convert("RGB")`` does), 4 (grey +
+alpha) and 6 (RGBA), rows under any of the five filters.  Interlaced
+images and other bit depths raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _COLOR_TYPES = {3: 2, 4: 6}        # channels → PNG colour type
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # PNG colour type → samples per pixel
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -46,12 +50,58 @@ def encode_png(image: np.ndarray, text: dict | None = None, level: int = 6) -> b
     return b"".join(parts)
 
 
+def _unfilter(raw: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo the per-row filters of (H, 1 + W·bpp) scanlines → (H, W·bpp).
+
+    A pixel depends on its left neighbour a, the pixel above b and the one
+    above-left c, so every anti-diagonal of pixels depends only on the two
+    before it.  The rows are skewed so that diagonal d is row d of a
+    (H + W − 1, H + 1, bpp) array (column 0 is a zero border), and the
+    diagonals are decoded in order, each in one vectorised step over its
+    rows and channels, whatever mix of filters the rows use."""
+    h = raw.shape[0]
+    ftype = raw[:, 0]
+    if (ftype > 4).any():
+        raise ValueError(f"bad PNG filter type {int(ftype.max())}")
+    data = raw[:, 1:].reshape(h, -1, bpp).astype(np.int16)
+    w = data.shape[1]
+    if not ftype.any():
+        return raw[:, 1:]
+    if (ftype <= 2).all() and not (ftype == 1).any():      # None and Up only
+        out = data.copy()
+        for r in np.nonzero(ftype == 2)[0]:
+            if r > 0:
+                out[r] = (out[r] + out[r - 1]) & 255
+        return out.astype(np.uint8).reshape(h, w * bpp)
+    rows = np.arange(h)
+    skew = np.zeros((h + w - 1, h + 1, bpp), np.int16)   # skew[r + i, r + 1] = pixel (r, i)
+    raw_skew = np.zeros_like(skew)
+    cols = np.arange(w)
+    raw_skew[rows[:, None] + cols[None, :], rows[:, None] + 1] = data
+    f = np.zeros(h + 1, np.int16)
+    f[1:] = ftype
+    for d in range(h + w - 1):
+        lo, hi = max(0, d - w + 1) + 1, min(d, h - 1) + 2   # columns r + 1 of this diagonal
+        a = skew[d - 1, lo:hi] if d >= 1 else np.zeros((hi - lo, bpp), np.int16)
+        b = skew[d - 1, lo - 1:hi - 1] if d >= 1 else a
+        c = skew[d - 2, lo - 1:hi - 1] if d >= 2 else np.zeros_like(a)
+        ft = f[lo:hi, None]
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        pred = np.select([ft == 1, ft == 2, ft == 3, ft == 4], [a, b, (a + b) >> 1, paeth], 0)
+        skew[d, lo:hi] = (raw_skew[d, lo:hi] + pred) & 255
+    out = skew[rows[:, None] + cols[None, :], rows[:, None] + 1]
+    return out.astype(np.uint8).reshape(h, w * bpp)
+
+
 def decode_png(data: bytes) -> tuple[np.ndarray, dict]:
-    """PNG bytes → (uint8 (H, W, C), text chunks)."""
+    """PNG bytes → (uint8 (H, W, C), text chunks); C = 1 (grey), 2 (grey +
+    alpha), 3 (RGB, palette images too) or 4 (RGBA)."""
     if not data.startswith(_SIGNATURE):
         raise ValueError("not a PNG file")
     pos = len(_SIGNATURE)
-    idat, text, hdr = [], {}, None
+    idat, text, hdr, palette = [], {}, None, None
     while pos < len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         kind = data[pos + 4:pos + 8]
@@ -62,6 +112,8 @@ def decode_png(data: bytes) -> tuple[np.ndarray, dict]:
         pos += 12 + length
         if kind == b"IHDR":
             hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"tEXt":
@@ -78,12 +130,17 @@ def decode_png(data: bytes) -> tuple[np.ndarray, dict]:
     if hdr is None:
         raise ValueError("PNG without IHDR")
     w, h, depth, ctype, _, _, interlace = hdr
-    channels = {2: 3, 6: 4}.get(ctype)
-    if depth != 8 or channels is None or interlace != 0:
+    if depth != 8 or ctype not in _CHANNELS or interlace != 0:
         raise ValueError(f"unsupported PNG: depth {depth}, colour type {ctype}, "
-                         f"interlace {interlace}")
+                         f"interlace {interlace} (8-bit, non-interlaced only)")
+    bpp = _CHANNELS[ctype]
     rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    rows = rows.reshape(h, 1 + w * channels)
-    if rows[:, 0].any():
-        raise ValueError("filtered PNG rows are not supported (encode_png writes none)")
-    return rows[:, 1:].reshape(h, w, channels).copy(), text
+    if rows.size < h * (1 + w * bpp):
+        raise ValueError("truncated PNG image data")
+    pixels = _unfilter(rows[:h * (1 + w * bpp)].reshape(h, 1 + w * bpp), bpp)
+    image = pixels.reshape(h, w, bpp)
+    if ctype == 3:
+        if palette is None:
+            raise ValueError("palette PNG without PLTE")
+        image = palette[image[:, :, 0]]
+    return np.ascontiguousarray(image), text

@@ -1,0 +1,159 @@
+"""The port's copies of the JAX package's host modules stay equal to their
+sources: the Philox stream and the seeded image noise, every option key and
+default, every config field, the prompt parser and tokenizer on a fixed
+corpus, infotext round-trips, the generation params and the pytree helpers.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from sdwebui_tpu.models import configs as jax_configs
+from sdwebui_tpu.pipeline import params as jax_params
+from sdwebui_tpu.rng import image_rng as jax_image_rng
+from sdwebui_tpu.rng import philox as jax_philox
+from sdwebui_tpu.text import prompt_parser as jax_pp
+from sdwebui_tpu.text import tokenizer as jax_tok
+from sdwebui_tpu.utils import infotext as jax_infotext
+from sdwebui_tpu.utils import options as jax_options
+from sdwebui_tpu.utils import pytree as jax_pytree
+from sdwebui_tpu_torch.models import configs
+from sdwebui_tpu_torch.pipeline import params
+from sdwebui_tpu_torch.rng import image_rng, philox
+from sdwebui_tpu_torch.text import prompt_parser as pp
+from sdwebui_tpu_torch.text import tokenizer as tok
+from sdwebui_tpu_torch.utils import infotext, options, pytree
+
+PROMPTS = [
+    "a (red:1.2) cat [in the snow:on a hill:0.5] AND a castle :0.7",
+    "masterpiece, ((best quality)), [blurry|sharp] photo of a dog BREAK city at night",
+    "[cat:dog:3] [:tree:0.25] [bird::0.8] \\(literal\\) (nested (weights:1.5):0.8)",
+    "# a comment line\nline two, with, commas # and a trailing comment",
+    "a [broken | prompt",
+    "",
+]
+
+
+def test_philox_golden_and_streams():
+    assert philox.PhiloxGenerator(0).randn((3, 4))[0, 0] == np.float32(-0.9246624)
+    for seed in (0, 1234, 2 ** 32 - 1):
+        a, b = philox.PhiloxGenerator(seed), jax_philox.PhiloxGenerator(seed)
+        np.testing.assert_array_equal(a.randn((4, 8, 8)), b.randn((4, 8, 8)))
+        np.testing.assert_array_equal(a.randn_batch(3, (2, 5)), b.randn_batch(3, (2, 5)))
+    # a draw above the JAX package's native-path threshold (2**18 values)
+    offs = np.arange(5, dtype=np.uint32)
+    np.testing.assert_array_equal(philox.randn_at(7, offs, 64 * 1024),
+                                  jax_philox.randn_at(7, offs, 64 * 1024))
+
+
+@pytest.mark.parametrize("gen", ["PhiloxGenerator", "TorchCPUGenerator"])
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(subseeds=[9, 10], subseed_strength=0.4),
+    dict(seed_resize_from_h=48, seed_resize_from_w=80),
+    dict(eta_noise_seed_delta=31337),
+])
+def test_image_rng_matches_jax(gen, kw):
+    port_cls = getattr(philox if gen == "PhiloxGenerator" else image_rng, gen)
+    jax_cls = getattr(jax_philox if gen == "PhiloxGenerator" else jax_image_rng, gen)
+    a = image_rng.ImageRNG((4, 8, 8), [3, 4], channels_last=False, gen_cls=port_cls, **kw)
+    b = jax_image_rng.ImageRNG((4, 8, 8), [3, 4], channels_last=False, gen_cls=jax_cls, **kw)
+    np.testing.assert_array_equal(a.first(), b.first())
+    np.testing.assert_array_equal(a.next_k(3), b.next_k(3))
+    np.testing.assert_array_equal(a.next(), b.next())
+
+
+def test_create_rng_sources():
+    a = image_rng.create_rng((4, 8, 8), [5], subseeds=[6], subseed_strength=0.3)
+    b = jax_image_rng.create_rng((4, 8, 8), [5], subseeds=[6], subseed_strength=0.3)
+    np.testing.assert_array_equal(a.first(), b.first())
+    np.testing.assert_array_equal(a.next_k(2), b.next_k(2))
+    with options.opts.override({"randn_source": "GPU"}):
+        with pytest.raises(NotImplementedError, match="randn_source"):
+            image_rng.create_rng((4, 8, 8), [5])
+
+
+def test_every_option_key_and_default():
+    ours, theirs = options.make_default_templates(), jax_options.make_default_templates()
+    assert list(ours) == list(theirs)
+    for key in ours:
+        assert (ours[key].default, ours[key].label, ours[key].section) == \
+            (theirs[key].default, theirs[key].label, theirs[key].section), key
+    # the port's opts is its own object, at the defaults
+    assert options.opts is not jax_options.opts
+    assert options.opts.data == {k: v.default for k, v in ours.items()}
+
+
+def _fields(cls):
+    return [(f.name, f.default, f.default_factory) for f in dataclasses.fields(cls)]
+
+
+def test_every_config_field():
+    for name in ("UNetConfig", "VAEConfig", "CLIPTextConfig"):
+        assert _fields(getattr(configs, name)) == _fields(getattr(jax_configs, name)), name
+    instances = [n for n, v in vars(jax_configs).items() if dataclasses.is_dataclass(v)
+                 and not isinstance(v, type)]
+    assert len(instances) >= 8
+    for n in instances:
+        assert dataclasses.asdict(getattr(configs, n)) == \
+            dataclasses.asdict(getattr(jax_configs, n)), n
+        ours, theirs = getattr(configs, n), getattr(jax_configs, n)
+        for prop in ("head_dims", "time_embed_dim"):
+            if hasattr(theirs, prop):
+                assert getattr(ours, prop) == getattr(theirs, prop), (n, prop)
+
+
+@pytest.mark.parametrize("prompt", PROMPTS)
+def test_prompt_parser_on_a_corpus(prompt):
+    assert pp.strip_comments(prompt) == jax_pp.strip_comments(prompt)
+    assert pp.parse_prompt_attention(prompt) == jax_pp.parse_prompt_attention(prompt)
+    for steps in (1, 10, 20):
+        assert pp.get_prompt_schedule(prompt, steps) == jax_pp.get_prompt_schedule(prompt, steps)
+        assert pp.get_prompt_schedule(prompt, steps, 30, True) == \
+            jax_pp.get_prompt_schedule(prompt, steps, 30, True)
+    ours, theirs = pp.split_multicond(prompt), jax_pp.split_multicond(prompt)
+    assert [(s.text, s.weight) for s in ours] == [(s.text, s.weight) for s in theirs]
+
+
+def test_tokenizers_on_a_corpus():
+    assert (tok.BOS, tok.EOS, tok.COMMA, tok.VOCAB_SIZE) == \
+        (jax_tok.BOS, jax_tok.EOS, jax_tok.COMMA, jax_tok.VOCAB_SIZE)
+    vocab = {}
+    for i, piece in enumerate(sorted(set(tok.bytes_to_unicode().values()))):
+        vocab[piece] = i
+        vocab[piece + "</w>"] = 1000 + i
+    merges = [("c", "a"), ("ca", "t</w>"), ("d", "o"), ("do", "g</w>"), ("t", "h")]
+    vocab.update({"ca": 3000, "cat</w>": 3001, "do": 3002, "dog</w>": 3003, "th": 3004})
+    pairs = [(tok.FallbackTokenizer(), jax_tok.FallbackTokenizer()),
+             (tok.ClipBPETokenizer(vocab, merges), jax_tok.ClipBPETokenizer(vocab, merges))]
+    for ours, theirs in pairs:
+        for prompt in PROMPTS + ["Ünïcode cat &amp; dog's   spaces, the END"]:
+            assert ours.encode(prompt) == theirs.encode(prompt)
+
+
+def test_infotext_round_trips():
+    pairs = {"Steps": 20, "Sampler": "Euler a", "CFG scale": 7.5, "Seed": 1234,
+             "Size": "512x512", "Model": "a, b: c", "Denoising strength": 0.75,
+             "Version": "sdwebui-tpu-0.1.0", "Note": 'say "hi", there'}
+    for prompt, negative in (("a cat", "blurry"), ("line one\nline two", ""), ("", "x")):
+        text = infotext.build(prompt, negative, pairs)
+        assert text == jax_infotext.build(prompt, negative, pairs)
+        assert infotext.parse(text) == jax_infotext.parse(text)
+        assert infotext.parse(text)["Prompt"] == prompt
+    for text in ("sdwebui-tpu-0.1.0", "v1.10.1", "nonsense"):
+        assert infotext.parse_version(text) == jax_infotext.parse_version(text)
+
+
+def test_params_and_pytree():
+    assert _fields(params.GenerationParams) == _fields(jax_params.GenerationParams)
+    assert _fields(params.Processed) == _fields(jax_params.Processed)
+    kw = dict(prompt="p", seed=3, steps=4, width=64, height=96)
+    res = [mod.Processed(images=[], params=mod.GenerationParams(**kw), seed=3, subseed=4,
+                         infotexts=["i"], all_seeds=[3], all_subseeds=[4], all_prompts=["p"])
+           for mod in (params, jax_params)]
+    assert res[0].js() == res[1].js()
+    assert params.GenerationParams(**kw).latent_size() == (12, 8)
+    tree = {"a": {"b": 1, "c": {"d": 2}}, "e": 3}
+    assert pytree.flatten(tree) == jax_pytree.flatten(tree) == {"a.b": 1, "a.c.d": 2, "e": 3}
+    assert pytree.unflatten(pytree.flatten(tree)) == tree

@@ -222,8 +222,16 @@ def test_vae_decode_matches_jax(models):
 
 
 def test_vae_encode_is_not_ported(models):
-    with pytest.raises(NotImplementedError, match="img2img"):
-        models[1].vae.encode(torch.zeros(1, 3, 64, 64))
+    """The encode is ported (its parity with JAX is in test_torch_img2img.py):
+    moments (mean, logvar) and the scaled mode at the latent grid."""
+    vae = models[1].vae
+    down = 2 ** (len(vae.cfg.ch_mult) - 1)
+    with torch.inference_mode():
+        moments = vae.encode_moments(torch.zeros(1, 3, 64, 64))
+        mode = vae.encode_mode(moments)
+    assert moments.shape == (1, 2 * vae.cfg.embed_dim, 64 // down, 64 // down)
+    assert mode.shape == (1, vae.cfg.embed_dim, 64 // down, 64 // down)
+    assert torch.isfinite(moments).all()
 
 
 @pytest.mark.parametrize("clip_skip,final_norm", [(1, True), (2, True), (2, False)])

@@ -143,4 +143,4 @@ def test_cfg_unported_branches_raise():
         make_cfg_denoiser(lambda *a: None, sched)
     sched.image_cfg_scale = None
     with pytest.raises(NotImplementedError, match="inpainting"):
-        make_cfg_denoiser(lambda *a: None, sched, mask=torch.ones(1))
+        make_cfg_denoiser(lambda *a: None, sched, soft_inpainting=(1.0, 0.5, 4.0))

@@ -1,5 +1,6 @@
 """The port's HTTP server (tiny model, CPU), its PNG codec, and its import
-hygiene: the slice imports and runs with jax, PIL and pydantic blocked."""
+hygiene: the slice imports and runs with the JAX package, jax, PIL,
+pydantic and ml_dtypes blocked."""
 
 import base64
 import json
@@ -75,7 +76,7 @@ def test_out_of_slice_fields_answer_422(server_url, body, field):
 
 
 def test_engine_keeps_job_state():
-    from sdwebui_tpu.pipeline.params import GenerationParams
+    from sdwebui_tpu_torch.pipeline.params import GenerationParams
     from sdwebui_tpu_torch.server.app import Engine
 
     engine = Engine(device="cpu", tiny=True, seed=2)
@@ -124,17 +125,16 @@ def test_png_roundtrip_and_pil_interop():
     assert pil.text["parameters"] == text["parameters"]
     rgba = rng.integers(0, 256, (5, 4, 4), dtype=np.uint8)
     np.testing.assert_array_equal(decode_png(encode_png(rgba))[0], rgba)
-    # PIL writes filtered rows, which the reader refuses rather than misreads
+    # PIL writes filtered rows, which the reader undoes
     buf = io.BytesIO()
     smooth = np.cumsum(rng.integers(0, 3, (9, 11, 3)), axis=1).astype(np.uint8)
     Image.fromarray(smooth, "RGB").save(buf, format="PNG", optimize=True)
-    with pytest.raises(ValueError, match="filtered"):
-        decode_png(buf.getvalue())
+    np.testing.assert_array_equal(decode_png(buf.getvalue())[0], smooth)
 
 
 _HYGIENE = r"""
 import importlib, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "PIL", "pydantic", "ml_dtypes")
+BLOCKED = ("sdwebui_tpu", "jax", "jaxlib", "PIL", "pydantic", "ml_dtypes")
 
 
 class Recorder:
@@ -154,16 +154,25 @@ import sdwebui_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(sdwebui_tpu_torch.__path__, "sdwebui_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
-from sdwebui_tpu.pipeline.params import GenerationParams
+import base64
+import numpy as np
+from sdwebui_tpu_torch.pipeline.params import GenerationParams
 from sdwebui_tpu_torch.pipeline.processing import process_txt2img
 from sdwebui_tpu_torch.pipeline.sd_model import create_tiny_sd
 from sdwebui_tpu_torch.server.api import Api
 from sdwebui_tpu_torch.server.app import Engine
+from sdwebui_tpu_torch.utils.png import encode_png
 res = process_txt2img(create_tiny_sd(0, "cpu"), GenerationParams(
     prompt="a cat", seed=3, steps=2, width=64, height=64))
 assert res.images[0].shape == (64, 64, 3)
-status, out = Api(Engine(device="cpu", tiny=True)).handle(
+api = Api(Engine(device="cpu", tiny=True))
+status, out = api.handle(
     "POST", "/sdapi/v1/txt2img", {"steps": 1, "width": 64, "height": 64})
+assert status == 200, out
+png = base64.b64encode(encode_png(np.full((64, 64, 3), 90, np.uint8))).decode()
+status, out = api.handle("POST", "/sdapi/v1/img2img", {
+    "init_images": [png], "mask": png, "inpaint_full_res": False, "inpainting_fill": 1,
+    "steps": 2, "width": 64, "height": 64})
 assert status == 200, out
 assert not Recorder.attempts, Recorder.attempts
 print("OK", len(mods))
@@ -171,6 +180,7 @@ print("OK", len(mods))
 
 
 def test_port_runs_without_jax_pil_pydantic():
+    # the JAX package itself is blocked too: the port keeps its own copies
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _HYGIENE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
