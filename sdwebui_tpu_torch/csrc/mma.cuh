@@ -1,6 +1,6 @@
-// Warp-level helpers shared by the mma.sync kernels of this directory:
-// cp.async copies into shared memory, ldmatrix fragment loads and the
-// m16n8k16 bf16 product with fp32 accumulation (sm_80 and later).
+// Warp-level helpers shared by the kernels of this directory: cp.async
+// copies into shared memory, ldmatrix fragment loads, the m16n8k16 bf16
+// product with fp32 accumulation (sm_80 and later) and bf16 packing.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,19 +1,20 @@
-"""Attention dispatch: the flash kernel for long KV on CUDA, plain otherwise.
+"""Attention dispatch: the flash kernels for long KV on CUDA, plain otherwise.
 
 Port of ``sdwebui_tpu/ops/attention.py``.  Model code calls
 :func:`attention`; the implementation is picked per call from the tensor's
-device, the KV length and the head geometry (the TPU rules,
-``attention.py:77-96,116-136``):
+device and the KV length (the TPU rule, ``attention.py:116-136``):
 
-- (B, S, H·D) calls with Skv >= 1024 whose heads the JAX package would
-  pack (:func:`packs_heads`) go to ``flash_attention_packed`` on CUDA,
-  with no head split or merge copy;
-- every other call is split into (B·H, S, D) heads, and those with
-  Skv >= 1024 go to ``flash_attention`` on CUDA;
+- (B, S, H·D) calls with Skv >= 1024 go to ``flash_attention_packed`` on
+  CUDA, whatever the head dim: the kernel reads each head through the
+  strides, so no head split or merge copy is made (the JAX package's
+  128-lane packing rule has no counterpart on the card);
+- (BH, S, D) calls with Skv >= 1024 (the VAE's single head) go to
+  ``flash_attention`` on CUDA;
 - the rest, and everything on the CPU, take :func:`plain_attention`.
 
-``set_attention_impl`` / ``forced_impl`` override the choice with
-``"flash"``, ``"flash-packed"`` or ``"plain"`` (None = automatic).
+``set_attention_impl`` / ``forced_impl`` override the choice: ``"flash"``
+and ``"flash-packed"`` (the names the JAX package and the server accept)
+both force the kernels, ``"plain"`` the plain path, None is automatic.
 """
 
 from __future__ import annotations
@@ -56,32 +57,11 @@ def forced_impl(name: str | None):
         _FORCED = prev
 
 
-def packs_heads(head_dim: int, num_heads: int) -> bool:
-    """The JAX package's auto rule for its packed kernel,
-    ``packed_heads_per_block(d, H) <= 2`` (``attention.py:77-85``), restated
-    without the 128-lane arithmetic: d a multiple of 128, or of 64 with an
-    even head count.  In the repo's models that is d = 64 (SD2, SDXL)."""
-    return head_dim % 128 == 0 or (head_dim % 64 == 0 and num_heads % 2 == 0)
-
-
-def _require_cuda(device: torch.device):
-    if device.type != "cuda":
-        raise ValueError(f"attention impl {_FORCED!r} was forced, but the "
-                         f"tensors are on {device}: the kernel needs CUDA")
-
-
-def _use_packed(head_dim: int, num_heads: int, skv: int, device: torch.device) -> bool:
-    if _FORCED == "flash-packed":
-        _require_cuda(device)
-        return True
-    if _FORCED is not None:
-        return False
-    return device.type == "cuda" and skv >= FLASH_MIN_KV and packs_heads(head_dim, num_heads)
-
-
 def _use_flash(skv: int, device: torch.device) -> bool:
-    if _FORCED == "flash":
-        _require_cuda(device)
+    if _FORCED in ("flash", "flash-packed"):
+        if device.type != "cuda":
+            raise ValueError(f"attention impl {_FORCED!r} was forced, but the "
+                             f"tensors are on {device}: the kernel needs CUDA")
         return True
     if _FORCED == "plain":
         return False
@@ -101,20 +81,21 @@ def attention(q, k, v, num_heads: int | None = None, scale=None):
     """Multi-head attention on (B, S, H*D) or (BH, S, D) tensors.
 
     If ``num_heads`` is given, inputs are (B, S, H*D): the packed kernel,
-    or split → attend → merge.  Otherwise inputs are already (BH, S, D).
+    or split → plain → merge.  Otherwise inputs are already (BH, S, D).
     """
-    if num_heads is not None:
-        b, sq, hd = q.shape
-        skv = k.shape[1]
-        d = hd // num_heads
-        if _use_packed(d, num_heads, skv, q.device):
-            return flash_attention_packed(q, k, v, num_heads=num_heads, scale=scale)
+    use_flash = _use_flash(k.shape[1], q.device)
+    if num_heads is None:
+        if use_flash:
+            return flash_attention(q, k, v, scale=scale)
+        return plain_attention(q, k, v, scale=scale)
+    if use_flash:
+        return flash_attention_packed(q, k, v, num_heads=num_heads, scale=scale)
+    b, sq, hd = q.shape
+    d = hd // num_heads
 
-        def split(t, s):
-            return t.reshape(b, s, num_heads, d).transpose(1, 2).reshape(b * num_heads, s, d)
+    def split(t):
+        return t.reshape(b, t.shape[1], num_heads, d).transpose(1, 2).reshape(
+            b * num_heads, t.shape[1], d)
 
-        out = attention(split(q, sq), split(k, skv), split(v, skv), scale=scale)
-        return out.reshape(b, num_heads, sq, d).transpose(1, 2).reshape(b, sq, hd)
-    if _use_flash(k.shape[1], q.device):
-        return flash_attention(q, k, v, scale=scale)
-    return plain_attention(q, k, v, scale=scale)
+    out = plain_attention(split(q), split(k), split(v), scale=scale)
+    return out.reshape(b, num_heads, sq, d).transpose(1, 2).reshape(b, sq, hd)

@@ -7,16 +7,21 @@ each with the same math and one entry point per layout:
     flash_attention_packed  (B, S, H·D)      B2, ``flash_attention.py:308``
     flash_attention_4d      (B, S, H, D)     B3, ``flash_attention.py:429``
 
-On a CUDA tensor each wrapper launches the one CUDA kernel in
+On a CUDA tensor each wrapper launches a kernel of
 ``csrc/flash_attention.cu`` (built with nvcc at first use, see
-``ops/_build.py``) or raises.  The kernel reads q, k and v through batch,
-head and sequence strides, so B2 and B3 are launches with ``heads = H`` and
-no head split or merge copy: q, k and v may be the ``chunk`` views of a
-fused qkv projection as they are.  On a CPU tensor each wrapper computes
-its plain version below, which is also what tests and ``chip_smoke.py``
-hold the kernel against.  The TPU tiling arguments (``block_q``,
-``block_kv``, ``interpret``) and the 128-lane head-packing rule have no
-counterpart here.
+``ops/_build.py``) or raises: bf16 with d <= 128 takes the wgmma + TMA
+kernel, bf16 with larger d (the VAE's 512-wide head) the split-d wgmma
+kernel, f32 the exact-FMA kernel.  The kernels read q, k and v through
+batch, head and sequence strides, so B2 and B3 are launches with
+``heads = H`` and no head split or merge copy: q, k and v may be the
+``chunk`` views of a fused qkv projection as they are.  TMA (bf16) and the
+16-byte loads (f32) need a 16-byte aligned base and strides that are
+multiples of 16 bytes; an operand that breaks this is first copied with
+``.contiguous()`` (no path tensor does).  On a CPU tensor each wrapper
+computes its plain version below, which is also what tests and
+``chip_smoke.py`` hold the kernels against.  The TPU tiling arguments
+(``block_q``, ``block_kv``, ``interpret``) and the 128-lane head-packing
+rule have no counterpart here.
 """
 
 from __future__ import annotations
@@ -136,11 +141,28 @@ def _on_cuda(q, name: str) -> bool:
     return True
 
 
-def _launch(name, q, k, v, out, batch, heads, head_dim, strides, scale):
-    """One launch of the CUDA kernel; strides holds the (batch, head,
-    sequence) element strides of q, k, v and out, in that order."""
+def _aligned16(t) -> bool:
+    """TMA's (and the 16-byte loads') rule: a 16-byte aligned base and every
+    stride of a dim longer than 1 a positive multiple of 16 bytes."""
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        n == 1 or (st > 0 and st * size % 16 == 0)
+        for n, st in zip(t.shape[:-1], t.stride()[:-1]))
+
+
+def _operands(q, k, v):
+    """q, k, v as the kernel takes them: each that breaks the 16-byte rule
+    is copied with ``.contiguous()``."""
+    return tuple(t if _aligned16(t) else t.contiguous() for t in (q, k, v))
+
+
+def _launch(name, q, k, v, out, batch, heads, head_dim, strides_of, scale):
+    """One launch of the CUDA kernel; strides_of(t) gives the (batch, head,
+    sequence) element strides of q, k, v and out."""
     if scale is None:
         scale = 1.0 / math.sqrt(head_dim)
+    q, k, v = _operands(q, k, v)
+    strides = [strides_of(t) for t in (q, k, v, out)]
     fn = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -163,8 +185,8 @@ def flash_attention(q, k, v, scale=None):
     _check(q, k, v)
     bh, sq, d = q.shape
     out = torch.empty((bh, sq, d), dtype=q.dtype, device=q.device)
-    strides = [(t.stride(0), 0, t.stride(1)) for t in (q, k, v, out)]
-    return _launch("flash_attention", q, k, v, out, bh, 1, d, strides, scale)
+    return _launch("flash_attention", q, k, v, out, bh, 1, d,
+                   lambda t: (t.stride(0), 0, t.stride(1)), scale)
 
 
 def flash_attention_packed(q, k, v, *, num_heads: int, scale=None):
@@ -181,9 +203,8 @@ def flash_attention_packed(q, k, v, *, num_heads: int, scale=None):
     b, sq, hd = q.shape
     d = hd // num_heads
     out = torch.empty((b, sq, hd), dtype=q.dtype, device=q.device)
-    strides = [(t.stride(0), d, t.stride(1)) for t in (q, k, v, out)]
     return _launch("flash_attention_packed", q, k, v, out, b, num_heads, d,
-                   strides, scale)
+                   lambda t: (t.stride(0), d, t.stride(1)), scale)
 
 
 def flash_attention_4d(q, k, v, *, scale=None):
@@ -195,5 +216,5 @@ def flash_attention_4d(q, k, v, *, scale=None):
     _check_4d(q, k, v)
     b, sq, h, d = q.shape
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    strides = [(t.stride(0), t.stride(2), t.stride(1)) for t in (q, k, v, out)]
-    return _launch("flash_attention_4d", q, k, v, out, b, h, d, strides, scale)
+    return _launch("flash_attention_4d", q, k, v, out, b, h, d,
+                   lambda t: (t.stride(0), t.stride(2), t.stride(1)), scale)
