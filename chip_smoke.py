@@ -5,20 +5,21 @@
 Phases, in order; any failure exits non-zero:
   0. environment: torch/CUDA versions, the card's name and power limit,
      the three kernel sources of csrc/ built with nvcc, all at once, and
-     the attention library's SASS holding wgmma (HGMMA) and TMA (UTMALDG)
-     instructions;
+     the SASS of the attention and conv libraries: their bf16 kernels hold
+     wgmma (HGMMA) and TMA (UTMALDG) instructions, and no other kernels
+     are there;
   1. each kernel entry point vs its plain PyTorch version at the main
      paths' shapes (attention: max|Δ|/max|ref| <= ATTN_REL_TOL in bf16,
      max|Δ| <= 1e-4 in f32, TF32 off; B4 by max|Δ|/max|ref| <= 1e-2 bf16,
      1e-5 f32; B5 in bf16 within one bf16 ulp of the larger magnitude, f32
-     1e-4), with the kernel's, the plain
-     version's and one library call's time, the card's bound for the
-     work and the wrapper's host µs per call: B1 (per head: the SD1.5 UNet
+     1e-4), with the kernel's, the plain version's and one library call's
+     time, the card's bound for the work and the wrapper's host µs per
+     call (for B5 also F.layer_norm's): B1 (per head: the SD1.5 UNet
      shapes and the SD1.5/SDXL VAE mid-block), B2 (head-packed, SD1.5 and
      SDXL base and refiner, also on fused-qkv chunk views), B3 (4-D, the
      same shapes), B5 (LayerNorm at every UNet and CLIP width of both
-     families) and B4 (3x3 conv at the JAX docstring's shapes and the
-     SD1.5 UNet's B=2 shapes);
+     families) and B4 (3x3 conv at the JAX docstring's shapes, the SD1.5
+     UNet's B=2 shapes and two ragged widths);
   2. the full-width SD1.5 UNet CFG step (B=2, latent 64², ctx 2x77x768,
      bf16, random weights) in three arms: the kernels (B2 + B5), plain
      LayerNorm (B2 only), and plain attention and LayerNorm: finite,
@@ -117,7 +118,9 @@ HEAD_SHAPES = [
     ("sdxl_refiner_32x32", 2, 1024, 24, 64),
 ]
 # B4 rows: (name, B, H, W, Cin, Cout): the shapes of the JAX kernel's
-# docstring (sdwebui_tpu/ops/conv.py:6-8) and the SD1.5 UNet's at B = 2
+# docstring (sdwebui_tpu/ops/conv.py:6-8), the SD1.5 UNet's at B = 2 (the
+# 32² and 16² levels take the split-K path: ops/conv.conv_plan) and two
+# widths that no rectangle tiles (pixels past the image masked; split K)
 CONV_SHAPES = [
     ("jax_doc_64x64x320", 8, 64, 64, 320, 320),
     ("jax_doc_32x32x640", 8, 32, 32, 640, 640),
@@ -125,6 +128,8 @@ CONV_SHAPES = [
     ("sd15_64x64x320", 2, 64, 64, 320, 320),
     ("sd15_32x32x640", 2, 32, 32, 640, 640),
     ("sd15_16x16x1280", 2, 16, 16, 1280, 1280),
+    ("ragged_17x17x640", 2, 17, 17, 640, 640),
+    ("ragged_33x33x320", 2, 33, 33, 320, 320),
 ]
 # the UNets call B2 on the chunk views of their fused qkv projection
 FUSED_QKV_ROWS = ("sd15_64x64", "sdxl_base_64x64")
@@ -206,7 +211,8 @@ def phase_env():
     log(f"built {', '.join(f'{n}.cu' for n in _build.KERNELS)} for sm_90a in "
         f"{time.perf_counter() - t0:.2f} s (nvcc "
         + ", ".join(f"{n} {_build.build_seconds[n]:.2f} s" for n in _build.KERNELS) + ")")
-    sass_check(_build.load_library("flash_attention")._name)
+    for name in SASS_KERNELS:
+        sass_check(name, _build.load_library(name)._name)
     return smi
 
 
@@ -227,19 +233,31 @@ def sass_counts(lib_path: str) -> dict:
     return counts
 
 
-def sass_check(lib_path: str):
-    """The attention kernels that replace the mma.sync ones are what was
-    built: each wgmma kernel's SASS holds HGMMA (wgmma) and UTMALDG (TMA
-    loads) instructions."""
+#: the wgmma + TMA kernels of each library, and every kernel it may hold:
+#: the bf16 conv and attention kernels that replaced the mma.sync ones
+SASS_KERNELS = {
+    "flash_attention": (("attn_tc_kernel", "attn_wide_kernel"),
+                        ("attn_tc_kernel", "attn_wide_kernel", "attn_f32_kernel")),
+    "conv3x3": (("conv_wgmma_kernel",), ("conv_wgmma_kernel", "conv_f32_kernel")),
+}
+
+
+def sass_check(name: str, lib_path: str):
+    """The wgmma kernels of a built library are what was built: each one's
+    SASS holds HGMMA (wgmma) and UTMALDG (TMA loads) instructions, and the
+    library holds no kernel but the listed ones."""
+    wgmma, known = SASS_KERNELS[name]
     counts = {}
     for fn, ops in sass_counts(lib_path).items():
-        kernel = next(k for k in ("attn_tc_kernel", "attn_wide_kernel", "attn_f32_kernel", "")
-                      if k in fn)
+        kernel = next((k for k in known if k in fn), fn)
         mine = counts.setdefault(kernel, {"HGMMA": 0, "UTMALDG": 0})
         for op, n in ops.items():
             mine[op] += n
-    log(f"flash_attention SASS: {counts}")
-    for kernel in ("attn_tc_kernel", "attn_wide_kernel"):
+    log(f"{name} SASS: {counts}")
+    unknown = set(counts) - set(known)
+    if unknown:
+        raise AssertionError(f"{name} holds other kernels than {known}: {sorted(unknown)}")
+    for kernel in wgmma:
         if not (counts.get(kernel, {}).get("HGMMA") and counts[kernel]["UTMALDG"]):
             raise AssertionError(f"{kernel} lacks wgmma or TMA instructions: {counts}")
 
@@ -252,48 +270,57 @@ def bf16_ulps(out, ref) -> float:
     return (((out.float() - ref.float()).abs() - 1e-5).clamp_min(0) / ulp).max().item()
 
 
-def _compare(entry, name, shape, dtype, kernel, plain, library, work, rows, rel_tol=None,
-             ulp_tol=None):
-    """One kernel row: the kernel vs its plain version on the same inputs,
-    then the kernel's, the plain version's and the library call's times;
-    work = (flops, bytes, rate) for the bound.  The bound on the difference
-    is relative to max|ref| (rel_tol), in bf16 ulps (ulp_tol, bf16 only),
-    or else absolute (F32_TOL)."""
-    out = kernel()
-    ref = plain()
-    torch.cuda.synchronize()
+def agreement(out, ref, dtype, rel_tol=None, ulp_tol=None) -> dict:
+    """How far a kernel's output lies from its plain version's, against the
+    row's bound: relative to max|ref| (rel_tol), in bf16 ulps (ulp_tol, bf16
+    only), or else absolute (F32_TOL)."""
     err = (out.float() - ref.float()).abs().max().item()
     ref_max = ref.float().abs().max().item()
     rel = err / max(ref_max, 1e-30)
     ulps = bf16_ulps(out, ref) if ulp_tol is not None and dtype == torch.bfloat16 else None
-    del out, ref
     if ulps is not None:
-        tol = ulp_tol
-        ok = ulps <= tol
-        tol_text = f"max|Δ| {err:.3e}, {ulps:.2f} bf16 ulps (tol {tol:g} ulp)"
+        tol, ok = ulp_tol, ulps <= ulp_tol
+        text = f"max|Δ| {err:.3e}, {ulps:.2f} bf16 ulps (tol {tol:g} ulp)"
     elif rel_tol is None:
-        tol = F32_TOL
-        ok = err <= tol
-        tol_text = f"max|Δ| {err:.3e} (tol {tol:g}), max|ref| {ref_max:.3e}"
+        tol, ok = F32_TOL, err <= F32_TOL
+        text = f"max|Δ| {err:.3e} (tol {tol:g}), max|ref| {ref_max:.3e}"
     else:
-        tol = rel_tol
-        ok = rel <= tol
-        tol_text = f"max|Δ| {err:.3e}, /max|ref| {ref_max:.3e} = {rel:.3e} (tol {tol:g})"
+        tol, ok = rel_tol, rel <= rel_tol
+        text = f"max|Δ| {err:.3e}, /max|ref| {ref_max:.3e} = {rel:.3e} (tol {tol:g})"
+    return dict(max_abs_err=err, max_ref=ref_max, rel_err=rel, ulps=ulps, tol=tol, ok=ok,
+                text=text)
+
+
+def _compare(entry, name, shape, dtype, kernel, plain, library, work, rows, rel_tol=None,
+             ulp_tol=None, library_host=False):
+    """One kernel row: the kernel vs its plain version on the same inputs
+    (see agreement), then the kernel's, the plain version's and the library
+    call's times, and the host µs per call of the kernel's wrapper (and of
+    the library call where library_host); work = (flops, bytes, rate) for
+    the bound."""
+    out = kernel()
+    ref = plain()
+    torch.cuda.synchronize()
+    agree = agreement(out, ref, dtype, rel_tol, ulp_tol)
+    del out, ref
     ms = cuda_ms(kernel)
     plain_ms = cuda_ms(plain)
     library_ms = cuda_ms(library)
     host = host_us(kernel)
+    lib_host = host_us(library) if library_host else None
     bound_ms, bound_by = bound(*work)
-    log(f"{entry} {name} {tuple(shape)} {str(dtype)[6:]}: {tol_text}, kernel {ms:.4f} ms, "
+    log(f"{entry} {name} {tuple(shape)} {str(dtype)[6:]}: {agree['text']}, kernel {ms:.4f} ms, "
         f"plain {plain_ms:.3f} ms, library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}), host {host:.1f} µs/call")
-    if not ok:
+        f"({bound_by}), host {host:.1f} µs/call"
+        + (f" (library {lib_host:.1f})" if library_host else ""))
+    if not agree["ok"]:
         raise AssertionError(f"{entry} disagrees with its plain version at {name}: "
-                             f"{tol_text}")
+                             f"{agree['text']}")
     rows.append(dict(entry=entry, name=name, shape=list(shape), dtype=str(dtype)[6:],
-                     max_abs_err=err, max_ref=ref_max, rel_err=rel, tol=tol, ms=ms, plain_ms=plain_ms,
+                     max_abs_err=agree["max_abs_err"], max_ref=agree["max_ref"],
+                     rel_err=agree["rel_err"], tol=agree["tol"], ms=ms, plain_ms=plain_ms,
                      library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                     host_us=host))
+                     host_us=host, library_host_us=lib_host))
 
 
 def _attn_work(bh, sq, skv, d, dtype):
@@ -320,15 +347,13 @@ def layer_norm_shapes():
 
 
 def phase_kernel(device):
-    from sdwebui_tpu_torch.ops import conv as conv_mod
     from sdwebui_tpu_torch.ops import flash_attention as fa
-    from sdwebui_tpu_torch.ops import layer_norm as ln_mod
 
     rows = []
     sdpa = F.scaled_dot_product_attention
 
     def randn(shape, g, dtype):
-        return torch.randn(shape, generator=g, device=device).to(dtype)
+        return _randn(shape, g, dtype, device)
 
     for name, bh, sq, skv, d, dtype in B1_SHAPES:
         g = torch.Generator(device=device).manual_seed(0)
@@ -369,35 +394,57 @@ def phase_kernel(device):
         del q, k, v, q4, k4, v4, heads
         torch.cuda.empty_cache()
 
-    for dtype in (bf16, torch.float32):
-        size = 2 if dtype == bf16 else 4
+    for case in layer_norm_cases(device):
+        _compare(**case, rows=rows, library_host=True)
+    for case in conv_cases(device):
+        _compare(**case, rows=rows)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _randn(shape, g, dtype, device):
+    return torch.randn(shape, generator=g, device=device).to(dtype)
+
+
+def layer_norm_cases(device):
+    """The B5 rows of phase 1, one at a time (each row's tensors live while
+    it is compared): _compare's arguments without `rows`."""
+    from sdwebui_tpu_torch.ops import layer_norm as ln_mod
+
+    for dtype in (torch.bfloat16, torch.float32):
+        size = 2 if dtype == torch.bfloat16 else 4
         for name, n_rows, c in layer_norm_shapes():
             g = torch.Generator(device=device).manual_seed(2)
-            x = (randn((n_rows, c), g, torch.float32) * 2 + 0.5).to(dtype)
-            w, b = randn((c,), g, dtype), randn((c,), g, dtype)
-            _compare("layer_norm", name, (n_rows, c), dtype,
-                     lambda: ln_mod.layer_norm(x, w, b),
-                     lambda: ln_mod.layer_norm_plain(x, w, b),
-                     lambda: F.layer_norm(x, (c,), w, b, 1e-5),
-                     (7.0 * n_rows * c, size * (2 * n_rows * c + 2 * c), "fp32"), rows,
-                     ulp_tol=LN_ULP_TOL)
+            x = (_randn((n_rows, c), g, torch.float32, device) * 2 + 0.5).to(dtype)
+            w, b = _randn((c,), g, dtype, device), _randn((c,), g, dtype, device)
+            yield dict(entry="layer_norm", name=name, shape=(n_rows, c), dtype=dtype,
+                       kernel=lambda: ln_mod.layer_norm(x, w, b),
+                       plain=lambda: ln_mod.layer_norm_plain(x, w, b),
+                       library=lambda: F.layer_norm(x, (c,), w, b, 1e-5),
+                       work=(7.0 * n_rows * c, size * (2 * n_rows * c + 2 * c), "fp32"),
+                       ulp_tol=LN_ULP_TOL)
+
+
+def conv_cases(device):
+    """The B4 rows of phase 1, as layer_norm_cases."""
+    from sdwebui_tpu_torch.ops import conv as conv_mod
+
+    cl = torch.channels_last
+    for dtype in (torch.bfloat16, torch.float32):
+        size = 2 if dtype == torch.bfloat16 else 4
         for name, bsz, hh, ww, cin, cout in CONV_SHAPES:
             g = torch.Generator(device=device).manual_seed(3)
-            cl = torch.channels_last
-            x = randn((bsz, cin, hh, ww), g, dtype).contiguous(memory_format=cl)
-            w = (randn((cout, cin, 3, 3), g, dtype) * 0.05).contiguous(memory_format=cl)
-            b = randn((cout,), g, dtype)
+            x = _randn((bsz, cin, hh, ww), g, dtype, device).contiguous(memory_format=cl)
+            w = (_randn((cout, cin, 3, 3), g, dtype, device) * 0.05).contiguous(memory_format=cl)
+            b = _randn((cout,), g, dtype, device)
             flops = 2.0 * bsz * hh * ww * 9 * cin * cout
             nbytes = size * (bsz * hh * ww * (cin + cout) + 9 * cin * cout + cout)
-            _compare("conv3x3", name, (bsz, hh, ww, cin, cout), dtype,
-                     lambda: conv_mod.conv3x3(x, w, b),
-                     lambda: conv_mod.conv3x3_plain(x, w, b),
-                     lambda: F.conv2d(x, w, b, 1, 1),
-                     (flops, nbytes, "bf16_tensor" if dtype == bf16 else "fp32"), rows,
-                     rel_tol=CONV_REL_TOL[dtype])
-            del x, w, b
-        torch.cuda.empty_cache()
-    return rows
+            yield dict(entry="conv3x3", name=name, shape=(bsz, hh, ww, cin, cout), dtype=dtype,
+                       kernel=lambda: conv_mod.conv3x3(x, w, b),
+                       plain=lambda: conv_mod.conv3x3_plain(x, w, b),
+                       library=lambda: F.conv2d(x, w, b, 1, 1),
+                       work=(flops, nbytes, "bf16_tensor" if dtype == torch.bfloat16 else "fp32"),
+                       rel_tol=CONV_REL_TOL[dtype])
 
 
 def device_events(fn) -> int:
@@ -710,7 +757,7 @@ def phase_sdxl_serve(engine, base, refiner):
 def kernel_class(name: str) -> str:
     if "flash_attention" in name or "attn_" in name:   # csrc/flash_attention.cu
         return "flash_attn"
-    if "layer_norm_kernel" in name:
+    if "layer_norm_kernel" in name or "layer_norm_reg_kernel" in name:   # csrc/layer_norm.cu
         return "layer_norm"
     if "fprop" in name or "conv" in name.lower():
         return "conv"
@@ -788,8 +835,9 @@ KERNEL_ENTRIES = [
     ("flash_attention_4d", "flash_attention.cu", "sdwebui_tpu/ops/flash_attention.py:429",
      "sdxl_base_64x64", "bfloat16"),
     ("conv3x3", "conv3x3.cu", "sdwebui_tpu/ops/conv.py:75", "jax_doc_64x64x320", "bfloat16"),
-    ("layer_norm", "layer_norm.cu", "sdwebui_tpu/ops/pallas_norms.py:65", "sd15_s4096_c320",
-     "bfloat16"),
+    # SDXL base's 1280-wide LayerNorm: 2880 of a config 5 request's 3731 launches
+    ("layer_norm", "layer_norm.cu", "sdwebui_tpu/ops/pallas_norms.py:65",
+     "sdxl_base_s1024_c1280", "bfloat16"),
 ]
 
 
@@ -802,6 +850,9 @@ def main() -> int:
     from sdwebui_tpu_torch.server.app import Engine, random_models
 
     device = torch.device("cuda")
+    # the library calls and plain versions of phase 1 in full fp32 (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = phase_env()
     rows = phase_kernel(device)
     t0 = time.perf_counter()

@@ -79,6 +79,7 @@
 
 #include "hopper.cuh"
 #include "mma.cuh"
+#include "host.cuh"
 
 namespace {
 
@@ -819,51 +820,9 @@ __global__ void __launch_bounds__(kF32Threads) attn_f32_kernel(const F32Params p
 // host side
 // ---------------------------------------------------------------------------
 
-// cuTensorMapEncodeTiled is a driver-API function; the runtime hands out its
-// address, so the library links the runtime only
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &status);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &status);
-#endif
-    if (err != cudaSuccess || status != cudaDriverEntryPointSuccess) ptr = nullptr;
-    return reinterpret_cast<EncodeTiled>(ptr);
-  }();
-  return fn;
-}
-
-struct View {   // one operand: base pointer and element strides (last dim contiguous)
-  const void* ptr;
-  int64_t sb, sh, ss;
-};
-
-// TMA's rules: a 16-byte aligned base, and every stride but the innermost a
-// multiple of 16 bytes (sizes of 1 have their stride ignored)
-bool tma_ok(const View& v, int batch, int heads, int rows) {
-  if (reinterpret_cast<uintptr_t>(v.ptr) % 16) return false;
-  const int64_t st[3] = {v.ss, v.sh, v.sb};
-  const int n[3] = {rows, heads, batch};
-  for (int i = 0; i < 3; ++i)
-    if (n[i] > 1 && (st[i] <= 0 || (st[i] * 2) % 16)) return false;
-  return true;
-}
-
 // the bf16 tensor as (d, S, H, B) with d innermost: boxes of box_w x box_rows
 bool encode_map(CUtensorMap* map, const View& v, int batch, int heads, int rows, int d,
                 int box_w, int box_rows, CUtensorMapSwizzle swizzle) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
   cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(rows), cuuint64_t(heads), cuuint64_t(batch)};
   cuuint64_t strides[3] = {cuuint64_t(v.ss) * 2, cuuint64_t(v.sh) * 2, cuuint64_t(v.sb) * 2};
   // a size-1 dim's stride is never stepped: give it the packed value
@@ -871,21 +830,7 @@ bool encode_map(CUtensorMap* map, const View& v, int batch, int heads, int rows,
   if (heads == 1) strides[1] = strides[0] * cuuint64_t(rows);
   if (batch == 1) strides[2] = strides[1] * cuuint64_t(heads);
   cuuint32_t box[4] = {cuuint32_t(box_w), cuuint32_t(box_rows), 1, 1};
-  cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(v.ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-CUtensorMapSwizzle swizzle_of(int bytes) {
-  return bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                      : bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  return encode_bf16(map, v.ptr, 4, dims, strides, box, swizzle);
 }
 
 struct Call {
@@ -909,16 +854,6 @@ int launch_tc(const Call& c, cudaStream_t stream) {
   dim3 grid(unsigned((c.out.sq + kBM - 1) / kBM), unsigned(c.heads), unsigned(c.batch));
   attn_tc_kernel<DK><<<grid, kThreads, T::SMEM, stream>>>(mq, mk, mv, c.out);
   return int(cudaGetLastError());
-}
-
-int sm_count() {
-  static const int n = [] {
-    int dev = 0, count = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    return count;
-  }();
-  return n;
 }
 
 template <int DS, bool SPLIT>

@@ -4,21 +4,26 @@ plain version.
 Port of B4, ``conv3x3`` (``sdwebui_tpu/ops/conv.py:75-121``, kernel body
 ``:43-56``): nine shifted (pixels, Cin) @ (Cin, Cout) products accumulated
 in fp32, plus the optional bias, cast once to x's dtype.  As in the JAX
-package it is a standalone op, slower than the library convolution and
-wired into no model: ``models/layers.conv2d`` stays ``F.conv2d``.
+package it is a standalone op wired into no model: ``models/layers.conv2d``
+stays ``F.conv2d``.  How it compares with the library convolution at the
+UNet's shapes is in ``PERF.md`` §6.
 
 The entry point takes the port's idiom, NCHW tensors and OIHW weights; the
-kernel of ``csrc/conv3x3.cu`` reads both channels-last, so an activation
+kernels of ``csrc/conv3x3.cu`` read both channels-last, so an activation
 that already lives channels-last (as the port's do) and a channels-last
-weight (as ``models/layers`` stores them) are read in place.  On a CUDA
-tensor :func:`conv3x3` launches the kernel or raises; on a CPU tensor it
-computes :func:`conv3x3_plain` (``F.conv2d``).  The TPU arguments
-``block_rows`` and ``interpret`` have no counterpart.
+weight (as ``models/layers`` stores them) are read in place.  bf16 takes the
+wgmma + TMA kernel under the launch plan of :func:`conv_plan`, f32 the
+exact-FMA kernel.  Both load 16-byte rows: where Cin is not a multiple of 8
+(bf16) or 4 (f32) the channels of x and the weight are zero-padded with one
+copy each, and an x or weight whose base is not 16-byte aligned is copied.  On a CUDA tensor :func:`conv3x3` launches a kernel or
+raises; on a CPU tensor it computes :func:`conv3x3_plain` (``F.conv2d``).
+The TPU arguments ``block_rows`` and ``interpret`` have no counterpart.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +32,14 @@ from sdwebui_tpu_torch.ops import _build
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _launches = 0
+
+#: the output rectangles (TW, TH) of the bf16 kernel: 128 pixels of one image
+RECTS = ((64, 2), (32, 4), (16, 8))
+#: output channels per block (wgmma's N) the kernel is built for
+BN_CHOICES = (32, 64, 96, 128, 160, 192, 256)
+#: the most k-step splits: one cluster of blocks, at most 8 (portable size)
+MAX_SPLITS = 8
+CHUNK = 64   # input channels per k-step (one 128-byte TMA box row)
 
 
 def launch_count() -> int:
@@ -45,12 +58,104 @@ def conv3x3_plain(x, weight, bias=None):
     return F.conv2d(x, weight.to(x.dtype), b, 1, 1)
 
 
-def _lib():
-    fn = _build.load_library("conv3x3").sdtpu_conv3x3
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+# ---- the bf16 kernel's launch plan -----------------------------------------
+
+class ConvPlan(NamedTuple):
+    tw: int          # output rectangle: tw x th pixels of one image
+    th: int
+    bn: int          # output channels per block
+    splits: int      # k-step ranges, one block each, in one cluster
+    cin: int         # input channels as the kernel reads them (padded to 8)
+    ksteps: int      # 9 taps x ceil(cin / 64) channel chunks
+    grid: tuple      # (splits, N tiles, M tiles)
+    cluster: int     # blocks per cluster (1: none)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def conv_rect(h: int, w: int) -> tuple:
+    """The rectangle with the fewest tiles over an h × w image, the wider on
+    a tie: W = 64 → 64×2, 32 → 32×4, 16 → 16×8; other widths pad the
+    fewest pixels (those past the image are masked at the store)."""
+    return min(RECTS, key=lambda r: _cdiv(w, r[0]) * _cdiv(h, r[1]))
+
+
+def conv_bn(cout: int) -> int:
+    """160 where it divides Cout (SD's 320, 640, 1280: no channel wasted),
+    else the choice that wastes the fewest channels, the wider on a tie."""
+    if cout % 160 == 0:
+        return 160
+    return min(BN_CHOICES, key=lambda bn: (_cdiv(cout, bn) * bn - cout, -bn))
+
+
+#: a block's fixed cost beyond its k-steps, in k-steps' time: the epilogue,
+#: and the reduction of a split (its dump, two cluster barriers and the
+#: remote reads; from the split sweep of tools/norms_conv_probe_cuda.py)
+EPILOGUE_STEPS = 2
+REDUCE_STEPS = 20
+
+
+def conv_splits(tiles: int, ksteps: int, capacity) -> int:
+    """k-step splits for `tiles` output tiles, where capacity[s - 1] clusters
+    of s blocks fit on the card at once (the card's own count: a cluster's
+    blocks share one GPC, so wide clusters fit fewer times than SMs / s).
+    The split with the least modelled time: waves of clusters × (k-steps a
+    block + its fixed cost), the fewer splits on a tie."""
+    def cost(s):
+        fixed = EPILOGUE_STEPS + (REDUCE_STEPS if s > 1 else 0)
+        return _cdiv(tiles, capacity[s - 1]) * (_cdiv(ksteps, s) + fixed)
+
+    return min(range(1, min(MAX_SPLITS, ksteps) + 1), key=lambda s: (cost(s), s))
+
+
+def conv_plan(batch: int, h: int, w: int, cin: int, cout: int, capacity) -> ConvPlan:
+    """The bf16 kernel's launch at these shapes on a card holding
+    capacity[s - 1] clusters of s blocks at once (:func:`card_capacity`)."""
+    tw, th = conv_rect(h, w)
+    bn = conv_bn(cout)
+    cin_k = _cdiv(cin, 8) * 8
+    ksteps = 9 * _cdiv(cin_k, CHUNK)
+    m_tiles = batch * _cdiv(h, th) * _cdiv(w, tw)
+    n_tiles = _cdiv(cout, bn)
+    splits = conv_splits(m_tiles * n_tiles, ksteps, capacity)
+    return ConvPlan(tw, th, bn, splits, cin_k, ksteps, (splits, n_tiles, m_tiles), splits)
+
+
+# ---- the CUDA call ----------------------------------------------------------
+
+_fn = None
+_clusters = None
+_capacity: dict = {}   # (device index, bn) -> capacity tuple
+
+
+def _bind():
+    global _fn, _clusters
+    lib = _build.load_library("conv3x3")
+    fn = lib.sdtpu_conv3x3
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _clusters = lib.sdtpu_conv3x3_clusters
+    _clusters.argtypes = [ctypes.c_int, ctypes.c_int]
+    _clusters.restype = ctypes.c_int
+    _fn = fn
     return fn
+
+
+def card_capacity(device, bn: int) -> tuple:
+    """capacity[s - 1]: clusters of s blocks of the bf16 kernel at N tile
+    `bn` that `device` holds at once (cudaOccupancyMaxActiveClusters)."""
+    key = (device.index, bn)
+    cap = _capacity.get(key)
+    if cap is None:
+        _fn or _bind()
+        with torch.cuda.device(device):
+            cap = tuple(_clusters(bn, s) for s in range(1, MAX_SPLITS + 1))
+        if min(cap) < 1:
+            raise RuntimeError(f"conv3x3 occupancy query failed: {cap}")
+        _capacity[key] = cap
+    return cap
 
 
 def _check(x, weight, bias):
@@ -68,6 +173,17 @@ def _check(x, weight, bias):
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
+def _channels_last(t, cin_k: int):
+    """t (N, C, H, W) as the contiguous (N, H, W, cin_k) the kernels read:
+    a view where t lives channels-last with a 16-byte aligned base, else one
+    copy (zero-padding C to cin_k where it falls short)."""
+    v = t.permute(0, 2, 3, 1)
+    if cin_k != t.shape[1]:
+        return F.pad(v, (0, cin_k - t.shape[1])).contiguous()
+    v = v.contiguous()
+    return v if v.data_ptr() % 16 == 0 else v.clone()
+
+
 def conv3x3(x, weight, bias=None):
     """x (B, Cin, H, W), weight (Cout, Cin, 3, 3), bias (Cout,) or None →
     (B, Cout, H, W) in x's dtype, channels-last in memory."""
@@ -78,18 +194,23 @@ def conv3x3(x, weight, bias=None):
     _check(x, weight, bias)
     bsz, cin, h, w = x.shape
     cout = weight.shape[0]
-    cl = torch.channels_last
-    x_cl = x.contiguous(memory_format=cl)                   # (B, H, W, Cin) in memory
-    w_cl = weight.to(x.dtype).contiguous(memory_format=cl)  # (Cout, 3, 3, Cin) in memory
-    b = bias.to(x.dtype).contiguous() if bias is not None else None
-    out = torch.empty((bsz, cout, h, w), dtype=x.dtype, device=x.device, memory_format=cl)
+    out = torch.empty((bsz, cout, h, w), dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last)
     if out.numel() == 0:
         return out
-    fn = _lib()
+    weight = weight.to(x.dtype)
+    b = bias.to(x.dtype).contiguous() if bias is not None else None
+    if x.dtype == torch.bfloat16:
+        plan = conv_plan(bsz, h, w, cin, cout, card_capacity(x.device, conv_bn(cout)))
+        cin_k, geometry = plan.cin, (plan.tw, plan.th, plan.bn, plan.splits)
+    else:
+        cin_k, geometry = _cdiv(cin, 4) * 4, (0, 0, 0, 1)   # 16-byte rows of 4 channels
+    xk, wk = _channels_last(x, cin_k), _channels_last(weight, cin_k)
+    fn = _fn or _bind()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x_cl.data_ptr(), w_cl.data_ptr(), 0 if b is None else b.data_ptr(),
-                 out.data_ptr(), _DTYPES[x.dtype], bsz, h, w, cin, cout, stream)
+        err = fn(xk.data_ptr(), wk.data_ptr(), 0 if b is None else b.data_ptr(),
+                 out.data_ptr(), _DTYPES[x.dtype], bsz, h, w, cin_k, cout, *geometry, stream)
     if err != 0:
         raise RuntimeError(f"conv3x3 kernel launch failed: CUDA error {err}")
     global _launches

@@ -34,8 +34,10 @@ from sdwebui_tpu_torch.ops import _build  # noqa: E402
 from sdwebui_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
 
-def ptxas() -> bool:
-    src = _build._CSRC / "flash_attention.cu"
+def ptxas(name: str = "flash_attention") -> bool:
+    """Compile csrc/<name>.cu with -Xptxas -v; print ptxas's report and the
+    SASS counts of each kernel."""
+    src = _build._CSRC / f"{name}.cu"
     with tempfile.TemporaryDirectory() as tmp:
         lib = os.path.join(tmp, "probe.so")
         proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", lib,
