@@ -35,6 +35,22 @@ Phases, in order; any failure exits non-zero:
      repeat within 2 levels, the inpaint's pixels outside the blurred mask
      within 1 level of the init image and changed inside it, and B2, B1
      (the VAE encode and decode) and B5 launches equal to the plan's;
+  4a. checkpoint files: phase 3's model written as an ldm-layout
+     .safetensors in its own dtypes, and a second random SD1.5 (seed 1) in
+     fp16 beside it, in a temporary directory, served by an Engine built as
+     `--ckpt-dir`/`--ckpt` builds it (sd_checkpoints_limit 2): phase 3's
+     seed-1234 request from the file within 2 levels of phase 3's image,
+     its infotext's Model hash the file's sha256[:10]; POST
+     /sdapi/v1/options to the second gives another image; override_settings
+     back to the first gives phase 3's image again with no file read; GET
+     /sdapi/v1/sd-models lists both; B1, B2 and B5 launches equal the plan's;
+     the load (s, s/GB, s to the first image) and the swap time logged; the
+     files are deleted at the end of the phase;
+  4b. every name of /sdapi/v1/samplers on the loaded model, one 512²
+     batch-1 request of 8 steps each: an image that is not flat, infotext
+     naming the sampler, B2 launches equal to the per-call plan times the
+     solver's model calls (for DPM adaptive a multiple of the per-call
+     plan), s/request logged;
   5. the full-width SDXL base step (B=2, latent 128², ctx 2x77x2048, y
      2x2816) and refiner step (ctx 2x77x1280, y 2x2560), bf16, in the
      three arms of phase 2, and the SDXL VAE decode at 1024² in bf16 and in
@@ -58,10 +74,12 @@ import base64
 import contextlib
 import gc
 import json
+import os
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -87,6 +105,7 @@ UNET_ROUNDS = 3         # interleaved timing rounds per UNet arm
 REPEAT_TOL = 2          # uint8 levels
 OVERLAY_TOL = 1         # uint8 levels, inpaint pixels outside the blurred mask
 STEPS = 20
+SAMPLER_STEPS = 8       # phase 4b
 DENOISE = 0.75
 MASK_BLUR = 4
 SDXL_SWITCH_AT = 0.8
@@ -551,52 +570,61 @@ def clip_ln_plan(model) -> int:
                for c in (model.conditioner, model.conditioner2) if c is not None)
 
 
-def _post(url, body):
-    req = urllib.request.Request(url, data=json.dumps(body).encode(),
-                                 headers={"Content-Type": "application/json"})
+def _post(url, body=None):
+    """POST `body` as JSON (GET without one); the decoded JSON answer."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=600) as resp:
         return json.loads(resp.read())
 
 
-def _serve(engine, route, requests, warmup, check, size):
-    """POST `requests` to `route` of a server around `engine`; returns per
-    request (seconds, the last image decoded and as sent, launches)."""
+@contextlib.contextmanager
+def _server(engine):
+    """A server around `engine` on a free port; yields its /sdapi/v1 URL."""
     from sdwebui_tpu_torch.server.api import make_server
-    from sdwebui_tpu_torch.utils.png import decode_png
 
     server = make_server(engine, "127.0.0.1", 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
-    url = f"http://127.0.0.1:{server.server_address[1]}/sdapi/v1/{route}"
-    results = []
     try:
-        _post(url, warmup)                        # not timed, not counted
-        for body in requests:
-            reset_counts()
-            t0 = time.perf_counter()
-            res = _post(url, body)
-            dt = time.perf_counter() - t0
-            launches = read_counts()
-            info = json.loads(res["info"])
-            first = info["index_of_first_image"]
-            images = [decode_png(base64.b64decode(b)) for b in res["images"][first:]]
-            if len(images) != body.get("batch_size", 1):
-                raise AssertionError(f"{len(images)} images for batch {body.get('batch_size')}")
-            for i, (img, text) in enumerate(images):
-                if img.shape != (size, size, 3):
-                    raise AssertionError(f"image shape {img.shape}")
-                check(text.get("parameters", ""), body["seed"] + i)
-            results.append(dict(route=route, batch=len(images), seed=body["seed"],
-                                seconds=dt, images_per_s=len(images) / dt,
-                                launches=launches, image=images[-1][0],
-                                png_b64=res["images"][-1]))
-            log(f"{route} {size}² batch {len(images)} seed {body['seed']}: {dt:.3f} s, "
-                f"{len(images) / dt:.3f} images/s, launches {launches}")
+        yield f"http://127.0.0.1:{server.server_address[1]}/sdapi/v1"
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
-    return results
+
+
+def _request(url, route, body, check, size, label=None) -> dict:
+    """POST one generation request and check its images: (seconds, the
+    last image decoded and as sent, launches)."""
+    from sdwebui_tpu_torch.utils.png import decode_png
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = _post(f"{url}/{route}", body)
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    first = json.loads(res["info"])["index_of_first_image"]
+    images = [decode_png(base64.b64decode(b)) for b in res["images"][first:]]
+    if len(images) != body.get("batch_size", 1):
+        raise AssertionError(f"{len(images)} images for batch {body.get('batch_size')}")
+    for i, (img, text) in enumerate(images):
+        if img.shape != (size, size, 3):
+            raise AssertionError(f"image shape {img.shape}")
+        check(text.get("parameters", ""), body["seed"] + i)
+    log(f"{label or route} {size}² batch {len(images)} seed {body['seed']}: {dt:.3f} s, "
+        f"{len(images) / dt:.3f} images/s, launches {launches}")
+    return dict(route=route, batch=len(images), seed=body["seed"], seconds=dt,
+                images_per_s=len(images) / dt, launches=launches, image=images[-1][0],
+                png_b64=res["images"][-1], infotext=images[-1][1].get("parameters", ""))
+
+
+def _serve(engine, route, requests, warmup, check, size):
+    """POST `requests` to `route` of a server around `engine`, after an
+    untimed, uncounted `warmup` request; the results of _request."""
+    with _server(engine) as url:
+        _post(f"{url}/{route}", warmup)
+        return [_request(url, route, body, check, size) for body in requests]
 
 
 def _check_repeat(results, i, j):
@@ -682,6 +710,140 @@ def phase_img2img(engine, model, init_png: str):
                 ] * 3
     _check_launches(results, expected)
     return results, calls
+
+
+def phase_checkpoint(model, device, phase3: dict, ckpt_dir: str):
+    """4a: the random SD1.5 and a second one (seed 1, fp16) as checkpoint
+    files, served by a checkpoint Engine; returns (engine, results, info)."""
+    from sdwebui_tpu_torch.loader import load
+    from sdwebui_tpu_torch.loader.safetensors_io import write_safetensors
+    from sdwebui_tpu_torch.pipeline.sd_model import create_random_sd15
+    from sdwebui_tpu_torch.server.app import Engine
+    from sdwebui_tpu_torch.utils.options import opts
+
+    first = os.path.join(ckpt_dir, "random-sd15-seed0.safetensors")
+    second = os.path.join(ckpt_dir, "random-sd15-seed1-fp16.safetensors")
+    t0 = time.perf_counter()
+    write_safetensors(first, load.sd1_state_dict(model), metadata={"format": "pt"})
+    other = create_random_sd15(seed=1, device=device)
+    write_safetensors(second, {k: v.half() for k, v in load.sd1_state_dict(other).items()})
+    del other
+    torch.cuda.empty_cache()
+    gb = os.path.getsize(first) / 1e9
+    log(f"wrote {os.path.basename(first)} ({gb:.3f} GB, UNet bf16, VAE and CLIP fp32) and "
+        f"{os.path.basename(second)} ({os.path.getsize(second) / 1e9:.3f} GB, fp16) in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    reads = []
+    real_read = load.read_checkpoint
+
+    def counted_read(path, *a, **k):
+        reads.append(path)
+        return real_read(path, *a, **k)
+    load.read_checkpoint = counted_read
+    opts.set("sd_checkpoints_limit", 2)
+    t0 = time.perf_counter()
+    engine = Engine(device=device, ckpt=first, ckpt_dirs=[ckpt_dir],
+                    hash_cache=os.path.join(ckpt_dir, "hashes.json"))
+    sha = engine.registry.find(os.path.basename(first)).calculate_sha256(engine.hash_cache)
+    t_hash = time.perf_counter() - t0
+    loaded = engine.sd_model                       # file → the model on the card
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0 - t_hash
+    swaps = []
+    real_reload = engine.reload_checkpoint
+
+    def timed_reload(name=None):
+        t = time.perf_counter()
+        real_reload(name)
+        torch.cuda.synchronize()
+        swaps.append(time.perf_counter() - t)
+    engine.reload_checkpoint = timed_reload
+
+    plan = _plan(b1=1, b2=STEPS * launch_plan(loaded.unet_cfg, 64),
+                 b5=STEPS * ln_plan(loaded.unet_cfg, 64) + clip_ln_plan(loaded))
+    body = dict(SD15_BASE, seed=1234, batch_size=1)
+
+    def check(params, seed):
+        _sd15_check(params, seed)
+        if f"Model hash: {sha[:10]}" not in params:
+            raise AssertionError(f"infotext lacks the file's hash {sha[:10]}: {params!r}")
+
+    results = []
+    with _server(engine) as url:
+        results.append(_request(url, "txt2img", body, check, 512, "from the file"))
+        first_image_s = t_load + results[0]["seconds"]
+        delta = int(abs(results[0]["image"].astype(int) - phase3["image"].astype(int)).max())
+        log(f"load: sha256 {t_hash:.2f} s, file → card {t_load:.2f} s ({t_load / gb:.3f} s/GB), "
+            f"file → first image {first_image_s:.2f} s; the image is {delta} uint8 levels "
+            f"from phase 3's (bound {REPEAT_TOL})")
+        if delta > REPEAT_TOL:
+            raise AssertionError(f"the file's image differs from phase 3's by {delta}")
+        _post(f"{url}/options", {"sd_model_checkpoint": os.path.basename(second)})
+        results.append(_request(url, "txt2img", body, _sd15_check, 512, "the second file"))
+        other_diff = float(abs(results[1]["image"].astype(int)
+                               - results[0]["image"].astype(int)).mean())
+        n_reads = len(reads)
+        results.append(_request(url, "txt2img", dict(body, override_settings={
+            "sd_model_checkpoint": os.path.basename(first)}), check, 512, "swapped back"))
+        back = int(abs(results[2]["image"].astype(int) - phase3["image"].astype(int)).max())
+        listed = sorted(m["filename"] for m in _post(f"{url}/sd-models"))
+    log(f"second checkpoint: mean|Δ| {other_diff:.2f} levels from the first; swap back "
+        f"{back} levels from phase 3 with {len(reads) - n_reads} file reads; swaps "
+        + ", ".join(f"{t:.3f} s" for t in swaps) + f"; sd-models {listed}")
+    if not other_diff > 1.0:
+        raise AssertionError("the second checkpoint gave the first one's image")
+    if back > REPEAT_TOL or len(reads) != n_reads:
+        raise AssertionError(f"swap back: {back} levels from phase 3, "
+                             f"{len(reads) - n_reads} file reads")
+    if listed != sorted([first, second]):
+        raise AssertionError(f"sd-models lists {listed}")
+    load.read_checkpoint = real_read
+    _check_launches(results, [plan] * 3)
+    engine.reload_checkpoint = real_reload
+    info = dict(file_gb=gb, sha256_s=t_hash, load_s=t_load, load_s_per_gb=t_load / gb,
+                first_image_s=first_image_s, swap_s=swaps, file_reads=reads)
+    return engine, results, info
+
+
+def phase_samplers(engine):
+    """4b: one request per sampler name on the loaded model."""
+    from sdwebui_tpu_torch.pipeline.params import GenerationParams
+    from sdwebui_tpu_torch.pipeline.processing import prepare_sampler
+    from sdwebui_tpu_torch.sampling.solvers import build_restart_plan
+
+    model = engine.sd_model
+    per_call = launch_plan(model.unet_cfg, 64)
+    results = []
+    with _server(engine) as url:
+        names = [s["name"] for s in _post(f"{url}/samplers")]
+        for name in names:
+            body = dict(SD15_BASE, sampler_name=name, steps=SAMPLER_STEPS, seed=77,
+                        batch_size=1)
+
+            def check(params, seed, name=name):
+                if f"Sampler: {name}," not in params or f"Seed: {seed}," not in params:
+                    raise AssertionError(f"infotext lacks sampler {name!r}: {params!r}")
+            r = _request(url, "txt2img", body, check, 512, f"sampler {name!r}")
+            _, spec, sigmas, _ = prepare_sampler(model, GenerationParams(
+                sampler_name=name, steps=SAMPLER_STEPS), SAMPLER_STEPS)
+            n = len(build_restart_plan(sigmas)[0]) if spec.name == "restart" else len(sigmas) - 1
+            calls = spec.model_calls(n)
+            b2 = r["launches"]["flash_attention_packed"]
+            if r["image"].std() < 1.0:
+                raise AssertionError(f"{name}: the image is flat")
+            if calls is None:
+                ok = b2 > 0 and b2 % per_call == 0
+                calls = b2 // per_call
+            else:
+                ok = b2 == calls * per_call
+            if not ok or r["launches"]["flash_attention"] != 1:
+                raise AssertionError(f"{name}: launches {r['launches']} for {calls} model calls "
+                                     f"of {per_call} B2 launches each")
+            results.append(dict(r, sampler=name, model_calls=calls))
+    log("s/request by sampler at 512², 8 steps: " + json.dumps(
+        {r["sampler"]: [round(r["seconds"], 3), r["model_calls"]] for r in results}))
+    return results
 
 
 def phase_sdxl_unet(base, refiner, device):
@@ -863,7 +1025,11 @@ def main() -> int:
     engine = Engine(model=model, device=device)
     results = phase_serve(engine, model)
     i2i_results, i2i_calls = phase_img2img(engine, model, results[0]["png_b64"])
-    del model, engine
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+        ckpt_engine, ckpt_results, ckpt_info = phase_checkpoint(model, device, results[0],
+                                                                ckpt_dir)
+    sampler_results = phase_samplers(ckpt_engine)
+    del model, engine, ckpt_engine
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -882,12 +1048,13 @@ def main() -> int:
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "sdwebui_tpu"))
     if leaked:
         raise AssertionError(f"the port imported JAX or the JAX package: {leaked[:5]}")
-    requests = [{k: v for k, v in r.items() if k not in ("image", "png_b64")}
-                for r in results + i2i_results + sdxl_results]
+    requests = [{k: v for k, v in r.items() if k not in ("image", "png_b64", "infotext")}
+                for r in (results + i2i_results + ckpt_results + sampler_results
+                          + sdxl_results)]
     log(json.dumps({"card": smi, "kernel_shapes": rows, "unet_step": unet,
                     "sdxl_unet_step": sdxl_unet, "img2img_unet_calls": i2i_calls,
-                    "sdxl_refiner_after_step": s_idx, "requests": requests,
-                    "sdxl_profile": profile}))
+                    "sdxl_refiner_after_step": s_idx, "checkpoint": ckpt_info,
+                    "requests": requests, "sdxl_profile": profile}))
 
     def row_of(name, shape, dtype):
         return next(r for r in rows if r["entry"] == name and r["name"] == shape
@@ -911,7 +1078,7 @@ def main() -> int:
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
     # launches: every timed request of the main paths (SD1.5 txt2img and
-    # img2img, SDXL); the times at each entry's dominant shape; max_abs_err
+    # img2img, from the checkpoint files and with every sampler, SDXL); the times at each entry's dominant shape; max_abs_err
     # over all its compared shapes
     print(json.dumps({"kernels": [entry(*e) for e in KERNEL_ENTRIES]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -28,17 +28,14 @@ from sdwebui_tpu_torch.pipeline.params import GenerationParams, Processed
 from sdwebui_tpu_torch.pipeline.processing import (_apply_grid, _build_conds,
                                                    _check_slice, _resolve_seeds,
                                                    _skip_uncond_mask,
-                                                   _solver_extra,
                                                    _strip_prompt_comments,
                                                    create_infotext, create_rng,
                                                    decode_first_stage_u8,
                                                    encode_first_stage,
-                                                   sample_latents)
+                                                   prepare_sampler, sample_latents)
 from sdwebui_tpu_torch.pipeline.sd_model import SDModel
 from sdwebui_tpu_torch.rng.philox import PhiloxGenerator
-from sdwebui_tpu_torch.sampling.registry import build_sigmas, get_sampler
 from sdwebui_tpu_torch.sampling.sampler import prepare_noise
-from sdwebui_tpu_torch.sampling.solvers import get_solver
 from sdwebui_tpu_torch.utils import images as images_util
 from sdwebui_tpu_torch.utils import masking
 from sdwebui_tpu_torch.utils.options import opts
@@ -145,8 +142,6 @@ def _process_img2img(model: SDModel, p: GenerationParams,
         p.denoising_strength = 0.75
     _resolve_seeds(p)
     _strip_prompt_comments(p)
-    sampler = get_sampler(p.sampler_name)
-    spec = get_solver(sampler.solver)
     h, w = p.latent_size()
     c = model.latent_channels
 
@@ -180,7 +175,7 @@ def _process_img2img(model: SDModel, p: GenerationParams,
 
     # schedule: the last t_enc + 1 sigmas
     steps, t_enc = setup_img2img_steps(p.steps, p.denoising_strength)
-    sigmas_full = build_sigmas(sampler, p.scheduler, steps, model.disc, is_sdxl=model.is_sdxl)
+    sampler, spec, sigmas_full, solver_extra = prepare_sampler(model, p, steps)
     sigma_sched = sigmas_full[steps - t_enc - 1:]
     extra_noise = float(opts.get("img2img_extra_noise", 0.0) or 0.0)
 
@@ -204,7 +199,7 @@ def _process_img2img(model: SDModel, p: GenerationParams,
         sched.skip_uncond = _skip_uncond_mask(sigma_sched, p)
         noise = prepare_noise(spec, len(sigma_sched) - 1, rng, model.device)
         latents = sample_latents(model, sched, xi, sigma_sched, noise, sampler.solver,
-                                 _solver_extra(p), step_callback=step_callback,
+                                 solver_extra, step_callback=step_callback,
                                  mask=mask, nmask=nmask, init_latent=init_latent)
         if mask is not None:
             latents = latents * nmask + init_latent * mask

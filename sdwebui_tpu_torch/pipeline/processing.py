@@ -12,7 +12,9 @@ computation.
 
 from __future__ import annotations
 
+import dataclasses
 import math
+import os
 import random
 import re
 from typing import Callable
@@ -26,7 +28,7 @@ from sdwebui_tpu_torch.pipeline.sd_model import SDModel, sdxl_vector_maker
 from sdwebui_tpu_torch.rng.image_rng import ImageRNG, TorchCPUGenerator
 from sdwebui_tpu_torch.rng.philox import PhiloxGenerator
 from sdwebui_tpu_torch.sampling.cfg import CondSchedule, make_cfg_denoiser
-from sdwebui_tpu_torch.sampling.registry import build_sigmas, get_sampler
+from sdwebui_tpu_torch.sampling.registry import SamplerData, build_sigmas, get_sampler
 from sdwebui_tpu_torch.sampling.sampler import prepare_noise, sample
 from sdwebui_tpu_torch.sampling.solvers import get_solver
 from sdwebui_tpu_torch.text.conditioner import build_cond_schedule
@@ -98,22 +100,40 @@ def sigma_to_t(sigma: float, log_sigmas: np.ndarray, quantize: bool) -> float:
     return float((1 - w) * np.float32(low_idx) + w * np.float32(low_idx + 1))
 
 
-def make_denoise_fn(model: SDModel, quantize_t: bool, compute_dtype):
+#: LCM's distillation steps: its timesteps are every (T / 50)-th table entry
+LCM_ORIGINAL_STEPS = 50
+
+
+def make_denoise_fn(model: SDModel, quantize_t: bool, compute_dtype, solver: str = ""):
     """denoise(x, sigma, ctx, y=None) → denoised: k-diffusion
     CompVis(V)Denoiser scalings around the UNet (processing.py:150-202);
-    y is the SDXL vector cond."""
+    y is the SDXL vector cond.  For LCM, σ snaps to the distillation
+    subtable and an eps model's output passes through the consistency
+    model's boundary scalings (sigma_data 0.5 over t·10)."""
     log_sigmas = np.asarray(model.disc.log_sigmas, np.float32)
     prediction_type = model.disc.prediction_type
+    lcm = solver == "lcm"
+    skip = len(log_sigmas) // LCM_ORIGINAL_STEPS
+    sub = log_sigmas[skip - 1::skip]
 
     def denoise(x, sigma: float, ctx, y=None):
         s = np.float32(sigma)
-        t = sigma_to_t(s, log_sigmas, quantize_t)
+        if lcm:
+            j = int(np.argmin(np.abs(np.log(np.maximum(s, np.float32(1e-12))) - sub)))
+            t = np.float32(j * skip + (skip - 1))
+        else:
+            t = sigma_to_t(s, log_sigmas, quantize_t)
         c_in = float(np.float32(1.0) / np.sqrt(s * s + np.float32(1.0)))
         x_in = (x * c_in).to(compute_dtype)
-        timesteps = torch.full((x.shape[0],), t, dtype=torch.float32, device=x.device)
+        timesteps = torch.full((x.shape[0],), float(t), dtype=torch.float32, device=x.device)
         out = model.unet(x_in, timesteps, ctx, y).float()
         if prediction_type == "v":
             return x / float(s * s + 1) - out * float(s / np.sqrt(s * s + 1))
+        if lcm:
+            st = t * np.float32(10.0)
+            c_skip = np.float32(0.25) / (st ** 2 + np.float32(0.25))
+            c_out = st / np.sqrt(st ** 2 + np.float32(0.25))
+            return (x - out * float(s)) * float(c_out) + x * float(c_skip)
         return x - out * float(s)
 
     return denoise
@@ -128,14 +148,20 @@ def sample_latents(model: SDModel, sched: CondSchedule, x, sigmas, noise,
     step first_step + i of total_steps (a refiner run continues the base's
     count).  mask / nmask / init_latent: the img2img latent blend."""
     quantize = bool(opts.get("enable_quantization", False))
-    denoise = make_denoise_fn(model, quantize, devices.get_policy().compute_dtype)
+    denoise = make_denoise_fn(model, quantize, devices.get_policy().compute_dtype, solver)
     model_fn = make_cfg_denoiser(denoise, sched, mask=mask, nmask=nmask,
-                                 init_latent=init_latent)
+                                 init_latent=init_latent,
+                                 return_uncond=solver == "ddim_cfgpp")
     sig = np.asarray(sigmas, np.float32)
     n = total_steps or len(sig) - 1
     callback = None
     if step_callback is not None:
         callback = lambda i, xc: step_callback(first_step + i, n, xc)  # noqa: E731
+    extra = dict(extra or {})
+    if solver == "unipc":     # processing.py:382-392
+        for key, default in (("uni_pc_order", 3), ("uni_pc_variant", "bh1"),
+                             ("uni_pc_lower_order_final", True)):
+            extra[key] = opts.get(key, default)
     return sample(model_fn, x, sig, solver, noise, extra, callback=callback)
 
 
@@ -208,18 +234,62 @@ def create_rng(shape, seeds, subseeds=None, subseed_strength=0.0,
                     channels_last=False, gen_cls=gen_cls)
 
 
-def _solver_extra(p: GenerationParams) -> dict:
-    """eta (request > eta_ancestral option) and s_noise for Euler a."""
-    extra = {}
+_TIMESTEP_SOLVERS = ("ddim", "ddim_cfgpp", "plms", "unipc")
+_CHURN_SOLVERS = ("euler", "heun", "dpm_2")
+
+
+def _solver_extra(p: GenerationParams, sampler: SamplerData) -> dict:
+    """Per-run solver knobs (processing.py:1202-1229): the sampler's own
+    options, eta (request > eta_ddim / eta_ancestral options), s_noise,
+    and Karras churn for the samplers the reference forwards it to."""
+    extra = dict(sampler.extra)
     if p.eta is not None and p.eta > 0:
         extra["eta"] = float(p.eta)
+    elif sampler.solver in _TIMESTEP_SOLVERS:
+        v = float(opts.get("eta_ddim", 0.0) or 0.0)
+        if v > 0:
+            extra["eta"] = v
     else:
         v = float(opts.get("eta_ancestral", 1.0))
         if v != 1.0:
             extra["eta"] = v
     if p.s_noise not in (None, 1.0):
         extra["s_noise"] = float(p.s_noise)
+    if sampler.solver in _CHURN_SOLVERS:
+        churn = float(p.s_churn or opts.get("s_churn", 0.0) or 0.0)
+        if churn > 0:
+            extra["s_churn"] = churn
+            extra["s_tmin"] = float(p.s_tmin or opts.get("s_tmin", 0.0) or 0.0)
+            extra["s_tmax"] = float(p.s_tmax or opts.get("s_tmax", 0.0) or 0.0)
+            p.extra_generation_params["Sigma churn"] = churn
     return extra
+
+
+def _resolve_scheduler(sampler: SamplerData, requested: str) -> str:
+    """The sampler's forced scheduler, with UniPC's skip type mapped onto
+    its schedule (processing.py:1289-1301)."""
+    scheduler = sampler.scheduler_override or requested
+    if sampler.solver == "unipc":
+        skip = opts.get("uni_pc_skip_type", "time_uniform")
+        scheduler = {"logSNR": "exponential",
+                     "time_quadratic": "unipc_quadratic"}.get(skip, scheduler)
+    return scheduler
+
+
+def prepare_sampler(model: SDModel, p: GenerationParams, steps: int):
+    """(sampler, solver spec, sigmas, solver extra) of a request: the
+    resolved scheduler's schedule with build_sigmas' post-passes (their
+    infotext pairs go to p.extra_generation_params), and one noise a step
+    for a churn run."""
+    sampler = get_sampler(p.sampler_name)
+    spec = get_solver(sampler.solver)
+    sigmas = build_sigmas(sampler, _resolve_scheduler(sampler, p.scheduler), steps,
+                          model.disc, extra_params_out=p.extra_generation_params,
+                          is_sdxl=model.is_sdxl)
+    extra = _solver_extra(p, sampler)
+    if extra.get("s_churn"):
+        spec = dataclasses.replace(spec, noises_per_step=max(spec.noises_per_step, 1))
+    return sampler, spec, sigmas, extra
 
 
 def _skip_uncond_mask(sigmas, p: GenerationParams):
@@ -311,11 +381,18 @@ def create_infotext(p: GenerationParams, model: SDModel, index: int = 0) -> str:
     if uses_refiner(p):
         pairs["Refiner"] = p.refiner_checkpoint
         pairs["Refiner switch at"] = p.refiner_switch_at
+    if model.vae_file:
+        if opts.get("add_vae_hash_to_info", True) and model.vae_sha256:
+            pairs["VAE hash"] = model.vae_sha256[:10]
+        if opts.get("add_vae_name_to_info", True):
+            pairs["VAE"] = os.path.splitext(os.path.basename(model.vae_file))[0]
     if p.eta:
         pairs["Eta"] = p.eta
     ensd = p.override_settings.get("eta_noise_seed_delta",
                                    opts.get("eta_noise_seed_delta", 0))
-    if ensd:
+    if ensd and get_sampler(p.sampler_name).uses_ensd:
+        # the reference's rule: only samplers that draw noise after the
+        # first draw record it (JAX records it for every sampler)
         pairs["ENSD"] = ensd
     emphasis = opts.get("emphasis", "Original")
     if emphasis != "Original":
@@ -391,17 +468,18 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
                      step_callback: Callable | None,
                      refiner_model: SDModel | None) -> Processed:
     _check_slice(p)
+    if model.unet_cfg.in_channels != model.latent_channels:
+        raise NotImplementedError(
+            f"txt2img with a {model.unet_cfg.in_channels}-channel UNet (inpainting, "
+            "instruct-pix2pix, depth) is not ported yet")
     if uses_refiner(p) and refiner_model is None:
         raise ValueError(f"refiner {p.refiner_checkpoint!r} was requested, "
                          "but no refiner model was given")
     _resolve_seeds(p)
     _strip_prompt_comments(p)
-    sampler = get_sampler(p.sampler_name)
-    spec = get_solver(sampler.solver)
+    sampler, spec, sigmas, solver_extra = prepare_sampler(model, p, p.steps)
     h, w = p.latent_size()
     c = model.latent_channels
-    sigmas = build_sigmas(sampler, p.scheduler, p.steps, model.disc, is_sdxl=model.is_sdxl)
-    solver_extra = _solver_extra(p)
 
     all_images, infotexts = [], []
     for n in range(p.n_iter):

@@ -1,7 +1,8 @@
 """The loaded-model bundle: UNet + VAE + text encoder(s) + discretization.
 
 Port of ``sdwebui_tpu/pipeline/sd_model.py:29-113,223-258,319-411,445-464``
-for SD1.5 and the SDXL base and refiner.  The bundle holds ``nn.Module``s
+for SD1.x, SD2.x and the SDXL base and refiner (a checkpoint file's
+bundle comes from ``loader/load.py``).  The bundle holds ``nn.Module``s
 on one explicit device.  Random weights come
 from an explicit ``torch.Generator`` on that device, with the
 distributions of the JAX package's ``HostInit`` (normal·1/√fan_in, zero
@@ -46,10 +47,14 @@ class SDModel:
     disc: Discretization
     conditioner: TextConditioner          # primary text encoder
     device: torch.device
-    title: str = "random-sd15"
+    title: str = "random-sd15"            # "<file name> [<sha256[:10]>]" when loaded
     sha256: str = ""
-    kind: str = "sd1"                     # sd1 | sdxl | sdxl-refiner
+    kind: str = "sd1"                     # sd1 | sd2 | sdxl | sdxl-refiner
     conditioner2: TextConditioner | None = None   # SDXL base's OpenCLIP-bigG
+    filename: str = ""                    # the checkpoint file, when loaded from one
+    vae_file: str = ""                    # an external VAE file in use, else ""
+    vae_sha256: str = ""
+    embedded_vae: AutoencoderKL | None = None   # the checkpoint's own VAE meanwhile
 
     @property
     def is_sdxl(self) -> bool:
@@ -58,6 +63,18 @@ class SDModel:
     @property
     def latent_channels(self) -> int:
         return self.vae_cfg.embed_dim
+
+    def to(self, device) -> "SDModel":
+        """Move every module to `device` (in place; parks a displaced
+        checkpoint in host RAM with "cpu")."""
+        self.device = torch.device(device)
+        for cond in (self.conditioner, self.conditioner2):
+            if cond is not None:
+                cond.model.to(self.device)
+        for module in (self.unet, self.vae, self.embedded_vae):
+            if module is not None:
+                module.to(self.device)
+        return self
 
     def encode_texts(self, texts, target_chunks=None):
         """texts → (N, S, D) crossattn conds, or (conds, pooled) for SDXL:

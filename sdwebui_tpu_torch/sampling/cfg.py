@@ -49,7 +49,7 @@ class CondSchedule:
 def make_cfg_denoiser(denoise_fn: Callable, sched: CondSchedule,
                       mask=None, nmask=None, init_latent=None,
                       mask_before_denoising: bool = False,
-                      soft_inpainting=None) -> Callable:
+                      soft_inpainting=None, return_uncond: bool = False) -> Callable:
     """Build model(x, sigma, i) -> denoised for the solver loop.
 
     denoise_fn(x, sigma, context) -> denoised for x (N, C, H, W) at the
@@ -58,6 +58,10 @@ def make_cfg_denoiser(denoise_fn: Callable, sched: CondSchedule,
     the context's row order.  mask (keep weight) / nmask (repaint weight)
     / init_latent are the latent mask blend: on the denoised output, or on
     the input with mask_before_denoising (cfg.py:145-146,195-197).
+    return_uncond (DDIM CFG++): the guidance scale is divided by 12.5 and
+    the model returns stacked [cfg, uncond] (cfg.py:178-202).  A step past
+    the schedule (a Restart plan's or a DPM driver's extra calls) takes
+    its last entry, as JAX's clamped gather does.
     """
     if sched.image_cfg_scale is not None:
         raise NotImplementedError("edit-model (instruct-pix2pix) CFG is not ported yet")
@@ -68,6 +72,9 @@ def make_cfg_denoiser(denoise_fn: Callable, sched: CondSchedule,
     k = sched.cond_bank.shape[0]
     rows = torch.arange(k, device=sched.cond_bank.device)
 
+    scale = sched.cond_scale * (1.0 / 12.5 if return_uncond else 1.0)
+    last = sched.cond_idx.shape[1] - 1
+
     def combine(out, i):
         out_conds, out_uncond = out[:k], out[k]
         w = torch.as_tensor(np.asarray(sched.cond_weights, np.float32),
@@ -75,9 +82,10 @@ def make_cfg_denoiser(denoise_fn: Callable, sched: CondSchedule,
         if sched.skip_uncond is not None and bool(sched.skip_uncond[i]):
             # NGMS: the skipped-uncond step returns the weighted cond mean
             return (w * out_conds).sum(0) / float(np.sum(sched.cond_weights))
-        return out_uncond + (w * (out_conds - out_uncond[None])).sum(0) * sched.cond_scale
+        return out_uncond + (w * (out_conds - out_uncond[None])).sum(0) * scale
 
     def model(x, sigma: float, i: int):
+        i = min(i, last)
         if mask is not None and mask_before_denoising:
             x = init_latent * mask + nmask * x
         b = x.shape[0]
@@ -93,9 +101,12 @@ def make_cfg_denoiser(denoise_fn: Callable, sched: CondSchedule,
             y = torch.cat([sched.vector_bank[rows, idx], sched.vector_uncond_bank[u][None]],
                           dim=0).repeat_interleave(b, dim=0)
             out = denoise_fn(x_in, sigma, ctx, y)
-        cfg = combine(out.reshape(k + 1, b, *out.shape[1:]), i)
+        out = out.reshape(k + 1, b, *out.shape[1:])
+        cfg = combine(out, i)
         if mask is not None and not mask_before_denoising:
             cfg = cfg * nmask + init_latent * mask
+        if return_uncond:
+            return torch.stack([cfg, out[k]])
         return cfg
 
     return model

@@ -1,9 +1,9 @@
 """Noise-schedule discretization: alphas_cumprod ↔ sigma tables (numpy, fp64).
 
-A copy of what the txt2img slice needs from
+A copy of what the port's samplers need from
 ``sdwebui_tpu/sampling/discretization.py`` (the JAX package's ``sampling``
-``__init__`` imports jax, so the module cannot be reused from there);
-tests hold both equal.
+``__init__`` imports jax, so the module cannot be reused from there): the
+sigma table and LCM's distillation subtable.  Tests hold both equal.
 """
 
 from __future__ import annotations
@@ -68,3 +68,35 @@ class Discretization:
         """k-diffusion default ('Automatic'/'Uniform') schedule."""
         t = np.linspace(len(self.sigmas) - 1, 0, n)
         return np.append(self.t_to_sigma(t), 0.0).astype(np.float64)
+
+
+def lcm_subtable(disc, original_timesteps: int = 50):
+    """LCM's 50-entry distillation sigma subtable (reference
+    modules/sd_samplers_lcm.py LCMCompVisDenoiser.__init__):
+    alphas_cumprod_valid[orig-1-x] = alphas_cumprod[T-1-x*skip], i.e. full
+    timesteps t = skip-1, 2*skip-1, …, T-1 ascending.  Returns
+    (t_full (orig,), sigmas (orig,)) both ascending."""
+    ac = np.asarray(disc.alphas_cumprod, np.float64)
+    T = len(ac)
+    skip = T // original_timesteps
+    t_full = np.arange(skip - 1, T, skip)
+    sub_ac = ac[t_full]
+    return t_full, np.sqrt((1.0 - sub_ac) / sub_ac)
+
+
+def lcm_schedule(disc, n: int, original_timesteps: int = 50) -> np.ndarray:
+    """LCM 'Automatic' schedule (LCMCompVisDenoiser.get_sigmas(n)): uniform
+    in full-range timestep between the subtable's max and min, each mapped
+    back through the subtable's interpolated t→sigma, then append zero."""
+    t_full, sub_sigmas = lcm_subtable(disc, original_timesteps)
+    log_sub = np.log(sub_sigmas)
+    skip = len(disc.alphas_cumprod) // original_timesteps
+    start, end = float(t_full[-1]), float(t_full[0])
+    t = np.linspace(start, end, n)
+    # t_to_sigma: clamp to subtable index space, lerp in log sigma
+    ts = np.clip((t - (skip - 1)) / skip, 0, original_timesteps - 1)
+    low = np.floor(ts).astype(int)
+    high = np.ceil(ts).astype(int)
+    w = ts - low
+    log_sigma = (1 - w) * log_sub[low] + w * log_sub[high]
+    return np.concatenate([np.exp(log_sigma), [0.0]])

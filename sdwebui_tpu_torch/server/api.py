@@ -1,31 +1,38 @@
-"""HTTP API: ``/sdapi/v1/txt2img``, ``/sdapi/v1/img2img`` and friends on a
-stdlib server.
+"""HTTP API: ``/sdapi/v1/txt2img``, ``/sdapi/v1/img2img``, the checkpoint
+routes and friends on a stdlib server.
 
-Port of the txt2img and img2img routes of
-``sdwebui_tpu/server/api.py:133,252-291``.  Requests are plain JSON mapped
+Port of the generation, option and checkpoint routes of
+``sdwebui_tpu/server/api.py:133-163,252-291,511-600,895-914``: options
+(a ``sd_model_checkpoint`` in a POST reloads), samplers, schedulers,
+sd-models, sd-vae, and refresh / reload / unload of checkpoints.
+Requests are plain JSON mapped
 onto ``GenerationParams`` (no pydantic); responses have the reference's
 shape, ``{"images": [b64 png], "parameters": {...}, "info": "<json>"}``.
 img2img's ``init_images`` and ``mask`` are base64 PNGs (a ``data:image/png``
 URL prefix is accepted); another image format answers 400 naming it, and
 ``parameters`` leaves them out unless ``include_init_images`` is set, as
-the reference does.  A request field or override the slice does not run
-answers 422 naming it — it is never silently ignored.
+the reference does.  A request field, override or option the port does
+not run answers 422 naming it — it is never silently ignored — and so
+does a checkpoint name the server does not hold.
 """
 
 from __future__ import annotations
 
 import base64
 import binascii
+import glob
 import json
+import os
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from sdwebui_tpu_torch.pipeline.img2img import UNPORTED_IMG2IMG_OPTIONS
 from sdwebui_tpu_torch.pipeline.params import GenerationParams
 from sdwebui_tpu_torch.pipeline.processing import UNPORTED_OPTIONS
-from sdwebui_tpu_torch.sampling.registry import SAMPLER_MAP, SAMPLERS, UNPORTED
+from sdwebui_tpu_torch.sampling.registry import SAMPLER_MAP, SAMPLERS
 from sdwebui_tpu_torch.sampling.schedulers import ALIASES, SCHEDULERS
-from sdwebui_tpu_torch.server.app import Engine
+from sdwebui_tpu_torch.server.app import CheckpointNotFound, Engine
+from sdwebui_tpu_torch.utils.options import opts
 from sdwebui_tpu_torch.utils.png import decode_png, encode_png
 
 _NUM = (int, float)
@@ -73,6 +80,13 @@ OVERRIDES = {
     "cross_attention_optimization", "sdxl_clip_l_skip", "sdxl_crop_top",
     "sdxl_crop_left", "sdxl_refiner_high_aesthetic_score",
     "sdxl_refiner_low_aesthetic_score", "refiner_switch_by_sample_steps",
+    # the samplers' settings (processing._solver_extra, registry.build_sigmas)
+    "eta_ddim", "s_churn", "s_tmin", "s_tmax", "sigma_min", "sigma_max", "rho",
+    "always_discard_next_to_last_sigma", "use_old_karras_scheduler_sigmas",
+    "ddim_discretize", "uni_pc_order", "uni_pc_variant", "uni_pc_skip_type",
+    "uni_pc_lower_order_final",
+    # per-request checkpoint and VAE (Engine._maybe_switch)
+    "sd_model_checkpoint", "sd_vae",
     *UNPORTED_OPTIONS,
 }
 
@@ -96,6 +110,13 @@ IMG2IMG_NEUTRAL = {
 
 IMG2IMG_OVERRIDES = {"img2img_extra_noise", "img2img_background_color", "overlay_inpaint",
                      *UNPORTED_IMG2IMG_OPTIONS}
+
+#: options POST /sdapi/v1/options sets: the overrides, and how checkpoints
+#: are kept and read
+OPTIONS = OVERRIDES | IMG2IMG_OVERRIDES | {
+    "sd_checkpoints_limit", "sd_checkpoints_keep_in_cpu", "sd_checkpoint_cache",
+    "sd_vae_checkpoint_cache", "sd_vae_overrides_per_model_preferences",
+    "list_hidden_files", "disable_mmap_load_safetensors"}
 
 #: magic bytes of the image formats a client may send instead of PNG
 _FORMATS = ((b"\xff\xd8\xff", "JPEG"), (b"GIF8", "GIF"), (b"BM", "BMP"),
@@ -136,8 +157,6 @@ def _params_from_request(body: dict, img2img: bool = False) -> GenerationParams:
             raise ApiError(422, f"override_settings key {key!r} is not supported yet")
     sampler = req["sampler_name"] or req["sampler_index"] or "Euler a"
     if sampler != "Automatic" and sampler not in SAMPLER_MAP:
-        if sampler in UNPORTED:
-            raise ApiError(422, f"sampler {sampler!r} is not ported yet")
         raise ApiError(400, "Sampler not found")
     scheduler = req["scheduler"] or "Automatic"
     if ALIASES.get(scheduler, scheduler.lower()) not in SCHEDULERS:
@@ -195,7 +214,15 @@ class Api:
         self.routes = {
             ("POST", "/sdapi/v1/txt2img"): self.txt2img,
             ("POST", "/sdapi/v1/img2img"): self.img2img,
+            ("GET", "/sdapi/v1/options"): self.get_options,
+            ("POST", "/sdapi/v1/options"): self.set_options,
             ("GET", "/sdapi/v1/samplers"): self.samplers,
+            ("GET", "/sdapi/v1/schedulers"): self.schedulers,
+            ("GET", "/sdapi/v1/sd-models"): self.sd_models,
+            ("GET", "/sdapi/v1/sd-vae"): self.sd_vaes,
+            ("POST", "/sdapi/v1/refresh-checkpoints"): self.refresh_checkpoints,
+            ("POST", "/sdapi/v1/reload-checkpoint"): self.reload_checkpoint,
+            ("POST", "/sdapi/v1/unload-checkpoint"): self.unload_checkpoint,
             ("GET", "/internal/ping"): lambda body: {},
         }
 
@@ -204,10 +231,7 @@ class Api:
             raise ApiError(422, "request body must be a JSON object")
         p = _params_from_request(body, img2img)
         run = self.engine.img2img if img2img else self.engine.txt2img
-        try:
-            res = run(p)
-        except NotImplementedError as e:
-            raise ApiError(422, str(e)) from e
+        res = run(p)
         images = None
         if body.get("send_images", True):
             images = [base64.b64encode(encode_png(
@@ -223,9 +247,67 @@ class Api:
     def img2img(self, body: dict):
         return self._generate(body, img2img=True)
 
+    def get_options(self, body=None):
+        d = opts.dumpjson()
+        model = self.engine._model
+        d["sd_model_checkpoint"] = model.title if model else d.get("sd_model_checkpoint")
+        return d
+
+    def set_options(self, body: dict):
+        """Set the options; a sd_model_checkpoint in the body loads it."""
+        if not isinstance(body, dict):
+            raise ApiError(422, "request body must be a JSON object")
+        unknown = sorted(set(body) - OPTIONS)
+        if unknown:
+            raise ApiError(422, f"options {unknown} are not supported by this server yet")
+        body = dict(body)
+        checkpoint = body.pop("sd_model_checkpoint", None)
+        for key, value in body.items():
+            try:
+                opts.set(key, value, is_api=True)
+            except (TypeError, PermissionError) as e:
+                raise ApiError(422, f"option {key!r}: {e}") from e
+        if checkpoint is not None:     # the setting follows a load that succeeded
+            self.engine.reload_checkpoint(checkpoint)
+            opts.data["sd_model_checkpoint"] = checkpoint
+        return {}
+
     def samplers(self, body=None):
-        return [{"name": s.name, "aliases": list(s.aliases), "options": {}}
+        return [{"name": s.name, "aliases": list(s.aliases), "options": dict(s.extra)}
                 for s in SAMPLERS]
+
+    def schedulers(self, body=None):
+        seen = {}
+        for label, key in ALIASES.items():
+            seen.setdefault(key, label)
+        return [{"name": k, "label": lbl, "aliases": [lbl], "default_rho": -1,
+                 "need_inner_model": k in ("uniform", "sgm_uniform", "simple",
+                                           "normal", "ddim", "beta")}
+                for k, lbl in seen.items()]
+
+    def sd_models(self, body=None):
+        registry = self.engine.registry
+        return [{"title": c.title, "model_name": c.model_name, "filename": c.filename,
+                 "hash": (c.sha256 or "")[:10] or None, "sha256": c.sha256, "config": None}
+                for c in (registry.list() if registry is not None else [])]
+
+    def sd_vaes(self, body=None):
+        return [{"model_name": os.path.splitext(os.path.basename(p))[0], "filename": p}
+                for d in self.engine.vae_dirs for p in sorted(glob.glob(os.path.join(d, "*")))
+                if p.lower().endswith((".pt", ".ckpt", ".safetensors"))]
+
+    def refresh_checkpoints(self, body=None):
+        if self.engine.registry is not None:
+            self.engine.registry.refresh()
+        return {}
+
+    def reload_checkpoint(self, body=None):
+        self.engine.reload_checkpoint()
+        return {}
+
+    def unload_checkpoint(self, body=None):
+        self.engine.unload_checkpoint()
+        return {}
 
     def handle(self, method: str, path: str, body):
         """→ (status, JSON-able payload)."""
@@ -236,6 +318,8 @@ class Api:
             return 200, handler(body)
         except ApiError as e:
             return e.status, {"detail": e.message}
+        except (NotImplementedError, CheckpointNotFound) as e:
+            return 422, {"detail": str(e)}
         except Exception as e:   # surfaced as a 500 with its message
             traceback.print_exc()
             return 500, {"detail": f"{type(e).__name__}: {e}"}

@@ -1,18 +1,29 @@
 """Server application state: the models, the queue lock and the job state.
 
-Port of the txt2img and img2img parts of ``sdwebui_tpu/server/app.py:24-379``:
-an ``Engine`` owns one base ``SDModel`` (random-weight SD1.5 or SDXL, or a
-tiny test model) on an explicit device, plus resident extra models keyed
-by checkpoint title (the SDXL refiner, ``app.py:343-361``), and runs
-generations one at a time under its queue lock, keeping the job's
-progress in a ``runtime.state.State``.  Checkpoint loading and VAE
-switching come later.
+Port of ``sdwebui_tpu/server/app.py:24-380`` (txt2img, img2img and the
+checkpoint half).  An ``Engine`` serves either checkpoint files — a
+``CheckpointRegistry`` over the checkpoint directories, the first model
+loaded when first needed, ``reload_checkpoint`` with the
+``sd_checkpoints_limit`` LRU of resident models (the displaced one parked
+in host RAM with ``sd_checkpoints_keep_in_cpu``), per-request checkpoint
+and VAE switching through ``override_settings``, and refiners found
+through the registry — or, when asked for, random weights at full width
+(SD1.5, or the SDXL base with a resident refiner) or the tiny test models.
+Generations run one at a time under the queue lock, which model switches
+take too, with the job's progress in a ``runtime.state.State``.
+
+Unlike JAX (``app.py:208-226``), a checkpoint load that fails leaves the
+resident models as they were: the live model is moved back, and no parked
+duplicate of it stays in the cache.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 
+from sdwebui_tpu_torch.loader import load
+from sdwebui_tpu_torch.loader.registry import CheckpointRegistry, file_sha256
 from sdwebui_tpu_torch.ops.attention import set_attention_impl
 from sdwebui_tpu_torch.pipeline.img2img import process_img2img
 from sdwebui_tpu_torch.pipeline.params import GenerationParams, Processed
@@ -32,6 +43,16 @@ ATTENTION_IMPLS = {"Automatic": None, "flash": "flash", "flash-packed": "flash-p
 #: seed offset of the random SDXL refiner (the JAX bench's 100 for base 0)
 REFINER_SEED_OFFSET = 100
 
+#: where checkpoints, VAEs and the hash cache live unless the caller says
+#: otherwise (the reference's layout, relative to the working directory)
+DEFAULT_CKPT_DIR = os.path.join("models", "Stable-diffusion")
+DEFAULT_VAE_DIR = os.path.join("models", "VAE")
+DEFAULT_HASH_CACHE = "cache.json"
+
+
+class CheckpointNotFound(LookupError):
+    """A checkpoint or refiner name the registry does not hold."""
+
 
 def random_models(family: str, device, tiny: bool = False, seed: int = 0):
     """(base, extra models by title) for the random-weight mode: SD1.5, or
@@ -48,29 +69,150 @@ def random_models(family: str, device, tiny: bool = False, seed: int = 0):
 
 
 class Engine:
+    """model: serve this model; else ckpt / ckpt_dirs: serve checkpoint
+    files (ckpt, a path or a registry name, is loaded first; without it
+    opts.sd_model_checkpoint, then the first file found); else random
+    weights of `family`.  vae_path: one VAE file for every checkpoint
+    (the sd_vae setting is then not read); hash_cache: the sha256 cache
+    file (None: no cache)."""
+
     def __init__(self, device="cuda", tiny: bool = False, seed: int = 0,
                  model: SDModel | None = None, family: str = "sd15",
-                 extra_models: dict[str, SDModel] | None = None):
+                 extra_models: dict[str, SDModel] | None = None,
+                 ckpt: str | None = None, ckpt_dirs=None, vae_path: str | None = None,
+                 vae_dirs=(DEFAULT_VAE_DIR,), hash_cache: str | None = DEFAULT_HASH_CACHE):
         self.device = get_device(device)
-        made = {}
-        if model is None:
-            model, made = random_models(family, self.device, tiny, seed)
-        self.sd_model = model
-        self._extra_models = {**made, **(extra_models or {})}
-        self.queue_lock = threading.Lock()
+        self.queue_lock = threading.RLock()
         self.state = State()
+        self.vae_path, self.vae_dirs, self.hash_cache = vae_path, tuple(vae_dirs), hash_cache
+        self.registry, self._requested_ckpt = None, None
+        self._model, self._model_key = model, None
+        self._cache: dict[str, SDModel] = {}        # displaced checkpoints by name
+        self._extra_models = dict(extra_models or {})
+        if model is None and ckpt is None and not ckpt_dirs:
+            self._model, made = random_models(family, self.device, tiny, seed)
+            self._extra_models.update(made)
+        elif model is None:
+            dirs = [os.path.abspath(d) for d in (ckpt_dirs or [DEFAULT_CKPT_DIR])]
+            if ckpt and os.path.isfile(ckpt):
+                # a file outside the directories is served from its own
+                home = os.path.dirname(os.path.abspath(ckpt))
+                dirs += [] if home in dirs else [home]
+                ckpt = os.path.relpath(os.path.abspath(ckpt), next(
+                    d for d in dirs if os.path.abspath(ckpt).startswith(d + os.sep)))
+            self.registry = CheckpointRegistry(dirs, cache_path=hash_cache)
+            if ckpt and self.registry.find(ckpt) is None:
+                raise FileNotFoundError(f"checkpoint {ckpt!r} is neither a file nor in "
+                                        f"{self.registry.model_dirs}")
+            self._requested_ckpt = ckpt
+
+    # ---- model lifecycle ----------------------------------------------
+
+    @property
+    def sd_model(self) -> SDModel:
+        """The live model, loading the first checkpoint when none is."""
+        with self.queue_lock:
+            if self._model is None:
+                info = self._find(self._requested_ckpt or opts.get("sd_model_checkpoint"))
+                self._model, self._model_key = self._load(info), info.name
+            return self._model
+
+    def _find(self, name, what: str = "checkpoint"):
+        info = self.registry.find(name) if self.registry is not None else None
+        if info is None:
+            where = self.registry.model_dirs if self.registry is not None else \
+                "the resident models (no checkpoint directory is served)"
+            raise CheckpointNotFound(f"{what} {name!r} not found in {where}" if name
+                                     else f"no checkpoint file in {where}")
+        return info
+
+    def _load(self, info) -> SDModel:
+        """A checkpoint file with its VAE (the sd_vae chain or vae_path)."""
+        model = load.load_model(info.filename, title=info.name,
+                                sha256=info.calculate_sha256(self.hash_cache),
+                                device=self.device)
+        opts.data["sd_checkpoint_hash"] = model.sha256
+        self._set_vae(model, self.vae_path or load.resolve_vae(info.filename, self.vae_dirs))
+        return model
+
+    def reload_checkpoint(self, name: str | None = None):
+        """Make `name` (default opts.sd_model_checkpoint) the live model: from
+        the resident cache, or loaded from its file; the displaced model
+        joins the cache, parked in host RAM with sd_checkpoints_keep_in_cpu,
+        and the cache keeps sd_checkpoints_limit - 1 models."""
+        with self.queue_lock:
+            info = self._find(name or opts.get("sd_model_checkpoint"))
+            if self._model is not None and info.name == self._model_key:
+                return
+            prev, prev_key = self._model, self._model_key
+            if prev is not None:
+                if opts.get("sd_checkpoints_keep_in_cpu", True):
+                    prev.to("cpu")
+                self._cache[prev_key] = prev
+            try:
+                model = self._cache.pop(info.name, None)
+                model = self._load(info) if model is None else model.to(self.device)
+            except BaseException:
+                if prev is not None:        # the live model stays, no duplicate
+                    self._cache.pop(prev_key)
+                    prev.to(self.device)
+                raise
+            self._model, self._model_key = model, info.name
+            limit = max(int(opts.get("sd_checkpoints_limit", 1)) - 1, 0)
+            while len(self._cache) > limit:
+                self._cache.pop(next(iter(self._cache)))
+
+    def unload_checkpoint(self):
+        """Drop the live model; the next request loads the first one again."""
+        with self.queue_lock:
+            if self.registry is None:
+                raise CheckpointNotFound("random-weight models cannot be reloaded from a file")
+            self._model, self._model_key = None, None
+
+    # ---- VAE ------------------------------------------------------------
+
+    def _set_vae(self, model: SDModel, path: str | None):
+        """Give `model` the VAE file at `path`, or back its own with None."""
+        if (path or "") == model.vae_file:
+            return
+        if model.embedded_vae is None:
+            model.embedded_vae = model.vae
+        if path is None:
+            model.vae, model.vae_cfg = model.embedded_vae, model.embedded_vae.cfg
+            model.embedded_vae, model.vae_file, model.vae_sha256 = None, "", ""
+            return
+        model.vae, model.vae_cfg = load.load_external_vae(
+            path, self.device, scale_factor=model.vae_cfg.scale_factor)
+        model.vae_file, model.vae_sha256 = path, file_sha256(path, self.hash_cache)
+
+    def _maybe_switch(self, p: GenerationParams):
+        """override_settings.sd_model_checkpoint / sd_vae of one request
+        (app.py:238-280); the switch lasts past the request, as in JAX."""
+        want = (p.override_settings or {}).get("sd_model_checkpoint")
+        if want and (self.registry is not None or want != self._model.title):
+            self.reload_checkpoint(self._find(want, "sd_model_checkpoint").name)
+        if self.registry is not None and not self.vae_path:
+            model = self.sd_model
+            with opts.override({"sd_vae": (p.override_settings or {}).get(
+                    "sd_vae", opts.get("sd_vae", "Automatic"))}):
+                self._set_vae(model, load.resolve_vae(model.filename, self.vae_dirs))
+
+    # ---- generation ----------------------------------------------------
 
     def _resolve_refiner(self, p: GenerationParams) -> SDModel | None:
-        """The resident model a request names as its refiner (app.py:343-361);
-        the port has no checkpoint loader, so any other title raises."""
+        """The model a request names as its refiner (app.py:343-361): a
+        resident one, else loaded through the registry; at most two stay."""
         if not uses_refiner(p):
             return None
         model = self._extra_models.get(p.refiner_checkpoint)
         if model is None:
-            raise NotImplementedError(
-                f"refiner checkpoint {p.refiner_checkpoint!r} is not resident "
-                f"(resident: {sorted(self._extra_models)}); checkpoint loading "
-                "is not ported yet")
+            info = self._find(p.refiner_checkpoint, "refiner_checkpoint")
+            model = load.load_model(info.filename, title=info.name,
+                                    sha256=info.calculate_sha256(self.hash_cache),
+                                    device=self.device)
+            if len(self._extra_models) >= 2:
+                self._extra_models.clear()
+            self._extra_models[p.refiner_checkpoint] = model
         return model
 
     def _apply_runtime_opts(self):
@@ -97,6 +239,7 @@ class Engine:
     def _run(self, job: str, p: GenerationParams, fn) -> Processed:
         """One generation under the queue lock, with the job state set."""
         with self.queue_lock:
+            self._maybe_switch(p)
             with opts.override(p.override_settings):
                 self._apply_runtime_opts()
             self.state.begin(job)

@@ -1,7 +1,9 @@
 """The port's copies of the JAX package's host modules stay equal to their
 sources: the Philox stream and the seeded image noise, every option key and
 default, every config field, the prompt parser and tokenizer on a fixed
-corpus, infotext round-trips, the generation params and the pytree helpers.
+corpus, infotext round-trips, the generation params, the pytree helpers,
+the checkpoint sniffer, every sigma schedule under the options that reshape
+it, and LCM's distillation subtable.
 """
 
 import dataclasses
@@ -9,18 +11,23 @@ import dataclasses
 import numpy as np
 import pytest
 
+from sdwebui_tpu.loader import sniff as jax_sniff
 from sdwebui_tpu.models import configs as jax_configs
 from sdwebui_tpu.pipeline import params as jax_params
 from sdwebui_tpu.rng import image_rng as jax_image_rng
 from sdwebui_tpu.rng import philox as jax_philox
+from sdwebui_tpu.sampling import discretization as jax_disc
+from sdwebui_tpu.sampling import schedulers as jax_sched
 from sdwebui_tpu.text import prompt_parser as jax_pp
 from sdwebui_tpu.text import tokenizer as jax_tok
 from sdwebui_tpu.utils import infotext as jax_infotext
 from sdwebui_tpu.utils import options as jax_options
 from sdwebui_tpu.utils import pytree as jax_pytree
+from sdwebui_tpu_torch.loader import sniff
 from sdwebui_tpu_torch.models import configs
 from sdwebui_tpu_torch.pipeline import params
 from sdwebui_tpu_torch.rng import image_rng, philox
+from sdwebui_tpu_torch.sampling import discretization, schedulers
 from sdwebui_tpu_torch.text import prompt_parser as pp
 from sdwebui_tpu_torch.text import tokenizer as tok
 from sdwebui_tpu_torch.utils import infotext, options, pytree
@@ -157,3 +164,53 @@ def test_params_and_pytree():
     tree = {"a": {"b": 1, "c": {"d": 2}}, "e": 3}
     assert pytree.flatten(tree) == jax_pytree.flatten(tree) == {"a.b": 1, "a.c.d": 2, "e": 3}
     assert pytree.unflatten(pytree.flatten(tree)) == tree
+
+
+_UNET = "model.diffusion_model.input_blocks.0.0.weight"
+_SNIFF_CASES = [
+    {_UNET: np.zeros((320, 4, 3, 3))},
+    {_UNET: np.zeros((320, 9, 3, 3)),
+     "cond_stage_model.model.transformer.resblocks.0.attn.in_proj_weight": np.zeros(1)},
+    {_UNET: np.zeros((320, 5, 3, 3)), "depth_model.model.x": np.zeros(1),
+     "cond_stage_model.model.transformer.resblocks.0.attn.in_proj_weight": np.zeros(1)},
+    {_UNET: np.zeros((320, 4, 3, 3)), "noise_augmentor.data_mean": np.zeros(1)},
+    {_UNET: np.zeros((320, 4, 3, 3)), "conditioner.embedders.1.model.ln_final.weight": 0},
+    {_UNET: np.zeros((384, 4, 3, 3)), "conditioner.embedders.0.model.ln_final.weight": 0},
+    {_UNET: np.zeros((320, 4, 3, 3)),
+     "cond_stage_model.roberta.embeddings.word_embeddings.weight": 0},
+    {"model.diffusion_model.x_embedder.proj.weight": np.zeros(1)},
+]
+
+
+@pytest.mark.parametrize("case", range(len(_SNIFF_CASES)))
+def test_sniff_equals_jax(case):
+    sd = _SNIFF_CASES[case]
+    assert dataclasses.asdict(sniff.sniff(sd)) == dataclasses.asdict(jax_sniff.sniff(sd))
+    with pytest.raises(ValueError):
+        sniff.sniff({"random.key": np.zeros(1)})
+
+
+@pytest.mark.parametrize("opts_override", [
+    {}, {"ddim_discretize": "quad"}, {"sigma_min": 0.05, "sigma_max": 10.0, "rho": 5.0}])
+def test_every_schedule_equals_jax(opts_override):
+    disc_p = discretization.Discretization(discretization.make_alphas_cumprod())
+    disc_j = jax_disc.Discretization(jax_disc.make_alphas_cumprod())
+    with options.opts.override(opts_override), jax_options.opts.override(opts_override):
+        for name in schedulers.SCHEDULERS:
+            for n in (1, 3, 8, 20):
+                for sdxl in (False, True):
+                    np.testing.assert_array_equal(
+                        schedulers.get_schedule(name, n, disc_p, is_sdxl=sdxl),
+                        jax_sched.get_schedule(name, n, disc_j, is_sdxl=sdxl), err_msg=name)
+    assert schedulers.ALIASES == jax_sched.ALIASES
+    assert list(schedulers.SCHEDULERS) == list(jax_sched.SCHEDULERS)
+
+
+def test_lcm_subtable_equals_jax():
+    ac = discretization.make_alphas_cumprod()
+    disc_p, disc_j = discretization.Discretization(ac), jax_disc.Discretization(ac)
+    for a, b in zip(discretization.lcm_subtable(disc_p), jax_disc.lcm_subtable(disc_j)):
+        np.testing.assert_array_equal(a, b)
+    for n in (1, 4, 8, 50):
+        np.testing.assert_array_equal(discretization.lcm_schedule(disc_p, n),
+                                      jax_disc.lcm_schedule(disc_j, n))

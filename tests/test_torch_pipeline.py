@@ -80,7 +80,7 @@ def test_same_seed_same_image(models):
     (dict(tiling=True), "tiling"),
     (dict(restore_faces=True), "restore_faces"),
     (dict(prompt="a cat <lora:foo:0.5>"), "lora"),
-    (dict(sampler_name="DPM++ SDE"), "dpmpp_sde"),
+    (dict(override_settings={"sgm_noise_multiplier": True}), "sgm_noise_multiplier"),
     (dict(override_settings={"token_merging_ratio": 0.5}), "token_merging_ratio"),
     (dict(override_settings={"randn_source": "GPU"}), "randn_source"),
     (dict(override_settings={"sd_noise_schedule": "Zero Terminal SNR"}), "sd_noise_schedule"),

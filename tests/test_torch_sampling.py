@@ -9,6 +9,7 @@ import torch
 from sdwebui_tpu.sampling import discretization as jax_disc
 from sdwebui_tpu.sampling import schedulers as jax_sched
 from sdwebui_tpu_torch.sampling import discretization as port_disc
+from sdwebui_tpu_torch.sampling import registry as port_registry
 from sdwebui_tpu_torch.sampling import schedulers as port_sched
 from sdwebui_tpu_torch.sampling.registry import build_sigmas, get_sampler
 
@@ -49,9 +50,14 @@ def test_build_sigmas_matches_jax_registry():
 
 
 def test_unported_samplers_raise_with_solver_name():
-    with pytest.raises(NotImplementedError, match="dpmpp_sde"):
-        get_sampler("DPM++ SDE")
-    assert get_sampler("DPM++ 2M").solver == "dpmpp_2m"
+    # every name and alias of the JAX registry resolves to the same solver;
+    # only a name outside it raises
+    from sdwebui_tpu.sampling.registry import SAMPLER_MAP as JAX_MAP
+
+    assert sorted(JAX_MAP) == sorted(port_registry.SAMPLER_MAP)
+    for name, data in JAX_MAP.items():
+        assert get_sampler(name).solver == data.solver, name
+    assert get_sampler("DPM++ SDE").solver == "dpmpp_sde"
     with pytest.raises(ValueError):
         get_sampler("no such sampler")
     assert get_sampler("Automatic").name == "Euler a"

@@ -1,6 +1,7 @@
 """The port's HTTP server (tiny model, CPU), its PNG codec, and its import
-hygiene: the slice imports and runs with the JAX package, jax, PIL,
-pydantic and ml_dtypes blocked."""
+hygiene: the slice imports and runs — checkpoint files and the samplers
+included — with the JAX package, jax, PIL, pydantic, ml_dtypes and
+safetensors blocked."""
 
 import base64
 import json
@@ -63,7 +64,7 @@ def test_txt2img_returns_png_with_infotext(server_url):
     ({"enable_hr": True}, "enable_hr"),
     ({"styles": ["x"]}, "styles"),
     ({"no_such_field": 1}, "no_such_field"),
-    ({"sampler_name": "DPM++ SDE"}, "DPM++ SDE"),
+    ({"override_settings": {"samples_save": True}}, "samples_save"),
     ({"override_settings": {"sd_model_checkpoint": "x"}}, "sd_model_checkpoint"),
     ({"override_settings": {"token_merging_ratio": 0.5}}, "token_merging_ratio"),
     ({"prompt": "a <lora:x:1>"}, "lora"),
@@ -105,7 +106,8 @@ def test_bad_requests_and_listing(server_url):
         assert status == 422 and next(iter(body)) in res["detail"]
     assert _call(server_url, "/internal/ping") == (200, {})
     status, samplers = _call(server_url, "/sdapi/v1/samplers")
-    assert status == 200 and [s["name"] for s in samplers] == ["DPM++ 2M", "Euler a"]
+    assert status == 200 and len(samplers) == 24
+    assert [s["name"] for s in samplers][:2] == ["DPM++ 2M", "DPM++ SDE"]
     assert _call(server_url, "/sdapi/v1/nothing")[0] == 404
 
 
@@ -134,7 +136,7 @@ def test_png_roundtrip_and_pil_interop():
 
 _HYGIENE = r"""
 import importlib, pkgutil, sys
-BLOCKED = ("sdwebui_tpu", "jax", "jaxlib", "PIL", "pydantic", "ml_dtypes")
+BLOCKED = ("sdwebui_tpu", "jax", "jaxlib", "PIL", "pydantic", "ml_dtypes", "safetensors")
 
 
 class Recorder:
@@ -174,6 +176,23 @@ status, out = api.handle("POST", "/sdapi/v1/img2img", {
     "init_images": [png], "mask": png, "inpaint_full_res": False, "inpainting_fill": 1,
     "steps": 2, "width": 64, "height": 64})
 assert status == 200, out
+import os, tempfile, torch
+from sdwebui_tpu_torch.loader.load import sd1_state_dict
+from sdwebui_tpu_torch.loader.safetensors_io import write_safetensors
+from sdwebui_tpu_torch.loader.torch_ckpt import load_torch_checkpoint
+with tempfile.TemporaryDirectory() as d:
+    sd = sd1_state_dict(create_tiny_sd(1, "cpu"))
+    write_safetensors(os.path.join(d, "a.safetensors"), sd)
+    torch.save({"state_dict": sd}, os.path.join(d, "b.ckpt"))
+    assert load_torch_checkpoint(os.path.join(d, "b.ckpt")).keys() == sd.keys()
+    api = Api(Engine(device="cpu", ckpt=os.path.join(d, "a.safetensors"), ckpt_dirs=[d],
+                     hash_cache=os.path.join(d, "cache.json")))
+    for sampler in ("DPM++ SDE", "UniPC", "DPM adaptive"):
+        status, out = api.handle("POST", "/sdapi/v1/txt2img", {
+            "steps": 2, "width": 64, "height": 64, "sampler_name": sampler})
+        assert status == 200, out
+    assert api.handle("POST", "/sdapi/v1/options", {"sd_model_checkpoint": "b"}) == (200, {})
+    assert len(api.handle("GET", "/sdapi/v1/sd-models", None)[1]) == 2
 assert not Recorder.attempts, Recorder.attempts
 print("OK", len(mods))
 """
@@ -181,7 +200,8 @@ print("OK", len(mods))
 
 def test_port_runs_without_jax_pil_pydantic():
     # the JAX package itself is blocked too: the port keeps its own copies
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # one torch thread: the subprocess shares the cores with the test workers
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", _HYGIENE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
