@@ -15,16 +15,25 @@ Phases, in order; any failure exits non-zero:
      1e-4), with the kernel's, the plain version's and one library call's
      time, the card's bound for the work and the wrapper's host µs per
      call (for B5 also F.layer_norm's): B1 (per head: the SD1.5 UNet
-     shapes and the SD1.5/SDXL VAE mid-block), B2 (head-packed, SD1.5 and
-     SDXL base and refiner, also on fused-qkv chunk views), B3 (4-D, the
-     same shapes), B5 (LayerNorm at every UNet and CLIP width of both
-     families) and B4 (3x3 conv at the JAX docstring's shapes, the SD1.5
-     UNet's B=2 shapes and two ragged widths);
-  2. the full-width SD1.5 UNet CFG step (B=2, latent 64², ctx 2x77x768,
-     bf16, random weights) in three arms: the kernels (B2 + B5), plain
+     shapes and the SD1.5/SDXL VAE mid-block at 512², 768², 1024² and
+     1536², S = 36864), B2 (head-packed, SD1.5 and SDXL base and refiner at
+     their first pass's levels and at the hires pass's: SD1.5 at 1024² and
+     768², SDXL at 1536²; the SD1.5 rows also on fused-qkv chunk views:
+     d = 160 at S = 1024 takes the split-d wide kernel), B3 (4-D, the same
+     shapes), B5 (LayerNorm at every UNet row count and width of both
+     families, first and hires pass, and at CLIP's) and B4 (3x3 conv at the
+     JAX docstring's shapes, the SD1.5 UNet's B=2 shapes and two ragged
+     widths);
+  2. the full-width SD1.5 UNet CFG step (B=2, latent 64² and the hires
+     pass's 128², ctx 2x77x768, bf16, random weights) in three arms: the kernels (B2 + B5), plain
      LayerNorm (B2 only), and plain attention and LayerNorm: finite,
      max|Δ|/max|ref| <= 5e-2, ms and device events per call in each arm;
-  3. the HTTP server with random-weight SD1.5 answering BASELINE config 1
+  3. the HTTP server with random-weight SD1.5 (and two upscaler files made
+     from a seed at the published widths in a temporary directory,
+     registered as --esrgan-models-path registers them and dropped with it:
+     "R-ESRGAN 4x+", an RRDBNet of 23 blocks, nf 64, gc 32, and
+     "realesr-general-x4v3", an SRVGGNetCompact of 32 convs, nf 64)
+     answering BASELINE config 1
      txt2img requests (512², Euler a, 20 steps, CFG 7.5; batch 1, batch 4
      and a repeated seed): PNGs decoded with the standard library, infotext
      checked, the repeat's image within 2 uint8 levels, and the B2, B1
@@ -35,6 +44,24 @@ Phases, in order; any failure exits non-zero:
      repeat within 2 levels, the inpaint's pixels outside the blurred mask
      within 1 level of the init image and changed inside it, and B2, B1
      (the VAE encode and decode) and B5 launches equal to the plan's;
+  4c. BASELINE config 3 (hires fix) on the same server: two 512² → 1024²
+     requests with one seed (Euler a, 20 steps, CFG 7.5, "Latent",
+     denoising 0.7: 20 UNet calls at 64² and 15 at 128²), the repeat within
+     2 levels, infotext naming the hires fields; one each with "Latent
+     (bicubic)" and "Latent (nearest-exact)" at hr_scale 1.5 (8 steps); then
+     the image-space route 512² → 1024² with R-ESRGAN 4x+ (20 steps),
+     realesr-general-x4v3 and Lanczos (8 steps) (B1 = 3: the 512² decode,
+     the f32 1024² encode and the 1024² decode), the upscaler's seconds
+     logged apart from the request's; B2, B1 and B5 launches equal to the
+     plan's; each ESRGAN net's forward of one 192² tile on the card against
+     the same net on the CPU (f32, TF32 off, max|Δ|/max|ref| <= 1e-4); one
+     config 3 request under torch.profiler, as phase 7, its wall the median
+     of the two timed "Latent" requests;
+  4d. the Extras routes on the same server (the upscale cache off):
+     /extra-single-image with R-ESRGAN 4x+ at upscaling_resize 2 and
+     Lanczos as upscaler_2 at visibility 0.5 on a phase-3 PNG, with
+     resize_mode 1 and crop, /extra-batch-images with two images, and
+     /upscalers listing the two files: sizes checked, s/image logged;
   4a. checkpoint files: phase 3's model written as an ldm-layout
      .safetensors in its own dtypes, and a second random SD1.5 (seed 1) in
      fp16 beside it, in a temporary directory, served by an Engine built as
@@ -60,11 +87,18 @@ Phases, in order; any failure exits non-zero:
      CFG 7.0, refiner switch at 0.8): 1024x1024 PNGs, infotext naming the
      sampler, seed and refiner, the repeat within 2 uint8 levels, an image
      that is not flat, and B2, B1 and B5 launch counts equal to the plan's;
+  6b. the same server answering one config 5 request with hires fix
+     (hr_scale 1.5, "Latent", denoising 0.5, hr_second_pass_steps 20): the
+     base runs the first pass and, under hires_fix_refiner_pass "second
+     pass", hands over to the refiner inside the second (1536², latent
+     192²); a 1536x1536 PNG, infotext naming Hires and Refiner, B2, B1 (the
+     1536² decode, S = 36864) and B5 launches equal to the plan's;
   7. one more in-process SDXL request under torch.profiler (CUDA activity
      only): wall (median of two untraced requests), device busy (union of
      the kernel intervals), idle share, device time by kernel class and
      the top kernels.
-The last two lines are the kernels JSON and {"ok": true, "device": ...}.
+Each phase's seconds are logged as it ends.  The last two lines are the
+kernels JSON and {"ok": true, "device": ...}.
 Needs a CUDA card; without one it exits 1 and prints no result.
 """
 
@@ -110,6 +144,10 @@ DENOISE = 0.75
 MASK_BLUR = 4
 SDXL_SWITCH_AT = 0.8
 VAE_MEAN_DIFF_TOL = 2.0   # uint8 levels, SDXL VAE bf16 vs fp32 decode
+HR_DENOISE = 0.7          # config 3
+SDXL_HR_DENOISE = 0.5
+ESRGAN_REL_TOL = 1e-4     # max|Δ| / max|ref|, one tile on the card vs the CPU, f32
+ESRGAN_TILE = 192
 
 # The card's rates for the bound of each kernel row (H100 SXM data sheet,
 # dense, at the 700 W limit): bf16 tensor cores, fp32 outside the tensor
@@ -123,8 +161,11 @@ B1_SHAPES = [
     ("unet_32x32_d80", 16, 1024, 1024, 80, torch.bfloat16),
     ("vae_mid_512", 1, 4096, 4096, 512, torch.bfloat16),
     ("vae_mid_512_f32", 1, 4096, 4096, 512, torch.float32),
+    ("vae_mid_768", 1, 9216, 9216, 512, torch.bfloat16),
     ("vae_mid_1024", 1, 16384, 16384, 512, torch.bfloat16),
     ("vae_mid_1024_f32", 1, 16384, 16384, 512, torch.float32),
+    ("vae_mid_1536", 1, 36864, 36864, 512, torch.bfloat16),
+    ("vae_mid_1536_f32", 1, 36864, 36864, 512, torch.float32),
     ("ragged_d64", 3, 1000, 1100, 64, torch.bfloat16),
 ]
 # B2 / B3 rows: (name, B, S, H, D), bf16, Sq = Skv = S
@@ -135,6 +176,17 @@ HEAD_SHAPES = [
     ("sdxl_base_32x32", 2, 1024, 20, 64),
     ("sdxl_refiner_64x64", 2, 4096, 12, 64),
     ("sdxl_refiner_32x32", 2, 1024, 24, 64),
+    # the hires pass: SD1.5 at a 128² latent (hr_scale 2) and at 96² (1.5),
+    # SDXL at 192²
+    ("sd15_hr_128x128", 2, 16384, 8, 40),
+    ("sd15_hr_64x64", 2, 4096, 8, 80),
+    ("sd15_hr_32x32", 2, 1024, 8, 160),
+    ("sd15_hr_96x96", 2, 9216, 8, 40),
+    ("sd15_hr_48x48", 2, 2304, 8, 80),
+    ("sdxl_base_96x96", 2, 9216, 10, 64),
+    ("sdxl_base_48x48", 2, 2304, 20, 64),
+    ("sdxl_refiner_96x96", 2, 9216, 12, 64),
+    ("sdxl_refiner_48x48", 2, 2304, 24, 64),
 ]
 # B4 rows: (name, B, H, W, Cin, Cout): the shapes of the JAX kernel's
 # docstring (sdwebui_tpu/ops/conv.py:6-8), the SD1.5 UNet's at B = 2 (the
@@ -151,7 +203,8 @@ CONV_SHAPES = [
     ("ragged_33x33x320", 2, 33, 33, 320, 320),
 ]
 # the UNets call B2 on the chunk views of their fused qkv projection
-FUSED_QKV_ROWS = ("sd15_64x64", "sdxl_base_64x64")
+FUSED_QKV_ROWS = ("sd15_64x64", "sdxl_base_64x64", "sd15_hr_128x128", "sd15_hr_64x64",
+                  "sd15_hr_32x32", "sd15_hr_96x96", "sd15_hr_48x48")
 HOST_CALLS = 20           # calls per host-cost reading
 
 
@@ -350,19 +403,23 @@ def _attn_work(bh, sq, skv, d, dtype):
 
 def layer_norm_shapes():
     """(name, rows, width) of every LayerNorm on the SD1.5 and SDXL paths:
-    three per transformer block at B = 2 (from the configs' build plans),
-    and the CLIP-L / bigG encoders over cond + uncond (2 x 77 tokens)."""
+    three per transformer block at B = 2 (from the configs' build plans) at
+    the first pass's latent and the hires pass's (SD1.5 at 128² and 96²,
+    SDXL at 192²), and the CLIP-L / bigG encoders over cond + uncond
+    (2 x 77 tokens)."""
     from sdwebui_tpu_torch.models.configs import (CLIP_L, OPEN_CLIP_BIGG, SD15_UNET,
                                                   SDXL_REFINER_UNET, SDXL_UNET)
     from sdwebui_tpu_torch.models.unet import self_attention_calls
 
-    shapes = []
-    for fam, cfg, latent in (("sd15", SD15_UNET, 64), ("sdxl_base", SDXL_UNET, 128),
-                             ("sdxl_refiner", SDXL_REFINER_UNET, 128)):
-        for s, h, d in dict.fromkeys(self_attention_calls(cfg, latent)):
-            shapes.append((f"{fam}_s{s}_c{h * d}", 2 * s, h * d))
-    shapes += [("clip_l", 2 * 77, CLIP_L.width), ("clip_bigg", 2 * 77, OPEN_CLIP_BIGG.width)]
-    return shapes
+    shapes = {}
+    for fam, cfg, latents in (("sd15", SD15_UNET, (64, 128, 96)),
+                              ("sdxl_base", SDXL_UNET, (128, 192)),
+                              ("sdxl_refiner", SDXL_REFINER_UNET, (128, 192))):
+        for latent in latents:
+            for s, h, d in self_attention_calls(cfg, latent):
+                shapes.setdefault(f"{fam}_s{s}_c{h * d}", (2 * s, h * d))
+    shapes.update(clip_l=(2 * 77, CLIP_L.width), clip_bigg=(2 * 77, OPEN_CLIP_BIGG.width))
+    return [(name, rows, c) for name, (rows, c) in shapes.items()]
 
 
 def phase_kernel(device):
@@ -539,11 +596,19 @@ def _unet_step(label, unet, cfg, latent, x, t, ctx, y=None):
 
 
 def phase_unet(model, device):
-    g = torch.Generator(device=device).manual_seed(1)
-    x = torch.randn((2, 4, 64, 64), generator=g, device=device).to(torch.bfloat16)
-    t = torch.tensor([500.0, 500.0], device=device)
-    ctx = torch.randn((2, 77, 768), generator=g, device=device).to(torch.bfloat16)
-    return _unet_step("SD1.5 B=2 64x64 bf16", model.unet, model.unet_cfg, 64, x, t, ctx)
+    """The SD1.5 UNet step at the first pass's 64² latent and at the hires
+    pass's 128² (config 3)."""
+    out = {}
+    for latent in (64, 128):
+        g = torch.Generator(device=device).manual_seed(1)
+        x = torch.randn((2, 4, latent, latent), generator=g, device=device).to(torch.bfloat16)
+        t = torch.tensor([500.0, 500.0], device=device)
+        ctx = torch.randn((2, 77, 768), generator=g, device=device).to(torch.bfloat16)
+        out[f"{latent}x{latent}"] = _unet_step(f"SD1.5 B=2 {latent}x{latent} bf16", model.unet,
+                                               model.unet_cfg, latent, x, t, ctx)
+        del x, ctx
+        torch.cuda.empty_cache()
+    return out
 
 
 def launch_plan(cfg, latent: int) -> int:
@@ -710,6 +775,198 @@ def phase_img2img(engine, model, init_png: str):
                 ] * 3
     _check_launches(results, expected)
     return results, calls
+
+
+# the published widths of the two upscaler files: R-ESRGAN 4x+ (RRDBNet) and
+# realesr-general-x4v3 (SRVGGNetCompact)
+UPSCALER_FILES = {"R-ESRGAN 4x+": ("rrdbnet", dict(in_ch=3, nf=64, gc=32, n_blocks=23)),
+                  "realesr-general-x4v3": ("srvgg", dict(nf=64, num_conv=32, scale=4))}
+
+
+def write_upscaler_files(directory: str, seed: int = 0) -> dict:
+    """The upscaler files, random weights from `seed` in f32: each conv
+    N(0, 0.5² / fan-in), the RRDBNet's last bias lifted by 0.5, so that the
+    output is neither flat nor clipped; {name: path}."""
+    from sdwebui_tpu_torch.loader.safetensors_io import write_safetensors
+    from sdwebui_tpu_torch.models.esrgan import RRDBNet, SRVGGNetCompact
+
+    paths = {}
+    for i, (name, (arch, kw)) in enumerate(UPSCALER_FILES.items()):
+        net = RRDBNet(**kw) if arch == "rrdbnet" else SRVGGNetCompact(**kw)
+        g = torch.Generator().manual_seed(seed + i)
+        sd = {k: torch.randn(v.shape, generator=g) * (0.5 / v[0].numel() ** 0.5 if v.ndim == 4
+                                                       else 0.05)
+              for k, v in net.state_dict().items()}
+        if arch == "rrdbnet":
+            sd["conv_last.bias"] += 0.5
+        paths[name] = os.path.join(directory, name + ".safetensors")
+        write_safetensors(paths[name], sd)
+    return paths
+
+
+def check_upscaler_nets(paths: dict, device) -> dict:
+    """Each upscaler net's forward of one ESRGAN_TILE² tile on the card
+    against the same net on the CPU, f32 with TF32 off."""
+    from sdwebui_tpu_torch.models.esrgan import load_upscaler_net
+
+    out = {}
+    for name, path in paths.items():
+        g = torch.Generator().manual_seed(5)
+        x = torch.rand((1, 3, ESRGAN_TILE, ESRGAN_TILE), generator=g)
+        with torch.inference_mode():
+            ref = load_upscaler_net(path, "cpu")(x)
+            net = load_upscaler_net(path, device)
+            got = net(x.to(device))
+            torch.cuda.synchronize()
+            xd = x.to(device)
+            ms = cuda_ms(lambda: net(xd), iters=3, warmup=1, hide_host=False)
+        got = got.cpu()
+        rel = ((got - ref).abs().max() / ref.abs().max()).item()
+        out[name] = dict(rel_err=rel, tile_ms=ms, out_std=ref.std().item())
+        log(f"{name}: one {ESRGAN_TILE}² tile, card vs CPU max|Δ|/max|ref| {rel:.3e} (bound "
+            f"{ESRGAN_REL_TOL:g}), {ms:.2f} ms a tile on the card, output std {ref.std():.3f}")
+        if not rel <= ESRGAN_REL_TOL or got.shape != (1, 3, 4 * ESRGAN_TILE, 4 * ESRGAN_TILE):
+            raise AssertionError(f"{name} on the card disagrees with the CPU: {rel}, {got.shape}")
+        del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def hires_request(seed: int, upscaler: str = "Latent", scale: float = 2.0,
+                  steps: int = STEPS) -> dict:
+    """BASELINE config 3: 512² → 512·scale², Euler a, 20 steps, CFG 7.5
+    (`steps` in both passes)."""
+    return dict(SD15_BASE, seed=seed, batch_size=1, enable_hr=True, hr_scale=scale,
+                hr_upscaler=upscaler, denoising_strength=HR_DENOISE, steps=steps)
+
+
+def _hires_check(upscaler: str, scale: float):
+    def check(params, seed):
+        _sd15_check(params, seed)
+        for want in (f"Hires upscale: {scale:g}", f"Hires upscaler: {upscaler}",
+                     f"Denoising strength: {HR_DENOISE}",
+                     f"Size: {SD15_BASE['width']}x{SD15_BASE['height']}"):
+            if want not in params:
+                raise AssertionError(f"infotext lacks {want!r}: {params!r}")
+    return check
+
+
+@contextlib.contextmanager
+def _timed_upscales(seconds: list):
+    """Each hires upscale's seconds (upscalers.upscale_by_name)."""
+    from sdwebui_tpu_torch.postprocessing import upscalers
+
+    real = upscalers.upscale_by_name
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        seconds.append(time.perf_counter() - t0)
+        return out
+    upscalers.upscale_by_name = timed
+    try:
+        yield
+    finally:
+        upscalers.upscale_by_name = real
+
+
+def phase_hires(engine, model, upscaler_paths: dict):
+    """4c: BASELINE config 3 over HTTP; returns (results, summary).  The
+    "Latent" requests and the first upscaler's run the full 20 steps; the
+    1.5x latent modes and the other upscalers SAMPLER_STEPS, whose launch
+    plans follow their steps (the upscale does not depend on them)."""
+    from sdwebui_tpu_torch.pipeline.processing import setup_img2img_steps
+
+    cfg = model.unet_cfg
+
+    def hr_calls(steps: int) -> int:
+        return setup_img2img_steps(steps, HR_DENOISE)[1] + 1
+
+    def plan(hr_latent: int, b1: int, steps: int = STEPS) -> dict:
+        n = hr_calls(steps)
+        return _plan(b1=b1, b2=steps * launch_plan(cfg, 64) + n * launch_plan(cfg, hr_latent),
+                     b5=steps * ln_plan(cfg, 64) + n * ln_plan(cfg, hr_latent)
+                     + 2 * clip_ln_plan(model))     # the second pass encodes its prompts again
+
+    results, plans, upscale_s = [], [], {}
+    with _server(engine) as url:
+        _post(f"{url}/txt2img", hires_request(1, steps=2))
+        for _ in range(2):
+            results.append(_request(url, "txt2img", hires_request(2024), _hires_check(
+                "Latent", 2.0), 1024, "config 3 Latent"))
+            plans.append(plan(128, 1))
+        _check_repeat(results, 0, 1)
+        for mode in ("Latent (bicubic)", "Latent (nearest-exact)"):
+            results.append(_request(url, "txt2img", hires_request(
+                2024, mode, 1.5, SAMPLER_STEPS), _hires_check(mode, 1.5), 768,
+                f"config 3 {mode}, {SAMPLER_STEPS} steps"))
+            plans.append(plan(96, 1, SAMPLER_STEPS))
+        for i, name in enumerate(list(upscaler_paths) + ["Lanczos"]):
+            steps, seconds = STEPS if i == 0 else SAMPLER_STEPS, []
+            with _timed_upscales(seconds):
+                r = _request(url, "txt2img", hires_request(2025, name, steps=steps),
+                             _hires_check(name, 2.0), 1024, f"config 3 {name}, {steps} steps")
+            upscale_s[name] = seconds[0]
+            log(f"config 3 {name}: the upscale took {seconds[0]:.3f} s of {r['seconds']:.3f} s")
+            if r["image"].std() < 1.0:
+                raise AssertionError(f"config 3 {name}: the image is flat")
+            results.append(dict(r, upscale_s=seconds[0]))
+            plans.append(plan(128, 3, steps))
+    _check_launches(results, plans)
+    nets = check_upscaler_nets(upscaler_paths, engine.device)
+    # the VAE attention's calls by phase-1 row: each request's decode, and on
+    # the image-space route the 512² decode and the f32 1024² encode
+    image_route = len(upscale_s)
+    b1_calls = {("vae_mid_1024", "bfloat16"): 2 + image_route,
+                ("vae_mid_768", "bfloat16"): 2, ("vae_mid_512", "bfloat16"): image_route,
+                ("vae_mid_1024_f32", "float32"): image_route}
+    latent_s = [r["seconds"] for r in results[:2]]
+    return results, dict(hires_unet_calls=hr_calls(STEPS), upscale_s=upscale_s, nets=nets,
+                         b1_calls=b1_calls, latent_wall_s=statistics.median(latent_s))
+
+
+def phase_extras(engine, pngs: list, upscaler_paths: dict):
+    """4d: the Extras routes with the upscale cache off."""
+    from sdwebui_tpu_torch.utils.png import decode_png
+
+    rows = []
+
+    def run(url, route, body, shapes, label):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = _post(f"{url}/{route}", body)
+        dt = time.perf_counter() - t0
+        images = [res["image"]] if "image" in res else res["images"]
+        got = [decode_png(base64.b64decode(b))[0].shape for b in images]
+        log(f"extras {label}: {dt:.3f} s, {dt / len(images):.3f} s/image, shapes {got}")
+        if got != shapes:
+            raise AssertionError(f"extras {label}: shapes {got}, expected {shapes}")
+        rows.append(dict(route=route, label=label, seconds=dt, images=len(images),
+                         s_per_image=dt / len(images), launches=read_counts()))
+
+    esrgan = "R-ESRGAN 4x+"
+    with _server(engine) as url:
+        _post(f"{url}/options", {"upscaling_max_images_in_cache": 0})
+        try:
+            run(url, "extra-single-image", dict(
+                image=pngs[0], upscaler_1=esrgan, upscaling_resize=2, upscaler_2="Lanczos",
+                extras_upscaler_2_visibility=0.5), [(1024, 1024, 3)],
+                f"{esrgan} x2 + Lanczos at 0.5")
+            run(url, "extra-single-image", dict(
+                image=pngs[0], upscaler_1=esrgan, resize_mode=1, upscaling_resize_w=1000,
+                upscaling_resize_h=700, upscaling_crop=True), [(700, 1000, 3)],
+                f"{esrgan} to 1000x700, cropped")
+            run(url, "extra-batch-images", dict(
+                imageList=[{"data": b, "name": f"{i}.png"} for i, b in enumerate(pngs[:2])],
+                upscaler_1=esrgan, upscaling_resize=2), [(1024, 1024, 3)] * 2,
+                f"{esrgan} x2, batch of 2")
+        finally:
+            _post(f"{url}/options", {"upscaling_max_images_in_cache": 5})
+        names = [u["name"] for u in _post(f"{url}/upscalers")]
+    log(f"/upscalers: {names}")
+    if not set(upscaler_paths) <= set(names):
+        raise AssertionError(f"/upscalers lacks the files {sorted(upscaler_paths)}: {names}")
+    return rows
 
 
 def phase_checkpoint(model, device, phase3: dict, ckpt_dir: str):
@@ -916,6 +1173,40 @@ def phase_sdxl_serve(engine, base, refiner):
     return results, s_idx
 
 
+def phase_sdxl_hires(engine, base, refiner):
+    """6b: config 5 with hires fix; the refiner takes the second pass."""
+    from sdwebui_tpu_torch.pipeline.processing import _refiner_split_idx, setup_img2img_steps
+    from sdwebui_tpu_torch.sampling.registry import build_sigmas, get_sampler
+
+    body = dict(sdxl_request(1234, refiner.title), enable_hr=True, hr_scale=1.5,
+                hr_upscaler="Latent", denoising_strength=SDXL_HR_DENOISE,
+                hr_second_pass_steps=STEPS)
+
+    def check(params, seed):
+        for want in (f"Seed: {seed}", "Hires upscale: 1.5", "Hires upscaler: Latent",
+                     f"Hires steps: {STEPS}", f"Refiner: {refiner.title}",
+                     f"Size: {body['width']}x{body['height']}"):
+            if want not in params:
+                raise AssertionError(f"infotext lacks {want!r}: {params!r}")
+
+    warmup = dict(body, steps=2, hr_second_pass_steps=2, seed=1)
+    (result,) = _serve(engine, "txt2img", [body], warmup, check, 1536)
+    if result["image"].std() < 1.0:
+        raise AssertionError("the SDXL hires image is flat")
+    steps, t_enc = setup_img2img_steps(STEPS, SDXL_HR_DENOISE)
+    sigmas = build_sigmas(get_sampler("DPM++ 2M"), "Karras", steps, base.disc, is_sdxl=True)
+    s_idx = _refiner_split_idx(base, sigmas[steps - t_enc - 1:], SDXL_SWITCH_AT, t_enc + 1)
+    r_calls = t_enc + 1 - s_idx
+    b2 = (STEPS * launch_plan(base.unet_cfg, 128) + s_idx * launch_plan(base.unet_cfg, 192)
+          + r_calls * launch_plan(refiner.unet_cfg, 192))
+    b5 = (STEPS * ln_plan(base.unet_cfg, 128) + s_idx * ln_plan(base.unet_cfg, 192)
+          + r_calls * ln_plan(refiner.unet_cfg, 192) + 2 * clip_ln_plan(base)
+          + clip_ln_plan(refiner))
+    log(f"SDXL hires: {t_enc + 1} second-pass calls, the refiner takes over after {s_idx}")
+    _check_launches([result], [_plan(b1=1, b2=b2, b5=b5)])
+    return result, dict(second_pass_calls=t_enc + 1, refiner_after=s_idx)
+
+
 def kernel_class(name: str) -> str:
     if "flash_attention" in name or "attn_" in name:   # csrc/flash_attention.cu
         return "flash_attn"
@@ -932,24 +1223,27 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def phase_profile(engine, refiner):
-    """One in-process SDXL request (the server's request parser and
+def phase_profile(engine, body: dict, label: str, wall: float | None = None):
+    """One in-process request (the server's request parser and
     Engine.txt2img, without HTTP) under torch.profiler (CUDA activity):
-    device busy is the union of the kernel intervals; the wall is the
-    median of two requests without the profiler."""
+    device busy is the union of the kernel intervals; the wall is `wall`
+    where given (config 3: the median of phase 4c's two timed requests over
+    HTTP), else the median of two in-process requests without the
+    profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from sdwebui_tpu_torch.server.api import _params_from_request
 
     def run():
-        p = _params_from_request(sdxl_request(1234, refiner.title))
+        p = _params_from_request(body)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         engine.txt2img(p)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    wall = statistics.median([run(), run()])
+    if wall is None:
+        wall = statistics.median([run(), run()])
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         traced = run()
     spans, by_name = [], {}
@@ -980,7 +1274,7 @@ def phase_profile(engine, refiner):
                    device_ms_by_class=by_class,
                    top_kernels_ms=[(n[:100], t / 1e3) for n, t in top],
                    device=torch.cuda.get_device_name(0))
-    log(f"SDXL request profile: wall {wall:.3f} s (traced {traced:.3f} s), device busy "
+    log(f"{label} request profile: wall {wall:.3f} s (traced {traced:.3f} s), device busy "
         f"{busy_s:.3f} s, idle share {1 - busy_s / wall:.3f}, {len(spans)} device events; "
         "device ms by class " + json.dumps({k: round(v, 1) for k, v in by_class.items()}))
     return summary
@@ -1008,27 +1302,67 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
               file=sys.stderr)
         return 1
+    from sdwebui_tpu_torch.models.esrgan import register_esrgan_dir
     from sdwebui_tpu_torch.pipeline.sd_model import create_random_sd15
+    from sdwebui_tpu_torch.postprocessing.upscalers import unregister_upscaler
     from sdwebui_tpu_torch.server.app import Engine, random_models
 
     device = torch.device("cuda")
     # the library calls and plain versions of phase 1 in full fp32 (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = marks = time.perf_counter()
+    phase_s = {}
+
+    def mark(phase: str):
+        """The seconds since the previous mark, logged under `phase`."""
+        nonlocal marks
+        now = time.perf_counter()
+        phase_s[phase] = now - marks
+        log(f"phase {phase}: {now - marks:.1f} s ({now - t_start:.1f} s in all)")
+        marks = now
+
     smi = phase_env()
+    mark("0 build")
     rows = phase_kernel(device)
+    mark("1 kernels")
     t0 = time.perf_counter()
     model = create_random_sd15(seed=0, device=device)
     torch.cuda.synchronize()
     log(f"random SD1.5 on the card in {time.perf_counter() - t0:.2f} s")
     unet = phase_unet(model, device)
-    engine = Engine(model=model, device=device)
-    results = phase_serve(engine, model)
-    i2i_results, i2i_calls = phase_img2img(engine, model, results[0]["png_b64"])
+    mark("2 SD1.5 UNet")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_upscalers_") as upscaler_dir:
+        t0 = time.perf_counter()
+        upscaler_paths = write_upscaler_files(upscaler_dir)
+        log(f"wrote the upscaler files {sorted(upscaler_paths)} in "
+            f"{time.perf_counter() - t0:.2f} s")
+        # the process's upscaler registry, as the server's --esrgan-models-path
+        # fills it; the files and their nets leave it with the directory
+        upscaler_names = register_esrgan_dir((upscaler_dir,), device=device)
+        try:
+            engine = Engine(model=model, device=device)
+            results = phase_serve(engine, model)
+            mark("3 config 1")
+            i2i_results, i2i_calls = phase_img2img(engine, model, results[0]["png_b64"])
+            mark("4 config 2")
+            hr_results, hr_info = phase_hires(engine, model, upscaler_paths)
+            b1_calls = hr_info.pop("b1_calls")     # {(phase-1 row, dtype): calls}
+            hr_info["profile"] = phase_profile(engine, hires_request(2024), "config 3",
+                                               wall=hr_info["latent_wall_s"])
+            mark("4c config 3")
+            extras = phase_extras(engine, [results[0]["png_b64"], results[1]["png_b64"]],
+                                  upscaler_paths)
+            mark("4d extras")
+        finally:
+            for name in upscaler_names:
+                unregister_upscaler(name)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
         ckpt_engine, ckpt_results, ckpt_info = phase_checkpoint(model, device, results[0],
                                                                 ckpt_dir)
+    mark("4a checkpoints")
     sampler_results = phase_samplers(ckpt_engine)
+    mark("4b samplers")
     del model, engine, ckpt_engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -1041,35 +1375,44 @@ def main() -> int:
     log(f"random SDXL base + refiner on the card in {time.perf_counter() - t0:.2f} s, "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
     sdxl_unet = phase_sdxl_unet(base, refiner, device)
+    mark("5 SDXL UNet and VAE")
     sdxl_results, s_idx = phase_sdxl_serve(engine, base, refiner)
-    profile = phase_profile(engine, refiner)
+    mark("6 config 5")
+    sdxl_hr_result, sdxl_hr_info = phase_sdxl_hires(engine, base, refiner)
+    mark("6b SDXL hires")
+    profile = phase_profile(engine, sdxl_request(1234, refiner.title), "SDXL")
+    mark("7 SDXL profile")
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "sdwebui_tpu"))
     if leaked:
         raise AssertionError(f"the port imported JAX or the JAX package: {leaked[:5]}")
     requests = [{k: v for k, v in r.items() if k not in ("image", "png_b64", "infotext")}
-                for r in (results + i2i_results + ckpt_results + sampler_results
-                          + sdxl_results)]
+                for r in (results + i2i_results + hr_results + ckpt_results + sampler_results
+                          + sdxl_results + [sdxl_hr_result])]
     log(json.dumps({"card": smi, "kernel_shapes": rows, "unet_step": unet,
                     "sdxl_unet_step": sdxl_unet, "img2img_unet_calls": i2i_calls,
                     "sdxl_refiner_after_step": s_idx, "checkpoint": ckpt_info,
-                    "requests": requests, "sdxl_profile": profile}))
+                    "hires": hr_info, "extras": extras, "sdxl_hires": sdxl_hr_info,
+                    "requests": requests, "sdxl_profile": profile, "phase_s": phase_s}))
 
     def row_of(name, shape, dtype):
         return next(r for r in rows if r["entry"] == name and r["name"] == shape
                     and r["dtype"] == dtype)
 
     # B1's row: the VAE shape whose launches in the timed requests times its
-    # time is larger, the f32 encode at 512² (one per config 2 request) or
-    # the SDXL decode at 1024² (one per config 5 request)
-    b1_row = max((("vae_mid_512_f32", "float32", len(i2i_results)),
-                  ("vae_mid_1024", "bfloat16", len(sdxl_results))),
-                 key=lambda c: c[2] * row_of("flash_attention", c[0], c[1])["ms"])
+    # time is largest: the f32 encode at 512² (one per config 2 request), the
+    # 1024² decode (config 3 and config 5 requests), the 768² decode (config
+    # 3 at 1.5x), the f32 encode at 1024² (config 3's image-space route) or
+    # the 1536² decode (SDXL hires)
+    b1_calls[("vae_mid_512_f32", "float32")] = len(i2i_results)
+    b1_calls[("vae_mid_1024", "bfloat16")] += len(sdxl_results)
+    b1_calls[("vae_mid_1536", "bfloat16")] = 1
+    b1_row = max(b1_calls, key=lambda c: b1_calls[c] * row_of("flash_attention", *c)["ms"])
 
     def entry(name, source, replaces, dominant, dtype):
         mine = [r for r in rows if r["entry"] == name]
-        row = row_of(name, dominant, dtype) if dominant else row_of(name, *b1_row[:2])
+        row = row_of(name, dominant, dtype) if dominant else row_of(name, *b1_row)
         return {"name": name, "route": "cuda", "source": f"sdwebui_tpu_torch/csrc/{source}",
                 "replaces": replaces,
                 "launches": sum(r["launches"][name] for r in requests),
@@ -1077,9 +1420,10 @@ def main() -> int:
                 "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
-    # launches: every timed request of the main paths (SD1.5 txt2img and
-    # img2img, from the checkpoint files and with every sampler, SDXL); the times at each entry's dominant shape; max_abs_err
-    # over all its compared shapes
+    # launches: every timed request of the main paths (SD1.5 txt2img,
+    # img2img and hires fix, from the checkpoint files and with every
+    # sampler, SDXL with and without hires fix); the times at each entry's
+    # dominant shape; max_abs_err over all its compared shapes
     print(json.dumps({"kernels": [entry(*e) for e in KERNEL_ENTRIES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

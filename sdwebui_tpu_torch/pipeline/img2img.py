@@ -2,7 +2,10 @@
 
 Pipeline (``img2img.py:32-116,132-445``): init images flattened onto
 ``img2img_background_color`` → mask binarized (and inverted), blurred →
-latent mask by a bicubic resize to the latent grid, rounded → VAE encode
+latent mask by a bicubic resize to the latent grid, rounded; init images
+of another size than the request through ``resize_image`` (resize modes
+0-2, ``upscaler_for_img2img`` for a leg that upscales), masks through
+Pillow's default (bicubic) resize → VAE encode
 (the mean, at the policy's ``vae_dtype``) → fill 2 (latent noise) or 3
 (latent nothing) in the repaint region → noise to σ₀ of the t_enc slice of
 the schedule (plus ``img2img_extra_noise``) → sampling with the latent mask
@@ -11,9 +14,8 @@ back outside the blurred mask.  Images are uint8 numpy arrays throughout
 (``utils/images`` restates the Pillow operations).
 
 Each request field or option outside this slice raises
-``NotImplementedError`` naming it: init images or masks of another size
-than the request (that needs Pillow's LANCZOS resize), ``inpainting_fill``
-0, ``inpaint_full_res``, soft inpainting, UNets of other than 4 input
+``NotImplementedError`` naming it: resize mode 3, ``inpainting_fill`` 0,
+``inpaint_full_res``, soft inpainting, UNets of other than 4 input
 channels, colour correction, ControlNet and SDXL img2img.
 """
 
@@ -32,7 +34,8 @@ from sdwebui_tpu_torch.pipeline.processing import (_apply_grid, _build_conds,
                                                    create_infotext, create_rng,
                                                    decode_first_stage_u8,
                                                    encode_first_stage,
-                                                   prepare_sampler, sample_latents)
+                                                   prepare_sampler, sample_latents,
+                                                   setup_img2img_steps)
 from sdwebui_tpu_torch.pipeline.sd_model import SDModel
 from sdwebui_tpu_torch.rng.philox import PhiloxGenerator
 from sdwebui_tpu_torch.sampling.sampler import prepare_noise
@@ -51,19 +54,6 @@ UNPORTED_IMG2IMG_OPTIONS = {
 }
 
 
-def setup_img2img_steps(steps: int, denoising_strength: float,
-                        fix_steps: bool = False):
-    """(steps_to_schedule, t_enc) — reference sd_samplers_common.py:22."""
-    if fix_steps:
-        requested = steps
-        steps = int(requested / min(denoising_strength, 0.999)) \
-            if denoising_strength > 0 else 0
-        t_enc = requested - 1
-    else:
-        t_enc = int(min(denoising_strength, 0.999) * steps)
-    return steps, t_enc
-
-
 def _check_img2img(model: SDModel, p: GenerationParams) -> None:
     """Raise for the img2img fields, options and models the slice does not run."""
     _check_slice(p)
@@ -73,6 +63,10 @@ def _check_img2img(model: SDModel, p: GenerationParams) -> None:
         raise NotImplementedError(
             f"{model.unet_cfg.in_channels}-channel UNets (instruct-pix2pix, inpainting, "
             "depth) are not ported yet")
+    if p.resize_mode not in (0, 1, 2):
+        raise NotImplementedError(
+            f"resize_mode {p.resize_mode} (just resize, latent upscale) of init images and "
+            "masks is not ported yet (modes 0-2 resize with LANCZOS or upscaler_for_img2img)")
     fields = {
         "soft_inpainting": p.soft_inpainting,
         "init_noise_override": p.init_noise_override is not None,
@@ -90,38 +84,38 @@ def _check_img2img(model: SDModel, p: GenerationParams) -> None:
 
 def _prepare_images_and_mask(p: GenerationParams):
     """Returns (images (N, H, W, 3) float32 in [0, 1], mask info dict):
-    ``img2img.py:45-116`` for init images and masks of the request's size."""
+    ``img2img.py:45-116`` without the inpaint-full-res crop.  The blurred
+    mask keeps its own size for the overlay and is resized (bicubic) to the
+    request's for the latent mask."""
     init_images = p.init_images if isinstance(p.init_images, list) else [p.init_images]
-    size = (p.height, p.width)
-    mask_img = None
+    overlay_mask = mask = None
     if p.mask is not None:
-        mask_img = masking.binarize_mask(p.mask, invert=bool(p.inpainting_mask_invert))
-        mask_img = masking.blur_mask(mask_img, p.mask_blur)
-        if mask_img.shape != size:
-            raise NotImplementedError(
-                f"a {mask_img.shape[1]}x{mask_img.shape[0]} 'mask' for a "
-                f"{p.width}x{p.height} request: resizing is not ported yet")
+        overlay_mask = masking.binarize_mask(p.mask, invert=bool(p.inpainting_mask_invert))
+        overlay_mask = masking.blur_mask(overlay_mask, p.mask_blur)
+        mask = images_util.resize(overlay_mask, (p.width, p.height))
     bg = opts.get("img2img_background_color", "#ffffff") or "#ffffff"
+    upscaler = opts.get("upscaler_for_img2img", "None")
     imgs, originals = [], []
     for im in init_images:
         a = images_util.as_hwc(im)
-        if a.shape[:2] != size:
-            raise NotImplementedError(
-                f"a {a.shape[1]}x{a.shape[0]} init image for a {p.width}x{p.height} "
-                "request in 'init_images': resizing (LANCZOS) is not ported yet")
-        imgs.append(images_util.flatten(a, bg).astype(np.float32) / 255.0)
+        rgb = images_util.resize_image(p.resize_mode, images_util.flatten(a, bg), p.width,
+                                       p.height, upscaler_name=upscaler)
+        imgs.append(rgb.astype(np.float32) / 255.0)
         originals.append(images_util.to_rgb(a))
-    info = {"mask": mask_img, "originals": originals}
+    info = {"mask": mask, "overlay_mask": overlay_mask, "originals": originals}
     return np.stack(imgs), info
 
 
 def apply_overlay(img: np.ndarray, mask_info: dict, index: int) -> np.ndarray:
-    """The original outside the blurred mask, the generated image inside it
+    """The original outside the blurred mask, the generated image inside it,
+    the original and the mask resized (bicubic) to the image's size
     (``img2img.py:446-465`` without the inpaint-full-res crop)."""
     if mask_info.get("mask") is None:
         return img
+    size = (img.shape[1], img.shape[0])
     original = mask_info["originals"][min(index, len(mask_info["originals"]) - 1)]
-    return images_util.composite(img, original, mask_info["mask"])
+    return images_util.composite(img, images_util.resize(original, size),
+                                 images_util.resize(mask_info["overlay_mask"], size))
 
 
 def process_img2img(model: SDModel, p: GenerationParams,
@@ -161,7 +155,7 @@ def _process_img2img(model: SDModel, p: GenerationParams,
     # latent mask: mask = keep weight, nmask = repaint weight
     mask = nmask = None
     if mask_info["mask"] is not None:
-        latmask = images_util.resize_bicubic(mask_info["mask"], (w, h))
+        latmask = images_util.resize(mask_info["mask"], (w, h))
         latmask = np.around(latmask.astype(np.float32) / 255.0)
         nmask = torch.from_numpy(latmask).to(model.device)[None, None]
         mask = 1.0 - nmask

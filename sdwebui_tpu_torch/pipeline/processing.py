@@ -1,13 +1,18 @@
 """txt2img orchestration — the txt2img half of ``sdwebui_tpu/pipeline/processing.py``,
-plus the VAE encode that img2img (``pipeline/img2img.py``) builds on.
+with hires fix, plus the VAE encode that img2img (``pipeline/img2img.py``)
+builds on.
 
 Host side: seeds, prompt schedules, infotext.  Device side: a Python step
 loop of batched CFG UNet calls (cond + uncond in one call), for SDXL
 handed from the base to the refiner at the switch-point sigma, and a VAE
-decode to uint8 with an fp32 retry on NaN.  Images leave as uint8 HWC
-numpy arrays.  Options and request fields outside the slice raise
-``NotImplementedError`` naming them; nothing falls back to a different
-computation.
+decode to uint8 with an fp32 retry on NaN.  Hires fix (``enable_hr``,
+processing.py:601-777) upscales the first pass's latents — in latent space
+(``LATENT_UPSCALE_MODES``), or decoded, through an upscaler of
+``postprocessing/upscalers`` and encoded again — and samples the last
+t_enc + 1 steps of a second schedule at the target size.  Images leave as
+uint8 HWC numpy arrays.  Options and request fields outside the slice
+raise ``NotImplementedError`` naming them; nothing falls back to a
+different computation.
 """
 
 from __future__ import annotations
@@ -21,9 +26,11 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from sdwebui_tpu_torch import __version__
 from sdwebui_tpu_torch.pipeline.params import GenerationParams, Processed
+from sdwebui_tpu_torch.postprocessing import upscalers
 from sdwebui_tpu_torch.pipeline.sd_model import SDModel, sdxl_vector_maker
 from sdwebui_tpu_torch.rng.image_rng import ImageRNG, TorchCPUGenerator
 from sdwebui_tpu_torch.rng.philox import PhiloxGenerator
@@ -54,13 +61,18 @@ UNPORTED_OPTIONS = {
     "live_preview_fast_interrupt": False,
 }
 
+#: options of the hires pass whose other values are not ported yet
+UNPORTED_HIRES_OPTIONS = {
+    "token_merging_ratio_hr": 0.0,
+    "save_images_before_highres_fix": False,
+}
+
 _NETWORK_TAG = re.compile(r"<(\w+):([^>]+)>")
 
 
 def _check_slice(p: GenerationParams) -> None:
     """Raise for every request field and option the slice does not run."""
     fields = {
-        "enable_hr": p.enable_hr,
         "controlnet_units": p.controlnet_units,
         "tiling": p.tiling,
         "restore_faces": p.restore_faces,
@@ -78,6 +90,9 @@ def _check_slice(p: GenerationParams) -> None:
     for name, value in UNPORTED_OPTIONS.items():
         if opts.get(name, value) != value:
             raise NotImplementedError(f"option {name!r} is not ported yet")
+    for name, value in UNPORTED_HIRES_OPTIONS.items():
+        if p.enable_hr and opts.get(name, value) != value:
+            raise NotImplementedError(f"option {name!r} of the enable_hr pass is not ported yet")
     if str(opts.get("randn_source", "NV")) not in ("NV", "CPU"):
         raise NotImplementedError(
             f"randn_source {opts.get('randn_source')!r} is not ported yet (use NV or CPU)")
@@ -165,6 +180,19 @@ def sample_latents(model: SDModel, sched: CondSchedule, x, sigmas, noise,
     return sample(model_fn, x, sig, solver, noise, extra, callback=callback)
 
 
+def setup_img2img_steps(steps: int, denoising_strength: float,
+                        fix_steps: bool = False):
+    """(steps_to_schedule, t_enc) — reference sd_samplers_common.py:22."""
+    if fix_steps:
+        requested = steps
+        steps = int(requested / min(denoising_strength, 0.999)) \
+            if denoising_strength > 0 else 0
+        t_enc = requested - 1
+    else:
+        t_enc = int(min(denoising_strength, 0.999) * steps)
+    return steps, t_enc
+
+
 def encode_first_stage(model: SDModel, images: np.ndarray):
     """images (B, H, W, 3) float in [0, 1] → scaled latents (B, z, H/8, W/8)
     in fp32: the encoder's mean at the policy's vae_dtype
@@ -176,11 +204,20 @@ def encode_first_stage(model: SDModel, images: np.ndarray):
 
 
 def _decode_u8(model: SDModel, latents, dtype):
+    """(uint8 (B, H, W, 3), whether the decode gave NaN or inf); NaN reads
+    as 0, as JAX's ``tensor_to_pil`` reads it."""
     img = model.vae.decode(latents.to(dtype))
     bad = not devices.all_finite(img)
-    img = torch.clamp(img.float() / 2.0 + 0.5, 0.0, 1.0)
+    img = torch.nan_to_num(torch.clamp(img.float() / 2.0 + 0.5, 0.0, 1.0))
     u8 = (img * 255.0 + 0.5).to(torch.uint8).permute(0, 2, 3, 1)
     return u8.cpu().numpy(), bad
+
+
+def decode_first_stage(model: SDModel, latents) -> np.ndarray:
+    """latents → uint8 (B, H, W, 3) as JAX's ``decode_first_stage`` and
+    ``tensor_to_pil`` make the hires pass's image: one decode at the
+    policy's vae_dtype, no bf16 first (processing.py:320,485)."""
+    return _decode_u8(model, latents, devices.get_policy().vae_dtype)[0]
 
 
 def decode_first_stage_u8(model: SDModel, latents) -> np.ndarray:
@@ -276,14 +313,15 @@ def _resolve_scheduler(sampler: SamplerData, requested: str) -> str:
     return scheduler
 
 
-def prepare_sampler(model: SDModel, p: GenerationParams, steps: int):
-    """(sampler, solver spec, sigmas, solver extra) of a request: the
-    resolved scheduler's schedule with build_sigmas' post-passes (their
-    infotext pairs go to p.extra_generation_params), and one noise a step
-    for a churn run."""
-    sampler = get_sampler(p.sampler_name)
+def prepare_sampler(model: SDModel, p: GenerationParams, steps: int,
+                    sampler_name: str | None = None, scheduler: str | None = None):
+    """(sampler, solver spec, sigmas, solver extra) of a request (or of the
+    named sampler and scheduler): the resolved scheduler's schedule with
+    build_sigmas' post-passes (their infotext pairs go to
+    p.extra_generation_params), and one noise a step for a churn run."""
+    sampler = get_sampler(sampler_name or p.sampler_name)
     spec = get_solver(sampler.solver)
-    sigmas = build_sigmas(sampler, _resolve_scheduler(sampler, p.scheduler), steps,
+    sigmas = build_sigmas(sampler, _resolve_scheduler(sampler, scheduler or p.scheduler), steps,
                           model.disc, extra_params_out=p.extra_generation_params,
                           is_sdxl=model.is_sdxl)
     extra = _solver_extra(p, sampler)
@@ -313,10 +351,16 @@ def _skip_uncond_mask(sigmas, p: GenerationParams):
     return mask if mask.any() else None
 
 
-def _build_conds(model: SDModel, p: GenerationParams, steps: int) -> CondSchedule:
-    """The CFG schedule (processing.py:1061-1102).  SDXL keeps CLIP-L at the
+def _build_conds(model: SDModel, p: GenerationParams, steps: int,
+                 cfg_scale: float | None = None, prompt: str | None = None,
+                 negative: str | None = None, width: int | None = None,
+                 height: int | None = None, hires_steps: int | None = None) -> CondSchedule:
+    """The CFG schedule (processing.py:1061-1102) of the request's prompts,
+    or of the given ones (the hires pass).  SDXL keeps CLIP-L at the
     penultimate layer unless opts.sdxl_clip_l_skip, and adds the y vectors
-    (sizes, crop, and for the refiner the aesthetic scores)."""
+    (sizes, crop, and for the refiner the aesthetic scores).  hires_steps:
+    the second pass's steps, which the prompt-edit schedule continues into
+    unless opts.use_old_scheduling."""
     if model.is_sdxl and not opts.get("sdxl_clip_l_skip", False):
         model.conditioner.clip_skip = 2
     else:
@@ -326,13 +370,15 @@ def _build_conds(model: SDModel, p: GenerationParams, steps: int) -> CondSchedul
     vector_maker = None
     if model.is_sdxl:
         vector_maker = sdxl_vector_maker(
-            model, p.width, p.height,
+            model, width or p.width, height or p.height,
             crop=(int(opts.get("sdxl_crop_top", 0)), int(opts.get("sdxl_crop_left", 0))),
             aesthetic_score=float(opts.get("sdxl_refiner_high_aesthetic_score", 6.0)),
             negative_aesthetic_score=float(opts.get("sdxl_refiner_low_aesthetic_score", 2.5)))
     return build_cond_schedule(
-        model.encode_texts, p.prompt, p.negative_prompt, steps,
-        cond_scale=p.cfg_scale, vector_maker=vector_maker,
+        model.encode_texts, p.prompt if prompt is None else prompt,
+        p.negative_prompt if negative is None else negative, steps,
+        cond_scale=p.cfg_scale if cfg_scale is None else cfg_scale,
+        vector_maker=vector_maker, hires_steps=hires_steps,
         use_old_scheduling=bool(opts.get("use_old_scheduling", False)))
 
 
@@ -354,6 +400,121 @@ def _refiner_split_idx(model: SDModel, sigmas, switch_at: float, max_steps: int)
 
 def uses_refiner(p: GenerationParams) -> bool:
     return bool(p.refiner_checkpoint) and 0 < (p.refiner_switch_at or 0) < 1
+
+
+# --------------------------------------------------------------------------
+# hires fix (processing.py:601-777)
+# --------------------------------------------------------------------------
+
+#: hires_upscaler names that resize the latents, and how (processing.py:601)
+LATENT_UPSCALE_MODES = {
+    "Latent": "bilinear",
+    "Latent (antialiased)": "bilinear",
+    "Latent (bicubic)": "bicubic",
+    "Latent (bicubic antialiased)": "bicubic",
+    "Latent (nearest)": "nearest",
+    "Latent (nearest-exact)": "nearest",
+}
+
+
+def resize_latents(latents, height: int, width: int, method: str):
+    """NCHW latents to height x width as ``jax.image.resize`` computes them
+    (processing.py:687): it antialiases when shrinking and uses Keys' cubic
+    (a = -0.5), which is torch's antialiased bilinear / bicubic with
+    half-pixel centres; its "nearest" is torch's "nearest-exact"."""
+    if method == "nearest":
+        return F.interpolate(latents, size=(height, width), mode="nearest-exact")
+    return F.interpolate(latents, size=(height, width), mode=method, align_corners=False,
+                         antialias=True)
+
+
+def apply_old_hires_behavior(p: GenerationParams) -> None:
+    """opts.use_old_hires_fix_width_height (processing.py:611): width and
+    height become the hires target, and the first pass runs near 512²."""
+    if not (p.enable_hr and opts.get("use_old_hires_fix_width_height", False)):
+        return
+    p.hr_resize_x, p.hr_resize_y = p.width, p.height
+    scale = math.sqrt(512 * 512 / (p.width * p.height))
+    p.width = math.ceil(scale * p.width / 64) * 64
+    p.height = math.ceil(scale * p.height / 64) * 64
+
+
+def calculate_hr_target(p: GenerationParams) -> tuple:
+    """(hr_width, hr_height) (processing.py:628): hr_scale times the size,
+    or hr_resize_x / hr_resize_y, a zero one following the aspect."""
+    if p.hr_resize_x == 0 and p.hr_resize_y == 0:
+        return int(p.width * p.hr_scale), int(p.height * p.hr_scale)
+    if p.hr_resize_y == 0:
+        return p.hr_resize_x, p.hr_resize_x * p.height // p.width
+    if p.hr_resize_x == 0:
+        return p.hr_resize_y * p.width // p.height, p.hr_resize_y
+    return p.hr_resize_x, p.hr_resize_y
+
+
+def upscale_first_pass(model: SDModel, p: GenerationParams, latents, hr_w: int, hr_h: int):
+    """First-pass latents → latents at hr_w x hr_h: a latent resize, or the
+    image-space route (decode, the hr_upscaler to exactly the target,
+    encode at the policy's vae_dtype)."""
+    if p.hr_upscaler in LATENT_UPSCALE_MODES or not p.hr_upscaler:
+        return resize_latents(latents, hr_h // 8, hr_w // 8,
+                              LATENT_UPSCALE_MODES.get(p.hr_upscaler, "bilinear"))
+    ups = [upscalers.upscale_by_name(p.hr_upscaler, im, hr_w, hr_h)
+           for im in decode_first_stage(model, latents)]
+    return encode_first_stage(model, np.stack(ups).astype(np.float32) / 255.0)
+
+
+def _hires_pass(model: SDModel, p: GenerationParams, latents, seeds, subseeds,
+                refiner_model: SDModel | None = None,
+                step_callback: Callable | None = None):
+    """First-pass latents → hires latents: the upscale, then t_enc + 1 steps
+    of a schedule of hr_second_pass_steps (or steps) from the noise level
+    of denoising_strength, with the hires sampler, scheduler, CFG and
+    prompts; for SDXL handed to `refiner_model` inside it.  Its noise takes
+    no seed resize and no ENSD (processing.py:730)."""
+    hr_w, hr_h = calculate_hr_target(p)
+    th, tw = hr_h // 8, hr_w // 8
+    c = model.latent_channels
+    denoising = p.denoising_strength if p.denoising_strength is not None else 0.7
+    steps, t_enc = setup_img2img_steps(p.hr_second_pass_steps or p.steps, denoising)
+    up = upscale_first_pass(model, p, latents, hr_w, hr_h)
+    sampler, spec, sigmas_full, extra = prepare_sampler(model, p, steps, p.hr_sampler_name,
+                                                        p.hr_scheduler)
+    sigma_sched = sigmas_full[steps - t_enc - 1:]
+    cfg = p.hr_cfg_scale or p.cfg_scale
+    prompt = p.hr_prompt or p.prompt
+    negative = p.hr_negative_prompt or p.negative_prompt
+    if opts.get("hires_fix_use_firstpass_conds", False):
+        cond_w, cond_h = p.width, p.height
+    else:
+        cond_w, cond_h = hr_w, hr_h
+    sched = _build_conds(model, p, p.steps, cfg_scale=cfg, prompt=prompt, negative=negative,
+                         width=cond_w, height=cond_h, hires_steps=t_enc + 1)
+    rng = create_rng((c, th, tw), seeds, subseeds=subseeds,
+                     subseed_strength=p.subseed_strength)
+    noise0 = torch.from_numpy(rng.first()).to(model.device)
+    x = up + noise0 * float(np.float32(sigma_sched[0]))
+    extra_noise = float(opts.get("img2img_extra_noise", 0.0) or 0.0)
+    if extra_noise > 0:
+        # the un-scheduled extra noise img2img adds, shared by the hires
+        # pass (reference sd_samplers_kdiffusion.py:145-150)
+        p.extra_generation_params["Extra noise"] = extra_noise
+        x = x + noise0 * extra_noise
+    noise = prepare_noise(spec, len(sigma_sched) - 1, rng, model.device)
+    sched.skip_uncond = _skip_uncond_mask(sigma_sched, p)
+    n = len(sigma_sched) - 1
+    if refiner_model is None or not uses_refiner(p):
+        return sample_latents(model, sched, x, sigma_sched, noise, sampler.solver, extra,
+                              step_callback=step_callback)
+    s_idx = _refiner_split_idx(model, sigma_sched, p.refiner_switch_at, t_enc + 1)
+    x = sample_latents(model, sched, x, sigma_sched[: s_idx + 1], noise[:s_idx],
+                       sampler.solver, extra, step_callback=step_callback, total_steps=n)
+    r_sched = _build_conds(refiner_model, p, t_enc + 1 - s_idx, cfg_scale=cfg, prompt=prompt,
+                           negative=negative, width=hr_w, height=hr_h)
+    if sched.skip_uncond is not None:
+        r_sched.skip_uncond = sched.skip_uncond[s_idx:]
+    return sample_latents(refiner_model, r_sched, x, sigma_sched[s_idx:], noise[s_idx:],
+                          sampler.solver, extra, step_callback=step_callback,
+                          first_step=s_idx, total_steps=n)
 
 
 def create_infotext(p: GenerationParams, model: SDModel, index: int = 0) -> str:
@@ -378,6 +539,23 @@ def create_infotext(p: GenerationParams, model: SDModel, index: int = 0) -> str:
     if p.subseed_strength > 0:
         pairs["Variation seed"] = p.all_subseeds[index] if p.all_subseeds else p.subseed
         pairs["Variation seed strength"] = p.subseed_strength
+    if p.enable_hr:       # processing.py:940-960
+        if p.hr_resize_x or p.hr_resize_y:
+            pairs["Hires resize"] = f"{p.hr_resize_x}x{p.hr_resize_y}"
+        else:
+            pairs["Hires upscale"] = p.hr_scale
+        if p.hr_second_pass_steps:
+            pairs["Hires steps"] = p.hr_second_pass_steps
+        if p.hr_upscaler:
+            pairs["Hires upscaler"] = p.hr_upscaler
+        if p.hr_sampler_name:
+            pairs["Hires sampler"] = p.hr_sampler_name
+        if p.hr_cfg_scale and p.hr_cfg_scale != p.cfg_scale:
+            pairs["Hires CFG Scale"] = p.hr_cfg_scale
+        if p.hr_prompt and p.hr_prompt != p.prompt:
+            pairs["Hires prompt"] = p.hr_prompt
+        if p.hr_negative_prompt and p.hr_negative_prompt != p.negative_prompt:
+            pairs["Hires negative prompt"] = p.hr_negative_prompt
     if uses_refiner(p):
         pairs["Refiner"] = p.refiner_checkpoint
         pairs["Refiner switch at"] = p.refiner_switch_at
@@ -458,7 +636,8 @@ def process_txt2img(model: SDModel, p: GenerationParams,
     """txt2img with per-request override_settings applied and restored
     (processing.py:1304).  ``step_callback(i, n, latents)`` returning False
     stops sampling.  A request with ``refiner_checkpoint`` and
-    0 < ``refiner_switch_at`` < 1 needs `refiner_model`."""
+    0 < ``refiner_switch_at`` < 1 needs `refiner_model`; with ``enable_hr``,
+    opts.hires_fix_refiner_pass says which pass it refines."""
     with opts.override(p.override_settings):
         return _process_txt2img(model, p, step_callback, refiner_model)
 
@@ -475,9 +654,16 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
     if uses_refiner(p) and refiner_model is None:
         raise ValueError(f"refiner {p.refiner_checkpoint!r} was requested, "
                          "but no refiner model was given")
+    apply_old_hires_behavior(p)
     _resolve_seeds(p)
     _strip_prompt_comments(p)
     sampler, spec, sigmas, solver_extra = prepare_sampler(model, p, p.steps)
+    # which passes the refiner takes when hires fix is on
+    # (processing.py:1449-1453,1488; sd_samplers_common.py:183)
+    ref_pass = str(opts.get("hires_fix_refiner_pass", "second pass"))
+    refine_first = uses_refiner(p) and (not p.enable_hr
+                                        or ref_pass in ("first pass", "both passes"))
+    hr_refiner = refiner_model if ref_pass in ("second pass", "both passes") else None
     h, w = p.latent_size()
     c = model.latent_channels
 
@@ -496,7 +682,7 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
                              "eta_noise_seed_delta", 0))
         x = torch.from_numpy(rng.first()).to(model.device) * float(np.float32(sigmas[0]))
         noise = prepare_noise(spec, len(sigmas) - 1, rng, model.device)
-        if uses_refiner(p):
+        if refine_first:
             # base → refiner at the switch-point sigma; the refiner's run is
             # a fresh sampler, so multistep history restarts there
             # (processing.py:1447-1468)
@@ -514,6 +700,9 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
         else:
             latents = sample_latents(model, sched, x, sigmas, noise, sampler.solver,
                                      solver_extra, step_callback=step_callback)
+        if p.enable_hr:
+            latents = _hires_pass(model, p, latents, seeds, subseeds, refiner_model=hr_refiner,
+                                  step_callback=step_callback)
         images = list(decode_first_stage_u8(model, latents))
         infotexts.extend(create_infotext(p, model, lo + i) for i in range(len(images)))
         all_images.extend(images)

@@ -7,7 +7,10 @@ Serves the checkpoint files (``.safetensors``, ``.ckpt``, ``.pt``) under
 ``--ckpt-dir`` (default ``models/Stable-diffusion``) and ``--ckpt``'s own
 directory, loading ``--ckpt`` (a path or a file name there) first, else
 the ``sd_model_checkpoint`` setting, else the first file found.
-``--vae-path`` gives every checkpoint that VAE.  Random weights at full
+``--vae-path`` gives every checkpoint that VAE.  The ESRGAN / Real-ESRGAN
+files (``.pth``, ``.pt``, ``.safetensors``) under ``--esrgan-models-path``
+and ``--realesrgan-models-path`` (default ``models/ESRGAN`` and
+``models/RealESRGAN``) serve as upscalers by file name.  Random weights at full
 width, made from ``--seed``, only with ``--model``: SD1.5, or the SDXL
 base with its refiner, which requests name by its title
 (``refiner_checkpoint``); ``--tiny`` for the test models.
@@ -18,8 +21,13 @@ from __future__ import annotations
 import argparse
 import os
 
+from sdwebui_tpu_torch.models.esrgan import register_esrgan_dir
 from sdwebui_tpu_torch.server.api import make_server
 from sdwebui_tpu_torch.server.app import DEFAULT_CKPT_DIR, Engine
+
+#: the upscaler files' directories (the reference's layout, relative to the
+#: working directory)
+DEFAULT_ESRGAN_DIRS = (os.path.join("models", "ESRGAN"), os.path.join("models", "RealESRGAN"))
 
 
 def main(argv=None):
@@ -37,6 +45,10 @@ def main(argv=None):
     ap.add_argument("--model", choices=("sd15", "sdxl"), default=None,
                     help="serve random weights of this family instead of a checkpoint "
                          "(sdxl: base + refiner)")
+    ap.add_argument("--esrgan-models-path", default=DEFAULT_ESRGAN_DIRS[0],
+                    help="Path to directory with ESRGAN model file(s).")
+    ap.add_argument("--realesrgan-models-path", default=DEFAULT_ESRGAN_DIRS[1],
+                    help="Path to directory with RealESRGAN model file(s).")
     ap.add_argument("--tiny", action="store_true", help="with --model: the tiny test model(s)")
     ap.add_argument("--seed", type=int, default=0, help="seed of the random weights")
     args = ap.parse_args(argv)
@@ -52,9 +64,12 @@ def main(argv=None):
         engine = Engine(device=args.device, ckpt=args.ckpt,
                         ckpt_dirs=[args.ckpt_dir or DEFAULT_CKPT_DIR], vae_path=args.vae_path)
         engine.sd_model           # load now: a checkpoint that fails fails at start
+    upscalers = register_esrgan_dir((args.esrgan_models_path, args.realesrgan_models_path),
+                                    device=engine.device)
     server = make_server(engine, args.host, args.port)
-    refiners = "".join(f", refiner {t!r}" for t in engine._extra_models)
-    print(f"serving {engine.sd_model.title!r}{refiners} on "
+    extras = "".join(f", refiner {t!r}" for t in engine._extra_models) + \
+        "".join(f", upscaler {n!r}" for n in upscalers)
+    print(f"serving {engine.sd_model.title!r}{extras} on "
           f"http://{args.host}:{server.server_address[1]}", flush=True)
     try:
         server.serve_forever()

@@ -1,10 +1,15 @@
-"""HTTP API: ``/sdapi/v1/txt2img``, ``/sdapi/v1/img2img``, the checkpoint
-routes and friends on a stdlib server.
+"""HTTP API: ``/sdapi/v1/txt2img`` (with hires fix), ``/sdapi/v1/img2img``,
+the Extras upscale routes, the checkpoint routes and friends on a stdlib
+server.
 
-Port of the generation, option and checkpoint routes of
-``sdwebui_tpu/server/api.py:133-163,252-291,511-600,895-914``: options
+Port of the generation, extras, option and checkpoint routes of
+``sdwebui_tpu/server/api.py:133-163,252-347,511-600,895-914``: options
 (a ``sd_model_checkpoint`` in a POST reloads), samplers, schedulers,
-sd-models, sd-vae, and refresh / reload / unload of checkpoints.
+upscalers, latent upscale modes, sd-models, sd-vae, and refresh / reload /
+unload of checkpoints.  ``extra-single-image`` and ``extra-batch-images``
+run the Upscale stage (``postprocessing/stages``) and answer one PNG per
+image; face restoration, ``save_output`` and extras resize modes other than
+0 and 1 answer 422.
 Requests are plain JSON mapped
 onto ``GenerationParams`` (no pydantic); responses have the reference's
 shape, ``{"images": [b64 png], "parameters": {...}, "info": "<json>"}``.
@@ -28,7 +33,10 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from sdwebui_tpu_torch.pipeline.img2img import UNPORTED_IMG2IMG_OPTIONS
 from sdwebui_tpu_torch.pipeline.params import GenerationParams
-from sdwebui_tpu_torch.pipeline.processing import UNPORTED_OPTIONS
+from sdwebui_tpu_torch.pipeline.processing import (LATENT_UPSCALE_MODES, UNPORTED_HIRES_OPTIONS,
+                                                   UNPORTED_OPTIONS)
+from sdwebui_tpu_torch.postprocessing import upscalers
+from sdwebui_tpu_torch.postprocessing.stages import StageArgs
 from sdwebui_tpu_torch.sampling.registry import SAMPLER_MAP, SAMPLERS
 from sdwebui_tpu_torch.sampling.schedulers import ALIASES, SCHEDULERS
 from sdwebui_tpu_torch.server.app import CheckpointNotFound, Engine
@@ -56,16 +64,24 @@ FIELDS = {
 #: these values (their defaults)
 NEUTRAL = {
     "styles": ([],), "restore_faces": (None, False), "tiling": (None, False),
-    "denoising_strength": (None,), "disable_extra_networks": (False,),
-    "comments": ({},), "enable_hr": (False,), "firstphase_width": (0,),
-    "firstphase_height": (0,), "hr_scale": (2.0, 2), "hr_upscaler": (None,),
-    "hr_second_pass_steps": (0,), "hr_resize_x": (0,), "hr_resize_y": (0,),
-    "hr_checkpoint_name": (None,), "hr_sampler_name": (None,),
-    "hr_scheduler": (None,), "hr_prompt": ("",), "hr_negative_prompt": ("",),
-    "hr_cfg": (0.0, 0), "script_name": (None,), "script_args": ([],),
+    "disable_extra_networks": (False,), "comments": ({},), "firstphase_width": (0,),
+    "firstphase_height": (0,), "hr_checkpoint_name": (None,),
+    "script_name": (None,), "script_args": ([],),
     "save_images": (False,), "alwayson_scripts": ({},), "infotext": (None,),
     "postprocessing": ({},), "override_settings_restore_afterwards": (True,),
 }
+
+#: txt2img's hires-fix fields (``hr_cfg`` is GenerationParams.hr_cfg_scale)
+HIRES_FIELDS = {
+    "enable_hr": (False, bool), "denoising_strength": (None, _NUM), "hr_scale": (2.0, _NUM),
+    "hr_upscaler": (None, str), "hr_second_pass_steps": (0, int), "hr_resize_x": (0, int),
+    "hr_resize_y": (0, int), "hr_sampler_name": (None, str), "hr_scheduler": (None, str),
+    "hr_prompt": ("", str), "hr_negative_prompt": ("", str), "hr_cfg": (0.0, _NUM),
+}
+
+#: the hires fields img2img accepts, at their defaults only
+HIRES_NEUTRAL = {k: (default,) for k, (default, _) in HIRES_FIELDS.items()
+                 if k != "denoising_strength"}
 
 #: override_settings keys the slice reads; UNPORTED_OPTIONS keys are
 #: accepted too and raise in the pipeline unless at their neutral value
@@ -87,7 +103,11 @@ OVERRIDES = {
     "uni_pc_lower_order_final",
     # per-request checkpoint and VAE (Engine._maybe_switch)
     "sd_model_checkpoint", "sd_vae",
-    *UNPORTED_OPTIONS,
+    # hires fix and the upscalers it runs
+    "hires_fix_use_firstpass_conds", "hires_fix_refiner_pass",
+    "use_old_hires_fix_width_height", "img2img_extra_noise", "ESRGAN_tile",
+    "ESRGAN_tile_overlap", "upscaling_max_images_in_cache",
+    *UNPORTED_OPTIONS, *UNPORTED_HIRES_OPTIONS,
 }
 
 
@@ -109,14 +129,25 @@ IMG2IMG_NEUTRAL = {
 }
 
 IMG2IMG_OVERRIDES = {"img2img_extra_noise", "img2img_background_color", "overlay_inpaint",
-                     *UNPORTED_IMG2IMG_OPTIONS}
+                     "upscaler_for_img2img", *UNPORTED_IMG2IMG_OPTIONS}
 
-#: options POST /sdapi/v1/options sets: the overrides, and how checkpoints
-#: are kept and read
+#: options POST /sdapi/v1/options sets: the overrides, how checkpoints are
+#: kept and read, and the Extras stage order
 OPTIONS = OVERRIDES | IMG2IMG_OVERRIDES | {
     "sd_checkpoints_limit", "sd_checkpoints_keep_in_cpu", "sd_checkpoint_cache",
     "sd_vae_checkpoint_cache", "sd_vae_overrides_per_model_preferences",
-    "list_hidden_files", "disable_mmap_load_safetensors"}
+    "list_hidden_files", "disable_mmap_load_safetensors", "postprocessing_operation_order",
+    "postprocessing_disable_in_extras", "realesrgan_enabled_models"}
+
+#: the Extras request's fields (ExtrasSingleImageRequest; ``name`` is a
+#: batch item's file name)
+EXTRAS_FIELDS = {
+    **{f.name: (f.default, bool if isinstance(f.default, bool) else
+                _NUM if isinstance(f.default, float) else type(f.default))
+       for f in StageArgs.__dataclass_fields__.values()},
+    "show_extras_results": (True, bool), "save_output": (False, bool), "image": ("", str),
+    "name": (None, str),
+}
 
 #: magic bytes of the image formats a client may send instead of PNG
 _FORMATS = ((b"\xff\xd8\xff", "JPEG"), (b"GIF8", "GIF"), (b"BM", "BMP"),
@@ -130,12 +161,9 @@ class ApiError(Exception):
         self.message = message
 
 
-def _params_from_request(body: dict, img2img: bool = False) -> GenerationParams:
-    fields, neutral, overrides = FIELDS, NEUTRAL, OVERRIDES
-    if img2img:
-        fields = {**FIELDS, **IMG2IMG_FIELDS}
-        neutral = {**{k: v for k, v in NEUTRAL.items() if k not in fields}, **IMG2IMG_NEUTRAL}
-        overrides = OVERRIDES | IMG2IMG_OVERRIDES
+def _check_fields(body: dict, fields: dict, neutral: dict) -> dict:
+    """The request with every field of `fields` (its default when absent),
+    each of its type; a field outside both answers 422."""
     for key, value in body.items():
         if key in fields:
             continue
@@ -151,6 +179,28 @@ def _params_from_request(body: dict, img2img: bool = False) -> GenerationParams:
         if value is not None and (not isinstance(value, typ)
                                   or isinstance(value, bool) and typ is not bool):
             raise ApiError(422, f"field {key!r} has the wrong type")
+    return req
+
+
+def _check_upscaler(name, field: str, latent: bool = False):
+    """An upscaler the registry holds (or, with latent, a latent upscale
+    mode); another name answers 422 naming it."""
+    if latent and name in LATENT_UPSCALE_MODES:
+        return
+    try:
+        upscalers.get_upscaler(name)
+    except upscalers.UpscalerNotFound as e:
+        raise ApiError(422, f"{field}: {e}") from e
+
+
+def _params_from_request(body: dict, img2img: bool = False) -> GenerationParams:
+    fields, neutral, overrides = {**FIELDS, **HIRES_FIELDS}, NEUTRAL, OVERRIDES
+    if img2img:
+        fields = {**FIELDS, **IMG2IMG_FIELDS}
+        neutral = {**{k: v for k, v in NEUTRAL.items() if k not in fields}, **HIRES_NEUTRAL,
+                   **IMG2IMG_NEUTRAL}
+        overrides = OVERRIDES | IMG2IMG_OVERRIDES
+    req = _check_fields(body, fields, neutral)
     req["override_settings"] = dict(req["override_settings"] or {})
     for key in req["override_settings"]:
         if key not in overrides:
@@ -167,10 +217,21 @@ def _params_from_request(body: dict, img2img: bool = False) -> GenerationParams:
         raise ApiError(400, f"invalid image size {req['width']}x{req['height']}")
     if req["batch_size"] < 1 or req["n_iter"] < 1:
         raise ApiError(400, "batch_size and n_iter must be >= 1")
+    if not img2img:     # the hires pass's sampler, scheduler and upscaler (api.py:227-231)
+        if req["hr_sampler_name"] and req["hr_sampler_name"] != "Automatic" \
+                and req["hr_sampler_name"] not in SAMPLER_MAP:
+            raise ApiError(400, "Sampler not found")
+        hr_scheduler = req["hr_scheduler"]
+        if hr_scheduler and ALIASES.get(hr_scheduler, hr_scheduler.lower()) not in SCHEDULERS:
+            raise ApiError(400, f"Scheduler not found: {hr_scheduler!r}")
+        if req["enable_hr"] and req["hr_upscaler"]:
+            _check_upscaler(req["hr_upscaler"], "hr_upscaler", latent=True)
     gp_fields = set(GenerationParams.__dataclass_fields__)
     kw = {k: v for k, v in req.items() if k in gp_fields and v is not None}
     kw["sampler_name"] = sampler
     kw["scheduler"] = scheduler
+    if req.get("hr_cfg"):
+        kw["hr_cfg_scale"] = req["hr_cfg"]
     if "CLIP_stop_at_last_layers" in req["override_settings"]:
         kw["clip_skip"] = int(req["override_settings"]["CLIP_stop_at_last_layers"])
     # save_images is off: nothing is written, no grid is assembled
@@ -218,6 +279,10 @@ class Api:
             ("POST", "/sdapi/v1/options"): self.set_options,
             ("GET", "/sdapi/v1/samplers"): self.samplers,
             ("GET", "/sdapi/v1/schedulers"): self.schedulers,
+            ("GET", "/sdapi/v1/upscalers"): self.upscalers,
+            ("GET", "/sdapi/v1/latent-upscale-modes"): self.latent_upscale_modes,
+            ("POST", "/sdapi/v1/extra-single-image"): self.extras_single,
+            ("POST", "/sdapi/v1/extra-batch-images"): self.extras_batch,
             ("GET", "/sdapi/v1/sd-models"): self.sd_models,
             ("GET", "/sdapi/v1/sd-vae"): self.sd_vaes,
             ("POST", "/sdapi/v1/refresh-checkpoints"): self.refresh_checkpoints,
@@ -246,6 +311,56 @@ class Api:
 
     def img2img(self, body: dict):
         return self._generate(body, img2img=True)
+
+    def _extras_args(self, body) -> StageArgs:
+        """The Upscale stage's arguments of an Extras request, checked."""
+        if not isinstance(body, dict):
+            raise ApiError(422, "request body must be a JSON object")
+        req = _check_fields(body, EXTRAS_FIELDS, {})
+        if req["save_output"]:
+            raise ApiError(422, "'save_output' is not supported by this server: it writes "
+                                "no files")
+        for field, name in (("gfpgan_visibility", "GFPGAN"),
+                            ("codeformer_visibility", "CodeFormer")):
+            if req[field] > 0:
+                raise ApiError(422, f"{name} face restoration ({field!r}) is not ported yet")
+        if req["resize_mode"] not in (0, 1):
+            raise ApiError(422, f"extras resize_mode {req['resize_mode']} is not supported "
+                                "(0 scale by, 1 scale to)")
+        _check_upscaler(req["upscaler_1"], "upscaler_1")
+        if req["upscaler_2"] not in (None, "", "None"):
+            _check_upscaler(req["upscaler_2"], "upscaler_2")
+        return StageArgs.from_obj(req)
+
+    def extras_single(self, body: dict):
+        """api.py:301: the Upscale stage over one base64 PNG."""
+        args = self._extras_args(body)
+        if not body.get("image"):
+            raise ApiError(404, "Image not found")
+        (out,) = self.engine.extras([_decode_image(body["image"], "image")], args)
+        return {"html_info": f"<p>Upscaled with {args.upscaler_1}</p>",
+                "image": base64.b64encode(encode_png(out)).decode("ascii")}
+
+    def extras_batch(self, body: dict):
+        """api.py:337: the Upscale stage over every image of imageList."""
+        if not isinstance(body, dict):
+            raise ApiError(422, "request body must be a JSON object")
+        body = dict(body)
+        items = body.pop("imageList", []) or []
+        if not isinstance(items, list) or not all(isinstance(i, dict) for i in items):
+            raise ApiError(422, "field 'imageList' must hold {data, name} objects")
+        args = self._extras_args(body)
+        images = [_decode_image(item.get("data", ""), "imageList") for item in items]
+        outs = self.engine.extras(images, args)
+        return {"html_info": f"<p>{len(outs)} images upscaled</p>",
+                "images": [base64.b64encode(encode_png(o)).decode("ascii") for o in outs]}
+
+    def upscalers(self, body=None):
+        return [{"name": n, "model_name": None, "model_path": None, "model_url": None,
+                 "scale": 4} for n in upscalers.upscaler_names()]
+
+    def latent_upscale_modes(self, body=None):
+        return [{"name": n} for n in LATENT_UPSCALE_MODES]
 
     def get_options(self, body=None):
         d = opts.dumpjson()
@@ -318,7 +433,7 @@ class Api:
             return 200, handler(body)
         except ApiError as e:
             return e.status, {"detail": e.message}
-        except (NotImplementedError, CheckpointNotFound) as e:
+        except (NotImplementedError, CheckpointNotFound, upscalers.UpscalerNotFound) as e:
             return 422, {"detail": str(e)}
         except Exception as e:   # surfaced as a 500 with its message
             traceback.print_exc()

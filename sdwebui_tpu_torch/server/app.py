@@ -9,8 +9,11 @@ in host RAM with ``sd_checkpoints_keep_in_cpu``), per-request checkpoint
 and VAE switching through ``override_settings``, and refiners found
 through the registry — or, when asked for, random weights at full width
 (SD1.5, or the SDXL base with a resident refiner) or the tiny test models.
-Generations run one at a time under the queue lock, which model switches
-take too, with the job's progress in a ``runtime.state.State``.
+Generations and Extras upscales run one at a time under the queue lock,
+which model switches take too, with the job's progress in a
+``runtime.state.State``.  The upscalers are the process's registry
+(``postprocessing/upscalers``), which ``server/__main__`` fills from the
+ESRGAN and Real-ESRGAN directories at start (JAX's app.py:44-57).
 
 Unlike JAX (``app.py:208-226``), a checkpoint load that fails leaves the
 resident models as they were: the live model is moved back, and no parked
@@ -32,6 +35,7 @@ from sdwebui_tpu_torch.pipeline.sd_model import (SDModel, create_random_sd15,
                                                  create_random_sdxl,
                                                  create_tiny_sd,
                                                  create_tiny_sdxl)
+from sdwebui_tpu_torch.postprocessing.stages import StageArgs, run_stages
 from sdwebui_tpu_torch.runtime.state import State
 from sdwebui_tpu_torch.utils.devices import get_device
 from sdwebui_tpu_torch.utils.options import opts
@@ -253,6 +257,16 @@ class Engine:
         return self._run("txt2img", p, lambda: process_txt2img(
             self.sd_model, p, step_callback=self._step_callback,
             refiner_model=self._resolve_refiner(p)))
+
+    def extras(self, images: list, args: StageArgs) -> list:
+        """The Extras stage chain over RGB uint8 images, one job."""
+        with self.queue_lock:
+            self.state.begin("extras")
+            self.state.job_count = len(images)
+            try:
+                return [run_stages(im, args) for im in images]
+            finally:
+                self.state.end()
 
     def img2img(self, p: GenerationParams) -> Processed:
         """app.py:363-379: img2img and inpainting on the base model."""

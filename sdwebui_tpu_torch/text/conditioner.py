@@ -144,19 +144,24 @@ class TextConditioner:
 def build_cond_schedule(encode_fn: Callable, prompt: str, negative_prompt: str,
                         steps: int, cond_scale: float = 7.5,
                         vector_maker: Callable | None = None,
+                        hires_steps: int | None = None,
                         use_old_scheduling: bool = False) -> CondSchedule:
     """Parse prompt-edit/AND syntax, encode every unique schedule text once,
     assemble the banks and per-step index tables (conditioner.py:272-352).
 
     encode_fn(list_of_texts) -> (N, S, D) conds, or (conds, pooled (N, Dp))
     for SDXL.  vector_maker(pooled, is_uncond (N,) bool) -> (N, D_adm)
-    builds the SDXL y vectors, banked like the conds."""
+    builds the SDXL y vectors, banked like the conds.  hires_steps: the
+    hires pass's steps; its tables continue the first pass's schedule over
+    them, unless use_old_scheduling (conditioner.py:276-297)."""
     subprompts = prompt_parser.split_multicond(prompt)
     k = len(subprompts)
     pos_scheds = [prompt_parser.get_prompt_schedule(
-        sp.text, steps, None, use_old_scheduling) for sp in subprompts]
+        sp.text, steps, hires_steps, use_old_scheduling) for sp in subprompts]
     neg_sched = prompt_parser.get_prompt_schedule(
-        negative_prompt, steps, None, use_old_scheduling)
+        negative_prompt, steps, hires_steps, use_old_scheduling)
+    if hires_steps is not None and not use_old_scheduling:
+        steps = hires_steps
 
     texts = [t for sched in pos_scheds for _, t in sched] + [t for _, t in neg_sched]
     conds = encode_fn(texts)          # (total, S, D), one batch: chunk counts match

@@ -3,7 +3,9 @@ sources: the Philox stream and the seeded image noise, every option key and
 default, every config field, the prompt parser and tokenizer on a fixed
 corpus, infotext round-trips, the generation params, the pytree helpers,
 the checkpoint sniffer, every sigma schedule under the options that reshape
-it, and LCM's distillation subtable.
+it, LCM's distillation subtable, and the tables of the hires and upscale
+path (latent upscale modes, the Extras stage fields, the built-in
+upscalers, ESRGAN's old-key map and architecture sniffing).
 """
 
 import dataclasses
@@ -12,8 +14,12 @@ import numpy as np
 import pytest
 
 from sdwebui_tpu.loader import sniff as jax_sniff
+from sdwebui_tpu.models import esrgan as jax_esrgan
 from sdwebui_tpu.models import configs as jax_configs
 from sdwebui_tpu.pipeline import params as jax_params
+from sdwebui_tpu.pipeline import processing as jax_processing
+from sdwebui_tpu.postprocessing import stages as jax_stages
+from sdwebui_tpu.postprocessing import upscalers as jax_upscalers
 from sdwebui_tpu.rng import image_rng as jax_image_rng
 from sdwebui_tpu.rng import philox as jax_philox
 from sdwebui_tpu.sampling import discretization as jax_disc
@@ -24,8 +30,9 @@ from sdwebui_tpu.utils import infotext as jax_infotext
 from sdwebui_tpu.utils import options as jax_options
 from sdwebui_tpu.utils import pytree as jax_pytree
 from sdwebui_tpu_torch.loader import sniff
-from sdwebui_tpu_torch.models import configs
-from sdwebui_tpu_torch.pipeline import params
+from sdwebui_tpu_torch.models import configs, esrgan
+from sdwebui_tpu_torch.pipeline import params, processing
+from sdwebui_tpu_torch.postprocessing import stages, upscalers
 from sdwebui_tpu_torch.rng import image_rng, philox
 from sdwebui_tpu_torch.sampling import discretization, schedulers
 from sdwebui_tpu_torch.text import prompt_parser as pp
@@ -214,3 +221,22 @@ def test_lcm_subtable_equals_jax():
     for n in (1, 4, 8, 50):
         np.testing.assert_array_equal(discretization.lcm_schedule(disc_p, n),
                                       jax_disc.lcm_schedule(disc_j, n))
+
+
+def test_hires_and_upscaler_tables_equal_jax():
+    assert processing.LATENT_UPSCALE_MODES == jax_processing.LATENT_UPSCALE_MODES
+    assert _fields(stages.StageArgs) == _fields(jax_stages.StageArgs)
+    assert list(stages.STAGES) == list(jax_stages.STAGES)
+    assert list(upscalers._REGISTRY)[:3] == list(jax_upscalers._REGISTRY)[:3] == \
+        list(upscalers.BUILTIN)
+    assert [(e.name, e.default_scale) for e in list(upscalers._REGISTRY.values())[:3]] == \
+        [(e.name, e.default_scale) for e in list(jax_upscalers._REGISTRY.values())[:3]]
+    assert esrgan._OLD_FIXED == jax_esrgan._OLD_FIXED
+    assert esrgan._OLD_KEY_RE.pattern == jax_esrgan._OLD_KEY_RE.pattern
+    old = ["model.0.weight", "model.1.sub.3.RDB2.conv5.0.bias", "model.1.sub.23.weight",
+           "model.3.bias", "model.6.weight", "model.8.weight", "model.10.bias", "model.2.x"]
+    sd = dict.fromkeys(old, 0)
+    assert esrgan.normalize_keys(sd) == jax_esrgan.normalize_keys(sd)
+    for keys in (["body.0.weight", "body.1.weight"], ["conv_first.weight", "body.0.rdb1.x"],
+                 ["model.0.weight", "body.0.weight"], ["body.0.RDB1.weight"]):
+        assert esrgan.is_srvgg(keys) == jax_esrgan.is_srvgg(dict.fromkeys(keys))

@@ -99,7 +99,7 @@ def test_resize_bicubic_and_latent_mask_match_pillow_exactly(src, dst):
         (rng.random(src[::-1]) > 0.5).astype(np.uint8) * 255, 4)
     for m in (blurred, rng.integers(0, 256, src[::-1], dtype=np.uint8)):
         ref = np.asarray(Image.fromarray(m).resize(dst))
-        out = port_images.resize_bicubic(m, dst)
+        out = port_images.resize(m, dst)
         np.testing.assert_array_equal(out, ref)
         np.testing.assert_array_equal(np.around(out.astype(np.float32) / 255.0),
                                       np.around(ref.astype(np.float32) / 255.0))
@@ -360,8 +360,8 @@ def test_img2img_matches_jax(models, f32_policies, case):
     (dict(mask=_rect_mask(), inpainting_fill=0), "inpainting_fill 0"),
     (dict(mask=_rect_mask(), inpainting_fill=1, inpaint_full_res=True), "inpaint_full_res"),
     (dict(mask=_rect_mask(), inpainting_fill=1, soft_inpainting=True), "soft_inpainting"),
-    (dict(init_images=[_init_image(size=128)]), "LANCZOS"),
-    (dict(mask=_rect_mask(128), inpainting_fill=1), "mask"),
+    (dict(init_images=[_init_image(size=128)], resize_mode=3), "LANCZOS"),
+    (dict(mask=_rect_mask(128), inpainting_fill=1, resize_mode=3), "mask"),
     (dict(override_settings={"img2img_color_correction": True}), "img2img_color_correction"),
     (dict(controlnet_units=[{"model": "x"}]), "controlnet_units"),
 ])
@@ -440,7 +440,8 @@ def test_img2img_route_inpaints_a_pillow_png(server_url):
     ({}, 404, "Init image"),
     ({"init_images": [_b64(b"\xff\xd8\xff\xe0\x00\x10JFIF")]}, 400, "JPEG"),
     ({"init_images": ["%%%"]}, 400, "base64"),
-    ({"init_images": [_b64(_pil_png(_init_image(size=128), "RGB"))]}, 422, "LANCZOS"),
+    ({"init_images": [_b64(_pil_png(_init_image(size=128), "RGB"))], "resize_mode": 3}, 422,
+     "LANCZOS"),
     ({"init_images": [_b64(_pil_png(_init_image(), "RGB"))],
       "mask": _b64(_pil_png(_rect_mask(), "L"))}, 422, "inpaint_full_res"),
     ({"init_images": [_b64(_pil_png(_init_image(), "RGB"))], "mask_blur_x": 8}, 422,

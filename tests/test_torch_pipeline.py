@@ -76,7 +76,7 @@ def test_same_seed_same_image(models):
 
 
 @pytest.mark.parametrize("kw,name", [
-    (dict(enable_hr=True), "enable_hr"),
+    (dict(enable_hr=True, override_settings={"token_merging_ratio_hr": 0.5}), "enable_hr"),
     (dict(tiling=True), "tiling"),
     (dict(restore_faces=True), "restore_faces"),
     (dict(prompt="a cat <lora:foo:0.5>"), "lora"),

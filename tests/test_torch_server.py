@@ -1,7 +1,7 @@
 """The port's HTTP server (tiny model, CPU), its PNG codec, and its import
-hygiene: the slice imports and runs — checkpoint files and the samplers
-included — with the JAX package, jax, PIL, pydantic, ml_dtypes and
-safetensors blocked."""
+hygiene: the slice imports and runs — checkpoint files, the samplers, hires
+fix, the upscalers and the Extras route included — with the JAX package,
+jax, PIL, pydantic, ml_dtypes and safetensors blocked."""
 
 import base64
 import json
@@ -61,7 +61,7 @@ def test_txt2img_returns_png_with_infotext(server_url):
 
 
 @pytest.mark.parametrize("body,field", [
-    ({"enable_hr": True}, "enable_hr"),
+    ({"enable_hr": True, "override_settings": {"token_merging_ratio_hr": 0.5}}, "enable_hr"),
     ({"styles": ["x"]}, "styles"),
     ({"no_such_field": 1}, "no_such_field"),
     ({"override_settings": {"samples_save": True}}, "samples_save"),
@@ -193,6 +193,28 @@ with tempfile.TemporaryDirectory() as d:
         assert status == 200, out
     assert api.handle("POST", "/sdapi/v1/options", {"sd_model_checkpoint": "b"}) == (200, {})
     assert len(api.handle("GET", "/sdapi/v1/sd-models", None)[1]) == 2
+from sdwebui_tpu_torch.models.esrgan import SRVGGNetCompact, register_esrgan_dir
+with tempfile.TemporaryDirectory() as d:
+    net = SRVGGNetCompact(nf=8, num_conv=2)
+    g = torch.Generator().manual_seed(0)
+    write_safetensors(os.path.join(d, "realesr-t.safetensors"), {
+        k: torch.randn(v.shape, generator=g) * 0.05 for k, v in net.state_dict().items()})
+    assert register_esrgan_dir((d,), device="cpu") == ["realesr-t"]
+    api = Api(Engine(device="cpu", tiny=True))
+    for upscaler in ("Latent (bicubic)", "realesr-t"):
+        status, out = api.handle("POST", "/sdapi/v1/txt2img", {
+            "steps": 2, "width": 64, "height": 64, "enable_hr": True, "hr_scale": 1.5,
+            "hr_upscaler": upscaler, "denoising_strength": 0.5})
+        assert status == 200, out
+    small = base64.b64encode(encode_png(np.full((32, 48, 3), 90, np.uint8))).decode()
+    status, out = api.handle("POST", "/sdapi/v1/extra-single-image", {
+        "image": small, "upscaler_1": "realesr-t", "upscaler_2": "Lanczos",
+        "extras_upscaler_2_visibility": 0.5})
+    assert status == 200, out
+    status, out = api.handle("POST", "/sdapi/v1/img2img", {
+        "init_images": [small], "resize_mode": 1, "steps": 2, "width": 64, "height": 64,
+        "override_settings": {"upscaler_for_img2img": "realesr-t"}})
+    assert status == 200, out
 assert not Recorder.attempts, Recorder.attempts
 print("OK", len(mods))
 """
