@@ -18,16 +18,22 @@ Phases, in order; any failure exits non-zero:
      shapes and the SD1.5/SDXL VAE mid-block at 512², 768², 1024² and
      1536², S = 36864), B2 (head-packed, SD1.5 and SDXL base and refiner at
      their first pass's levels and at the hires pass's: SD1.5 at 1024² and
-     768², SDXL at 1536²; the SD1.5 rows also on fused-qkv chunk views:
+     768², SDXL at 1536²; SD1.5 at config 4's 8 CFG rows; the SD1.5 rows
+     also on fused-qkv chunk views:
      d = 160 at S = 1024 takes the split-d wide kernel), B3 (4-D, the same
      shapes), B5 (LayerNorm at every UNet row count and width of both
-     families, first and hires pass, and at CLIP's) and B4 (3x3 conv at the
+     families, first and hires pass, config 4's 8 CFG rows, and at CLIP's)
+     and B4 (3x3 conv at the
      JAX docstring's shapes, the SD1.5 UNet's B=2 shapes and two ragged
      widths);
   2. the full-width SD1.5 UNet CFG step (B=2, latent 64² and the hires
-     pass's 128², ctx 2x77x768, bf16, random weights) in three arms: the kernels (B2 + B5), plain
-     LayerNorm (B2 only), and plain attention and LayerNorm: finite,
-     max|Δ|/max|ref| <= 5e-2, ms and device events per call in each arm;
+     pass's 128², ctx 2x77x768, bf16, random weights), and at 64² with a
+     random full-width ControlNet tower on the 16-px grid hint (config 4's
+     step: the tower's residuals into the UNet), in three arms: the kernels
+     (B2 + B5), plain LayerNorm (B2 only), and plain attention and
+     LayerNorm: finite, max|Δ|/max|ref| <= 5e-2, ms and device events per
+     call in each arm, launches per call equal to the plan's (the tower
+     adds 4 B2 and 21 B5);
   3. the HTTP server with random-weight SD1.5 (and two upscaler files made
      from a seed at the published widths in a temporary directory,
      registered as --esrgan-models-path registers them and dropped with it:
@@ -62,6 +68,22 @@ Phases, in order; any failure exits non-zero:
      Lanczos as upscaler_2 at visibility 0.5 on a phase-3 PNG, with
      resize_mode 1 and crop, /extra-batch-images with two images, and
      /upscalers listing the two files: sizes checked, s/image logged;
+  4e. BASELINE config 4 on the same server, its files made from a seed in a
+     temporary directory and registered through the registries' own
+     functions (dropped at the end): a rank-16 LoRA over every UNet
+     attention projection, a 2-vector embedding, a hypernetwork for widths
+     768/320/640/1280, and phase 2's tower as a control_model.* fp16 file.
+     (a) batch 4, 512², Euler a, 20 steps, CFG 7.5, <lora:bench:0.8> and
+     the trigger, one canny unit at weight 1 on the 16-px grid: PNGs,
+     infotext (the tag, "TI hashes"), B2 = 20 x (10 + 4), B1 = 1, B5 = 20 x
+     (48 + 21) + CLIP's; (b) the same seed again within 2 levels, with no
+     second merge; (c) guidance_end 0.5: B2 = 20 x 10 + 10 x 4; (d) a
+     <hypernet:...> request; (e) a tagless request: the base UNet and CLIP
+     tensors equal to before the phase (torch.equal), the image within 2
+     levels of phase 3's; (f) /controlnet/detect canny on a phase-3 PNG;
+     (g) one config 4 request under torch.profiler, as phase 7.  The LoRA
+     merge's seconds (first time and cached), s/request and the tower's ms
+     per CFG call at 8 rows are logged;
   4a. checkpoint files: phase 3's model written as an ldm-layout
      .safetensors in its own dtypes, and a second random SD1.5 (seed 1) in
      fp16 beside it, in a temporary directory, served by an Engine built as
@@ -79,9 +101,10 @@ Phases, in order; any failure exits non-zero:
      solver's model calls (for DPM adaptive a multiple of the per-call
      plan), s/request logged;
   5. the full-width SDXL base step (B=2, latent 128², ctx 2x77x2048, y
-     2x2816) and refiner step (ctx 2x77x1280, y 2x2560), bf16, in the
-     three arms of phase 2, and the SDXL VAE decode at 1024² in bf16 and in
-     its fp32 retry dtype;
+     2x2816) and refiner step (ctx 2x77x1280, y 2x2560), and the base step
+     with a random SDXL ControlNet tower, bf16, in the three arms of phase
+     2, and the SDXL VAE decode at 1024² in bf16 and in its fp32 retry
+     dtype;
   6. the server with random SDXL base + refiner answering two BASELINE
      config 5 requests with one seed (1024², DPM++ 2M Karras, 20 steps,
      CFG 7.0, refiner switch at 0.8): 1024x1024 PNGs, infotext naming the
@@ -187,6 +210,9 @@ HEAD_SHAPES = [
     ("sdxl_base_48x48", 2, 2304, 20, 64),
     ("sdxl_refiner_96x96", 2, 9216, 12, 64),
     ("sdxl_refiner_48x48", 2, 2304, 24, 64),
+    # config 4: SD1.5 at batch 4, so 8 CFG rows (the UNet and the tower)
+    ("sd15_b8_64x64", 8, 4096, 8, 40),
+    ("sd15_b8_32x32", 8, 1024, 8, 80),
 ]
 # B4 rows: (name, B, H, W, Cin, Cout): the shapes of the JAX kernel's
 # docstring (sdwebui_tpu/ops/conv.py:6-8), the SD1.5 UNet's at B = 2 (the
@@ -405,19 +431,21 @@ def layer_norm_shapes():
     """(name, rows, width) of every LayerNorm on the SD1.5 and SDXL paths:
     three per transformer block at B = 2 (from the configs' build plans) at
     the first pass's latent and the hires pass's (SD1.5 at 128² and 96²,
-    SDXL at 192²), and the CLIP-L / bigG encoders over cond + uncond
-    (2 x 77 tokens)."""
+    SDXL at 192²), SD1.5's at config 4's 8 CFG rows (the UNet's and the
+    ControlNet tower's widths and row counts), and the CLIP-L / bigG
+    encoders over cond + uncond (2 x 77 tokens)."""
     from sdwebui_tpu_torch.models.configs import (CLIP_L, OPEN_CLIP_BIGG, SD15_UNET,
                                                   SDXL_REFINER_UNET, SDXL_UNET)
     from sdwebui_tpu_torch.models.unet import self_attention_calls
 
     shapes = {}
-    for fam, cfg, latents in (("sd15", SD15_UNET, (64, 128, 96)),
-                              ("sdxl_base", SDXL_UNET, (128, 192)),
-                              ("sdxl_refiner", SDXL_REFINER_UNET, (128, 192))):
+    for fam, cfg, latents, batch in (("sd15", SD15_UNET, (64, 128, 96), 2),
+                                     ("sd15_b8", SD15_UNET, (64,), 8),
+                                     ("sdxl_base", SDXL_UNET, (128, 192), 2),
+                                     ("sdxl_refiner", SDXL_REFINER_UNET, (128, 192), 2)):
         for latent in latents:
             for s, h, d in self_attention_calls(cfg, latent):
-                shapes.setdefault(f"{fam}_s{s}_c{h * d}", (2 * s, h * d))
+                shapes.setdefault(f"{fam}_s{s}_c{h * d}", (batch * s, h * d))
     shapes.update(clip_l=(2 * 77, CLIP_L.width), clip_bigg=(2 * 77, OPEN_CLIP_BIGG.width))
     return [(name, rows, c) for name, (rows, c) in shapes.items()]
 
@@ -544,16 +572,21 @@ def _all_plain():
         yield
 
 
-def _unet_step(label, unet, cfg, latent, x, t, ctx, y=None):
+def _unet_step(label, unet, cfg, latent, x, t, ctx, y=None, tower=None, hint=None):
     """The UNet call in three arms: the kernels (attention kernels + B5),
-    plain LayerNorm, and plain attention with plain LayerNorm."""
+    plain LayerNorm, and plain attention with plain LayerNorm.  With a
+    ControlNet tower, each call runs the tower on `hint` first and the UNet
+    takes its residuals (config 4's CFG step)."""
     from sdwebui_tpu_torch.ops import flash_attention as fa
     from sdwebui_tpu_torch.ops import layer_norm as ln_mod
     from sdwebui_tpu_torch.ops import norms
 
     arms = {"kernels": contextlib.nullcontext, "plain_layer_norm": norms.forced_plain,
             "plain": _all_plain}
-    step = lambda: unet(x, t, ctx, y)  # noqa: E731
+    if tower is None:
+        step = lambda: unet(x, t, ctx, y)  # noqa: E731
+    else:
+        step = lambda: unet(x, t, ctx, y, control=tower(x, t, ctx, hint, y))  # noqa: E731
     res, outs = {}, {}
     with torch.inference_mode():
         for arm, ctx_mgr in arms.items():
@@ -562,7 +595,9 @@ def _unet_step(label, unet, cfg, latent, x, t, ctx, y=None):
                 outs[arm] = step().float()
                 torch.cuda.synchronize()
                 if arm == "kernels":
-                    planned = (launch_plan(cfg, latent), 0, ln_plan(cfg, latent))
+                    towers = 0 if tower is None else 1
+                    planned = (launch_plan(cfg, latent) + towers * launch_plan(cfg, latent, False),
+                               0, ln_plan(cfg, latent) + towers * ln_plan(cfg, latent, False))
                     counted = (fa.launch_count("flash_attention_packed"), fa.launch_count(),
                                ln_mod.launch_count())
                     log(f"{label}: (B2, B1, B5) launches per call {counted}, planned {planned}")
@@ -595,37 +630,62 @@ def _unet_step(label, unet, cfg, latent, x, t, ctx, y=None):
     return res
 
 
-def phase_unet(model, device):
+def _grid_hint(size: int, batch: int, device) -> torch.Tensor:
+    """The JAX bench's control image (bench.py:388-390): white lines every
+    16 px on black, as a (batch, 3, size, size) hint in [0, 1]."""
+    hint = torch.zeros((batch, 3, size, size), device=device)
+    hint[:, :, ::16, :] = 1.0
+    hint[:, :, :, ::16] = 1.0
+    return hint
+
+
+def random_tower(cfg, seed: int, device):
+    """A ControlNet tower of `cfg` in bf16 with random weights from `seed`
+    (every conv, the zero-convs too, N(0, 1/fan-in))."""
+    from sdwebui_tpu_torch.models.controlnet import ControlNetModel
+    from sdwebui_tpu_torch.models.layers import reset_random
+
+    tower = ControlNetModel(cfg, device=device, dtype=torch.bfloat16)
+    reset_random(tower, torch.Generator(device=device).manual_seed(seed))
+    return tower
+
+
+def phase_unet(model, device, tower):
     """The SD1.5 UNet step at the first pass's 64² latent and at the hires
-    pass's 128² (config 3)."""
+    pass's 128² (config 3), and at 64² with the ControlNet tower (config
+    4's step: the tower on the grid hint, its residuals into the UNet)."""
     out = {}
-    for latent in (64, 128):
+    for latent, with_tower in ((64, False), (128, False), (64, True)):
         g = torch.Generator(device=device).manual_seed(1)
         x = torch.randn((2, 4, latent, latent), generator=g, device=device).to(torch.bfloat16)
         t = torch.tensor([500.0, 500.0], device=device)
         ctx = torch.randn((2, 77, 768), generator=g, device=device).to(torch.bfloat16)
-        out[f"{latent}x{latent}"] = _unet_step(f"SD1.5 B=2 {latent}x{latent} bf16", model.unet,
-                                               model.unet_cfg, latent, x, t, ctx)
+        name = f"{latent}x{latent}" + ("_controlnet" if with_tower else "")
+        out[name] = _unet_step(
+            f"SD1.5 B=2 {name} bf16", model.unet, model.unet_cfg, latent, x, t, ctx,
+            tower=tower if with_tower else None, hint=_grid_hint(8 * latent, 2, device))
         del x, ctx
         torch.cuda.empty_cache()
     return out
 
 
-def launch_plan(cfg, latent: int) -> int:
-    """B2 launches of one UNet forward at latent², from the config and the
-    dispatch rule (ops/attention.py): every self-attention with Skv >=
+def launch_plan(cfg, latent: int, decoder: bool = True) -> int:
+    """B2 launches of one UNet forward at latent² (decoder=False: of one
+    ControlNet tower's, the encoder and middle block), from the config and
+    the dispatch rule (ops/attention.py): every self-attention with Skv >=
     FLASH_MIN_KV, whatever its head dim.  No UNet call reaches B1."""
     from sdwebui_tpu_torch.models.unet import self_attention_calls
     from sdwebui_tpu_torch.ops.attention import FLASH_MIN_KV
 
-    return sum(s >= FLASH_MIN_KV for s, _, _ in self_attention_calls(cfg, latent))
+    return sum(s >= FLASH_MIN_KV for s, _, _ in self_attention_calls(cfg, latent, decoder))
 
 
-def ln_plan(cfg, latent: int) -> int:
-    """B5 launches of one UNet forward: three per transformer block."""
+def ln_plan(cfg, latent: int, decoder: bool = True) -> int:
+    """B5 launches of one UNet (or tower) forward: three per transformer
+    block."""
     from sdwebui_tpu_torch.models.unet import self_attention_calls
 
-    return 3 * len(self_attention_calls(cfg, latent))
+    return 3 * len(self_attention_calls(cfg, latent, decoder))
 
 
 def clip_ln_plan(model) -> int:
@@ -969,6 +1029,205 @@ def phase_extras(engine, pngs: list, upscaler_paths: dict):
     return rows
 
 
+# config 4's files (bench.py:313-342, 384-396): a rank-16 LoRA over every
+# UNet attention projection, a 2-vector embedding (its name the trigger), a
+# hypernetwork for SD1.5's context and attention widths, and the tower
+LORA_RANK = 16
+CN_TRIGGER = "chipemb"
+HN_WIDTHS = (768, 320, 640, 1280)
+CN_BATCH = 4
+
+
+def write_network_files(directory: str, model, tower, seed: int = 7) -> dict:
+    """The config 4 files in `directory`, made from `seed`: bench.safetensors
+    (LoRA, up and down N(0, 0.01²), alpha = rank), chipemb.safetensors
+    (N(0, 0.02²), the scale of the CLIP token table), chiphn.safetensors
+    (the JAX package's hypernetwork layout, structure 1-2-1, weights
+    N(0, 0.01²)) and chipcn.safetensors (`tower` as control_model.* fp16)."""
+    from sdwebui_tpu_torch.loader.safetensors_io import write_safetensors
+
+    g = torch.Generator().manual_seed(seed)
+    lora = {}
+    for name, w in model.unet.named_parameters():
+        mod = name[: -len(".weight")]
+        if name.endswith(".weight") and w.dim() == 2 and (".attn1.to_" in mod
+                                                          or ".attn2.to_" in mod):
+            key = "lora_unet_" + mod.replace(".", "_")
+            lora[f"{key}.lora_up.weight"] = torch.randn(w.shape[0], LORA_RANK, generator=g) * 0.01
+            lora[f"{key}.lora_down.weight"] = torch.randn(LORA_RANK, w.shape[1],
+                                                          generator=g) * 0.01
+            lora[f"{key}.alpha"] = torch.tensor(float(LORA_RANK))
+    hn = {}
+    for width in HN_WIDTHS:
+        for tag in "kv":
+            for li, (cin, cout) in enumerate(((width, 2 * width), (2 * width, width))):
+                hn[f"{width}.{tag}.linear.{li}.weight"] = torch.randn(cin, cout, generator=g) * 0.01
+                hn[f"{width}.{tag}.linear.{li}.bias"] = torch.zeros(cout)
+    paths = {name: os.path.join(directory, name + ".safetensors")
+             for name in ("bench", CN_TRIGGER, "chiphn", "chipcn")}
+    write_safetensors(paths["bench"], lora)
+    width = model.conditioner.cfg.width
+    write_safetensors(paths[CN_TRIGGER], {"emb_params": torch.randn(2, width, generator=g) * 0.02})
+    write_safetensors(paths["chiphn"], hn, metadata={"activation_func": "linear"})
+    write_safetensors(paths["chipcn"], {"control_model." + k: v.half()
+                                        for k, v in tower.state_dict().items()})
+    log(f"config 4 files: LoRA {len(lora) // 3} modules rank {LORA_RANK}, embedding "
+        f"{CN_TRIGGER!r} (2 vectors), hypernetwork widths {HN_WIDTHS}, tower "
+        f"{os.path.getsize(paths['chipcn']) / 1e9:.3f} GB fp16")
+    return paths
+
+
+def config4_request(seed: int, hint_png: str, **unit) -> dict:
+    """BASELINE config 4 as the JAX bench's lora_cn leg (bench.py:378-396):
+    config 1 at batch 4 with the LoRA tag and the embedding's trigger, and
+    one canny unit at weight 1 on the 16-px grid."""
+    return dict(SD15_BASE, seed=seed, batch_size=CN_BATCH,
+                prompt=f"{SD15_BASE['prompt']}, {CN_TRIGGER} <lora:bench:0.8>",
+                controlnet_units=[dict(dict(model="chipcn", image=hint_png, module="canny",
+                                            weight=1.0), **unit)])
+
+
+@contextlib.contextmanager
+def _timed_merges(first: list, cached: list):
+    """The seconds of each LoRA merge (extra_networks._merge) and of each
+    activation that found its merge cached (apply_to_model without one)."""
+    from sdwebui_tpu_torch.networks import extra_networks
+
+    real_merge, real_apply = extra_networks._merge, extra_networks.apply_to_model
+    merges = []
+
+    def merge(*args):
+        t0 = time.perf_counter()
+        out = real_merge(*args)
+        torch.cuda.synchronize()
+        merges.append(time.perf_counter() - t0)
+        return out
+
+    def apply(*args):
+        n, t0 = len(merges), time.perf_counter()
+        out = real_apply(*args)
+        if len(merges) == n:
+            cached.append(time.perf_counter() - t0)
+        else:
+            first.append(merges[-1])
+        return out
+    extra_networks._merge, extra_networks.apply_to_model = merge, apply
+    try:
+        yield
+    finally:
+        extra_networks._merge, extra_networks.apply_to_model = real_merge, real_apply
+
+
+def phase_config4(engine, model, phase3: dict, directory: str, tower):
+    """4e: BASELINE config 4 on the phase-3 server; returns (results, info)."""
+    from sdwebui_tpu_torch.networks.extra_networks import DEFAULT_LORA_DIRS, set_lora_dirs
+    from sdwebui_tpu_torch.networks.hypernetwork import (DEFAULT_HYPERNETWORK_DIR,
+                                                         set_hypernetwork_dirs)
+    from sdwebui_tpu_torch.networks.textual_inversion import DEFAULT_EMBEDDINGS_DIR
+    from sdwebui_tpu_torch.pipeline import control
+    from sdwebui_tpu_torch.utils.png import decode_png, encode_png
+
+    cfg, size = model.unet_cfg, SD15_BASE["width"]
+    latent = size // 8
+    modules = {"unet": model.unet, "clip": model.conditioner.model}
+    before = {m: {k: v.clone() for k, v in mod.state_dict().items()}
+              for m, mod in modules.items()}
+    write_network_files(directory, model, tower)
+    set_lora_dirs([directory])
+    set_hypernetwork_dirs([directory])
+    control.set_model_dirs([directory])
+    engine.embeddings_dir = directory
+    engine.refresh_embeddings()
+    grid = torch.zeros((size, size, 3), dtype=torch.uint8)
+    grid[::16] = 255
+    grid[:, ::16] = 255
+    hint_png = base64.b64encode(encode_png(grid.numpy())).decode("ascii")
+
+    def check(params, seed):
+        _sd15_check(params, seed)
+        for want in ("<lora:bench:0.8>", f'TI hashes: "{CN_TRIGGER}: '):
+            if want not in params:
+                raise AssertionError(f"infotext lacks {want!r}: {params!r}")
+
+    def plan(tower_calls: int = STEPS, batch_clip: int = 1) -> dict:
+        return _plan(b1=1, b2=STEPS * launch_plan(cfg, latent) + tower_calls * launch_plan(
+            cfg, latent, False), b5=STEPS * ln_plan(cfg, latent) + tower_calls * ln_plan(
+            cfg, latent, False) + batch_clip * clip_ln_plan(model))
+
+    first, cached, results, plans = [], [], [], []
+    try:
+        with _server(engine) as url, _timed_merges(first, cached):
+            _post(f"{url}/txt2img", dict(config4_request(1, hint_png), steps=2, batch_size=1))
+            first.clear()       # the warm-up merged the set; the timed runs merge anew
+            cached.clear()
+            engine.sd_model.network_cache.clear()
+            for label in ("config 4", "config 4 repeat"):       # (a), (b)
+                results.append(_request(url, "txt2img", config4_request(1234, hint_png), check,
+                                        size, label))
+                plans.append(plan())
+            _check_repeat(results, 0, 1)
+            if len(first) != 1 or len(cached) != 1:
+                raise AssertionError(f"merges {first}, cached activations {cached}: the "
+                                     "repeated tag set must merge once")
+            log(f"config 4: LoRA merge {first[0]:.3f} s the first time, the cached set "
+                f"{cached[0] * 1e3:.2f} ms; s/request {results[0]['seconds']:.3f}, "
+                f"{results[1]['seconds']:.3f}")
+            results.append(_request(url, "txt2img", config4_request(                # (c)
+                1234, hint_png, guidance_end=0.5), check, size, "config 4 guidance_end 0.5"))
+            plans.append(plan(tower_calls=STEPS // 2))
+            body = dict(SD15_BASE, seed=1234, batch_size=1,                          # (d)
+                        prompt=SD15_BASE["prompt"] + " <hypernet:chiphn:1.0>")
+            results.append(_request(url, "txt2img", body, _sd15_check, size, "hypernetwork"))
+            plans.append(plan(tower_calls=0))
+            results.append(_request(url, "txt2img", dict(SD15_BASE, seed=1234, batch_size=1),
+                                    _sd15_check, size, "tagless"))                   # (e)
+            plans.append(plan(tower_calls=0))
+            detect = _post(url.replace("/sdapi/v1", "/controlnet/detect"), {          # (f)
+                "controlnet_module": "canny", "controlnet_input_images": [phase3["png_b64"]],
+                "controlnet_processor_res": size})
+        _check_launches(results, plans)
+        tagless = results[-1]["image"].astype(int)
+        delta = int(abs(tagless - phase3["image"].astype(int)).max())
+        changed = [k for m, mod in modules.items() for k, v in mod.state_dict().items()
+                   if not torch.equal(v, before[m][k])]
+        log(f"tagless request after config 4: max|Δ| {delta} uint8 levels from phase 3's image "
+            f"(bound {REPEAT_TOL}); {len(changed)} base tensors changed")
+        if delta > REPEAT_TOL or changed:
+            raise AssertionError(f"the base model changed: {delta} levels, {changed[:4]}")
+        (edges,) = [decode_png(base64.b64decode(b))[0] for b in detect["images"]]
+        share = float((edges > 0).mean())
+        log(f"/controlnet/detect canny on a phase-3 PNG: {edges.shape}, {share:.4f} edge pixels")
+        if edges.shape[:2] != (size, size) or set(edges.ravel().tolist()) - {0, 255} \
+                or not 0 < share < 0.5:
+            raise AssertionError(f"canny over /controlnet/detect: {edges.shape}, {share}")
+        # the tower alone at config 4's 8 CFG rows
+        (live, _), = control._resident.values()
+        g = torch.Generator(device=engine.device).manual_seed(3)
+        x = torch.randn((2 * CN_BATCH, 4, latent, latent), generator=g,
+                        device=engine.device).to(torch.bfloat16)
+        t = torch.full((2 * CN_BATCH,), 500.0, device=engine.device)
+        ctx = torch.randn((2 * CN_BATCH, 77, cfg.context_dim), generator=g,
+                          device=engine.device).to(torch.bfloat16)
+        hint = _grid_hint(size, 2 * CN_BATCH, engine.device)
+        with torch.inference_mode():
+            tower_ms = cuda_ms(lambda: live(x, t, ctx, hint), iters=5, hide_host=False)
+        log(f"ControlNet tower per CFG call at {2 * CN_BATCH} rows, {latent}² latent: "
+            f"{tower_ms:.2f} ms")
+        info = dict(merge_s=first[0], cached_activation_s=cached[0], tower_ms_per_cfg_call=tower_ms,
+                    tagless_delta=delta, detect_edge_share=share,
+                    profile=phase_profile(engine, config4_request(1234, hint_png), "config 4",
+                                          wall=statistics.median(
+                                              r["seconds"] for r in results[:2])))
+    finally:
+        set_lora_dirs(DEFAULT_LORA_DIRS)
+        set_hypernetwork_dirs([DEFAULT_HYPERNETWORK_DIR])
+        control.set_model_dirs([control.DEFAULT_CONTROLNET_DIR])
+        engine.embeddings_dir = DEFAULT_EMBEDDINGS_DIR
+        engine.refresh_embeddings()
+        engine.sd_model.network_cache.clear()
+    return results, info
+
+
 def phase_checkpoint(model, device, phase3: dict, ckpt_dir: str):
     """4a: the random SD1.5 and a second one (seed 1, fp16) as checkpoint
     files, served by a checkpoint Engine; returns (engine, results, info)."""
@@ -1117,6 +1376,15 @@ def phase_sdxl_unet(base, refiner, device):
         y = torch.randn((2, cfg.adm_in_channels), generator=g, device=device)
         out[label] = _unet_step(f"SDXL {label} B=2 128x128 bf16", m.unet, cfg, 128, x, t,
                                 ctx, y)
+    # the base's step with an SDXL ControlNet tower (label_emb on y)
+    tower = random_tower(base.unet_cfg, 12, device)
+    ctx = torch.randn((2, 77, base.unet_cfg.context_dim), generator=g, device=device).to(bf16)
+    y = torch.randn((2, base.unet_cfg.adm_in_channels), generator=g, device=device)
+    out["base_controlnet"] = _unet_step("SDXL base + ControlNet B=2 128x128 bf16", base.unet,
+                                        base.unet_cfg, 128, x, t, ctx, y, tower=tower,
+                                        hint=_grid_hint(1024, 2, device))
+    del tower
+    torch.cuda.empty_cache()
     # the SDXL VAE at 1024²: the bf16 decode and the fp32 retry dtype
     z = torch.randn((1, 4, 128, 128), generator=g, device=device)
     decoded = {}
@@ -1330,7 +1598,8 @@ def main() -> int:
     model = create_random_sd15(seed=0, device=device)
     torch.cuda.synchronize()
     log(f"random SD1.5 on the card in {time.perf_counter() - t0:.2f} s")
-    unet = phase_unet(model, device)
+    tower = random_tower(model.unet_cfg, 11, device)
+    unet = phase_unet(model, device, tower)
     mark("2 SD1.5 UNet")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_upscalers_") as upscaler_dir:
         t0 = time.perf_counter()
@@ -1357,6 +1626,11 @@ def main() -> int:
         finally:
             for name in upscaler_names:
                 unregister_upscaler(name)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_networks_") as network_dir:
+        c4_results, c4_info = phase_config4(engine, model, results[0], network_dir, tower)
+    del tower
+    torch.cuda.empty_cache()
+    mark("4e config 4")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
         ckpt_engine, ckpt_results, ckpt_info = phase_checkpoint(model, device, results[0],
                                                                 ckpt_dir)
@@ -1388,12 +1662,13 @@ def main() -> int:
     if leaked:
         raise AssertionError(f"the port imported JAX or the JAX package: {leaked[:5]}")
     requests = [{k: v for k, v in r.items() if k not in ("image", "png_b64", "infotext")}
-                for r in (results + i2i_results + hr_results + ckpt_results + sampler_results
-                          + sdxl_results + [sdxl_hr_result])]
+                for r in (results + i2i_results + hr_results + c4_results + ckpt_results
+                          + sampler_results + sdxl_results + [sdxl_hr_result])]
     log(json.dumps({"card": smi, "kernel_shapes": rows, "unet_step": unet,
                     "sdxl_unet_step": sdxl_unet, "img2img_unet_calls": i2i_calls,
                     "sdxl_refiner_after_step": s_idx, "checkpoint": ckpt_info,
                     "hires": hr_info, "extras": extras, "sdxl_hires": sdxl_hr_info,
+                    "config4": c4_info,
                     "requests": requests, "sdxl_profile": profile, "phase_s": phase_s}))
 
     def row_of(name, shape, dtype):
@@ -1421,8 +1696,8 @@ def main() -> int:
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
     # launches: every timed request of the main paths (SD1.5 txt2img,
-    # img2img and hires fix, from the checkpoint files and with every
-    # sampler, SDXL with and without hires fix); the times at each entry's
+    # img2img, hires fix and config 4, from the checkpoint files and with
+    # every sampler, SDXL with and without hires fix); the times at each entry's
     # dominant shape; max_abs_err over all its compared shapes
     print(json.dumps({"kernels": [entry(*e) for e in KERNEL_ENTRIES]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -181,16 +181,18 @@ def derive_vae_config(sd: dict, prefix: str = "first_stage_model.",
 # the structure check
 # --------------------------------------------------------------------------
 
-def build_module(kind: str, cfg, device="meta", dtype=torch.float32):
-    """The port's module of `kind` ("unet", "vae", "clip") at `cfg`, with
-    uninitialised parameters (no storage on "meta")."""
+def build_module(kind: str, cfg, device="meta", dtype=torch.float32, **kw):
+    """The port's module of `kind` ("unet", "vae", "clip", "controlnet") at
+    `cfg`, with uninitialised parameters (no storage on "meta")."""
     if kind == "unet":
         from sdwebui_tpu_torch.models.unet import UNetModel as cls
+    elif kind == "controlnet":
+        from sdwebui_tpu_torch.models.controlnet import ControlNetModel as cls
     elif kind == "vae":
         from sdwebui_tpu_torch.models.vae import AutoencoderKL as cls
     else:
         from sdwebui_tpu_torch.models.clip import CLIPTextModel as cls
-    return cls(cfg, device=device, dtype=dtype)
+    return cls(cfg, device=device, dtype=dtype, **kw)
 
 
 @functools.lru_cache(maxsize=16)
@@ -330,3 +332,88 @@ def convert_clip_openclip(sd: dict, prefix: str):
             if rest.startswith(old):
                 flat[base + new + rest[len(old):]] = v
     return _verified_clip(flat, "gelu", prefix)
+
+
+# --------------------------------------------------------------------------
+# ControlNet (convert.py:277-364)
+# --------------------------------------------------------------------------
+
+_DIFFUSERS_RESNET = {
+    "norm1": "in_layers.0", "conv1": "in_layers.2", "time_emb_proj": "emb_layers.1",
+    "norm2": "out_layers.0", "conv2": "out_layers.3", "conv_shortcut": "skip_connection",
+}
+
+
+def _controlnet_diffusers_to_ldm(sd: dict) -> dict:
+    """A diffusers ControlNet state dict in the cldm names (input_blocks,
+    zero_convs, ...); the attention subtrees keep their names, which are
+    ldm's already."""
+    n_res = len({k.split(".")[3] for k in sd if k.startswith("down_blocks.0.resnets.")})
+    out = {}
+    for k, v in sd.items():
+        m = re.match(r"down_blocks\.(\d+)\.resnets\.(\d+)\.(.+)", k)
+        if m:
+            i, j, rest = int(m.group(1)), int(m.group(2)), m.group(3)
+            name, _, tail = rest.rpartition(".")
+            out[f"input_blocks.{1 + i * (n_res + 1) + j}.0.{_DIFFUSERS_RESNET[name]}.{tail}"] = v
+            continue
+        m = re.match(r"down_blocks\.(\d+)\.attentions\.(\d+)\.(.+)", k)
+        if m:
+            i, j, rest = int(m.group(1)), int(m.group(2)), m.group(3)
+            out[f"input_blocks.{1 + i * (n_res + 1) + j}.1.{rest}"] = v
+            continue
+        m = re.match(r"down_blocks\.(\d+)\.downsamplers\.0\.conv\.(.+)", k)
+        if m:
+            out[f"input_blocks.{1 + int(m.group(1)) * (n_res + 1) + n_res}.0.op."
+                f"{m.group(2)}"] = v
+            continue
+        m = re.match(r"mid_block\.resnets\.(\d+)\.(.+)", k)
+        if m:
+            name, _, tail = m.group(2).rpartition(".")
+            out[f"middle_block.{2 * int(m.group(1))}.{_DIFFUSERS_RESNET[name]}.{tail}"] = v
+            continue
+        m = re.match(r"mid_block\.attentions\.0\.(.+)", k)
+        if m:
+            out[f"middle_block.1.{m.group(1)}"] = v
+            continue
+        m = re.match(r"controlnet_down_blocks\.(\d+)\.(.+)", k)
+        if m:
+            out[f"zero_convs.{m.group(1)}.0.{m.group(2)}"] = v
+            continue
+        tail = k.rsplit(".", 1)[-1]
+        if k.startswith("controlnet_mid_block."):
+            out["middle_block_out.0." + tail] = v
+        elif k.startswith("controlnet_cond_embedding.conv_in."):
+            out["input_hint_block.0." + tail] = v
+        elif k.startswith("controlnet_cond_embedding.conv_out."):
+            out["input_hint_block.14." + tail] = v
+        elif k.startswith("controlnet_cond_embedding.blocks."):
+            parts = k.split(".")
+            out[f"input_hint_block.{2 + 2 * int(parts[2])}.{parts[3]}"] = v
+        elif k.startswith("conv_in."):
+            out["input_blocks.0.0." + tail] = v
+        elif k.startswith("time_embedding.linear_1."):
+            out["time_embed.0." + tail] = v
+        elif k.startswith("time_embedding.linear_2."):
+            out["time_embed.2." + tail] = v
+        elif k.startswith("add_embedding.linear_1."):
+            out["label_emb.0.0." + tail] = v
+        elif k.startswith("add_embedding.linear_2."):
+            out["label_emb.0.2." + tail] = v
+    return out
+
+
+def convert_controlnet(sd: dict, verify: bool = True):
+    """A ControlNet state dict (official ``control_model.*``, bare cldm, or
+    diffusers) → (the tower's state dict, UNetConfig, hint channels)."""
+    if any(k.startswith(("controlnet_down_blocks.", "controlnet_cond_embedding.")) for k in sd):
+        sd, prefix = _controlnet_diffusers_to_ldm(sd), ""
+    else:
+        prefix = "control_model." if any(k.startswith("control_model.") for k in sd) else ""
+    cfg = derive_unet_config(sd, prefix)
+    hint_channels = int(sd[prefix + "input_hint_block.0.weight"].shape[1])
+    flat = _component(sd, prefix)
+    if verify:
+        what = prefix.rstrip(".") or "controlnet"
+        _drop_extras(flat, verify_tree_names(set(flat), "controlnet", cfg, what), what)
+    return flat, cfg, hint_channels

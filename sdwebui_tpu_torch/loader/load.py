@@ -55,11 +55,12 @@ def read_checkpoint(path: str, cache_opt: str = "sd_checkpoint_cache") -> dict:
     return sd
 
 
-def build(kind: str, cfg, state_dict: dict, device, dtype) -> torch.nn.Module:
+def build(kind: str, cfg, state_dict: dict, device, dtype, **kw) -> torch.nn.Module:
     """The module of `kind` at `cfg` on `device`, its parameters `state_dict`'s
     tensors copied there and cast to `dtype` on the device (4-D weights
-    channels-last, as the port's modules hold them)."""
-    module = convert.build_module(kind, cfg, device="meta", dtype=dtype)
+    channels-last, as the port's modules hold them); `kw` goes to the
+    module's constructor."""
+    module = convert.build_module(kind, cfg, device="meta", dtype=dtype, **kw)
     tensors = {}
     for name, t in state_dict.items():
         fmt = torch.channels_last if t.dim() == 4 else torch.contiguous_format

@@ -33,15 +33,21 @@ def _allowed_globals() -> list:
             (codecs.encode, "_codecs.encode"), *sorted(dtype_classes, key=str)]
 
 
-def load_torch_checkpoint(path: str) -> dict:
-    """.pt/.ckpt (torch's zip format) → {key: tensor}: the ``state_dict``
-    when the file wraps one, nested dicts flattened with dotted keys,
-    entries other than tensors dropped."""
+def load_torch_object(path: str):
+    """.pt/.ckpt (torch's zip format) → the object it holds, through the
+    restricted unpickler."""
     if not zipfile.is_zipfile(path):
         raise ValueError(f"{path} is a legacy (non-zip) torch checkpoint; only torch's zip "
                          "format (torch.save since torch 1.6) is read")
     with torch.serialization.safe_globals(_allowed_globals()):
-        obj = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+        return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+
+
+def load_torch_checkpoint(path: str) -> dict:
+    """.pt/.ckpt (torch's zip format) → {key: tensor}: the ``state_dict``
+    when the file wraps one, nested dicts flattened with dotted keys,
+    entries other than tensors dropped."""
+    obj = load_torch_object(path)
     sd = obj.get("state_dict", obj) if isinstance(obj, dict) else obj
     if not isinstance(sd, dict):
         raise ValueError(f"unexpected checkpoint structure in {path}")

@@ -91,15 +91,18 @@ class CLIPTextModel(nn.Module):
         if cfg.projection_dim:
             self.text_projection = Linear(cfg.width, cfg.projection_dim, bias=False, **kw)
 
-    def encode(self, tokens, stop_at_layer: int = 0, apply_final_norm: bool = True):
+    def encode(self, tokens, stop_at_layer: int = 0, apply_final_norm: bool = True,
+               inputs_embeds=None):
         """tokens (B, S) int → (hidden (B, S, width), pooled (B, width)).
 
         stop_at_layer: 0 = all layers (clip_skip 1); n > 0 stops n layers
         before the end (clip_skip n+1).  pooled: final layer, final norm, at
         the EOT token (argmax of the ids), through text_projection when
-        the model has one (bigG)."""
+        the model has one (bigG).  inputs_embeds: the token embeddings to
+        use instead of the table's (textual inversion, clip.py:98-118)."""
         s = tokens.shape[1]
-        x = self.embeddings["token_embedding"](tokens)
+        x = self.embeddings["token_embedding"](tokens) if inputs_embeds is None \
+            else inputs_embeds
         x = x + self.embeddings["position_embedding"].weight[:s].to(x.dtype)
         causal = torch.triu(torch.full((s, s), -1e9, dtype=torch.float32,
                                        device=x.device), diagonal=1)

@@ -13,6 +13,16 @@ Port of ``sdwebui_tpu/models/unet.py``.  Parameter names equal the
 Self-attention runs through ``ops.attention`` (on CUDA the flash kernel
 for the 4096- and 1024-token levels: per head for SD1.5's d = 40 and 80,
 head-packed for SDXL's d = 64).
+
+``forward(control=)`` adds ControlNet residuals as lllyasviel's cldm
+``ControlledUnetModel`` does: the encoder runs without them, the middle
+residual is added after the middle block, and each input residual joins
+its skip at the decoder's concatenation (``hs.pop() + control.pop()``).
+JAX's ``unet.apply`` adds each input residual to the encoder's running
+state instead (``sdwebui_tpu/models/unet.py:318-323``), which only agrees
+for the middle residual; that form is not carried over.
+``forward(hypernet=)`` passes every attention's k/v context through a
+hypernetwork's MLPs for its width (``networks/hypernetwork``).
 """
 
 from __future__ import annotations
@@ -76,15 +86,16 @@ def build_plan(cfg: UNetConfig):
     return input_plan, middle_depth, output_plan, input_chs
 
 
-def self_attention_calls(cfg: UNetConfig, latent: int):
+def self_attention_calls(cfg: UNetConfig, latent: int, decoder: bool = True):
     """(tokens, heads, head_dim) of every self-attention one forward makes
     at a latent×latent input, in call order: the launch plan of the
-    attention kernels."""
+    attention kernels.  decoder=False: the encoder and middle block only
+    (a ControlNet tower's)."""
     input_plan, middle_depth, output_plan, _ = build_plan(cfg)
     middle = [("attn", cfg.model_channels * cfg.channel_mult[-1], middle_depth)]
     calls, res = [], latent
     for layer in [layer for plan in input_plan for layer in plan] + middle + \
-            [layer for plan in output_plan for layer in plan]:
+            [layer for plan in (output_plan if decoder else []) for layer in plan]:
         if layer[0] == "down":
             res //= 2
         elif layer[0] == "up":
@@ -128,14 +139,18 @@ class CrossAttention(nn.Module):
         self.to_v = Linear(context_dim, c, bias=False, **kw)
         self.to_out = nn.Sequential(Linear(c, c, **kw), nn.Dropout(0.0))
 
-    def forward(self, x, context=None):
-        if context is None:
+    def forward(self, x, context=None, hypernet=None):
+        if context is None and hypernet is None:
             # self-attention: one fused qkv matmul (unet.py:112-121)
             w = torch.cat([self.to_q.weight, self.to_k.weight,
                            self.to_v.weight], dim=0)
             q, k, v = linear(x, w).chunk(3, dim=-1)
         else:
-            q, k, v = self.to_q(x), self.to_k(context), self.to_v(context)
+            ctx_k = ctx_v = x if context is None else context
+            pair = hypernet.context_pair(ctx_k) if hypernet is not None else None
+            if pair is not None:        # unet.py:125-145
+                ctx_k, ctx_v = pair
+            q, k, v = self.to_q(x), self.to_k(ctx_k), self.to_v(ctx_v)
         return self.to_out[0](attention(q, k, v, num_heads=self.heads))
 
 
@@ -171,9 +186,9 @@ class BasicTransformerBlock(nn.Module):
         self.norm2 = LayerNorm(c, **kw)
         self.norm3 = LayerNorm(c, **kw)
 
-    def forward(self, x, context):
-        x = x + self.attn1(self.norm1(x))
-        x = x + self.attn2(self.norm2(x), context)
+    def forward(self, x, context, hypernet=None):
+        x = x + self.attn1(self.norm1(x), hypernet=hypernet)
+        x = x + self.attn2(self.norm2(x), context, hypernet)
         return x + self.ff(self.norm3(x))
 
 
@@ -194,7 +209,7 @@ class SpatialTransformer(nn.Module):
             for _ in range(depth))
         self.proj_out = Linear(c, c, **kw) if self.use_linear else Conv2d(c, c, 1, **kw)
 
-    def forward(self, x, context):
+    def forward(self, x, context, hypernet=None):
         b, c, h, w = x.shape
         residual = x
         x = self.norm(x)
@@ -203,7 +218,7 @@ class SpatialTransformer(nn.Module):
         else:
             x = self.proj_in(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
         for block in self.transformer_blocks:
-            x = block(x, context)
+            x = block(x, context, hypernet)
         if self.use_linear:
             return self.proj_out(x).reshape(b, h, w, c).permute(0, 3, 1, 2) + residual
         return self.proj_out(x.reshape(b, h, w, c).permute(0, 3, 1, 2)) + residual
@@ -239,15 +254,45 @@ def _unsupported(cfg: UNetConfig) -> str | None:
     return None
 
 
-class UNetModel(nn.Module):
+def make_layer(layer, cfg: UNetConfig, **kw) -> nn.Module:
+    """The module of one `build_plan` layer descriptor."""
+    kind = layer[0]
+    if kind == "conv_in":
+        return Conv2d(layer[1], layer[2], 3, **kw)
+    if kind == "res":
+        return ResBlock(layer[1], layer[2], cfg.time_embed_dim, **kw)
+    if kind == "attn":
+        return SpatialTransformer(layer[1], layer[2], cfg, **kw)
+    if kind == "down":
+        return Downsample(layer[1], **kw)
+    return Upsample(layer[1], **kw)
+
+
+def run_layers(layers, h, emb, context, hypernet=None):
+    for layer in layers:
+        if isinstance(layer, ResBlock):
+            h = layer(h, emb)
+        elif isinstance(layer, SpatialTransformer):
+            h = layer(h, context, hypernet)
+        else:
+            h = layer(h)
+    return h
+
+
+class UNetEncoder(nn.Module):
+    """time_embed, label_emb (SDXL), the input blocks and the middle block:
+    what the UNet and the ControlNet tower share."""
+
+    kind = "UNet"
+
     def __init__(self, cfg: UNetConfig, *, device, dtype):
         super().__init__()
         missing = _unsupported(cfg)
         if missing:
-            raise NotImplementedError(f"UNet option not ported yet: {missing}")
+            raise NotImplementedError(f"{self.kind} option not ported yet: {missing}")
         self.cfg = cfg
         kw = dict(device=device, dtype=dtype)
-        input_plan, middle_depth, output_plan, _ = build_plan(cfg)
+        input_plan, middle_depth, _, _ = build_plan(cfg)
         ted = cfg.time_embed_dim
         mc = cfg.model_channels
         self.time_embed = nn.Sequential(Linear(mc, ted, **kw), nn.SiLU(),
@@ -255,28 +300,34 @@ class UNetModel(nn.Module):
         if cfg.adm_in_channels:
             self.label_emb = nn.Sequential(nn.Sequential(
                 Linear(cfg.adm_in_channels, ted, **kw), nn.SiLU(), Linear(ted, ted, **kw)))
-
-        def make(layer):
-            kind = layer[0]
-            if kind == "conv_in":
-                return Conv2d(layer[1], layer[2], 3, **kw)
-            if kind == "res":
-                return ResBlock(layer[1], layer[2], ted, **kw)
-            if kind == "attn":
-                return SpatialTransformer(layer[1], layer[2], cfg, **kw)
-            if kind == "down":
-                return Downsample(layer[1], **kw)
-            return Upsample(layer[1], **kw)
-
         self.input_blocks = nn.ModuleList(
-            nn.ModuleList(make(layer) for layer in plan) for plan in input_plan)
+            nn.ModuleList(make_layer(layer, cfg, **kw) for layer in plan) for plan in input_plan)
         mid = mc * cfg.channel_mult[-1]
         self.middle_block = nn.ModuleList([
             ResBlock(mid, mid, ted, **kw),
             SpatialTransformer(mid, middle_depth, cfg, **kw),
             ResBlock(mid, mid, ted, **kw)])
+
+    def embed(self, timesteps, y, dtype):
+        """The timestep (+ SDXL vector) embedding in `dtype`."""
+        t_emb = timestep_embedding(timesteps, self.cfg.model_channels)
+        emb = self.time_embed[2](F.silu(self.time_embed[0](t_emb)))
+        if self.cfg.adm_in_channels:
+            if y is None:
+                raise ValueError("this model requires vector conditioning y")
+            le = self.label_emb[0]
+            emb = emb + le[2](F.silu(le[0](y.to(emb.dtype))))
+        return emb.to(dtype)
+
+
+class UNetModel(UNetEncoder):
+    def __init__(self, cfg: UNetConfig, *, device, dtype):
+        super().__init__(cfg, device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype)
+        _, _, output_plan, _ = build_plan(cfg)
+        mc = cfg.model_channels
         self.output_blocks = nn.ModuleList(
-            nn.ModuleList(make(layer) for layer in plan) for plan in output_plan)
+            nn.ModuleList(make_layer(layer, cfg, **kw) for layer in plan) for plan in output_plan)
         self.out = nn.Sequential(GroupNorm(mc, **kw), nn.SiLU(),
                                  Conv2d(mc, cfg.out_channels, 3, **kw))
 
@@ -286,40 +337,26 @@ class UNetModel(nn.Module):
                                       "context-free UNets) is not ported yet")
         return super().load_state_dict(state_dict, strict, assign)
 
-    @staticmethod
-    def _run(layers, h, emb, context):
-        for layer in layers:
-            if isinstance(layer, ResBlock):
-                h = layer(h, emb)
-            elif isinstance(layer, SpatialTransformer):
-                h = layer(h, context)
-            else:
-                h = layer(h)
-        return h
-
     def forward(self, x, timesteps, context, y=None, control=None, hypernet=None):
         """x: (B, C_in, H, W) latent; timesteps: (B,); context: (B, S, D);
-        y: (B, adm_in_channels) SDXL vector conds.  Activations run
+        y: (B, adm_in_channels) SDXL vector conds; control: a ControlNet's
+        {"input": per-input-block residuals, "middle": residual}, added the
+        cldm way (module docstring); hypernet: a
+        ``networks.hypernetwork.Hypernetwork``.  Activations run
         channels-last in memory (NCHW indexing)."""
-        if control is not None:
-            raise NotImplementedError("ControlNet residuals (control=) are not ported yet")
-        if hypernet is not None:
-            raise NotImplementedError("hypernetworks (hypernet=) are not ported yet")
-        t_emb = timestep_embedding(timesteps, self.cfg.model_channels)
-        emb = self.time_embed[2](F.silu(self.time_embed[0](t_emb)))
-        if self.cfg.adm_in_channels:
-            if y is None:
-                raise ValueError("this model requires vector conditioning y")
-            le = self.label_emb[0]
-            emb = emb + le[2](F.silu(le[0](y.to(emb.dtype))))
-        emb = emb.to(x.dtype)
+        emb = self.embed(timesteps, y, x.dtype)
         context = context.to(x.dtype)
         hs = []
         h = x.contiguous(memory_format=torch.channels_last)
         for block in self.input_blocks:
-            h = self._run(block, h, emb, context)
+            h = run_layers(block, h, emb, context, hypernet)
             hs.append(h)
-        h = self._run(self.middle_block, h, emb, context)
+        h = run_layers(self.middle_block, h, emb, context, hypernet)
+        if control is not None:
+            h = h + control["middle"]
         for block in self.output_blocks:
-            h = self._run(block, torch.cat([h, hs.pop()], dim=1), emb, context)
+            skip = hs.pop()
+            if control is not None:
+                skip = skip + control["input"][len(hs)]
+            h = run_layers(block, torch.cat([h, skip], dim=1), emb, context, hypernet)
         return self.out[2](self.out[0](h, silu=True))

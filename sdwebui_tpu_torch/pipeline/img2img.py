@@ -10,13 +10,15 @@ Pillow's default (bicubic) resize → VAE encode
 (latent nothing) in the repaint region → noise to σ₀ of the t_enc slice of
 the schedule (plus ``img2img_extra_noise``) → sampling with the latent mask
 blend after every denoise → the final blend → decode → the original pasted
-back outside the blurred mask.  Images are uint8 numpy arrays throughout
+back outside the blurred mask.  Extra networks apply as in txt2img, and a
+ControlNet unit without an image of its own takes the first init image
+(``img2img.py:317-323``).  Images are uint8 numpy arrays throughout
 (``utils/images`` restates the Pillow operations).
 
 Each request field or option outside this slice raises
 ``NotImplementedError`` naming it: resize mode 3, ``inpainting_fill`` 0,
 ``inpaint_full_res``, soft inpainting, UNets of other than 4 input
-channels, colour correction, ControlNet and SDXL img2img.
+channels, colour correction and SDXL img2img.
 """
 
 from __future__ import annotations
@@ -27,8 +29,10 @@ import numpy as np
 import torch
 
 from sdwebui_tpu_torch.pipeline.params import GenerationParams, Processed
+from sdwebui_tpu_torch.networks import extra_networks
 from sdwebui_tpu_torch.pipeline.processing import (_apply_grid, _build_conds,
-                                                   _check_slice, _resolve_seeds,
+                                                   _check_slice, _prepare_units,
+                                                   _reset_ti_usage, _resolve_seeds,
                                                    _skip_uncond_mask,
                                                    _strip_prompt_comments,
                                                    create_infotext, create_rng,
@@ -132,10 +136,12 @@ def _process_img2img(model: SDModel, p: GenerationParams,
     if not p.init_images:
         raise ValueError("img2img requires init_images")
     _check_img2img(model, p)
+    _reset_ti_usage(model)
     if p.denoising_strength is None:
         p.denoising_strength = 0.75
     _resolve_seeds(p)
     _strip_prompt_comments(p)
+    clean_prompt, model, hypernet = extra_networks.activate(model, p.prompt)
     h, w = p.latent_size()
     c = model.latent_channels
 
@@ -172,13 +178,15 @@ def _process_img2img(model: SDModel, p: GenerationParams,
     sampler, spec, sigmas_full, solver_extra = prepare_sampler(model, p, steps)
     sigma_sched = sigmas_full[steps - t_enc - 1:]
     extra_noise = float(opts.get("img2img_extra_noise", 0.0) or 0.0)
+    init_images = p.init_images if isinstance(p.init_images, list) else [p.init_images]
+    controls = _prepare_units(model, p, w * 8, h * 8, t_enc + 1, default_image=init_images[0])
 
     all_images, infotexts = [], []
     for n in range(p.n_iter):
         lo = n * b
         seeds = p.all_seeds[lo: lo + b]
         subseeds = p.all_subseeds[lo: lo + b]
-        sched = _build_conds(model, p, t_enc + 1)
+        sched = _build_conds(model, p, t_enc + 1, prompt=clean_prompt)
         rng = create_rng((c, h, w), seeds, subseeds=subseeds,
                          subseed_strength=p.subseed_strength)
         x = torch.from_numpy(rng.first()).to(model.device)
@@ -194,7 +202,8 @@ def _process_img2img(model: SDModel, p: GenerationParams,
         noise = prepare_noise(spec, len(sigma_sched) - 1, rng, model.device)
         latents = sample_latents(model, sched, xi, sigma_sched, noise, sampler.solver,
                                  solver_extra, step_callback=step_callback,
-                                 mask=mask, nmask=nmask, init_latent=init_latent)
+                                 mask=mask, nmask=nmask, init_latent=init_latent,
+                                 hypernet=hypernet, controls=controls)
         if mask is not None:
             latents = latents * nmask + init_latent * mask
         images = list(decode_first_stage_u8(model, latents))

@@ -9,10 +9,12 @@ decode to uint8 with an fp32 retry on NaN.  Hires fix (``enable_hr``,
 processing.py:601-777) upscales the first pass's latents — in latent space
 (``LATENT_UPSCALE_MODES``), or decoded, through an upscaler of
 ``postprocessing/upscalers`` and encoded again — and samples the last
-t_enc + 1 steps of a second schedule at the target size.  Images leave as
-uint8 HWC numpy arrays.  Options and request fields outside the slice
-raise ``NotImplementedError`` naming them; nothing falls back to a
-different computation.
+t_enc + 1 steps of a second schedule at the target size.  Extra networks
+(``<lora:...>``, ``<hypernet:...>``, textual-inversion triggers) and
+ControlNet units (``pipeline/control.py``) apply to every pass of the base
+model.  Images leave as uint8 HWC numpy arrays.  Options and request
+fields outside the slice raise ``NotImplementedError`` naming them;
+nothing falls back to a different computation.
 """
 
 from __future__ import annotations
@@ -21,7 +23,6 @@ import dataclasses
 import math
 import os
 import random
-import re
 from typing import Callable
 
 import numpy as np
@@ -29,6 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from sdwebui_tpu_torch import __version__
+from sdwebui_tpu_torch.networks import extra_networks
+from sdwebui_tpu_torch.pipeline.control import control_residuals, prepare_controls
 from sdwebui_tpu_torch.pipeline.params import GenerationParams, Processed
 from sdwebui_tpu_torch.postprocessing import upscalers
 from sdwebui_tpu_torch.pipeline.sd_model import SDModel, sdxl_vector_maker
@@ -57,7 +60,6 @@ UNPORTED_OPTIONS = {
     "upcast_attn": False,
     "sd_vae_decode_method": "Full",
     "fp8_storage": "Disable",
-    "sd_hypernetwork": "None",
     "live_preview_fast_interrupt": False,
 }
 
@@ -67,13 +69,9 @@ UNPORTED_HIRES_OPTIONS = {
     "save_images_before_highres_fix": False,
 }
 
-_NETWORK_TAG = re.compile(r"<(\w+):([^>]+)>")
-
-
 def _check_slice(p: GenerationParams) -> None:
     """Raise for every request field and option the slice does not run."""
     fields = {
-        "controlnet_units": p.controlnet_units,
         "tiling": p.tiling,
         "restore_faces": p.restore_faces,
         "styles": p.styles,
@@ -83,10 +81,6 @@ def _check_slice(p: GenerationParams) -> None:
     for name, used in fields.items():
         if used:
             raise NotImplementedError(f"{name!r} is not ported yet")
-    for text in (p.prompt, p.negative_prompt):
-        m = _NETWORK_TAG.search(text or "")
-        if m:
-            raise NotImplementedError(f"extra network tag <{m.group(1)}:...> is not ported yet")
     for name, value in UNPORTED_OPTIONS.items():
         if opts.get(name, value) != value:
             raise NotImplementedError(f"option {name!r} is not ported yet")
@@ -119,19 +113,23 @@ def sigma_to_t(sigma: float, log_sigmas: np.ndarray, quantize: bool) -> float:
 LCM_ORIGINAL_STEPS = 50
 
 
-def make_denoise_fn(model: SDModel, quantize_t: bool, compute_dtype, solver: str = ""):
-    """denoise(x, sigma, ctx, y=None) → denoised: k-diffusion
+def make_denoise_fn(model: SDModel, quantize_t: bool, compute_dtype, solver: str = "",
+                    hypernet=None, controls=(), conds_per_image: int = 1):
+    """denoise(x, sigma, ctx, y=None, step=0) → denoised: k-diffusion
     CompVis(V)Denoiser scalings around the UNet (processing.py:150-202);
     y is the SDXL vector cond.  For LCM, σ snaps to the distillation
     subtable and an eps model's output passes through the consistency
-    model's boundary scalings (sigma_data 0.5 over t·10)."""
+    model's boundary scalings (sigma_data 0.5 over t·10).  hypernet and
+    controls (``pipeline/control.PreparedControl``) go into every UNet
+    call, the controls gated by `step`; the CFG batch holds
+    conds_per_image cond rows per image before the uncond rows."""
     log_sigmas = np.asarray(model.disc.log_sigmas, np.float32)
     prediction_type = model.disc.prediction_type
     lcm = solver == "lcm"
     skip = len(log_sigmas) // LCM_ORIGINAL_STEPS
     sub = log_sigmas[skip - 1::skip]
 
-    def denoise(x, sigma: float, ctx, y=None):
+    def denoise(x, sigma: float, ctx, y=None, step: int = 0):
         s = np.float32(sigma)
         if lcm:
             j = int(np.argmin(np.abs(np.log(np.maximum(s, np.float32(1e-12))) - sub)))
@@ -141,7 +139,11 @@ def make_denoise_fn(model: SDModel, quantize_t: bool, compute_dtype, solver: str
         c_in = float(np.float32(1.0) / np.sqrt(s * s + np.float32(1.0)))
         x_in = (x * c_in).to(compute_dtype)
         timesteps = torch.full((x.shape[0],), float(t), dtype=torch.float32, device=x.device)
-        out = model.unet(x_in, timesteps, ctx, y).float()
+        control = None
+        if controls:
+            n_cond = x.shape[0] - x.shape[0] // (conds_per_image + 1)
+            control = control_residuals(controls, x_in, timesteps, ctx, y, step, n_cond)
+        out = model.unet(x_in, timesteps, ctx, y, control=control, hypernet=hypernet).float()
         if prediction_type == "v":
             return x / float(s * s + 1) - out * float(s / np.sqrt(s * s + 1))
         if lcm:
@@ -158,12 +160,15 @@ def sample_latents(model: SDModel, sched: CondSchedule, x, sigmas, noise,
                    solver: str, extra: dict | None = None,
                    step_callback: Callable | None = None, first_step: int = 0,
                    total_steps: int | None = None, mask=None, nmask=None,
-                   init_latent=None):
+                   init_latent=None, hypernet=None, controls=()):
     """Sample from sigmas[0] to sigmas[-1].  step_callback(i, n, x) sees
     step first_step + i of total_steps (a refiner run continues the base's
-    count).  mask / nmask / init_latent: the img2img latent blend."""
+    count).  mask / nmask / init_latent: the img2img latent blend;
+    hypernet / controls: make_denoise_fn's."""
     quantize = bool(opts.get("enable_quantization", False))
-    denoise = make_denoise_fn(model, quantize, devices.get_policy().compute_dtype, solver)
+    denoise = make_denoise_fn(model, quantize, devices.get_policy().compute_dtype, solver,
+                              hypernet=hypernet, controls=controls,
+                              conds_per_image=sched.cond_bank.shape[0])
     model_fn = make_cfg_denoiser(denoise, sched, mask=mask, nmask=nmask,
                                  init_latent=init_latent,
                                  return_uncond=solver == "ddim_cfgpp")
@@ -465,12 +470,14 @@ def upscale_first_pass(model: SDModel, p: GenerationParams, latents, hr_w: int, 
 
 def _hires_pass(model: SDModel, p: GenerationParams, latents, seeds, subseeds,
                 refiner_model: SDModel | None = None,
-                step_callback: Callable | None = None):
+                step_callback: Callable | None = None, hypernet=None):
     """First-pass latents → hires latents: the upscale, then t_enc + 1 steps
     of a schedule of hr_second_pass_steps (or steps) from the noise level
     of denoising_strength, with the hires sampler, scheduler, CFG and
-    prompts; for SDXL handed to `refiner_model` inside it.  Its noise takes
-    no seed resize and no ENSD (processing.py:730)."""
+    prompts (their extra-network tags stripped: the first pass's networks
+    stay active) and the ControlNet units re-prepared at the target size
+    (processing.py:745-777); for SDXL handed to `refiner_model` inside it.
+    Its noise takes no seed resize and no ENSD (processing.py:730)."""
     hr_w, hr_h = calculate_hr_target(p)
     th, tw = hr_h // 8, hr_w // 8
     c = model.latent_channels
@@ -481,7 +488,7 @@ def _hires_pass(model: SDModel, p: GenerationParams, latents, seeds, subseeds,
                                                         p.hr_scheduler)
     sigma_sched = sigmas_full[steps - t_enc - 1:]
     cfg = p.hr_cfg_scale or p.cfg_scale
-    prompt = p.hr_prompt or p.prompt
+    prompt = _hires_prompt(p)
     negative = p.hr_negative_prompt or p.negative_prompt
     if opts.get("hires_fix_use_firstpass_conds", False):
         cond_w, cond_h = p.width, p.height
@@ -502,12 +509,15 @@ def _hires_pass(model: SDModel, p: GenerationParams, latents, seeds, subseeds,
     noise = prepare_noise(spec, len(sigma_sched) - 1, rng, model.device)
     sched.skip_uncond = _skip_uncond_mask(sigma_sched, p)
     n = len(sigma_sched) - 1
+    controls = _prepare_units(model, p, hr_w, hr_h, t_enc + 1)
     if refiner_model is None or not uses_refiner(p):
         return sample_latents(model, sched, x, sigma_sched, noise, sampler.solver, extra,
-                              step_callback=step_callback)
+                              step_callback=step_callback, hypernet=hypernet,
+                              controls=controls)
     s_idx = _refiner_split_idx(model, sigma_sched, p.refiner_switch_at, t_enc + 1)
     x = sample_latents(model, sched, x, sigma_sched[: s_idx + 1], noise[:s_idx],
-                       sampler.solver, extra, step_callback=step_callback, total_steps=n)
+                       sampler.solver, extra, step_callback=step_callback, total_steps=n,
+                       hypernet=hypernet, controls=controls)
     r_sched = _build_conds(refiner_model, p, t_enc + 1 - s_idx, cfg_scale=cfg, prompt=prompt,
                            negative=negative, width=hr_w, height=hr_h)
     if sched.skip_uncond is not None:
@@ -515,6 +525,35 @@ def _hires_pass(model: SDModel, p: GenerationParams, latents, seeds, subseeds,
     return sample_latents(refiner_model, r_sched, x, sigma_sched[s_idx:], noise[s_idx:],
                           sampler.solver, extra, step_callback=step_callback,
                           first_step=s_idx, total_steps=n)
+
+
+def _hires_prompt(p: GenerationParams) -> str:
+    """The hires pass's prompt without its extra-network tags; networks of
+    its own (other than the first pass's) are not ported."""
+    text, nets = extra_networks.parse_prompt(p.hr_prompt or p.prompt)
+    if nets != extra_networks.parse_prompt(p.prompt)[1]:
+        tags = " ".join(f"<{n.kind}:{':'.join(n.items)}>" for n in nets)
+        raise NotImplementedError(f"extra networks of hr_prompt other than the prompt's "
+                                  f"({tags or 'none'}) are not ported yet")
+    return text
+
+
+def _prepare_units(model: SDModel, p: GenerationParams, width: int, height: int,
+                   n_steps: int, default_image=None) -> list:
+    """The request's ControlNet units for a pass at width x height with
+    n_steps sampler steps (processing.py:1377-1383, img2img.py:317-323)."""
+    if not p.controlnet_units:
+        return []
+    return prepare_controls(p.controlnet_units, width, height, n_steps,
+                            model.latent_channels, model.device,
+                            devices.get_policy().param_dtype, default_image=default_image)
+
+
+def _reset_ti_usage(model: SDModel):
+    """Each job logs its own textual-inversion triggers (processing.py:812)."""
+    for cond in (model.conditioner, model.conditioner2):
+        if cond is not None and cond.embedding_db is not None:
+            cond.embedding_db.used_names = set()
 
 
 def create_infotext(p: GenerationParams, model: SDModel, index: int = 0) -> str:
@@ -577,6 +616,11 @@ def create_infotext(p: GenerationParams, model: SDModel, index: int = 0) -> str:
         pairs["Emphasis"] = emphasis
     if p.user and opts.get("add_user_name_to_info", False):
         pairs["User"] = p.user
+    db = model.conditioner.embedding_db
+    if db is not None and db.used_names and opts.get(
+            "textual_inversion_add_hashes_to_infotext", True):   # processing.py:997-1004
+        pairs["TI hashes"] = ", ".join(
+            f"{n}: {db.embeddings[n].shorthash or 'unknown'}" for n in sorted(db.used_names))
     pairs.update(p.extra_generation_params)
     return infotext_util.build(
         p.all_prompts[index] if p.all_prompts else p.prompt,
@@ -654,9 +698,13 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
     if uses_refiner(p) and refiner_model is None:
         raise ValueError(f"refiner {p.refiner_checkpoint!r} was requested, "
                          "but no refiner model was given")
+    _reset_ti_usage(model)
     apply_old_hires_behavior(p)
     _resolve_seeds(p)
     _strip_prompt_comments(p)
+    # extra networks (processing.py:1340-1346): the tags leave the prompt the
+    # conds see, a LoRA set swaps in the merged model; the infotext keeps them
+    clean_prompt, model, hypernet = extra_networks.activate(model, p.prompt)
     sampler, spec, sigmas, solver_extra = prepare_sampler(model, p, p.steps)
     # which passes the refiner takes when hires fix is on
     # (processing.py:1449-1453,1488; sd_samplers_common.py:183)
@@ -666,13 +714,16 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
     hr_refiner = refiner_model if ref_pass in ("second pass", "both passes") else None
     h, w = p.latent_size()
     c = model.latent_channels
+    if p.controlnet_units and uses_refiner(p):
+        raise NotImplementedError("ControlNet units with a refiner are not ported yet")
+    controls = _prepare_units(model, p, p.width, p.height, p.steps)
 
     all_images, infotexts = [], []
     for n in range(p.n_iter):
         lo = n * p.batch_size
         seeds = p.all_seeds[lo: lo + p.batch_size]
         subseeds = p.all_subseeds[lo: lo + p.batch_size]
-        sched = _build_conds(model, p, p.steps)
+        sched = _build_conds(model, p, p.steps, prompt=clean_prompt)
         sched.skip_uncond = _skip_uncond_mask(sigmas, p)
         rng = create_rng((c, h, w), seeds, subseeds=subseeds,
                          subseed_strength=p.subseed_strength,
@@ -689,8 +740,9 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
             s_idx = _refiner_split_idx(model, sigmas, p.refiner_switch_at, p.steps)
             latents = sample_latents(model, sched, x, sigmas[: s_idx + 1], noise[:s_idx],
                                      sampler.solver, solver_extra,
-                                     step_callback=step_callback, total_steps=p.steps)
-            r_sched = _build_conds(refiner_model, p, p.steps - s_idx)
+                                     step_callback=step_callback, total_steps=p.steps,
+                                     hypernet=hypernet)
+            r_sched = _build_conds(refiner_model, p, p.steps - s_idx, prompt=clean_prompt)
             if sched.skip_uncond is not None:
                 r_sched.skip_uncond = sched.skip_uncond[s_idx:]
             latents = sample_latents(refiner_model, r_sched, latents, sigmas[s_idx:],
@@ -699,10 +751,11 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
                                      total_steps=p.steps)
         else:
             latents = sample_latents(model, sched, x, sigmas, noise, sampler.solver,
-                                     solver_extra, step_callback=step_callback)
+                                     solver_extra, step_callback=step_callback,
+                                     hypernet=hypernet, controls=controls)
         if p.enable_hr:
             latents = _hires_pass(model, p, latents, seeds, subseeds, refiner_model=hr_refiner,
-                                  step_callback=step_callback)
+                                  step_callback=step_callback, hypernet=hypernet)
         images = list(decode_first_stage_u8(model, latents))
         infotexts.extend(create_infotext(p, model, lo + i) for i in range(len(images)))
         all_images.extend(images)

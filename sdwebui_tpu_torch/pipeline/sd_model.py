@@ -55,6 +55,9 @@ class SDModel:
     vae_file: str = ""                    # an external VAE file in use, else ""
     vae_sha256: str = ""
     embedded_vae: AutoencoderKL | None = None   # the checkpoint's own VAE meanwhile
+    # merged LoRA modules by tag set (networks/extra_networks.apply_to_model);
+    # they share the base's other parameters, so they go when the model moves
+    network_cache: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def is_sdxl(self) -> bool:
@@ -66,7 +69,9 @@ class SDModel:
 
     def to(self, device) -> "SDModel":
         """Move every module to `device` (in place; parks a displaced
-        checkpoint in host RAM with "cpu")."""
+        checkpoint in host RAM with "cpu").  Merged LoRA copies are dropped,
+        never moved."""
+        self.network_cache.clear()
         self.device = torch.device(device)
         for cond in (self.conditioner, self.conditioner2):
             if cond is not None:

@@ -20,6 +20,7 @@ x is (B, C, H, W) and the UNet call carries B·(K+1) items.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Any, Callable
 
 import numpy as np
@@ -61,7 +62,9 @@ def make_cfg_denoiser(denoise_fn: Callable, sched: CondSchedule,
     return_uncond (DDIM CFG++): the guidance scale is divided by 12.5 and
     the model returns stacked [cfg, uncond] (cfg.py:178-202).  A step past
     the schedule (a Restart plan's or a DPM driver's extra calls) takes
-    its last entry, as JAX's clamped gather does.
+    its last entry, as JAX's clamped gather does.  A denoise_fn with a
+    `step` parameter is also given the step index (cfg.py:122-131: the
+    ControlNet guidance range reads it).
     """
     if sched.image_cfg_scale is not None:
         raise NotImplementedError("edit-model (instruct-pix2pix) CFG is not ported yet")
@@ -71,6 +74,7 @@ def make_cfg_denoiser(denoise_fn: Callable, sched: CondSchedule,
         raise NotImplementedError("soft inpainting is not ported yet")
     k = sched.cond_bank.shape[0]
     rows = torch.arange(k, device=sched.cond_bank.device)
+    pass_step = "step" in inspect.signature(denoise_fn).parameters
 
     scale = sched.cond_scale * (1.0 / 12.5 if return_uncond else 1.0)
     last = sched.cond_idx.shape[1] - 1
@@ -85,6 +89,7 @@ def make_cfg_denoiser(denoise_fn: Callable, sched: CondSchedule,
         return out_uncond + (w * (out_conds - out_uncond[None])).sum(0) * scale
 
     def model(x, sigma: float, i: int):
+        step_kw = {"step": i} if pass_step else {}
         i = min(i, last)
         if mask is not None and mask_before_denoising:
             x = init_latent * mask + nmask * x
@@ -96,11 +101,11 @@ def make_cfg_denoiser(denoise_fn: Callable, sched: CondSchedule,
                         dim=0).repeat_interleave(b, dim=0)
         x_in = x.repeat(k + 1, 1, 1, 1)
         if sched.vector_bank is None:
-            out = denoise_fn(x_in, sigma, ctx)
+            out = denoise_fn(x_in, sigma, ctx, **step_kw)
         else:
             y = torch.cat([sched.vector_bank[rows, idx], sched.vector_uncond_bank[u][None]],
                           dim=0).repeat_interleave(b, dim=0)
-            out = denoise_fn(x_in, sigma, ctx, y)
+            out = denoise_fn(x_in, sigma, ctx, y, **step_kw)
         out = out.reshape(k + 1, b, *out.shape[1:])
         cfg = combine(out, i)
         if mask is not None and not mask_before_denoising:

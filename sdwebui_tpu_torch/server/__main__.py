@@ -10,7 +10,12 @@ the ``sd_model_checkpoint`` setting, else the first file found.
 ``--vae-path`` gives every checkpoint that VAE.  The ESRGAN / Real-ESRGAN
 files (``.pth``, ``.pt``, ``.safetensors``) under ``--esrgan-models-path``
 and ``--realesrgan-models-path`` (default ``models/ESRGAN`` and
-``models/RealESRGAN``) serve as upscalers by file name.  Random weights at full
+``models/RealESRGAN``) serve as upscalers by file name.  Extra networks and
+ControlNet: the LoRA / LyCORIS files under ``--lora-dir`` (default
+``models/Lora`` and ``models/LyCORIS``), the hypernetworks under
+``--hypernetwork-dir`` (``models/hypernetworks``), the textual-inversion
+embeddings under ``--embeddings-dir`` (``embeddings``) and the ControlNet
+towers under ``--controlnet-dir`` (``models/ControlNet``).  Random weights at full
 width, made from ``--seed``, only with ``--model``: SD1.5, or the SDXL
 base with its refiner, which requests name by its title
 (``refiner_checkpoint``); ``--tiny`` for the test models.
@@ -22,6 +27,11 @@ import argparse
 import os
 
 from sdwebui_tpu_torch.models.esrgan import register_esrgan_dir
+from sdwebui_tpu_torch.networks.extra_networks import DEFAULT_LORA_DIRS, set_lora_dirs
+from sdwebui_tpu_torch.networks.hypernetwork import (DEFAULT_HYPERNETWORK_DIR,
+                                                     set_hypernetwork_dirs)
+from sdwebui_tpu_torch.networks.textual_inversion import DEFAULT_EMBEDDINGS_DIR
+from sdwebui_tpu_torch.pipeline.control import DEFAULT_CONTROLNET_DIR, set_model_dirs
 from sdwebui_tpu_torch.server.api import make_server
 from sdwebui_tpu_torch.server.app import DEFAULT_CKPT_DIR, Engine
 
@@ -49,6 +59,15 @@ def main(argv=None):
                     help="Path to directory with ESRGAN model file(s).")
     ap.add_argument("--realesrgan-models-path", default=DEFAULT_ESRGAN_DIRS[1],
                     help="Path to directory with RealESRGAN model file(s).")
+    ap.add_argument("--lora-dir", default=None,
+                    help="Path to directory with Lora networks (default: models/Lora and "
+                         "models/LyCORIS)")
+    ap.add_argument("--hypernetwork-dir", default=DEFAULT_HYPERNETWORK_DIR,
+                    help="hypernetwork directory")
+    ap.add_argument("--embeddings-dir", default=DEFAULT_EMBEDDINGS_DIR,
+                    help="embeddings directory for textual inversion (default: embeddings)")
+    ap.add_argument("--controlnet-dir", default=DEFAULT_CONTROLNET_DIR,
+                    help="Path to directory with ControlNet models")
     ap.add_argument("--tiny", action="store_true", help="with --model: the tiny test model(s)")
     ap.add_argument("--seed", type=int, default=0, help="seed of the random weights")
     args = ap.parse_args(argv)
@@ -58,11 +77,16 @@ def main(argv=None):
         ap.error("--tiny needs --model")
     if args.vae_path and not os.path.isfile(args.vae_path):
         ap.error(f"--vae-path {args.vae_path!r} is not a file")
+    set_lora_dirs([args.lora_dir] if args.lora_dir else DEFAULT_LORA_DIRS)
+    set_hypernetwork_dirs([args.hypernetwork_dir])
+    set_model_dirs([args.controlnet_dir])
     if args.model:
-        engine = Engine(device=args.device, tiny=args.tiny, seed=args.seed, family=args.model)
+        engine = Engine(device=args.device, tiny=args.tiny, seed=args.seed, family=args.model,
+                        embeddings_dir=args.embeddings_dir)
     else:
         engine = Engine(device=args.device, ckpt=args.ckpt,
-                        ckpt_dirs=[args.ckpt_dir or DEFAULT_CKPT_DIR], vae_path=args.vae_path)
+                        ckpt_dirs=[args.ckpt_dir or DEFAULT_CKPT_DIR], vae_path=args.vae_path,
+                        embeddings_dir=args.embeddings_dir)
         engine.sd_model           # load now: a checkpoint that fails fails at start
     upscalers = register_esrgan_dir((args.esrgan_models_path, args.realesrgan_models_path),
                                     device=engine.device)

@@ -16,21 +16,33 @@ shape, ``{"images": [b64 png], "parameters": {...}, "info": "<json>"}``.
 img2img's ``init_images`` and ``mask`` are base64 PNGs (a ``data:image/png``
 URL prefix is accepted); another image format answers 400 naming it, and
 ``parameters`` leaves them out unless ``include_init_images`` is set, as
-the reference does.  A request field, override or option the port does
-not run answers 422 naming it — it is never silently ignored — and so
-does a checkpoint name the server does not hold.
+the reference does.  ControlNet units come as ``controlnet_units`` or as
+the sd-webui-controlnet extension's ``alwayson_scripts.controlnet.args``
+(``api.py:112-119``), their images base64 PNGs.  The extra-network routes
+(loras, embeddings, hypernetworks and their refreshes) and the extension's
+``/controlnet/*`` routes are served too.  A request field, override or
+option the port does not run answers 422 naming it — it is never silently
+ignored — and so does a checkpoint name the server does not hold; a LoRA,
+hypernetwork, ControlNet model or annotator it does not hold answers 404
+naming it.
 """
 
 from __future__ import annotations
 
 import base64
 import binascii
+import dataclasses
 import glob
 import json
 import os
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from sdwebui_tpu_torch.loader.safetensors_io import read_metadata
+from sdwebui_tpu_torch.networks import NetworkNotFound
+from sdwebui_tpu_torch.networks.extra_networks import lora_registry
+from sdwebui_tpu_torch.networks.hypernetwork import hypernet_registry
+from sdwebui_tpu_torch.pipeline import annotators, control
 from sdwebui_tpu_torch.pipeline.img2img import UNPORTED_IMG2IMG_OPTIONS
 from sdwebui_tpu_torch.pipeline.params import GenerationParams
 from sdwebui_tpu_torch.pipeline.processing import (LATENT_UPSCALE_MODES, UNPORTED_HIRES_OPTIONS,
@@ -57,7 +69,8 @@ FIELDS = {
     "s_tmin": (None, _NUM), "s_noise": (None, _NUM), "override_settings": ({}, dict),
     "do_not_save_samples": (False, bool), "do_not_save_grid": (False, bool),
     "send_images": (True, bool), "refiner_checkpoint": (None, str),
-    "refiner_switch_at": (None, _NUM),
+    "refiner_switch_at": (None, _NUM), "controlnet_units": (None, list),
+    "alwayson_scripts": ({}, dict),
 }
 
 #: fields of the reference schema outside the slice: accepted only at
@@ -67,7 +80,7 @@ NEUTRAL = {
     "disable_extra_networks": (False,), "comments": ({},), "firstphase_width": (0,),
     "firstphase_height": (0,), "hr_checkpoint_name": (None,),
     "script_name": (None,), "script_args": ([],),
-    "save_images": (False,), "alwayson_scripts": ({},), "infotext": (None,),
+    "save_images": (False,), "infotext": (None,),
     "postprocessing": ({},), "override_settings_restore_afterwards": (True,),
 }
 
@@ -107,6 +120,9 @@ OVERRIDES = {
     "hires_fix_use_firstpass_conds", "hires_fix_refiner_pass",
     "use_old_hires_fix_width_height", "img2img_extra_noise", "ESRGAN_tile",
     "ESRGAN_tile_overlap", "upscaling_max_images_in_cache",
+    # extra networks
+    "sd_hypernetwork", "extra_networks_default_multiplier",
+    "textual_inversion_add_hashes_to_infotext",
     *UNPORTED_OPTIONS, *UNPORTED_HIRES_OPTIONS,
 }
 
@@ -148,6 +164,12 @@ EXTRAS_FIELDS = {
     "show_extras_results": (True, bool), "save_output": (False, bool), "image": ("", str),
     "name": (None, str),
 }
+
+#: a ControlNet unit's fields (ControlNetUnit, and the extension's
+#: ``input_image``), and the extension's fields accepted at these values
+UNIT_FIELDS = {f.name for f in dataclasses.fields(control.ControlNetUnit)} | {"input_image"}
+UNIT_NEUTRAL = {"lowvram": (False,), "pixel_perfect": (False,), "guessmode": (False,),
+                "mask": (None,), "resize_mode": (0, "Just Resize")}
 
 #: magic bytes of the image formats a client may send instead of PNG
 _FORMATS = ((b"\xff\xd8\xff", "JPEG"), (b"GIF8", "GIF"), (b"BM", "BMP"),
@@ -193,6 +215,32 @@ def _check_upscaler(name, field: str, latent: bool = False):
         raise ApiError(422, f"{field}: {e}") from e
 
 
+def _units_from_request(req: dict) -> list:
+    """The request's ControlNet units (``controlnet_units`` and the
+    extension's ``alwayson_scripts``), checked, their images decoded."""
+    units = list(req.get("controlnet_units") or [])
+    for name, script in (req.get("alwayson_scripts") or {}).items():
+        if name not in ("controlnet", "ControlNet"):
+            raise ApiError(422, f"alwayson_scripts {name!r} is not supported by this server yet")
+        if not isinstance(script, dict) or not isinstance(script.get("args", []), list):
+            raise ApiError(422, "alwayson_scripts.controlnet must be {\"args\": [units]}")
+        units += script.get("args") or []
+    out = []
+    for i, unit in enumerate(units):
+        if not isinstance(unit, dict):
+            raise ApiError(422, f"ControlNet unit {i} must be an object")
+        for key, value in unit.items():
+            if key not in UNIT_FIELDS and value not in UNIT_NEUTRAL.get(key, ()):
+                raise ApiError(422, f"ControlNet unit field {key!r}={value!r} is not supported "
+                                    "by this server yet")
+        unit = {k: v for k, v in unit.items() if k in UNIT_FIELDS}
+        for key in ("image", "input_image"):
+            if unit.get(key) is not None:
+                unit[key] = _decode_image(unit[key], f"ControlNet unit {i} {key}")
+        out.append(unit)
+    return out
+
+
 def _params_from_request(body: dict, img2img: bool = False) -> GenerationParams:
     fields, neutral, overrides = {**FIELDS, **HIRES_FIELDS}, NEUTRAL, OVERRIDES
     if img2img:
@@ -234,6 +282,7 @@ def _params_from_request(body: dict, img2img: bool = False) -> GenerationParams:
         kw["hr_cfg_scale"] = req["hr_cfg"]
     if "CLIP_stop_at_last_layers" in req["override_settings"]:
         kw["clip_skip"] = int(req["override_settings"]["CLIP_stop_at_last_layers"])
+    kw["controlnet_units"] = _units_from_request(req)
     # save_images is off: nothing is written, no grid is assembled
     kw["do_not_save_grid"] = True
     if img2img:
@@ -288,6 +337,15 @@ class Api:
             ("POST", "/sdapi/v1/refresh-checkpoints"): self.refresh_checkpoints,
             ("POST", "/sdapi/v1/reload-checkpoint"): self.reload_checkpoint,
             ("POST", "/sdapi/v1/unload-checkpoint"): self.unload_checkpoint,
+            ("GET", "/sdapi/v1/loras"): self.loras,
+            ("POST", "/sdapi/v1/refresh-loras"): self.refresh_loras,
+            ("GET", "/sdapi/v1/embeddings"): self.embeddings,
+            ("POST", "/sdapi/v1/refresh-embeddings"): self.refresh_embeddings,
+            ("GET", "/sdapi/v1/hypernetworks"): self.hypernetworks,
+            ("GET", "/controlnet/model_list"): self.controlnet_models,
+            ("GET", "/controlnet/module_list"): self.controlnet_modules,
+            ("POST", "/controlnet/detect"): self.controlnet_detect,
+            ("GET", "/controlnet/version"): lambda body: {"version": 2},
             ("GET", "/internal/ping"): lambda body: {},
         }
 
@@ -424,6 +482,64 @@ class Api:
         self.engine.unload_checkpoint()
         return {}
 
+    # ---- extra networks (api.py:747-790,889-910) -------------------------
+
+    def loras(self, body=None):
+        """name, alias (kohya's ss_output_name), path and the safetensors
+        metadata of each LoRA file."""
+        out = []
+        for name, path in lora_registry().files.items():
+            meta = read_metadata(path) if path.endswith(".safetensors") else {}
+            out.append({"name": name, "alias": meta.get("ss_output_name") or name,
+                        "path": path, "metadata": meta})
+        return out
+
+    def refresh_loras(self, body=None):
+        lora_registry().refresh()
+        return {}
+
+    def embeddings(self, body=None):
+        db = self.engine.sd_model.conditioner.embedding_db
+        if db is None:
+            return {"loaded": {}, "skipped": {}}
+        return {"loaded": {name: {"step": e.step, "sd_checkpoint": None,
+                                  "sd_checkpoint_name": None, "shape": int(e.vec.shape[-1]),
+                                  "vectors": e.vectors} for name, e in db.embeddings.items()},
+                "skipped": {s.split(" ")[0]: {} for s in db.skipped}}
+
+    def refresh_embeddings(self, body=None):
+        self.engine.refresh_embeddings()
+        return {}
+
+    def hypernetworks(self, body=None):
+        return [{"name": name, "path": path} for name, path in hypernet_registry().files.items()]
+
+    # ---- the sd-webui-controlnet extension's routes (api.py:937-969) --------
+
+    def controlnet_models(self, body=None):
+        return {"model_list": control.list_models()}
+
+    def controlnet_modules(self, body=None):
+        return {"module_list": annotators.list_modules()}
+
+    def controlnet_detect(self, body):
+        """An annotator over base64 PNGs → base64 PNG hints."""
+        if not isinstance(body, dict):
+            raise ApiError(422, "request body must be a JSON object")
+        module = body.get("controlnet_module", "none")
+        res = body.get("controlnet_processor_res", 512)
+        if not isinstance(res, int) or isinstance(res, bool):
+            raise ApiError(422, "field 'controlnet_processor_res' must be an integer")
+        out = []
+        for enc in body.get("controlnet_input_images") or []:
+            img = _decode_image(enc, "controlnet_input_images")
+            hint = annotators.run_annotator(module, img[:, :, :3] if img.shape[2] >= 3
+                                            else img[:, :, 0], res=res,
+                                            threshold_a=body.get("controlnet_threshold_a"),
+                                            threshold_b=body.get("controlnet_threshold_b"))
+            out.append(base64.b64encode(encode_png(hint)).decode("ascii"))
+        return {"images": out, "info": f"module={module}"}
+
     def handle(self, method: str, path: str, body):
         """→ (status, JSON-able payload)."""
         handler = self.routes.get((method, path.split("?", 1)[0]))
@@ -433,6 +549,8 @@ class Api:
             return 200, handler(body)
         except ApiError as e:
             return e.status, {"detail": e.message}
+        except NetworkNotFound as e:
+            return 404, {"detail": str(e)}
         except (NotImplementedError, CheckpointNotFound, upscalers.UpscalerNotFound) as e:
             return 422, {"detail": str(e)}
         except Exception as e:   # surfaced as a 500 with its message

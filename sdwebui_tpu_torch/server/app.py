@@ -13,7 +13,13 @@ Generations and Extras upscales run one at a time under the queue lock,
 which model switches take too, with the job's progress in a
 ``runtime.state.State``.  The upscalers are the process's registry
 (``postprocessing/upscalers``), which ``server/__main__`` fills from the
-ESRGAN and Real-ESRGAN directories at start (JAX's app.py:44-57).
+ESRGAN and Real-ESRGAN directories at start (JAX's app.py:44-57); so are
+the LoRA, hypernetwork and ControlNet registries.  Every model the Engine
+loads or is given gets a textual-inversion database of the embeddings
+directory (app.py:143-154).  A request's LoRA set runs on a merged copy
+that the base model caches and drops whenever it moves
+(``networks/extra_networks``): the live, parked and cached models are
+always the checkpoints' own weights.
 
 Unlike JAX (``app.py:208-226``), a checkpoint load that fails leaves the
 resident models as they were: the live model is moved back, and no parked
@@ -27,6 +33,8 @@ import threading
 
 from sdwebui_tpu_torch.loader import load
 from sdwebui_tpu_torch.loader.registry import CheckpointRegistry, file_sha256
+from sdwebui_tpu_torch.networks.textual_inversion import (DEFAULT_EMBEDDINGS_DIR,
+                                                          attach_embeddings)
 from sdwebui_tpu_torch.ops.attention import set_attention_impl
 from sdwebui_tpu_torch.pipeline.img2img import process_img2img
 from sdwebui_tpu_torch.pipeline.params import GenerationParams, Processed
@@ -78,14 +86,16 @@ class Engine:
     opts.sd_model_checkpoint, then the first file found); else random
     weights of `family`.  vae_path: one VAE file for every checkpoint
     (the sd_vae setting is then not read); hash_cache: the sha256 cache
-    file (None: no cache)."""
+    file (None: no cache); embeddings_dir: the textual-inversion files."""
 
     def __init__(self, device="cuda", tiny: bool = False, seed: int = 0,
                  model: SDModel | None = None, family: str = "sd15",
                  extra_models: dict[str, SDModel] | None = None,
                  ckpt: str | None = None, ckpt_dirs=None, vae_path: str | None = None,
-                 vae_dirs=(DEFAULT_VAE_DIR,), hash_cache: str | None = DEFAULT_HASH_CACHE):
+                 vae_dirs=(DEFAULT_VAE_DIR,), hash_cache: str | None = DEFAULT_HASH_CACHE,
+                 embeddings_dir: str = DEFAULT_EMBEDDINGS_DIR):
         self.device = get_device(device)
+        self.embeddings_dir = embeddings_dir
         self.queue_lock = threading.RLock()
         self.state = State()
         self.vae_path, self.vae_dirs, self.hash_cache = vae_path, tuple(vae_dirs), hash_cache
@@ -109,6 +119,8 @@ class Engine:
                 raise FileNotFoundError(f"checkpoint {ckpt!r} is neither a file nor in "
                                         f"{self.registry.model_dirs}")
             self._requested_ckpt = ckpt
+        if self._model is not None:
+            attach_embeddings(self._model, self.embeddings_dir)
 
     # ---- model lifecycle ----------------------------------------------
 
@@ -137,7 +149,14 @@ class Engine:
                                 device=self.device)
         opts.data["sd_checkpoint_hash"] = model.sha256
         self._set_vae(model, self.vae_path or load.resolve_vae(info.filename, self.vae_dirs))
+        attach_embeddings(model, self.embeddings_dir)
         return model
+
+    def refresh_embeddings(self):
+        """Scan the embeddings directory into a new database of the live
+        model (api.py:905)."""
+        with self.queue_lock:
+            attach_embeddings(self.sd_model, self.embeddings_dir)
 
     def reload_checkpoint(self, name: str | None = None):
         """Make `name` (default opts.sd_model_checkpoint) the live model: from

@@ -1,10 +1,12 @@
 """Prompt → conditioning tensors: chunked CLIP encoding and CFG schedules.
 
 Port of ``sdwebui_tpu/text/conditioner.py``: 75-token chunks with BOS/EOS
-framing, comma backtracking, the BREAK keyword, per-token emphasis with
-per-item mean renormalisation, clip skip; then the prompt-edit/AND
-schedules assembled into a ``CondSchedule``.  Tokenizer and prompt parser
-are the port's copies (``text/tokenizer.py``, ``text/prompt_parser.py``).
+framing, comma backtracking, the BREAK keyword, textual-inversion
+embeddings spliced in after the token embedding (``fixes``), per-token
+emphasis with per-item mean renormalisation, clip skip; then the
+prompt-edit/AND schedules assembled into a ``CondSchedule``.  Tokenizer
+and prompt parser are the port's copies (``text/tokenizer.py``,
+``text/prompt_parser.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ CHUNK_LEN = 75
 class PromptChunk:
     tokens: list          # 75 ids (no specials)
     multipliers: list     # 75 floats
+    # (position in the chunk, Embedding): textual-inversion splice points
+    fixes: list = dataclasses.field(default_factory=list)
 
 
 def apply_emphasis(z, multipliers, mode: str = "Original"):
@@ -46,7 +50,10 @@ def apply_emphasis(z, multipliers, mode: str = "Original"):
 
 
 class TextConditioner:
-    """One text encoder (CLIP-L) + tokenizer + options."""
+    """One text encoder (CLIP-L) + tokenizer + options.  embedding_db: the
+    textual-inversion registry (``networks/textual_inversion``), read at
+    tokenize time; embedding_field: which rows of an embedding this encoder
+    takes ("vec", or "vec_g" for SDXL's bigG)."""
 
     def __init__(self, model, cfg: CLIPTextConfig, tokenizer,
                  clip_skip: int = 1, emphasis: str = "Original",
@@ -59,6 +66,8 @@ class TextConditioner:
         self.emphasis = emphasis
         self.comma_padding_backtrack = comma_padding_backtrack
         self.apply_final_norm = apply_final_norm
+        self.embedding_db = None
+        self.embedding_field = "vec"
 
     def tokenize_line(self, line: str):
         """line → (List[PromptChunk], token_count) (reference
@@ -73,24 +82,28 @@ class TextConditioner:
         chunks: List[PromptChunk] = []
         tokens: list = []
         mults: list = []
+        fixes: list = []
         last_comma = -1
         token_count = 0
 
         def next_chunk(is_last=False):
-            nonlocal tokens, mults, token_count
+            nonlocal tokens, mults, fixes, token_count
             token_count += len(tokens) if is_last else CHUNK_LEN
             to_add = CHUNK_LEN - len(tokens)
             if to_add > 0:
                 tokens += [EOS] * to_add
                 mults += [1.0] * to_add
-            chunks.append(PromptChunk(tokens, mults))
-            tokens, mults = [], []
+            chunks.append(PromptChunk(tokens, mults, fixes))
+            tokens, mults, fixes = [], [], []
 
         for text, weight in parsed:
             if text == "BREAK" and weight == -1:
                 next_chunk()
                 continue
-            for token in self.tokenizer.encode(text):
+            ids = self.tokenizer.encode(text)
+            position = 0
+            while position < len(ids):
+                token = ids[position]
                 if token == COMMA:
                     last_comma = len(tokens)
                 elif (self.comma_padding_backtrack != 0 and len(tokens) == CHUNK_LEN
@@ -109,8 +122,21 @@ class TextConditioner:
                 if len(tokens) == CHUNK_LEN:
                     next_chunk()
                     last_comma = -1
+                emb, emb_len = (None, 0) if self.embedding_db is None \
+                    else self.embedding_db.find_at(ids, position)
+                if emb is not None:
+                    # the embedding's vectors stay in one chunk
+                    if len(tokens) + emb.vectors > CHUNK_LEN:
+                        next_chunk()
+                        last_comma = -1
+                    fixes.append((len(tokens), emb))
+                    tokens += [0] * emb.vectors
+                    mults += [weight] * emb.vectors
+                    position += emb_len
+                    continue
                 tokens.append(token)
                 mults.append(weight)
+                position += 1
 
         if tokens or not chunks:
             next_chunk(is_last=True)
@@ -124,21 +150,36 @@ class TextConditioner:
         per_line = [self.tokenize_line(line) for line in lines]
         n_chunks = max(max(len(c) for c, _ in per_line), target_chunks or 1)
         empty = PromptChunk([EOS] * CHUNK_LEN, [1.0] * CHUNK_LEN)
-        all_tokens, all_mults = [], []
+        all_tokens, all_mults, all_fixes = [], [], []
         for chunks, _ in per_line:
             for ch in chunks + [empty] * (n_chunks - len(chunks)):
                 all_tokens.append([BOS] + ch.tokens + [EOS])
                 all_mults.append([1.0] + ch.multipliers + [1.0])
+                all_fixes.append(ch.fixes)
         device = self.model.final_layer_norm.weight.device
         tokens = torch.as_tensor(np.asarray(all_tokens, np.int64), device=device)
         mults = torch.as_tensor(np.asarray(all_mults, np.float32), device=device)
         hidden, pooled = self.model.encode(tokens, stop_at_layer=self.clip_skip - 1,
-                                           apply_final_norm=self.apply_final_norm)
+                                           apply_final_norm=self.apply_final_norm,
+                                           inputs_embeds=self._embeds_with_fixes(tokens, all_fixes))
         hidden = apply_emphasis(hidden, mults, self.emphasis)
         b = len(lines)
         cond = hidden.reshape(b, n_chunks * (CHUNK_LEN + 2), hidden.shape[-1])
         pooled = pooled.reshape(b, n_chunks, -1)[:, 0]   # first chunk's EOT pool
         return cond, pooled
+
+    def _embeds_with_fixes(self, tokens, fixes_per_row):
+        """The token embeddings with each row's embedding vectors written
+        over their placeholder tokens (clip.py:98-118; chunk position + 1
+        for BOS), or None when no row has any."""
+        if not any(fixes_per_row):
+            return None
+        x = self.model.embeddings["token_embedding"](tokens)
+        for i, fixes in enumerate(fixes_per_row):
+            for pos, emb in fixes:
+                vec = getattr(emb, self.embedding_field)[:, : x.shape[-1]]
+                x[i, pos + 1: pos + 1 + emb.vectors] = vec.to(x.device, x.dtype)
+        return x
 
 
 def build_cond_schedule(encode_fn: Callable, prompt: str, negative_prompt: str,

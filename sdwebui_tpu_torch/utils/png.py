@@ -17,7 +17,7 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_COLOR_TYPES = {3: 2, 4: 6}        # channels → PNG colour type
+_COLOR_TYPES = {1: 0, 3: 2, 4: 6}  # channels → PNG colour type
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # PNG colour type → samples per pixel
 
 
@@ -35,10 +35,13 @@ def _text_chunk(key: str, value: str) -> bytes:
 
 
 def encode_png(image: np.ndarray, text: dict | None = None, level: int = 6) -> bytes:
-    """uint8 (H, W, 3|4) → PNG bytes with optional text chunks."""
+    """uint8 (H, W, 3|4), or grey (H, W[, 1]) → PNG bytes with optional text
+    chunks."""
     image = np.ascontiguousarray(image)
+    if image.ndim == 2:
+        image = image[:, :, None]
     if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] not in _COLOR_TYPES:
-        raise ValueError(f"expected uint8 (H, W, 3|4), got {image.dtype} {image.shape}")
+        raise ValueError(f"expected uint8 (H, W[, 1|3|4]), got {image.dtype} {image.shape}")
     h, w, c = image.shape
     ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPES[c], 0, 0, 0)
     rows = np.empty((h, 1 + w * c), np.uint8)

@@ -363,7 +363,7 @@ def test_img2img_matches_jax(models, f32_policies, case):
     (dict(init_images=[_init_image(size=128)], resize_mode=3), "LANCZOS"),
     (dict(mask=_rect_mask(128), inpainting_fill=1, resize_mode=3), "mask"),
     (dict(override_settings={"img2img_color_correction": True}), "img2img_color_correction"),
-    (dict(controlnet_units=[{"model": "x"}]), "controlnet_units"),
+    (dict(controlnet_units=[{"model": "x", "module": "depth_midas"}]), "controlnet_units"),
 ])
 def test_unported_img2img_requests_raise(models, kw, name):
     _, pp = _pair(**{"init_images": [_init_image()], "steps": 1, **kw})

@@ -95,12 +95,15 @@ def test_unsupported_unet_options_raise(field, value, match):
 
 
 def test_unported_unet_inputs_raise(models):
+    from sdwebui_tpu_torch.models.controlnet import ControlNetModel
+    from sdwebui_tpu_torch.networks.hypernetwork import Hypernetwork
+
     pm = models[1]
-    x, t, ctx = torch.zeros(1, 4, 8, 8), torch.zeros(1), torch.zeros(1, 77, 64)
-    with pytest.raises(NotImplementedError, match="ControlNet"):
-        pm.unet(x, t, ctx, control={"input": [], "middle": None})
-    with pytest.raises(NotImplementedError, match="hypernet"):
-        pm.unet(x, t, ctx, hypernet=object())
+    with pytest.raises(NotImplementedError, match="ControlNet option not ported yet: tiling"):
+        ControlNetModel(dataclasses.replace(port_sd.TINY_UNET, tiling=True), device="cpu",
+                        dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="hypernetwork activation 'softsign'"):
+        Hypernetwork({}, activation="softsign")
     sd = dict(pm.unet.state_dict())
     sd["middle_block.1.qkv.weight"] = torch.zeros(3, 3, 1)
     with pytest.raises(NotImplementedError, match="AttentionBlock"):

@@ -79,7 +79,7 @@ def test_same_seed_same_image(models):
     (dict(enable_hr=True, override_settings={"token_merging_ratio_hr": 0.5}), "enable_hr"),
     (dict(tiling=True), "tiling"),
     (dict(restore_faces=True), "restore_faces"),
-    (dict(prompt="a cat <lora:foo:0.5>"), "lora"),
+    (dict(enable_hr=True, hr_prompt="a cat <lora:foo:0.5>"), "lora"),
     (dict(override_settings={"sgm_noise_multiplier": True}), "sgm_noise_multiplier"),
     (dict(override_settings={"token_merging_ratio": 0.5}), "token_merging_ratio"),
     (dict(override_settings={"randn_source": "GPU"}), "randn_source"),

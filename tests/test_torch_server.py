@@ -1,7 +1,8 @@
 """The port's HTTP server (tiny model, CPU), its PNG codec, and its import
 hygiene: the slice imports and runs — checkpoint files, the samplers, hires
-fix, the upscalers and the Extras route included — with the JAX package,
-jax, PIL, pydantic, ml_dtypes and safetensors blocked."""
+fix, the upscalers, the Extras route, extra networks and ControlNet included
+— with the JAX package, jax, PIL, pydantic, ml_dtypes, safetensors and cv2
+blocked."""
 
 import base64
 import json
@@ -67,7 +68,7 @@ def test_txt2img_returns_png_with_infotext(server_url):
     ({"override_settings": {"samples_save": True}}, "samples_save"),
     ({"override_settings": {"sd_model_checkpoint": "x"}}, "sd_model_checkpoint"),
     ({"override_settings": {"token_merging_ratio": 0.5}}, "token_merging_ratio"),
-    ({"prompt": "a <lora:x:1>"}, "lora"),
+    ({"enable_hr": True, "hr_scale": 1.5, "hr_prompt": "a <lora:x:1>"}, "lora"),
 ])
 def test_out_of_slice_fields_answer_422(server_url, body, field):
     status, res = _call(server_url, "/sdapi/v1/txt2img",
@@ -135,8 +136,8 @@ def test_png_roundtrip_and_pil_interop():
 
 
 _HYGIENE = r"""
-import importlib, pkgutil, sys
-BLOCKED = ("sdwebui_tpu", "jax", "jaxlib", "PIL", "pydantic", "ml_dtypes", "safetensors")
+import importlib, json, pkgutil, sys
+BLOCKED = ("sdwebui_tpu", "jax", "jaxlib", "PIL", "pydantic", "ml_dtypes", "safetensors", "cv2")
 
 
 class Recorder:
@@ -215,6 +216,44 @@ with tempfile.TemporaryDirectory() as d:
         "init_images": [small], "resize_mode": 1, "steps": 2, "width": 64, "height": 64,
         "override_settings": {"upscaler_for_img2img": "realesr-t"}})
     assert status == 200, out
+from sdwebui_tpu_torch.models.controlnet import ControlNetModel
+from sdwebui_tpu_torch.models.layers import reset_random
+from sdwebui_tpu_torch.networks.extra_networks import DEFAULT_LORA_DIRS, set_lora_dirs
+from sdwebui_tpu_torch.pipeline import control
+from sdwebui_tpu_torch.pipeline.sd_model import TINY_UNET
+with tempfile.TemporaryDirectory() as d:
+    g = torch.Generator().manual_seed(0)
+    write_safetensors(os.path.join(d, "tiemb.safetensors"),
+                      {"emb_params": torch.randn(2, 64, generator=g)})
+    key = "lora_unet_input_blocks_1_1_transformer_blocks_0_attn1_to_q"
+    write_safetensors(os.path.join(d, "tl.safetensors"), {
+        key + ".lora_up.weight": torch.randn(32, 4, generator=g),
+        key + ".lora_down.weight": torch.randn(4, 32, generator=g)})
+    tower = ControlNetModel(TINY_UNET, device="cpu", dtype=torch.float32)
+    reset_random(tower, g)
+    write_safetensors(os.path.join(d, "cn.safetensors"),
+                      {"control_model." + k: v for k, v in tower.state_dict().items()})
+    set_lora_dirs([d])
+    control.set_model_dirs([d])
+    api = Api(Engine(device="cpu", tiny=True, embeddings_dir=d))
+    grid = np.zeros((64, 64, 3), np.uint8)
+    grid[::16] = 255
+    hint = base64.b64encode(encode_png(grid)).decode()
+    status, out = api.handle("POST", "/sdapi/v1/txt2img", {
+        "prompt": "a tiemb cat <lora:tl:0.8>", "steps": 2, "width": 64, "height": 64,
+        "controlnet_units": [{"model": "cn", "module": "canny", "image": hint}]})
+    assert status == 200, out
+    assert "TI hashes" in json.loads(out["info"])["infotexts"][0]
+    status, out = api.handle("POST", "/sdapi/v1/img2img", {
+        "init_images": [png], "steps": 2, "width": 64, "height": 64,
+        "alwayson_scripts": {"controlnet": {"args": [{"model": "cn", "weight": 0.5}]}}})
+    assert status == 200, out
+    status, out = api.handle("POST", "/controlnet/detect", {
+        "controlnet_module": "canny", "controlnet_input_images": [hint],
+        "controlnet_processor_res": 64})
+    assert status == 200 and len(out["images"]) == 1, out
+    set_lora_dirs(DEFAULT_LORA_DIRS)
+    control.set_model_dirs([control.DEFAULT_CONTROLNET_DIR])
 assert not Recorder.attempts, Recorder.attempts
 print("OK", len(mods))
 """
