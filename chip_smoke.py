@@ -18,11 +18,15 @@ Phases, in order; any failure exits non-zero:
      shapes and the SD1.5/SDXL VAE mid-block at 512², 768², 1024² and
      1536², S = 36864), B2 (head-packed, SD1.5 and SDXL base and refiner at
      their first pass's levels and at the hires pass's: SD1.5 at 1024² and
-     768², SDXL at 1536²; SD1.5 at config 4's 8 CFG rows; the SD1.5 rows
-     also on fused-qkv chunk views:
+     768², SDXL at 1536²; SD1.5 at config 4's 8 CFG rows; SD2-depth's
+     d = 64 heads at (2, 4096, 5·64) and (2, 1024, 10·64) and
+     instruct-pix2pix's 3 edit-CFG rows at (3, 4096, 8·40) and (3, 1024,
+     8·80); the SD1.5 and hybrid rows also on fused-qkv chunk views:
      d = 160 at S = 1024 takes the split-d wide kernel), B3 (4-D, the same
      shapes), B5 (LayerNorm at every UNet row count and width of both
-     families, first and hires pass, config 4's 8 CFG rows, and at CLIP's)
+     families, first and hires pass, config 4's 8 CFG rows, the SD2-depth
+     and instruct-pix2pix UNets' rows, at CLIP's, and the MiDaS ViT's
+     (577, 768) in f32 at eps 1e-6)
      and B4 (3x3 conv at the
      JAX docstring's shapes, the SD1.5 UNet's B=2 shapes and two ragged
      widths);
@@ -84,6 +88,27 @@ Phases, in order; any failure exits non-zero:
      (g) one config 4 request under torch.profiler, as phase 7.  The LoRA
      merge's seconds (first time and cached), s/request and the tower's ms
      per CFG call at 8 rows are logged;
+  4f. the hybrid UNets and the depth half of config 4, their files made
+     from a seed in a temporary directory and dropped at the end: (a) a
+     full-width SD2-depth checkpoint (the SD2 UNet with 5 input channels,
+     OpenCLIP-H, the VAE and a DPT-hybrid at the published widths under
+     depth_model.model.) written as an ldm fp16 .safetensors and served
+     through --ckpt: two img2img requests on a phase-3 PNG with one seed
+     (the repeat within 2 levels; B5 adds the MiDaS forward's 24 f32
+     launches and B2 nothing) and one txt2img request (not flat); the
+     tower's forward at 384² on the card against the CPU (f32, TF32 off,
+     max|Δ|/max|ref| <= 1e-4), its ms and launches; (b) a random
+     full-width SD1.5-inpainting UNet (9 channels) answering an inpaint
+     request (pixels outside the blurred mask within 1 level, changed
+     inside; B1 = 3: the init encode, the masked encode, the decode);
+     (c) a random instruct-pix2pix UNet (8 channels) at image_cfg_scale 1.5
+     (the UNet called on 3 rows) and 1.0 (2 rows): the images differ;
+     (d) /controlnet/detect with depth_midas and hed on a phase-3 PNG at
+     processor_res 512 and 384 (INTER_AREA's shrink), with seeded
+     annotator files at the published widths: hints not flat, B5 = 24 for
+     depth_midas, nothing for hed; (e) config 4 (batch 4, LoRA, embedding)
+     with a depth_midas unit on phase 2's tower.  Every request's B1, B2
+     and B5 launches equal the plan's; s/request logged;
   4a. checkpoint files: phase 3's model written as an ldm-layout
      .safetensors in its own dtypes, and a second random SD1.5 (seed 1) in
      fp16 beside it, in a temporary directory, served by an Engine built as
@@ -213,6 +238,12 @@ HEAD_SHAPES = [
     # config 4: SD1.5 at batch 4, so 8 CFG rows (the UNet and the tower)
     ("sd15_b8_64x64", 8, 4096, 8, 40),
     ("sd15_b8_32x32", 8, 1024, 8, 80),
+    # the hybrid UNets (phase 4f): SD2-depth's d = 64 heads, instruct-pix2pix's
+    # three edit-CFG rows
+    ("sd2_depth_64x64", 2, 4096, 5, 64),
+    ("sd2_depth_32x32", 2, 1024, 10, 64),
+    ("p2p_b3_64x64", 3, 4096, 8, 40),
+    ("p2p_b3_32x32", 3, 1024, 8, 80),
 ]
 # B4 rows: (name, B, H, W, Cin, Cout): the shapes of the JAX kernel's
 # docstring (sdwebui_tpu/ops/conv.py:6-8), the SD1.5 UNet's at B = 2 (the
@@ -230,7 +261,8 @@ CONV_SHAPES = [
 ]
 # the UNets call B2 on the chunk views of their fused qkv projection
 FUSED_QKV_ROWS = ("sd15_64x64", "sdxl_base_64x64", "sd15_hr_128x128", "sd15_hr_64x64",
-                  "sd15_hr_32x32", "sd15_hr_96x96", "sd15_hr_48x48")
+                  "sd15_hr_32x32", "sd15_hr_96x96", "sd15_hr_48x48", "sd2_depth_64x64",
+                  "sd2_depth_32x32", "p2p_b3_64x64", "p2p_b3_32x32")
 HOST_CALLS = 20           # calls per host-cost reading
 
 
@@ -432,15 +464,19 @@ def layer_norm_shapes():
     three per transformer block at B = 2 (from the configs' build plans) at
     the first pass's latent and the hires pass's (SD1.5 at 128² and 96²,
     SDXL at 192²), SD1.5's at config 4's 8 CFG rows (the UNet's and the
-    ControlNet tower's widths and row counts), and the CLIP-L / bigG
-    encoders over cond + uncond (2 x 77 tokens)."""
+    ControlNet tower's widths and row counts), SD2-depth's UNet at B = 2
+    and instruct-pix2pix's at its 3 edit-CFG rows, and the CLIP-L / bigG
+    encoders over cond + uncond (2 x 77 tokens).  (The MiDaS ViT's f32
+    rows at eps 1e-6 are layer_norm_cases' own.)"""
     from sdwebui_tpu_torch.models.configs import (CLIP_L, OPEN_CLIP_BIGG, SD15_UNET,
-                                                  SDXL_REFINER_UNET, SDXL_UNET)
+                                                  SD21_UNET, SDXL_REFINER_UNET, SDXL_UNET)
     from sdwebui_tpu_torch.models.unet import self_attention_calls
 
     shapes = {}
     for fam, cfg, latents, batch in (("sd15", SD15_UNET, (64, 128, 96), 2),
                                      ("sd15_b8", SD15_UNET, (64,), 8),
+                                     ("sd2_depth", SD21_UNET, (64,), 2),
+                                     ("p2p_b3", SD15_UNET, (64,), 3),
                                      ("sdxl_base", SDXL_UNET, (128, 192), 2),
                                      ("sdxl_refiner", SDXL_REFINER_UNET, (128, 192), 2)):
         for latent in latents:
@@ -527,6 +563,15 @@ def layer_norm_cases(device):
                        library=lambda: F.layer_norm(x, (c,), w, b, 1e-5),
                        work=(7.0 * n_rows * c, size * (2 * n_rows * c + 2 * c), "fp32"),
                        ulp_tol=LN_ULP_TOL)
+    # the MiDaS ViT (phase 4f): 577 tokens of 768 at batch 1, f32, eps 1e-6
+    g = torch.Generator(device=device).manual_seed(2)
+    x = _randn((577, 768), g, torch.float32, device) * 2 + 0.5
+    w, b = _randn((768,), g, torch.float32, device), _randn((768,), g, torch.float32, device)
+    yield dict(entry="layer_norm", name="midas_vit_577", shape=(577, 768), dtype=torch.float32,
+               kernel=lambda: ln_mod.layer_norm(x, w, b, 1e-6),
+               plain=lambda: ln_mod.layer_norm_plain(x, w, b, 1e-6),
+               library=lambda: F.layer_norm(x, (768,), w, b, 1e-6),
+               work=(7.0 * 577 * 768, 4 * (2 * 577 * 768 + 2 * 768), "fp32"))
 
 
 def conv_cases(device):
@@ -739,8 +784,8 @@ def _request(url, route, body, check, size, label=None) -> dict:
         check(text.get("parameters", ""), body["seed"] + i)
     log(f"{label or route} {size}² batch {len(images)} seed {body['seed']}: {dt:.3f} s, "
         f"{len(images) / dt:.3f} images/s, launches {launches}")
-    return dict(route=route, batch=len(images), seed=body["seed"], seconds=dt,
-                images_per_s=len(images) / dt, launches=launches, image=images[-1][0],
+    return dict(route=route, label=label or route, batch=len(images), seed=body["seed"],
+                seconds=dt, images_per_s=len(images) / dt, launches=launches, image=images[-1][0],
                 png_b64=res["images"][-1], infotext=images[-1][1].get("parameters", ""))
 
 
@@ -798,19 +843,39 @@ def phase_serve(engine, model):
     return results
 
 
+def _check_overlay(out, init, mask):
+    """The inpaint's pixels outside the blurred mask within OVERLAY_TOL of
+    the init image, and changed inside the mask."""
+    from sdwebui_tpu_torch.utils.masking import blur_mask
+
+    blurred = blur_mask(mask, MASK_BLUR)
+    outside = int(abs(out.astype(int) - init.astype(int))[blurred == 0].max())
+    inside = float(abs(out.astype(int) - init.astype(int))[mask > 0].mean())
+    log(f"inpaint: outside the blurred mask max|Δ| {outside} uint8 levels from the init "
+        f"image (bound {OVERLAY_TOL}); inside mean|Δ| {inside:.2f}")
+    if outside > OVERLAY_TOL or not inside > 1.0:
+        raise AssertionError(f"inpaint overlay wrong: outside {outside}, inside {inside}")
+
+
+def _rect_mask_png(size: int):
+    """Config 2's rectangle mask at size² (and as an RGB PNG)."""
+    from sdwebui_tpu_torch.utils.png import encode_png
+
+    mask_rgb = torch.zeros((size, size, 3), dtype=torch.uint8)
+    mask_rgb[size * 5 // 16:size * 11 // 16, size // 4:size * 3 // 4] = 255
+    return mask_rgb[:, :, 0].numpy(), base64.b64encode(encode_png(mask_rgb.numpy())).decode()
+
+
 def phase_img2img(engine, model, init_png: str):
     """BASELINE config 2: img2img twice with one seed, then an inpaint."""
     from sdwebui_tpu_torch.pipeline.img2img import setup_img2img_steps
-    from sdwebui_tpu_torch.utils.masking import blur_mask
-    from sdwebui_tpu_torch.utils.png import decode_png, encode_png
+    from sdwebui_tpu_torch.utils.png import decode_png
 
     init = decode_png(base64.b64decode(init_png))[0]
-    mask_rgb = torch.zeros((512, 512, 3), dtype=torch.uint8)
-    mask_rgb[160:352, 128:384] = 255                 # a rectangle, sent as an RGB PNG
-    mask = mask_rgb[:, :, 0].numpy()
+    mask, mask_png = _rect_mask_png(512)
     base = dict(SD15_BASE, init_images=[init_png], denoising_strength=DENOISE, batch_size=1)
-    inpaint = dict(base, seed=4321, mask=base64.b64encode(encode_png(mask_rgb.numpy())).decode(
-        "ascii"), mask_blur=MASK_BLUR, inpainting_fill=1, inpaint_full_res=False)
+    inpaint = dict(base, seed=4321, mask=mask_png, mask_blur=MASK_BLUR, inpainting_fill=1,
+                   inpaint_full_res=False)
 
     def check(params, seed):
         _sd15_check(params, seed)
@@ -820,14 +885,7 @@ def phase_img2img(engine, model, init_png: str):
     results = _serve(engine, "img2img", [dict(base, seed=1234), dict(base, seed=1234), inpaint],
                      dict(base, seed=1, steps=2), check, 512)
     _check_repeat(results, 0, 1)
-    out = results[2]["image"].astype(int)
-    blurred = blur_mask(mask, MASK_BLUR)
-    outside = int(abs(out - init.astype(int))[blurred == 0].max())
-    inside = float(abs(out - init.astype(int))[mask > 0].mean())
-    log(f"inpaint: outside the blurred mask max|Δ| {outside} uint8 levels from the init "
-        f"image (bound {OVERLAY_TOL}); inside mean|Δ| {inside:.2f}")
-    if outside > OVERLAY_TOL or not inside > 1.0:
-        raise AssertionError(f"inpaint overlay wrong: outside {outside}, inside {inside}")
+    _check_overlay(results[2]["image"], init, mask)
     _, t_enc = setup_img2img_steps(STEPS, DENOISE)
     calls = t_enc + 1                  # the last t_enc + 2 sigmas; Euler a: one call per step
     expected = [_plan(b1=2, b2=calls * launch_plan(model.unet_cfg, 64),   # B1: encode, decode
@@ -1118,12 +1176,35 @@ def _timed_merges(first: list, cached: list):
         extra_networks._merge, extra_networks.apply_to_model = real_merge, real_apply
 
 
-def phase_config4(engine, model, phase3: dict, directory: str, tower):
-    """4e: BASELINE config 4 on the phase-3 server; returns (results, info)."""
+@contextlib.contextmanager
+def _network_registries(engine, directory: str):
+    """The LoRA, hypernetwork, ControlNet and embedding registries over
+    `directory` (as --lora-dir, --hypernetwork-dir, --controlnet-dir and
+    --embeddings-dir set them), back to their defaults afterwards."""
     from sdwebui_tpu_torch.networks.extra_networks import DEFAULT_LORA_DIRS, set_lora_dirs
     from sdwebui_tpu_torch.networks.hypernetwork import (DEFAULT_HYPERNETWORK_DIR,
                                                          set_hypernetwork_dirs)
     from sdwebui_tpu_torch.networks.textual_inversion import DEFAULT_EMBEDDINGS_DIR
+    from sdwebui_tpu_torch.pipeline import control
+
+    set_lora_dirs([directory])
+    set_hypernetwork_dirs([directory])
+    control.set_model_dirs([directory])
+    engine.embeddings_dir = directory
+    engine.refresh_embeddings()
+    try:
+        yield
+    finally:
+        set_lora_dirs(DEFAULT_LORA_DIRS)
+        set_hypernetwork_dirs([DEFAULT_HYPERNETWORK_DIR])
+        control.set_model_dirs([control.DEFAULT_CONTROLNET_DIR])
+        engine.embeddings_dir = DEFAULT_EMBEDDINGS_DIR
+        engine.refresh_embeddings()
+        engine.sd_model.network_cache.clear()
+
+
+def phase_config4(engine, model, phase3: dict, directory: str, tower):
+    """4e: BASELINE config 4 on the phase-3 server; returns (results, info)."""
     from sdwebui_tpu_torch.pipeline import control
     from sdwebui_tpu_torch.utils.png import decode_png, encode_png
 
@@ -1133,11 +1214,6 @@ def phase_config4(engine, model, phase3: dict, directory: str, tower):
     before = {m: {k: v.clone() for k, v in mod.state_dict().items()}
               for m, mod in modules.items()}
     write_network_files(directory, model, tower)
-    set_lora_dirs([directory])
-    set_hypernetwork_dirs([directory])
-    control.set_model_dirs([directory])
-    engine.embeddings_dir = directory
-    engine.refresh_embeddings()
     grid = torch.zeros((size, size, 3), dtype=torch.uint8)
     grid[::16] = 255
     grid[:, ::16] = 255
@@ -1155,7 +1231,7 @@ def phase_config4(engine, model, phase3: dict, directory: str, tower):
             cfg, latent, False) + batch_clip * clip_ln_plan(model))
 
     first, cached, results, plans = [], [], [], []
-    try:
+    with _network_registries(engine, directory):
         with _server(engine) as url, _timed_merges(first, cached):
             _post(f"{url}/txt2img", dict(config4_request(1, hint_png), steps=2, batch_size=1))
             first.clear()       # the warm-up merged the set; the timed runs merge anew
@@ -1218,13 +1294,225 @@ def phase_config4(engine, model, phase3: dict, directory: str, tower):
                     profile=phase_profile(engine, config4_request(1234, hint_png), "config 4",
                                           wall=statistics.median(
                                               r["seconds"] for r in results[:2])))
+    return results, info
+
+
+# phase 4f: the hybrid UNets and the depth half of config 4
+P2P_IMAGE_CFG = 1.5
+DPT_REL_TOL = 1e-4        # max|Δ| / max|ref|, the MiDaS tower on the card vs the CPU, f32
+DETECT_RES = (512, 384)   # processor_res on a 512² PNG: as it is, and INTER_AREA's shrink
+
+
+def midas_ln_plan() -> int:
+    """B5 launches of one MiDaS forward: two per ViT block, f32 (its
+    577-token attention takes the plain path, so no B2)."""
+    from sdwebui_tpu_torch.models.midas import DPTConfig
+
+    return 2 * DPTConfig().vit_layers
+
+
+def write_annotator_files(directory: str, device, seed: int = 5) -> dict:
+    """The model annotators' files at the published widths, made from
+    `seed`: ControlNetHED.safetensors (widths 64..512, fp32) and
+    dpt_hybrid-midas-501f0c75.safetensors (the DPT-hybrid, fp16)."""
+    from sdwebui_tpu_torch.loader.safetensors_io import write_safetensors
+    from sdwebui_tpu_torch.models.hed import create_random_hed
+    from sdwebui_tpu_torch.models.midas import create_random_dpt
+
+    paths = {"hed": os.path.join(directory, "ControlNetHED.safetensors"),
+             "depth_midas": os.path.join(directory, "dpt_hybrid-midas-501f0c75.safetensors")}
+    write_safetensors(paths["hed"], {k: v.cpu() for k, v in
+                                     create_random_hed(seed, device).state_dict().items()})
+    write_safetensors(paths["depth_midas"], {k: v.half().cpu() for k, v in
+                                             create_random_dpt(seed, device).state_dict().items()})
+    return paths
+
+
+@contextlib.contextmanager
+def _rows_seen(unet, rows: list):
+    """Appends the batch rows of every call of `unet` to `rows`."""
+    handle = unet.register_forward_pre_hook(lambda module, args: rows.append(args[0].shape[0]))
+    try:
+        yield
     finally:
-        set_lora_dirs(DEFAULT_LORA_DIRS)
-        set_hypernetwork_dirs([DEFAULT_HYPERNETWORK_DIR])
-        control.set_model_dirs([control.DEFAULT_CONTROLNET_DIR])
-        engine.embeddings_dir = DEFAULT_EMBEDDINGS_DIR
-        engine.refresh_embeddings()
-        engine.sd_model.network_cache.clear()
+        handle.remove()
+
+
+def phase_hybrid(engine, model, phase3: dict, directory: str, device, tower):
+    """4f: (a) SD2-depth from an fp16 file through --ckpt, (b) the
+    inpainting model, (c) instruct-pix2pix, (d) /controlnet/detect with the
+    model annotators, (e) config 4 with a depth_midas unit on phase 2's
+    tower; returns (results, info)."""
+    import copy
+
+    from sdwebui_tpu_torch.loader import load
+    from sdwebui_tpu_torch.loader.safetensors_io import write_safetensors
+    from sdwebui_tpu_torch.pipeline import annotators
+    from sdwebui_tpu_torch.pipeline.img2img import setup_img2img_steps
+    from sdwebui_tpu_torch.pipeline.sd_model import (create_random_sd2_depth,
+                                                     create_random_sd15)
+    from sdwebui_tpu_torch.server.app import Engine
+    from sdwebui_tpu_torch.utils.png import decode_png
+
+    init_png = phase3["png_b64"]
+    init = decode_png(base64.b64decode(init_png))[0]
+    size = SD15_BASE["width"]
+    latent = size // 8
+    _, t_enc = setup_img2img_steps(STEPS, DENOISE)
+    calls = t_enc + 1
+    base = dict(SD15_BASE, init_images=[init_png], denoising_strength=DENOISE, batch_size=1)
+    midas = midas_ln_plan()
+    results, plans, info = [], [], {}
+
+    def i2i_plan(m, b1, rows_midas=0):
+        return _plan(b1=b1, b2=calls * launch_plan(m.unet_cfg, latent),
+                     b5=calls * ln_plan(m.unet_cfg, latent) + clip_ln_plan(m) + rows_midas * midas)
+
+    def check_i2i(params, seed):
+        _sd15_check(params, seed)
+        if f"Denoising strength: {DENOISE}" not in params:
+            raise AssertionError(f"infotext lacks the denoising strength: {params!r}")
+
+    # (a) SD2-depth: an ldm fp16 file served through --ckpt
+    t0 = time.perf_counter()
+    path = os.path.join(directory, "random-sd2-depth-fp16.safetensors")
+    depth = create_random_sd2_depth(seed=21, device=device)
+    write_safetensors(path, {k: v.half() for k, v in load.ldm_state_dict(depth).items()})
+    del depth
+    torch.cuda.empty_cache()
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine_d = Engine(device=device, ckpt=path, ckpt_dirs=[directory],
+                      hash_cache=os.path.join(directory, "hashes.json"))
+    loaded = engine_d.sd_model
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    log(f"SD2-depth file {os.path.getsize(path) / 1e9:.3f} GB written in {t_write:.2f} s, "
+        f"loaded (sha256 and file → card) in {t_load:.2f} s: {loaded.kind}, "
+        f"{loaded.unet_cfg.in_channels}-channel UNet, depth tower {loaded.is_depth}")
+    if not (loaded.kind == "sd2" and loaded.is_depth and loaded.unet_cfg.in_channels == 5):
+        raise AssertionError("the SD2-depth file did not load as the depth variant")
+    with _server(engine_d) as url:
+        _post(f"{url}/img2img", dict(base, seed=1, steps=2))
+        for label in ("SD2-depth img2img", "SD2-depth img2img repeat"):
+            results.append(_request(url, "img2img", dict(base, seed=1234), check_i2i, size, label))
+            plans.append(i2i_plan(loaded, b1=2, rows_midas=1))
+        results.append(_request(url, "txt2img", dict(SD15_BASE, seed=1234, batch_size=1),
+                                _sd15_check, size, "SD2-depth txt2img"))
+        plans.append(_plan(b1=1, b2=STEPS * launch_plan(loaded.unet_cfg, latent),
+                           b5=STEPS * ln_plan(loaded.unet_cfg, latent) + clip_ln_plan(loaded)))
+    _check_repeat(results, 0, 1)
+    if results[2]["image"].std() < 1.0:
+        raise AssertionError("the SD2-depth txt2img image is flat")
+    tower_d = loaded.depth_model
+    g = torch.Generator(device=device).manual_seed(4)
+    x = torch.rand((1, 3, 384, 384), generator=g, device=device) * 2 - 1
+    with torch.inference_mode():
+        reset_counts()
+        card = tower_d(x)
+        torch.cuda.synchronize()
+        counted = read_counts()
+        cpu = copy.deepcopy(tower_d).to("cpu")(x.cpu())
+        dpt_ms = cuda_ms(lambda: tower_d(x), iters=5, hide_host=False)
+        dpt_kernels = kernel_times(lambda: tower_d(x))
+    dpt_rel = ((card.cpu() - cpu).abs().max() / cpu.abs().max()).item()
+    log(f"MiDaS DPT-hybrid at 384², f32: card vs CPU max|Δ|/max|ref| {dpt_rel:.3e} (bound "
+        f"{DPT_REL_TOL:g}), {dpt_ms:.2f} ms a forward, launches {counted}; device ms by class "
+        + json.dumps({k: round(v, 2) for k, v in dpt_kernels["by_class"].items()})
+        + "; top kernels " + json.dumps([(n[:60], round(t, 2)) for n, t in dpt_kernels["top"]]))
+    if not dpt_rel <= DPT_REL_TOL or counted != _plan(b5=midas):
+        raise AssertionError(f"MiDaS on the card: {dpt_rel}, launches {counted}")
+    info["sd2_depth"] = dict(file_write_s=t_write, load_s=t_load, dpt_rel_err=dpt_rel,
+                             dpt_ms=dpt_ms, dpt_launches=counted, dpt_kernels=dpt_kernels)
+    del engine_d, loaded, tower_d, cpu, card
+    os.remove(path)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the inpainting model (9 channels): B1 = the init encode, the
+    # masked image's encode and the decode
+    mask, mask_png = _rect_mask_png(size)
+    inpaint = create_random_sd15(seed=9, device=device, in_channels=9)
+    with _server(Engine(model=inpaint, device=device)) as url:
+        _post(f"{url}/img2img", dict(base, seed=1, steps=2))
+        results.append(_request(url, "img2img", dict(
+            base, seed=4321, mask=mask_png, mask_blur=MASK_BLUR, inpainting_fill=1,
+            inpaint_full_res=False), check_i2i, size, "inpainting model"))
+        plans.append(i2i_plan(inpaint, b1=3))
+    _check_overlay(results[-1]["image"], init, mask)
+    del inpaint
+    torch.cuda.empty_cache()
+
+    # (c) instruct-pix2pix (8 channels) at image_cfg_scale 1.5 (3 CFG rows)
+    # and 1.0 (the plain 2-row CFG with the init latent as c_concat)
+    p2p = create_random_sd15(seed=8, device=device, in_channels=8)
+    rows = {}
+    with _server(Engine(model=p2p, device=device)) as url:
+        _post(f"{url}/img2img", dict(base, seed=1, steps=2, image_cfg_scale=P2P_IMAGE_CFG))
+        for scale in (P2P_IMAGE_CFG, 1.0):
+            seen = rows.setdefault(scale, [])
+            with _rows_seen(p2p.unet, seen):
+                results.append(_request(url, "img2img", dict(base, seed=1234,
+                                                             image_cfg_scale=scale),
+                                        check_i2i, size, f"instruct-pix2pix image_cfg {scale}"))
+            plans.append(i2i_plan(p2p, b1=2))
+    p2p_delta = float(abs(results[-2]["image"].astype(int) - results[-1]["image"].astype(int))
+                      .mean())
+    log(f"instruct-pix2pix: UNet rows per call {sorted(set(rows[P2P_IMAGE_CFG]))} at "
+        f"image_cfg_scale {P2P_IMAGE_CFG}, {sorted(set(rows[1.0]))} at 1.0; the images "
+        f"mean|Δ| {p2p_delta:.2f} levels apart")
+    if set(rows[P2P_IMAGE_CFG]) != {3} or set(rows[1.0]) != {2} or not p2p_delta > 0:
+        raise AssertionError(f"instruct-pix2pix CFG rows {rows}, delta {p2p_delta}")
+    del p2p
+    torch.cuda.empty_cache()
+
+    # (d) /controlnet/detect with the model annotators on the phase-3 server
+    prev_dirs = list(annotators._model_dirs)
+    annotator_dir = os.path.join(directory, "Annotators")
+    os.makedirs(annotator_dir)
+    write_annotator_files(annotator_dir, device)
+    annotators.set_annotator_dirs([annotator_dir])
+    detect = {}
+    try:
+        with _server(engine) as url:
+            for module in ("depth_midas", "hed"):
+                for res in DETECT_RES:
+                    reset_counts()
+                    t0 = time.perf_counter()
+                    out = _post(url.replace("/sdapi/v1", "/controlnet/detect"), {
+                        "controlnet_module": module, "controlnet_input_images": [init_png],
+                        "controlnet_processor_res": res})
+                    dt = time.perf_counter() - t0
+                    counted = read_counts()
+                    (hint,) = [decode_png(base64.b64decode(b))[0] for b in out["images"]]
+                    planned = _plan(b5=midas if module == "depth_midas" else 0)
+                    log(f"/controlnet/detect {module} at processor_res {res}: {dt:.3f} s, "
+                        f"hint {hint.shape}, std {hint.std():.2f}, launches {counted}")
+                    if hint.shape[:2] != (res, res) or hint.std() < 1.0 or counted != planned:
+                        raise AssertionError(f"{module} at {res}: {hint.shape}, std "
+                                             f"{hint.std()}, launches {counted} != {planned}")
+                    detect[f"{module}_{res}"] = dict(seconds=dt, hint_std=float(hint.std()))
+        info["detect"] = detect
+
+        # (e) config 4 with a depth_midas unit on phase 2's tower
+        network_dir = os.path.join(directory, "networks")
+        os.makedirs(network_dir)
+        write_network_files(network_dir, model, tower)
+        cfg = model.unet_cfg
+        with _network_registries(engine, network_dir), _server(engine) as url:
+            results.append(_request(url, "txt2img", config4_request(
+                1234, init_png, module="depth_midas"), _sd15_check, size,
+                "config 4 with a depth_midas unit"))
+            plans.append(_plan(b1=1, b2=STEPS * (launch_plan(cfg, latent) + launch_plan(cfg, latent, False)),
+                               b5=STEPS * (ln_plan(cfg, latent) + ln_plan(cfg, latent, False))
+                               + clip_ln_plan(model) + midas))
+    finally:
+        annotators.set_annotator_dirs(prev_dirs)
+    _check_launches(results, plans)
+    info["seconds"] = {r["label"]: r["seconds"] for r in results}
+    # the VAE encodes at 512² (f32): each img2img request's, and the
+    # inpainting model's masked image
+    info["f32_encodes_512"] = sum(r["route"] == "img2img" for r in results) + 1
     return results, info
 
 
@@ -1240,9 +1528,9 @@ def phase_checkpoint(model, device, phase3: dict, ckpt_dir: str):
     first = os.path.join(ckpt_dir, "random-sd15-seed0.safetensors")
     second = os.path.join(ckpt_dir, "random-sd15-seed1-fp16.safetensors")
     t0 = time.perf_counter()
-    write_safetensors(first, load.sd1_state_dict(model), metadata={"format": "pt"})
+    write_safetensors(first, load.ldm_state_dict(model), metadata={"format": "pt"})
     other = create_random_sd15(seed=1, device=device)
-    write_safetensors(second, {k: v.half() for k, v in load.sd1_state_dict(other).items()})
+    write_safetensors(second, {k: v.half() for k, v in load.ldm_state_dict(other).items()})
     del other
     torch.cuda.empty_cache()
     gb = os.path.getsize(first) / 1e9
@@ -1491,6 +1779,26 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
+def kernel_times(fn, top: int = 8) -> dict:
+    """Device ms of one call of fn under torch.profiler: the sum by kernel
+    class and the `top` kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA" and e.time_range.end > e.time_range.start:
+            by_name[e.name] = by_name.get(e.name, 0) + (e.time_range.end - e.time_range.start) / 1e3
+    by_class = {}
+    for name, t in by_name.items():
+        by_class[kernel_class(name)] = by_class.get(kernel_class(name), 0) + t
+    return dict(by_class=by_class, total_ms=sum(by_name.values()),
+                top=sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
+
+
 def phase_profile(engine, body: dict, label: str, wall: float | None = None):
     """One in-process request (the server's request parser and
     Engine.txt2img, without HTTP) under torch.profiler (CUDA activity):
@@ -1552,13 +1860,13 @@ def phase_profile(engine, body: dict, label: str, wall: float | None = None):
 # the phase-1 row whose times it reports (its dominant main-path shape; for
 # B1, which serves only the VAE, the VAE row chosen in main())
 KERNEL_ENTRIES = [
-    ("flash_attention", "flash_attention.cu", "sdwebui_tpu/ops/flash_attention.py:111",
+    ("flash_attention", "flash_attention.cu", "sdwebui_tpu/ops/flash_attention.py:112",
      None, None),
-    ("flash_attention_packed", "flash_attention.cu", "sdwebui_tpu/ops/flash_attention.py:308",
+    ("flash_attention_packed", "flash_attention.cu", "sdwebui_tpu/ops/flash_attention.py:311",
      "sdxl_base_64x64", "bfloat16"),
-    ("flash_attention_4d", "flash_attention.cu", "sdwebui_tpu/ops/flash_attention.py:429",
+    ("flash_attention_4d", "flash_attention.cu", "sdwebui_tpu/ops/flash_attention.py:432",
      "sdxl_base_64x64", "bfloat16"),
-    ("conv3x3", "conv3x3.cu", "sdwebui_tpu/ops/conv.py:75", "jax_doc_64x64x320", "bfloat16"),
+    ("conv3x3", "conv3x3.cu", "sdwebui_tpu/ops/conv.py:76", "jax_doc_64x64x320", "bfloat16"),
     # SDXL base's 1280-wide LayerNorm: 2880 of a config 5 request's 3731 launches
     ("layer_norm", "layer_norm.cu", "sdwebui_tpu/ops/pallas_norms.py:65",
      "sdxl_base_s1024_c1280", "bfloat16"),
@@ -1628,9 +1936,13 @@ def main() -> int:
                 unregister_upscaler(name)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_networks_") as network_dir:
         c4_results, c4_info = phase_config4(engine, model, results[0], network_dir, tower)
-    del tower
-    torch.cuda.empty_cache()
     mark("4e config 4")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hybrid_") as hybrid_dir:
+        hy_results, hy_info = phase_hybrid(engine, model, results[0], hybrid_dir, device, tower)
+    del tower
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("4f hybrids")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
         ckpt_engine, ckpt_results, ckpt_info = phase_checkpoint(model, device, results[0],
                                                                 ckpt_dir)
@@ -1662,13 +1974,13 @@ def main() -> int:
     if leaked:
         raise AssertionError(f"the port imported JAX or the JAX package: {leaked[:5]}")
     requests = [{k: v for k, v in r.items() if k not in ("image", "png_b64", "infotext")}
-                for r in (results + i2i_results + hr_results + c4_results + ckpt_results
-                          + sampler_results + sdxl_results + [sdxl_hr_result])]
+                for r in (results + i2i_results + hr_results + c4_results + hy_results
+                          + ckpt_results + sampler_results + sdxl_results + [sdxl_hr_result])]
     log(json.dumps({"card": smi, "kernel_shapes": rows, "unet_step": unet,
                     "sdxl_unet_step": sdxl_unet, "img2img_unet_calls": i2i_calls,
                     "sdxl_refiner_after_step": s_idx, "checkpoint": ckpt_info,
                     "hires": hr_info, "extras": extras, "sdxl_hires": sdxl_hr_info,
-                    "config4": c4_info,
+                    "config4": c4_info, "hybrid": hy_info,
                     "requests": requests, "sdxl_profile": profile, "phase_s": phase_s}))
 
     def row_of(name, shape, dtype):
@@ -1680,7 +1992,7 @@ def main() -> int:
     # 1024² decode (config 3 and config 5 requests), the 768² decode (config
     # 3 at 1.5x), the f32 encode at 1024² (config 3's image-space route) or
     # the 1536² decode (SDXL hires)
-    b1_calls[("vae_mid_512_f32", "float32")] = len(i2i_results)
+    b1_calls[("vae_mid_512_f32", "float32")] = len(i2i_results) + hy_info["f32_encodes_512"]
     b1_calls[("vae_mid_1024", "bfloat16")] += len(sdxl_results)
     b1_calls[("vae_mid_1536", "bfloat16")] = 1
     b1_row = max(b1_calls, key=lambda c: b1_calls[c] * row_of("flash_attention", *c)["ms"])

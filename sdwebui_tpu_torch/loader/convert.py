@@ -182,10 +182,15 @@ def derive_vae_config(sd: dict, prefix: str = "first_stage_model.",
 # --------------------------------------------------------------------------
 
 def build_module(kind: str, cfg, device="meta", dtype=torch.float32, **kw):
-    """The port's module of `kind` ("unet", "vae", "clip", "controlnet") at
+    """The port's module of `kind` ("unet", "vae", "clip", "controlnet",
+    "dpt", "hed") at
     `cfg`, with uninitialised parameters (no storage on "meta")."""
     if kind == "unet":
         from sdwebui_tpu_torch.models.unet import UNetModel as cls
+    elif kind == "dpt":
+        from sdwebui_tpu_torch.models.midas import DPTDepthModel as cls
+    elif kind == "hed":
+        from sdwebui_tpu_torch.models.hed import ControlNetHED as cls
     elif kind == "controlnet":
         from sdwebui_tpu_torch.models.controlnet import ControlNetModel as cls
     elif kind == "vae":
@@ -334,6 +339,36 @@ def convert_clip_openclip(sd: dict, prefix: str):
     return _verified_clip(flat, "gelu", prefix)
 
 
+def openclip_state_dict(hf: dict) -> dict:
+    """The inverse of :func:`convert_clip_openclip`: a text encoder's HF
+    names → the open_clip text tower's keys (q, k, v fused into in_proj,
+    text_projection as open_clip's (in, out))."""
+    out = {}
+    for name, v in hf.items():
+        if name == "text_projection.weight":
+            out["text_projection"] = v.t().contiguous()
+        elif name == "embeddings.token_embedding.weight":
+            out["token_embedding.weight"] = v
+        elif name == "embeddings.position_embedding.weight":
+            out["positional_embedding"] = v
+        elif name.startswith("final_layer_norm."):
+            out["ln_final." + name[len("final_layer_norm."):]] = v
+        m = re.match(r"encoder\.layers\.(\d+)\.(.+)", name)
+        if not m:
+            continue
+        base, rest = f"transformer.resblocks.{m.group(1)}.", m.group(2)
+        p = re.match(r"self_attn\.q_proj\.(weight|bias)", rest)
+        if p:
+            parts = [hf[f"encoder.layers.{m.group(1)}.self_attn.{n}_proj.{p.group(1)}"]
+                     for n in "qkv"]
+            out[base + f"attn.in_proj_{p.group(1)}"] = torch.cat(parts)
+            continue
+        for old, new in _OPENCLIP_RENAMES:
+            if rest.startswith(new):
+                out[base + old + rest[len(new):]] = v
+    return out
+
+
 # --------------------------------------------------------------------------
 # ControlNet (convert.py:277-364)
 # --------------------------------------------------------------------------
@@ -417,3 +452,55 @@ def convert_controlnet(sd: dict, verify: bool = True):
         what = prefix.rstrip(".") or "controlnet"
         _drop_extras(flat, verify_tree_names(set(flat), "controlnet", cfg, what), what)
     return flat, cfg, hint_channels
+
+
+# --------------------------------------------------------------------------
+# MiDaS DPT-hybrid and ControlNetHED (midas.py:285-326, hed.py:61-78)
+# --------------------------------------------------------------------------
+
+def convert_dpt(sd: dict, prefix: str = "depth_model.model.", verify: bool = True):
+    """A torch ``DPTDepthModel`` state dict (``pretrained.model.*`` /
+    ``scratch.*`` under `prefix`: SD2-depth's ``depth_model.model.``, or
+    none in the annotator's file) → (the tower's state dict, DPTConfig).
+    The config comes from the shapes, the hooks and head count as JAX
+    derives them (blocks 8 and 11 of a 12-layer ViT, 64-wide heads)."""
+    from sdwebui_tpu_torch.models.midas import DPTConfig
+
+    flat = _component(sd, prefix)
+    g = lambda k: flat["pretrained.model." + k]   # noqa: E731
+    backbone = "patch_embed.backbone."
+    stages = sorted({int(k.split(".")[5]) for k in flat
+                     if k.startswith("pretrained.model." + backbone + "stages.")})
+    blocks = [sorted({int(k.split(".")[7]) for k in flat if k.startswith(
+        f"pretrained.model.{backbone}stages.{s}.blocks.")}) for s in stages]
+    vit_width = int(g("cls_token").numel())
+    side = int(round((g("pos_embed").numel() // vit_width - 1) ** 0.5))
+    vit_layers = 1 + max(int(k.split(".")[3]) for k in flat
+                         if k.startswith("pretrained.model.blocks."))
+    cfg = DPTConfig(
+        image_size=side * 16,
+        stem_width=int(g(backbone + "stem.conv.weight").shape[0]),
+        stage_blocks=tuple(len(b) for b in blocks),
+        stage_widths=tuple(int(g(f"{backbone}stages.{s}.blocks.0.conv3.weight").shape[0])
+                           for s in stages),
+        vit_width=vit_width, vit_layers=vit_layers, vit_heads=max(vit_width // 64, 1),
+        hooks=(8, 11) if vit_layers >= 12 else (max(vit_layers - 2, 0), vit_layers - 1),
+        features=int(flat["scratch.layer1_rn.weight"].shape[0]),
+        head_width=int(flat["scratch.output_conv.2.weight"].shape[0]),
+        stem_norm="pretrained.model." + backbone + "stem.norm.weight" in flat,
+        backbone_norm="pretrained.model." + backbone + "norm.weight" in flat)
+    if verify:
+        what = prefix.rstrip(".") or "dpt"
+        _drop_extras(flat, verify_tree_names(set(flat), "dpt", cfg, what), what)
+    return flat, cfg
+
+
+def convert_hed(sd: dict, verify: bool = True):
+    """A ControlNetHED state dict (keys bare or under ``netNetwork.``) →
+    (the net's state dict, its five widths)."""
+    flat = {k.removeprefix("netNetwork."): v for k, v in sd.items()}
+    flat["norm"] = flat["norm"].reshape(1, 3, 1, 1)
+    widths = tuple(int(flat[f"block{i}.projection.weight"].shape[1]) for i in range(1, 6))
+    if verify:
+        _drop_extras(flat, verify_tree_names(set(flat), "hed", widths, "hed"), "hed")
+    return flat, widths

@@ -2,9 +2,10 @@
 modules/sd_models.py:786).
 
 Port of ``sdwebui_tpu/loader/load.py:31-281`` for the families sd1, sd2
-(OpenCLIP-H at clip skip 2), sdxl and sdxl-refiner; sd3, AltDiffusion and
-the SD2 unclip and depth variants raise ``NotImplementedError`` naming
-them.  Each module is built on ``meta`` (no random init) and takes the
+(OpenCLIP-H at clip skip 2; the depth variant with its MiDaS tower in
+fp32), sdxl and sdxl-refiner, with 9-, 8- and 5-channel UNets; sd3,
+AltDiffusion and the SD2 unclip variant raise ``NotImplementedError``
+naming them.  Each module is built on ``meta`` (no random init) and takes the
 file's tensors with ``load_state_dict(assign=True)``: every tensor is
 copied to the device as the file stores it and cast there, so an fp16
 file crosses PCIe as fp16 and the host holds no second copy of the file.
@@ -81,13 +82,15 @@ def load_model(path: str, prediction_type: str | None = None, title: str | None 
 def model_from_state_dict(sd: dict, prediction_type: str | None = None,
                           title: str = "checkpoint", sha256: str = "",
                           device="cuda") -> SDModel:
-    """A whole model from one checkpoint's state dict.  A 9-, 8- or
-    5-channel UNet loads; generating with it raises (sampling/cfg.py)."""
+    """A whole model from one checkpoint's state dict, hybrid UNets
+    (inpainting 9, instruct-pix2pix 8, SD2-depth 5 channels) included; the
+    depth variant's MiDaS tower (``depth_model.model.*``) loads in fp32,
+    as JAX casts it (load.py:250-281)."""
     info = sniff.sniff(sd)
     if info.family not in FAMILIES:
         raise NotImplementedError(f"checkpoint family {info.family!r} is not ported yet "
                                   f"(ported: {', '.join(FAMILIES)})")
-    if info.variant:
+    if info.variant not in ("", "depth"):
         raise NotImplementedError(f"the SD2 {info.variant!r} variant is not ported yet")
     device = torch.device("meta") if str(device) == "meta" else get_device(device)
     policy = get_policy()
@@ -119,23 +122,39 @@ def model_from_state_dict(sd: dict, prediction_type: str | None = None,
     else:
         cond = conditioner("openclip", "conditioner.embedders.0.model.",
                            clip_skip=2, apply_final_norm=False)
+    depth_model = None
+    if info.variant == "depth":
+        dpt_sd, dpt_cfg = convert.convert_dpt(sd)
+        depth_model = build("dpt", dpt_cfg, dpt_sd, device, torch.float32)
+        if device.type != "meta":
+            depth_model.standardize_()
     disc = Discretization(make_alphas_cumprod(),
                           prediction_type=prediction_type or info.prediction_type)
     return SDModel(unet=unet, unet_cfg=unet_cfg, vae=vae, vae_cfg=vae_cfg, disc=disc,
                    conditioner=cond, conditioner2=cond2, device=device,
                    title=f"{title} [{sha256[:10]}]" if sha256 else title,
-                   sha256=sha256, kind=info.family)
+                   sha256=sha256, kind=info.family, depth_model=depth_model)
 
 
-def sd1_state_dict(model: SDModel) -> dict:
-    """An SD1 model's tensors under the ldm checkpoint keys, as the model
-    holds them (what load_model reads back)."""
-    if model.kind != "sd1":
+def ldm_state_dict(model: SDModel) -> dict:
+    """An SD1 or SD2 model's tensors under the ldm checkpoint keys, as the
+    model holds them (what load_model reads back): SD2's text encoder in
+    open_clip's layout, an SD2-depth model's tower under
+    ``depth_model.model.``."""
+    if model.kind not in ("sd1", "sd2"):
         raise NotImplementedError(f"writing a {model.kind!r} model's checkpoint is not ported")
-    out = {}
-    for prefix, module in (("model.diffusion_model.", model.unet), ("first_stage_model.", model.vae),
-                           ("cond_stage_model.transformer.text_model.", model.conditioner.model)):
-        out.update({prefix + k: v for k, v in module.state_dict().items()})
+    text = model.conditioner.model.state_dict()
+    if model.kind == "sd1":
+        text = {"cond_stage_model.transformer.text_model." + k: v for k, v in text.items()}
+    else:
+        text = {"cond_stage_model.model." + k: v
+                for k, v in convert.openclip_state_dict(text).items()}
+    out = dict(text)
+    for prefix, module in (("model.diffusion_model.", model.unet),
+                           ("first_stage_model.", model.vae),
+                           ("depth_model.model.", model.depth_model)):
+        if module is not None:
+            out.update({prefix + k: v for k, v in module.state_dict().items()})
     return out
 
 

@@ -71,10 +71,10 @@ def _normal_(p, std: float, gen: torch.Generator):
 
 class Conv2d(nn.Module):
     def __init__(self, cin, cout, kernel: int, stride: int = 1,
-                 padding: int | None = None, *, device, dtype):
+                 padding: int | None = None, bias: bool = True, *, device, dtype):
         super().__init__()
         self.weight = _param((cout, cin, kernel, kernel), device, dtype)
-        self.bias = _param((cout,), device, dtype)
+        self.bias = _param((cout,), device, dtype) if bias else None
         self.stride = stride
         self.padding = kernel // 2 if padding is None else padding
 
@@ -86,7 +86,8 @@ class Conv2d(nn.Module):
     def reset_random(self, gen):
         cout, cin, kh, kw = self.weight.shape
         _normal_(self.weight, 1.0 / math.sqrt(kh * kw * cin), gen)
-        self.bias.zero_()
+        if self.bias is not None:
+            self.bias.zero_()
 
 
 class Linear(nn.Module):

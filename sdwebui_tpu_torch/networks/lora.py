@@ -15,7 +15,9 @@ decomposition (``dora_scale``).
 Key naming: kohya/compvis ``lora_unet_<path_with_underscores>`` and
 ``lora_te_text_model_...``; the diffusers-style SDXL UNet names are
 translated; the module's own parameter names resolve the underscore
-ambiguity.
+ambiguity and an up block's upsampler slot (JAX's map fixes SD1's slots,
+``sdwebui_tpu/networks/lora.py:57-58``, which misses SDXL's upsampler in
+output block 2; that is not carried over).
 """
 
 from __future__ import annotations
@@ -54,9 +56,8 @@ _DIFFUSERS_UNET = [
      lambda m: f"output_blocks_{3 * int(m.group(1)) + int(m.group(2))}_0_"),
     (re.compile(r"^down_blocks_(\d+)_downsamplers_0_conv"),
      lambda m: f"input_blocks_{3 * (int(m.group(1)) + 1)}_0_op"),
-    (re.compile(r"^up_blocks_(\d+)_upsamplers_0_conv"),
-     lambda m: f"output_blocks_{3 * int(m.group(1)) + 2}_"
-               f"{1 if int(m.group(1)) == 0 else 2}_conv"),
+    # the upsampler's slot follows the model's own output block (_upsampler)
+    (re.compile(r"^up_blocks_(\d+)_upsamplers_0_conv"), None),
 ]
 
 _DIFFUSERS_RENAMES = [
@@ -65,11 +66,22 @@ _DIFFUSERS_RENAMES = [
 ]
 
 
-def normalize_unet_key(key: str) -> str:
+def _upsampler(m, lookup: dict) -> str:
+    """A diffusers up block's upsampler conv: slot 2 of the block's last
+    output block when that block holds a transformer (slot 1), else slot 1
+    (SD1's up_blocks_0 has none; SDXL's has one)."""
+    block = 3 * int(m.group(1)) + 2
+    slot = 2 if f"output_blocks_{block}_1_proj_in" in lookup else 1
+    return f"output_blocks_{block}_{slot}_conv"
+
+
+def normalize_unet_key(key: str, lookup: dict) -> str:
+    """A diffusers UNet name → the ldm one in `lookup`'s model (kohya and
+    compvis names pass through)."""
     for pat, repl in _DIFFUSERS_UNET:
         m = pat.match(key)
         if m:
-            key = pat.sub(repl(m), key, count=1)
+            key = pat.sub(repl(m) if repl else _upsampler(m, lookup), key, count=1)
             break
     for a, b in _DIFFUSERS_RENAMES:
         key = key.replace(a, b)
@@ -83,7 +95,7 @@ def resolve_module(key: str, lookup: dict) -> str | None:
     # kohya text-encoder keys carry the HF module root the port's names omit
     if key.startswith("text_model_") and key[len("text_model_"):] in lookup:
         return lookup[key[len("text_model_"):]]
-    return lookup.get(normalize_unet_key(key))
+    return lookup.get(normalize_unet_key(key, lookup))
 
 
 def group_lora_keys(lora_sd: dict, prefix: str) -> dict:

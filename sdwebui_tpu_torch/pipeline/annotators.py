@@ -1,9 +1,9 @@
 """ControlNet annotators (hint preprocessors) on uint8 numpy images.
 
-Port of ``sdwebui_tpu/pipeline/annotators.py:33-69,205-236``.  The JAX
-package calls OpenCV; the port has no cv2, so the annotators it runs are
-restated in numpy / scipy and equal OpenCV's output in every pixel
-(``tests/test_torch_controlnet.py`` holds them to cv2):
+Port of ``sdwebui_tpu/pipeline/annotators.py``.  The JAX package calls
+OpenCV; the port has no cv2, so what the annotators take from it is
+restated in numpy / scipy (``utils/cv``, and canny here) and held to
+OpenCV in the tests:
 
 - ``canny``: ``cv2.Canny(rgb, low, high)``: a 3×3 Sobel per channel with
   replicated borders, at each pixel the channel whose L1 magnitude
@@ -14,38 +14,51 @@ restated in numpy / scipy and equal OpenCV's output in every pixel
   8-connected to one above `high`;
 - ``invert``: 255 − image;
 - ``threshold``: RGB → grey with OpenCV's fixed-point weights, then
-  THRESH_BINARY.
+  THRESH_BINARY;
+- ``blur_gaussian``, ``scribble_xdog``, ``shuffle`` (numpy's
+  ``RandomState`` flow field, as JAX);
+- the model-based ``depth`` / ``depth_midas`` (``models/midas``),
+  ``hed`` / ``softedge_hed``, ``hed_safe`` and ``scribble_hed``
+  (``models/hed``), whose weights are looked up as JAX looks them up
+  (:func:`set_annotator_dirs`, default ``models/Annotators`` and
+  ``models/annotator``: the first file, by sorted name, whose lowered name
+  holds one of the module's substrings) and read through the port's
+  ``read_checkpoint``; the nets run in fp32 on the caller's device.
 
-Every annotator: uint8 RGB (H, W, 3) → uint8 (H, W) or (H, W, 3) hint,
-white where the feature is.  The model-based modules, ``blur_gaussian``,
-``scribble_xdog`` and ``shuffle`` raise ``NotImplementedError``, and so
-does a ``processor_res`` that would resize the image (cv2's INTER_AREA /
-LANCZOS4); a resize to the same size is a copy, as in cv2.
+``processor_res`` resizes the short side to `res` (both sides rounded to
+/8) with cv2's INTER_AREA when it shrinks and INTER_LANCZOS4 when it
+grows.  Every annotator: uint8 RGB (H, W, 3) → uint8 (H, W) or (H, W, 3)
+hint, white where the feature is.  ``openpose`` raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+import torch
+import torch.nn.functional as F
 from scipy import ndimage
 
 from sdwebui_tpu_torch.networks import NetworkNotFound
+from sdwebui_tpu_torch.utils import cv
+from sdwebui_tpu_torch.utils.devices import get_device
 
 # tan(22.5°) in OpenCV's Q15 fixed point (imgproc/src/canny.cpp)
 _TG22 = 13573
 
 
 def _resize_for_detect(img: np.ndarray, res: int) -> np.ndarray:
-    """processor_res: the short side to `res`, both sides rounded to /8."""
+    """processor_res: the short side to `res`, both sides rounded to /8
+    (INTER_AREA shrinking, INTER_LANCZOS4 growing; the same size is a
+    copy, as in cv2)."""
     if not res:
         return img
     h, w = img.shape[:2]
     k = res / min(h, w)
     nh, nw = int(round(h * k / 8)) * 8, int(round(w * k / 8)) * 8
-    if (nh, nw) == (h, w):
-        return img.copy()
-    raise NotImplementedError(
-        f"annotator resize {w}x{h} -> {nw}x{nh} (cv2 {'INTER_AREA' if k < 1 else 'LANCZOS4'}) "
-        "is not ported yet; send the image at the processor resolution")
+    return cv.resize(img, (nw, nh), "area" if k < 1 else "lanczos4")
 
 
 def _sobel(ch: np.ndarray):
@@ -123,22 +136,160 @@ def threshold(img, res: int = 512, thr: float = 127, b: float = 0):
     return np.where(gray > int(thr), 255, 0).astype(np.uint8)
 
 
-def _not_ported(name: str):
-    def run(img, *args):
-        raise NotImplementedError(f"annotator {name!r} (a controlnet_units module) is not "
-                                  "ported yet (canny, invert and threshold are)")
-    return run
+def blur_gaussian(img, res: int = 512, sigma: float = 9, b: float = 0):
+    """Gaussian blur (tile / blur control models)."""
+    return cv.gaussian_blur(_resize_for_detect(img, res), float(sigma) or 9)
 
+
+def scribble_xdog(img, res: int = 512, xdog_threshold: float = 32, b: float = 0):
+    """XDoG sketch: the difference of two Gaussians of the float image, its
+    channel minimum, thresholded to a white-on-black scribble."""
+    img = _resize_for_detect(img, res).astype(np.float32)
+    g1, g2 = cv.gaussian_blur(img, 0.5), cv.gaussian_blur(img, 5.0)
+    dog = np.clip(255 - np.min(g2 - g1, axis=2), 0, 255)
+    return ((2 * (255 - dog) > float(xdog_threshold)) * 255).astype(np.uint8)
+
+
+def shuffle(img, res: int = 512, a: float = 0, b: float = 0, seed: int = 0):
+    """Content shuffle by a random flow warp: numpy RandomState(seed) flow
+    on a /8 grid, resized (INTER_LINEAR) to the image, ×256, remapped."""
+    img = _resize_for_detect(img, res)
+    h, w = img.shape[:2]
+    rng = np.random.RandomState(seed)
+    flow = [cv.resize(rng.uniform(-1, 1, (h // 8 + 1, w // 8 + 1)).astype(np.float32),
+                      (w, h), "linear") * 256 for _ in range(2)]
+    xs = np.clip(np.arange(w)[None, :] + flow[0], 0, w - 1).astype(np.float32)
+    ys = np.clip(np.arange(h)[:, None] + flow[1], 0, h - 1).astype(np.float32)
+    return cv.remap_linear(img, xs, ys)
+
+
+# --------------------------------------------------------------------------
+# model-based annotators (annotators.py:110-196)
+# --------------------------------------------------------------------------
+
+_model_dirs = ["models/Annotators", "models/annotator"]
+_loaded: dict = {}
+
+
+def set_annotator_dirs(dirs):
+    """The directories the model-based annotators' files are looked up in
+    (the cached nets are dropped)."""
+    _model_dirs[:] = list(dirs)
+    _loaded.clear()
+
+
+def _find_weights(*substrings) -> str | None:
+    for d in _model_dirs:
+        if not os.path.isdir(d):
+            continue
+        for fn in sorted(os.listdir(d)):
+            low = fn.lower()
+            if any(s in low for s in substrings) and \
+                    low.endswith((".pth", ".pt", ".safetensors", ".ckpt")):
+                return os.path.join(d, fn)
+    return None
+
+
+def _load(name: str, substrings, build, device):
+    """The net of annotator `name` on `device`, built once from the first
+    file matching `substrings`."""
+    key = (name, str(device))
+    if key not in _loaded:
+        path = _find_weights(*substrings)
+        if path is None:
+            raise RuntimeError(
+                f"annotator '{name}' needs weights matching {substrings} under "
+                f"{_model_dirs}: put the extension's model file there")
+        from sdwebui_tpu_torch.loader.load import read_checkpoint
+
+        _loaded[key] = build(read_checkpoint(path), device)
+    return _loaded[key]
+
+
+def _build_hed(sd: dict, device):
+    from sdwebui_tpu_torch.loader.convert import convert_hed
+    from sdwebui_tpu_torch.loader.load import build
+
+    flat, widths = convert_hed(sd)
+    return build("hed", widths, flat, device, torch.float32)
+
+
+def _build_dpt(sd: dict, device):
+    from sdwebui_tpu_torch.loader.convert import convert_dpt
+    from sdwebui_tpu_torch.loader.load import build
+
+    flat, cfg = convert_dpt(sd, prefix="")
+    return build("dpt", cfg, flat, device, torch.float32).standardize_()
+
+
+def hed(img, res: int = 512, a: float = 0, b: float = 0, device=None):
+    """HED soft edges (ControlNetHED.pth)."""
+    from sdwebui_tpu_torch.models.hed import estimate
+
+    img = _resize_for_detect(img, res)
+    net = _load("hed", ("controlnethed", "hed"), _build_hed, get_device(device or "cuda"))
+    return (estimate(net, img) * 255.0).clip(0, 255).astype(np.uint8)
+
+
+def hed_safe(img, res: int = 512, a: float = 0, b: float = 0, device=None):
+    from sdwebui_tpu_torch.models.hed import safe_step
+
+    return (safe_step(hed(img, res, device=device) / 255.0) * 255).clip(0, 255) \
+        .astype(np.uint8)
+
+
+def scribble_hed(img, res: int = 512, a: float = 0, b: float = 0, device=None):
+    """HED → directional NMS → a binary scribble."""
+    from sdwebui_tpu_torch.models.hed import nms
+
+    detected = nms(hed(img, res, device=device), 127, 3.0)
+    detected[detected > 4] = 255
+    detected[detected < 255] = 0
+    return detected
+
+
+@torch.inference_mode()
+def depth_midas(img, res: int = 512, a: float = 0, b: float = 0, device=None):
+    """MiDaS DPT-hybrid inverse depth, min-max normalised (white = near):
+    the image in [-1, 1] resized (bicubic, as jax.image.resize) to the
+    tower's size, the depth back to the image's with cv2's INTER_CUBIC."""
+    img = _resize_for_detect(img, res)
+    tower = _load("depth_midas", ("dpt_hybrid", "midas"), _build_dpt,
+                  get_device(device or "cuda"))
+    h, w = img.shape[:2]
+    s = tower.cfg.image_size
+    x = torch.from_numpy(np.ascontiguousarray(img.transpose(2, 0, 1)))[None]
+    x = x.to(tower.pretrained.model.cls_token.device, torch.float32) / 127.5 - 1.0
+    x = F.interpolate(x, size=(s, s), mode="bicubic", align_corners=False, antialias=True)
+    depth = tower(x)[0, 0].float().cpu().numpy()
+    depth = cv.resize(depth, (w, h), "cubic")
+    lo, hi = float(depth.min()), float(depth.max())
+    return ((depth - lo) / max(hi - lo, 1e-8) * 255).astype(np.uint8)
+
+
+def openpose(img, *args, **kw):
+    raise NotImplementedError("annotator 'openpose' (a controlnet_units module) is not "
+                              "ported yet: its PAF assembly is out of this slice")
+
+
+_MODEL_BASED = (hed, hed_safe, scribble_hed, depth_midas)
 
 ANNOTATORS = {
     "none": None,
     "canny": canny,
     "invert": invert,
     "invert (from white bg & black line)": invert,
+    "blur_gaussian": blur_gaussian,
     "threshold": threshold,
-    **{name: _not_ported(name) for name in (
-        "blur_gaussian", "scribble_xdog", "shuffle", "hed", "hed_safe", "softedge_hed",
-        "scribble_hed", "depth", "depth_midas", "openpose")},
+    "scribble_xdog": scribble_xdog,
+    "shuffle": shuffle,
+    "hed": hed,
+    "hed_safe": hed_safe,
+    "softedge_hed": hed,
+    "scribble_hed": scribble_hed,
+    "depth": depth_midas,
+    "depth_midas": depth_midas,
+    "openpose": openpose,
 }
 
 
@@ -148,10 +299,11 @@ def list_modules() -> list[str]:
 
 def run_annotator(module: str, image: np.ndarray, res: int = 512,
                   threshold_a: float | None = None,
-                  threshold_b: float | None = None) -> np.ndarray:
+                  threshold_b: float | None = None, device=None) -> np.ndarray:
     """The annotator `module` on an image (uint8, or float in [0, 1]);
     threshold_a / threshold_b follow the extension's per-module meaning
-    (canny low / high, the threshold)."""
+    (canny low / high, the threshold, blur sigma, xdog threshold).  The
+    model-based modules run on `device` (default: the card)."""
     if module not in ANNOTATORS:
         raise NetworkNotFound(f"annotator module {module!r} is unknown "
                               f"(one of {list_modules()})")
@@ -164,4 +316,5 @@ def run_annotator(module: str, image: np.ndarray, res: int = 512,
     if img.dtype != np.uint8:
         img = (np.clip(img, 0, 1) * 255).astype(np.uint8)
     args = [t for t in (threshold_a, threshold_b) if t is not None]
-    return fn(img, res, *args)
+    kw = {"device": device} if fn in _MODEL_BASED else {}
+    return fn(img, res, *args, **kw)

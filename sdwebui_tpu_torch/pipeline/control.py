@@ -191,7 +191,8 @@ def prepare_controls(units, width: int, height: int, n_steps: int, latent_channe
         image = u.image
         if u.module and u.module != "none":
             image = run_annotator(u.module, to_hint_array(image, width, height, 3), res=0,
-                                  threshold_a=u.threshold_a, threshold_b=u.threshold_b)
+                                  threshold_a=u.threshold_a, threshold_b=u.threshold_b,
+                                  device=device)
         tower, cfg = load_controlnet(u.model, device, dtype)
         if cfg.in_channels != latent_channels:
             raise ValueError(f"ControlNet {u.model!r} expects {cfg.in_channels} latent "

@@ -15,10 +15,14 @@ ControlNet unit without an image of its own takes the first init image
 (``img2img.py:317-323``).  Images are uint8 numpy arrays throughout
 (``utils/images`` restates the Pillow operations).
 
-Each request field or option outside this slice raises
-``NotImplementedError`` naming it: resize mode 3, ``inpainting_fill`` 0,
-``inpaint_full_res``, soft inpainting, UNets of other than 4 input
-channels, colour correction and SDXL img2img.
+Hybrid UNets get their image conditioning (``c_concat``,
+``img2img.py:224-252``): instruct-pix2pix's init latent with its 3-way
+CFG at ``image_cfg_scale``, the inpainting model's mask and masked-image
+latent, SD2-depth's MiDaS depth.  Each request field or option outside
+this slice raises ``NotImplementedError`` naming it: resize mode 3,
+``inpainting_fill`` 0, ``inpaint_full_res``, soft inpainting, colour
+correction, ``inpainting_mask_weight`` other than 1.0, ControlNet units
+with instruct-pix2pix, and SDXL img2img.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 
 from sdwebui_tpu_torch.pipeline.params import GenerationParams, Processed
 from sdwebui_tpu_torch.networks import extra_networks
+from sdwebui_tpu_torch.models.midas import depth_conditioning
 from sdwebui_tpu_torch.pipeline.processing import (_apply_grid, _build_conds,
                                                    _check_slice, _prepare_units,
                                                    _reset_ti_usage, _resolve_seeds,
@@ -38,8 +43,8 @@ from sdwebui_tpu_torch.pipeline.processing import (_apply_grid, _build_conds,
                                                    create_infotext, create_rng,
                                                    decode_first_stage_u8,
                                                    encode_first_stage,
-                                                   prepare_sampler, sample_latents,
-                                                   setup_img2img_steps)
+                                                   check_hybrid, prepare_sampler,
+                                                   sample_latents, setup_img2img_steps)
 from sdwebui_tpu_torch.pipeline.sd_model import SDModel
 from sdwebui_tpu_torch.rng.philox import PhiloxGenerator
 from sdwebui_tpu_torch.sampling.sampler import prepare_noise
@@ -63,10 +68,11 @@ def _check_img2img(model: SDModel, p: GenerationParams) -> None:
     _check_slice(p)
     if model.is_sdxl:
         raise NotImplementedError("SDXL img2img is not ported yet")
-    if model.unet_cfg.in_channels != 4:
+    check_hybrid(model)
+    if model.unet_cfg.in_channels == 8 and p.controlnet_units:
         raise NotImplementedError(
-            f"{model.unet_cfg.in_channels}-channel UNets (instruct-pix2pix, inpainting, "
-            "depth) are not ported yet")
+            "controlnet_units with an 8-channel (instruct-pix2pix) UNet are not ported (the "
+            "JAX package's edit-model CFG passes no step to the units)")
     if p.resize_mode not in (0, 1, 2):
         raise NotImplementedError(
             f"resize_mode {p.resize_mode} (just resize, latent upscale) of init images and "
@@ -122,6 +128,31 @@ def apply_overlay(img: np.ndarray, mask_info: dict, index: int) -> np.ndarray:
                                  images_util.resize(mask_info["overlay_mask"], size))
 
 
+def image_conditioning(model: SDModel, p: GenerationParams, image_arr: np.ndarray,
+                       init_latent, mask, nmask):
+    """A hybrid UNet's c_concat for img2img (img2img.py:224-252), or None:
+    instruct-pix2pix (8) the init latent unscaled; the inpainting model
+    (9) [the latent mask, the latent of the image with its repaint region
+    blanked] (zeros and the init latent without a mask); SD2-depth (5) the
+    MiDaS depth of the init images on the latent grid."""
+    n = model.unet_cfg.in_channels
+    b, h, w = init_latent.shape[0], init_latent.shape[2], init_latent.shape[3]
+    if n == 8:
+        return init_latent / model.vae_cfg.scale_factor
+    if n == 9:
+        if nmask is None:
+            return torch.cat([torch.zeros((b, 1, h, w), device=model.device), init_latent],
+                             dim=1)
+        full = images_util.resize(mask, (p.width, p.height))
+        full = np.around(full.astype(np.float32) / 255.0)[None, :, :, None]
+        masked = encode_first_stage(model, image_arr * (1.0 - full))
+        return torch.cat([nmask.expand(b, 1, h, w), masked], dim=1)
+    if n == 5:
+        images = torch.from_numpy(np.ascontiguousarray(image_arr.transpose(0, 3, 1, 2)))
+        return depth_conditioning(model.depth_model, images.to(model.device), h, w)
+    return None
+
+
 def process_img2img(model: SDModel, p: GenerationParams,
                     step_callback: Callable | None = None) -> Processed:
     """img2img with per-request override_settings applied and restored.
@@ -173,6 +204,8 @@ def _process_img2img(model: SDModel, p: GenerationParams,
         elif p.inpainting_fill == 3:   # latent nothing
             init_latent = init_latent * mask
 
+    c_concat = image_conditioning(model, p, image_arr, init_latent, mask_info["mask"], nmask)
+
     # schedule: the last t_enc + 1 sigmas
     steps, t_enc = setup_img2img_steps(p.steps, p.denoising_strength)
     sampler, spec, sigmas_full, solver_extra = prepare_sampler(model, p, steps)
@@ -187,6 +220,9 @@ def _process_img2img(model: SDModel, p: GenerationParams,
         seeds = p.all_seeds[lo: lo + b]
         subseeds = p.all_subseeds[lo: lo + b]
         sched = _build_conds(model, p, t_enc + 1, prompt=clean_prompt)
+        sched.c_concat = c_concat
+        if model.unet_cfg.in_channels == 8 and p.image_cfg_scale not in (None, 1.0):
+            sched.image_cfg_scale = float(p.image_cfg_scale)
         rng = create_rng((c, h, w), seeds, subseeds=subseeds,
                          subseed_strength=p.subseed_strength)
         x = torch.from_numpy(rng.first()).to(model.device)

@@ -12,7 +12,9 @@ processing.py:601-777) upscales the first pass's latents — in latent space
 t_enc + 1 steps of a second schedule at the target size.  Extra networks
 (``<lora:...>``, ``<hypernet:...>``, textual-inversion triggers) and
 ControlNet units (``pipeline/control.py``) apply to every pass of the base
-model.  Images leave as uint8 HWC numpy arrays.  Options and request
+model.  A hybrid UNet (the inpainting models' 9 channels, SD2-depth's 5)
+gets its fixed image conditioning (``c_concat``, processing.py:1386-1399).
+Images leave as uint8 HWC numpy arrays.  Options and request
 fields outside the slice raise ``NotImplementedError`` naming them;
 nothing falls back to a different computation.
 """
@@ -115,9 +117,12 @@ LCM_ORIGINAL_STEPS = 50
 
 def make_denoise_fn(model: SDModel, quantize_t: bool, compute_dtype, solver: str = "",
                     hypernet=None, controls=(), conds_per_image: int = 1):
-    """denoise(x, sigma, ctx, y=None, step=0) → denoised: k-diffusion
-    CompVis(V)Denoiser scalings around the UNet (processing.py:150-202);
-    y is the SDXL vector cond.  For LCM, σ snaps to the distillation
+    """denoise(x, sigma, ctx, y=None, step=0, c_concat=None) → denoised:
+    k-diffusion CompVis(V)Denoiser scalings around the UNet
+    (processing.py:150-202); y is the SDXL vector cond; c_concat, a hybrid
+    UNet's image conditioning, joins the scaled latent on the channel axis
+    after the ControlNet towers have read its 4 channels
+    (processing.py:187-188).  For LCM, σ snaps to the distillation
     subtable and an eps model's output passes through the consistency
     model's boundary scalings (sigma_data 0.5 over t·10).  hypernet and
     controls (``pipeline/control.PreparedControl``) go into every UNet
@@ -129,7 +134,7 @@ def make_denoise_fn(model: SDModel, quantize_t: bool, compute_dtype, solver: str
     skip = len(log_sigmas) // LCM_ORIGINAL_STEPS
     sub = log_sigmas[skip - 1::skip]
 
-    def denoise(x, sigma: float, ctx, y=None, step: int = 0):
+    def denoise(x, sigma: float, ctx, y=None, step: int = 0, c_concat=None):
         s = np.float32(sigma)
         if lcm:
             j = int(np.argmin(np.abs(np.log(np.maximum(s, np.float32(1e-12))) - sub)))
@@ -143,6 +148,8 @@ def make_denoise_fn(model: SDModel, quantize_t: bool, compute_dtype, solver: str
         if controls:
             n_cond = x.shape[0] - x.shape[0] // (conds_per_image + 1)
             control = control_residuals(controls, x_in, timesteps, ctx, y, step, n_cond)
+        if c_concat is not None:
+            x_in = torch.cat([x_in, c_concat.to(x_in.dtype)], dim=1)
         out = model.unet(x_in, timesteps, ctx, y, control=control, hypernet=hypernet).float()
         if prediction_type == "v":
             return x / float(s * s + 1) - out * float(s / np.sqrt(s * s + 1))
@@ -686,15 +693,53 @@ def process_txt2img(model: SDModel, p: GenerationParams,
         return _process_txt2img(model, p, step_callback, refiner_model)
 
 
+def check_hybrid(model: SDModel) -> None:
+    """Raise for a UNet whose extra input channels the port cannot fill:
+    only the inpainting (9), instruct-pix2pix (8) and SD2-depth (5, with
+    its depth tower) layouts are known; inpainting_mask_weight other than
+    1.0 is not ported (JAX never reads it)."""
+    n = model.unet_cfg.in_channels
+    if n == model.latent_channels:
+        return
+    if n not in (5, 8, 9) or (n == 5 and not model.is_depth):
+        raise ValueError(f"a {n}-channel UNet{' without a depth model' if n == 5 else ''} "
+                         "has no image conditioning the port can build")
+    if n == 9 and float(opts.get("inpainting_mask_weight", 1.0)) != 1.0:
+        raise NotImplementedError("option 'inpainting_mask_weight' other than 1.0 is not "
+                                  "ported (the JAX package never reads it)")
+
+
+def txt2img_image_conditioning(model: SDModel, batch: int, height: int, width: int):
+    """A hybrid UNet's fixed c_concat in txt2img (processing.py:1386-1399,
+    the reference's txt2img_image_conditioning), or None: the inpainting
+    model sees the latent of a 0.5-grey image under an all-ones mask, the
+    depth model a zero depth plane."""
+    n = model.unet_cfg.in_channels
+    h, w = height // 8, width // 8
+    if n == 9:
+        grey = np.full((batch, height, width, 3), 0.5, np.float32)
+        ones = torch.ones((batch, 1, h, w), device=model.device)
+        return torch.cat([ones, encode_first_stage(model, grey)], dim=1)
+    if n == 5:
+        return torch.zeros((batch, 1, h, w), device=model.device)
+    return None
+
+
 @torch.inference_mode()
 def _process_txt2img(model: SDModel, p: GenerationParams,
                      step_callback: Callable | None,
                      refiner_model: SDModel | None) -> Processed:
     _check_slice(p)
-    if model.unet_cfg.in_channels != model.latent_channels:
+    check_hybrid(model)
+    hybrid = model.unet_cfg.in_channels != model.latent_channels
+    if model.unet_cfg.in_channels == 8:
         raise NotImplementedError(
-            f"txt2img with a {model.unet_cfg.in_channels}-channel UNet (inpainting, "
-            "instruct-pix2pix, depth) is not ported yet")
+            "txt2img with an 8-channel (instruct-pix2pix) UNet is not ported: it needs an "
+            "init image, and the JAX package builds no c_concat for it")
+    if hybrid and p.enable_hr:
+        raise NotImplementedError(
+            f"enable_hr with a {model.unet_cfg.in_channels}-channel UNet is not ported (the "
+            "JAX package's hires pass drops the image conditioning)")
     if uses_refiner(p) and refiner_model is None:
         raise ValueError(f"refiner {p.refiner_checkpoint!r} was requested, "
                          "but no refiner model was given")
@@ -717,6 +762,7 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
     if p.controlnet_units and uses_refiner(p):
         raise NotImplementedError("ControlNet units with a refiner are not ported yet")
     controls = _prepare_units(model, p, p.width, p.height, p.steps)
+    c_concat = txt2img_image_conditioning(model, p.batch_size, p.height, p.width)
 
     all_images, infotexts = [], []
     for n in range(p.n_iter):
@@ -725,6 +771,7 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
         subseeds = p.all_subseeds[lo: lo + p.batch_size]
         sched = _build_conds(model, p, p.steps, prompt=clean_prompt)
         sched.skip_uncond = _skip_uncond_mask(sigmas, p)
+        sched.c_concat = c_concat
         rng = create_rng((c, h, w), seeds, subseeds=subseeds,
                          subseed_strength=p.subseed_strength,
                          seed_resize_from_h=max(p.seed_resize_from_h, 0),

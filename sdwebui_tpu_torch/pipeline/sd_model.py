@@ -1,7 +1,8 @@
 """The loaded-model bundle: UNet + VAE + text encoder(s) + discretization.
 
 Port of ``sdwebui_tpu/pipeline/sd_model.py:29-113,223-258,319-411,445-464``
-for SD1.x, SD2.x and the SDXL base and refiner (a checkpoint file's
+for SD1.x, SD2.x (and SD2-depth's MiDaS tower) and the SDXL base and
+refiner (a checkpoint file's
 bundle comes from ``loader/load.py``).  The bundle holds ``nn.Module``s
 on one explicit device.  Random weights come
 from an explicit ``torch.Generator`` on that device, with the
@@ -18,11 +19,12 @@ import numpy as np
 import torch
 
 from sdwebui_tpu_torch.models.clip import CLIPTextModel
-from sdwebui_tpu_torch.models.configs import (CLIP_L, OPEN_CLIP_BIGG, SD15_UNET,
-                                        SD_VAE, SDXL_REFINER_UNET, SDXL_UNET,
-                                        SDXL_VAE, CLIPTextConfig, UNetConfig,
-                                        VAEConfig)
+from sdwebui_tpu_torch.models.configs import (CLIP_L, OPEN_CLIP_BIGG, OPEN_CLIP_H,
+                                              SD15_UNET, SD21_UNET, SD_VAE,
+                                              SDXL_REFINER_UNET, SDXL_UNET, SDXL_VAE,
+                                              CLIPTextConfig, UNetConfig, VAEConfig)
 from sdwebui_tpu_torch.models.layers import reset_random, timestep_embedding
+from sdwebui_tpu_torch.models.midas import DPTConfig, DPTDepthModel, create_random_dpt
 from sdwebui_tpu_torch.models.unet import UNetModel
 from sdwebui_tpu_torch.models.vae import AutoencoderKL
 from sdwebui_tpu_torch.sampling.discretization import (Discretization,
@@ -58,10 +60,17 @@ class SDModel:
     # merged LoRA modules by tag set (networks/extra_networks.apply_to_model);
     # they share the base's other parameters, so they go when the model moves
     network_cache: dict = dataclasses.field(default_factory=dict, repr=False)
+    # SD2-depth's MiDaS tower (fp32), the 5-channel UNet's conditioner
+    depth_model: DPTDepthModel | None = None
 
     @property
     def is_sdxl(self) -> bool:
         return self.kind.startswith("sdxl")
+
+    @property
+    def is_depth(self) -> bool:
+        """hybrid depth conditioning (SD2-depth, 5-channel UNet)."""
+        return self.depth_model is not None
 
     @property
     def latent_channels(self) -> int:
@@ -76,7 +85,7 @@ class SDModel:
         for cond in (self.conditioner, self.conditioner2):
             if cond is not None:
                 cond.model.to(self.device)
-        for module in (self.unet, self.vae, self.embedded_vae):
+        for module in (self.unet, self.vae, self.embedded_vae, self.depth_model):
             if module is not None:
                 module.to(self.device)
         return self
@@ -140,19 +149,40 @@ def _random(module, seed: int, device):
 
 
 def create_random_sd15(seed: int = 0, device="cuda", dtype: torch.dtype | None = None,
-                       prediction_type: str = "eps") -> SDModel:
+                       prediction_type: str = "eps", in_channels: int = 4) -> SDModel:
     """Random-weight SD1.5 at full width: the same compute graph as a real
-    checkpoint.  UNet in `dtype` (default: the policy's param_dtype); VAE
-    and CLIP in fp32, as in JAX."""
+    checkpoint (in_channels 9: sd-v1-5-inpainting's, 8: instruct-pix2pix's).
+    UNet in `dtype` (default: the policy's param_dtype); VAE and CLIP in
+    fp32, as in JAX."""
     device = get_device(device)
     dtype = dtype or get_policy().param_dtype
-    unet = _random(UNetModel(SD15_UNET, device=device, dtype=dtype), seed, device)
+    unet_cfg = dataclasses.replace(SD15_UNET, in_channels=in_channels)
+    unet = _random(UNetModel(unet_cfg, device=device, dtype=dtype), seed, device)
     clip = _random(CLIPTextModel(CLIP_L, device=device, dtype=torch.float32),
                    seed + 1, device)
     vae = _random(AutoencoderKL(SD_VAE, device=device, dtype=torch.float32),
                   seed + 2, device)
     return _bundle(unet, vae, clip, CLIP_L, device, "random-sd15.safetensors [0000000000]",
                    Discretization(make_alphas_cumprod(), prediction_type=prediction_type))
+
+
+def create_random_sd2_depth(seed: int = 0, device="cuda") -> SDModel:
+    """Random-weight SD2-depth at full width (Stability's 512-depth-ema:
+    the SD2 UNet with 5 input channels, OpenCLIP-H at clip skip 2, the SD
+    VAE, the MiDaS DPT-hybrid at the published widths).  UNet in the
+    policy's param_dtype; the rest in fp32."""
+    device = get_device(device)
+    unet_cfg = dataclasses.replace(SD21_UNET, in_channels=5)
+    unet = _random(UNetModel(unet_cfg, device=device, dtype=get_policy().param_dtype), seed,
+                   device)
+    clip = _random(CLIPTextModel(OPEN_CLIP_H, device=device, dtype=torch.float32), seed + 1,
+                   device)
+    vae = _random(AutoencoderKL(SD_VAE, device=device, dtype=torch.float32), seed + 2, device)
+    return SDModel(unet=unet, unet_cfg=unet.cfg, vae=vae, vae_cfg=vae.cfg,
+                   disc=Discretization(make_alphas_cumprod()),
+                   conditioner=TextConditioner(clip, OPEN_CLIP_H, get_tokenizer(), clip_skip=2),
+                   device=device, title="random-sd2-depth.safetensors [0000000000]",
+                   kind="sd2", depth_model=create_random_dpt(seed + 4, device))
 
 
 def _sdxl_conditioner(cfg: CLIPTextConfig, seed: int, device, dtype) -> TextConditioner:
@@ -219,16 +249,28 @@ TINY_VAE = VAEConfig(ch=32, ch_mult=(1, 2, 2, 2), num_res_blocks=1)
 TINY_CLIP = CLIPTextConfig(width=64, layers=2, heads=4)
 
 
-def create_tiny_sd(seed: int = 0, device="cpu") -> SDModel:
+#: the tiny DPT of the JAX package's tests (tests/test_midas.py)
+TINY_DPT = DPTConfig(image_size=64, stem_width=32, stage_blocks=(1, 1, 1),
+                     stage_widths=(64, 128, 256), vit_width=64, vit_layers=2, vit_heads=4,
+                     hooks=(0, 1), features=32, head_width=8)
+
+
+def create_tiny_sd(seed: int = 0, device="cpu", in_channels: int = 4) -> SDModel:
     """Miniature model for CI-speed end-to-end runs (64×64 images); the
-    configs of the JAX package's ``create_tiny_sd``."""
+    configs of the JAX package's ``create_tiny_sd``.  in_channels 9, 8 or 5
+    make the hybrid variants as the JAX tests make them (the tiny UNet
+    with that many input channels; 5 adds a tiny MiDaS tower)."""
     device = get_device(device)
     f32 = torch.float32
-    unet = _random(UNetModel(TINY_UNET, device=device, dtype=f32), seed, device)
+    unet_cfg = dataclasses.replace(TINY_UNET, in_channels=in_channels)
+    unet = _random(UNetModel(unet_cfg, device=device, dtype=f32), seed, device)
     clip = _random(CLIPTextModel(TINY_CLIP, device=device, dtype=f32), seed + 1, device)
     vae = _random(AutoencoderKL(TINY_VAE, device=device, dtype=f32), seed + 2, device)
-    return _bundle(unet, vae, clip, TINY_CLIP, device, "tiny-test-model [0000000000]",
-                   Discretization(make_alphas_cumprod()))
+    model = _bundle(unet, vae, clip, TINY_CLIP, device, "tiny-test-model [0000000000]",
+                    Discretization(make_alphas_cumprod()))
+    if in_channels == 5:
+        model.depth_model = create_random_dpt(seed + 4, device, TINY_DPT)
+    return model
 
 
 TINY_SDXL_UNET = UNetConfig(model_channels=32, channel_mult=(1, 2),
@@ -297,11 +339,35 @@ def _conditioner_from_jax(jax_cond, device) -> TextConditioner:
                            apply_final_norm=jax_cond.apply_final_norm)
 
 
+def dpt_from_jax(tree: dict, jax_cfg, device="cpu") -> DPTDepthModel:
+    """The port's MiDaS tower from a JAX DPT tree (``convert_dpt``'s
+    layout: conv HWIO, linear (in, out)) and its ``DPTConfig``: the tree's
+    leaves as numpy arrays with the layouts inverted, the port's config
+    derived from their shapes with JAX's hooks and head count, fp32,
+    standardised once."""
+    from sdwebui_tpu_torch.loader.convert import convert_dpt
+
+    sd = {}
+    for key, leaf in flatten(tree).items():
+        a = np.asarray(leaf, np.float32)
+        if a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
+        elif a.ndim == 2:
+            a = a.T
+        sd[key] = torch.from_numpy(np.ascontiguousarray(a))
+    flat, cfg = convert_dpt(sd, prefix="")
+    cfg = dataclasses.replace(cfg, hooks=tuple(jax_cfg.hooks), vit_heads=jax_cfg.vit_heads)
+    tower = DPTDepthModel(cfg, device=get_device(device))
+    tower.load_state_dict(flat, strict=True)
+    return tower.standardize_()
+
+
 def from_jax(jax_model, device="cpu") -> SDModel:
-    """Build the port's SDModel from a JAX ``SDModel`` (sd1, sdxl or
-    sdxl-refiner).  The UNet and text encoders keep their trees' dtypes;
-    the VAE is fp32.  Every key of every tree is consumed and every module
-    parameter filled: ``load_state_dict(strict=True)``."""
+    """Build the port's SDModel from a JAX ``SDModel`` (sd1, sd2, sdxl or
+    sdxl-refiner, and an SD2-depth model's MiDaS tower).  The UNet and text
+    encoders keep their trees' dtypes; the VAE and the tower are fp32.
+    Every key of every tree is consumed and every module parameter
+    filled: ``load_state_dict(strict=True)``."""
     device = get_device(device)
     unet_sd = state_dict_from_tree(jax_model.unet_params)
     unet = UNetModel(jax_model.unet_cfg, device=device,
@@ -316,4 +382,6 @@ def from_jax(jax_model, device="cpu") -> SDModel:
                    conditioner=_conditioner_from_jax(jax_model.conditioner, device),
                    conditioner2=None if cond2 is None else _conditioner_from_jax(cond2, device),
                    device=device, title=jax_model.title, sha256=jax_model.sha256,
-                   kind=jax_model.kind)
+                   kind=jax_model.kind,
+                   depth_model=None if jax_model.depth_params is None else dpt_from_jax(
+                       jax_model.depth_params, jax_model.depth_cfg, device))

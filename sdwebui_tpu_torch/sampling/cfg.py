@@ -1,6 +1,6 @@
 """Classifier-free-guidance denoiser — the per-step hot loop.
 
-Port of ``sdwebui_tpu/sampling/cfg.py:30-205``.  Prompt-edit schedules are
+Port of ``sdwebui_tpu/sampling/cfg.py:30-241``.  Prompt-edit schedules are
 pre-gathered cond banks indexed per step; cond and uncond ride one batched
 UNet call; AND weights and skip-uncond steps are applied in the combine.
 The per-step indices stay on the host (the step loop is Python), the banks
@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
-from typing import Any, Callable
+from typing import Callable
 
 import numpy as np
 import torch
@@ -41,10 +41,12 @@ class CondSchedule:
     # crossattn banks
     vector_bank: torch.Tensor | None = None
     vector_uncond_bank: torch.Tensor | None = None
-    # inpainting-model image conditioning / instruct-pix2pix 3-way CFG:
-    # fields of the JAX schedule the slice does not run
-    c_concat: Any = None
-    image_cfg_scale: Any = None
+    # hybrid UNets' image conditioning (N, C', H, W), concatenated onto the
+    # latent's channels: the inpainting model's [mask, masked latent], the
+    # edit model's init latent, SD2-depth's depth plane
+    c_concat: torch.Tensor | None = None
+    # instruct-pix2pix's image guidance scale: set, the 3-way edit CFG runs
+    image_cfg_scale: float | None = None
 
 
 def make_cfg_denoiser(denoise_fn: Callable, sched: CondSchedule,
@@ -64,14 +66,16 @@ def make_cfg_denoiser(denoise_fn: Callable, sched: CondSchedule,
     the schedule (a Restart plan's or a DPM driver's extra calls) takes
     its last entry, as JAX's clamped gather does.  A denoise_fn with a
     `step` parameter is also given the step index (cfg.py:122-131: the
-    ControlNet guidance range reads it).
+    ControlNet guidance range reads it).  A schedule's c_concat goes to
+    denoise_fn as ``c_concat=``, tiled over the K+1 CFG rows
+    (cfg.py:168-170); with image_cfg_scale set, the edit model's 3-way
+    CFG runs instead (:func:`_make_edit_denoiser`).
     """
-    if sched.image_cfg_scale is not None:
-        raise NotImplementedError("edit-model (instruct-pix2pix) CFG is not ported yet")
-    if sched.c_concat is not None:
-        raise NotImplementedError("inpainting-model conditioning (c_concat) is not ported yet")
     if soft_inpainting is not None:
         raise NotImplementedError("soft inpainting is not ported yet")
+    if sched.image_cfg_scale is not None:
+        return _make_edit_denoiser(denoise_fn, sched, mask, nmask, init_latent,
+                                   mask_before_denoising)
     k = sched.cond_bank.shape[0]
     rows = torch.arange(k, device=sched.cond_bank.device)
     pass_step = "step" in inspect.signature(denoise_fn).parameters
@@ -100,6 +104,8 @@ def make_cfg_denoiser(denoise_fn: Callable, sched: CondSchedule,
         ctx = torch.cat([sched.cond_bank[rows, idx], sched.uncond_bank[u][None]],
                         dim=0).repeat_interleave(b, dim=0)
         x_in = x.repeat(k + 1, 1, 1, 1)
+        if sched.c_concat is not None:
+            step_kw["c_concat"] = sched.c_concat.repeat(k + 1, 1, 1, 1)
         if sched.vector_bank is None:
             out = denoise_fn(x_in, sigma, ctx, **step_kw)
         else:
@@ -112,6 +118,37 @@ def make_cfg_denoiser(denoise_fn: Callable, sched: CondSchedule,
             cfg = cfg * nmask + init_latent * mask
         if return_uncond:
             return torch.stack([cfg, out[k]])
+        return cfg
+
+    return model
+
+
+def _make_edit_denoiser(denoise_fn: Callable, sched: CondSchedule, mask, nmask, init_latent,
+                        mask_before_denoising: bool) -> Callable:
+    """instruct-pix2pix's 3-way CFG (cfg.py:205-241; the reference's
+    combine_denoised_for_edit_model): rows [cond + image, uncond + image,
+    uncond + zero image], then uncond + s_txt·(cond − image) +
+    s_img·(image − uncond).  The first cond only (AND is not composed for
+    edit models), no vector conds, and no step index: JAX's edit denoiser
+    passes none, so ControlNet guidance ranges do not run with it."""
+    last = sched.cond_idx.shape[1] - 1
+
+    def model(x, sigma: float, i: int):
+        i = min(i, last)
+        if mask is not None and mask_before_denoising:
+            x = init_latent * mask + nmask * x
+        b = x.shape[0]
+        cond = sched.cond_bank[0, int(sched.cond_idx[0, i])]
+        uncond = sched.uncond_bank[int(sched.uncond_idx[i])]
+        ctx = torch.stack([cond, uncond, uncond]).repeat_interleave(b, dim=0)
+        cc = sched.c_concat
+        c_concat = torch.cat([cc, cc, torch.zeros_like(cc)], dim=0)
+        out = denoise_fn(x.repeat(3, 1, 1, 1), sigma, ctx, c_concat=c_concat)
+        out_cond, out_img, out_uncond = out.reshape(3, b, *out.shape[1:])
+        cfg = out_uncond + sched.cond_scale * (out_cond - out_img) \
+            + float(sched.image_cfg_scale) * (out_img - out_uncond)
+        if mask is not None and not mask_before_denoising:
+            cfg = cfg * nmask + init_latent * mask
         return cfg
 
     return model

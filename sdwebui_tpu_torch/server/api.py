@@ -136,11 +136,12 @@ IMG2IMG_FIELDS = {
     "inpaint_full_res": (True, bool), "inpaint_full_res_padding": (0, int),
     "inpainting_mask_invert": (0, int), "resize_mode": (0, int),
     "initial_noise_multiplier": (None, _NUM), "include_init_images": (False, bool),
+    "image_cfg_scale": (None, _NUM),
 }
 
 #: img2img fields of the reference schema accepted only at these values
 IMG2IMG_NEUTRAL = {
-    "image_cfg_scale": (None,), "mask_blur_x": (4,), "mask_blur_y": (4,),
+    "mask_blur_x": (4,), "mask_blur_y": (4,),
     "mask_round": (True,), "latent_mask": (None,),
 }
 
@@ -536,7 +537,8 @@ class Api:
             hint = annotators.run_annotator(module, img[:, :, :3] if img.shape[2] >= 3
                                             else img[:, :, 0], res=res,
                                             threshold_a=body.get("controlnet_threshold_a"),
-                                            threshold_b=body.get("controlnet_threshold_b"))
+                                            threshold_b=body.get("controlnet_threshold_b"),
+                                            device=self.engine.device)
             out.append(base64.b64encode(encode_png(hint)).decode("ascii"))
         return {"images": out, "info": f"module={module}"}
 

@@ -1,0 +1,394 @@
+"""The OpenCV operations of the ControlNet annotators, restated in numpy.
+
+The JAX package's annotators call ``cv2``; the card's machine has no cv2,
+so the port computes the same arrays itself.  Each function equals OpenCV's
+output in every pixel, but where stated below (``tests/test_torch_annotators.py``
+holds them to cv2 over grids of sizes, sigmas and scales).  cv2's 8-bit paths are fixed
+point and its float paths round in a fixed order, so the restatements
+follow the arithmetic and not only the formula:
+
+- :func:`gaussian_blur` (``GaussianBlur(img, (0, 0), sigma)``, border
+  reflect-101): the kernel of ``getGaussianKernelBitExact``.  uint8: ksize
+  ``round(6σ + 1) | 1``, the kernel quantised to 8 fraction bits with
+  error diffusion (the centre takes the rest of 256), a row pass into
+  16-bit fixed point and a column pass into 32-bit, rounded off 16 bits.
+  float32: ksize ``round(8σ + 1) | 1``, the row and column passes in
+  float32 with OpenCV's order of operations: where its SIMD body uses
+  fused multiply-adds (every element but a row's tail of fewer than 4,
+  or a column pass's tail of fewer than 8) the restatement fuses them too
+  (a float32 product is exact in float64, so float64 arithmetic rounded
+  once to float32 is a fused multiply-add but for double rounding, which
+  the tests find nowhere); at ksize 7 the image's last column still
+  differs in a few pixels by one rounding;
+- :func:`dilate` with a 3x3 structuring element (max over the element,
+  pixels outside the image ignored);
+- :func:`resize`: INTER_AREA on uint8 (the integer-scale fast path and the
+  float area-weight path), INTER_LANCZOS4 on uint8 (coefficients
+  quantised to ``INTER_RESIZE_COEF_SCALE`` 2048, integer passes,
+  replicated border), INTER_CUBIC (a = -0.75) and INTER_LINEAR on
+  float32.  The float32 modes restate OpenCV's own code, which is what
+  cv2 runs without Intel IPP; a cv2 built with IPP (such as opencv-python 5.0.0)
+  takes IPP's float resize instead, up to 3.3e-5 of the largest magnitude
+  away (ROADMAP queue C);
+- :func:`remap_linear`: ``remap(img, map_x, map_y, INTER_LINEAR)`` on
+  uint8 with float maps, which OpenCV 5 interpolates in float32 (not on
+  the 1/32 grid of its fixed-point tables), a constant 0 border.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+_RESIZE_COEF_BITS = 11          # INTER_RESIZE_COEF_BITS
+
+
+# --------------------------------------------------------------------------
+# Gaussian blur
+# --------------------------------------------------------------------------
+
+def gaussian_kernel(n: int, sigma: float) -> np.ndarray:
+    """``getGaussianKernelBitExact(n, sigma)`` in float64 (odd n, sigma > 0):
+    exp(-x²/(2σ²)) at x = i - (n-1)/2, normalised by one reciprocal of the
+    sum, the centre 1 · that reciprocal."""
+    scale2x = -0.125 / (sigma * sigma)          # x runs over 2·offset
+    half = (n - 1) // 2
+    vals = [math.exp(float(x * x) * scale2x) for x in range(1 - n, 0, 2)]
+    mul = 1.0 / (2.0 * sum(vals) + 1.0)
+    k = np.empty(n)
+    for i, v in enumerate(vals):
+        k[i] = k[n - 1 - i] = v * mul
+    k[half] = mul
+    return k
+
+
+def _kernel_fixed(n: int, sigma: float, bits: int = 8) -> np.ndarray:
+    """The kernel in `bits` fraction bits with error diffusion from the
+    ends inwards (``getGaussianKernelFixedPoint_ED``); the centre takes
+    what makes the sum exactly 2**bits."""
+    k = gaussian_kernel(n, sigma)
+    one = 1 << bits
+    out = np.empty(n, np.int64)
+    err, total = 0.0, 0
+    for i in range(n // 2):
+        adj = k[i] * one + err
+        v = int(np.rint(adj))
+        err = adj - v
+        out[i] = out[n - 1 - i] = v
+        total += v
+    out[n // 2] = one - 2 * total
+    return out
+
+
+def _fma(a, b, c):
+    """float32 a·b + c rounded once (the product is exact in float64)."""
+    return (a.astype(np.float64) * np.float64(b) + c).astype(np.float32)
+
+
+def _mad(a, b, c):
+    """float32 c + a·b with two roundings."""
+    return c + a * np.float32(b)
+
+
+
+def _blur_f32(x: np.ndarray, sigma: float) -> np.ndarray:
+    n = int(round(sigma * 8 + 1)) | 1
+    k = gaussian_kernel(n, sigma).astype(np.float32)
+    r = n // 2
+    h, w = x.shape[:2]
+    cn = x.shape[2] if x.ndim == 3 else 1
+    wc = w * cn
+    pad = np.pad(x.reshape(h, w, cn), ((r, r), (r, r), (0, 0)), mode="reflect")
+    rows = pad.reshape(h + 2 * r, -1)
+    col = lambda j: rows[:, j * cn: j * cn + wc]   # noqa: E731
+    idx = np.arange(wc)
+    if n <= 5:
+        # SymmRowSmallFilter: centre-adjacent pair first, then the centre,
+        # then the outer pair, each fused; an odd row's last element takes
+        # the centre first (fused for ksize 3, unfused pair 1 for ksize 5)
+        pair = lambda d: col(r + d) + col(r - d)   # noqa: E731
+        s = pair(1) * k[r + 1]
+        s = _fma(col(r), k[r], s)
+        if n == 5:
+            s = _fma(pair(2), k[r + 2], s)
+        if wc % 2:
+            t = col(r)[:, -1:] * k[r]
+            if n == 3:
+                t = _fma(pair(1)[:, -1:], k[r + 1], t)
+            else:
+                t = _fma(pair(2)[:, -1:], k[r + 2], _mad(pair(1)[:, -1:], k[r + 1], t))
+            s[:, -1:] = t
+    else:
+        # RowFilter: the taps in order, fused but for a tail of < 4
+        fused = idx < (wc // 4) * 4
+        s = col(0) * k[0]
+        for j in range(1, n):
+            s = np.where(fused, _fma(col(j), k[j], s), _mad(col(j), k[j], s))
+    # the symmetric column filter: centre, then each pair, fused but for a
+    # tail of < 8 (ksize 3: all fused)
+    fused = idx < (wc // 8) * 8 if n > 3 else np.ones(wc, bool)
+    band = lambda d: s[r + d: r + d + h]            # noqa: E731
+    out = band(0) * k[r]
+    for d in range(1, r + 1):
+        p = band(d) + band(-d)
+        out = np.where(fused, _fma(p, k[r + d], out), _mad(p, k[r + d], out))
+    return out.reshape(x.shape)
+
+
+def _blur_u8(x: np.ndarray, sigma: float) -> np.ndarray:
+    n = int(round(sigma * 6 + 1)) | 1
+    k = _kernel_fixed(n, sigma)
+    r = n // 2
+    h, w = x.shape[:2]
+    cn = x.shape[2] if x.ndim == 3 else 1
+    pad = np.pad(x.reshape(h, w, cn).astype(np.int64), ((r, r), (r, r), (0, 0)),
+                 mode="reflect")
+    rows = sum(pad[:, j:j + w] * k[j] for j in range(n))       # 8 fraction bits
+    cols = sum(rows[j:j + h] * k[j] for j in range(n))        # 16 fraction bits
+    return ((cols + (1 << 15)) >> 16).astype(np.uint8).reshape(x.shape)
+
+
+def gaussian_blur(img: np.ndarray, sigma: float) -> np.ndarray:
+    """``cv2.GaussianBlur(img, (0, 0), sigma)`` of a uint8 or float32
+    (H, W) or (H, W, C) image."""
+    if img.dtype == np.uint8:
+        return _blur_u8(img, float(sigma))
+    if img.dtype == np.float32:
+        return _blur_f32(img, float(sigma))
+    raise TypeError(f"gaussian_blur takes uint8 or float32, not {img.dtype}")
+
+
+def dilate(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """``cv2.dilate(img, kernel)`` with a 3x3 0/1 kernel: the max over the
+    element's pixels inside the image."""
+    h, w = img.shape[:2]
+    low = np.iinfo(img.dtype).min if img.dtype.kind in "ui" else -np.inf
+    pad = np.pad(img, ((1, 1), (1, 1)) + ((0, 0),) * (img.ndim - 2), constant_values=low)
+    out = np.full_like(img, low)
+    for dy, dx in zip(*np.nonzero(kernel)):
+        out = np.maximum(out, pad[dy:dy + h, dx:dx + w])
+    return out
+
+
+# --------------------------------------------------------------------------
+# resize
+# --------------------------------------------------------------------------
+
+def _area_tab(ssize: int, dsize: int, scale: float):
+    """``computeResizeAreaTab`` as passes: pass j holds, for every
+    destination index with a j-th entry, (dst indices, src indices, float32
+    weights); a destination index sums its entries in pass order."""
+    entries = []
+    for d in range(dsize):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, ssize - f1)
+        s1, s2 = math.ceil(f1), math.floor(f2)
+        s2 = min(s2, ssize - 1)
+        s1 = min(s1, s2)
+        mine = []
+        if s1 - f1 > 1e-3:
+            mine.append((s1 - 1, (s1 - f1) / cell))
+        mine += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if f2 - s2 > 1e-3:
+            mine.append((s2, min(min(f2 - s2, 1.0), cell) / cell))
+        entries.append(mine)
+    passes = []
+    for j in range(max(len(e) for e in entries)):
+        ds = [d for d, e in enumerate(entries) if len(e) > j]
+        passes.append((np.array(ds), np.array([entries[d][j][0] for d in ds]),
+                       np.array([entries[d][j][1] for d in ds], np.float32)))
+    return passes
+
+
+def _round_u8(v: np.ndarray) -> np.ndarray:
+    """saturate_cast<uchar>(float): round half to even, clamp."""
+    return np.clip(np.rint(v), 0, 255).astype(np.uint8)
+
+
+def _resize_area(img: np.ndarray, dw: int, dh: int) -> np.ndarray:
+    h, w = img.shape[:2]
+    sx, sy = 1.0 / (dw / w), 1.0 / (dh / h)
+    ix, iy = int(round(sx)), int(round(sy))
+    x = img.reshape(h, w, -1)
+    if abs(sx - ix) < 2.220446049250313e-16 and abs(sy - iy) < 2.220446049250313e-16:
+        blocks = x[:dh * iy, :dw * ix].astype(np.int64).reshape(dh, iy, dw, ix, -1)
+        total = blocks.sum(axis=(1, 3))
+        if ix == 2 and iy == 2:
+            out = ((total + 2) >> 2).astype(np.uint8)
+        else:
+            out = _round_u8(total.astype(np.float32) * np.float32(1.0 / (ix * iy)))
+        return out.reshape((dh, dw) + img.shape[2:])
+    # rows: buf[dx] += S[sx]·α per entry; columns: sum = β·buf, then
+    # sum += β·buf, unfused (ResizeArea_Invoker, WT = float)
+    xf = x.astype(np.float32)
+    buf = np.zeros((h, dw, x.shape[2]), np.float32)
+    for ds, ss, alpha in _area_tab(w, dw, sx):
+        buf[:, ds] = buf[:, ds] + xf[:, ss] * alpha[None, :, None]
+    total = np.zeros((dh, dw, x.shape[2]), np.float32)
+    for j, (ds, ss, beta) in enumerate(_area_tab(h, dh, sy)):
+        term = beta[:, None, None] * buf[ss]
+        total[ds] = term if j == 0 else total[ds] + term
+    return _round_u8(total).reshape((dh, dw) + img.shape[2:])
+
+
+def _lanczos4(x: np.float32) -> np.ndarray:
+    """``interpolateLanczos4``: the 8 float coefficients at fraction x."""
+    s45 = 0.70710678118654752440084436210485
+    cs = ((1, 0), (-s45, -s45), (0, 1), (s45, -s45), (-1, 0), (s45, s45), (0, -1),
+          (-s45, s45))
+    y0 = -(float(x) + 3) * math.pi * 0.25
+    s0, c0 = math.sin(y0), math.cos(y0)
+    coeffs = np.empty(8, np.float32)
+    total = np.float32(0)
+    for i in range(8):
+        y0_ = np.float32(np.float32(x) + np.float32(3 - i))
+        if abs(y0_) >= np.float32(1e-6):
+            y = -float(y0_) * math.pi * 0.25
+            coeffs[i] = np.float32((cs[i][0] * s0 + cs[i][1] * c0) / (y * y))
+        else:
+            coeffs[i] = np.float32(1e30)
+        total = np.float32(total + coeffs[i])
+    return coeffs * (np.float32(1.0) / total)
+
+
+def _cubic(x: np.float32) -> np.ndarray:
+    """``interpolateCubic`` (a = -0.75) in float32."""
+    a = np.float32(-0.75)
+    x = np.float32(x)
+    one = np.float32(1)
+    c0 = ((a * (x + one) - np.float32(5) * a) * (x + one) + np.float32(8) * a) * (x + one) \
+        - np.float32(4) * a
+    c1 = ((a + np.float32(2)) * x - (a + np.float32(3))) * x * x + one
+    c2 = ((a + np.float32(2)) * (one - x) - (a + np.float32(3))) * (one - x) * (one - x) + one
+    return np.array([c0, c1, c2, one - c0 - c1 - c2], np.float32)
+
+
+def _taps_coeffs(ssize: int, dsize: int, ksize: int, coeff_fn):
+    """Source index of each tap and its coefficient, per destination index:
+    fx = (d + 0.5)·scale - 0.5 in float32, the taps replicated at the
+    border (cubic and Lanczos keep their fraction there)."""
+    scale = 1.0 / (dsize / ssize)
+    idx = np.empty((dsize, ksize), np.int64)
+    coef = np.empty((dsize, ksize), np.float32)
+    for d in range(dsize):
+        fx = np.float32((d + 0.5) * scale - 0.5)
+        sx = int(np.floor(fx))
+        fx = np.float32(fx - np.float32(sx))
+        idx[d] = np.clip(np.arange(sx - ksize // 2 + 1, sx + ksize // 2 + 1), 0, ssize - 1)
+        coef[d] = coeff_fn(fx)
+    return idx, coef
+
+
+def _resize_lanczos4_u8(img: np.ndarray, dw: int, dh: int) -> np.ndarray:
+    h, w = img.shape[:2]
+    x = img.reshape(h, w, -1).astype(np.int64)
+    q = lambda c: np.clip(np.rint(c * (1 << _RESIZE_COEF_BITS)), -32768,   # noqa: E731
+                          32767).astype(np.int64)
+    xi, xc = _taps_coeffs(w, dw, 8, _lanczos4)
+    yi, yc = _taps_coeffs(h, dh, 8, _lanczos4)
+    rows = sum(x[:, xi[:, k]] * q(xc[:, k])[None, :, None] for k in range(8))
+    cols = sum(rows[yi[:, k]] * q(yc[:, k])[:, None, None] for k in range(8))
+    out = (cols + (1 << (2 * _RESIZE_COEF_BITS - 1))) >> (2 * _RESIZE_COEF_BITS)
+    return np.clip(out, 0, 255).astype(np.uint8).reshape((dh, dw) + img.shape[2:])
+
+
+def _resize_cubic_f32(img: np.ndarray, dw: int, dh: int) -> np.ndarray:
+    """Rows: the four taps in order, unfused; columns: the taps last to
+    first (VResizeCubicVec_32f), but for a tail of < 4 in order."""
+    h, w = img.shape[:2]
+    x = img.reshape(h, w, -1)
+    xi, xc = _taps_coeffs(w, dw, 4, _cubic)
+    yi, yc = _taps_coeffs(h, dh, 4, _cubic)
+    rows = x[:, xi[:, 0]] * xc[None, :, 0, None]
+    for k in range(1, 4):
+        rows = rows + x[:, xi[:, k]] * xc[None, :, k, None]
+    term = lambda k: rows[yi[:, k]] * yc[:, k, None, None]   # noqa: E731
+    fwd = term(0) + term(1) + term(2) + term(3)
+    rev = term(3) + term(2) + term(1) + term(0)
+    cols = np.arange(dw * x.shape[2]).reshape(dw, x.shape[2])
+    out = np.where(cols < (dw * x.shape[2]) // 4 * 4, rev, fwd)
+    return out.reshape((dh, dw) + img.shape[2:])
+
+
+def _linear_coeffs(ssize: int, dsize: int, clamp: bool):
+    """INTER_LINEAR's taps; with `clamp` (the x direction) the fraction is
+    0 past either border, the y direction keeps it on replicated taps."""
+    scale = 1.0 / (dsize / ssize)
+    idx = np.empty((dsize, 2), np.int64)
+    coef = np.empty((dsize, 2), np.float32)
+    for d in range(dsize):
+        fx = np.float32((d + 0.5) * scale - 0.5)
+        sx = int(np.floor(fx))
+        fx = np.float32(fx - np.float32(sx))
+        if clamp and sx < 0:
+            fx, sx = np.float32(0), 0
+        if clamp and sx >= ssize - 1:
+            fx, sx = np.float32(0), ssize - 1
+        idx[d] = np.clip((sx, sx + 1), 0, ssize - 1)
+        coef[d] = (np.float32(1) - fx, fx)
+    return idx, coef
+
+
+def _resize_linear_f32(img: np.ndarray, dw: int, dh: int) -> np.ndarray:
+    h, w = img.shape[:2]
+    x = img.reshape(h, w, -1)
+    xi, xc = _linear_coeffs(w, dw, True)
+    yi, yc = _linear_coeffs(h, dh, False)
+    rows = x[:, xi[:, 0]] * xc[None, :, 0, None] + x[:, xi[:, 1]] * xc[None, :, 1, None]
+    out = rows[yi[:, 0]] * yc[:, 0, None, None] + rows[yi[:, 1]] * yc[:, 1, None, None]
+    return out.reshape((dh, dw) + img.shape[2:])
+
+
+def resize(img: np.ndarray, size: tuple, interpolation: str) -> np.ndarray:
+    """``cv2.resize(img, (w, h), interpolation=...)`` for "area" and
+    "lanczos4" on uint8, "cubic" and "linear" on float32."""
+    dw, dh = int(size[0]), int(size[1])
+    h, w = img.shape[:2]
+    if (dw, dh) == (w, h):
+        return img.copy()
+    key = (interpolation, img.dtype.name)
+    if key == ("area", "uint8"):
+        if dw > w or dh > h:
+            raise NotImplementedError(f"cv2 INTER_AREA enlarging {w}x{h} -> {dw}x{dh} "
+                                      "(its linear path) is not restated")
+        return _resize_area(img, dw, dh)
+    if key == ("lanczos4", "uint8"):
+        return _resize_lanczos4_u8(img, dw, dh)
+    if key == ("cubic", "float32"):
+        return _resize_cubic_f32(img, dw, dh)
+    if key == ("linear", "float32"):
+        return _resize_linear_f32(img, dw, dh)
+    raise NotImplementedError(f"cv2.resize {interpolation} on {img.dtype} is not restated")
+
+
+# --------------------------------------------------------------------------
+# remap
+# --------------------------------------------------------------------------
+
+def remap_linear(img: np.ndarray, map_x: np.ndarray, map_y: np.ndarray) -> np.ndarray:
+    """``cv2.remap(img, map_x, map_y, cv2.INTER_LINEAR)`` of a uint8 image
+    with float32 maps, as OpenCV 5 computes it in float32: the fractions
+    α = x - ⌊x⌋, β = y - ⌊y⌋, each row lerped as p0 + α·(p1 - p0), the two
+    rows as v0 + β·(v1 - v0) in one fused multiply-add, rounded half to
+    even; taps outside the image
+    read 0 (the constant border)."""
+    h, w = img.shape[:2]
+    x = img.reshape(h, w, -1).astype(np.float32)
+    mx, my = map_x.astype(np.float32), map_y.astype(np.float32)
+    fx, fy = np.floor(mx), np.floor(my)
+    sx, sy = fx.astype(np.int64), fy.astype(np.int64)
+    a, b = (mx - fx)[..., None], (my - fy)[..., None]
+
+    def tap(dy, dx):
+        yy, xx = sy + dy, sx + dx
+        inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        return np.where(inside[..., None], x[np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)],
+                        np.float32(0))
+
+    p00, p01, p10, p11 = tap(0, 0), tap(0, 1), tap(1, 0), tap(1, 1)
+    v0 = p00 + a * (p01 - p00)
+    v1 = p10 + a * (p11 - p10)
+    out = np.clip(np.rint(_fma(b, v1 - v0, v0)), 0, 255).astype(np.uint8)
+    return out.reshape(map_x.shape + img.shape[2:])

@@ -307,12 +307,14 @@ def test_annotator_dispatch():
     np.testing.assert_array_equal(
         annotators.run_annotator("canny", img.astype(np.float32) / 255, res=0,
                                  threshold_a=50, threshold_b=60), cv2.Canny(img, 50, 60))
-    with pytest.raises(NotImplementedError, match="INTER_AREA"):
-        annotators.run_annotator("canny", img, res=32)
-    with pytest.raises(NotImplementedError, match="LANCZOS4"):
-        annotators.run_annotator("canny", img, res=512)
-    with pytest.raises(NotImplementedError, match="depth_midas"):
-        annotators.run_annotator("depth_midas", img)
+    np.testing.assert_array_equal(
+        annotators.run_annotator("canny", img, res=32),
+        cv2.Canny(cv2.resize(img, (32, 32), interpolation=cv2.INTER_AREA), 100, 200))
+    np.testing.assert_array_equal(
+        annotators.run_annotator("canny", img, res=512),
+        cv2.Canny(cv2.resize(img, (512, 512), interpolation=cv2.INTER_LANCZOS4), 100, 200))
+    with pytest.raises(NotImplementedError, match="openpose"):
+        annotators.run_annotator("openpose", img)
     with pytest.raises(NetworkNotFound, match="nope"):
         annotators.run_annotator("nope", img)
     assert annotators.list_modules()[:3] == ["none", "canny", "invert"]
@@ -446,9 +448,9 @@ def test_unit_errors(models, tower_dir):
     with pytest.raises(NetworkNotFound, match="missing"):
         port_proc.process_txt2img(pm, _params(steps=1, controlnet_units=[
             dict(model="missing", image=_hint())]))
-    with pytest.raises(NotImplementedError, match="depth_midas"):
+    with pytest.raises(NotImplementedError, match="openpose"):
         port_proc.process_txt2img(pm, _params(steps=1, controlnet_units=[
-            dict(model="full", image=_hint(), module="depth_midas")]))
+            dict(model="full", image=_hint(), module="openpose")]))
     with pytest.raises(ValueError, match="control_mode"):
         port_proc.process_txt2img(pm, _params(steps=1, controlnet_units=[
             dict(model="full", image=_hint(), control_mode="sideways")]))
@@ -481,7 +483,10 @@ def test_controlnet_routes(tower_dir):
                                   cv2.Canny(grid, 50, 150))
     status, out = api.handle("POST", "/controlnet/detect", {
         "controlnet_module": "canny", "controlnet_input_images": [b64]})
-    assert status == 422 and "LANCZOS4" in out["detail"]
+    assert status == 200     # processor_res 512: the LANCZOS4 upscale, then canny
+    np.testing.assert_array_equal(
+        decode_png(base64.b64decode(out["images"][0]))[0][:, :, 0],
+        cv2.Canny(cv2.resize(grid, (512, 512), interpolation=cv2.INTER_LANCZOS4), 100, 200))
     base = {"steps": 2, "width": 64, "height": 64, "batch_size": 1, "seed": 5}
     unit = {"model": "midonly", "image": b64, "weight": 2.0, "module": "canny"}
     a = api.handle("POST", "/sdapi/v1/txt2img", dict(base, controlnet_units=[unit]))
@@ -491,7 +496,7 @@ def test_controlnet_routes(tower_dir):
     assert a[0] == b[0] == 200 and a[1]["images"] == b[1]["images"]
     for body, status_want, words in (
             (dict(base, controlnet_units=[dict(unit, model="gone")]), 404, "gone"),
-            (dict(base, controlnet_units=[dict(unit, module="depth_midas")]), 422, "depth_midas"),
+            (dict(base, controlnet_units=[dict(unit, module="openpose")]), 422, "openpose"),
             (dict(base, controlnet_units=[dict(unit, pixel_perfect=True)]), 422, "pixel_perfect"),
             (dict(base, alwayson_scripts={"adetailer": {"args": []}}), 422, "adetailer")):
         status, out = api.handle("POST", "/sdapi/v1/txt2img", body)

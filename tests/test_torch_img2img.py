@@ -363,7 +363,7 @@ def test_img2img_matches_jax(models, f32_policies, case):
     (dict(init_images=[_init_image(size=128)], resize_mode=3), "LANCZOS"),
     (dict(mask=_rect_mask(128), inpainting_fill=1, resize_mode=3), "mask"),
     (dict(override_settings={"img2img_color_correction": True}), "img2img_color_correction"),
-    (dict(controlnet_units=[{"model": "x", "module": "depth_midas"}]), "controlnet_units"),
+    (dict(controlnet_units=[{"model": "x", "module": "openpose"}]), "controlnet_units"),
 ])
 def test_unported_img2img_requests_raise(models, kw, name):
     _, pp = _pair(**{"init_images": [_init_image()], "steps": 1, **kw})
@@ -378,8 +378,13 @@ def test_img2img_rejects_sdxl_and_other_unet_inputs(models):
         port_i2i.process_img2img(sdxl, pp)
     pm = models[1]
     nine = dataclasses.replace(pm, unet_cfg=dataclasses.replace(pm.unet_cfg, in_channels=9))
-    with pytest.raises(NotImplementedError, match="9-channel"):
-        port_i2i.process_img2img(nine, pp)
+    _, weighted = _pair(init_images=[_init_image()], steps=1,
+                        override_settings={"inpainting_mask_weight": 0.5})
+    with pytest.raises(NotImplementedError, match="inpainting_mask_weight"):
+        port_i2i.process_img2img(nine, weighted)
+    six = dataclasses.replace(pm, unet_cfg=dataclasses.replace(pm.unet_cfg, in_channels=6))
+    with pytest.raises(ValueError, match="6-channel"):
+        port_i2i.process_img2img(six, pp)
 
 
 # --------------------------------------------------------------------------

@@ -256,9 +256,7 @@ def test_unported_families_raise():
                "cond_stage_model.roberta.embeddings.word_embeddings.weight": torch.empty(1)},
               "alt"),
              ({unet_key: torch.empty(32, 4, 3, 3), sd2: torch.empty(1),
-               "noise_augmentor.data_mean": torch.empty(1)}, "unclip"),
-             ({unet_key: torch.empty(32, 5, 3, 3), sd2: torch.empty(1),
-               "depth_model.model.x": torch.empty(1)}, "depth")]
+               "noise_augmentor.data_mean": torch.empty(1)}, "unclip")]
     for sd, name in cases:
         with pytest.raises(NotImplementedError, match=name):
             load.model_from_state_dict(sd, device="cpu")
@@ -434,11 +432,13 @@ def test_nine_channel_unet_loads_and_generating_raises(tmp_path):
     m.unet = port_sd.UNetModel(dataclasses.replace(port_sd.TINY_UNET, in_channels=9),
                                device="cpu", dtype=torch.float32)
     p = str(tmp_path / "inpaint.safetensors")
-    safetensors_io.write_safetensors(p, load.sd1_state_dict(m))
+    safetensors_io.write_safetensors(p, load.ldm_state_dict(m))
     model = load.load_model(p, device="cpu")
     assert model.unet_cfg.in_channels == 9
+    assert len(port_proc.process_txt2img(model, _request(steps=1)).images) == 1
     with pytest.raises(NotImplementedError, match="9-channel"):
-        port_proc.process_txt2img(model, _request(steps=1))
+        port_proc.process_txt2img(model, _request(steps=1, enable_hr=True, hr_scale=2.0,
+                                                  denoising_strength=0.5))
 
 
 # --------------------------------------------------------------------------
@@ -518,7 +518,7 @@ def test_sd_checkpoint_cache(tmp_path, monkeypatch):
 # --------------------------------------------------------------------------
 
 def _write_tiny(path, seed):
-    safetensors_io.write_safetensors(str(path), load.sd1_state_dict(
+    safetensors_io.write_safetensors(str(path), load.ldm_state_dict(
         port_sd.create_tiny_sd(seed, "cpu")))
 
 

@@ -184,6 +184,44 @@ def test_key_resolution_matches_jax(key):
     assert (ref is None) == (key == "no_such_module")
 
 
+@pytest.mark.parametrize("family,block,slot", [("sdxl", 0, 2), ("sdxl", 1, 2), ("sd15", 0, 1),
+                                               ("sd15", 1, 2), ("sd15", 2, 2)])
+def test_diffusers_upsampler_slot_follows_the_model(family, block, slot):
+    """A diffusers up block's upsampler conv lands in its last output
+    block's slot 2 where that block holds a transformer, else slot 1: SDXL's
+    up_blocks_0 (output block 2) has one, SD1's has none.  JAX's fixed SD1
+    map (sdwebui_tpu/networks/lora.py:57-58) sends SDXL's to slot 1, which
+    no module holds; the full-width UNets are built on meta."""
+    from sdwebui_tpu_torch.models.configs import SD15_UNET, SDXL_UNET
+    from sdwebui_tpu_torch.models.unet import UNetModel
+
+    cfg = SDXL_UNET if family == "sdxl" else SD15_UNET
+    names = UNetModel(cfg, device="meta", dtype=torch.float16).state_dict()
+    lookup = port_lora.build_path_lookup(names)
+    out = port_lora.resolve_module(f"up_blocks_{block}_upsamplers_0_conv", lookup)
+    assert out == f"output_blocks.{3 * block + 2}.{slot}.conv"
+    if family == "sdxl" and block == 0:
+        assert jax_lora.resolve_module("up_blocks_0_upsamplers_0_conv",
+                                       jax_lora.build_path_lookup(names)) is None
+
+
+def test_sdxl_upsampler_lora_patches_its_conv():
+    """A LoRA on an SDXL-named upsampler key changes that conv (tiny SDXL,
+    whose up block 0 holds a transformer) and nothing else."""
+    unet = port_sd.create_tiny_sdxl(0, "cpu").unet
+    params = dict(unet.named_parameters())
+    w = params["output_blocks.2.2.conv.weight"]
+    rng = np.random.default_rng(7)
+    lora = {"lora_unet_up_blocks_0_upsamplers_0_conv.lora_down.weight":
+            torch.from_numpy(rng.standard_normal((4, w.shape[1], 3, 3), dtype=np.float32)),
+            "lora_unet_up_blocks_0_upsamplers_0_conv.lora_up.weight":
+            torch.from_numpy(rng.standard_normal((w.shape[0], 4, 1, 1), dtype=np.float32)),
+            "lora_unet_up_blocks_0_upsamplers_0_conv.alpha": torch.tensor(4.0)}
+    patched, n, unmatched = port_lora.apply_loras(params, [(lora, 0.5)])
+    assert n == 1 and not unmatched and set(patched) == {"output_blocks.2.2.conv.weight"}
+    assert not torch.equal(patched["output_blocks.2.2.conv.weight"], w)
+
+
 def test_text_encoder_key_resolution(models):
     jm, pm = models
     lookup_j = jax_lora.build_path_lookup(jm.conditioner.params)

@@ -145,8 +145,9 @@ def test_cfg_unported_branches_raise():
     sched = CondSchedule(cond_bank=torch.zeros(1, 1, 2, 2), cond_idx=np.zeros((1, 1), int),
                          cond_weights=np.ones(1, np.float32), uncond_bank=torch.zeros(1, 2, 2),
                          uncond_idx=np.zeros(1, int), image_cfg_scale=1.5)
-    with pytest.raises(NotImplementedError, match="instruct-pix2pix"):
-        make_cfg_denoiser(lambda *a: None, sched)
+    # the edit model's CFG is ported; soft inpainting raises with it too
+    with pytest.raises(NotImplementedError, match="soft inpainting"):
+        make_cfg_denoiser(lambda *a: None, sched, soft_inpainting=(1.0, 0.5, 4.0))
     sched.image_cfg_scale = None
     with pytest.raises(NotImplementedError, match="inpainting"):
         make_cfg_denoiser(lambda *a: None, sched, soft_inpainting=(1.0, 0.5, 4.0))

@@ -178,11 +178,11 @@ status, out = api.handle("POST", "/sdapi/v1/img2img", {
     "steps": 2, "width": 64, "height": 64})
 assert status == 200, out
 import os, tempfile, torch
-from sdwebui_tpu_torch.loader.load import sd1_state_dict
+from sdwebui_tpu_torch.loader.load import ldm_state_dict
 from sdwebui_tpu_torch.loader.safetensors_io import write_safetensors
 from sdwebui_tpu_torch.loader.torch_ckpt import load_torch_checkpoint
 with tempfile.TemporaryDirectory() as d:
-    sd = sd1_state_dict(create_tiny_sd(1, "cpu"))
+    sd = ldm_state_dict(create_tiny_sd(1, "cpu"))
     write_safetensors(os.path.join(d, "a.safetensors"), sd)
     torch.save({"state_dict": sd}, os.path.join(d, "b.ckpt"))
     assert load_torch_checkpoint(os.path.join(d, "b.ckpt")).keys() == sd.keys()
@@ -254,6 +254,41 @@ with tempfile.TemporaryDirectory() as d:
     assert status == 200 and len(out["images"]) == 1, out
     set_lora_dirs(DEFAULT_LORA_DIRS)
     control.set_model_dirs([control.DEFAULT_CONTROLNET_DIR])
+from sdwebui_tpu_torch.models.hed import create_random_hed
+from sdwebui_tpu_torch.models.midas import create_random_dpt
+from sdwebui_tpu_torch.pipeline import annotators
+from sdwebui_tpu_torch.pipeline.img2img import process_img2img
+from sdwebui_tpu_torch.pipeline.sd_model import TINY_DPT
+init = np.kron(np.arange(48, dtype=np.uint8).reshape(4, 4, 3) * 5, np.ones((16, 16, 1), np.uint8))
+for channels in (9, 8, 5):
+    model = create_tiny_sd(0, "cpu", in_channels=channels)
+    if channels != 8:
+        assert process_txt2img(model, GenerationParams(
+            prompt="a cat", seed=3, steps=2, width=64, height=64)).images[0].shape == (64, 64, 3)
+    res = process_img2img(model, GenerationParams(
+        prompt="a cat", seed=3, steps=2, width=64, height=64, init_images=[init],
+        image_cfg_scale=1.5, mask=init[:, :, 0] if channels == 9 else None,
+        inpaint_full_res=False, inpainting_fill=1))
+    assert res.images[0].shape == (64, 64, 3)
+with tempfile.TemporaryDirectory() as d:
+    write_safetensors(os.path.join(d, "ControlNetHED.safetensors"),
+                      create_random_hed(0, "cpu", (8, 12, 16, 16, 16)).state_dict())
+    write_safetensors(os.path.join(d, "dpt_hybrid-midas.safetensors"),
+                      create_random_dpt(0, "cpu", TINY_DPT).state_dict())
+    prev = list(annotators._model_dirs)
+    annotators.set_annotator_dirs([d])
+    api = Api(Engine(device="cpu", tiny=True))
+    for module in ("depth_midas", "hed", "hed_safe", "scribble_hed", "blur_gaussian",
+                   "scribble_xdog", "shuffle"):
+        for res in (48, 96):
+            status, out = api.handle("POST", "/controlnet/detect", {
+                "controlnet_module": module, "controlnet_input_images": [png],
+                "controlnet_processor_res": res})
+            assert status == 200 and len(out["images"]) == 1, (module, out)
+    status, out = api.handle("POST", "/sdapi/v1/img2img", {
+        "init_images": [png], "steps": 2, "width": 64, "height": 64, "image_cfg_scale": 1.5})
+    assert status == 200, out
+    annotators.set_annotator_dirs(prev)
 assert not Recorder.attempts, Recorder.attempts
 print("OK", len(mods))
 """
