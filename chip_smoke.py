@@ -54,6 +54,23 @@ Phases, in order; any failure exits non-zero:
      repeat within 2 levels, the inpaint's pixels outside the blurred mask
      within 1 level of the init image and changed inside it, and B2, B1
      (the VAE encode and decode) and B5 launches equal to the plan's;
+  4g. the rest of img2img on the same server, each request's B1, B2 and B5
+     launches equal to the plan's (16 UNet calls: B2 = 160, B5 = 16 x 48 +
+     CLIP's, B1 = the f32 encode and the decode): (g) an inpaint with the
+     API's defaults (no inpainting_fill, no inpaint_full_res: fill 0 and the
+     crop), padding 32, an off-centre rectangle: a 512² PNG, within 1 level
+     of the init image outside the blurred mask, changed inside; (h)
+     inpainting_fill 0 on the whole picture; (i) soft inpainting; (j) colour
+     correction; (k) resize mode 3 on a 768² init; (l) return_mask and
+     return_mask_composite (the mask and an RGBA composite follow the
+     image); (m) TAESD encode and decode from seeded files at the published
+     widths in a temporary models root: B1 = 0; (n) a tiling txt2img
+     ("Tiling: True", unlike phase 3's untiled image of the seed); (o) a
+     styles request through a temporary styles.csv (the infotext's prompts
+     hold the style).  Logged: s/request, the wall ms of the fill (on the
+     card, held equal in every pixel to the CPU's; and on the CPU) and of the
+     crop + paste at 512², and TAESD's encode and decode ms against the full
+     VAE's at 512² and 1024²;
   4c. BASELINE config 3 (hires fix) on the same server: two 512² → 1024²
      requests with one seed (Euler a, 20 steps, CFG 7.5, "Latent",
      denoising 0.7: 20 UNet calls at 64² and 15 at 128²), the repeat within
@@ -141,6 +158,14 @@ Phases, in order; any failure exits non-zero:
      pass", hands over to the refiner inside the second (1536², latent
      192²); a 1536x1536 PNG, infotext naming Hires and Refiner, B2, B1 (the
      1536² decode, S = 36864) and B5 launches equal to the plan's;
+  6c. SDXL img2img on the same server (1024², DPM++ 2M Karras, 20 steps,
+     CFG 7, denoising 0.75: 16 UNet calls): (a) two requests with one seed
+     on a phase-6 PNG, the repeat within 2 levels; (b) an inpaint with the
+     API's defaults; (c) a random full-width SDXL UNet with 9 input channels
+     on an inpaint (B1 = 3: the init encode, the masked encode, the
+     decode); every request's launches equal to the plan's (B2 = 16 x 70,
+     B1 = 2: the f32 encode and the decode at S = 16384, B5 = 16 x 210 +
+     CLIP's); (d) one SDXL img2img request under torch.profiler, as phase 7;
   7. one more in-process SDXL request under torch.profiler (CUDA activity
      only): wall (median of two untraced requests), device busy (union of
      the kernel intervals), idle share, device time by kernel class and
@@ -764,9 +789,10 @@ def _server(engine):
         thread.join(timeout=30)
 
 
-def _request(url, route, body, check, size, label=None) -> dict:
+def _request(url, route, body, check, size, label=None, extra: int = 0) -> dict:
     """POST one generation request and check its images: (seconds, the
-    last image decoded and as sent, launches)."""
+    last image decoded and as sent, launches); `extra` images follow the
+    batch's (img2img's returned masks), decoded under "extras"."""
     from sdwebui_tpu_torch.utils.png import decode_png
 
     reset_counts()
@@ -776,6 +802,8 @@ def _request(url, route, body, check, size, label=None) -> dict:
     launches = read_counts()
     first = json.loads(res["info"])["index_of_first_image"]
     images = [decode_png(base64.b64decode(b)) for b in res["images"][first:]]
+    extras = [img for img, _ in images[len(images) - extra:]] if extra else []
+    images = images[:len(images) - extra]
     if len(images) != body.get("batch_size", 1):
         raise AssertionError(f"{len(images)} images for batch {body.get('batch_size')}")
     for i, (img, text) in enumerate(images):
@@ -786,7 +814,8 @@ def _request(url, route, body, check, size, label=None) -> dict:
         f"{len(images) / dt:.3f} images/s, launches {launches}")
     return dict(route=route, label=label or route, batch=len(images), seed=body["seed"],
                 seconds=dt, images_per_s=len(images) / dt, launches=launches, image=images[-1][0],
-                png_b64=res["images"][-1], infotext=images[-1][1].get("parameters", ""))
+                png_b64=res["images"][first + len(images) - 1], extras=extras,
+                infotext=images[-1][1].get("parameters", ""))
 
 
 def _serve(engine, route, requests, warmup, check, size):
@@ -848,6 +877,8 @@ def _check_overlay(out, init, mask):
     the init image, and changed inside the mask."""
     from sdwebui_tpu_torch.utils.masking import blur_mask
 
+    if out.shape != init.shape:
+        raise AssertionError(f"inpaint image {out.shape}, init image {init.shape}")
     blurred = blur_mask(mask, MASK_BLUR)
     outside = int(abs(out.astype(int) - init.astype(int))[blurred == 0].max())
     inside = float(abs(out.astype(int) - init.astype(int))[mask > 0].mean())
@@ -893,6 +924,193 @@ def phase_img2img(engine, model, init_png: str):
                 ] * 3
     _check_launches(results, expected)
     return results, calls
+
+
+def _offcentre_mask_png(size: int):
+    """Phase 4g's rectangle mask, off the centre (and as an RGB PNG)."""
+    from sdwebui_tpu_torch.utils.png import encode_png
+
+    mask = torch.zeros((size, size, 3), dtype=torch.uint8)
+    mask[size * 9 // 16:size * 13 // 16, size // 8:size * 7 // 16] = 255
+    return mask[:, :, 0].numpy(), base64.b64encode(encode_png(mask.numpy())).decode()
+
+
+def host_ms(fn, repeats: int = 3) -> float:
+    """The median host milliseconds of fn()."""
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def write_taesd_files(directory: str, device, seed: int = 3) -> None:
+    """TAESD's encoder and decoder for SD1/SD2 at the published widths
+    (64-wide blocks, 4 latent channels), seeded, where the port looks for
+    them under a models root: VAE-taesd/taesd_{encoder,decoder}."""
+    from sdwebui_tpu_torch.loader.safetensors_io import write_safetensors
+    from sdwebui_tpu_torch.models.vae_approx import random_taesd
+
+    os.makedirs(os.path.join(directory, "VAE-taesd"))
+    for i, which in enumerate(("encoder", "decoder")):
+        write_safetensors(os.path.join(directory, "VAE-taesd", f"taesd_{which}.safetensors"),
+                          random_taesd(which, 4, seed + i, device).state_dict())
+
+
+def taesd_vs_vae(model, device) -> dict:
+    """TAESD's encode and decode against the full VAE's (f32 encode, bf16
+    decode, as the pipeline runs them) at 512² and 1024²: device ms each."""
+    from sdwebui_tpu_torch.models import vae_approx
+
+    enc = vae_approx.get_taesd(model.kind, "encoder", device)
+    dec = vae_approx.get_taesd(model.kind, "decoder", device)
+    out = {}
+    for size in (512, 1024):
+        g = torch.Generator(device=device).manual_seed(size)
+        img = torch.rand((1, 3, size, size), generator=g, device=device)
+        z = torch.randn((1, 4, size // 8, size // 8), generator=g, device=device)
+        with torch.inference_mode():
+            row = {
+                "taesd_encode_ms": cuda_ms(lambda: vae_approx.taesd_encode(enc, img),
+                                           hide_host=False),
+                "vae_encode_f32_ms": cuda_ms(lambda: model.vae.encode_mode(
+                    model.vae.encode_moments(img * 2 - 1)), hide_host=False),
+                "taesd_decode_ms": cuda_ms(lambda: vae_approx.taesd_decode(dec, z),
+                                           hide_host=False),
+                "vae_decode_bf16_ms": cuda_ms(lambda: model.vae.decode(z.to(torch.bfloat16)),
+                                              hide_host=False)}
+        out[f"{size}x{size}"] = row
+        log(f"TAESD vs the full VAE at {size}²: " + json.dumps({k: round(v, 3)
+                                                                 for k, v in row.items()}))
+    return out
+
+
+def phase_img2img_options(engine, model, phase3: dict, directory: str, device):
+    """4g: the rest of img2img on the phase-3 server: (g) an inpaint with the
+    API's defaults (inpainting_fill 0, inpaint_full_res) and padding 32;
+    (h) fill 0 on the whole picture; (i) soft inpainting; (j) colour
+    correction; (k) resize mode 3 on a 768² init; (l) return_mask and
+    return_mask_composite; (m) TAESD encode and decode; (n) a tiling
+    txt2img; (o) a styles request.  Returns (results, info)."""
+    from sdwebui_tpu_torch.models import vae_approx
+    from sdwebui_tpu_torch.pipeline.img2img import apply_overlay, setup_img2img_steps
+    from sdwebui_tpu_torch.text.styles import StyleDatabase
+    from sdwebui_tpu_torch.utils import images as images_util
+    from sdwebui_tpu_torch.utils import masking
+    from sdwebui_tpu_torch.utils.png import decode_png, encode_png
+
+    init_png = phase3["png_b64"]
+    init = decode_png(base64.b64decode(init_png))[0]
+    size = SD15_BASE["width"]
+    _, t_enc = setup_img2img_steps(STEPS, DENOISE)
+    calls = t_enc + 1
+    i2i = _plan(b1=2, b2=calls * launch_plan(model.unet_cfg, 64),
+                b5=calls * ln_plan(model.unet_cfg, 64) + clip_ln_plan(model))
+    t2i = _plan(b1=1, b2=STEPS * launch_plan(model.unet_cfg, 64),
+                b5=STEPS * ln_plan(model.unet_cfg, 64) + clip_ln_plan(model))
+    base = dict(SD15_BASE, init_images=[init_png], denoising_strength=DENOISE, batch_size=1)
+    mask, mask_png = _offcentre_mask_png(size)
+    masked = dict(base, mask=mask_png, mask_blur=MASK_BLUR)
+    whole = dict(masked, inpaint_full_res=False)
+
+    def check_i2i(params, seed):
+        _sd15_check(params, seed)
+        if f"Denoising strength: {DENOISE}" not in params:
+            raise AssertionError(f"infotext lacks the denoising strength: {params!r}")
+
+    big = images_util.resize(init, (768, 768), "lanczos")
+    big_png = base64.b64encode(encode_png(big)).decode()
+    styles_path = os.path.join(directory, "styles.csv")
+    with open(styles_path, "w", encoding="utf-8") as f:
+        f.write("name,prompt,negative_prompt\n"
+                "chip smoke,\"{prompt}, oil painting, brush strokes\",\"photo\"\n")
+    os.makedirs(os.path.join(directory, "models"))
+    write_taesd_files(os.path.join(directory, "models"), device)
+    prev_root, prev_styles = vae_approx.models_root(), engine.styles
+    vae_approx.set_models_root(os.path.join(directory, "models"))
+    engine.styles = StyleDatabase(styles_path)
+    results, plans = [], []
+
+    def run(url, route, body, label, plan, check=check_i2i, extra=0):
+        results.append(_request(url, route, body, check, size, label, extra))
+        plans.append(plan)
+        return results[-1]
+
+    try:
+        with _server(engine) as url:
+            _post(f"{url}/img2img", dict(masked, seed=1, steps=2, inpaint_full_res_padding=32))
+            # (g) no inpainting_fill, no inpaint_full_res: the schema's 0 and True
+            g = run(url, "img2img", dict(masked, seed=4321, inpaint_full_res_padding=32),
+                    "(g) inpaint, API defaults, padding 32", i2i)
+            _check_overlay(g["image"], init, mask)
+            h = run(url, "img2img", dict(whole, seed=4321, inpainting_fill=0),
+                    "(h) inpainting_fill 0, whole picture", i2i)
+            _check_overlay(h["image"], init, mask)
+            i = run(url, "img2img", dict(whole, seed=4321, inpainting_fill=1,
+                                         soft_inpainting=True),
+                    "(i) soft inpainting", i2i)
+            _check_overlay(i["image"], init, mask)
+            run(url, "img2img", dict(base, seed=1234, override_settings={
+                "img2img_color_correction": True}), "(j) colour correction", i2i)
+            k = run(url, "img2img", dict(base, seed=1234, init_images=[big_png], resize_mode=3),
+                    "(k) resize mode 3, 768² init", i2i)
+            l_ = run(url, "img2img", dict(whole, seed=4321, inpainting_fill=1, override_settings={
+                "return_mask": True, "return_mask_composite": True}),
+                "(l) return_mask and return_mask_composite", i2i, extra=2)
+            shapes = [x.shape for x in l_["extras"]]
+            if shapes != [(size, size, 3), (size, size, 4)]:
+                raise AssertionError(f"(l) returned masks {shapes}")
+            m = run(url, "img2img", dict(base, seed=1234, override_settings={
+                "sd_vae_encode_method": "TAESD", "sd_vae_decode_method": "TAESD"}),
+                "(m) TAESD encode and decode", dict(i2i, flash_attention=0))
+            n = run(url, "txt2img", dict(SD15_BASE, seed=1234, batch_size=1, tiling=True),
+                    "(n) tiling txt2img", t2i, check=_sd15_check)
+            o = run(url, "txt2img", dict(SD15_BASE, seed=1234, batch_size=1,
+                                         styles=["chip smoke"]),
+                    "(o) styles", t2i, check=_sd15_check)
+        vae = taesd_vs_vae(model, device)
+    finally:
+        vae_approx.set_models_root(prev_root)
+        engine.styles = prev_styles
+    _check_launches(results, plans)
+    for r in (k, m):
+        if r["image"].std() < 1.0:
+            raise AssertionError(f"{r['label']}: the image is flat")
+    if "Tiling: True" not in n["infotext"] or (n["image"] == phase3["image"]).all():
+        raise AssertionError("(n) the tiling request's infotext or image is the untiled one's")
+    styled = (f"{SD15_BASE['prompt']}, oil painting, brush strokes\nNegative prompt: "
+              f"{SD15_BASE['negative_prompt']}, photo\n")
+    if not o["infotext"].startswith(styled):
+        raise AssertionError(f"(o) infotext lacks the style: {o['infotext'][:160]!r}")
+
+    # the host side of the default inpaint: the fill and the crop + paste
+    blurred = masking.blur_mask(masking.binarize_mask(mask), MASK_BLUR)
+    box = masking.expand_crop_region(masking.get_crop_region_v2(blurred > 127, 32), size,
+                                     size, size, size)
+    crop = images_util.resize(images_util.crop(init, box), (size, size), "lanczos")
+    crop_mask = images_util.resize(images_util.crop(blurred, box), (size, size))
+    info = {"mask": crop_mask, "overlay_mask": blurred, "crop_region": box, "originals": [init]}
+    filled = masking.fill(crop, crop_mask, device)
+    if not (filled == masking.fill(crop, crop_mask, "cpu")).all():
+        raise AssertionError("masking.fill on the card differs from the CPU's")
+
+    def card_fill():
+        masking.fill(crop, crop_mask, device)
+        torch.cuda.synchronize()
+
+    host = {"fill_512_card_ms": host_ms(card_fill),
+            "fill_512_cpu_ms": host_ms(lambda: masking.fill(crop, crop_mask, "cpu")),
+            "crop_paste_512_ms": host_ms(lambda: apply_overlay(init, info, 0)),
+            "crop_region": list(box)}
+    log("inpaint fill (on the card, equal to the CPU's in every pixel) and crop + paste at "
+        "512², wall ms: " + json.dumps(host))
+    seconds = {r["label"]: r["seconds"] for r in results}
+    log(f"(m) TAESD request {m['seconds']:.3f} s against phase 4's full-VAE img2img")
+    # f32 encodes at 512² (B1's vae_mid_512_f32 row): every img2img request but TAESD's
+    f32_encodes = sum(r["route"] == "img2img" for r in results) - 1
+    return results, dict(seconds=seconds, host=host, taesd_vs_vae=vae,
+                         f32_encodes_512=f32_encodes)
 
 
 # the published widths of the two upscaler files: R-ESRGAN 4x+ (RRDBNet) and
@@ -1763,6 +1981,75 @@ def phase_sdxl_hires(engine, base, refiner):
     return result, dict(second_pass_calls=t_enc + 1, refiner_after=s_idx)
 
 
+def sdxl_img2img_request(seed: int, init_png: str) -> dict:
+    """Phase 6c's SDXL img2img: 1024², DPM++ 2M Karras, 20 steps, CFG 7,
+    denoising 0.75 (16 UNet calls)."""
+    return dict(prompt="a photograph of an astronaut riding a horse", negative_prompt="blurry",
+                seed=seed, steps=STEPS, cfg_scale=7.0, sampler_name="DPM++ 2M",
+                scheduler="Karras", width=1024, height=1024, batch_size=1,
+                denoising_strength=DENOISE, init_images=[init_png])
+
+
+def phase_sdxl_img2img(engine, base, phase6: dict, device):
+    """6c: (a) two SDXL img2img requests with one seed on a phase-6 PNG,
+    (b) an SDXL inpaint with the API's defaults, (c) a random full-width
+    SDXL UNet with 9 input channels on an inpaint, (d) one SDXL img2img
+    request under torch.profiler.  Returns (results, info)."""
+    from sdwebui_tpu_torch.pipeline.img2img import setup_img2img_steps
+    from sdwebui_tpu_torch.pipeline.sd_model import create_random_sdxl
+    from sdwebui_tpu_torch.server.app import Engine
+    from sdwebui_tpu_torch.utils.png import decode_png
+
+    init_png = phase6["png_b64"]
+    init = decode_png(base64.b64decode(init_png))[0]
+    size = 1024
+    _, t_enc = setup_img2img_steps(STEPS, DENOISE)
+    calls = t_enc + 1
+
+    def plan(m, b1):
+        return _plan(b1=b1, b2=calls * launch_plan(m.unet_cfg, 128),
+                     b5=calls * ln_plan(m.unet_cfg, 128) + clip_ln_plan(m))
+
+    def check(params, seed):
+        for want in (f"Seed: {seed}", "Sampler: DPM++ 2M", f"Denoising strength: {DENOISE}"):
+            if want not in params:
+                raise AssertionError(f"infotext lacks {want!r}: {params!r}")
+
+    body = sdxl_img2img_request(1234, init_png)
+    mask, mask_png = _offcentre_mask_png(size)
+    results, plans = [], []
+    with _server(engine) as url:
+        _post(f"{url}/img2img", dict(body, steps=2, seed=1))
+        for label in ("(a) SDXL img2img", "(a) SDXL img2img repeat"):
+            results.append(_request(url, "img2img", body, check, size, label))
+            plans.append(plan(base, 2))
+        results.append(_request(url, "img2img", dict(
+            body, seed=4321, mask=mask_png, mask_blur=MASK_BLUR, inpaint_full_res_padding=32),
+            check, size, "(b) SDXL inpaint, API defaults"))
+        plans.append(plan(base, 2))
+    _check_repeat(results, 0, 1)
+    _check_overlay(results[2]["image"], init, mask)
+    t0 = time.perf_counter()
+    nine = create_random_sdxl(seed=9, device=device, in_channels=9)
+    torch.cuda.synchronize()
+    log(f"random 9-channel SDXL on the card in {time.perf_counter() - t0:.2f} s")
+    with _server(Engine(model=nine, device=device)) as url:
+        _post(f"{url}/img2img", dict(body, steps=2, seed=1))
+        results.append(_request(url, "img2img", dict(
+            body, seed=4321, mask=mask_png, mask_blur=MASK_BLUR, inpainting_fill=1,
+            inpaint_full_res=False), check, size, "(c) 9-channel SDXL inpaint"))
+        plans.append(plan(nine, 3))      # B1: the init encode, the masked encode, the decode
+    _check_overlay(results[-1]["image"], init, mask)
+    del nine
+    gc.collect()
+    torch.cuda.empty_cache()
+    _check_launches(results, plans)
+    profile = phase_profile(engine, sdxl_img2img_request(1234, init_png), "SDXL img2img",
+                            route="img2img")
+    return results, dict(unet_calls=calls, seconds={r["label"]: r["seconds"] for r in results},
+                         profile=profile, f32_encodes_1024=2 + 1 + 2, decodes_1024=4)
+
+
 def kernel_class(name: str) -> str:
     if "flash_attention" in name or "attn_" in name:   # csrc/flash_attention.cu
         return "flash_attn"
@@ -1799,9 +2086,10 @@ def kernel_times(fn, top: int = 8) -> dict:
                 top=sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
 
 
-def phase_profile(engine, body: dict, label: str, wall: float | None = None):
+def phase_profile(engine, body: dict, label: str, wall: float | None = None,
+                  route: str = "txt2img"):
     """One in-process request (the server's request parser and
-    Engine.txt2img, without HTTP) under torch.profiler (CUDA activity):
+    Engine.txt2img or .img2img, without HTTP) under torch.profiler (CUDA activity):
     device busy is the union of the kernel intervals; the wall is `wall`
     where given (config 3: the median of phase 4c's two timed requests over
     HTTP), else the median of two in-process requests without the
@@ -1811,10 +2099,10 @@ def phase_profile(engine, body: dict, label: str, wall: float | None = None):
     from sdwebui_tpu_torch.server.api import _params_from_request
 
     def run():
-        p = _params_from_request(body)
+        p = _params_from_request(body, img2img=route == "img2img")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        engine.txt2img(p)
+        (engine.img2img if route == "img2img" else engine.txt2img)(p)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -1923,6 +2211,10 @@ def main() -> int:
             mark("3 config 1")
             i2i_results, i2i_calls = phase_img2img(engine, model, results[0]["png_b64"])
             mark("4 config 2")
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_img2img_") as opt_dir:
+                opt_results, opt_info = phase_img2img_options(engine, model, results[0],
+                                                              opt_dir, device)
+            mark("4g img2img options")
             hr_results, hr_info = phase_hires(engine, model, upscaler_paths)
             b1_calls = hr_info.pop("b1_calls")     # {(phase-1 row, dtype): calls}
             hr_info["profile"] = phase_profile(engine, hires_request(2024), "config 3",
@@ -1966,6 +2258,8 @@ def main() -> int:
     mark("6 config 5")
     sdxl_hr_result, sdxl_hr_info = phase_sdxl_hires(engine, base, refiner)
     mark("6b SDXL hires")
+    sdxl_i2i_results, sdxl_i2i_info = phase_sdxl_img2img(engine, base, sdxl_results[0], device)
+    mark("6c SDXL img2img")
     profile = phase_profile(engine, sdxl_request(1234, refiner.title), "SDXL")
     mark("7 SDXL profile")
 
@@ -1973,14 +2267,17 @@ def main() -> int:
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "sdwebui_tpu"))
     if leaked:
         raise AssertionError(f"the port imported JAX or the JAX package: {leaked[:5]}")
-    requests = [{k: v for k, v in r.items() if k not in ("image", "png_b64", "infotext")}
-                for r in (results + i2i_results + hr_results + c4_results + hy_results
-                          + ckpt_results + sampler_results + sdxl_results + [sdxl_hr_result])]
+    requests = [{k: v for k, v in r.items()
+                 if k not in ("image", "png_b64", "infotext", "extras")}
+                for r in (results + i2i_results + opt_results + hr_results + c4_results
+                          + hy_results + ckpt_results + sampler_results + sdxl_results
+                          + [sdxl_hr_result] + sdxl_i2i_results)]
     log(json.dumps({"card": smi, "kernel_shapes": rows, "unet_step": unet,
                     "sdxl_unet_step": sdxl_unet, "img2img_unet_calls": i2i_calls,
                     "sdxl_refiner_after_step": s_idx, "checkpoint": ckpt_info,
                     "hires": hr_info, "extras": extras, "sdxl_hires": sdxl_hr_info,
-                    "config4": c4_info, "hybrid": hy_info,
+                    "config4": c4_info, "hybrid": hy_info, "img2img_options": opt_info,
+                    "sdxl_img2img": sdxl_i2i_info,
                     "requests": requests, "sdxl_profile": profile, "phase_s": phase_s}))
 
     def row_of(name, shape, dtype):
@@ -1990,10 +2287,12 @@ def main() -> int:
     # B1's row: the VAE shape whose launches in the timed requests times its
     # time is largest: the f32 encode at 512² (one per config 2 request), the
     # 1024² decode (config 3 and config 5 requests), the 768² decode (config
-    # 3 at 1.5x), the f32 encode at 1024² (config 3's image-space route) or
-    # the 1536² decode (SDXL hires)
-    b1_calls[("vae_mid_512_f32", "float32")] = len(i2i_results) + hy_info["f32_encodes_512"]
-    b1_calls[("vae_mid_1024", "bfloat16")] += len(sdxl_results)
+    # 3 at 1.5x), the f32 encode at 1024² (config 3's image-space route and
+    # every SDXL img2img request) or the 1536² decode (SDXL hires)
+    b1_calls[("vae_mid_512_f32", "float32")] = (len(i2i_results) + hy_info["f32_encodes_512"]
+                                                + opt_info["f32_encodes_512"])
+    b1_calls[("vae_mid_1024", "bfloat16")] += len(sdxl_results) + sdxl_i2i_info["decodes_1024"]
+    b1_calls[("vae_mid_1024_f32", "float32")] += sdxl_i2i_info["f32_encodes_1024"]
     b1_calls[("vae_mid_1536", "bfloat16")] = 1
     b1_row = max(b1_calls, key=lambda c: b1_calls[c] * row_of("flash_attention", *c)["ms"])
 

@@ -32,6 +32,8 @@ class ControlNetModel(UNetEncoder):
     kind = "ControlNet"
 
     def __init__(self, cfg: UNetConfig, hint_channels: int = 3, *, device, dtype):
+        if cfg.tiling:      # JAX's tower pads with zeros whatever the request asks
+            raise NotImplementedError(f"{self.kind} option not ported yet: tiling")
         super().__init__(cfg, device=device, dtype=dtype)
         kw = dict(device=device, dtype=dtype)
         _, _, _, input_chs = build_plan(cfg)

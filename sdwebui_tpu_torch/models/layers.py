@@ -50,12 +50,6 @@ def upsample_nearest_2x(x):
     return F.interpolate(x, scale_factor=2.0, mode="nearest")
 
 
-def upsample2x_conv(conv: "Conv2d", x):
-    """conv3x3(upsample_nearest_2x(x)): the plain form of the JAX package's
-    fused four-phase version (equal by tests/test_ops.py:116)."""
-    return conv(upsample_nearest_2x(x))
-
-
 def _param(shape, device, dtype):
     # 4-D (conv) weights live channels-last: cuDNN's NHWC kernels then need
     # no layout conversion around each convolution

@@ -22,7 +22,9 @@ JAX's ``unet.apply`` adds each input residual to the encoder's running
 state instead (``sdwebui_tpu/models/unet.py:318-323``), which only agrees
 for the middle residual; that form is not carried over.
 ``forward(hypernet=)`` passes every attention's k/v context through a
-hypernetwork's MLPs for its width (``networks/hypernetwork``).
+hypernetwork's MLPs for its width (``networks/hypernetwork``);
+``forward(tiling=True)`` wraps the padding of every 3×3 conv, the stride-2
+downsample's too (seamless textures, ``unet.py:260-345``).
 """
 
 from __future__ import annotations
@@ -117,13 +119,13 @@ class ResBlock(nn.Module):
                                         nn.Dropout(0.0), Conv2d(cout, cout, 3, **kw))
         self.skip_connection = Conv2d(cin, cout, 1, **kw) if cin != cout else None
 
-    def forward(self, x, emb):
+    def forward(self, x, emb, circular: bool = False):
         h = self.in_layers[0](x, silu=True)
-        h = self.in_layers[2](h)
+        h = self.in_layers[2](h, circular)
         e = self.emb_layers[1](F.silu(emb)).to(h.dtype)
         h = h + e[:, :, None, None]
         h = self.out_layers[0](h, silu=True)
-        h = self.out_layers[3](h)
+        h = self.out_layers[3](h, circular)
         if self.skip_connection is not None:
             x = self.skip_connection(x)
         return x + h
@@ -229,8 +231,8 @@ class Downsample(nn.Module):
         super().__init__()
         self.op = Conv2d(c, c, 3, stride=2, device=device, dtype=dtype)
 
-    def forward(self, x):
-        return self.op(x)
+    def forward(self, x, circular: bool = False):
+        return self.op(x, circular)
 
 
 class Upsample(nn.Module):
@@ -238,8 +240,8 @@ class Upsample(nn.Module):
         super().__init__()
         self.conv = Conv2d(c, c, 3, device=device, dtype=dtype)
 
-    def forward(self, x):
-        return self.conv(upsample_nearest_2x(x))
+    def forward(self, x, circular: bool = False):
+        return self.conv(upsample_nearest_2x(x), circular)
 
 
 def _unsupported(cfg: UNetConfig) -> str | None:
@@ -249,8 +251,6 @@ def _unsupported(cfg: UNetConfig) -> str | None:
         return "token merging (ToMe)"
     if cfg.upcast_attn:
         return "upcast_attn"
-    if cfg.tiling:
-        return "tiling"
     return None
 
 
@@ -268,14 +268,16 @@ def make_layer(layer, cfg: UNetConfig, **kw) -> nn.Module:
     return Upsample(layer[1], **kw)
 
 
-def run_layers(layers, h, emb, context, hypernet=None):
+def run_layers(layers, h, emb, context, hypernet=None, circular: bool = False):
+    """circular: every 3×3 conv wraps its padding (seamless tiling,
+    unet.py:260-276)."""
     for layer in layers:
         if isinstance(layer, ResBlock):
-            h = layer(h, emb)
+            h = layer(h, emb, circular)
         elif isinstance(layer, SpatialTransformer):
             h = layer(h, context, hypernet)
         else:
-            h = layer(h)
+            h = layer(h, circular)
     return h
 
 
@@ -337,26 +339,28 @@ class UNetModel(UNetEncoder):
                                       "context-free UNets) is not ported yet")
         return super().load_state_dict(state_dict, strict, assign)
 
-    def forward(self, x, timesteps, context, y=None, control=None, hypernet=None):
+    def forward(self, x, timesteps, context, y=None, control=None, hypernet=None,
+                tiling: bool = False):
         """x: (B, C_in, H, W) latent; timesteps: (B,); context: (B, S, D);
         y: (B, adm_in_channels) SDXL vector conds; control: a ControlNet's
         {"input": per-input-block residuals, "middle": residual}, added the
         cldm way (module docstring); hypernet: a
-        ``networks.hypernetwork.Hypernetwork``.  Activations run
-        channels-last in memory (NCHW indexing)."""
+        ``networks.hypernetwork.Hypernetwork``; tiling: circular padding on
+        every 3×3 conv (unet.py:260-345).  Activations run channels-last in
+        memory (NCHW indexing)."""
         emb = self.embed(timesteps, y, x.dtype)
         context = context.to(x.dtype)
         hs = []
         h = x.contiguous(memory_format=torch.channels_last)
         for block in self.input_blocks:
-            h = run_layers(block, h, emb, context, hypernet)
+            h = run_layers(block, h, emb, context, hypernet, tiling)
             hs.append(h)
-        h = run_layers(self.middle_block, h, emb, context, hypernet)
+        h = run_layers(self.middle_block, h, emb, context, hypernet, tiling)
         if control is not None:
             h = h + control["middle"]
         for block in self.output_blocks:
             skip = hs.pop()
             if control is not None:
                 skip = skip + control["input"][len(hs)]
-            h = run_layers(block, torch.cat([h, skip], dim=1), emb, context, hypernet)
-        return self.out[2](self.out[0](h, silu=True))
+            h = run_layers(block, torch.cat([h, skip], dim=1), emb, context, hypernet, tiling)
+        return self.out[2](self.out[0](h, silu=True), tiling)

@@ -7,6 +7,8 @@ conv; the decoder runs ``up`` in reverse (``up.3`` first, at the lowest
 resolution); all norms are GroupNorm(32, eps=1e-6); the mid-block
 attention is single-head over H·W tokens and goes through
 ``ops.attention`` (the flash kernel B1 at 512² encode and decode sizes).
+A ``tiling`` decode wraps the padding of the decoder's 3×3 convs
+(``vae.py:117-139``); the encoder never does, as in JAX.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from torch import nn
 
 from sdwebui_tpu_torch.models.configs import VAEConfig
 from sdwebui_tpu_torch.models.layers import (Conv2d, GroupNorm, conv2d,
-                                             upsample2x_conv)
+                                             upsample_nearest_2x)
 from sdwebui_tpu_torch.ops.attention import attention
 
 
@@ -31,9 +33,9 @@ class ResnetBlock(nn.Module):
         self.conv2 = Conv2d(cout, cout, 3, **kw)
         self.nin_shortcut = Conv2d(cin, cout, 1, **kw) if cin != cout else None
 
-    def forward(self, x):
-        h = self.conv1(self.norm1(x, silu=True))
-        h = self.conv2(self.norm2(h, silu=True))
+    def forward(self, x, circular: bool = False):
+        h = self.conv1(self.norm1(x, silu=True), circular)
+        h = self.conv2(self.norm2(h, silu=True), circular)
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x)
         return x + h
@@ -140,25 +142,24 @@ class Decoder(nn.Module):
         self.norm_out = GroupNorm(cfg.ch, eps=1e-6, **kw)
         self.conv_out = Conv2d(cfg.ch, cfg.out_ch, 3, **kw)
 
-    def forward(self, z):
-        h = self.conv_in(z)
-        h = self.mid["block_1"](h)
+    def forward(self, z, circular: bool = False):
+        """circular: every 3×3 conv wraps its padding (vae.py:117-139)."""
+        h = self.conv_in(z, circular)
+        h = self.mid["block_1"](h, circular)
         h = self.mid["attn_1"](h)
-        h = self.mid["block_2"](h)
+        h = self.mid["block_2"](h, circular)
         for level in reversed(range(len(self.up))):
             lp = self.up[level]
             for block in lp.block:
-                h = block(h)
+                h = block(h, circular)
             if hasattr(lp, "upsample"):
-                h = upsample2x_conv(lp.upsample.conv, h)
-        return self.conv_out(self.norm_out(h, silu=True))
+                h = lp.upsample.conv(upsample_nearest_2x(h), circular)
+        return self.conv_out(self.norm_out(h, silu=True), circular)
 
 
 class AutoencoderKL(nn.Module):
     def __init__(self, cfg: VAEConfig, *, device, dtype):
         super().__init__()
-        if cfg.tiling:
-            raise NotImplementedError("VAE tiling is not ported yet")
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.encoder = Encoder(cfg, **kw)
@@ -166,12 +167,13 @@ class AutoencoderKL(nn.Module):
         self.quant_conv = Conv2d(2 * cfg.z_channels, 2 * cfg.embed_dim, 1, **kw)
         self.post_quant_conv = Conv2d(cfg.embed_dim, cfg.z_channels, 1, **kw)
 
-    def decode(self, z):
+    def decode(self, z, tiling: bool = False):
         """scaled latent (B, z, h, w) → image (B, 3, 8h, 8w) in [-1, 1];
-        activations run channels-last in memory."""
+        tiling: the decoder's 3×3 convs wrap their padding (the encoder's
+        never do, as in JAX).  Activations run channels-last in memory."""
         z = z.contiguous(memory_format=torch.channels_last)
         z = z / self.cfg.scale_factor + self.cfg.shift_factor
-        return self.decoder(self.post_quant_conv(z))
+        return self.decoder(self.post_quant_conv(z), tiling)
 
     def encode_moments(self, x):
         """image (B, 3, H, W) in [-1, 1] → moments (B, 2·z, H/8, W/8)

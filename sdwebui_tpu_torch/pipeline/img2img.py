@@ -1,32 +1,41 @@
-"""img2img and inpainting (SD1.x) — port of ``sdwebui_tpu/pipeline/img2img.py``.
+"""img2img and inpainting — port of ``sdwebui_tpu/pipeline/img2img.py``.
 
 Pipeline (``img2img.py:32-116,132-445``): init images flattened onto
-``img2img_background_color`` → mask binarized (and inverted), blurred →
-latent mask by a bicubic resize to the latent grid, rounded; init images
-of another size than the request through ``resize_image`` (resize modes
-0-2, ``upscaler_for_img2img`` for a leg that upscales), masks through
-Pillow's default (bicubic) resize → VAE encode
-(the mean, at the policy's ``vae_dtype``) → fill 2 (latent noise) or 3
-(latent nothing) in the repaint region → noise to σ₀ of the t_enc slice of
-the schedule (plus ``img2img_extra_noise``) → sampling with the latent mask
-blend after every denoise → the final blend → decode → the original pasted
-back outside the blurred mask.  Extra networks apply as in txt2img, and a
-ControlNet unit without an image of its own takes the first init image
-(``img2img.py:317-323``).  Images are uint8 numpy arrays throughout
-(``utils/images`` restates the Pillow operations).
+``img2img_background_color`` (and saved under ``outdir_init_images`` with
+``save_init_img``) → mask binarized (and inverted), blurred → with
+``inpaint_full_res`` the image and mask cropped to the mask's box plus
+``inpaint_full_res_padding``, widened to the request's aspect → init
+images through ``resize_image`` (resize modes 0-3, ``upscaler_for_img2img``
+for a leg that upscales; mode 3 resizes as mode 0, as JAX does), masks
+through Pillow's default (bicubic) resize → ``inpainting_fill`` 0 fills the
+repaint region with the surrounding colours (``masking.fill``) → VAE or
+TAESD encode → fill 2 (latent noise) or 3 (latent nothing) → noise to σ₀
+of the t_enc slice of the schedule (or ``init_noise_override``, plus
+``img2img_extra_noise``) → sampling with the latent mask blend after every
+denoise, or soft inpainting's σ-scheduled blend before it → the final
+blend (not with soft inpainting) → decode → colour correction against the
+init images → the original pasted back outside the blurred mask (into the
+crop region with ``inpaint_full_res``) → the mask and the mask composite
+when ``return_mask`` / ``return_mask_composite`` ask for them.  Extra
+networks apply as in txt2img, and a ControlNet unit without an image of
+its own takes the first init image (``img2img.py:317-323``).  Images are
+uint8 numpy arrays throughout (``utils/images`` and ``utils/masking``
+restate the Pillow operations).
 
 Hybrid UNets get their image conditioning (``c_concat``,
 ``img2img.py:224-252``): instruct-pix2pix's init latent with its 3-way
 CFG at ``image_cfg_scale``, the inpainting model's mask and masked-image
-latent, SD2-depth's MiDaS depth.  Each request field or option outside
-this slice raises ``NotImplementedError`` naming it: resize mode 3,
-``inpainting_fill`` 0, ``inpaint_full_res``, soft inpainting, colour
-correction, ``inpainting_mask_weight`` other than 1.0, ControlNet units
-with instruct-pix2pix, and SDXL img2img.
+latent (SD1 and SDXL), SD2-depth's MiDaS depth.  SDXL runs as txt2img
+does, its vector conds at the request's size.  What JAX's img2img does
+not run raises ``NotImplementedError`` naming it: ``refiner_checkpoint``,
+``inpainting_mask_weight`` other than 1.0, ControlNet units and soft
+inpainting with instruct-pix2pix.
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
 from typing import Callable
 
 import numpy as np
@@ -44,88 +53,109 @@ from sdwebui_tpu_torch.pipeline.processing import (_apply_grid, _build_conds,
                                                    decode_first_stage_u8,
                                                    encode_first_stage,
                                                    check_hybrid, prepare_sampler,
-                                                   sample_latents, setup_img2img_steps)
+                                                   sample_latents, setup_img2img_steps,
+                                                   uses_refiner, with_tiling)
 from sdwebui_tpu_torch.pipeline.sd_model import SDModel
 from sdwebui_tpu_torch.rng.philox import PhiloxGenerator
 from sdwebui_tpu_torch.sampling.sampler import prepare_noise
+from sdwebui_tpu_torch.utils import color
 from sdwebui_tpu_torch.utils import images as images_util
 from sdwebui_tpu_torch.utils import masking
 from sdwebui_tpu_torch.utils.options import opts
-
-#: img2img options whose other values are not ported yet, with the value
-#: the slice runs
-UNPORTED_IMG2IMG_OPTIONS = {
-    "img2img_color_correction": False,
-    "save_init_img": False,
-    "sd_vae_encode_method": "Full",
-    "return_mask": False,
-    "return_mask_composite": False,
-}
+from sdwebui_tpu_torch.utils.png import encode_png
 
 
 def _check_img2img(model: SDModel, p: GenerationParams) -> None:
-    """Raise for the img2img fields, options and models the slice does not run."""
+    """Raise for the img2img fields and models the port does not run."""
     _check_slice(p)
-    if model.is_sdxl:
-        raise NotImplementedError("SDXL img2img is not ported yet")
     check_hybrid(model)
+    if uses_refiner(p):
+        raise NotImplementedError(
+            f"refiner_checkpoint {p.refiner_checkpoint!r} on img2img is not ported (the JAX "
+            "package's img2img reads no refiner)")
     if model.unet_cfg.in_channels == 8 and p.controlnet_units:
         raise NotImplementedError(
             "controlnet_units with an 8-channel (instruct-pix2pix) UNet are not ported (the "
             "JAX package's edit-model CFG passes no step to the units)")
-    if p.resize_mode not in (0, 1, 2):
-        raise NotImplementedError(
-            f"resize_mode {p.resize_mode} (just resize, latent upscale) of init images and "
-            "masks is not ported yet (modes 0-2 resize with LANCZOS or upscaler_for_img2img)")
-    fields = {
-        "soft_inpainting": p.soft_inpainting,
-        "init_noise_override": p.init_noise_override is not None,
-        "inpaint_full_res": p.mask is not None and p.inpaint_full_res,
-        "inpainting_fill 0 (fill with the surrounding colours)":
-            p.mask is not None and p.inpainting_fill == 0,
-    }
-    for name, used in fields.items():
-        if used:
-            raise NotImplementedError(f"{name!r} is not ported yet")
-    for name, value in UNPORTED_IMG2IMG_OPTIONS.items():
-        if opts.get(name, value) != value:
-            raise NotImplementedError(f"option {name!r} is not ported yet")
 
 
-def _prepare_images_and_mask(p: GenerationParams):
-    """Returns (images (N, H, W, 3) float32 in [0, 1], mask info dict):
-    ``img2img.py:45-116`` without the inpaint-full-res crop.  The blurred
-    mask keeps its own size for the overlay and is resized (bicubic) to the
-    request's for the latent mask."""
+def _save_init_image(p: GenerationParams, image: np.ndarray) -> None:
+    """save_init_img (img2img.py:70-80): the flattened init image as
+    ``<outdir_init_images>/<md5 of its RGB bytes>.png``; the hash goes to
+    the infotext as "Init image hash"."""
+    p.init_img_hash = hashlib.md5(image.tobytes()).hexdigest()
+    outdir = opts.get("outdir_init_images", "outputs/init-images") or "outputs/init-images"
+    os.makedirs(outdir, exist_ok=True)
+    with open(os.path.join(outdir, f"{p.init_img_hash}.png"), "wb") as f:
+        f.write(encode_png(image))
+
+
+def _prepare_images_and_mask(p: GenerationParams, device="cpu"):
+    """Returns (images (N, H, W, 3) float32 in [0, 1], mask info dict)
+    (``img2img.py:45-116``): "mask" the last image's mask at the request's
+    size (None without a mask), "overlay_mask" the blurred mask at the
+    init image's size, "crop_region" the inpaint-full-res box or None,
+    "originals" the init images as RGB.  inpainting_fill 0's colour fill
+    runs on `device`."""
     init_images = p.init_images if isinstance(p.init_images, list) else [p.init_images]
-    overlay_mask = mask = None
+    mask_img = overlay_mask = crop_region = final_mask = None
     if p.mask is not None:
-        overlay_mask = masking.binarize_mask(p.mask, invert=bool(p.inpainting_mask_invert))
-        overlay_mask = masking.blur_mask(overlay_mask, p.mask_blur)
-        mask = images_util.resize(overlay_mask, (p.width, p.height))
+        mask_img = masking.binarize_mask(p.mask, invert=bool(p.inpainting_mask_invert))
+        mask_img = masking.blur_mask(mask_img, p.mask_blur)
     bg = opts.get("img2img_background_color", "#ffffff") or "#ffffff"
     upscaler = opts.get("upscaler_for_img2img", "None")
     imgs, originals = [], []
     for im in init_images:
         a = images_util.as_hwc(im)
-        rgb = images_util.resize_image(p.resize_mode, images_util.flatten(a, bg), p.width,
-                                       p.height, upscaler_name=upscaler)
+        flat = images_util.flatten(a, bg)
+        if opts.get("save_init_img", False):
+            _save_init_image(p, flat)
+        if mask_img is not None and p.inpaint_full_res:
+            ih, iw = flat.shape[:2]
+            overlay_mask = images_util.resize(mask_img, (iw, ih))
+            crop_region = masking.get_crop_region_v2(overlay_mask > 127,
+                                                     p.inpaint_full_res_padding)
+            crop_region = masking.expand_crop_region(crop_region, p.width, p.height, iw, ih)
+            flat = images_util.crop(flat, crop_region)
+            mask_use = images_util.crop(overlay_mask, crop_region)
+        else:
+            mask_use = overlay_mask = mask_img
+        rgb = images_util.resize_image(p.resize_mode, flat, p.width, p.height,
+                                       upscaler_name=upscaler)
+        if mask_use is not None:
+            mask_use = images_util.resize(mask_use, (p.width, p.height))
+            if p.inpainting_fill == 0:     # fill with the surrounding colours
+                rgb = images_util.composite(masking.fill(rgb, mask_use, device), rgb,
+                                            masking.binarize_mask(mask_use))
         imgs.append(rgb.astype(np.float32) / 255.0)
         originals.append(images_util.to_rgb(a))
-    info = {"mask": mask, "overlay_mask": overlay_mask, "originals": originals}
+        final_mask = mask_use
+    info = {"mask": final_mask, "overlay_mask": overlay_mask, "crop_region": crop_region,
+            "originals": originals}
     return np.stack(imgs), info
 
 
 def apply_overlay(img: np.ndarray, mask_info: dict, index: int) -> np.ndarray:
-    """The original outside the blurred mask, the generated image inside it,
-    the original and the mask resized (bicubic) to the image's size
-    (``img2img.py:446-465`` without the inpaint-full-res crop)."""
+    """The original outside the blurred mask, the generated image inside it
+    (``img2img.py:446-465``): with a crop region the image is resized to the
+    region, composited under the region's overlay mask and pasted back into
+    the original; else the original and the mask are resized (bicubic) to
+    the image's size."""
     if mask_info.get("mask") is None:
         return img
-    size = (img.shape[1], img.shape[0])
     original = mask_info["originals"][min(index, len(mask_info["originals"]) - 1)]
+    overlay_mask = mask_info["overlay_mask"]
+    box = mask_info["crop_region"]
+    if box is not None:
+        x1, y1, x2, y2 = box
+        img = images_util.resize(img, (x2 - x1, y2 - y1))
+        region_mask = images_util.resize(images_util.crop(overlay_mask, box), (x2 - x1, y2 - y1))
+        out = original.copy()
+        return images_util.paste(out, images_util.composite(
+            img, images_util.crop(original, box), region_mask), (x1, y1))
+    size = (img.shape[1], img.shape[0])
     return images_util.composite(img, images_util.resize(original, size),
-                                 images_util.resize(mask_info["overlay_mask"], size))
+                                 images_util.resize(overlay_mask, size))
 
 
 def image_conditioning(model: SDModel, p: GenerationParams, image_arr: np.ndarray,
@@ -153,17 +183,35 @@ def image_conditioning(model: SDModel, p: GenerationParams, image_arr: np.ndarra
     return None
 
 
+def _mask_outputs(mask_info: dict, pre_overlay: list) -> list:
+    """return_mask / return_mask_composite (img2img.py:410-428): per image,
+    the mask as RGB and the pre-overlay image's RGBa composite under it."""
+    mask_l = mask_info["mask"]
+    out = []
+    for img in pre_overlay:
+        if opts.get("return_mask", False):
+            out.append(images_util.to_rgb(mask_l))
+        if opts.get("return_mask_composite", False):
+            size = (img.shape[1], img.shape[0])
+            out.append(images_util.mask_composite(img, images_util.resize(mask_l, size)))
+    return out
+
+
 def process_img2img(model: SDModel, p: GenerationParams,
-                    step_callback: Callable | None = None) -> Processed:
+                    step_callback: Callable | None = None,
+                    interrupted: Callable | None = None) -> Processed:
     """img2img with per-request override_settings applied and restored.
-    ``step_callback(i, n, latents)`` returning False stops sampling."""
+    ``step_callback(i, n, latents)`` returning False stops sampling;
+    ``interrupted()`` true at the decode lets live_preview_fast_interrupt
+    decode with the preview method."""
     with opts.override(p.override_settings):
-        return _process_img2img(model, p, step_callback)
+        return _process_img2img(model, p, step_callback, interrupted)
 
 
 @torch.inference_mode()
 def _process_img2img(model: SDModel, p: GenerationParams,
-                     step_callback: Callable | None) -> Processed:
+                     step_callback: Callable | None,
+                     interrupted: Callable | None) -> Processed:
     if not p.init_images:
         raise ValueError("img2img requires init_images")
     _check_img2img(model, p)
@@ -173,10 +221,14 @@ def _process_img2img(model: SDModel, p: GenerationParams,
     _resolve_seeds(p)
     _strip_prompt_comments(p)
     clean_prompt, model, hypernet = extra_networks.activate(model, p.prompt)
+    model = with_tiling(model, p)
     h, w = p.latent_size()
     c = model.latent_channels
 
-    image_arr, mask_info = _prepare_images_and_mask(p)
+    image_arr, mask_info = _prepare_images_and_mask(p, model.device)
+    corrections = None
+    if opts.get("img2img_color_correction", False):
+        corrections = [color.setup_color_correction(im) for im in mask_info["originals"]]
     if image_arr.shape[0] > p.batch_size:
         # multiple init images (API batch): the batch matches the image count
         p.batch_size = image_arr.shape[0]
@@ -189,11 +241,13 @@ def _process_img2img(model: SDModel, p: GenerationParams,
 
     init_latent = encode_first_stage(model, image_arr)
 
-    # latent mask: mask = keep weight, nmask = repaint weight
+    # latent mask: mask = keep weight, nmask = repaint weight; soft
+    # inpainting keeps the blurred mask's levels
     mask = nmask = None
     if mask_info["mask"] is not None:
-        latmask = images_util.resize(mask_info["mask"], (w, h))
-        latmask = np.around(latmask.astype(np.float32) / 255.0)
+        latmask = images_util.resize(mask_info["mask"], (w, h)).astype(np.float32) / 255.0
+        if not p.soft_inpainting:
+            latmask = np.around(latmask)
         nmask = torch.from_numpy(latmask).to(model.device)[None, None]
         mask = 1.0 - nmask
         if p.inpainting_fill == 2:     # latent noise in the repaint region
@@ -203,6 +257,10 @@ def _process_img2img(model: SDModel, p: GenerationParams,
                 model.device) * nmask
         elif p.inpainting_fill == 3:   # latent nothing
             init_latent = init_latent * mask
+    soft = None
+    if p.soft_inpainting and nmask is not None:
+        soft = (float(p.mask_blend_power), float(p.mask_blend_scale),
+                float(p.inpaint_detail_preservation))
 
     c_concat = image_conditioning(model, p, image_arr, init_latent, mask_info["mask"], nmask)
 
@@ -225,7 +283,11 @@ def _process_img2img(model: SDModel, p: GenerationParams,
             sched.image_cfg_scale = float(p.image_cfg_scale)
         rng = create_rng((c, h, w), seeds, subseeds=subseeds,
                          subseed_strength=p.subseed_strength)
-        x = torch.from_numpy(rng.first()).to(model.device)
+        if p.init_noise_override is not None:
+            x = torch.as_tensor(np.asarray(p.init_noise_override, np.float32),
+                                device=model.device)
+        else:
+            x = torch.from_numpy(rng.first()).to(model.device)
         if p.initial_noise_multiplier != 1.0:
             x = x * p.initial_noise_multiplier
         xi = init_latent + x * float(np.float32(sigma_sched[0]))
@@ -239,14 +301,23 @@ def _process_img2img(model: SDModel, p: GenerationParams,
         latents = sample_latents(model, sched, xi, sigma_sched, noise, sampler.solver,
                                  solver_extra, step_callback=step_callback,
                                  mask=mask, nmask=nmask, init_latent=init_latent,
-                                 hypernet=hypernet, controls=controls)
-        if mask is not None:
+                                 hypernet=hypernet, controls=controls, soft_inpainting=soft)
+        if mask is not None and soft is None:
             latents = latents * nmask + init_latent * mask
-        images = list(decode_first_stage_u8(model, latents))
+        images = list(decode_first_stage_u8(model, latents,
+                                            bool(interrupted and interrupted())))
+        if corrections is not None:
+            images = [color.apply_color_correction(corrections[min(i, len(corrections) - 1)],
+                                                   img) for i, img in enumerate(images)]
+        pre_overlay = list(images)
         if opts.get("overlay_inpaint", True):
             images = [apply_overlay(img, mask_info, i) for i, img in enumerate(images)]
         infotexts.extend(create_infotext(p, model, lo + i) for i in range(len(images)))
         all_images.extend(images)
+        if mask_info["mask"] is not None:
+            extra = _mask_outputs(mask_info, pre_overlay)
+            all_images.extend(extra)
+            infotexts.extend([infotexts[-1]] * len(extra))
 
     first_idx = _apply_grid(all_images, infotexts, p, model)
     return Processed(

@@ -78,8 +78,9 @@ class GenerationParams:
     include_init_images: bool = False
     # soft inpainting (builtin extension parity)
     soft_inpainting: bool = False
-    # scripts may inject a custom initial noise tensor (NHWC), e.g.
-    # img2img-alternative's reverse-Euler reconstruction
+    # scripts may inject a custom initial noise tensor, e.g.
+    # img2img-alternative's reverse-Euler reconstruction; the port reads it
+    # in its latent layout, (B, C, h, w) (JAX's is NHWC)
     init_noise_override: object = None
     mask_blend_power: float = 1.0
     mask_blend_scale: float = 0.5

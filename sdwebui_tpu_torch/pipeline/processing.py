@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from sdwebui_tpu_torch import __version__
+from sdwebui_tpu_torch.models import vae_approx
 from sdwebui_tpu_torch.networks import extra_networks
 from sdwebui_tpu_torch.pipeline.control import control_residuals, prepare_controls
 from sdwebui_tpu_torch.pipeline.params import GenerationParams, Processed
@@ -60,9 +61,7 @@ UNPORTED_OPTIONS = {
     "hypertile_enable_unet": False,
     "token_merging_ratio": 0.0,
     "upcast_attn": False,
-    "sd_vae_decode_method": "Full",
     "fp8_storage": "Disable",
-    "live_preview_fast_interrupt": False,
 }
 
 #: options of the hires pass whose other values are not ported yet
@@ -74,9 +73,7 @@ UNPORTED_HIRES_OPTIONS = {
 def _check_slice(p: GenerationParams) -> None:
     """Raise for every request field and option the slice does not run."""
     fields = {
-        "tiling": p.tiling,
         "restore_faces": p.restore_faces,
-        "styles": p.styles,
         "hypernet_override": p.hypernet_override is not None,
         "postprocessing": p.postprocessing,
     }
@@ -150,7 +147,8 @@ def make_denoise_fn(model: SDModel, quantize_t: bool, compute_dtype, solver: str
             control = control_residuals(controls, x_in, timesteps, ctx, y, step, n_cond)
         if c_concat is not None:
             x_in = torch.cat([x_in, c_concat.to(x_in.dtype)], dim=1)
-        out = model.unet(x_in, timesteps, ctx, y, control=control, hypernet=hypernet).float()
+        out = model.unet(x_in, timesteps, ctx, y, control=control, hypernet=hypernet,
+                         tiling=model.unet_cfg.tiling).float()
         if prediction_type == "v":
             return x / float(s * s + 1) - out * float(s / np.sqrt(s * s + 1))
         if lcm:
@@ -167,17 +165,18 @@ def sample_latents(model: SDModel, sched: CondSchedule, x, sigmas, noise,
                    solver: str, extra: dict | None = None,
                    step_callback: Callable | None = None, first_step: int = 0,
                    total_steps: int | None = None, mask=None, nmask=None,
-                   init_latent=None, hypernet=None, controls=()):
+                   init_latent=None, hypernet=None, controls=(), soft_inpainting=None):
     """Sample from sigmas[0] to sigmas[-1].  step_callback(i, n, x) sees
     step first_step + i of total_steps (a refiner run continues the base's
-    count).  mask / nmask / init_latent: the img2img latent blend;
+    count).  mask / nmask / init_latent: the img2img latent blend, or with
+    soft_inpainting (power, scale, detail) the σ-scheduled soft blend;
     hypernet / controls: make_denoise_fn's."""
     quantize = bool(opts.get("enable_quantization", False))
     denoise = make_denoise_fn(model, quantize, devices.get_policy().compute_dtype, solver,
                               hypernet=hypernet, controls=controls,
                               conds_per_image=sched.cond_bank.shape[0])
     model_fn = make_cfg_denoiser(denoise, sched, mask=mask, nmask=nmask,
-                                 init_latent=init_latent,
+                                 init_latent=init_latent, soft_inpainting=soft_inpainting,
                                  return_uncond=solver == "ddim_cfgpp")
     sig = np.asarray(sigmas, np.float32)
     n = total_steps or len(sig) - 1
@@ -205,37 +204,81 @@ def setup_img2img_steps(steps: int, denoising_strength: float,
     return steps, t_enc
 
 
+def _taesd_for(model: SDModel, which: str):
+    """The TAESD encoder or decoder when opts.sd_vae_{encode,decode}_method
+    is "TAESD" and its file loads (processing.py:458-470), else None: the
+    full VAE runs, as in JAX (``models/vae_approx`` logs the fallback)."""
+    opt = "sd_vae_decode_method" if which == "decoder" else "sd_vae_encode_method"
+    if opts.get(opt, "Full") != "TAESD":
+        return None
+    return vae_approx.get_taesd(model.kind, which, model.device)
+
+
+def _fast_interrupt_method(interrupted: bool):
+    """The live-preview method an interrupted job decodes its finals with
+    under opts.live_preview_fast_interrupt (processing.py:473-483), or None."""
+    if interrupted and opts.get("live_preview_fast_interrupt", False):
+        method = opts.get("show_progress_type", "Approx NN")
+        return None if method == "Full" else method
+    return None
+
+
 def encode_first_stage(model: SDModel, images: np.ndarray):
     """images (B, H, W, 3) float in [0, 1] → scaled latents (B, z, H/8, W/8)
-    in fp32: the encoder's mean at the policy's vae_dtype
-    (processing.py:348-351,588-594; no TAESD)."""
-    x = torch.from_numpy(np.ascontiguousarray(images.transpose(0, 3, 1, 2)))
-    x = x.to(model.device, devices.get_policy().vae_dtype) * 2.0 - 1.0
+    in fp32: the encoder's mean at the policy's vae_dtype, or TAESD's
+    encoder (processing.py:348-351,586-593)."""
+    x = torch.from_numpy(np.ascontiguousarray(images.transpose(0, 3, 1, 2))).to(model.device)
+    taesd = _taesd_for(model, "encoder")
+    if taesd is not None:
+        return vae_approx.taesd_encode(taesd, x)
+    x = x.to(devices.get_policy().vae_dtype) * 2.0 - 1.0
     vae = model.vae
     return vae.encode_mode(vae.encode_moments(x)).float()
+
+
+def _to_u8(img) -> np.ndarray:
+    """(B, 3, H, W) in [0, 1] → uint8 (B, H, W, 3), rounded half up."""
+    return (img * 255.0 + 0.5).to(torch.uint8).permute(0, 2, 3, 1).cpu().numpy()
 
 
 def _decode_u8(model: SDModel, latents, dtype):
     """(uint8 (B, H, W, 3), whether the decode gave NaN or inf); NaN reads
     as 0, as JAX's ``tensor_to_pil`` reads it."""
-    img = model.vae.decode(latents.to(dtype))
+    img = model.vae.decode(latents.to(dtype), tiling=model.vae_cfg.tiling)
     bad = not devices.all_finite(img)
-    img = torch.nan_to_num(torch.clamp(img.float() / 2.0 + 0.5, 0.0, 1.0))
-    u8 = (img * 255.0 + 0.5).to(torch.uint8).permute(0, 2, 3, 1)
-    return u8.cpu().numpy(), bad
+    return _to_u8(torch.nan_to_num(torch.clamp(img.float() / 2.0 + 0.5, 0.0, 1.0))), bad
+
+
+def _approx_u8(model: SDModel, latents, interrupted: bool):
+    """The finals of an interrupted job under live_preview_fast_interrupt,
+    or TAESD's decode, as uint8; None for the full VAE."""
+    fast = _fast_interrupt_method(interrupted)
+    if fast is not None:
+        return _to_u8(vae_approx.approx_decode(model.kind, fast, latents))
+    taesd = _taesd_for(model, "decoder")
+    if taesd is not None:
+        return _to_u8(vae_approx.taesd_decode(taesd, latents))
+    return None
 
 
 def decode_first_stage(model: SDModel, latents) -> np.ndarray:
     """latents → uint8 (B, H, W, 3) as JAX's ``decode_first_stage`` and
-    ``tensor_to_pil`` make the hires pass's image: one decode at the
-    policy's vae_dtype, no bf16 first (processing.py:320,485)."""
+    ``tensor_to_pil`` make the hires pass's image: TAESD, or one decode at
+    the policy's vae_dtype, no bf16 first (processing.py:320,485)."""
+    u8 = _approx_u8(model, latents, False)
+    if u8 is not None:
+        return u8
     return _decode_u8(model, latents, devices.get_policy().vae_dtype)[0]
 
 
-def decode_first_stage_u8(model: SDModel, latents) -> np.ndarray:
-    """latents (B, C, h, w) → uint8 (B, H, W, 3).  bf16 decode first when
-    opts.sdtpu_vae_bf16, retried in fp32 on NaN/inf unless
-    opts.auto_vae_precision is off (processing.py:523-546)."""
+def decode_first_stage_u8(model: SDModel, latents, interrupted: bool = False) -> np.ndarray:
+    """latents (B, C, h, w) → uint8 (B, H, W, 3).  An interrupted job's
+    preview decode or TAESD when the options ask for them; else a bf16
+    decode first when opts.sdtpu_vae_bf16, retried in fp32 on NaN/inf
+    unless opts.auto_vae_precision is off (processing.py:523-546)."""
+    u8 = _approx_u8(model, latents, interrupted)
+    if u8 is not None:
+        return u8
     if opts.get("sdtpu_vae_bf16", True):
         u8, bad = _decode_u8(model, latents, torch.bfloat16)
         if not bad or not opts.get("auto_vae_precision", True):
@@ -578,6 +621,7 @@ def create_infotext(p: GenerationParams, model: SDModel, index: int = 0) -> str:
         "Model": (model.title.split(" [")[0] if model.title
                   and opts.get("add_model_name_to_info", True) else None),
         "Denoising strength": p.denoising_strength,
+        "Init image hash": getattr(p, "init_img_hash", None),
         "Clip skip": p.clip_skip if p.clip_skip > 1 else None,
         "Version": (f"sdwebui-tpu-{__version__}"
                     if opts.get("add_version_to_infotext", True) else None),
@@ -618,6 +662,8 @@ def create_infotext(p: GenerationParams, model: SDModel, index: int = 0) -> str:
         # the reference's rule: only samplers that draw noise after the
         # first draw record it (JAX records it for every sampler)
         pairs["ENSD"] = ensd
+    if p.tiling:
+        pairs["Tiling"] = "True"
     emphasis = opts.get("emphasis", "Original")
     if emphasis != "Original":
         pairs["Emphasis"] = emphasis
@@ -651,11 +697,13 @@ def _grid_rows(n: int, batch_size: int) -> int:
 
 
 def image_grid(images: list, batch_size: int) -> np.ndarray:
-    """Equal-sized uint8 HWC images → one grid image, row-major, empty
-    cells in opts.grid_background_color (utils/images.py:333)."""
+    """Equal-sized uint8 HWC images → one RGB grid image, row-major, empty
+    cells in opts.grid_background_color (utils/images.py:333); an RGBA
+    image (img2img's mask composite) loses its alpha, as Pillow's paste
+    into an RGB grid drops it."""
     rows = _grid_rows(len(images), batch_size)
     cols = -(-len(images) // rows)
-    h, w, c = images[0].shape
+    h, w, c = images[0].shape[0], images[0].shape[1], 3
     color = str(opts.get("grid_background_color", "#ffffff") or "#ffffff").lstrip("#")
     try:
         bg = [int(color[i:i + 2], 16) for i in (0, 2, 4)]
@@ -665,7 +713,7 @@ def image_grid(images: list, batch_size: int) -> np.ndarray:
     grid[...] = np.asarray(bg, np.uint8)
     for i, img in enumerate(images):
         r, col = divmod(i, cols)
-        grid[r * h:(r + 1) * h, col * w:(col + 1) * w] = img
+        grid[r * h:(r + 1) * h, col * w:(col + 1) * w] = img[:, :, :3]
     return grid
 
 
@@ -683,14 +731,27 @@ def _apply_grid(all_images: list, infotexts: list, p: GenerationParams,
 
 def process_txt2img(model: SDModel, p: GenerationParams,
                     step_callback: Callable | None = None,
-                    refiner_model: SDModel | None = None) -> Processed:
+                    refiner_model: SDModel | None = None,
+                    interrupted: Callable | None = None) -> Processed:
     """txt2img with per-request override_settings applied and restored
     (processing.py:1304).  ``step_callback(i, n, latents)`` returning False
-    stops sampling.  A request with ``refiner_checkpoint`` and
-    0 < ``refiner_switch_at`` < 1 needs `refiner_model`; with ``enable_hr``,
-    opts.hires_fix_refiner_pass says which pass it refines."""
+    stops sampling; ``interrupted()`` true at the decode lets
+    opts.live_preview_fast_interrupt decode with the preview method.  A
+    request with ``refiner_checkpoint`` and 0 < ``refiner_switch_at`` < 1
+    needs `refiner_model`; with ``enable_hr``, opts.hires_fix_refiner_pass
+    says which pass it refines."""
     with opts.override(p.override_settings):
-        return _process_txt2img(model, p, step_callback, refiner_model)
+        return _process_txt2img(model, p, step_callback, refiner_model, interrupted)
+
+
+def with_tiling(model: SDModel, p: GenerationParams) -> SDModel:
+    """The model with circular padding in its UNet and VAE for a `tiling`
+    request (processing.py:1348-1354): a copy of the bundle, the same
+    modules."""
+    if not p.tiling:
+        return model
+    return dataclasses.replace(model, unet_cfg=dataclasses.replace(model.unet_cfg, tiling=True),
+                               vae_cfg=dataclasses.replace(model.vae_cfg, tiling=True))
 
 
 def check_hybrid(model: SDModel) -> None:
@@ -728,7 +789,8 @@ def txt2img_image_conditioning(model: SDModel, batch: int, height: int, width: i
 @torch.inference_mode()
 def _process_txt2img(model: SDModel, p: GenerationParams,
                      step_callback: Callable | None,
-                     refiner_model: SDModel | None) -> Processed:
+                     refiner_model: SDModel | None,
+                     interrupted: Callable | None = None) -> Processed:
     _check_slice(p)
     check_hybrid(model)
     hybrid = model.unet_cfg.in_channels != model.latent_channels
@@ -750,6 +812,7 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
     # extra networks (processing.py:1340-1346): the tags leave the prompt the
     # conds see, a LoRA set swaps in the merged model; the infotext keeps them
     clean_prompt, model, hypernet = extra_networks.activate(model, p.prompt)
+    model = with_tiling(model, p)
     sampler, spec, sigmas, solver_extra = prepare_sampler(model, p, p.steps)
     # which passes the refiner takes when hires fix is on
     # (processing.py:1449-1453,1488; sd_samplers_common.py:183)
@@ -803,7 +866,8 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
         if p.enable_hr:
             latents = _hires_pass(model, p, latents, seeds, subseeds, refiner_model=hr_refiner,
                                   step_callback=step_callback, hypernet=hypernet)
-        images = list(decode_first_stage_u8(model, latents))
+        images = list(decode_first_stage_u8(model, latents,
+                                            bool(interrupted and interrupted())))
         infotexts.extend(create_infotext(p, model, lo + i) for i in range(len(images)))
         all_images.extend(images)
 

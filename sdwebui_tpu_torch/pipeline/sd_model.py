@@ -205,11 +205,12 @@ class _SDXLFamily:
 
 
 def _build_sdxl(fam: _SDXLFamily, seed: int, device, refiner: bool,
-                shared: SDModel | None) -> SDModel:
+                shared: SDModel | None, in_channels: int = 4) -> SDModel:
     """An SDXL base (CLIP-L ⊕ bigG) or refiner (bigG alone) of `fam`.  UNet
     and text encoders in `fam.dtype`; VAE in fp32.  shared: a base model
     whose bigG conditioner and VAE the refiner takes instead of making its
-    own, as the JAX bench does (bench.py:476-477)."""
+    own, as the JAX bench does (bench.py:476-477).  in_channels 9: the
+    SDXL inpainting UNet's layout."""
     device = get_device(device)
     dtype = fam.dtype or get_policy().param_dtype
     if shared is not None:
@@ -218,7 +219,8 @@ def _build_sdxl(fam: _SDXLFamily, seed: int, device, refiner: bool,
         cond_g = _sdxl_conditioner(fam.clip_g, seed + 3, device, dtype)
         vae = _random(AutoencoderKL(fam.vae, device=device, dtype=torch.float32),
                       seed + 2, device)
-    unet_cfg = fam.refiner_unet if refiner else fam.unet
+    unet_cfg = dataclasses.replace(fam.refiner_unet if refiner else fam.unet,
+                                   in_channels=in_channels)
     unet = _random(UNetModel(unet_cfg, device=device, dtype=dtype), seed, device)
     common = dict(unet=unet, unet_cfg=unet.cfg, vae=vae, vae_cfg=vae.cfg,
                   disc=Discretization(make_alphas_cumprod()), device=device)
@@ -235,11 +237,12 @@ _RANDOM_SDXL = _SDXLFamily(SDXL_UNET, SDXL_REFINER_UNET, CLIP_L, OPEN_CLIP_BIGG,
 
 
 def create_random_sdxl(seed: int = 0, device="cuda", refiner: bool = False,
-                       shared: SDModel | None = None) -> SDModel:
+                       shared: SDModel | None = None, in_channels: int = 4) -> SDModel:
     """Random-weight SDXL base (2816-wide adm) or refiner (2560-wide adm) at
-    full width: the compute graph of BASELINE config 5 (sd_model.py:338-381).
-    UNet and text encoders in the policy's param_dtype (bf16); VAE in fp32."""
-    return _build_sdxl(_RANDOM_SDXL, seed, device, refiner, shared)
+    full width: the compute graph of BASELINE config 5 (sd_model.py:338-381);
+    in_channels 9: the SDXL inpainting model's.  UNet and text encoders in
+    the policy's param_dtype (bf16); VAE in fp32."""
+    return _build_sdxl(_RANDOM_SDXL, seed, device, refiner, shared, in_channels)
 
 
 TINY_UNET = UNetConfig(model_channels=32, channel_mult=(1, 2),
@@ -291,12 +294,12 @@ _TINY_SDXL = _SDXLFamily(TINY_SDXL_UNET, TINY_SDXL_REFINER_UNET, TINY_CLIP_L, TI
 
 
 def create_tiny_sdxl(seed: int = 0, device="cpu", refiner: bool = False,
-                     shared: SDModel | None = None) -> SDModel:
+                     shared: SDModel | None = None, in_channels: int = 4) -> SDModel:
     """Miniature SDXL-shaped model (dual encoders, adm vectors, linear
     projections; the configs of the JAX package's ``create_tiny_sdxl``), or
     a miniature refiner (bigG alone, aesthetic-score adm, an explicit
     middle depth), in fp32."""
-    return _build_sdxl(_TINY_SDXL, seed, device, refiner, shared)
+    return _build_sdxl(_TINY_SDXL, seed, device, refiner, shared, in_channels)
 
 
 # --------------------------------------------------------------------------

@@ -49,6 +49,20 @@ class CondSchedule:
     image_cfg_scale: float | None = None
 
 
+def soft_latent_blend(a, b, t, detail_preservation: float = 4.0):
+    """Magnitude-corrected lerp of soft inpainting (cfg.py:91-105; the
+    reference's soft-inpainting ``latent_blend``): directions lerp linearly,
+    magnitudes (norms over the channel axis, dim 1 in NCHW) lerp in a
+    power-`detail_preservation` space, biased toward the stronger one."""
+    interp = (a * (1 - t) + b * t).float()
+    cur_mag = torch.linalg.vector_norm(interp, dim=1, keepdim=True) + 1e-5
+    a_mag = torch.linalg.vector_norm(a.float(), dim=1, keepdim=True) ** detail_preservation
+    b_mag = torch.linalg.vector_norm(b.float(), dim=1, keepdim=True) ** detail_preservation
+    t1 = t[:, :1].float()
+    desired = (a_mag * (1 - t1) + b_mag * t1) ** (1 / detail_preservation)
+    return (interp * desired / cur_mag).to(a.dtype)
+
+
 def make_cfg_denoiser(denoise_fn: Callable, sched: CondSchedule,
                       mask=None, nmask=None, init_latent=None,
                       mask_before_denoising: bool = False,
@@ -69,11 +83,16 @@ def make_cfg_denoiser(denoise_fn: Callable, sched: CondSchedule,
     ControlNet guidance range reads it).  A schedule's c_concat goes to
     denoise_fn as ``c_concat=``, tiled over the K+1 CFG rows
     (cfg.py:168-170); with image_cfg_scale set, the edit model's 3-way
-    CFG runs instead (:func:`_make_edit_denoiser`).
+    CFG runs instead (:func:`_make_edit_denoiser`).  soft_inpainting
+    (power, scale, detail) with a mask: the input is blended with the
+    init latent by the σ-scheduled mask nmask^(σ^power · scale) before
+    denoising, and no blend follows (cfg.py:138-145,195-197).
     """
-    if soft_inpainting is not None:
-        raise NotImplementedError("soft inpainting is not ported yet")
     if sched.image_cfg_scale is not None:
+        if soft_inpainting is not None:
+            raise NotImplementedError(
+                "soft inpainting with the instruct-pix2pix edit CFG is not ported (the "
+                "JAX package's edit denoiser drops it)")
         return _make_edit_denoiser(denoise_fn, sched, mask, nmask, init_latent,
                                    mask_before_denoising)
     k = sched.cond_bank.shape[0]
@@ -92,10 +111,17 @@ def make_cfg_denoiser(denoise_fn: Callable, sched: CondSchedule,
             return (w * out_conds).sum(0) / float(np.sum(sched.cond_weights))
         return out_uncond + (w * (out_conds - out_uncond[None])).sum(0) * scale
 
+    soft = soft_inpainting is not None and nmask is not None
+
     def model(x, sigma: float, i: int):
         step_kw = {"step": i} if pass_step else {}
         i = min(i, last)
-        if mask is not None and mask_before_denoising:
+        if soft:
+            power, soft_scale, detail = soft_inpainting
+            f32 = np.float32
+            t = torch.pow(nmask, float(f32(f32(sigma) ** f32(power)) * f32(soft_scale)))
+            x = soft_latent_blend(init_latent, x, t, detail)
+        elif mask is not None and mask_before_denoising:
             x = init_latent * mask + nmask * x
         b = x.shape[0]
         idx = torch.as_tensor(sched.cond_idx[:, i], device=rows.device)
@@ -114,7 +140,7 @@ def make_cfg_denoiser(denoise_fn: Callable, sched: CondSchedule,
             out = denoise_fn(x_in, sigma, ctx, y, **step_kw)
         out = out.reshape(k + 1, b, *out.shape[1:])
         cfg = combine(out, i)
-        if mask is not None and not mask_before_denoising:
+        if not soft and mask is not None and not mask_before_denoising:
             cfg = cfg * nmask + init_latent * mask
         if return_uncond:
             return torch.stack([cfg, out[k]])

@@ -19,8 +19,10 @@ URL prefix is accepted); another image format answers 400 naming it, and
 the reference does.  ControlNet units come as ``controlnet_units`` or as
 the sd-webui-controlnet extension's ``alwayson_scripts.controlnet.args``
 (``api.py:112-119``), their images base64 PNGs.  The extra-network routes
-(loras, embeddings, hypernetworks and their refreshes) and the extension's
-``/controlnet/*`` routes are served too.  A request field, override or
+(loras, embeddings, hypernetworks and their refreshes), the prompt-style
+routes (GET, POST and DELETE ``/sdapi/v1/prompt-styles``) and the
+extension's ``/controlnet/*`` routes are served too.  A request's
+``styles`` are applied to its prompts before either route runs.  A request field, override or
 option the port does not run answers 422 naming it — it is never silently
 ignored — and so does a checkpoint name the server does not hold; a LoRA,
 hypernetwork, ControlNet model or annotator it does not hold answers 404
@@ -43,7 +45,6 @@ from sdwebui_tpu_torch.networks import NetworkNotFound
 from sdwebui_tpu_torch.networks.extra_networks import lora_registry
 from sdwebui_tpu_torch.networks.hypernetwork import hypernet_registry
 from sdwebui_tpu_torch.pipeline import annotators, control
-from sdwebui_tpu_torch.pipeline.img2img import UNPORTED_IMG2IMG_OPTIONS
 from sdwebui_tpu_torch.pipeline.params import GenerationParams
 from sdwebui_tpu_torch.pipeline.processing import (LATENT_UPSCALE_MODES, UNPORTED_HIRES_OPTIONS,
                                                    UNPORTED_OPTIONS)
@@ -52,6 +53,7 @@ from sdwebui_tpu_torch.postprocessing.stages import StageArgs
 from sdwebui_tpu_torch.sampling.registry import SAMPLER_MAP, SAMPLERS
 from sdwebui_tpu_torch.sampling.schedulers import ALIASES, SCHEDULERS
 from sdwebui_tpu_torch.server.app import CheckpointNotFound, Engine
+from sdwebui_tpu_torch.text.styles import PromptStyle
 from sdwebui_tpu_torch.utils.options import opts
 from sdwebui_tpu_torch.utils.png import decode_png, encode_png
 
@@ -70,15 +72,14 @@ FIELDS = {
     "do_not_save_samples": (False, bool), "do_not_save_grid": (False, bool),
     "send_images": (True, bool), "refiner_checkpoint": (None, str),
     "refiner_switch_at": (None, _NUM), "controlnet_units": (None, list),
-    "alwayson_scripts": ({}, dict),
+    "alwayson_scripts": ({}, dict), "styles": ([], list), "tiling": (None, bool),
 }
 
 #: fields of the reference schema outside the slice: accepted only at
 #: these values (their defaults)
 NEUTRAL = {
-    "styles": ([],), "restore_faces": (None, False), "tiling": (None, False),
-    "disable_extra_networks": (False,), "comments": ({},), "firstphase_width": (0,),
-    "firstphase_height": (0,), "hr_checkpoint_name": (None,),
+    "restore_faces": (None, False), "disable_extra_networks": (False,), "comments": ({},),
+    "firstphase_width": (0,), "firstphase_height": (0,), "hr_checkpoint_name": (None,),
     "script_name": (None,), "script_args": ([],),
     "save_images": (False,), "infotext": (None,),
     "postprocessing": ({},), "override_settings_restore_afterwards": (True,),
@@ -123,6 +124,10 @@ OVERRIDES = {
     # extra networks
     "sd_hypernetwork", "extra_networks_default_multiplier",
     "textual_inversion_add_hashes_to_infotext",
+    # TAESD for the VAE's encode and decode, the preview decode of an
+    # interrupted job (processing._taesd_for, _fast_interrupt_method)
+    "sd_vae_encode_method", "sd_vae_decode_method", "live_preview_fast_interrupt",
+    "show_progress_type",
     *UNPORTED_OPTIONS, *UNPORTED_HIRES_OPTIONS,
 }
 
@@ -137,6 +142,10 @@ IMG2IMG_FIELDS = {
     "inpainting_mask_invert": (0, int), "resize_mode": (0, int),
     "initial_noise_multiplier": (None, _NUM), "include_init_images": (False, bool),
     "image_cfg_scale": (None, _NUM),
+    # soft inpainting: GenerationParams fields that JAX's request model
+    # passes through (extra="allow")
+    "soft_inpainting": (False, bool), "mask_blend_power": (1.0, _NUM),
+    "mask_blend_scale": (0.5, _NUM), "inpaint_detail_preservation": (4.0, _NUM),
 }
 
 #: img2img fields of the reference schema accepted only at these values
@@ -146,7 +155,8 @@ IMG2IMG_NEUTRAL = {
 }
 
 IMG2IMG_OVERRIDES = {"img2img_extra_noise", "img2img_background_color", "overlay_inpaint",
-                     "upscaler_for_img2img", *UNPORTED_IMG2IMG_OPTIONS}
+                     "upscaler_for_img2img", "img2img_color_correction", "save_init_img",
+                     "outdir_init_images", "return_mask", "return_mask_composite"}
 
 #: options POST /sdapi/v1/options sets: the overrides, how checkpoints are
 #: kept and read, and the Extras stage order
@@ -343,6 +353,9 @@ class Api:
             ("GET", "/sdapi/v1/embeddings"): self.embeddings,
             ("POST", "/sdapi/v1/refresh-embeddings"): self.refresh_embeddings,
             ("GET", "/sdapi/v1/hypernetworks"): self.hypernetworks,
+            ("GET", "/sdapi/v1/prompt-styles"): self.prompt_styles,
+            ("POST", "/sdapi/v1/prompt-styles"): self.save_style,
+            ("DELETE", "/sdapi/v1/prompt-styles"): self.delete_style,
             ("GET", "/controlnet/model_list"): self.controlnet_models,
             ("GET", "/controlnet/module_list"): self.controlnet_modules,
             ("POST", "/controlnet/detect"): self.controlnet_detect,
@@ -515,6 +528,39 @@ class Api:
     def hypernetworks(self, body=None):
         return [{"name": name, "path": path} for name, path in hypernet_registry().files.items()]
 
+    # ---- prompt styles (api.py:595-645) -----------------------------------
+
+    def prompt_styles(self, body=None):
+        return [{"name": s.name, "prompt": s.prompt, "negative_prompt": s.negative_prompt}
+                for s in self.engine.styles.styles.values()]
+
+    def _style_name(self, body) -> str:
+        if not isinstance(body, dict) or not isinstance(body.get("name", ""), str):
+            raise ApiError(422, "request body must be a JSON object with a string 'name'")
+        name = body.get("name", "").strip()
+        if not name:
+            raise ApiError(400, "style name required")
+        return name
+
+    def save_style(self, body: dict):
+        """Create or replace a style and write the CSV (JAX's save_style)."""
+        name = self._style_name(body)
+        with self.engine.queue_lock:
+            self.engine.styles.styles[name] = PromptStyle(
+                name, str(body.get("prompt", "")), str(body.get("negative_prompt", "")))
+            self.engine.styles.save()
+            return {"name": name, "count": len(self.engine.styles.styles)}
+
+    def delete_style(self, body: dict):
+        """Remove a style and write the CSV (JAX's delete_style)."""
+        name = self._style_name(body)
+        with self.engine.queue_lock:
+            if name not in self.engine.styles.styles:
+                raise ApiError(404, f"style {name!r} not found")
+            del self.engine.styles.styles[name]
+            self.engine.styles.save()
+            return {"name": name, "count": len(self.engine.styles.styles)}
+
     # ---- the sd-webui-controlnet extension's routes (api.py:937-969) --------
 
     def controlnet_models(self, body=None):
@@ -575,7 +621,7 @@ def make_handler(api: Api):
         def do_GET(self):
             self._respond(*api.handle("GET", self.path, None))
 
-        def do_POST(self):
+        def _with_body(self, method: str):
             length = int(self.headers.get("Content-Length") or 0)
             raw = self.rfile.read(length) if length else b"{}"
             try:
@@ -583,7 +629,13 @@ def make_handler(api: Api):
             except json.JSONDecodeError as e:
                 self._respond(400, {"detail": f"invalid JSON: {e}"})
                 return
-            self._respond(*api.handle("POST", self.path, body))
+            self._respond(*api.handle(method, self.path, body))
+
+        def do_POST(self):
+            self._with_body("POST")
+
+        def do_DELETE(self):
+            self._with_body("DELETE")
 
         def log_message(self, fmt, *args):   # quiet by default
             pass

@@ -45,6 +45,7 @@ from sdwebui_tpu_torch.pipeline.sd_model import (SDModel, create_random_sd15,
                                                  create_tiny_sdxl)
 from sdwebui_tpu_torch.postprocessing.stages import StageArgs, run_stages
 from sdwebui_tpu_torch.runtime.state import State
+from sdwebui_tpu_torch.text.styles import StyleDatabase
 from sdwebui_tpu_torch.utils.devices import get_device
 from sdwebui_tpu_torch.utils.options import opts
 
@@ -60,6 +61,7 @@ REFINER_SEED_OFFSET = 100
 DEFAULT_CKPT_DIR = os.path.join("models", "Stable-diffusion")
 DEFAULT_VAE_DIR = os.path.join("models", "VAE")
 DEFAULT_HASH_CACHE = "cache.json"
+DEFAULT_STYLES = "styles.csv"
 
 
 class CheckpointNotFound(LookupError):
@@ -86,16 +88,19 @@ class Engine:
     opts.sd_model_checkpoint, then the first file found); else random
     weights of `family`.  vae_path: one VAE file for every checkpoint
     (the sd_vae setting is then not read); hash_cache: the sha256 cache
-    file (None: no cache); embeddings_dir: the textual-inversion files."""
+    file (None: no cache); embeddings_dir: the textual-inversion files;
+    styles_path: the prompt styles' CSV."""
 
     def __init__(self, device="cuda", tiny: bool = False, seed: int = 0,
                  model: SDModel | None = None, family: str = "sd15",
                  extra_models: dict[str, SDModel] | None = None,
                  ckpt: str | None = None, ckpt_dirs=None, vae_path: str | None = None,
                  vae_dirs=(DEFAULT_VAE_DIR,), hash_cache: str | None = DEFAULT_HASH_CACHE,
-                 embeddings_dir: str = DEFAULT_EMBEDDINGS_DIR):
+                 embeddings_dir: str = DEFAULT_EMBEDDINGS_DIR,
+                 styles_path: str = DEFAULT_STYLES):
         self.device = get_device(device)
         self.embeddings_dir = embeddings_dir
+        self.styles = StyleDatabase(styles_path)
         self.queue_lock = threading.RLock()
         self.state = State()
         self.vae_path, self.vae_dirs, self.hash_cache = vae_path, tuple(vae_dirs), hash_cache
@@ -259,8 +264,16 @@ class Engine:
         self.state.sampling_steps = n
         return not (self.state.interrupted or self.state.skipped)
 
+    def apply_styles(self, p: GenerationParams):
+        """The request's styles merged into its prompts (app.py:68-71)."""
+        if p.styles:
+            p.prompt, p.negative_prompt = self.styles.apply(p.prompt, p.negative_prompt,
+                                                            p.styles)
+
     def _run(self, job: str, p: GenerationParams, fn) -> Processed:
-        """One generation under the queue lock, with the job state set."""
+        """One generation under the queue lock, with the job state set and
+        the request's styles applied."""
+        self.apply_styles(p)
         with self.queue_lock:
             self._maybe_switch(p)
             with opts.override(p.override_settings):
@@ -275,7 +288,7 @@ class Engine:
     def txt2img(self, p: GenerationParams) -> Processed:
         return self._run("txt2img", p, lambda: process_txt2img(
             self.sd_model, p, step_callback=self._step_callback,
-            refiner_model=self._resolve_refiner(p)))
+            refiner_model=self._resolve_refiner(p), interrupted=self._interrupted))
 
     def extras(self, images: list, args: StageArgs) -> list:
         """The Extras stage chain over RGB uint8 images, one job."""
@@ -287,7 +300,12 @@ class Engine:
             finally:
                 self.state.end()
 
+    def _interrupted(self) -> bool:
+        return self.state.interrupted
+
     def img2img(self, p: GenerationParams) -> Processed:
-        """app.py:363-379: img2img and inpainting on the base model."""
+        """app.py:363-379: img2img and inpainting on the live model (an SDXL
+        base or its 9-channel inpainting variant too)."""
         return self._run("img2img", p, lambda: process_img2img(
-            self.sd_model, p, step_callback=self._step_callback))
+            self.sd_model, p, step_callback=self._step_callback,
+            interrupted=self._interrupted))

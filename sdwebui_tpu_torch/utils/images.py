@@ -20,7 +20,9 @@ Pillow's own arithmetic (tests hold every one against Pillow):
     split_grid / combine_grid / resize_image
                       ``images.split_grid`` / ``combine_grid`` (overlapping
                       tiles, feathered re-assembly) and ``resize_image``
-                      (resize modes 0-2 with the upscaler hook)
+                      (resize modes 0-3 with the upscaler hook)
+    mask_composite    the RGBa composite of img2img's
+                      ``return_mask_composite``
 
 An image is (H, W) or (H, W, C) uint8 with C = 1 (L), 2 (LA), 3 (RGB) or
 4 (RGBA).
@@ -348,14 +350,11 @@ def combine_grid(grid: Grid) -> np.ndarray:
 def resize_image(resize_mode: int, im, width: int, height: int,
                  upscaler_name: str | None = None) -> np.ndarray:
     """RGB image → (height, width, 3) (images.py:445): 0 stretch, 1 crop to
-    fill, 2 pad to fit (black bars).  A leg that upscales runs the named
-    upscaler first (opts.upscaler_for_img2img); LANCZOS makes the size."""
+    fill, 2 (and any other) pad to fit (black bars), 3 as 0 (JAX's "just resize (latent
+    upscale)" resizes the image and leaves the latent alone).  A leg that
+    upscales runs the named upscaler first (opts.upscaler_for_img2img);
+    LANCZOS makes the size."""
     from sdwebui_tpu_torch.postprocessing import upscalers
-
-    if resize_mode not in (0, 1, 2):
-        raise NotImplementedError(
-            f"resize_mode {resize_mode} (just resize, latent upscale) is not ported yet "
-            "(modes 0-2 resize with LANCZOS or upscaler_for_img2img)")
 
     def _resize(img, w, h):
         if upscaler_name and upscaler_name != "None" and (w > img.shape[1] or h > img.shape[0]):
@@ -364,7 +363,7 @@ def resize_image(resize_mode: int, im, width: int, height: int,
         return resize(img, (w, h), "lanczos")
 
     a = to_rgb(im)
-    if resize_mode == 0:
+    if resize_mode in (0, 3):
         return _resize(a, width, height)
     iw, ih = a.shape[1], a.shape[0]
     ratio, src_ratio = width / height, iw / ih
@@ -377,3 +376,15 @@ def resize_image(resize_mode: int, im, width: int, height: int,
     res = np.zeros((height, width, 3), np.uint8)
     return paste(res, _resize(a, src_w, src_h),
                  (width // 2 - src_w // 2, height // 2 - src_h // 2))
+
+
+def mask_composite(image, mask) -> np.ndarray:
+    """``Image.composite(image as RGBa, an empty RGBa, mask).convert("RGBA")``
+    (img2img's return_mask_composite): each RGBa byte of the image blended
+    with 0 by the L mask, then unpremultiplied; (H, W, 4) uint8."""
+    from sdwebui_tpu_torch.utils.masking import unpremultiply
+
+    rgb = to_rgb(image)
+    m = as_hwc(mask).astype(np.int32)
+    rgba = np.concatenate([rgb, np.full(rgb.shape[:2] + (1,), 255, np.uint8)], axis=-1)
+    return unpremultiply(_div255(rgba.astype(np.int32) * m).astype(np.uint8))

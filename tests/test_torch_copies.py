@@ -5,7 +5,8 @@ corpus, infotext round-trips, the generation params, the pytree helpers,
 the checkpoint sniffer, every sigma schedule under the options that reshape
 it, LCM's distillation subtable, and the tables of the hires and upscale
 path (latent upscale modes, the Extras stage fields, the built-in
-upscalers, ESRGAN's old-key map and architecture sniffing).
+upscalers, ESRGAN's old-key map and architecture sniffing), and the prompt
+styles' CSV database.
 """
 
 import dataclasses
@@ -25,6 +26,7 @@ from sdwebui_tpu.rng import philox as jax_philox
 from sdwebui_tpu.sampling import discretization as jax_disc
 from sdwebui_tpu.sampling import schedulers as jax_sched
 from sdwebui_tpu.text import prompt_parser as jax_pp
+from sdwebui_tpu.text import styles as jax_styles
 from sdwebui_tpu.text import tokenizer as jax_tok
 from sdwebui_tpu.utils import infotext as jax_infotext
 from sdwebui_tpu.utils import options as jax_options
@@ -36,6 +38,7 @@ from sdwebui_tpu_torch.postprocessing import stages, upscalers
 from sdwebui_tpu_torch.rng import image_rng, philox
 from sdwebui_tpu_torch.sampling import discretization, schedulers
 from sdwebui_tpu_torch.text import prompt_parser as pp
+from sdwebui_tpu_torch.text import styles
 from sdwebui_tpu_torch.text import tokenizer as tok
 from sdwebui_tpu_torch.utils import infotext, options, pytree
 
@@ -240,3 +243,41 @@ def test_hires_and_upscaler_tables_equal_jax():
     for keys in (["body.0.weight", "body.1.weight"], ["conv_first.weight", "body.0.rdb1.x"],
                  ["model.0.weight", "body.0.weight"], ["body.0.RDB1.weight"]):
         assert esrgan.is_srvgg(keys) == jax_esrgan.is_srvgg(dict.fromkeys(keys))
+
+
+STYLE_ROWS = ("name,prompt,negative_prompt\n"
+              "painterly,\"{prompt}, oil painting\",photo\n"
+              "plain,high detail,\n"
+              ",nameless,\n"
+              "neg,,\"lowres, {prompt}\"\n")
+
+
+@pytest.mark.parametrize("prompt,negative,names", [
+    ("a cat", "blurry", ["painterly", "plain"]),
+    ("", "", ["neg", "missing", "plain"]),
+    ("a dog, high detail", "lowres, bad", []),
+])
+def test_styles_equal_jax(tmp_path, prompt, negative, names):
+    """The style database's load, apply, extraction, save and extra-file
+    merge give the same results as the JAX package's."""
+    path = tmp_path / "styles.csv"
+    path.write_text(STYLE_ROWS, encoding="utf-8-sig")
+    extra = tmp_path / "extra.csv"
+    extra.write_text("name,prompt,negative_prompt\nplain,other,\nmore,more text,\n",
+                     encoding="utf-8")
+    dbs = [mod.StyleDatabase(str(path)) for mod in (styles, jax_styles)]
+    for db in dbs:
+        db.load_extra(str(extra))
+    ours, theirs = dbs
+    assert {k: dataclasses.asdict(v) for k, v in ours.styles.items()} == \
+        {k: dataclasses.asdict(v) for k, v in theirs.styles.items()}
+    applied = ours.apply(prompt, negative, names)
+    assert applied == theirs.apply(prompt, negative, names)
+    assert ours.extract_styles_from_prompt(*applied) == \
+        theirs.extract_styles_from_prompt(*applied)
+    assert ours.get_style_prompts(names) == theirs.get_style_prompts(names)
+    ours.path = str(tmp_path / "ours.csv")
+    theirs.path = str(tmp_path / "theirs.csv")
+    ours.save()
+    theirs.save()
+    assert (tmp_path / "ours.csv").read_bytes() == (tmp_path / "theirs.csv").read_bytes()

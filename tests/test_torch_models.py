@@ -86,7 +86,6 @@ def test_from_jax_consumes_every_key(models):
     ("tome_ratio", 0.5, "ToMe"),
     ("hypertile_tile", 32, "hypertile"),
     ("upcast_attn", True, "upcast_attn"),
-    ("tiling", True, "tiling"),
 ])
 def test_unsupported_unet_options_raise(field, value, match):
     cfg = dataclasses.replace(port_sd.TINY_UNET, **{field: value})

@@ -63,7 +63,6 @@ def test_txt2img_returns_png_with_infotext(server_url):
 
 @pytest.mark.parametrize("body,field", [
     ({"enable_hr": True, "override_settings": {"token_merging_ratio_hr": 0.5}}, "enable_hr"),
-    ({"styles": ["x"]}, "styles"),
     ({"no_such_field": 1}, "no_such_field"),
     ({"override_settings": {"samples_save": True}}, "samples_save"),
     ({"override_settings": {"sd_model_checkpoint": "x"}}, "sd_model_checkpoint"),
@@ -289,6 +288,32 @@ with tempfile.TemporaryDirectory() as d:
         "init_images": [png], "steps": 2, "width": 64, "height": 64, "image_cfg_scale": 1.5})
     assert status == 200, out
     annotators.set_annotator_dirs(prev)
+from sdwebui_tpu_torch.models import vae_approx
+from sdwebui_tpu_torch.utils import color
+from sdwebui_tpu_torch.text.styles import StyleDatabase
+with tempfile.TemporaryDirectory() as d:
+    os.makedirs(os.path.join(d, "VAE-taesd"))
+    for which in ("encoder", "decoder"):
+        write_safetensors(os.path.join(d, "VAE-taesd", f"taesd_{which}.safetensors"),
+                          vae_approx.random_taesd(which, seed=1).state_dict())
+    vae_approx.set_models_root(d)
+    with open(os.path.join(d, "styles.csv"), "w", encoding="utf-8") as f:
+        f.write("name,prompt,negative_prompt\nx,\"{prompt}, styled\",\n")
+    assert StyleDatabase(os.path.join(d, "styles.csv")).apply("a", "", ["x"])[0] == "a, styled"
+    api = Api(Engine(device="cpu", tiny=True, styles_path=os.path.join(d, "styles.csv")))
+    mask = np.zeros((64, 64), np.uint8)
+    mask[16:40, 8:30] = 255
+    status, out = api.handle("POST", "/sdapi/v1/img2img", {
+        "init_images": [png], "mask": base64.b64encode(encode_png(mask)).decode(),
+        "steps": 2, "width": 64, "height": 64, "styles": ["x"], "tiling": True,
+        "soft_inpainting": True, "override_settings": {
+            "img2img_color_correction": True, "sd_vae_encode_method": "TAESD",
+            "sd_vae_decode_method": "TAESD", "return_mask": True}})
+    assert status == 200 and len(out["images"]) == 2, out
+    assert api.handle("GET", "/sdapi/v1/prompt-styles", None)[1][0]["name"] == "x"
+    vae_approx.set_models_root("models")
+assert color.apply_color_correction(color.setup_color_correction(
+    np.full((8, 8, 3), 90, np.uint8)), np.full((8, 8, 3), 10, np.uint8)).max() == 90
 assert not Recorder.attempts, Recorder.attempts
 print("OK", len(mods))
 """

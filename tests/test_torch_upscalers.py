@@ -124,14 +124,14 @@ def test_split_and_combine_grid_match_jax_exactly(tile, overlap):
                                   np.asarray(jax_images.combine_grid(ref)))
 
 
-@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
 def test_resize_image_matches_jax_exactly(mode):
+    """Mode 3 ("just resize (latent upscale)") resizes as mode 0, as JAX's
+    does (ROADMAP C)."""
     for i, (w, h) in enumerate(((64, 64), (80, 48), (48, 80), (300, 420), (20, 21))):
         src = _img(57, 71, i)
         ref = np.asarray(jax_images.resize_image(mode, Image.fromarray(src), w, h))
         np.testing.assert_array_equal(port_images.resize_image(mode, src, w, h), ref)
-    with pytest.raises(NotImplementedError, match="resize_mode 3"):
-        port_images.resize_image(3, src, 64, 64)
 
 
 # --------------------------------------------------------------------------
