@@ -25,8 +25,9 @@ Phases, in order; any failure exits non-zero:
      d = 160 at S = 1024 takes the split-d wide kernel), B3 (4-D, the same
      shapes), B5 (LayerNorm at every UNet row count and width of both
      families, first and hires pass, config 4's 8 CFG rows, the SD2-depth
-     and instruct-pix2pix UNets' rows, at CLIP's, and the MiDaS ViT's
-     (577, 768) in f32 at eps 1e-6)
+     and instruct-pix2pix UNets' rows, at CLIP's, the MiDaS ViT's
+     (577, 768) in f32 at eps 1e-6 and CodeFormer's (256, 512) in f32 at
+     eps 1e-5)
      and B4 (3x3 conv at the
      JAX docstring's shapes, the SD1.5 UNet's B=2 shapes and two ragged
      widths);
@@ -126,6 +127,31 @@ Phases, in order; any failure exits non-zero:
      depth_midas, nothing for hed; (e) config 4 (batch 4, LoRA, embedding)
      with a depth_midas unit on phase 2's tower.  Every request's B1, B2
      and B5 launches equal the plan's; s/request logged;
+  4h. job control and face restoration on the same server, with seeded
+     face nets at the published widths written to a temporary directory
+     and registered as --gfpgan-models-path / --codeformer-models-path
+     register them (GFPGANv1.4-clean, CodeFormer, RetinaFace-R50):
+     /face-restorers lists both; (a) a batch-4, n_iter-2 config 1 txt2img
+     with Full previews in a thread while this one polls /progress and
+     /internal/progress: the progress never falls, a 2x2 grid of 512²
+     previews arrives and id_live_preview rises, a /skip in iteration 1
+     leaves iteration 2 whole (its last image within 2 levels of phase 3's
+     seed-99 batch; B2 a multiple of the per-call plan, 20 to 40 calls),
+     the median /progress round trip is under 50 ms, and a second request
+     stopped by /interrupt returns iteration 1's 4 images early; (b) config
+     1 with restore_faces (CodeFormer, weight 0.5) twice: the infotext
+     names it, the image differs from phase 3's of the seed, the repeat is
+     within 2 levels, B5 = phase 3's plan + 19, B1 and B2 as phase 3's;
+     (c) Extras GFPGAN at visibility 1 and CodeFormer at 0.5 on a phase-3
+     PNG (B5 = 19); (d) RetinaFace at 512² and a CodeFormer restore through
+     a fixed-landmark detector: 0 levels outside the pasted face's mask,
+     changed inside; the host ms of align + paste-back; (e) CodeFormer's
+     forward with B5 against plain LayerNorm (logits max|Δ| <= 1e-4, index
+     flips only where the top-2 margin is within twice that, the image
+     within 2 levels, B5 = 19 a face), GFPGAN's (image within 2 levels) and
+     RetinaFace's (heads 1e-3) on the card against the CPU; (f) the ms of
+     each net's forward at 512² with one profiled forward each, and
+     restore_faces' s/request against phase 3's;
   4a. checkpoint files: phase 3's model written as an ldm-layout
      .safetensors in its own dtypes, and a second random SD1.5 (seed 1) in
      fp16 beside it, in a temporary directory, served by an Engine built as
@@ -597,6 +623,15 @@ def layer_norm_cases(device):
                plain=lambda: ln_mod.layer_norm_plain(x, w, b, 1e-6),
                library=lambda: F.layer_norm(x, (768,), w, b, 1e-6),
                work=(7.0 * 577 * 768, 4 * (2 * 577 * 768 + 2 * 768), "fp32"))
+    # CodeFormer's transformer (phase 4h): 256 codes of 512 per face, f32, eps 1e-5
+    g = torch.Generator(device=device).manual_seed(2)
+    xc = _randn((256, 512), g, torch.float32, device) * 2 + 0.5
+    wc, bc = _randn((512,), g, torch.float32, device), _randn((512,), g, torch.float32, device)
+    yield dict(entry="layer_norm", name="codeformer_256", shape=(256, 512), dtype=torch.float32,
+               kernel=lambda: ln_mod.layer_norm(xc, wc, bc),
+               plain=lambda: ln_mod.layer_norm_plain(xc, wc, bc),
+               library=lambda: F.layer_norm(xc, (512,), wc, bc, 1e-5),
+               work=(7.0 * 256 * 512, 4 * (2 * 256 * 512 + 2 * 512), "fp32"))
 
 
 def conv_cases(device):
@@ -1734,6 +1769,383 @@ def phase_hybrid(engine, model, phase3: dict, directory: str, device, tower):
     return results, info
 
 
+# ---------------------------------------------------------------------------
+# phase 4h: job control and face restoration
+# ---------------------------------------------------------------------------
+
+PROGRESS_MS = 50.0        # median round trip of /progress during a generation
+LOGIT_TOL = 1e-4          # max|Δ| of CodeFormer's code logits, B5 against plain LayerNorm
+FACE_IMAGE_TOL = 2        # uint8 levels: a face net's image, kernel (or card) vs plain (CPU)
+FACE_REL_TOL = 1e-3       # RetinaFace's heads, card vs CPU (the JAX test's rtol)
+FACE_WEIGHT = 0.5         # code_former_weight's default
+FACE_LN = 19              # B5 launches of one CodeFormer face: 9 x (norm1, norm2) + idx_pred
+#: config 1 at batch 4, two iterations: iteration 2's seeds are phase 3's batch-4 request's
+JOB = dict(SD15_BASE, seed=95, batch_size=4, n_iter=2,
+           override_settings={"show_progress_type": "Full"})
+
+
+def write_face_files(directory: str, device, seed: int = 9) -> dict:
+    """Seeded face nets at the published widths, where the server's
+    --gfpgan-models-path / --codeformer-models-path look: GFPGANv1.4-clean
+    (512, channel multiplier 2) and CodeFormer (nf 64, ch_mult
+    (1, 2, 2, 4, 4, 8), 9 layers of 512, codebook 1024) as ``params_ema``
+    files, and RetinaFace-R50 as facexlib's."""
+    from sdwebui_tpu_torch.loader.safetensors_io import write_safetensors
+    from sdwebui_tpu_torch.models.codeformer import create_random_codeformer
+    from sdwebui_tpu_torch.models.gfpgan import create_random_gfpgan
+    from sdwebui_tpu_torch.models.retinaface import create_random_retinaface
+
+    paths = {}
+    for i, (name, make, sub, fn, prefix) in enumerate((
+            ("GFPGAN", create_random_gfpgan, "GFPGAN", "GFPGANv1.4.safetensors", "params_ema."),
+            ("CodeFormer", create_random_codeformer, "Codeformer",
+             "codeformer-v0.1.0.safetensors", "params_ema."),
+            ("RetinaFace", create_random_retinaface, "", "detection_Resnet50_Final.safetensors",
+             ""))):
+        os.makedirs(os.path.join(directory, sub), exist_ok=True)
+        paths[name] = os.path.join(directory, sub, fn)
+        net = make(seed + i, device)
+        write_safetensors(paths[name], {prefix + k: v for k, v in net.state_dict().items()})
+        del net
+    return paths
+
+
+def _get_raw(url, body=None):
+    """(round-trip ms, raw answer): the timing leaves out the JSON decode."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        raw = resp.read()
+    return (time.perf_counter() - t0) * 1e3, raw
+
+
+def _watched_job(url, root, body, act) -> tuple:
+    """A txt2img in a thread while this one polls /progress and
+    /internal/progress; act(progress answer) runs at each poll of the job.
+    Returns (seconds, answer, launches, polls)."""
+    from sdwebui_tpu_torch.utils.png import decode_png
+
+    out = {}
+
+    def worker():
+        t0 = time.perf_counter()
+        out["res"] = _post(f"{url}/txt2img", body)
+        out["seconds"] = time.perf_counter() - t0
+
+    polls, shapes = [], {}
+    reset_counts()
+    thread = threading.Thread(target=worker)
+    thread.start()
+    while thread.is_alive():
+        ms, raw = _get_raw(f"{url}/progress")
+        p = json.loads(raw)
+        q = json.loads(_get_raw(f"{root}/internal/progress",
+                                {"id_task": "chip_smoke", "live_preview": False})[1])
+        # each answer counts only while it saw the job (it may end between them)
+        if p["state"]["job"] and q["active"]:
+            pid = q["id_live_preview"]
+            if p["current_image"] and pid not in shapes:
+                shapes[pid] = decode_png(base64.b64decode(p["current_image"]))[0].shape
+            polls.append(dict(ms=ms, progress=p["progress"], internal=q["progress"], id=pid,
+                              job_no=p["state"]["job_no"], step=p["state"]["sampling_step"],
+                              preview=p["current_image"] is not None))
+        if p["state"]["job"]:
+            act(p)
+        time.sleep(0.02)
+    thread.join()
+    launches = read_counts()
+    if "res" not in out:
+        raise AssertionError("the watched txt2img request failed")
+    out["shapes"] = sorted(set(shapes.values()))
+    return out, launches, polls
+
+
+def _job_control(url, root, model, phase3: list) -> dict:
+    """4h (a): a batch-4, n_iter-2 txt2img with Full previews, polled; a
+    /skip in iteration 1; a second request stopped by /interrupt."""
+    from sdwebui_tpu_torch.utils.png import decode_png
+
+    sent = {}
+
+    def skip_once(p):
+        st = p["state"]
+        if "skip" not in sent and st["job_no"] == 0 and st["sampling_step"] >= 5:
+            _post(f"{url}/skip", {})
+            sent["skip"] = (st["job_no"], st["sampling_step"])
+
+    size = JOB["width"]
+    job, launches, polls = _watched_job(url, root, JOB, skip_once)
+    images = [decode_png(base64.b64decode(b))[0] for b in job["res"]["images"]]
+    live = _post(f"{root}/internal/progress", {"id_task": "chip_smoke", "live_preview": True})
+    head, b64 = live["live_preview"].split(",", 1)
+    last = decode_png(base64.b64decode(b64))[0]
+    per_call = launch_plan(model.unet_cfg, 64)
+    b2 = launches["flash_attention_packed"]
+    ms = sorted(q["ms"] for q in polls)
+    info = dict(seconds=job["seconds"], skip_at=sent.get("skip"), polls=len(polls),
+                progress_ms_median=statistics.median(ms) if ms else None,
+                progress_ms_p90=ms[int(0.9 * (len(ms) - 1))] if ms else None,
+                progress_ms_max=ms[-1] if ms else None, preview_shapes=job["shapes"],
+                unet_calls=b2 / per_call, launches=launches)
+    delta = int(abs(images[-1].astype(int) - phase3[1]["image"].astype(int)).max())
+    log(f"4h (a) job control: {job['seconds']:.3f} s, skip at {sent.get('skip')}, "
+        f"{len(polls)} polls, /progress median {info['progress_ms_median']:.2f} ms, p90 "
+        f"{info['progress_ms_p90']:.2f}, max {info['progress_ms_max']:.2f} ms (bound "
+        f"{PROGRESS_MS}), previews {job['shapes']}, ids {polls[0]['id']}..{polls[-1]['id']}, "
+        f"UNet calls {b2 / per_call:g}, iteration 2 vs phase 3's seed-99 batch: max|Δ| "
+        f"{delta} levels")
+    seq = [q["progress"] for q in polls]
+    inner = [q["internal"] for q in polls]
+    ids = [q["id"] for q in polls]
+    if sent.get("skip", (None,))[0] != 0:
+        raise AssertionError(f"no /skip landed in iteration 1: {sent}")
+    if len(images) != 8 or any(im.shape != (size, size, 3) for im in images):
+        raise AssertionError(f"{len(images)} images after a skip, expected 8 of {size}²")
+    if head != "data:image/png;base64" or not (last == images[-1]).all():
+        raise AssertionError("/internal/progress's preview is not the job's last image")
+    if not (b2 % per_call == 0 and 20 * per_call <= b2 < 40 * per_call):
+        raise AssertionError(f"B2 launches {b2}: iteration 1 not cut short, or 2 not whole")
+    if delta > REPEAT_TOL:
+        raise AssertionError(f"iteration 2 differs from phase 3's batch by {delta} levels")
+    if seq != sorted(seq) or inner != sorted(inner) or ids != sorted(ids) or ids[-1] <= ids[0]:
+        raise AssertionError(f"progress fell or no preview came: {seq}, {inner}, {ids}")
+    grid, one = (2 * size, 2 * size, 3), (size, size, 3)
+    if grid not in job["shapes"] or not set(job["shapes"]) <= {grid, one}:
+        raise AssertionError(f"preview shapes {job['shapes']}: no 2x2 grid of {size}² images")
+    if not info["progress_ms_median"] < PROGRESS_MS:
+        raise AssertionError(f"/progress median {info['progress_ms_median']:.1f} ms")
+
+    def interrupt_once(p):
+        if "interrupt" not in sent and p["state"]["sampling_step"] >= 5:
+            _post(f"{url}/interrupt", {})
+            sent["interrupt"] = (p["state"]["job_no"], p["state"]["sampling_step"])
+
+    stopped, _, _ = _watched_job(url, root, JOB, interrupt_once)
+    n = len(stopped["res"]["images"])
+    info.update(interrupted_seconds=stopped["seconds"], interrupted_images=n,
+                interrupt_at=sent.get("interrupt"))
+    log(f"4h (a) interrupt at {sent.get('interrupt')}: {n} images in "
+        f"{stopped['seconds']:.3f} s (the skipped job: {job['seconds']:.3f} s)")
+    if n != 4 or not stopped["seconds"] < 0.75 * job["seconds"]:
+        raise AssertionError(f"an interrupted job gave {n} images in {stopped['seconds']} s")
+    return info
+
+
+def _restore_requests(url, model, phase3: list) -> list:
+    """4h (b): config 1 with restore_faces (CodeFormer at FACE_WEIGHT), twice."""
+    body = dict(SD15_BASE, seed=1234, batch_size=1, restore_faces=True, override_settings={
+        "face_restoration_model": "CodeFormer", "code_former_weight": FACE_WEIGHT})
+
+    def check(params, seed):
+        _sd15_check(params, seed)
+        if "Face restoration: CodeFormer" not in params:
+            raise AssertionError(f"infotext lacks the face restorer: {params!r}")
+
+    t0 = time.perf_counter()
+    _post(f"{url}/txt2img", dict(body, steps=2))          # loads CodeFormer
+    log(f"4h (b) warm-up with the CodeFormer load: {time.perf_counter() - t0:.3f} s")
+    results = [_request(url, "txt2img", body, check, body["width"], label="restore_faces")
+               for _ in range(2)]
+    _check_repeat(results, 0, 1)
+    delta = int(abs(results[0]["image"].astype(int) - phase3[0]["image"].astype(int)).max())
+    log(f"4h (b) restore_faces: {results[0]['seconds']:.3f} and {results[1]['seconds']:.3f} "
+        f"s/request against phase 3's {phase3[0]['seconds']:.3f}; max|Δ| {delta} levels from "
+        "phase 3's image of the seed")
+    if delta <= REPEAT_TOL:
+        raise AssertionError("restore_faces left phase 3's image as it was")
+    _check_launches(results, [_plan(b1=1, b2=STEPS * launch_plan(model.unet_cfg, 64),
+                                    b5=STEPS * ln_plan(model.unet_cfg, 64)
+                                    + clip_ln_plan(model) + FACE_LN)] * 2)
+    return results
+
+
+def _face_extras(url, phase3: list) -> dict:
+    """4h (c): the Extras GFPGAN (visibility 1) and CodeFormer (0.5) stages."""
+    from sdwebui_tpu_torch.utils.png import decode_png
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = _post(f"{url}/extra-single-image", dict(
+        image=phase3[0]["png_b64"], upscaler_1="None", upscaling_resize=1,
+        gfpgan_visibility=1.0, codeformer_visibility=0.5, codeformer_weight=FACE_WEIGHT))
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    out = decode_png(base64.b64decode(res["image"]))[0]
+    delta = float(abs(out.astype(int) - phase3[0]["image"].astype(int)).mean())
+    log(f"4h (c) extras GFPGAN 1 + CodeFormer 0.5: {dt:.3f} s (both nets read from their "
+        f"files), mean|Δ| {delta:.2f} levels from the input, launches {launches}")
+    if out.shape != phase3[0]["image"].shape or not delta > 1.0:
+        raise AssertionError(f"extras faces: {out.shape}, mean|Δ| {delta}")
+    _check_launches([dict(launches=launches)], [_plan(b5=FACE_LN)])
+    return dict(route="extra-single-image", label="extras faces", seconds=dt, batch=1,
+                launches=launches)
+
+
+def _paste_region(device, image, paths) -> dict:
+    """4h (d): RetinaFace at 512², then a CodeFormer restore through a
+    fixed-landmark detector: 0 levels outside the pasted face's mask,
+    changed inside; the host ms of align + paste-back."""
+    from sdwebui_tpu_torch.models.retinaface import detect_faces, load_retinaface
+    from sdwebui_tpu_torch.postprocessing import faces
+    from sdwebui_tpu_torch.utils import images as images_util
+
+    net = load_retinaface(paths["RetinaFace"], device)
+    found = detect_faces(net, image)
+    x = torch.from_numpy(image.transpose(2, 0, 1).astype("float32"))[None].to(device)
+    with torch.inference_mode():
+        retina_ms = cuda_ms(lambda: net(x), hide_host=False)
+    h, w = image.shape[:2]
+    lm = faces.FACE_TEMPLATE_512 * (w / 1024) + w / 32       # a face half as wide, upper left
+    faces.set_face_detector(lambda im: [lm])
+    try:
+        out = faces.restore_faces(image, "CodeFormer", weight=FACE_WEIGHT, device=device)
+    finally:
+        faces.set_face_detector(None)
+    crop = 512                                             # CodeFormer's face size
+    m = faces.similarity_transform(lm, faces.FACE_TEMPLATE_512 * (crop / 512))
+    mask = faces.paste_mask(m, crop, (w, h))
+    diff = abs(out.astype(int) - image.astype(int)).max(axis=-1)
+    outside, inside = int(diff[mask == 0].max()), float(diff[mask > 0].mean())
+
+    def align_paste():
+        aligned = faces.warp(image, m, (crop, crop))
+        back = faces.warp(aligned, faces.invert_affine(m), (w, h))
+        return images_util.composite(back, image, faces.paste_mask(m, crop, (w, h)))
+
+    host = host_ms(align_paste)
+    log(f"4h (d) RetinaFace-R50 at {w}²: {len(found)} faces (random weights), "
+        f"{retina_ms:.3f} ms a forward; fixed-landmark restore: outside the mask max|Δ| "
+        f"{outside} levels, inside mean|Δ| {inside:.2f}; align + paste-back {host:.1f} host ms")
+    if outside != 0 or not inside > 1.0:
+        raise AssertionError(f"paste-back wrong: outside {outside}, inside {inside}")
+    return dict(retinaface_ms=retina_ms, faces_found=len(found), align_paste_host_ms=host,
+                outside_max=outside, inside_mean=inside)
+
+
+def _to_u8(img) -> "torch.Tensor":
+    return ((img.float().cpu() + 1.0) * 127.5 + 0.5).clamp(0, 255).to(torch.uint8)
+
+
+def _face_nets(paths, device, image) -> dict:
+    """4h (e, f): CodeFormer's forward with B5 against plain LayerNorm on the
+    card (logits, flips only at near ties, image), GFPGAN's and
+    RetinaFace's on the card against the CPU; ms per forward at 512² and
+    one profiled forward of each."""
+    from sdwebui_tpu_torch.loader.load import read_checkpoint
+    from sdwebui_tpu_torch.models.codeformer import codeformer_from_state_dict
+    from sdwebui_tpu_torch.models.gfpgan import gfpgan_from_state_dict
+    from sdwebui_tpu_torch.models.retinaface import retinaface_from_state_dict
+    from sdwebui_tpu_torch.ops import norms
+    from sdwebui_tpu_torch.utils import images as images_util
+
+    info = {}
+    face = images_util.resize(image, (512, 512), "lanczos")      # the nets' face size
+    x = (torch.from_numpy(face.transpose(2, 0, 1).astype("float32"))[None] / 127.5 - 1.0)
+    xd = x.to(device)
+    with torch.inference_mode():
+        cf = codeformer_from_state_dict(read_checkpoint(paths["CodeFormer"]), device)
+        reset_counts()
+        cf(xd, w=FACE_WEIGHT)
+        torch.cuda.synchronize()
+        cf_launches = read_counts()["layer_norm"]
+        lq, feats, logits = cf.encode(xd)
+        with norms.forced_plain():
+            lq_p, feats_p, logits_p = cf.encode(xd)
+            plain_ms = cuda_ms(lambda: cf(xd, w=FACE_WEIGHT), hide_host=False)
+        dl = (logits - logits_p).abs().max().item()
+        top2 = logits_p.topk(2, dim=-1).values
+        margin = (top2[..., 0] - top2[..., 1])
+        flips = logits.argmax(-1) != logits_p.argmax(-1)
+        flip_margins = margin[flips].tolist()
+        img = _to_u8(cf.decode(lq, feats, logits, w=FACE_WEIGHT))
+        img_p = _to_u8(cf.decode(lq_p, feats_p, logits_p, w=FACE_WEIGHT))
+        img_delta = int((img.int() - img_p.int()).abs().max())
+        cf_ms = cuda_ms(lambda: cf(xd, w=FACE_WEIGHT), hide_host=False)
+        cf_prof = kernel_times(lambda: cf(xd, w=FACE_WEIGHT))
+        del cf, lq, feats, lq_p, feats_p
+        torch.cuda.empty_cache()
+    info["codeformer"] = dict(ms=cf_ms, plain_ms=plain_ms, logits_max_abs_err=dl,
+                              flips=len(flip_margins), flip_margins=flip_margins,
+                              image_max_delta=img_delta, layer_norm_launches=cf_launches,
+                              profile=cf_prof)
+    log(f"4h (e) CodeFormer 512²: logits max|Δ| B5 vs plain {dl:.3e} (bound {LOGIT_TOL:g}), "
+        f"{len(flip_margins)} index flips (top-2 margins {flip_margins[:8]}), image max|Δ| "
+        f"{img_delta} levels, B5 launches {cf_launches}; {cf_ms:.3f} ms a face (plain "
+        f"LayerNorm {plain_ms:.3f} ms); by class {cf_prof['by_class']}, top {cf_prof['top'][:4]}")
+    if dl > LOGIT_TOL or any(mg > 2 * dl for mg in flip_margins):
+        raise AssertionError(f"CodeFormer logits: max|Δ| {dl}, flips at margins {flip_margins}")
+    if not flip_margins and img_delta > FACE_IMAGE_TOL:
+        raise AssertionError(f"CodeFormer image differs by {img_delta} levels")
+    if cf_launches != FACE_LN:
+        raise AssertionError(f"CodeFormer launched B5 {cf_launches} times, planned {FACE_LN}")
+
+    for name, load, compare in (("GFPGAN", gfpgan_from_state_dict, "image"),
+                                ("RetinaFace", retinaface_from_state_dict, "heads")):
+        sd = read_checkpoint(paths[name])
+        inp = x if name == "GFPGAN" else torch.from_numpy(
+            face.transpose(2, 0, 1).astype("float32"))[None]
+        with torch.inference_mode():
+            ref = load(sd, "cpu")(inp)
+            net = load(sd, device)
+            got = net(inp.to(device))
+            torch.cuda.synchronize()
+            xin = inp.to(device)
+            ms = cuda_ms(lambda: net(xin), hide_host=False)
+            prof = kernel_times(lambda: net(xin))
+        if compare == "image":
+            err = int((_to_u8(got).int() - _to_u8(ref).int()).abs().max())
+            ok = err <= FACE_IMAGE_TOL
+        else:
+            err = max((g.cpu() - r).abs().max().item() / max(r.abs().max().item(), 1.0)
+                      for g, r in zip(got, ref))
+            ok = err <= FACE_REL_TOL
+        info[name.lower()] = dict(ms=ms, card_vs_cpu=err, profile=prof)
+        log(f"4h (e) {name} 512²: card vs CPU {compare} {err:.3g} (bound "
+            f"{FACE_IMAGE_TOL if compare == 'image' else FACE_REL_TOL:g}), {ms:.3f} ms a "
+            f"forward; by class {prof['by_class']}, top {prof['top'][:4]}")
+        if not ok:
+            raise AssertionError(f"{name} on the card disagrees with the CPU: {err}")
+        del net, got, ref
+        torch.cuda.empty_cache()
+    return info
+
+
+def phase_faces(engine, model, phase3: list, directory: str, device):
+    """4h: job control and face restoration on the phase-3 server, with
+    seeded face nets at the published widths in `directory`, registered
+    as server/__main__ registers --gfpgan-models-path and
+    --codeformer-models-path.  Returns (results, info)."""
+    from sdwebui_tpu_torch.postprocessing import faces
+
+    t0 = time.perf_counter()
+    paths = write_face_files(directory, device)
+    log(f"wrote the face nets' files in {time.perf_counter() - t0:.2f} s: "
+        + ", ".join(f"{n} {os.path.getsize(p) / 2 ** 20:.0f} MiB" for n, p in paths.items()))
+    faces.set_model_dirs("GFPGAN", [os.path.dirname(paths["GFPGAN"])])
+    faces.set_model_dirs("CodeFormer", [os.path.dirname(paths["CodeFormer"])])
+    info = {}
+    try:
+        with _server(engine) as url:
+            root = url.rsplit("/sdapi/v1", 1)[0]
+            restorers = [r["name"] for r in _post(f"{url}/face-restorers")]
+            if restorers != ["None", "CodeFormer", "GFPGAN"]:
+                raise AssertionError(f"/face-restorers: {restorers}")
+            info["job_control"] = _job_control(url, root, model, phase3)
+            results = _restore_requests(url, model, phase3)
+            results.append(_face_extras(url, phase3))
+        info["paste"] = _paste_region(device, phase3[0]["image"], paths)
+        info["nets"] = _face_nets(paths, device, phase3[0]["image"])
+        info["restore_s"] = [r["seconds"] for r in results[:2]]
+        info["phase3_s"] = phase3[0]["seconds"]
+    finally:
+        for name, dirs in faces.DEFAULT_DIRS.items():
+            faces.set_model_dirs(name, dirs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results, info
+
+
 def phase_checkpoint(model, device, phase3: dict, ckpt_dir: str):
     """4a: the random SD1.5 and a second one (seed 1, fp16) as checkpoint
     files, served by a checkpoint Engine; returns (engine, results, info)."""
@@ -2235,6 +2647,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mark("4f hybrids")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_faces_") as face_dir:
+        face_results, face_info = phase_faces(engine, model, results, face_dir, device)
+    mark("4h job control and faces")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
         ckpt_engine, ckpt_results, ckpt_info = phase_checkpoint(model, device, results[0],
                                                                 ckpt_dir)
@@ -2270,13 +2685,15 @@ def main() -> int:
     requests = [{k: v for k, v in r.items()
                  if k not in ("image", "png_b64", "infotext", "extras")}
                 for r in (results + i2i_results + opt_results + hr_results + c4_results
-                          + hy_results + ckpt_results + sampler_results + sdxl_results
+                          + hy_results + face_results + ckpt_results + sampler_results
+                          + sdxl_results
                           + [sdxl_hr_result] + sdxl_i2i_results)]
     log(json.dumps({"card": smi, "kernel_shapes": rows, "unet_step": unet,
                     "sdxl_unet_step": sdxl_unet, "img2img_unet_calls": i2i_calls,
                     "sdxl_refiner_after_step": s_idx, "checkpoint": ckpt_info,
                     "hires": hr_info, "extras": extras, "sdxl_hires": sdxl_hr_info,
                     "config4": c4_info, "hybrid": hy_info, "img2img_options": opt_info,
+                    "faces": face_info,
                     "sdxl_img2img": sdxl_i2i_info,
                     "requests": requests, "sdxl_profile": profile, "phase_s": phase_s}))
 

@@ -291,6 +291,6 @@ def register_esrgan_dir(dirs, device="cuda") -> list:
                 return scale_fn
 
             name = os.path.splitext(fn)[0]
-            register_upscaler(name, make_fn(), default_scale=4)
+            register_upscaler(name, make_fn(), default_scale=4, path=path)
             found.append(name)
     return found

@@ -151,3 +151,23 @@ def reset_random(module: nn.Module, gen: torch.Generator) -> None:
     for m in module.modules():
         if isinstance(m, (Conv2d, Linear, GroupNorm, LayerNorm, Embedding)):
             m.reset_random(gen)
+
+
+def assign_f32(module: nn.Module, sd: dict, device) -> nn.Module:
+    """`module` with every parameter and buffer taken from `sd`, in float32
+    on `device`: the keys must be the module's own, and each tensor is
+    reshaped to its slot when only unit dims differ (a checkpoint's
+    (1, C, 1, 1) bias in a (C,) slot, say).  The face nets load this way."""
+    own = module.state_dict()
+    if set(sd) != set(own):
+        missing, extra = sorted(set(own) - set(sd)), sorted(set(sd) - set(own))
+        raise ValueError(f"state dict does not fit {type(module).__name__}: "
+                         f"missing {missing[:5]}, unexpected {extra[:5]}")
+    out = {}
+    for k, v in sd.items():
+        v = torch.as_tensor(v)
+        if v.numel() != own[k].numel():
+            raise ValueError(f"{k}: shape {tuple(v.shape)}, expected {tuple(own[k].shape)}")
+        out[k] = v.reshape(own[k].shape).to(device=device, dtype=torch.float32, copy=True)
+    module.load_state_dict(out, assign=True)
+    return module.eval()

@@ -13,8 +13,8 @@ TAESD encode → fill 2 (latent noise) or 3 (latent nothing) → noise to σ₀
 of the t_enc slice of the schedule (or ``init_noise_override``, plus
 ``img2img_extra_noise``) → sampling with the latent mask blend after every
 denoise, or soft inpainting's σ-scheduled blend before it → the final
-blend (not with soft inpainting) → decode → colour correction against the
-init images → the original pasted back outside the blurred mask (into the
+blend (not with soft inpainting) → decode → ``restore_faces`` → colour
+correction against the init images → the original pasted back outside the blurred mask (into the
 crop region with ``inpaint_full_res``) → the mask and the mask composite
 when ``return_mask`` / ``return_mask_composite`` ask for them.  Extra
 networks apply as in txt2img, and a ControlNet unit without an image of
@@ -52,7 +52,8 @@ from sdwebui_tpu_torch.pipeline.processing import (_apply_grid, _build_conds,
                                                    create_infotext, create_rng,
                                                    decode_first_stage_u8,
                                                    encode_first_stage,
-                                                   check_hybrid, prepare_sampler,
+                                                   check_hybrid, maybe_restore_faces,
+                                                   prepare_sampler,
                                                    sample_latents, setup_img2img_steps,
                                                    uses_refiner, with_tiling)
 from sdwebui_tpu_torch.pipeline.sd_model import SDModel
@@ -199,19 +200,22 @@ def _mask_outputs(mask_info: dict, pre_overlay: list) -> list:
 
 def process_img2img(model: SDModel, p: GenerationParams,
                     step_callback: Callable | None = None,
-                    interrupted: Callable | None = None) -> Processed:
+                    interrupted: Callable | None = None,
+                    callback: Callable | None = None) -> Processed:
     """img2img with per-request override_settings applied and restored.
     ``step_callback(i, n, latents)`` returning False stops sampling;
     ``interrupted()`` true at the decode lets live_preview_fast_interrupt
-    decode with the preview method."""
+    decode with the preview method; ``callback`` is txt2img's batch
+    callback (img2img.py:257,430)."""
     with opts.override(p.override_settings):
-        return _process_img2img(model, p, step_callback, interrupted)
+        return _process_img2img(model, p, step_callback, interrupted, callback)
 
 
 @torch.inference_mode()
 def _process_img2img(model: SDModel, p: GenerationParams,
                      step_callback: Callable | None,
-                     interrupted: Callable | None) -> Processed:
+                     interrupted: Callable | None,
+                     callback: Callable | None = None) -> Processed:
     if not p.init_images:
         raise ValueError("img2img requires init_images")
     _check_img2img(model, p)
@@ -274,6 +278,8 @@ def _process_img2img(model: SDModel, p: GenerationParams,
 
     all_images, infotexts = [], []
     for n in range(p.n_iter):
+        if callback is not None and callback("batch", n, None) is False:
+            break
         lo = n * b
         seeds = p.all_seeds[lo: lo + b]
         subseeds = p.all_subseeds[lo: lo + b]
@@ -306,6 +312,7 @@ def _process_img2img(model: SDModel, p: GenerationParams,
             latents = latents * nmask + init_latent * mask
         images = list(decode_first_stage_u8(model, latents,
                                             bool(interrupted and interrupted())))
+        images = maybe_restore_faces(p, images, model.device)
         if corrections is not None:
             images = [color.apply_color_correction(corrections[min(i, len(corrections) - 1)],
                                                    img) for i, img in enumerate(images)]
@@ -318,6 +325,8 @@ def _process_img2img(model: SDModel, p: GenerationParams,
             extra = _mask_outputs(mask_info, pre_overlay)
             all_images.extend(extra)
             infotexts.extend([infotexts[-1]] * len(extra))
+        if callback is not None:
+            callback("batch_done", n, images)
 
     first_idx = _apply_grid(all_images, infotexts, p, model)
     return Processed(

@@ -14,7 +14,8 @@ t_enc + 1 steps of a second schedule at the target size.  Extra networks
 ControlNet units (``pipeline/control.py``) apply to every pass of the base
 model.  A hybrid UNet (the inpainting models' 9 channels, SD2-depth's 5)
 gets its fixed image conditioning (``c_concat``, processing.py:1386-1399).
-Images leave as uint8 HWC numpy arrays.  Options and request
+``restore_faces`` runs the face restorer (``postprocessing/faces``) on each
+decoded image.  Images leave as uint8 HWC numpy arrays.  Options and request
 fields outside the slice raise ``NotImplementedError`` naming them;
 nothing falls back to a different computation.
 """
@@ -22,6 +23,7 @@ nothing falls back to a different computation.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 import os
 import random
@@ -36,7 +38,7 @@ from sdwebui_tpu_torch.models import vae_approx
 from sdwebui_tpu_torch.networks import extra_networks
 from sdwebui_tpu_torch.pipeline.control import control_residuals, prepare_controls
 from sdwebui_tpu_torch.pipeline.params import GenerationParams, Processed
-from sdwebui_tpu_torch.postprocessing import upscalers
+from sdwebui_tpu_torch.postprocessing import faces, upscalers
 from sdwebui_tpu_torch.pipeline.sd_model import SDModel, sdxl_vector_maker
 from sdwebui_tpu_torch.rng.image_rng import ImageRNG, TorchCPUGenerator
 from sdwebui_tpu_torch.rng.philox import PhiloxGenerator
@@ -49,6 +51,8 @@ from sdwebui_tpu_torch.text.prompt_parser import strip_comments
 from sdwebui_tpu_torch.utils import devices
 from sdwebui_tpu_torch.utils import infotext as infotext_util
 from sdwebui_tpu_torch.utils.options import opts
+
+log = logging.getLogger(__name__)
 
 MAX_SEED = 2 ** 32 - 1
 
@@ -73,7 +77,6 @@ UNPORTED_HIRES_OPTIONS = {
 def _check_slice(p: GenerationParams) -> None:
     """Raise for every request field and option the slice does not run."""
     fields = {
-        "restore_faces": p.restore_faces,
         "hypernet_override": p.hypernet_override is not None,
         "postprocessing": p.postprocessing,
     }
@@ -83,6 +86,9 @@ def _check_slice(p: GenerationParams) -> None:
     for name, value in UNPORTED_OPTIONS.items():
         if opts.get(name, value) != value:
             raise NotImplementedError(f"option {name!r} is not ported yet")
+    if p.restore_faces and opts.get("save_images_before_face_restoration", False):
+        raise NotImplementedError("option 'save_images_before_face_restoration' with "
+                                  "restore_faces is not ported yet: output saving is not")
     for name, value in UNPORTED_HIRES_OPTIONS.items():
         if p.enable_hr and opts.get(name, value) != value:
             raise NotImplementedError(f"option {name!r} of the enable_hr pass is not ported yet")
@@ -236,7 +242,7 @@ def encode_first_stage(model: SDModel, images: np.ndarray):
     return vae.encode_mode(vae.encode_moments(x)).float()
 
 
-def _to_u8(img) -> np.ndarray:
+def to_u8(img) -> np.ndarray:
     """(B, 3, H, W) in [0, 1] → uint8 (B, H, W, 3), rounded half up."""
     return (img * 255.0 + 0.5).to(torch.uint8).permute(0, 2, 3, 1).cpu().numpy()
 
@@ -246,7 +252,7 @@ def _decode_u8(model: SDModel, latents, dtype):
     as 0, as JAX's ``tensor_to_pil`` reads it."""
     img = model.vae.decode(latents.to(dtype), tiling=model.vae_cfg.tiling)
     bad = not devices.all_finite(img)
-    return _to_u8(torch.nan_to_num(torch.clamp(img.float() / 2.0 + 0.5, 0.0, 1.0))), bad
+    return to_u8(torch.nan_to_num(torch.clamp(img.float() / 2.0 + 0.5, 0.0, 1.0))), bad
 
 
 def _approx_u8(model: SDModel, latents, interrupted: bool):
@@ -254,10 +260,10 @@ def _approx_u8(model: SDModel, latents, interrupted: bool):
     or TAESD's decode, as uint8; None for the full VAE."""
     fast = _fast_interrupt_method(interrupted)
     if fast is not None:
-        return _to_u8(vae_approx.approx_decode(model.kind, fast, latents))
+        return to_u8(vae_approx.approx_decode(model.kind, fast, latents))
     taesd = _taesd_for(model, "decoder")
     if taesd is not None:
-        return _to_u8(vae_approx.taesd_decode(taesd, latents))
+        return to_u8(vae_approx.taesd_decode(taesd, latents))
     return None
 
 
@@ -622,6 +628,8 @@ def create_infotext(p: GenerationParams, model: SDModel, index: int = 0) -> str:
                   and opts.get("add_model_name_to_info", True) else None),
         "Denoising strength": p.denoising_strength,
         "Init image hash": getattr(p, "init_img_hash", None),
+        "Face restoration": (opts.get("face_restoration_model", "CodeFormer")
+                             if p.restore_faces else None),
         "Clip skip": p.clip_skip if p.clip_skip > 1 else None,
         "Version": (f"sdwebui-tpu-{__version__}"
                     if opts.get("add_version_to_infotext", True) else None),
@@ -681,6 +689,27 @@ def create_infotext(p: GenerationParams, model: SDModel, index: int = 0) -> str:
         pairs)
 
 
+_FACE_SKIPS_LOGGED: set = set()
+
+
+def maybe_restore_faces(p: GenerationParams, images: list, device) -> list:
+    """``restore_faces``: each image through opts.face_restoration_model at
+    opts.code_former_weight on `device` (processing.py:894-912); without the
+    restorer's weights the images stay as they are, logged once per
+    restorer, and the infotext still names it, as in JAX."""
+    if not p.restore_faces:
+        return images
+    name = opts.get("face_restoration_model", "CodeFormer")
+    weight = float(opts.get("code_former_weight", 0.5))
+    try:
+        return [faces.restore_faces(im, name, weight=weight, device=device) for im in images]
+    except faces.FaceRestorerNotFound as e:
+        if name not in _FACE_SKIPS_LOGGED:
+            _FACE_SKIPS_LOGGED.add(name)
+            log.warning("face restoration skipped: %s", e)
+        return images
+
+
 def _grid_rows(n: int, batch_size: int) -> int:
     n_rows = int(opts.get("n_rows", -1))
     if n_rows > 0:
@@ -732,16 +761,20 @@ def _apply_grid(all_images: list, infotexts: list, p: GenerationParams,
 def process_txt2img(model: SDModel, p: GenerationParams,
                     step_callback: Callable | None = None,
                     refiner_model: SDModel | None = None,
-                    interrupted: Callable | None = None) -> Processed:
+                    interrupted: Callable | None = None,
+                    callback: Callable | None = None) -> Processed:
     """txt2img with per-request override_settings applied and restored
     (processing.py:1304).  ``step_callback(i, n, latents)`` returning False
     stops sampling; ``interrupted()`` true at the decode lets
-    opts.live_preview_fast_interrupt decode with the preview method.  A
-    request with ``refiner_checkpoint`` and 0 < ``refiner_switch_at`` < 1
-    needs `refiner_model`; with ``enable_hr``, opts.hires_fix_refiner_pass
-    says which pass it refines."""
+    opts.live_preview_fast_interrupt decode with the preview method;
+    ``callback("batch", n, None)`` before batch n (False ends the job
+    there) and ``callback("batch_done", n, images)`` after it
+    (processing.py:1404,1524).  A request with ``refiner_checkpoint`` and
+    0 < ``refiner_switch_at`` < 1 needs `refiner_model`; with
+    ``enable_hr``, opts.hires_fix_refiner_pass says which pass it refines."""
     with opts.override(p.override_settings):
-        return _process_txt2img(model, p, step_callback, refiner_model, interrupted)
+        return _process_txt2img(model, p, step_callback, refiner_model, interrupted,
+                                callback)
 
 
 def with_tiling(model: SDModel, p: GenerationParams) -> SDModel:
@@ -790,7 +823,8 @@ def txt2img_image_conditioning(model: SDModel, batch: int, height: int, width: i
 def _process_txt2img(model: SDModel, p: GenerationParams,
                      step_callback: Callable | None,
                      refiner_model: SDModel | None,
-                     interrupted: Callable | None = None) -> Processed:
+                     interrupted: Callable | None = None,
+                     callback: Callable | None = None) -> Processed:
     _check_slice(p)
     check_hybrid(model)
     hybrid = model.unet_cfg.in_channels != model.latent_channels
@@ -829,6 +863,8 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
 
     all_images, infotexts = [], []
     for n in range(p.n_iter):
+        if callback is not None and callback("batch", n, None) is False:
+            break
         lo = n * p.batch_size
         seeds = p.all_seeds[lo: lo + p.batch_size]
         subseeds = p.all_subseeds[lo: lo + p.batch_size]
@@ -868,8 +904,11 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
                                   step_callback=step_callback, hypernet=hypernet)
         images = list(decode_first_stage_u8(model, latents,
                                             bool(interrupted and interrupted())))
+        images = maybe_restore_faces(p, images, model.device)
         infotexts.extend(create_infotext(p, model, lo + i) for i in range(len(images)))
         all_images.extend(images)
+        if callback is not None:
+            callback("batch_done", n, images)
 
     first_idx = _apply_grid(all_images, infotexts, p, model)
     return Processed(

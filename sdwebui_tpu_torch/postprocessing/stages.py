@@ -1,5 +1,4 @@
-"""The extras stage chain — port of the Upscale stage of
-``sdwebui_tpu/postprocessing/stages.py``.
+"""The extras stage chain — port of ``sdwebui_tpu/postprocessing/stages.py``.
 
 ``run_stages`` runs the stages over one RGB uint8 image in the order of
 opts.postprocessing_operation_order, then the default order, leaving out
@@ -7,8 +6,10 @@ opts.postprocessing_disable_in_extras (the Extras routes) or running just
 the named ones.  Upscale: scale-by (``upscaling_resize``, capped by
 ``max_side_length``) or scale-to (``upscaling_resize_w/h``, optionally
 cropped to it), with ``upscaler_2`` blended over ``upscaler_1`` by
-``extras_upscaler_2_visibility``.  The face-restoration stages (GFPGAN,
-CodeFormer) are not ported: a visibility above 0 raises naming them.
+``extras_upscaler_2_visibility``.  GFPGAN and CodeFormer
+(``postprocessing/faces``, stages.py:102-119): at a visibility above 0 the
+image's faces are restored and blended over it by that visibility,
+CodeFormer at ``codeformer_weight``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import dataclasses
 
 import numpy as np
 
+from sdwebui_tpu_torch.postprocessing import faces
 from sdwebui_tpu_torch.postprocessing.upscalers import upscale
 from sdwebui_tpu_torch.utils import images as images_util
 from sdwebui_tpu_torch.utils.options import opts
@@ -69,7 +71,8 @@ def _run_upscaler(args: StageArgs, name: str, im: np.ndarray, sc: float) -> np.n
     return upscale(name, im, sc)
 
 
-def _stage_upscale(args: StageArgs, im: np.ndarray) -> np.ndarray:
+def _stage_upscale(args: StageArgs, im: np.ndarray, device) -> np.ndarray:
+    # the upscalers run on the device they were registered for
     h, w = im.shape[:2]
     if args.resize_mode == 1:
         scale = max(args.upscaling_resize_w / w, args.upscaling_resize_h / h)
@@ -89,22 +92,29 @@ def _stage_upscale(args: StageArgs, im: np.ndarray) -> np.ndarray:
     return out
 
 
-def _face_stage(name: str, field: str):
-    def stage(args: StageArgs, im: np.ndarray) -> np.ndarray:
-        if getattr(args, field) > 0:
-            raise NotImplementedError(f"{name} face restoration ({field!r}) is not ported yet")
-        return im
-    return stage
+def _stage_gfpgan(args: StageArgs, im: np.ndarray, device) -> np.ndarray:
+    if args.gfpgan_visibility > 0:
+        im = faces.restore_faces(im, "GFPGAN", visibility=args.gfpgan_visibility,
+                                 device=device)
+    return im
 
 
-STAGES = {"Upscale": _stage_upscale,
-          "GFPGAN": _face_stage("GFPGAN", "gfpgan_visibility"),
-          "CodeFormer": _face_stage("CodeFormer", "codeformer_visibility")}
+def _stage_codeformer(args: StageArgs, im: np.ndarray, device) -> np.ndarray:
+    if args.codeformer_visibility > 0:
+        im = faces.restore_faces(im, "CodeFormer", weight=args.codeformer_weight,
+                                 visibility=args.codeformer_visibility, device=device)
+    return im
 
 
-def run_stages(img, args: StageArgs, enabled: set | None = None) -> np.ndarray:
+STAGES = {"Upscale": _stage_upscale, "GFPGAN": _stage_gfpgan,
+          "CodeFormer": _stage_codeformer}
+
+
+def run_stages(img, args: StageArgs, enabled: set | None = None,
+               device="cuda") -> np.ndarray:
     """The stage chain over one image: enabled None → every stage less
-    opts.postprocessing_disable_in_extras; a set → just those."""
+    opts.postprocessing_disable_in_extras; a set → just those.  The face
+    stages run their nets on `device`."""
     preferred = list(opts.get("postprocessing_operation_order", []) or [])
     order = [n for n in preferred if n in STAGES] + [n for n in STAGES if n not in preferred]
     if enabled is None:
@@ -114,5 +124,5 @@ def run_stages(img, args: StageArgs, enabled: set | None = None) -> np.ndarray:
         active = [n for n in order if n in enabled]
     out = images_util.to_rgb(img)
     for name in active:
-        out = STAGES[name](args, out)
+        out = STAGES[name](args, out, device)
     return out

@@ -31,14 +31,16 @@ class UpscalerEntry:
     name: str
     scale_fn: Callable          # (image, factor) -> image
     default_scale: int = 4
+    path: str | None = None     # a model upscaler's file
 
 
 _REGISTRY: dict[str, UpscalerEntry] = {}
 BUILTIN = ("None", "Lanczos", "Nearest")
 
 
-def register_upscaler(name: str, scale_fn: Callable, default_scale: int = 4):
-    _REGISTRY[name] = UpscalerEntry(name, scale_fn, default_scale)
+def register_upscaler(name: str, scale_fn: Callable, default_scale: int = 4,
+                      path: str | None = None):
+    _REGISTRY[name] = UpscalerEntry(name, scale_fn, default_scale, path)
 
 
 def unregister_upscaler(name: str):

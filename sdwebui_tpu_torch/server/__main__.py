@@ -10,7 +10,10 @@ the ``sd_model_checkpoint`` setting, else the first file found.
 ``--vae-path`` gives every checkpoint that VAE.  The ESRGAN / Real-ESRGAN
 files (``.pth``, ``.pt``, ``.safetensors``) under ``--esrgan-models-path``
 and ``--realesrgan-models-path`` (default ``models/ESRGAN`` and
-``models/RealESRGAN``) serve as upscalers by file name.  Extra networks and
+``models/RealESRGAN``) serve as upscalers by file name.  The face
+restorers' weights are the first file under ``--gfpgan-models-path`` and
+``--codeformer-models-path`` (default ``models/GFPGAN`` and
+``models/Codeformer``; JAX parses both flags and never reads them).  Extra networks and
 ControlNet: the LoRA / LyCORIS files under ``--lora-dir`` (default
 ``models/Lora`` and ``models/LyCORIS``), the hypernetworks under
 ``--hypernetwork-dir`` (``models/hypernetworks``), the textual-inversion
@@ -32,6 +35,7 @@ from sdwebui_tpu_torch.networks.hypernetwork import (DEFAULT_HYPERNETWORK_DIR,
                                                      set_hypernetwork_dirs)
 from sdwebui_tpu_torch.networks.textual_inversion import DEFAULT_EMBEDDINGS_DIR
 from sdwebui_tpu_torch.pipeline.control import DEFAULT_CONTROLNET_DIR, set_model_dirs
+from sdwebui_tpu_torch.postprocessing import faces
 from sdwebui_tpu_torch.server.api import make_server
 from sdwebui_tpu_torch.server.app import DEFAULT_CKPT_DIR, Engine
 
@@ -59,6 +63,10 @@ def main(argv=None):
                     help="Path to directory with ESRGAN model file(s).")
     ap.add_argument("--realesrgan-models-path", default=DEFAULT_ESRGAN_DIRS[1],
                     help="Path to directory with RealESRGAN model file(s).")
+    ap.add_argument("--gfpgan-models-path", default=faces.DEFAULT_DIRS["GFPGAN"][0],
+                    help="Path to directory with GFPGAN model file(s).")
+    ap.add_argument("--codeformer-models-path", default=faces.DEFAULT_DIRS["CodeFormer"][0],
+                    help="Path to directory with codeformer model file(s).")
     ap.add_argument("--lora-dir", default=None,
                     help="Path to directory with Lora networks (default: models/Lora and "
                          "models/LyCORIS)")
@@ -80,6 +88,8 @@ def main(argv=None):
     set_lora_dirs([args.lora_dir] if args.lora_dir else DEFAULT_LORA_DIRS)
     set_hypernetwork_dirs([args.hypernetwork_dir])
     set_model_dirs([args.controlnet_dir])
+    faces.set_model_dirs("GFPGAN", [args.gfpgan_models_path])
+    faces.set_model_dirs("CodeFormer", [args.codeformer_models_path])
     if args.model:
         engine = Engine(device=args.device, tiny=args.tiny, seed=args.seed, family=args.model,
                         embeddings_dir=args.embeddings_dir)
@@ -88,9 +98,10 @@ def main(argv=None):
                         ckpt_dirs=[args.ckpt_dir or DEFAULT_CKPT_DIR], vae_path=args.vae_path,
                         embeddings_dir=args.embeddings_dir)
         engine.sd_model           # load now: a checkpoint that fails fails at start
-    upscalers = register_esrgan_dir((args.esrgan_models_path, args.realesrgan_models_path),
-                                    device=engine.device)
-    server = make_server(engine, args.host, args.port)
+    upscalers = register_esrgan_dir((args.esrgan_models_path,), device=engine.device)
+    realesrgan = register_esrgan_dir((args.realesrgan_models_path,), device=engine.device)
+    upscalers += realesrgan
+    server = make_server(engine, args.host, args.port, flags=vars(args), realesrgan=realesrgan)
     extras = "".join(f", refiner {t!r}" for t in engine._extra_models) + \
         "".join(f", upscaler {n!r}" for n in upscalers)
     print(f"serving {engine.sd_model.title!r}{extras} on "

@@ -7,9 +7,14 @@ Port of the generation, extras, option and checkpoint routes of
 (a ``sd_model_checkpoint`` in a POST reloads), samplers, schedulers,
 upscalers, latent upscale modes, sd-models, sd-vae, and refresh / reload /
 unload of checkpoints.  ``extra-single-image`` and ``extra-batch-images``
-run the Upscale stage (``postprocessing/stages``) and answer one PNG per
-image; face restoration, ``save_output`` and extras resize modes other than
-0 and 1 answer 422.
+run the stage chain (``postprocessing/stages``: Upscale, GFPGAN,
+CodeFormer) and answer one PNG per image; ``save_output`` and extras
+resize modes other than 0 and 1 answer 422, and so does a face restorer
+without weights.  Job control: ``progress``, ``interrupt``, ``skip`` and
+``/internal/{interrupt,progress}`` read and set the Engine's job state
+without its queue lock, the live preview as a PNG; ``png-info``,
+``memory``, ``cmd-flags``, ``refresh-vae``, ``realesrgan-models`` and
+``face-restorers`` answer as JAX's (``api.py:437-539,587-592,899,916``).
 Requests are plain JSON mapped
 onto ``GenerationParams`` (no pydantic); responses have the reference's
 shape, ``{"images": [b64 png], "parameters": {...}, "info": "<json>"}``.
@@ -37,8 +42,13 @@ import dataclasses
 import glob
 import json
 import os
+import resource
+import threading
+import time
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import torch
 
 from sdwebui_tpu_torch.loader.safetensors_io import read_metadata
 from sdwebui_tpu_torch.networks import NetworkNotFound
@@ -48,12 +58,13 @@ from sdwebui_tpu_torch.pipeline import annotators, control
 from sdwebui_tpu_torch.pipeline.params import GenerationParams
 from sdwebui_tpu_torch.pipeline.processing import (LATENT_UPSCALE_MODES, UNPORTED_HIRES_OPTIONS,
                                                    UNPORTED_OPTIONS)
-from sdwebui_tpu_torch.postprocessing import upscalers
+from sdwebui_tpu_torch.postprocessing import faces, upscalers
 from sdwebui_tpu_torch.postprocessing.stages import StageArgs
 from sdwebui_tpu_torch.sampling.registry import SAMPLER_MAP, SAMPLERS
 from sdwebui_tpu_torch.sampling.schedulers import ALIASES, SCHEDULERS
 from sdwebui_tpu_torch.server.app import CheckpointNotFound, Engine
 from sdwebui_tpu_torch.text.styles import PromptStyle
+from sdwebui_tpu_torch.utils import infotext
 from sdwebui_tpu_torch.utils.options import opts
 from sdwebui_tpu_torch.utils.png import decode_png, encode_png
 
@@ -73,12 +84,13 @@ FIELDS = {
     "send_images": (True, bool), "refiner_checkpoint": (None, str),
     "refiner_switch_at": (None, _NUM), "controlnet_units": (None, list),
     "alwayson_scripts": ({}, dict), "styles": ([], list), "tiling": (None, bool),
+    "restore_faces": (None, bool),
 }
 
 #: fields of the reference schema outside the slice: accepted only at
 #: these values (their defaults)
 NEUTRAL = {
-    "restore_faces": (None, False), "disable_extra_networks": (False,), "comments": ({},),
+    "disable_extra_networks": (False,), "comments": ({},),
     "firstphase_width": (0,), "firstphase_height": (0,), "hr_checkpoint_name": (None,),
     "script_name": (None,), "script_args": ([],),
     "save_images": (False,), "infotext": (None,),
@@ -128,6 +140,9 @@ OVERRIDES = {
     # interrupted job (processing._taesd_for, _fast_interrupt_method)
     "sd_vae_encode_method", "sd_vae_decode_method", "live_preview_fast_interrupt",
     "show_progress_type",
+    # live previews (Engine._step_callback) and face restoration
+    "live_previews_enable", "show_progress_every_n_steps", "show_progress_grid",
+    "face_restoration_model", "code_former_weight", "save_images_before_face_restoration",
     *UNPORTED_OPTIONS, *UNPORTED_HIRES_OPTIONS,
 }
 
@@ -164,7 +179,8 @@ OPTIONS = OVERRIDES | IMG2IMG_OVERRIDES | {
     "sd_checkpoints_limit", "sd_checkpoints_keep_in_cpu", "sd_checkpoint_cache",
     "sd_vae_checkpoint_cache", "sd_vae_overrides_per_model_preferences",
     "list_hidden_files", "disable_mmap_load_safetensors", "postprocessing_operation_order",
-    "postprocessing_disable_in_extras", "realesrgan_enabled_models"}
+    "postprocessing_disable_in_extras", "realesrgan_enabled_models",
+    "live_previews_image_format", "interrupt_after_current"}
 
 #: the Extras request's fields (ExtrasSingleImageRequest; ``name`` is a
 #: batch item's file name)
@@ -309,6 +325,12 @@ def _params_from_request(body: dict, img2img: bool = False) -> GenerationParams:
 
 def _decode_image(encoding, field: str):
     """A base64 PNG (optionally a data: URL) → uint8 (H, W, C)."""
+    return _decode_png(encoding, field)[0]
+
+
+def _decode_png(encoding, field: str):
+    """A base64 PNG (optionally a data: URL) → (uint8 (H, W, C), its text
+    chunks)."""
     if not isinstance(encoding, str):
         raise ApiError(422, f"field {field!r} must hold base64 strings")
     if encoding.startswith(("http://", "https://")):
@@ -324,14 +346,22 @@ def _decode_image(encoding, field: str):
             raise ApiError(400, f"field {field!r} holds a {fmt} image; this server reads "
                                 "PNG only")
     try:
-        return decode_png(data)[0]
+        return decode_png(data)
     except ValueError as e:
         raise ApiError(400, f"field {field!r}: {e}") from e
 
 
 class Api:
-    def __init__(self, engine: Engine):
+    """The routes over one Engine.  flags: the server's command-line flags
+    (``/cmd-flags``); realesrgan: the upscaler names registered from the
+    Real-ESRGAN directory (``/realesrgan-models``)."""
+
+    def __init__(self, engine: Engine, flags: dict | None = None, realesrgan=()):
         self.engine = engine
+        self.flags = dict(flags or {})
+        self.realesrgan = tuple(realesrgan)
+        self._preview_lock = threading.Lock()
+        self._preview = (0, None)          # (id_live_preview, base64 PNG)
         self.routes = {
             ("POST", "/sdapi/v1/txt2img"): self.txt2img,
             ("POST", "/sdapi/v1/img2img"): self.img2img,
@@ -361,6 +391,19 @@ class Api:
             ("POST", "/controlnet/detect"): self.controlnet_detect,
             ("GET", "/controlnet/version"): lambda body: {"version": 2},
             ("GET", "/internal/ping"): lambda body: {},
+            # job control (api.py:437-539)
+            ("GET", "/sdapi/v1/progress"): self.progress,
+            ("POST", "/sdapi/v1/interrupt"): self.interrupt,
+            ("POST", "/sdapi/v1/skip"): self.skip,
+            ("POST", "/internal/interrupt"): self.interrupt_ui,
+            ("GET", "/internal/progress"): self.internal_progress,
+            ("POST", "/internal/progress"): self.internal_progress,
+            ("POST", "/sdapi/v1/png-info"): self.png_info,
+            ("GET", "/sdapi/v1/memory"): self.memory,
+            ("GET", "/sdapi/v1/cmd-flags"): self.cmd_flags,
+            ("POST", "/sdapi/v1/refresh-vae"): lambda body: {},
+            ("GET", "/sdapi/v1/realesrgan-models"): self.realesrgan_models,
+            ("GET", "/sdapi/v1/face-restorers"): self.face_restorers,
         }
 
     def _generate(self, body, img2img: bool):
@@ -392,10 +435,6 @@ class Api:
         if req["save_output"]:
             raise ApiError(422, "'save_output' is not supported by this server: it writes "
                                 "no files")
-        for field, name in (("gfpgan_visibility", "GFPGAN"),
-                            ("codeformer_visibility", "CodeFormer")):
-            if req[field] > 0:
-                raise ApiError(422, f"{name} face restoration ({field!r}) is not ported yet")
         if req["resize_mode"] not in (0, 1):
             raise ApiError(422, f"extras resize_mode {req['resize_mode']} is not supported "
                                 "(0 scale by, 1 scale to)")
@@ -588,6 +627,102 @@ class Api:
             out.append(base64.b64encode(encode_png(hint)).decode("ascii"))
         return {"images": out, "info": f"module={module}"}
 
+    # ---- job control (api.py:437-539,587-592,899,916) ---------------------
+
+    def _preview_b64(self, snap: dict) -> str | None:
+        """The live preview as a base64 PNG, encoded once per preview and
+        stored uncompressed (deflate level 0): compressing a noisy 1024²
+        grid costs many times what the rest of a poll does."""
+        if snap["current_image"] is None:
+            return None
+        with self._preview_lock:
+            if self._preview[0] != snap["id_live_preview"] or self._preview[1] is None:
+                png = encode_png(snap["current_image"], level=0)
+                self._preview = (snap["id_live_preview"], base64.b64encode(png).decode("ascii"))
+            return self._preview[1]
+
+    def progress(self, body=None):
+        """The job's progress and live preview, read from one snapshot of the
+        state without the queue lock."""
+        snap = self.engine.state.snapshot()
+        elapsed = time.time() - snap["time_start"] if snap["time_start"] else 0
+        progress = snap["progress"]
+        return {
+            "progress": progress if snap["job"] else 0.0,
+            "eta_relative": elapsed / progress - elapsed if progress > 0 else 0,
+            "state": {k: snap[k] for k in (
+                "skipped", "interrupted", "stopping_generation", "job", "job_count",
+                "job_timestamp", "job_no", "sampling_step", "sampling_steps")},
+            "current_image": self._preview_b64(snap),
+            "textinfo": snap["textinfo"]}
+
+    def internal_progress(self, body=None):
+        """The UI's progress poll: the preview as a data URL in
+        opts.live_previews_image_format (PNG only in the port)."""
+        body = body if isinstance(body, dict) else {}
+        snap = self.engine.state.snapshot()
+        live = None
+        if snap["current_image"] is not None and body.get("live_preview", True):
+            fmt = str(opts.get("live_previews_image_format", "png")).lower()
+            if fmt != "png":
+                raise NotImplementedError(f"live_previews_image_format {fmt!r} is not ported "
+                                          "yet (png only)")
+            live = "data:image/png;base64," + self._preview_b64(snap)
+        return {"active": bool(snap["job"]), "queued": False, "completed": not snap["job"],
+                "progress": snap["progress"], "eta": None, "live_preview": live,
+                "id_live_preview": snap["id_live_preview"], "textinfo": snap["textinfo"]}
+
+    def interrupt(self, body=None):
+        self.engine.state.interrupt()
+        return {}
+
+    def skip(self, body=None):
+        self.engine.state.skip()
+        return {}
+
+    def interrupt_ui(self, body=None):
+        """The UI button: with opts.interrupt_after_current a multi-image job
+        finishes the image in flight first (State.interrupt_ui)."""
+        self.engine.state.interrupt_ui()
+        return {}
+
+    def png_info(self, body):
+        """The generation parameters of a base64 PNG: its "parameters"
+        text, every text chunk and the parsed infotext."""
+        if not isinstance(body, dict):
+            raise ApiError(422, "request body must be a JSON object")
+        if not body.get("image"):
+            raise ApiError(404, "Image not found")
+        _, text = _decode_png(body["image"], "image")
+        info = text.get("parameters", "")
+        return {"info": info, "items": text, "parameters": infotext.parse(info)}
+
+    def memory(self, body=None):
+        """Host RAM (this process's peak RSS) and the card's memory, with the
+        last job's peak allocation (utils/memmon)."""
+        ram = {"free": -1, "used": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+               "total": -1}
+        device = self.engine.device
+        if device.type == "cuda":
+            free, total = torch.cuda.mem_get_info(device)
+            system = {"free": free, "used": total - free, "total": total}
+        else:
+            system = {"error": "unavailable"}
+        mon = self.engine.state.memmon
+        return {"ram": ram, "cuda": {"system": system, "events": {
+            "peak_used": mon.peak_used, "polls": mon.polls}}}
+
+    def cmd_flags(self, body=None):
+        return {**self.flags, "api": True, "ckpt": self.engine._requested_ckpt}
+
+    def realesrgan_models(self, body=None):
+        """The Real-ESRGAN files the server registered (JAX answers [])."""
+        return [{"name": e.name, "path": e.path, "scale": e.default_scale}
+                for e in map(upscalers.get_upscaler, self.realesrgan)]
+
+    def face_restorers(self, body=None):
+        return [{"name": n, "cmd_dir": None} for n in faces.available_restorers()]
+
     def handle(self, method: str, path: str, body):
         """→ (status, JSON-able payload)."""
         handler = self.routes.get((method, path.split("?", 1)[0]))
@@ -599,7 +734,8 @@ class Api:
             return e.status, {"detail": e.message}
         except NetworkNotFound as e:
             return 404, {"detail": str(e)}
-        except (NotImplementedError, CheckpointNotFound, upscalers.UpscalerNotFound) as e:
+        except (NotImplementedError, CheckpointNotFound, upscalers.UpscalerNotFound,
+                faces.FaceRestorerNotFound) as e:
             return 422, {"detail": str(e)}
         except Exception as e:   # surfaced as a 500 with its message
             traceback.print_exc()
@@ -643,9 +779,10 @@ def make_handler(api: Api):
     return Handler
 
 
-def make_server(engine: Engine, host: str = "127.0.0.1",
-                port: int = 7860) -> ThreadingHTTPServer:
-    """The bound server (port 0 picks a free one); run ``serve_forever()``."""
-    server = ThreadingHTTPServer((host, port), make_handler(Api(engine)))
+def make_server(engine: Engine, host: str = "127.0.0.1", port: int = 7860,
+                flags: dict | None = None, realesrgan=()) -> ThreadingHTTPServer:
+    """The bound server (port 0 picks a free one); run ``serve_forever()``.
+    flags and realesrgan: the Api's."""
+    server = ThreadingHTTPServer((host, port), make_handler(Api(engine, flags, realesrgan)))
     server.daemon_threads = True
     return server

@@ -11,7 +11,11 @@ through the registry — or, when asked for, random weights at full width
 (SD1.5, or the SDXL base with a resident refiner) or the tiny test models.
 Generations and Extras upscales run one at a time under the queue lock,
 which model switches take too, with the job's progress in a
-``runtime.state.State``.  The upscalers are the process's registry
+``runtime.state.State``: the sampler's step callback sets the step, stops
+on an interrupt or a skip (a skip ends the batch in flight only) and makes
+the live previews; the batch callback advances ``job_no`` and ends the job
+before the next batch on an interrupt or ``stopping_generation``
+(JAX's app.py:412-471).  The upscalers are the process's registry
 (``postprocessing/upscalers``), which ``server/__main__`` fills from the
 ESRGAN and Real-ESRGAN directories at start (JAX's app.py:44-57); so are
 the LoRA, hypernetwork and ControlNet registries.  Every model the Engine
@@ -28,17 +32,22 @@ duplicate of it stays in the cache.
 
 from __future__ import annotations
 
+import logging
 import os
 import threading
 
+import torch
+
 from sdwebui_tpu_torch.loader import load
 from sdwebui_tpu_torch.loader.registry import CheckpointRegistry, file_sha256
+from sdwebui_tpu_torch.models import vae_approx
 from sdwebui_tpu_torch.networks.textual_inversion import (DEFAULT_EMBEDDINGS_DIR,
                                                           attach_embeddings)
 from sdwebui_tpu_torch.ops.attention import set_attention_impl
 from sdwebui_tpu_torch.pipeline.img2img import process_img2img
 from sdwebui_tpu_torch.pipeline.params import GenerationParams, Processed
-from sdwebui_tpu_torch.pipeline.processing import process_txt2img, uses_refiner
+from sdwebui_tpu_torch.pipeline.processing import (decode_first_stage, image_grid,
+                                                   process_txt2img, to_u8, uses_refiner)
 from sdwebui_tpu_torch.pipeline.sd_model import (SDModel, create_random_sd15,
                                                  create_random_sdxl,
                                                  create_tiny_sd,
@@ -48,6 +57,8 @@ from sdwebui_tpu_torch.runtime.state import State
 from sdwebui_tpu_torch.text.styles import StyleDatabase
 from sdwebui_tpu_torch.utils.devices import get_device
 from sdwebui_tpu_torch.utils.options import opts
+
+log = logging.getLogger(__name__)
 
 #: opts.cross_attention_optimization → attention impl
 ATTENTION_IMPLS = {"Automatic": None, "flash": "flash", "flash-packed": "flash-packed",
@@ -260,9 +271,49 @@ class Engine:
         set_attention_impl(ATTENTION_IMPLS[impl])
 
     def _step_callback(self, i: int, n: int, latents) -> bool:
-        self.state.sampling_step = i + 1
-        self.state.sampling_steps = n
-        return not (self.state.interrupted or self.state.skipped)
+        """The sampler's per-step hook (app.py:440-460): progress, a stop on
+        interrupt or skip (a skip is cleared, so it ends only the batch in
+        flight), and every opts.show_progress_every_n_steps steps a live
+        preview of the latents in opts.show_progress_type."""
+        self.state.set_sampling_step(i + 1, n)
+        skipped = self.state.take_skip()
+        if self.state.interrupted or skipped:
+            return False
+        every = int(opts.get("show_progress_every_n_steps", 10))
+        if opts.get("live_previews_enable", True) and every > 0 and (i + 1) % every == 0:
+            try:
+                self.state.set_current_image(self._preview(latents))
+            except Exception:     # a preview never stops the job, as in JAX
+                log.exception("live preview failed")
+        return True
+
+    def _preview(self, latents):
+        """Sampler-space latents → one uint8 RGB image: TAESD, Approx NN or
+        the cheap approximation (``vae_approx.approx_decode``; a missing
+        file falls back to the cheap one), or "Full" through the VAE; a
+        grid of the batch with opts.show_progress_grid."""
+        model = self.sd_model
+        method = opts.get("show_progress_type", "Approx NN")
+        if method == "Full":
+            images = decode_first_stage(model, latents)
+        else:
+            rgb = vae_approx.approx_decode(model.kind, method, latents)
+            images = to_u8(torch.nan_to_num(rgb))
+        if opts.get("show_progress_grid", True) and len(images) > 1:
+            return image_grid(list(images), 1)
+        return images[0]
+
+    def _batch_callback(self, kind: str, n: int, images) -> bool:
+        """Before batch n: stop on interrupt or stopping_generation, else
+        advance job_no; after it: its last image is the preview
+        (app.py:464-471)."""
+        if kind == "batch":
+            if self.state.interrupted or self.state.stopping_generation:
+                return False
+            self.state.set_job_no(n)
+        elif kind == "batch_done" and images:
+            self.state.set_current_image(images[-1])
+        return True
 
     def apply_styles(self, p: GenerationParams):
         """The request's styles merged into its prompts (app.py:68-71)."""
@@ -278,8 +329,7 @@ class Engine:
             self._maybe_switch(p)
             with opts.override(p.override_settings):
                 self._apply_runtime_opts()
-            self.state.begin(job)
-            self.state.job_count = p.n_iter
+            self.state.begin(job, p.n_iter, self.device)
             try:
                 return fn()
             finally:
@@ -288,15 +338,20 @@ class Engine:
     def txt2img(self, p: GenerationParams) -> Processed:
         return self._run("txt2img", p, lambda: process_txt2img(
             self.sd_model, p, step_callback=self._step_callback,
-            refiner_model=self._resolve_refiner(p), interrupted=self._interrupted))
+            refiner_model=self._resolve_refiner(p), interrupted=self._interrupted,
+            callback=self._batch_callback))
 
     def extras(self, images: list, args: StageArgs) -> list:
-        """The Extras stage chain over RGB uint8 images, one job."""
+        """The Extras stage chain over RGB uint8 images, one job; the face
+        stages run on the Engine's device."""
         with self.queue_lock:
-            self.state.begin("extras")
-            self.state.job_count = len(images)
+            self.state.begin("extras", len(images), self.device)
             try:
-                return [run_stages(im, args) for im in images]
+                out = []
+                for n, im in enumerate(images):
+                    self.state.set_job_no(n)
+                    out.append(run_stages(im, args, device=self.device))
+                return out
             finally:
                 self.state.end()
 
@@ -308,4 +363,4 @@ class Engine:
         base or its 9-channel inpainting variant too)."""
         return self._run("img2img", p, lambda: process_img2img(
             self.sd_model, p, step_callback=self._step_callback,
-            interrupted=self._interrupted))
+            interrupted=self._interrupted, callback=self._batch_callback))

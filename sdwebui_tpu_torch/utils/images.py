@@ -23,6 +23,12 @@ Pillow's own arithmetic (tests hold every one against Pillow):
                       (resize modes 0-3 with the upscaler hook)
     mask_composite    the RGBa composite of img2img's
                       ``return_mask_composite``
+    affine_transform  ``Image.transform(size, AFFINE, coeffs, BILINEAR)``
+                      (Geometry.c's generic transform: double-precision
+                      coordinates at pixel centres, bilinear taps clamped
+                      at the edges, truncated to uint8; 0 outside)
+    min_filter        ``ImageFilter.MinFilter(size)``: the minimum over a
+                      size x size window, the image's edges replicated
 
 An image is (H, W) or (H, W, C) uint8 with C = 1 (L), 2 (LA), 3 (RGB) or
 4 (RGBA).
@@ -36,6 +42,7 @@ import math
 
 import numpy as np
 import torch
+from scipy import ndimage
 
 _PRECISION_BITS = 22          # Pillow's Resample.c: 32 - 8 - 2
 
@@ -388,3 +395,49 @@ def mask_composite(image, mask) -> np.ndarray:
     m = as_hwc(mask).astype(np.int32)
     rgba = np.concatenate([rgb, np.full(rgb.shape[:2] + (1,), 255, np.uint8)], axis=-1)
     return unpremultiply(_div255(rgba.astype(np.int32) * m).astype(np.uint8))
+
+
+# --------------------------------------------------------------------------
+# Image.transform(AFFINE, BILINEAR) and MinFilter (the face paste-back)
+# --------------------------------------------------------------------------
+
+def affine_transform(image, size, coeffs) -> np.ndarray:
+    """``image.transform(size, Image.AFFINE, coeffs, Image.BILINEAR)`` of an
+    L or RGB uint8 image: output pixel (x, y) samples the input at
+    (a·(x+½) + b·(y+½) + c, d·(x+½) + e·(y+½) + f), in double precision as
+    Geometry.c's ``affine_transform`` and ``bilinear_filter`` compute it;
+    a point outside the input is 0, a tap past the edge reads the edge."""
+    a = np.asarray(image)
+    hwc = as_hwc(a)
+    ih, iw = hwc.shape[:2]
+    w, h = (int(v) for v in size)
+    c0, c1, c2, c3, c4, c5 = (float(v) for v in coeffs)
+    xin = np.arange(w, dtype=np.float64)[None, :] + 0.5
+    yin = np.arange(h, dtype=np.float64)[:, None] + 0.5
+    xx = c0 * xin + c1 * yin + c2
+    yy = c3 * xin + c4 * yin + c5
+    inside = (xx >= 0.0) & (xx < iw) & (yy >= 0.0) & (yy < ih)
+    xx, yy = np.where(inside, xx - 0.5, 0.0), np.where(inside, yy - 0.5, 0.0)
+    x0, y0 = np.floor(xx).astype(np.int64), np.floor(yy).astype(np.int64)
+    dx, dy = (xx - x0)[..., None], (yy - y0)[..., None]
+    xa, xb = np.clip(x0, 0, iw - 1), np.clip(x0 + 1, 0, iw - 1)
+    ya, yb = np.clip(y0, 0, ih - 1), np.clip(y0 + 1, 0, ih - 1)
+    px = hwc.astype(np.int64)
+
+    def row(y):       # BILINEAR(v, in[x0], in[x1], dx) along one input row
+        left = px[y, xa]
+        return left + (px[y, xb] - left) * dx
+
+    v1 = row(ya)
+    v2 = np.where(((y0 + 1 >= 0) & (y0 + 1 < ih))[..., None], row(yb), v1)
+    v = v1 + (v2 - v1) * dy
+    out = np.where(inside[..., None], v, 0.0).astype(np.uint8)
+    return np.ascontiguousarray(out.reshape((h, w) + a.shape[2:]))
+
+
+def min_filter(image, size: int) -> np.ndarray:
+    """``image.filter(ImageFilter.MinFilter(size))`` of an L or RGB uint8
+    image: Pillow expands the image by size // 2 replicated edge pixels and
+    takes each size x size window's minimum, each channel on its own."""
+    a = np.asarray(image, np.uint8)
+    return ndimage.minimum_filter(a, size=(size, size) + (1,) * (a.ndim - 2), mode="nearest")

@@ -77,7 +77,8 @@ def test_same_seed_same_image(models):
 
 @pytest.mark.parametrize("kw,name", [
     (dict(enable_hr=True, override_settings={"token_merging_ratio_hr": 0.5}), "enable_hr"),
-    (dict(restore_faces=True), "restore_faces"),
+    (dict(restore_faces=True, override_settings={"save_images_before_face_restoration": True}),
+     "restore_faces"),
     (dict(enable_hr=True, hr_prompt="a cat <lora:foo:0.5>"), "lora"),
     (dict(override_settings={"sgm_noise_multiplier": True}), "sgm_noise_multiplier"),
     (dict(override_settings={"token_merging_ratio": 0.5}), "token_merging_ratio"),

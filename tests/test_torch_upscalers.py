@@ -384,15 +384,16 @@ def test_run_stages_matches_jax(case):
 def test_stage_order_options_and_face_restoration():
     img = _img(20, 24, 23)
     args = port_stages.StageArgs(upscaler_1="Lanczos", gfpgan_visibility=0.5)
-    with pytest.raises(NotImplementedError, match="GFPGAN"):
-        port_stages.run_stages(img, args)
+    # the face stages run since the faces port; no weights file is here
+    with pytest.raises(FileNotFoundError, match="GFPGAN"):
+        port_stages.run_stages(img, args, device="cpu")
     with port_opts.override({"postprocessing_disable_in_extras": ["GFPGAN"]}):
         assert port_stages.run_stages(img, args).shape == (40, 48, 3)
     assert port_stages.run_stages(img, args, enabled={"Upscale"}).shape == (40, 48, 3)
     args = port_stages.StageArgs(upscaler_1="Lanczos", codeformer_visibility=0.3)
     with port_opts.override({"postprocessing_disable_in_extras": ["Upscale"]}), \
-            pytest.raises(NotImplementedError, match="CodeFormer"):
-        port_stages.run_stages(img, args)
+            pytest.raises(FileNotFoundError, match="CodeFormer"):
+        port_stages.run_stages(img, args, device="cpu")
     assert [f.name for f in dataclasses.fields(port_stages.StageArgs)] == \
         [f.name for f in dataclasses.fields(jax_stages.StageArgs)]
 
