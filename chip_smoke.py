@@ -27,7 +27,13 @@ Phases, in order; any failure exits non-zero:
      families, first and hires pass, config 4's 8 CFG rows, the SD2-depth
      and instruct-pix2pix UNets' rows, at CLIP's, the MiDaS ViT's
      (577, 768) in f32 at eps 1e-6 and CodeFormer's (256, 512) in f32 at
-     eps 1e-5)
+     eps 1e-5, and the upscaler zoo's f32 rows at eps 1e-5: C = 240, 180,
+     360 and 60 at 331,776 rows, SCUNet's 32–256 and DAT's position-bias
+     MLP's C = 5), the zoo's B2 rows (LDSR's d = 32: (1, 1024, 20·32) and
+     (1, 4096, 20·32), also as fused-qkv views) and B1 f32 at S = 65536
+     (LDSR's VQ decoder at a 256² input, held against the plain version over
+     blocks of 4096 query rows) with one checked, timed call at S = 262144
+     (a 512² input),
      and B4 (3x3 conv at the
      JAX docstring's shapes, the SD1.5 UNet's B=2 shapes and two ragged
      widths);
@@ -152,6 +158,21 @@ Phases, in order; any failure exits non-zero:
      RetinaFace's (heads 1e-3) on the card against the CPU; (f) the ms of
      each net's forward at 512² with one profiled forward each, and
      restore_faces' s/request against phase 3's;
+  4i. the upscaler zoo on the same server: one file per model written from
+     a seed at the published widths to a temporary models root
+     (SwinIR-L and Swin2SR in SwinIR/, Real_HAT_GAN_SRx4, DAT x4 with its
+     position-bias buffers, SCUNet, and an LDSR checkpoint after CompVis'
+     bsr_sr config) and registered as the server's start-up registers them
+     (upscalers.register_model_dirs); /upscalers lists them; each net's
+     forward of a 64² tile on the card against the CPU (f32: max|Δ|/max|ref|
+     <= 1e-4; LDSR's bf16 UNet step within 5e-2, its VQ decode 1e-4); two
+     4x Extras requests of a 512² phase-3 PNG per model (SCUNet at 1x, then
+     Lanczos; LDSR a 256² image at ldsr_steps 100) with the upscale cache
+     off: the repeat within 2 levels, 2048² (1024²) RGB PNGs that are not
+     flat, each net's ms a forward (CUDA events around its forward); a
+     hires fix 512² → 1024² with SwinIR-L as hr_upscaler; every request's
+     launches equal to the plan written before the run (zoo_ln_plan: B5 a
+     forward, B1 = B2 = 0 on the Swin nets; LDSR B2 = 100 x 6, B1 = 1);
   4a. checkpoint files: phase 3's model written as an ldm-layout
      .safetensors in its own dtypes, and a second random SD1.5 (seed 1) in
      fp16 beside it, in a temporary directory, served by an Engine built as
@@ -267,6 +288,13 @@ B1_SHAPES = [
     ("vae_mid_1536_f32", 1, 36864, 36864, 512, torch.float32),
     ("ragged_d64", 3, 1000, 1100, 64, torch.bfloat16),
 ]
+# B1 at LDSR's VQ decode (phase 4i): S = the LR image's pixels, f32, held
+# against the plain version taken over blocks of B1_BLOCK_ROWS query rows
+# (the same exact softmax per row; its score matrix whole would be 17 GB at
+# S = 65536 and 275 GB at 262144).  S·Skv passes 2³¹ from S = 46341 up.
+B1_BLOCKED_SHAPES = [("ldsr_vq_256_f32", 1, 65536, 65536, 512, torch.float32)]
+B1_BLOCK_ROWS = 4096
+B1_LDSR_512 = 262144      # a 512² LDSR input: the kernel timed once, checked blocked
 # B2 / B3 rows: (name, B, S, H, D), bf16, Sq = Skv = S
 HEAD_SHAPES = [
     ("sd15_64x64", 2, 4096, 8, 40),
@@ -295,6 +323,11 @@ HEAD_SHAPES = [
     ("sd2_depth_32x32", 2, 1024, 10, 64),
     ("p2p_b3_64x64", 3, 4096, 8, 40),
     ("p2p_b3_32x32", 3, 1024, 8, 80),
+    # LDSR's legacy AttentionBlocks at ds 8 (phase 4i): 640 channels as 20
+    # heads of d = 32 (launch_tc<32>, the 64-byte swizzle) at a 256² and a
+    # 512² LR input
+    ("ldsr_32x32", 1, 1024, 20, 32),
+    ("ldsr_64x64", 1, 4096, 20, 32),
 ]
 # B4 rows: (name, B, H, W, Cin, Cout): the shapes of the JAX kernel's
 # docstring (sdwebui_tpu/ops/conv.py:6-8), the SD1.5 UNet's at B = 2 (the
@@ -313,8 +346,15 @@ CONV_SHAPES = [
 # the UNets call B2 on the chunk views of their fused qkv projection
 FUSED_QKV_ROWS = ("sd15_64x64", "sdxl_base_64x64", "sd15_hr_128x128", "sd15_hr_64x64",
                   "sd15_hr_32x32", "sd15_hr_96x96", "sd15_hr_48x48", "sd2_depth_64x64",
-                  "sd2_depth_32x32", "p2p_b3_64x64", "p2p_b3_32x32")
+                  "sd2_depth_32x32", "p2p_b3_64x64", "p2p_b3_32x32", "ldsr_32x32",
+                  "ldsr_64x64")
 HOST_CALLS = 20           # calls per host-cost reading
+# B5 f32 rows of the upscaler zoo: (name, rows, width)
+ZOO_LN_SHAPES = [("swinir_l_c240", 331776, 240), ("swin_c180", 331776, 180),
+                 ("dat_sgfn_c360", 331776, 360), ("swinir_light_c60", 331776, 60),
+                 ("scunet_c32", 589824, 32), ("scunet_c64", 147456, 64),
+                 ("scunet_c128", 36864, 128), ("scunet_c256", 9216, 256),
+                 ("dat_pos_c5", 945, 5)]
 
 
 def log(*args):
@@ -473,22 +513,23 @@ def agreement(out, ref, dtype, rel_tol=None, ulp_tol=None) -> dict:
 
 
 def _compare(entry, name, shape, dtype, kernel, plain, library, work, rows, rel_tol=None,
-             ulp_tol=None, library_host=False):
+             ulp_tol=None, library_host=False, iters: int = 5, warmup: int = 2,
+             host_calls: int = HOST_CALLS):
     """One kernel row: the kernel vs its plain version on the same inputs
     (see agreement), then the kernel's, the plain version's and the library
     call's times, and the host µs per call of the kernel's wrapper (and of
     the library call where library_host); work = (flops, bytes, rate) for
-    the bound."""
+    the bound; iters / warmup / host_calls: fewer for rows of seconds."""
     out = kernel()
     ref = plain()
     torch.cuda.synchronize()
     agree = agreement(out, ref, dtype, rel_tol, ulp_tol)
     del out, ref
-    ms = cuda_ms(kernel)
-    plain_ms = cuda_ms(plain)
-    library_ms = cuda_ms(library)
-    host = host_us(kernel)
-    lib_host = host_us(library) if library_host else None
+    ms = cuda_ms(kernel, iters, warmup)
+    plain_ms = cuda_ms(plain, iters, warmup)
+    library_ms = cuda_ms(library, iters, warmup)
+    host = host_us(kernel, host_calls)
+    lib_host = host_us(library, host_calls) if library_host else None
     bound_ms, bound_by = bound(*work)
     log(f"{entry} {name} {tuple(shape)} {str(dtype)[6:]}: {agree['text']}, kernel {ms:.4f} ms, "
         f"plain {plain_ms:.3f} ms, library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
@@ -538,6 +579,8 @@ def layer_norm_shapes():
 
 
 def phase_kernel(device):
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
     from sdwebui_tpu_torch.ops import flash_attention as fa
 
     rows = []
@@ -558,6 +601,18 @@ def phase_kernel(device):
                  rel_tol=ATTN_REL_TOL if dtype == torch.bfloat16 else None)
         del q, k, v
         torch.cuda.empty_cache()
+    for name, bh, sq, skv, d, dtype in B1_BLOCKED_SHAPES:
+        g = torch.Generator(device=device).manual_seed(0)
+        q, k, v = randn((bh, sq, d), g, dtype), randn((bh, skv, d), g, dtype), \
+            randn((bh, skv, d), g, dtype)
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH]):
+            _compare("flash_attention", name, (bh, sq, skv, d), dtype,
+                     lambda: fa.flash_attention(q, k, v), lambda: blocked_plain(q, k, v),
+                     lambda: sdpa(q[None], k[None], v[None]),
+                     _attn_work(bh, sq, skv, d, dtype), rows, iters=2, warmup=1, host_calls=2)
+        del q, k, v
+        torch.cuda.empty_cache()
+    rows[-1]["ldsr_512"] = b1_at_ldsr_512(device)
     bf16 = torch.bfloat16
     for name, b, s, h, d in HEAD_SHAPES:
         g = torch.Generator(device=device).manual_seed(1)
@@ -593,6 +648,35 @@ def phase_kernel(device):
     return rows
 
 
+def blocked_plain(q, k, v, block: int = B1_BLOCK_ROWS):
+    """flash_attention_plain over blocks of `block` query rows: each row's
+    softmax is whole, the score matrix is never held at once."""
+    from sdwebui_tpu_torch.ops import flash_attention as fa
+
+    return torch.cat([fa.flash_attention_plain(q[:, i:i + block], k, v)
+                      for i in range(0, q.shape[1], block)], dim=1)
+
+
+def b1_at_ldsr_512(device) -> dict:
+    """B1 f32 at S = 262144, d = 512 (a 512² LDSR input's VQ decode): one
+    call checked against blocked_plain (max|Δ| <= F32_TOL), then timed once;
+    no library time (SDPA's f32 backends do not take it whole)."""
+    from sdwebui_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=device).manual_seed(0)
+    q, k, v = (_randn((1, B1_LDSR_512, 512), g, torch.float32, device) for _ in range(3))
+    agree = agreement(fa.flash_attention(q, k, v), blocked_plain(q, k, v), torch.float32)
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), iters=1, warmup=0)
+    bound_ms, bound_by = bound(*_attn_work(1, B1_LDSR_512, B1_LDSR_512, 512, torch.float32))
+    log(f"flash_attention ldsr_vq_512_f32 (1, {B1_LDSR_512}, {B1_LDSR_512}, 512) float32: "
+        f"{agree['text']}, kernel {ms:.1f} ms (one call), bound {bound_ms:.1f} ms ({bound_by})")
+    if not agree["ok"]:
+        raise AssertionError(f"flash_attention disagrees at S = {B1_LDSR_512}: {agree['text']}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return dict(s=B1_LDSR_512, max_abs_err=agree["max_abs_err"], ms=ms, bound_ms=bound_ms)
+
+
 def _randn(shape, g, dtype, device):
     return torch.randn(shape, generator=g, device=device).to(dtype)
 
@@ -623,6 +707,19 @@ def layer_norm_cases(device):
                plain=lambda: ln_mod.layer_norm_plain(x, w, b, 1e-6),
                library=lambda: F.layer_norm(x, (768,), w, b, 1e-6),
                work=(7.0 * 577 * 768, 4 * (2 * 577 * 768 + 2 * 768), "fp32"))
+    # the upscaler zoo (phase 4i), f32 at eps 1e-5: each width at its rows
+    # over the 9 tiles of a 512² image (192² for the Swin nets, SCUNet's
+    # 256² and its three downsampled levels), SwinIR lightweight's 60 and DAT's
+    # position-bias MLP (C = 5, the loop kernel)
+    for name, n_rows, c in ZOO_LN_SHAPES:
+        g = torch.Generator(device=device).manual_seed(2)
+        xz = _randn((n_rows, c), g, torch.float32, device) * 2 + 0.5
+        wz, bz = _randn((c,), g, torch.float32, device), _randn((c,), g, torch.float32, device)
+        yield dict(entry="layer_norm", name=name, shape=(n_rows, c), dtype=torch.float32,
+                   kernel=lambda: ln_mod.layer_norm(xz, wz, bz),
+                   plain=lambda: ln_mod.layer_norm_plain(xz, wz, bz),
+                   library=lambda: F.layer_norm(xz, (xz.shape[1],), wz, bz, 1e-5),
+                   work=(7.0 * n_rows * c, 4 * (2 * n_rows * c + 2 * c), "fp32"))
     # CodeFormer's transformer (phase 4h): 256 codes of 512 per face, f32, eps 1e-5
     g = torch.Generator(device=device).manual_seed(2)
     xc = _randn((256, 512), g, torch.float32, device) * 2 + 0.5
@@ -1338,6 +1435,263 @@ def phase_extras(engine, pngs: list, upscaler_paths: dict):
     if not set(upscaler_paths) <= set(names):
         raise AssertionError(f"/upscalers lacks the files {sorted(upscaler_paths)}: {names}")
     return rows
+
+
+# the upscaler zoo (phase 4i): one file per model, seeded at the published
+# widths, under a temporary models root laid out as the server reads it
+ZOO_REL_TOL = 1e-4        # max|Δ| / max|ref|, a zoo net's 64² forward, card vs CPU, f32
+ZOO_TILE = 64
+LDSR_STEPS = 100
+LDSR_SIZE = 256
+ZOO_SCALE = 4
+
+
+def zoo_files():
+    """(directory under the models root, file stem, builder(device)) of each
+    zoo file: SwinIR-L, Swin2SR at the JAX package's defaults (in the SwinIR
+    directory, where the server sniffs it), Real_HAT_GAN_SRx4, DAT x4,
+    SCUNet, and LDSR after CompVis' bsr_sr config."""
+    from sdwebui_tpu_torch.models import dat, hat, ldsr, scunet, swin2sr, swinir
+
+    return [
+        ("SwinIR", "003_realSR_BSRGAN_DFOWMFC_s64w8_SwinIR-L_x4_GAN",
+         lambda dev: swinir.create_random_swinir(20, dev)),
+        ("SwinIR", "Swin2SR_ClassicalSR_X4_64", lambda dev: swin2sr.create_random_swin2sr(21, dev)),
+        ("HAT", "Real_HAT_GAN_SRx4", lambda dev: hat.create_random_hat(22, dev)),
+        ("DAT", "DAT x4", lambda dev: dat.create_random_dat(23, dev)),
+        ("ScuNET", "ScuNET", lambda dev: scunet.create_random_scunet(24, dev)),
+        ("LDSR", "model", lambda dev: ldsr.create_random_ldsr(25, dev)),
+    ]
+
+
+def zoo_ln_plan(net) -> int:
+    """B5 launches of one forward of a zoo net, from its config: SwinIR and
+    Swin2SR the patch norm, two a block and the last norm; HAT two a HAB,
+    two an OCAB and the last norm (its patch norm unused, as in JAX); DAT
+    before_RG, three a block (norm1, norm2, the gate's), six a spatial
+    block's position-bias MLPs and the last norm; SCUNet two a conv-trans
+    block; LDSR none."""
+    from sdwebui_tpu_torch.models import dat, hat, scunet, swin2sr, swinir
+
+    cfg = net.cfg
+    if isinstance(net, scunet.SCUNet):
+        return 2 * sum(cfg.config)
+    if isinstance(net, dat.DAT):
+        return 2 + sum(3 * d + 6 * ((d + 1) // 2) for d in cfg.depths)
+    if isinstance(net, hat.HAT):
+        return 1 + sum(2 * d + 2 for d in cfg.depths)
+    if isinstance(net, (swinir.SwinIR, swin2sr.Swin2SR)):
+        return int(cfg.patch_norm) + 2 * sum(cfg.depths) + 1
+    return 0
+
+
+def write_zoo_files(root: str, device) -> dict:
+    """Each zoo file written as .safetensors from a seeded net made on the
+    card (DAT with its position-bias buffers, LDSR under its checkpoint's
+    keys); {stem: (path, the net's config, B5 plan a forward)}."""
+    from sdwebui_tpu_torch.loader.safetensors_io import write_safetensors
+    from sdwebui_tpu_torch.models import dat, ldsr
+
+    out = {}
+    for sub, stem, build in zoo_files():
+        net = build(device)
+        if isinstance(net, ldsr.LDSR):
+            sd = ldsr.ldsr_state_dict(net)
+        elif isinstance(net, dat.DAT):
+            sd = dat.state_dict_with_buffers(net)
+        else:
+            sd = net.state_dict()
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        path = os.path.join(root, sub, stem + ".safetensors")
+        write_safetensors(path, {k: v.detach().cpu().contiguous() for k, v in sd.items()})
+        out[stem] = dict(path=path, kind=type(net).__name__, ln_plan=zoo_ln_plan(net),
+                         mparams=sum(p.numel() for p in net.parameters()) / 1e6)
+        del net, sd
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def _timed_forwards(types: tuple, spans: list):
+    """(class name, start event, end event) of every forward of a module of
+    `types` inside the block, recorded on the current stream."""
+    from torch.nn.modules.module import (register_module_forward_hook,
+                                         register_module_forward_pre_hook)
+
+    open_ = {}
+
+    def pre(module, args):
+        if isinstance(module, types):
+            open_[id(module)] = torch.cuda.Event(enable_timing=True)
+            open_[id(module)].record()
+
+    def post(module, args, result):
+        if isinstance(module, types) and id(module) in open_:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            spans.append((type(module).__name__, open_.pop(id(module)), end))
+
+    hooks = (register_module_forward_pre_hook(pre), register_module_forward_hook(post))
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _forward_ms(spans: list) -> dict:
+    """{class name: [ms of each forward]} of _timed_forwards' spans."""
+    torch.cuda.synchronize()
+    out = {}
+    for name, start, end in spans:
+        out.setdefault(name, []).append(start.elapsed_time(end))
+    return out
+
+
+def check_zoo_nets(files: dict, device) -> dict:
+    """Each zoo net's forward on one seeded 64² tile on the card against the
+    same file's net on the CPU (f32, TF32 off: max|Δ|/max|ref| <= 1e-4);
+    LDSR's UNet (bf16) one step at a 64² latent within UNET_REL_TOL, and its
+    VQ decode of that latent (f32, B1 at S = 4096) within 1e-4."""
+    from sdwebui_tpu_torch.models import dat, hat, ldsr, scunet, swin2sr, swinir
+
+    loaders = {"SwinIR": swinir.swinir_from_state_dict, "Swin2SR": swin2sr.swin2sr_from_state_dict,
+               "HAT": hat.hat_from_state_dict, "DAT": dat.dat_from_state_dict,
+               "SCUNet": scunet.scunet_from_state_dict}
+    out = {}
+    for stem, f in files.items():
+        sd = swinir.read_state_dict(f["path"])
+        g = torch.Generator().manual_seed(6)
+        with torch.inference_mode():
+            if f["kind"] == "LDSR":
+                cpu, card = ldsr.ldsr_from_state_dict(sd, "cpu"), ldsr.ldsr_from_state_dict(
+                    sd, device)
+                x = torch.randn((1, 6, ZOO_TILE, ZOO_TILE), generator=g)
+                t = torch.full((1,), 981.0)
+                ref = cpu.unet(x.bfloat16(), t, None).float()
+                got = card.unet(x.to(device).bfloat16(), t.to(device), None).float().cpu()
+                z = torch.randn((1, 3, ZOO_TILE, ZOO_TILE), generator=g) * 3
+                dref, dgot = cpu.vq.vq_decode(z), card.vq.vq_decode(z.to(device)).cpu()
+                rel = ((got - ref).abs().max() / ref.abs().max()).item()
+                drel = ((dgot - dref).abs().max() / dref.abs().max()).item()
+                out[stem] = dict(unet_rel_err=rel, vq_rel_err=drel)
+                log(f"{stem} (LDSR): UNet step at a {ZOO_TILE}² latent, card vs CPU "
+                    f"max|Δ|/max|ref| {rel:.3e} (bound {UNET_REL_TOL:g}); VQ decode to "
+                    f"{4 * ZOO_TILE}² {drel:.3e} (bound {ZOO_REL_TOL:g})")
+                if not (rel <= UNET_REL_TOL and drel <= ZOO_REL_TOL):
+                    raise AssertionError(f"{stem} on the card disagrees with the CPU")
+            else:
+                cpu, card = loaders[f["kind"]](sd, "cpu"), loaders[f["kind"]](sd, device)
+                x = torch.rand((1, ZOO_TILE, ZOO_TILE, 3), generator=g)
+                ref = cpu(x)
+                got = card(x.to(device)).cpu()
+                rel = ((got - ref).abs().max() / ref.abs().max()).item()
+                out[stem] = dict(rel_err=rel, out_std=ref.std().item())
+                log(f"{stem} ({f['kind']}): one {ZOO_TILE}² tile, card vs CPU max|Δ|/max|ref| "
+                    f"{rel:.3e} (bound {ZOO_REL_TOL:g}), output std {ref.std():.3f}")
+                if not rel <= ZOO_REL_TOL or got.shape != ref.shape:
+                    raise AssertionError(f"{stem} on the card disagrees with the CPU: {rel}")
+        del cpu, card, sd
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo(engine, model, phase3: list, root: str, device):
+    """4i: the upscaler zoo over HTTP on phase 3's server; returns
+    (results, summary)."""
+    from sdwebui_tpu_torch.models import dat, hat, ldsr, scunet, swin2sr, swinir
+    from sdwebui_tpu_torch.models.unet import UNetModel
+    from sdwebui_tpu_torch.models.vae import Decoder
+    from sdwebui_tpu_torch.pipeline.processing import setup_img2img_steps
+    from sdwebui_tpu_torch.postprocessing.upscalers import (register_model_dirs,
+                                                             unregister_upscaler)
+    from sdwebui_tpu_torch.utils import images as images_util
+    from sdwebui_tpu_torch.utils.png import decode_png, encode_png
+
+    t0 = time.perf_counter()
+    files = write_zoo_files(root, device)
+    log(f"wrote the zoo files in {time.perf_counter() - t0:.2f} s: " + json.dumps(
+        {k: dict(kind=v["kind"], mparams=round(v["mparams"], 2), ln_plan=v["ln_plan"])
+         for k, v in files.items()}))
+    names, _ = register_model_dirs(models_root=root, device=device)   # the server's start-up path
+    want = [stem for sub in ("SwinIR", "ScuNET", "LDSR", "HAT", "DAT")
+            for d, stem, _ in zoo_files() if d == sub]
+    want = ["LDSR" if stem == "model" else stem for stem in want]
+    if names != want:
+        raise AssertionError(f"registered {names}, expected {want}")
+    nets = check_zoo_nets(files, device)
+    plan = {("LDSR" if s == "model" else s): f for s, f in files.items()}
+    timed = (swinir.SwinIR, swin2sr.Swin2SR, hat.HAT, dat.DAT, scunet.SCUNet, UNetModel, Decoder)
+    src = phase3[0]["image"]                     # 512²
+    lr = images_util.resize(src, (LDSR_SIZE, LDSR_SIZE), "lanczos")
+    b64 = {src.shape[0]: phase3[0]["png_b64"],
+           LDSR_SIZE: base64.b64encode(encode_png(lr)).decode("ascii")}
+    results, plans = [], []
+
+    def extras(url, name, size, label):
+        spans = []
+        reset_counts()
+        with _timed_forwards(timed, spans):
+            t0 = time.perf_counter()
+            res = _post(f"{url}/extra-single-image", dict(
+                image=b64[size], upscaler_1=name, upscaling_resize=ZOO_SCALE))
+            dt = time.perf_counter() - t0
+        launches = read_counts()
+        img, _ = decode_png(base64.b64decode(res["image"]))
+        ms = _forward_ms(spans)
+        log(f"zoo {label}: {dt:.3f} s, forwards " + json.dumps(
+            {k: [round(x, 2) for x in v] if len(v) < 4 else
+             dict(n=len(v), median=round(statistics.median(v), 3), total=round(sum(v), 1))
+             for k, v in ms.items()}) + f", launches {launches}")
+        if img.shape != (ZOO_SCALE * size, ZOO_SCALE * size, 3) or img.std() < 1.0:
+            raise AssertionError(f"zoo {label}: image {img.shape}, std {img.std():.3f}")
+        # seed: LDSR's noise seed (super_resolution's 0); the other nets draw none
+        results.append(dict(route="extra-single-image", label=label, seconds=dt, seed=0,
+                            launches=launches, image=img, forward_ms=ms))
+
+    with _server(engine) as url:
+        _post(f"{url}/options", {"upscaling_max_images_in_cache": 0, "ldsr_steps": LDSR_STEPS})
+        try:
+            listed = [u["name"] for u in _post(f"{url}/upscalers")]
+            if not set(names) <= set(listed):
+                raise AssertionError(f"/upscalers lacks {sorted(set(names) - set(listed))}")
+            for name in names:
+                f = plan[name]
+                size = LDSR_SIZE if f["kind"] == "LDSR" else src.shape[0]
+                for i in range(2):
+                    extras(url, name, size, f"{name} x{ZOO_SCALE} of {size}², "
+                                            f"{'first (loads the file)' if i == 0 else 'repeat'}")
+                    if f["kind"] == "LDSR":
+                        plans.append(_plan(b1=1, b2=LDSR_STEPS * launch_plan(
+                            ldsr.BSR_SR.unet, LDSR_SIZE)))
+                    else:
+                        plans.append(_plan(b5=f["ln_plan"]))
+                _check_repeat(results, -2, -1)
+            swin = names[0]
+            cfg = model.unet_cfg
+            n = setup_img2img_steps(STEPS, HR_DENOISE)[1] + 1
+            seconds = []
+            with _timed_upscales(seconds):
+                r = _request(url, "txt2img", hires_request(2027, swin), _hires_check(swin, 2.0),
+                             1024, f"config 3 {swin}")
+            results.append(dict(r, upscale_s=seconds[0]))
+            plans.append(_plan(b1=3, b2=STEPS * launch_plan(cfg, 64) + n * launch_plan(cfg, 128),
+                               b5=STEPS * ln_plan(cfg, 64) + n * ln_plan(cfg, 128)
+                               + 2 * clip_ln_plan(model) + plan[swin]["ln_plan"]))
+            log(f"config 3 {swin}: the upscale took {seconds[0]:.3f} s of {r['seconds']:.3f} s")
+        finally:
+            _post(f"{url}/options", {"upscaling_max_images_in_cache": 5})
+            for name in names:
+                unregister_upscaler(name)
+    _check_launches(results, plans)
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = dict(files={k: {x: v[x] for x in ("kind", "mparams", "ln_plan")}
+                          for k, v in files.items()},
+                   nets=nets, seconds={r["label"]: r["seconds"] for r in results},
+                   forward_ms={r["label"]: r.get("forward_ms") for r in results},
+                   ldsr_b1_calls=2)
+    return results, summary
 
 
 # config 4's files (bench.py:313-342, 384-396): a rank-16 LoRA over every
@@ -2650,6 +3004,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_faces_") as face_dir:
         face_results, face_info = phase_faces(engine, model, results, face_dir, device)
     mark("4h job control and faces")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as zoo_root:
+        zoo_results, zoo_info = phase_zoo(engine, model, results, zoo_root, device)
+    mark("4i upscaler zoo")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
         ckpt_engine, ckpt_results, ckpt_info = phase_checkpoint(model, device, results[0],
                                                                 ckpt_dir)
@@ -2685,7 +3042,8 @@ def main() -> int:
     requests = [{k: v for k, v in r.items()
                  if k not in ("image", "png_b64", "infotext", "extras")}
                 for r in (results + i2i_results + opt_results + hr_results + c4_results
-                          + hy_results + face_results + ckpt_results + sampler_results
+                          + hy_results + face_results + zoo_results + ckpt_results
+                          + sampler_results
                           + sdxl_results
                           + [sdxl_hr_result] + sdxl_i2i_results)]
     log(json.dumps({"card": smi, "kernel_shapes": rows, "unet_step": unet,
@@ -2693,7 +3051,7 @@ def main() -> int:
                     "sdxl_refiner_after_step": s_idx, "checkpoint": ckpt_info,
                     "hires": hr_info, "extras": extras, "sdxl_hires": sdxl_hr_info,
                     "config4": c4_info, "hybrid": hy_info, "img2img_options": opt_info,
-                    "faces": face_info,
+                    "faces": face_info, "zoo": zoo_info,
                     "sdxl_img2img": sdxl_i2i_info,
                     "requests": requests, "sdxl_profile": profile, "phase_s": phase_s}))
 
@@ -2711,6 +3069,10 @@ def main() -> int:
     b1_calls[("vae_mid_1024", "bfloat16")] += len(sdxl_results) + sdxl_i2i_info["decodes_1024"]
     b1_calls[("vae_mid_1024_f32", "float32")] += sdxl_i2i_info["f32_encodes_1024"]
     b1_calls[("vae_mid_1536", "bfloat16")] = 1
+    b1_calls[("ldsr_vq_256_f32", "float32")] = zoo_info["ldsr_b1_calls"]
+    b1_calls[("vae_mid_1024", "bfloat16")] += 1                # phase 4i's hires request
+    b1_calls[("vae_mid_512", "bfloat16")] += 1
+    b1_calls[("vae_mid_1024_f32", "float32")] += 1
     b1_row = max(b1_calls, key=lambda c: b1_calls[c] * row_of("flash_attention", *c)["ms"])
 
     def entry(name, source, replaces, dominant, dtype):

@@ -201,10 +201,12 @@ def build_module(kind: str, cfg, device="meta", dtype=torch.float32, **kw):
 
 
 @functools.lru_cache(maxsize=16)
-def _structure_names(kind: str, cfg) -> frozenset:
-    """Every parameter name of the port's module at `cfg`: the single
-    source of truth for what a checkpoint must provide."""
-    return frozenset(build_module(kind, cfg).state_dict())
+def _structure_names(kind: str, cfg, legacy_attention: bool = False) -> frozenset:
+    """Every parameter name of the port's module at `cfg` (a UNet with the
+    legacy AttentionBlocks where `legacy_attention`): the single source of
+    truth for what a checkpoint must provide."""
+    kw = {"legacy_attention": True} if legacy_attention else {}
+    return frozenset(build_module(kind, cfg, **kw).state_dict())
 
 
 # SSD-1B-style pruning removes WHOLE subtrees (reference
@@ -217,10 +219,11 @@ _PRUNABLE_GROUP = re.compile(
     r"middle_block\.[12]\.)")
 
 
-def verify_tree_names(got: set, kind: str, cfg, what: str) -> set:
+def verify_tree_names(got: set, kind: str, cfg, what: str,
+                      legacy_attention: bool = False) -> set:
     """Raise when an expected tensor is missing (minus whole pruned
     groups); return the unexpected names for the caller to drop."""
-    expected = _structure_names(kind, cfg)
+    expected = _structure_names(kind, cfg, legacy_attention)
     missing = expected - got
     if missing and kind == "unet":
         def pruned(name):
@@ -251,13 +254,20 @@ def _component(sd: dict, prefix: str) -> dict:
     return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
 
 
+def is_legacy_unet(flat: dict) -> bool:
+    """A context-free LDM UNet (LDSR's bsr model): its attention layers are
+    the legacy AttentionBlock's fused qkv (convert.py:264-268)."""
+    return any(".1.qkv." in k for k in flat)
+
+
 def convert_unet(sd: dict, prefix: str = "model.diffusion_model.", verify: bool = True):
-    """→ (the UNet's state dict, UNetConfig)."""
+    """→ (the UNet's state dict, UNetConfig); a legacy-attention UNet is
+    checked against ``UNetModel(cfg, legacy_attention=True)``'s names."""
     cfg = derive_unet_config(sd, prefix)
     flat = _component(sd, prefix)
     if verify:
-        _drop_extras(flat, verify_tree_names(set(flat), "unet", cfg, prefix.rstrip(".")),
-                     prefix.rstrip("."))
+        _drop_extras(flat, verify_tree_names(set(flat), "unet", cfg, prefix.rstrip("."),
+                                             is_legacy_unet(flat)), prefix.rstrip("."))
     return flat, cfg
 
 

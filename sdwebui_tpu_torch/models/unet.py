@@ -25,6 +25,14 @@ for the middle residual; that form is not carried over.
 hypernetwork's MLPs for its width (``networks/hypernetwork``);
 ``forward(tiling=True)`` wraps the padding of every 3×3 conv, the stride-2
 downsample's too (seamless textures, ``unet.py:260-345``).
+
+``UNetModel(cfg, legacy_attention=True)`` is the context-free LDM UNet of
+LDSR: each attention layer is the legacy ``AttentionBlock`` (GroupNorm,
+a fused-qkv 1×1 conv, multi-head self-attention through ``ops.attention``,
+proj_out; ``unet.py:239-253``) and ``forward`` takes ``context=None``.
+The fused qkv splits into [q | k | v] over all heads, as JAX splits it;
+ldm's ``QKVAttentionLegacy`` reads it per head ([q k v] of head 0, then
+head 1, ...), so the two agree only for one head.
 """
 
 from __future__ import annotations
@@ -226,6 +234,39 @@ class SpatialTransformer(nn.Module):
         return self.proj_out(x.reshape(b, h, w, c).permute(0, 3, 1, 2)) + residual
 
 
+class AttentionBlock(nn.Module):
+    """The legacy LDM AttentionBlock (context-free UNets: LDSR's bsr model):
+    GroupNorm → fused-qkv 1×1 conv (weights (3C, C, 1)) → self-attention
+    over H·W tokens → proj_out (unet.py:239-253)."""
+
+    def __init__(self, c, heads, *, device, dtype):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.heads = heads
+        self.norm = GroupNorm(c, **kw)
+        self.qkv = nn.Module()
+        self.qkv.weight = nn.Parameter(torch.empty((3 * c, c, 1), **kw), requires_grad=False)
+        self.qkv.bias = nn.Parameter(torch.empty((3 * c,), **kw), requires_grad=False)
+        self.proj_out = nn.Module()
+        self.proj_out.weight = nn.Parameter(torch.empty((c, c, 1), **kw), requires_grad=False)
+        self.proj_out.bias = nn.Parameter(torch.empty((c,), **kw), requires_grad=False)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        t = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
+        q, k, v = linear(t, self.qkv.weight[:, :, 0], self.qkv.bias).chunk(3, dim=-1)
+        out = linear(attention(q, k, v, num_heads=self.heads), self.proj_out.weight[:, :, 0],
+                     self.proj_out.bias)
+        return x + out.reshape(b, h, w, c).permute(0, 3, 1, 2)
+
+    @torch.no_grad()
+    def reset_random(self, gen):
+        for p in (self.qkv.weight, self.proj_out.weight):
+            p.copy_(torch.randn(p.shape, generator=gen, device=p.device) / p.shape[1] ** 0.5)
+        self.qkv.bias.zero_()
+        self.proj_out.bias.zero_()
+
+
 class Downsample(nn.Module):
     def __init__(self, c, *, device, dtype):
         super().__init__()
@@ -254,9 +295,12 @@ def _unsupported(cfg: UNetConfig) -> str | None:
     return None
 
 
-def make_layer(layer, cfg: UNetConfig, **kw) -> nn.Module:
-    """The module of one `build_plan` layer descriptor."""
+def make_layer(layer, cfg: UNetConfig, legacy_attention: bool = False, **kw) -> nn.Module:
+    """The module of one `build_plan` layer descriptor (attention layers:
+    the legacy AttentionBlock with `legacy_attention`)."""
     kind = layer[0]
+    if kind == "attn" and legacy_attention:
+        return AttentionBlock(layer[1], cfg.heads_for(layer[1]), **kw)
     if kind == "conv_in":
         return Conv2d(layer[1], layer[2], 3, **kw)
     if kind == "res":
@@ -276,6 +320,8 @@ def run_layers(layers, h, emb, context, hypernet=None, circular: bool = False):
             h = layer(h, emb, circular)
         elif isinstance(layer, SpatialTransformer):
             h = layer(h, context, hypernet)
+        elif isinstance(layer, AttentionBlock):
+            h = layer(h)
         else:
             h = layer(h, circular)
     return h
@@ -287,7 +333,7 @@ class UNetEncoder(nn.Module):
 
     kind = "UNet"
 
-    def __init__(self, cfg: UNetConfig, *, device, dtype):
+    def __init__(self, cfg: UNetConfig, *, device, dtype, legacy_attention: bool = False):
         super().__init__()
         missing = _unsupported(cfg)
         if missing:
@@ -303,11 +349,12 @@ class UNetEncoder(nn.Module):
             self.label_emb = nn.Sequential(nn.Sequential(
                 Linear(cfg.adm_in_channels, ted, **kw), nn.SiLU(), Linear(ted, ted, **kw)))
         self.input_blocks = nn.ModuleList(
-            nn.ModuleList(make_layer(layer, cfg, **kw) for layer in plan) for plan in input_plan)
+            nn.ModuleList(make_layer(layer, cfg, legacy_attention, **kw) for layer in plan)
+            for plan in input_plan)
         mid = mc * cfg.channel_mult[-1]
         self.middle_block = nn.ModuleList([
             ResBlock(mid, mid, ted, **kw),
-            SpatialTransformer(mid, middle_depth, cfg, **kw),
+            make_layer(("attn", mid, middle_depth), cfg, legacy_attention, **kw),
             ResBlock(mid, mid, ted, **kw)])
 
     def embed(self, timesteps, y, dtype):
@@ -323,25 +370,21 @@ class UNetEncoder(nn.Module):
 
 
 class UNetModel(UNetEncoder):
-    def __init__(self, cfg: UNetConfig, *, device, dtype):
-        super().__init__(cfg, device=device, dtype=dtype)
+    def __init__(self, cfg: UNetConfig, *, device, dtype, legacy_attention: bool = False):
+        super().__init__(cfg, device=device, dtype=dtype, legacy_attention=legacy_attention)
         kw = dict(device=device, dtype=dtype)
         _, _, output_plan, _ = build_plan(cfg)
         mc = cfg.model_channels
         self.output_blocks = nn.ModuleList(
-            nn.ModuleList(make_layer(layer, cfg, **kw) for layer in plan) for plan in output_plan)
+            nn.ModuleList(make_layer(layer, cfg, legacy_attention, **kw) for layer in plan)
+            for plan in output_plan)
         self.out = nn.Sequential(GroupNorm(mc, **kw), nn.SiLU(),
                                  Conv2d(mc, cfg.out_channels, 3, **kw))
-
-    def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
-        if any(k.endswith(".qkv.weight") for k in state_dict):
-            raise NotImplementedError("the legacy AttentionBlock (fused qkv, "
-                                      "context-free UNets) is not ported yet")
-        return super().load_state_dict(state_dict, strict, assign)
 
     def forward(self, x, timesteps, context, y=None, control=None, hypernet=None,
                 tiling: bool = False):
         """x: (B, C_in, H, W) latent; timesteps: (B,); context: (B, S, D);
+        None for a legacy-attention UNet;
         y: (B, adm_in_channels) SDXL vector conds; control: a ControlNet's
         {"input": per-input-block residuals, "middle": residual}, added the
         cldm way (module docstring); hypernet: a
@@ -349,7 +392,7 @@ class UNetModel(UNetEncoder):
         every 3×3 conv (unet.py:260-345).  Activations run channels-last in
         memory (NCHW indexing)."""
         emb = self.embed(timesteps, y, x.dtype)
-        context = context.to(x.dtype)
+        context = context.to(x.dtype) if context is not None else None
         hs = []
         h = x.contiguous(memory_format=torch.channels_last)
         for block in self.input_blocks:

@@ -9,6 +9,12 @@ attention is single-head over H·W tokens and goes through
 ``ops.attention`` (the flash kernel B1 at 512² encode and decode sizes).
 A ``tiling`` decode wraps the padding of the decoder's 3×3 convs
 (``vae.py:117-139``); the encoder never does, as in JAX.
+
+``VQModel`` is LDSR's first stage, a VQGAN with ``double_z: false`` (the
+encoder's conv_out and quant_conv z-wide, a codebook under
+``quantize.embedding``): ``vq_quantize`` picks each latent's nearest
+codebook row by ‖h‖² − 2h·cb + ‖cb‖² in fp32 (``ldsr.py:52-60``) and
+``vq_decode`` decodes the quantized latent through the same decoder.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sdwebui_tpu_torch.models.configs import VAEConfig
-from sdwebui_tpu_torch.models.layers import (Conv2d, GroupNorm, conv2d,
+from sdwebui_tpu_torch.models.layers import (Conv2d, Embedding, GroupNorm, conv2d,
                                              upsample_nearest_2x)
 from sdwebui_tpu_torch.ops.attention import attention
 
@@ -84,7 +90,7 @@ class _Resample(nn.Module):
 
 class Encoder(nn.Module):
 
-    def __init__(self, cfg: VAEConfig, *, device, dtype):
+    def __init__(self, cfg: VAEConfig, *, device, dtype, double_z: bool = True):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         chs = [cfg.ch * m for m in cfg.ch_mult]
@@ -103,7 +109,7 @@ class Encoder(nn.Module):
         self.down = nn.ModuleList(levels)
         self.mid = _mid(chs[-1], kw)
         self.norm_out = GroupNorm(chs[-1], eps=1e-6, **kw)
-        self.conv_out = Conv2d(chs[-1], 2 * cfg.z_channels, 3, **kw)
+        self.conv_out = Conv2d(chs[-1], (2 if double_z else 1) * cfg.z_channels, 3, **kw)
 
     def forward(self, x):
         h = self.conv_in(x)
@@ -158,13 +164,14 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    def __init__(self, cfg: VAEConfig, *, device, dtype):
+    def __init__(self, cfg: VAEConfig, *, device, dtype, double_z: bool = True):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
-        self.encoder = Encoder(cfg, **kw)
+        self.encoder = Encoder(cfg, double_z=double_z, **kw)
         self.decoder = Decoder(cfg, **kw)
-        self.quant_conv = Conv2d(2 * cfg.z_channels, 2 * cfg.embed_dim, 1, **kw)
+        z = 2 if double_z else 1
+        self.quant_conv = Conv2d(z * cfg.z_channels, z * cfg.embed_dim, 1, **kw)
         self.post_quant_conv = Conv2d(cfg.embed_dim, cfg.z_channels, 1, **kw)
 
     def decode(self, z, tiling: bool = False):
@@ -191,3 +198,36 @@ class AutoencoderKL(nn.Module):
         mean, logvar = moments.chunk(2, dim=1)
         z = mean + torch.exp(0.5 * torch.clamp(logvar, -30.0, 20.0)) * noise
         return (z - self.cfg.shift_factor) * self.cfg.scale_factor
+
+
+class VQModel(AutoencoderKL):
+    """LDSR's f4 VQGAN: the ldm encoder and decoder with z-wide quant
+    convs and an (n_embed, embed_dim) codebook; scale 1, shift 0."""
+
+    def __init__(self, cfg: VAEConfig, n_embed: int, *, device, dtype):
+        super().__init__(cfg, device=device, dtype=dtype, double_z=False)
+        self.quantize = nn.Module()
+        self.quantize.embedding = Embedding(n_embed, cfg.embed_dim, device=device, dtype=dtype)
+
+    def vq_decode(self, h, quantize: bool = True):
+        """pre-quant latent (B, e, h, w) → image (B, 3, 4h, 4w) in [-1, 1]."""
+        if quantize:
+            h = vq_quantize(h, self.quantize.embedding.weight)
+        return self.decode(h)
+
+
+def vq_distances(h, codebook):
+    """(B·H·W, n_embed) squared distances of each latent of NCHW `h` to
+    each codebook row, fp32: ‖h‖² − 2h·cb + ‖cb‖² (ldsr.py:55-57)."""
+    flat = h.permute(0, 2, 3, 1).reshape(-1, h.shape[1]).float()
+    cb = codebook.float()
+    return (flat ** 2).sum(-1, keepdim=True) - 2.0 * flat @ cb.t() + (cb ** 2).sum(-1)[None]
+
+
+def vq_quantize(h, codebook, return_indices: bool = False):
+    """Each latent of NCHW `h` replaced by its nearest codebook row (argmin
+    of vq_distances), in h's dtype (reference VectorQuantizer2)."""
+    b, c, hh, ww = h.shape
+    idx = torch.argmin(vq_distances(h, codebook), dim=-1)
+    q = codebook.float()[idx].reshape(b, hh, ww, c).permute(0, 3, 1, 2).to(h.dtype)
+    return (q, idx) if return_indices else q

@@ -1,8 +1,10 @@
 """Upscaler registry — port of ``sdwebui_tpu/postprocessing/upscalers.py``.
 
 Built-ins None, Lanczos and Nearest (the restated Pillow resizes of
-``utils/images``); model upscalers (ESRGAN, Real-ESRGAN: ``models/esrgan``)
-register through ``register_upscaler``.  ``upscale`` runs up to three
+``utils/images``); model upscalers (ESRGAN, Real-ESRGAN: ``models/esrgan``;
+SwinIR and Swin2SR, HAT, DAT, SCUNet and LDSR: their ``models/`` modules)
+register through ``register_upscaler``; ``register_model_dirs`` registers
+every family's directories, as the server does at start.  ``upscale`` runs up to three
 passes of an upscaler's own factor towards the target, then LANCZOS to the
 exact size (the reference's ``Upscaler.upscale``), and keeps the last
 ``upscaling_max_images_in_cache`` results of model upscalers keyed on the
@@ -114,12 +116,19 @@ register_upscaler("Nearest", _resize_upscaler("nearest"))
 
 
 def upscaler_names() -> list:
-    """Registered names, less the R-ESRGAN ones that
-    opts.realesrgan_enabled_models leaves out; a name left out still works
-    when asked for."""
-    enabled = opts.get("realesrgan_enabled_models", None)
-    return [n for n in _REGISTRY
-            if enabled is None or not n.startswith("R-ESRGAN") or n in enabled]
+    """Registered names, less the R-ESRGAN and DAT ones that
+    opts.realesrgan_enabled_models / dat_enabled_models leave out
+    (upscalers.py:102-117); a name left out still works when asked for."""
+    re_on = opts.get("realesrgan_enabled_models", None)
+    dat_on = opts.get("dat_enabled_models", None)
+
+    def visible(name):
+        if re_on is not None and name.startswith("R-ESRGAN"):
+            return name in re_on
+        if dat_on is not None and name.startswith("DAT"):
+            return name in dat_on
+        return True
+    return [n for n in _REGISTRY if visible(n)]
 
 
 _CACHE: dict = {}
@@ -163,3 +172,27 @@ def upscale_by_name(name: str, image, width: int, height: int) -> np.ndarray:
     h, w = np.asarray(image).shape[:2]
     out = upscale(name, image, max(width / w, height / h))
     return images_util.resize(out, (width, height), "lanczos")
+
+
+def register_model_dirs(esrgan_dirs=(), models_root: str = "models", dat_dir=None,
+                        device="cuda") -> tuple:
+    """Register every model upscaler's files on `device`, the way the JAX
+    Engine does at start (sdwebui_tpu/server/app.py:44-56): `esrgan_dirs`
+    through ``register_esrgan_dir``, then `models_root`'s SwinIR, ScuNET,
+    LDSR and HAT directories and `dat_dir` (default `models_root`/DAT).
+    Returns (all names, the names from the last of `esrgan_dirs`)."""
+    import os
+
+    from sdwebui_tpu_torch.models import dat, esrgan, hat, ldsr, scunet, swinir
+
+    names, last = [], []
+    for d in esrgan_dirs:
+        last = esrgan.register_esrgan_dir((d,), device=device)
+        names += last
+    sub = lambda name: (os.path.join(models_root, name),)   # noqa: E731
+    names += swinir.register_swinir_dir(sub("SwinIR"), device=device)
+    names += scunet.register_scunet_dir(sub("ScuNET"), device=device)
+    names += ldsr.register_ldsr_dir(sub("LDSR"), device=device)
+    names += hat.register_hat_dir(sub("HAT"), device=device)
+    names += dat.register_dat_dir((dat_dir,) if dat_dir else sub("DAT"), device=device)
+    return names, last

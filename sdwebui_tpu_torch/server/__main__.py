@@ -10,7 +10,11 @@ the ``sd_model_checkpoint`` setting, else the first file found.
 ``--vae-path`` gives every checkpoint that VAE.  The ESRGAN / Real-ESRGAN
 files (``.pth``, ``.pt``, ``.safetensors``) under ``--esrgan-models-path``
 and ``--realesrgan-models-path`` (default ``models/ESRGAN`` and
-``models/RealESRGAN``) serve as upscalers by file name.  The face
+``models/RealESRGAN``) serve as upscalers by file name, and so do the
+rest of the zoo's files under ``models/SwinIR`` (SwinIR and Swin2SR),
+``models/ScuNET``, ``models/LDSR``, ``models/HAT`` and ``--dat-models-path``
+(default ``models/DAT``), relative to the working directory as the JAX
+Engine reads them.  The face
 restorers' weights are the first file under ``--gfpgan-models-path`` and
 ``--codeformer-models-path`` (default ``models/GFPGAN`` and
 ``models/Codeformer``; JAX parses both flags and never reads them).  Extra networks and
@@ -29,13 +33,13 @@ from __future__ import annotations
 import argparse
 import os
 
-from sdwebui_tpu_torch.models.esrgan import register_esrgan_dir
 from sdwebui_tpu_torch.networks.extra_networks import DEFAULT_LORA_DIRS, set_lora_dirs
 from sdwebui_tpu_torch.networks.hypernetwork import (DEFAULT_HYPERNETWORK_DIR,
                                                      set_hypernetwork_dirs)
 from sdwebui_tpu_torch.networks.textual_inversion import DEFAULT_EMBEDDINGS_DIR
 from sdwebui_tpu_torch.pipeline.control import DEFAULT_CONTROLNET_DIR, set_model_dirs
 from sdwebui_tpu_torch.postprocessing import faces
+from sdwebui_tpu_torch.postprocessing.upscalers import register_model_dirs
 from sdwebui_tpu_torch.server.api import make_server
 from sdwebui_tpu_torch.server.app import DEFAULT_CKPT_DIR, Engine
 
@@ -63,6 +67,8 @@ def main(argv=None):
                     help="Path to directory with ESRGAN model file(s).")
     ap.add_argument("--realesrgan-models-path", default=DEFAULT_ESRGAN_DIRS[1],
                     help="Path to directory with RealESRGAN model file(s).")
+    ap.add_argument("--dat-models-path", default=os.path.join("models", "DAT"),
+                    help="Path to directory with DAT model file(s).")
     ap.add_argument("--gfpgan-models-path", default=faces.DEFAULT_DIRS["GFPGAN"][0],
                     help="Path to directory with GFPGAN model file(s).")
     ap.add_argument("--codeformer-models-path", default=faces.DEFAULT_DIRS["CodeFormer"][0],
@@ -98,9 +104,10 @@ def main(argv=None):
                         ckpt_dirs=[args.ckpt_dir or DEFAULT_CKPT_DIR], vae_path=args.vae_path,
                         embeddings_dir=args.embeddings_dir)
         engine.sd_model           # load now: a checkpoint that fails fails at start
-    upscalers = register_esrgan_dir((args.esrgan_models_path,), device=engine.device)
-    realesrgan = register_esrgan_dir((args.realesrgan_models_path,), device=engine.device)
-    upscalers += realesrgan
+    # ESRGAN, RealESRGAN, then models/SwinIR, ScuNET, LDSR, HAT and DAT
+    upscalers, realesrgan = register_model_dirs(
+        (args.esrgan_models_path, args.realesrgan_models_path), models_root="models",
+        dat_dir=args.dat_models_path, device=engine.device)
     server = make_server(engine, args.host, args.port, flags=vars(args), realesrgan=realesrgan)
     extras = "".join(f", refiner {t!r}" for t in engine._extra_models) + \
         "".join(f", upscaler {n!r}" for n in upscalers)

@@ -133,6 +133,9 @@ OVERRIDES = {
     "hires_fix_use_firstpass_conds", "hires_fix_refiner_pass",
     "use_old_hires_fix_width_height", "img2img_extra_noise", "ESRGAN_tile",
     "ESRGAN_tile_overlap", "upscaling_max_images_in_cache",
+    # the zoo's own: DAT's tiles and LDSR's steps (SwinIR, Swin2SR and HAT
+    # read ESRGAN_tile, SCUNet fixes 256 / 8, as the JAX package does)
+    "DAT_tile", "DAT_tile_overlap", "ldsr_steps",
     # extra networks
     "sd_hypernetwork", "extra_networks_default_multiplier",
     "textual_inversion_add_hashes_to_infotext",
@@ -179,7 +182,7 @@ OPTIONS = OVERRIDES | IMG2IMG_OVERRIDES | {
     "sd_checkpoints_limit", "sd_checkpoints_keep_in_cpu", "sd_checkpoint_cache",
     "sd_vae_checkpoint_cache", "sd_vae_overrides_per_model_preferences",
     "list_hidden_files", "disable_mmap_load_safetensors", "postprocessing_operation_order",
-    "postprocessing_disable_in_extras", "realesrgan_enabled_models",
+    "postprocessing_disable_in_extras", "realesrgan_enabled_models", "dat_enabled_models",
     "live_previews_image_format", "interrupt_after_current"}
 
 #: the Extras request's fields (ExtrasSingleImageRequest; ``name`` is a

@@ -281,3 +281,38 @@ def test_styles_equal_jax(tmp_path, prompt, negative, names):
     ours.save()
     theirs.save()
     assert (tmp_path / "ours.csv").read_bytes() == (tmp_path / "theirs.csv").read_bytes()
+
+
+ZOO_CONSTANTS = [   # (port module, JAX module, function, arguments)
+    ("swinir", "swinir", "relative_position_index", (8,)),
+    ("swinir", "swinir", "relative_position_index", (16,)),
+    ("swinir", "swinir", "shift_attn_mask", (48, 64, 8, 4)),
+    ("swinir", "swinir", "shift_attn_mask", (192, 192, 16, 8)),
+    ("swin2sr", "swin2sr", "cpb_coords_table", (8,)),
+    ("hat", "hat", "rpi_oca", (16, 24)),
+    ("dat", "dat", "rect_rpi", (8, 32)),
+    ("dat", "dat", "rect_rpe_biases", (32, 8)),
+    ("dat", "dat", "rect_shift_mask", (64, 96, 8, 32, 4, 16)),
+]
+
+
+@pytest.mark.parametrize("port_mod,jax_mod,fn,args", ZOO_CONSTANTS)
+def test_zoo_host_constants_equal_jax(port_mod, jax_mod, fn, args):
+    """The upscaler zoo's host constants (window indices, shift masks, the
+    SwinV2 CPB inputs, HAT's OCA index, DAT's rectangle tables) are copies."""
+    import importlib
+
+    ours = getattr(importlib.import_module(f"sdwebui_tpu_torch.models.{port_mod}"), fn)(*args)
+    theirs = getattr(importlib.import_module(f"sdwebui_tpu.models.{jax_mod}"), fn)(*args)
+    assert ours.dtype == theirs.dtype
+    np.testing.assert_array_equal(ours, theirs)
+
+
+def test_ldsr_schedule_equals_jax():
+    from sdwebui_tpu.models import ldsr as jax_ldsr
+    from sdwebui_tpu_torch.models import ldsr
+
+    np.testing.assert_array_equal(ldsr.make_alphas(ldsr.LDSRConfig()),
+                                  jax_ldsr.make_alphas(jax_ldsr.LDSRConfig()))
+    assert [f.name for f in dataclasses.fields(ldsr.LDSRConfig)] == \
+        [f.name for f in dataclasses.fields(jax_ldsr.LDSRConfig)]

@@ -314,6 +314,47 @@ with tempfile.TemporaryDirectory() as d:
     vae_approx.set_models_root("models")
 assert color.apply_color_correction(color.setup_color_correction(
     np.full((8, 8, 3), 90, np.uint8)), np.full((8, 8, 3), 10, np.uint8)).max() == 90
+import dataclasses
+from sdwebui_tpu_torch.models import dat, hat, ldsr, scunet, swin2sr, swinir
+from sdwebui_tpu_torch.utils.options import opts
+from sdwebui_tpu_torch.postprocessing.upscalers import register_model_dirs, unregister_upscaler
+with tempfile.TemporaryDirectory() as d:
+    files = {
+        ("SwinIR", "s1"): swinir.create_random_swinir(0, "cpu", swinir.SwinIRConfig(
+            embed_dim=12, depths=(2,), num_heads=(2,), window_size=4, num_feat=8)),
+        ("SwinIR", "s2"): swin2sr.create_random_swin2sr(0, "cpu", swin2sr.Swin2SRConfig(
+            embed_dim=16, depths=(2,), num_heads=(2,), num_feat=16, cpb_hidden=16, scale=2)),
+        ("HAT", "h"): hat.create_random_hat(0, "cpu", hat.HATConfig(
+            embed_dim=12, depths=(2,), num_heads=(2,), window_size=4, squeeze_factor=4,
+            num_feat=12, scale=2)),
+        ("DAT", "d"): dat.create_random_dat(0, "cpu", dat.DATConfig(
+            embed_dim=32, depths=(2,), num_heads=(2,), split_size=(2, 4), scale=2)),
+        ("ScuNET", "sc"): scunet.create_random_scunet(0, "cpu", scunet.SCUNetConfig(
+            dim=16, config=(1,) * 7, head_dim=8, window_size=4)),
+    }
+    for (sub, name), net in files.items():
+        os.makedirs(os.path.join(d, sub), exist_ok=True)
+        write_safetensors(os.path.join(d, sub, name + ".safetensors"), net.state_dict())
+    os.makedirs(os.path.join(d, "LDSR"))
+    tiny_ldsr = ldsr.create_random_ldsr(0, "cpu", ldsr.LDSRConfig(
+        unet=dataclasses.replace(ldsr.LDSR_UNET, model_channels=32, channel_mult=(1, 2),
+                                 num_res_blocks=1, attention_resolutions=(2,),
+                                 transformer_depth=(0, 1)),
+        vq=dataclasses.replace(ldsr.LDSR_VQ, ch=32, num_res_blocks=1), n_embed=16))
+    write_safetensors(os.path.join(d, "LDSR", "model.safetensors"),
+                      ldsr.ldsr_state_dict(tiny_ldsr))
+    names, _ = register_model_dirs(models_root=d, device="cpu")
+    assert names == ["s1", "s2", "sc", "LDSR", "h", "d"], names
+    api = Api(Engine(device="cpu", tiny=True))
+    small = base64.b64encode(encode_png(np.full((20, 24, 3), 90, np.uint8))).decode()
+    opts.set("ldsr_steps", 2)
+    for name in names:
+        status, out = api.handle("POST", "/sdapi/v1/extra-single-image", {
+            "image": small, "upscaler_1": name, "upscaling_resize": 2})
+        assert status == 200, (name, out)
+    opts.set("ldsr_steps", 100)
+    for name in names:
+        unregister_upscaler(name)
 assert not Recorder.attempts, Recorder.attempts
 print("OK", len(mods))
 """
