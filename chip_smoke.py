@@ -216,7 +216,24 @@ Phases, in order; any failure exits non-zero:
   7. one more in-process SDXL request under torch.profiler (CUDA activity
      only): wall (median of two untraced requests), device busy (union of
      the kernel intervals), idle share, device time by kernel class and
-     the top kernels.
+     the top kernels;
+  4j. the families the loader took last, each from a file written from a
+     seed at the published layout into a temporary directory (free space
+     checked first; each file removed when its part ends) and served
+     through an Engine built as `--ckpt` builds it, with synthetic
+     SentencePiece vocabularies for T5 and XLM-R: (a) SD3-medium in the
+     layout of sd3_medium_incl_clips_t5xxlfp8 (MMDiT, VAE, CLIP-L and bigG
+     fp16, T5-XXL's matrices F8_E4M3, 10.7 GB): the MMDiT's bf16 forward on
+     the card against the file's f32 MMDiT on the CPU at a 64² latent
+     (max|Δ|/max|ref| <= 5e-2); with sd3_enable_t5 off two 1024² txt2img
+     requests (Euler, 20 steps, CFG 5) within 1 level, img2img at 0.75,
+     hires fix 512² → 1024² ("Latent"), one request under torch.profiler;
+     then sd3_enable_t5 on, /unload-checkpoint and the txt2img again with
+     T5's 77 tokens after CLIP's (an image that differs); (b) SD2.1-unclip-h
+     at 768²: txt2img (zero adm) and img2img (the init image's ViT-H
+     embedding); (c) AltDiffusion (XLM-R large) at 512² txt2img.  Every
+     request's B1, B2 and B5 launches equal the plan written before it
+     (SD3 1024²: B2 = 20 x 24, B5 = 20 x 96 + CLIP's 90, B1 = 1).
 Each phase's seconds are logged as it ends.  The last two lines are the
 kernels JSON and {"ok": true, "device": ...}.
 Needs a CUDA card; without one it exits 1 and prints no result.
@@ -282,6 +299,7 @@ B1_SHAPES = [
     ("vae_mid_512", 1, 4096, 4096, 512, torch.bfloat16),
     ("vae_mid_512_f32", 1, 4096, 4096, 512, torch.float32),
     ("vae_mid_768", 1, 9216, 9216, 512, torch.bfloat16),
+    ("vae_mid_768_f32", 1, 9216, 9216, 512, torch.float32),   # unclip's img2img encode
     ("vae_mid_1024", 1, 16384, 16384, 512, torch.bfloat16),
     ("vae_mid_1024_f32", 1, 16384, 16384, 512, torch.float32),
     ("vae_mid_1536", 1, 36864, 36864, 512, torch.bfloat16),
@@ -328,6 +346,14 @@ HEAD_SHAPES = [
     # 512² LR input
     ("ldsr_32x32", 1, 1024, 20, 32),
     ("ldsr_64x64", 1, 4096, 20, 32),
+    # phase 4j: SD3's joint attention, 24 heads of d = 64 over the image's
+    # tokens and the context's, ragged (1024² with CLIP's 77 tokens or CLIP
+    # ⊕ T5's 154, 512² with 77); SD2.1-unclip's UNet at 768²
+    ("sd3_1024_t5off", 2, 4173, 24, 64),
+    ("sd3_1024_t5on", 2, 4250, 24, 64),
+    ("sd3_512_t5off", 2, 1101, 24, 64),
+    ("unclip_96x96", 2, 9216, 5, 64),
+    ("unclip_48x48", 2, 2304, 10, 64),
 ]
 # B4 rows: (name, B, H, W, Cin, Cout): the shapes of the JAX kernel's
 # docstring (sdwebui_tpu/ops/conv.py:6-8), the SD1.5 UNet's at B = 2 (the
@@ -347,8 +373,13 @@ CONV_SHAPES = [
 FUSED_QKV_ROWS = ("sd15_64x64", "sdxl_base_64x64", "sd15_hr_128x128", "sd15_hr_64x64",
                   "sd15_hr_32x32", "sd15_hr_96x96", "sd15_hr_48x48", "sd2_depth_64x64",
                   "sd2_depth_32x32", "p2p_b3_64x64", "p2p_b3_32x32", "ldsr_32x32",
-                  "ldsr_64x64")
+                  "ldsr_64x64", "sd3_1024_t5off", "sd3_1024_t5on", "sd3_512_t5off",
+                  "unclip_96x96", "unclip_48x48")
 HOST_CALLS = 20           # calls per host-cost reading
+# B5 rows of phase 4j: (name, rows, width); the MMDiT's bf16 and non-affine
+SD3_LN_SHAPES = [("sd3_mmdit_s8192_c1536", 8192, 1536), ("sd3_mmdit_ctx154_c1536", 154, 1536),
+                 ("sd3_mmdit_ctx308_c1536", 308, 1536)]
+TEXT_LN_SHAPES = [("xlmr_154_c1024", 154, 1024), ("vit_h_257_c1280", 257, 1280)]
 # B5 f32 rows of the upscaler zoo: (name, rows, width)
 ZOO_LN_SHAPES = [("swinir_l_c240", 331776, 240), ("swin_c180", 331776, 180),
                  ("dat_sgfn_c360", 331776, 360), ("swinir_light_c60", 331776, 60),
@@ -568,6 +599,7 @@ def layer_norm_shapes():
     for fam, cfg, latents, batch in (("sd15", SD15_UNET, (64, 128, 96), 2),
                                      ("sd15_b8", SD15_UNET, (64,), 8),
                                      ("sd2_depth", SD21_UNET, (64,), 2),
+                                     ("sd2_unclip", SD21_UNET, (96,), 2),
                                      ("p2p_b3", SD15_UNET, (64,), 3),
                                      ("sdxl_base", SDXL_UNET, (128, 192), 2),
                                      ("sdxl_refiner", SDXL_REFINER_UNET, (128, 192), 2)):
@@ -719,6 +751,26 @@ def layer_norm_cases(device):
                    kernel=lambda: ln_mod.layer_norm(xz, wz, bz),
                    plain=lambda: ln_mod.layer_norm_plain(xz, wz, bz),
                    library=lambda: F.layer_norm(xz, (xz.shape[1],), wz, bz, 1e-5),
+                   work=(7.0 * n_rows * c, 4 * (2 * n_rows * c + 2 * c), "fp32"))
+    # phase 4j: the MMDiT's non-affine LayerNorms (bf16, eps 1e-6) on the
+    # image's 2 x 4096 rows at 1024² and the context's 2 x 77 / 2 x 154;
+    # XLM-R's 2 x 77 rows of 1024 and ViT-H's 257 of 1280 (f32, eps 1e-5)
+    for name, n_rows, c in SD3_LN_SHAPES:
+        g = torch.Generator(device=device).manual_seed(2)
+        xs = (_randn((n_rows, c), g, torch.float32, device) * 2 + 0.5).to(torch.bfloat16)
+        yield dict(entry="layer_norm", name=name, shape=(n_rows, c), dtype=torch.bfloat16,
+                   kernel=lambda: ln_mod.layer_norm(xs, eps=1e-6),
+                   plain=lambda: ln_mod.layer_norm_plain(xs, eps=1e-6),
+                   library=lambda: F.layer_norm(xs, (xs.shape[1],), eps=1e-6),
+                   work=(7.0 * n_rows * c, 2 * 2 * n_rows * c, "fp32"), ulp_tol=LN_ULP_TOL)
+    for name, n_rows, c in TEXT_LN_SHAPES:
+        g = torch.Generator(device=device).manual_seed(2)
+        xt = _randn((n_rows, c), g, torch.float32, device) * 2 + 0.5
+        wt, bt = _randn((c,), g, torch.float32, device), _randn((c,), g, torch.float32, device)
+        yield dict(entry="layer_norm", name=name, shape=(n_rows, c), dtype=torch.float32,
+                   kernel=lambda: ln_mod.layer_norm(xt, wt, bt),
+                   plain=lambda: ln_mod.layer_norm_plain(xt, wt, bt),
+                   library=lambda: F.layer_norm(xt, (xt.shape[1],), wt, bt, 1e-5),
                    work=(7.0 * n_rows * c, 4 * (2 * n_rows * c + 2 * c), "fp32"))
     # CodeFormer's transformer (phase 4h): 256 codes of 512 per face, f32, eps 1e-5
     g = torch.Generator(device=device).manual_seed(2)
@@ -2816,6 +2868,296 @@ def phase_sdxl_img2img(engine, base, phase6: dict, device):
                          profile=profile, f32_encodes_1024=2 + 1 + 2, decodes_1024=4)
 
 
+# phase 4j: the families the loader took last (SD3, SD2.1-unclip, AltDiffusion)
+SD3_BASE = dict(prompt="a photograph of an astronaut riding a horse",
+                negative_prompt="blurry, lowres", width=1024, height=1024,
+                sampler_name="Euler", steps=STEPS, cfg_scale=5.0)
+SD3_REPEAT_TOL = 1        # uint8 levels, the repeated SD3 request
+SD3_TILE = 64             # the MMDiT's card-vs-CPU check: one 64² latent
+SD3_HR_FIRST = 512        # the hires request's first pass (and the warm-up's size)
+UNCLIP_SIZE = 768
+# free space the SD3 file needs: MMDiT, VAE and the CLIPs in fp16, T5-XXL's
+# matrices in fp8 (sd3_medium_incl_clips_t5xxlfp8's layout), and a margin
+SD3_FILE_GB = 11.0
+T5_PAD, T5_EOS, T5_UNK = 0, 1, 2
+
+
+def write_spm_vocab(path: str, words, specials, ids: dict) -> None:
+    """A SentencePiece ModelProto (the wire format text/sentencepiece
+    parses): `specials` [(text, type)] first, then every word of `words`
+    (a "▁" piece each) and the single letters, and the trainer's ids."""
+    import struct
+
+    def varint(x: int) -> bytes:
+        out = b""
+        while True:
+            b, x = x & 0x7F, x >> 7
+            if not x:
+                return out + bytes([b])
+            out += bytes([b | 0x80])
+
+    def field(num, wire, payload):
+        return varint((num << 3) | wire) + payload
+
+    def ld(num, payload):
+        return field(num, 2, varint(len(payload)) + payload)
+
+    pieces = list(specials) + [("\u2581" + w, 1) for w in sorted(set(words))] \
+        + [(c, 1) for c in "abcdefghijklmnopqrstuvwxyz,"] + [("\u2581", 1)]
+    data = b"".join(ld(1, ld(1, t.encode()) + field(2, 5, struct.pack("<f", -float(len(t) < 3)))
+                       + (field(3, 0, varint(typ)) if typ != 1 else b""))
+                    for t, typ in pieces)
+    trainer = b"".join(field(num, 0, varint(ids[k] % (1 << 64)))
+                       for num, k in ((40, "unk"), (41, "bos"), (42, "eos"), (43, "pad")))
+    with open(path, "wb") as f:
+        f.write(data + ld(2, trainer))
+
+
+def sd3_plan(cfg, latent: int, ctx_tokens: int) -> tuple:
+    """(B2, B5) launches of one MMDiT forward at latent² with ctx_tokens
+    context tokens: every joint attention with Skv >= FLASH_MIN_KV, every
+    non-affine LayerNorm (models/mmdit.layer_norm_calls)."""
+    from sdwebui_tpu_torch.models import mmdit
+    from sdwebui_tpu_torch.ops.attention import FLASH_MIN_KV
+
+    b2 = sum(s >= FLASH_MIN_KV for s, _, _ in mmdit.self_attention_calls(cfg, latent, ctx_tokens))
+    return b2, mmdit.layer_norm_calls(cfg)
+
+
+def _need_disk(directory: str, gb: float) -> None:
+    free = shutil.disk_usage(directory).free / 1e9
+    if free < gb:
+        raise AssertionError(f"{directory} has {free:.1f} GB free; the phase writes {gb:.1f} GB "
+                             f"(short by {gb - free:.1f} GB)")
+
+
+def _write_ckpt(path: str, sd: dict, fp8=()) -> float:
+    """Write `sd` as .safetensors: floats fp16, the keys starting with one of
+    `fp8` as F8_E4M3 where 2-D; returns GB."""
+    from sdwebui_tpu_torch.loader.safetensors_io import write_safetensors
+
+    def cast(k, v):
+        if not v.is_floating_point():
+            return v
+        if v.dim() == 2 and k.startswith(fp8):
+            return v.to(torch.float8_e4m3fn)
+        return v.half()
+
+    write_safetensors(path, {k: cast(k, v) for k, v in sd.items()})
+    return os.path.getsize(path) / 1e9
+
+
+def _family_check(sampler: str, cfg_scale):
+    def check(params, seed):
+        for want in (f"Seed: {seed}", f"Sampler: {sampler}", f"CFG scale: {cfg_scale}"):
+            if want not in params:
+                raise AssertionError(f"infotext lacks {want!r}: {params!r}")
+    return check
+
+
+def check_mmdit(path: str, module, device) -> dict:
+    """The served MMDiT (bf16, on the card) against the same file's MMDiT
+    in f32 on the CPU (TF32 off), one seeded 64² latent with a 77-token
+    context: max|Δ|/max|ref| <= UNET_REL_TOL, as phase 2 holds bf16 UNets."""
+    from sdwebui_tpu_torch.loader import convert, load
+    from sdwebui_tpu_torch.loader.safetensors_io import read_state_dict
+
+    sd, cfg = convert.convert_mmdit(read_state_dict(path))
+    cpu = load.build("mmdit", cfg, sd, torch.device("cpu"), torch.float32)
+    g = torch.Generator().manual_seed(13)
+    x = torch.randn((1, 16, SD3_TILE, SD3_TILE), generator=g)
+    t = torch.tensor([750.0])
+    ctx = torch.randn((1, 77, cfg.context_dim), generator=g)
+    y = torch.randn((1, cfg.pooled_dim), generator=g)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = cpu(x, t, ctx, y)
+        cpu_s = time.perf_counter() - t0
+        got = module(x.to(device), t.to(device), ctx.to(device), y.to(device)).float().cpu()
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    log(f"SD3 MMDiT at a {SD3_TILE}² latent: card (bf16) vs CPU (f32) max|Δ|/max|ref| "
+        f"{rel:.3e} (bound {UNET_REL_TOL:g}), CPU forward {cpu_s:.1f} s")
+    if not rel <= UNET_REL_TOL or not torch.isfinite(got).all():
+        raise AssertionError(f"the SD3 MMDiT on the card disagrees with the CPU: {rel}")
+    return dict(rel_err=rel, cpu_forward_s=cpu_s)
+
+
+def phase_families(directory: str, device):
+    """4j: SD3, SD2.1-unclip-h and AltDiffusion from files written from a
+    seed at the published layouts, each served through --ckpt over HTTP;
+    returns (results, summary).  The files are removed as each part ends."""
+    from sdwebui_tpu_torch.loader import load
+    from sdwebui_tpu_torch.models import mmdit
+    from sdwebui_tpu_torch.pipeline.processing import setup_img2img_steps
+    from sdwebui_tpu_torch.pipeline.sd_model import (create_random_alt, create_random_sd2_unclip,
+                                                     create_random_sd3)
+    from sdwebui_tpu_torch.server.app import Engine
+    from sdwebui_tpu_torch.text import sentencepiece as spm
+    from sdwebui_tpu_torch.utils.options import opts
+
+    results, plans, info = [], [], {}
+    words = " ".join([SD3_BASE["prompt"], SD3_BASE["negative_prompt"], "a cat"]).replace(",", "")
+    t5_dir, xlmr_dir = os.path.join(directory, "T5"), os.path.join(directory, "XLM-R")
+    os.makedirs(t5_dir)
+    os.makedirs(xlmr_dir)
+    write_spm_vocab(os.path.join(t5_dir, "spiece.model"), words.split(),
+                    [("<pad>", 3), ("</s>", 3), ("<unk>", 2)],
+                    dict(unk=T5_UNK, bos=-1, eos=T5_EOS, pad=T5_PAD))
+    write_spm_vocab(os.path.join(xlmr_dir, "sentencepiece.bpe.model"), words.split(),
+                    [("<unk>", 2), ("<s>", 3), ("</s>", 3)], dict(unk=0, bos=1, eos=2, pad=-1))
+    load.set_tokenizer_dir("t5", t5_dir)
+    load.set_tokenizer_dir("xlmr", xlmr_dir)
+    try:
+        # ---- (a) SD3-medium with CLIP-L, bigG and an fp8 T5-XXL ----------
+        _need_disk(directory, SD3_FILE_GB)
+        path = os.path.join(directory, "sd3_medium_incl_clips_t5xxlfp8.safetensors")
+        t0 = time.perf_counter()
+        model = create_random_sd3(seed=31, device=device, t5=True)
+        model.t5_tokenizer = spm.make_t5_tokenizer(os.path.join(t5_dir, "spiece.model"))
+        gb = _write_ckpt(path, load.ldm_state_dict(model), fp8=("text_encoders.t5xxl.",))
+        cfg = model.unet_cfg
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        info["sd3_file"] = dict(gb=gb, write_s=time.perf_counter() - t0)
+        log(f"wrote {os.path.basename(path)}: {gb:.2f} GB in {info['sd3_file']['write_s']:.1f} s")
+        opts.set("sd3_enable_t5", False)
+        engine = Engine(device=device, ckpt=path, ckpt_dirs=[directory], hash_cache=None)
+        t0 = time.perf_counter()
+        served = engine.sd_model
+        torch.cuda.synchronize()
+        info["sd3_load_s"] = time.perf_counter() - t0
+        log(f"SD3 file → card (T5 off) in {info['sd3_load_s']:.2f} s, "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+        if served.kind != "sd3" or served.t5 is not None or served.unet_cfg != cfg:
+            raise AssertionError(f"the SD3 file loaded as {served.kind}, {served.unet_cfg}")
+        info["sd3_mmdit_check"] = check_mmdit(path, served.unet, device)
+        check = _family_check("Euler", SD3_BASE["cfg_scale"])
+        clip_ln = clip_ln_plan(served)
+        b2_1024, b5_fwd = sd3_plan(cfg, 128, 77)
+        b2_512, _ = sd3_plan(cfg, 64, 77)
+        b2_1024_t5, _ = sd3_plan(cfg, 128, 154)
+        _, t_enc = setup_img2img_steps(STEPS, DENOISE)
+        _, t_hr = setup_img2img_steps(STEPS, HR_DENOISE)
+        with _server(engine) as url:
+            _post(f"{url}/txt2img", dict(SD3_BASE, seed=1, steps=2, width=SD3_HR_FIRST,
+                                         height=SD3_HR_FIRST))
+            body = dict(SD3_BASE, seed=3030)
+            for i in range(2):
+                results.append(_request(url, "txt2img", body, check, 1024,
+                                        f"SD3 1024² T5 off{' repeat' if i else ''}"))
+                plans.append(_plan(b1=1, b2=STEPS * b2_1024, b5=STEPS * b5_fwd + clip_ln))
+            delta = int(abs(results[-1]["image"].astype(int) - results[-2]["image"].astype(int)).max())
+            log(f"SD3 repeated seed: max|Δ| {delta} uint8 levels (bound {SD3_REPEAT_TOL})")
+            if delta > SD3_REPEAT_TOL or results[-1]["image"].std() < 1.0:
+                raise AssertionError(f"SD3 repeat differs by {delta} or is flat")
+            results.append(_request(url, "img2img", dict(
+                body, seed=3031, init_images=[results[0]["png_b64"]], denoising_strength=DENOISE),
+                check, 1024, "SD3 img2img 1024²"))
+            plans.append(_plan(b1=2, b2=(t_enc + 1) * b2_1024,
+                               b5=(t_enc + 1) * b5_fwd + clip_ln))
+            results.append(_request(url, "txt2img", dict(
+                body, seed=3032, width=SD3_HR_FIRST, height=SD3_HR_FIRST, enable_hr=True,
+                hr_scale=2.0, hr_upscaler="Latent", denoising_strength=HR_DENOISE), check,
+                2 * SD3_HR_FIRST,
+                "SD3 hires 512² → 1024²"))
+            plans.append(_plan(b1=1, b2=STEPS * b2_512 + (t_hr + 1) * b2_1024,
+                               b5=(STEPS + t_hr + 1) * b5_fwd + 2 * clip_ln))
+            info["sd3_profile"] = phase_profile(
+                engine, body, "SD3", wall=statistics.median(r["seconds"] for r in results[:2]))
+            # T5 on: the next load converts the file's fp8 T5 to bf16
+            _post(f"{url}/options", {"sd3_enable_t5": True})
+            _post(f"{url}/unload-checkpoint", {})
+            t0 = time.perf_counter()
+            served = engine.sd_model
+            torch.cuda.synchronize()
+            info["sd3_load_t5_s"] = time.perf_counter() - t0
+            if served.t5 is None or served.t5_tokenizer is None:
+                raise AssertionError("sd3_enable_t5 did not load T5 and its tokenizer")
+            log(f"SD3 file → card (T5 on) in {info['sd3_load_t5_s']:.2f} s, "
+                f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+            results.append(_request(url, "txt2img", body, check, 1024, "SD3 1024² T5 on"))
+            plans.append(_plan(b1=1, b2=STEPS * b2_1024_t5, b5=STEPS * b5_fwd + clip_ln))
+            t5_delta = float(abs(results[-1]["image"].astype(int)
+                                 - results[0]["image"].astype(int)).mean())
+            log(f"SD3 T5 on vs off: mean|Δ| {t5_delta:.2f} levels")
+            if not t5_delta > 1.0:
+                raise AssertionError("T5's context left the SD3 image unchanged")
+        opts.set("sd3_enable_t5", False)
+        del engine, served
+        gc.collect()
+        torch.cuda.empty_cache()
+        os.remove(path)
+
+        # ---- (b) SD2.1-unclip-h at 768² ------------------------------------
+        path = os.path.join(directory, "sd21-unclip-h.safetensors")
+        t0 = time.perf_counter()
+        model = create_random_sd2_unclip(seed=32, device=device)
+        gb = _write_ckpt(path, load.ldm_state_dict(model))
+        adm = model.unet_cfg.adm_in_channels
+        del model
+        torch.cuda.empty_cache()
+        log(f"wrote {os.path.basename(path)}: {gb:.2f} GB in {time.perf_counter() - t0:.1f} s")
+        engine = Engine(device=device, ckpt=path, ckpt_dirs=[directory], hash_cache=None)
+        served = engine.sd_model
+        if not served.is_unclip or served.unet_cfg.adm_in_channels != adm:
+            raise AssertionError("the unclip file did not load as an unclip model")
+        vit_ln = 2 + 2 * served.image_embedder.cfg.layers
+        ucfg = served.unet_cfg
+        unet_b2, unet_b5 = launch_plan(ucfg, 96), ln_plan(ucfg, 96)
+        body = dict(SD15_BASE, seed=3040, width=UNCLIP_SIZE, height=UNCLIP_SIZE)
+        with _server(engine) as url:
+            results.append(_request(url, "txt2img", body, _sd15_check, UNCLIP_SIZE,
+                                    "unclip 768² txt2img (zero adm)"))
+            plans.append(_plan(b1=1, b2=STEPS * unet_b2,
+                               b5=STEPS * unet_b5 + clip_ln_plan(served)))
+            results.append(_request(url, "img2img", dict(
+                body, seed=3041, init_images=[results[-1]["png_b64"]],
+                denoising_strength=DENOISE), _sd15_check, UNCLIP_SIZE, "unclip 768² img2img"))
+            plans.append(_plan(b1=2, b2=(t_enc + 1) * unet_b2,
+                               b5=(t_enc + 1) * unet_b5 + clip_ln_plan(served) + vit_ln))
+        del engine, served
+        gc.collect()
+        torch.cuda.empty_cache()
+        os.remove(path)
+
+        # ---- (c) AltDiffusion at 512² --------------------------------------
+        path = os.path.join(directory, "AltDiffusion.safetensors")
+        t0 = time.perf_counter()
+        model = create_random_alt(seed=33, device=device)
+        gb = _write_ckpt(path, load.ldm_state_dict(model))
+        xlayers = model.conditioner.cfg.layers
+        del model
+        torch.cuda.empty_cache()
+        log(f"wrote {os.path.basename(path)}: {gb:.2f} GB in {time.perf_counter() - t0:.1f} s")
+        engine = Engine(device=device, ckpt=path, ckpt_dirs=[directory], hash_cache=None)
+        served = engine.sd_model
+        if served.kind != "alt" or served.conditioner.tokenizer is None:
+            raise AssertionError("the AltDiffusion file loaded without its XLM-R tokenizer")
+        acfg = served.unet_cfg
+        with _server(engine) as url:
+            results.append(_request(url, "txt2img", dict(SD15_BASE, seed=3050), _sd15_check, 512,
+                                    "AltDiffusion 512²"))
+            plans.append(_plan(b1=1, b2=STEPS * launch_plan(acfg, 64),
+                               b5=STEPS * ln_plan(acfg, 64) + 1 + 2 * xlayers))
+        del engine, served
+        gc.collect()
+        torch.cuda.empty_cache()
+        os.remove(path)
+    finally:
+        load.set_tokenizer_dir("t5", None)
+        load.set_tokenizer_dir("xlmr", None)
+        opts.set("sd3_enable_t5", False)
+    _check_launches(results, plans)
+    info["seconds"] = {r["label"]: r["seconds"] for r in results}
+    # B1 calls by phase-1 row: the SD3 VAE's mid block at 128² (the 1024²
+    # decodes, bf16; the img2img encode, f32) and unclip's at 96²
+    info["b1_calls"] = {("vae_mid_1024", "bfloat16"): 5, ("vae_mid_1024_f32", "float32"): 1,
+                        ("vae_mid_768", "bfloat16"): 2, ("vae_mid_768_f32", "float32"): 1,
+                        ("vae_mid_512", "bfloat16"): 1}
+    return results, info
+
+
 def kernel_class(name: str) -> str:
     if "flash_attention" in name or "attn_" in name:   # csrc/flash_attention.cu
         return "flash_attn"
@@ -3034,6 +3376,12 @@ def main() -> int:
     mark("6c SDXL img2img")
     profile = phase_profile(engine, sdxl_request(1234, refiner.title), "SDXL")
     mark("7 SDXL profile")
+    del base, refiner, extra, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_families_") as family_dir:
+        family_results, family_info = phase_families(family_dir, device)
+    mark("4j SD3, unclip and AltDiffusion")
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "sdwebui_tpu"))
@@ -3045,7 +3393,7 @@ def main() -> int:
                           + hy_results + face_results + zoo_results + ckpt_results
                           + sampler_results
                           + sdxl_results
-                          + [sdxl_hr_result] + sdxl_i2i_results)]
+                          + [sdxl_hr_result] + sdxl_i2i_results + family_results)]
     log(json.dumps({"card": smi, "kernel_shapes": rows, "unet_step": unet,
                     "sdxl_unet_step": sdxl_unet, "img2img_unet_calls": i2i_calls,
                     "sdxl_refiner_after_step": s_idx, "checkpoint": ckpt_info,
@@ -3053,6 +3401,7 @@ def main() -> int:
                     "config4": c4_info, "hybrid": hy_info, "img2img_options": opt_info,
                     "faces": face_info, "zoo": zoo_info,
                     "sdxl_img2img": sdxl_i2i_info,
+                    "families": {k: v for k, v in family_info.items() if k != "b1_calls"},
                     "requests": requests, "sdxl_profile": profile, "phase_s": phase_s}))
 
     def row_of(name, shape, dtype):
@@ -3073,6 +3422,8 @@ def main() -> int:
     b1_calls[("vae_mid_1024", "bfloat16")] += 1                # phase 4i's hires request
     b1_calls[("vae_mid_512", "bfloat16")] += 1
     b1_calls[("vae_mid_1024_f32", "float32")] += 1
+    for row, n in family_info["b1_calls"].items():
+        b1_calls[row] = b1_calls.get(row, 0) + n
     b1_row = max(b1_calls, key=lambda c: b1_calls[c] * row_of("flash_attention", *c)["ms"])
 
     def entry(name, source, replaces, dominant, dtype):

@@ -1,6 +1,7 @@
 """Checkpoint state dict → the port's module state dicts and configs.
 
-Port of ``sdwebui_tpu/loader/convert.py``.  The port's modules hold the
+Port of ``sdwebui_tpu/loader/convert.py`` (with SD3's ``convert_mmdit``,
+:544-560).  The port's modules hold the
 ldm/sgm parameter names and the torch layouts (conv OIHW, linear
 (out, in)), so a component's state dict is the checkpoint's keys with the
 component prefix stripped: no layout transposes (JAX's ``convert_leaf``)
@@ -159,8 +160,11 @@ def derive_unet_config(sd: dict, prefix: str = "model.diffusion_model.") -> UNet
 def derive_vae_config(sd: dict, prefix: str = "first_stage_model.",
                       scale_factor: float = 0.18215) -> VAEConfig:
     ch = int(sd[prefix + "encoder.conv_in.weight"].shape[0])
-    embed_dim = int(sd[prefix + "post_quant_conv.weight"].shape[1])
-    z_channels = int(sd[prefix + "post_quant_conv.weight"].shape[0])
+    if prefix + "post_quant_conv.weight" in sd:
+        embed_dim = int(sd[prefix + "post_quant_conv.weight"].shape[1])
+        z_channels = int(sd[prefix + "post_quant_conv.weight"].shape[0])
+    else:       # SD3's VAE: no quant convs, the decoder takes the latent itself
+        embed_dim = z_channels = int(sd[prefix + "decoder.conv_in.weight"].shape[1])
     levels = set()
     blocks = set()
     for k in sd:
@@ -182,11 +186,17 @@ def derive_vae_config(sd: dict, prefix: str = "first_stage_model.",
 # --------------------------------------------------------------------------
 
 def build_module(kind: str, cfg, device="meta", dtype=torch.float32, **kw):
-    """The port's module of `kind` ("unet", "vae", "clip", "controlnet",
-    "dpt", "hed") at
-    `cfg`, with uninitialised parameters (no storage on "meta")."""
+    """The port's module of `kind` ("unet", "mmdit", "vae", "clip", "t5",
+    "clip_vision", "controlnet", "dpt", "hed") at `cfg`, with
+    uninitialised parameters (no storage on "meta")."""
     if kind == "unet":
         from sdwebui_tpu_torch.models.unet import UNetModel as cls
+    elif kind == "mmdit":
+        from sdwebui_tpu_torch.models.mmdit import MMDiT as cls
+    elif kind == "t5":
+        from sdwebui_tpu_torch.models.t5 import T5Encoder as cls
+    elif kind == "clip_vision":
+        from sdwebui_tpu_torch.models.clip_vision import CLIPVisionModel as cls
     elif kind == "dpt":
         from sdwebui_tpu_torch.models.midas import DPTDepthModel as cls
     elif kind == "hed":
@@ -201,11 +211,15 @@ def build_module(kind: str, cfg, device="meta", dtype=torch.float32, **kw):
 
 
 @functools.lru_cache(maxsize=16)
-def _structure_names(kind: str, cfg, legacy_attention: bool = False) -> frozenset:
-    """Every parameter name of the port's module at `cfg` (a UNet with the
-    legacy AttentionBlocks where `legacy_attention`): the single source of
-    truth for what a checkpoint must provide."""
-    kw = {"legacy_attention": True} if legacy_attention else {}
+def _structure_names(kind: str, cfg, variant: bool = False) -> frozenset:
+    """Every parameter name of the port's module at `cfg` (where `variant`:
+    a UNet with the legacy AttentionBlocks, an MMDiT whose pre-only last
+    context block keeps its ``attn.proj``, a VAE without quant convs): the
+    single source of truth for what a checkpoint must provide."""
+    kw = {}
+    if variant:
+        kw = {"mmdit": {"pre_only_proj": True}, "vae": {"quant_conv": False}}.get(
+            kind, {"legacy_attention": True})
     return frozenset(build_module(kind, cfg, **kw).state_dict())
 
 
@@ -220,10 +234,10 @@ _PRUNABLE_GROUP = re.compile(
 
 
 def verify_tree_names(got: set, kind: str, cfg, what: str,
-                      legacy_attention: bool = False) -> set:
+                      variant: bool = False) -> set:
     """Raise when an expected tensor is missing (minus whole pruned
     groups); return the unexpected names for the caller to drop."""
-    expected = _structure_names(kind, cfg, legacy_attention)
+    expected = _structure_names(kind, cfg, variant)
     missing = expected - got
     if missing and kind == "unet":
         def pruned(name):
@@ -273,13 +287,20 @@ def convert_unet(sd: dict, prefix: str = "model.diffusion_model.", verify: bool 
 
 def convert_vae(sd: dict, prefix: str = "first_stage_model.",
                 scale_factor: float = 0.18215, verify: bool = True):
-    """→ (the VAE's state dict, VAEConfig)."""
+    """→ (the VAE's state dict, VAEConfig); a VAE without quant convs
+    (SD3's published files) is checked against ``AutoencoderKL(cfg,
+    quant_conv=False)``'s names (build it with :func:`vae_kwargs`)."""
     cfg = derive_vae_config(sd, prefix, scale_factor)
     flat = _component(sd, prefix)
     if verify:
-        _drop_extras(flat, verify_tree_names(set(flat), "vae", cfg, prefix.rstrip(".")),
-                     prefix.rstrip("."))
+        _drop_extras(flat, verify_tree_names(set(flat), "vae", cfg, prefix.rstrip("."),
+                                             bool(vae_kwargs(flat))), prefix.rstrip("."))
     return flat, cfg
+
+
+def vae_kwargs(flat: dict) -> dict:
+    """AutoencoderKL's constructor arguments for a VAE state dict."""
+    return {} if "post_quant_conv.weight" in flat else {"quant_conv": False}
 
 
 # --------------------------------------------------------------------------
@@ -304,12 +325,13 @@ def _verified_clip(flat: dict, activation: str, prefix: str):
     return flat, cfg
 
 
-def convert_clip_hf(sd: dict, prefix: str):
+def convert_clip_hf(sd: dict, prefix: str, activation: str = "quick_gelu"):
     """prefix up to and including 'text_model.' → (state dict, config);
-    HF's text_projection is already the (out, in) linear the port holds."""
+    HF's text_projection is already the (out, in) linear the port holds.
+    activation: "gelu" for an HF-layout bigG (SD3's bundled one)."""
     flat = {k: v for k, v in _component(sd, prefix).items()
             if k != "embeddings.position_ids"}
-    return _verified_clip(flat, "quick_gelu", prefix)
+    return _verified_clip(flat, activation, prefix)
 
 
 # --------------------------------------------------------------------------
@@ -514,3 +536,36 @@ def convert_hed(sd: dict, verify: bool = True):
     if verify:
         _drop_extras(flat, verify_tree_names(set(flat), "hed", widths, "hed"), "hed")
     return flat, widths
+
+
+# --------------------------------------------------------------------------
+# SD3 MMDiT
+# --------------------------------------------------------------------------
+
+def has_pre_only_proj(flat: dict, depth: int) -> bool:
+    """Whether the last block's pre-only context side carries an
+    ``attn.proj`` (the JAX package's random trees do, published files not)."""
+    return f"joint_blocks.{depth - 1}.context_block.attn.proj.weight" in flat
+
+
+def convert_mmdit(sd: dict, prefix: str = "model.diffusion_model.", verify: bool = True):
+    """→ (the MMDiT's state dict, MMDiTConfig) (convert.py:544-560): depth
+    from the joint blocks, the context and pooled widths, the position
+    table's side and the rms q/k norm read off the shapes; no layout
+    transposes.  The names are checked against ``MMDiT(cfg)``'s."""
+    from sdwebui_tpu_torch.models.mmdit import MMDiTConfig
+
+    flat = _component(sd, prefix)
+    depth = 1 + max(int(k.split(".")[1]) for k in flat if k.startswith("joint_blocks."))
+    y = flat.get("y_embedder.mlp.0.weight")
+    cfg = MMDiTConfig(
+        in_channels=int(flat["x_embedder.proj.weight"].shape[1]), depth=depth,
+        context_dim=int(flat["context_embedder.weight"].shape[1]),
+        pooled_dim=2048 if y is None else int(y.shape[1]),
+        pos_embed_max_size=int(round(flat["pos_embed"].shape[-2] ** 0.5)),
+        qk_norm=any(k.endswith("ln_q.weight") for k in flat))
+    if verify:
+        _drop_extras(flat, verify_tree_names(set(flat), "mmdit", cfg, prefix.rstrip("."),
+                                             has_pre_only_proj(flat, depth)),
+                     prefix.rstrip("."))
+    return flat, cfg

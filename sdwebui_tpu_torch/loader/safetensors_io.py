@@ -6,8 +6,12 @@ data_offsets}}`` (plus ``__metadata__``), then the raw little-endian data.
 The reader maps the file once (copy-on-write, so the pages stay shared
 with the page cache) and each tensor is a ``torch.frombuffer`` view into
 it: the file is never copied into host RAM as a whole, and a tensor's
-bytes move only when it is copied to the device.  fp8 storage is not
-ported, so F8_E4M3 and F8_E5M2 raise ``NotImplementedError``.
+bytes move only when it is copied to the device.  F8_E4M3 and F8_E5M2
+tensors (the published SD3 bundles store T5-XXL so) read as
+``torch.float8_e4m3fn`` / ``float8_e5m2``; the loader casts them to the
+module's dtype on the device, as JAX casts the T5 tree to param_dtype
+(``load.py:244-245``).  fp8 *storage* of a UNet (opts.fp8_storage) is
+another matter and stays unported.
 """
 
 from __future__ import annotations
@@ -23,9 +27,9 @@ _DTYPES = {
     "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
     "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
     "U8": torch.uint8, "BOOL": torch.bool,
+    "F8_E4M3": torch.float8_e4m3fn, "F8_E5M2": torch.float8_e5m2,
 }
 _NAMES = {v: k for k, v in _DTYPES.items()}
-_FP8 = ("F8_E4M3", "F8_E5M2")
 
 
 class SafetensorsFile:
@@ -54,9 +58,6 @@ class SafetensorsFile:
 
     def tensor(self, name) -> torch.Tensor:
         e = self._entries[name]
-        if e["dtype"] in _FP8:
-            raise NotImplementedError(
-                f"{self.path}: {name} is stored as {e['dtype']}; fp8 storage is not ported yet")
         dtype = _DTYPES.get(e["dtype"])
         if dtype is None:
             raise ValueError(f"unsupported dtype {e['dtype']} for {name}")

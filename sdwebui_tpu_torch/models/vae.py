@@ -164,15 +164,22 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    def __init__(self, cfg: VAEConfig, *, device, dtype, double_z: bool = True):
+    """quant_conv False: SD3's VAE, whose published files hold no 1×1
+    quant convs (the latent is the encoder's mean itself)."""
+
+    def __init__(self, cfg: VAEConfig, *, device, dtype, double_z: bool = True,
+                 quant_conv: bool = True):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.encoder = Encoder(cfg, double_z=double_z, **kw)
         self.decoder = Decoder(cfg, **kw)
         z = 2 if double_z else 1
-        self.quant_conv = Conv2d(z * cfg.z_channels, z * cfg.embed_dim, 1, **kw)
-        self.post_quant_conv = Conv2d(cfg.embed_dim, cfg.z_channels, 1, **kw)
+        if quant_conv:
+            self.quant_conv = Conv2d(z * cfg.z_channels, z * cfg.embed_dim, 1, **kw)
+            self.post_quant_conv = Conv2d(cfg.embed_dim, cfg.z_channels, 1, **kw)
+        else:
+            self.quant_conv = self.post_quant_conv = nn.Identity()
 
     def decode(self, z, tiling: bool = False):
         """scaled latent (B, z, h, w) → image (B, 3, 8h, 8w) in [-1, 1];

@@ -129,12 +129,14 @@ class EmbeddingDatabase:
         return None, 0
 
 
-def attach_embeddings(model, dirpath: str = DEFAULT_EMBEDDINGS_DIR) -> EmbeddingDatabase:
+def attach_embeddings(model, dirpath: str = DEFAULT_EMBEDDINGS_DIR) -> EmbeddingDatabase | None:
     """A new database of the embeddings under `dirpath` for `model`'s text
     encoders (``sdwebui_tpu/server/app.py:143-154``): held to the primary
     encoder's width, and for SDXL's bigG (the base's second encoder, the
     refiner's only one) to its width through the ``clip_g`` rows."""
     cond, cond2 = model.conditioner, model.conditioner2
+    if model.kind == "alt":      # XLM-R is no CLIP: no embeddings, as in JAX (app.py:146-149)
+        return None
     if model.kind == "sdxl-refiner":
         db = EmbeddingDatabase(cond.tokenizer, None, cond.cfg.width)
         cond.embedding_field = "vec_g"

@@ -26,7 +26,9 @@ Hybrid UNets get their image conditioning (``c_concat``,
 ``img2img.py:224-252``): instruct-pix2pix's init latent with its 3-way
 CFG at ``image_cfg_scale``, the inpainting model's mask and masked-image
 latent (SD1 and SDXL), SD2-depth's MiDaS depth.  SDXL runs as txt2img
-does, its vector conds at the request's size.  What JAX's img2img does
+does, its vector conds at the request's size; SD3 noises the init latent
+by the flow's LERP, σ·noise + (1−σ)·x0; an unclip model's adm vector is
+the first init image's noised ViT embedding.  What JAX's img2img does
 not run raises ``NotImplementedError`` naming it: ``refiner_checkpoint``,
 ``inpainting_mask_weight`` other than 1.0, ControlNet units and soft
 inpainting with instruct-pix2pix.
@@ -52,11 +54,12 @@ from sdwebui_tpu_torch.pipeline.processing import (_apply_grid, _build_conds,
                                                    create_infotext, create_rng,
                                                    decode_first_stage_u8,
                                                    encode_first_stage,
-                                                   check_hybrid, maybe_restore_faces,
+                                                   check_family, check_hybrid,
+                                                   maybe_restore_faces,
                                                    prepare_sampler,
                                                    sample_latents, setup_img2img_steps,
                                                    uses_refiner, with_tiling)
-from sdwebui_tpu_torch.pipeline.sd_model import SDModel
+from sdwebui_tpu_torch.pipeline.sd_model import SDModel, unclip_adm
 from sdwebui_tpu_torch.rng.philox import PhiloxGenerator
 from sdwebui_tpu_torch.sampling.sampler import prepare_noise
 from sdwebui_tpu_torch.utils import color
@@ -70,6 +73,7 @@ def _check_img2img(model: SDModel, p: GenerationParams) -> None:
     """Raise for the img2img fields and models the port does not run."""
     _check_slice(p)
     check_hybrid(model)
+    check_family(model, p)
     if uses_refiner(p):
         raise NotImplementedError(
             f"refiner_checkpoint {p.refiner_checkpoint!r} on img2img is not ported (the JAX "
@@ -283,7 +287,10 @@ def _process_img2img(model: SDModel, p: GenerationParams,
         lo = n * b
         seeds = p.all_seeds[lo: lo + b]
         subseeds = p.all_subseeds[lo: lo + b]
-        sched = _build_conds(model, p, t_enc + 1, prompt=clean_prompt)
+        adm = None
+        if model.is_unclip:    # the first init image's noised ViT embedding (img2img.py:265-270)
+            adm = unclip_adm(model, images=mask_info["originals"], seed=p.all_seeds[0])
+        sched = _build_conds(model, p, t_enc + 1, prompt=clean_prompt, adm_vector=adm)
         sched.c_concat = c_concat
         if model.unet_cfg.in_channels == 8 and p.image_cfg_scale not in (None, 1.0):
             sched.image_cfg_scale = float(p.image_cfg_scale)
@@ -296,7 +303,12 @@ def _process_img2img(model: SDModel, p: GenerationParams,
             x = torch.from_numpy(rng.first()).to(model.device)
         if p.initial_noise_multiplier != 1.0:
             x = x * p.initial_noise_multiplier
-        xi = init_latent + x * float(np.float32(sigma_sched[0]))
+        if model.disc.prediction_type == "flow":
+            # rectified flow: x_t = σ·noise + (1−σ)·x0 (img2img.py:287-290)
+            s0 = float(sigma_sched[0])
+            xi = s0 * x + (1.0 - s0) * init_latent
+        else:
+            xi = init_latent + x * float(np.float32(sigma_sched[0]))
         if extra_noise > 0:
             # un-scheduled extra noise on top of the σ₀ injection (reference
             # sd_samplers_kdiffusion.py:145-150)

@@ -13,7 +13,10 @@ t_enc + 1 steps of a second schedule at the target size.  Extra networks
 (``<lora:...>``, ``<hypernet:...>``, textual-inversion triggers) and
 ControlNet units (``pipeline/control.py``) apply to every pass of the base
 model.  A hybrid UNet (the inpainting models' 9 channels, SD2-depth's 5)
-gets its fixed image conditioning (``c_concat``, processing.py:1386-1399).
+gets its fixed image conditioning (``c_concat``, processing.py:1386-1399),
+an unclip model its zero adm vector.  SD3's rectified flow runs the MMDiT
+on the raw latent at t = σ·1000 and noises by the LERP σ·noise + (1−σ)·x
+(processing.py:153-159,733-735).
 ``restore_faces`` runs the face restorer (``postprocessing/faces``) on each
 decoded image.  Images leave as uint8 HWC numpy arrays.  Options and request
 fields outside the slice raise ``NotImplementedError`` naming them;
@@ -39,7 +42,7 @@ from sdwebui_tpu_torch.networks import extra_networks
 from sdwebui_tpu_torch.pipeline.control import control_residuals, prepare_controls
 from sdwebui_tpu_torch.pipeline.params import GenerationParams, Processed
 from sdwebui_tpu_torch.postprocessing import faces, upscalers
-from sdwebui_tpu_torch.pipeline.sd_model import SDModel, sdxl_vector_maker
+from sdwebui_tpu_torch.pipeline.sd_model import SDModel, sdxl_vector_maker, unclip_adm
 from sdwebui_tpu_torch.rng.image_rng import ImageRNG, TorchCPUGenerator
 from sdwebui_tpu_torch.rng.philox import PhiloxGenerator
 from sdwebui_tpu_torch.sampling.cfg import CondSchedule, make_cfg_denoiser
@@ -73,6 +76,51 @@ UNPORTED_HIRES_OPTIONS = {
     "token_merging_ratio_hr": 0.0,
     "save_images_before_highres_fix": False,
 }
+
+def check_family(model: SDModel, p: GenerationParams,
+                 refiner_model: SDModel | None = None) -> None:
+    """Raise for the requests the JAX package has no correct form of with
+    the SD3 and unclip models (ROADMAP queue C): with SD3 a LoRA (merged
+    into UNet keys only), a hypernetwork or ControlNet units (its flow
+    denoiser, processing.py:153-159, drops both), tiling (no field of the
+    MMDiT's config) and LCM (no ᾱ table to distil); soft inpainting with
+    rectified flow (its blend assumes x = x0 + σ·noise); hires fix with an
+    unclip model (its hires pass builds no adm vector); and a refiner
+    unless base and refiner are SDXL."""
+    if model.is_sd3:
+        kinds = {n.kind for n in extra_networks.parse_prompt(p.prompt)[1]}
+        if p.hr_prompt:
+            kinds |= {n.kind for n in extra_networks.parse_prompt(p.hr_prompt)[1]}
+        if kinds & {"lora", "lyco"}:
+            raise NotImplementedError("<lora:...> tags with an SD3 model are not ported (the "
+                                      "JAX package merges LoRAs into UNet keys only)")
+        if "hypernet" in kinds or opts.get("sd_hypernetwork", "None") not in ("None", "", None):
+            raise NotImplementedError("hypernetworks with an SD3 model are not ported (the JAX "
+                                      "package's flow denoiser drops them)")
+        if p.controlnet_units:
+            raise NotImplementedError("controlnet_units with an SD3 model are not ported (the "
+                                      "JAX package's flow denoiser drops them)")
+        if p.tiling:
+            raise NotImplementedError("tiling with an SD3 model is not ported (the MMDiT has "
+                                      "no circular padding in the JAX package)")
+        if get_sampler(p.sampler_name).solver == "lcm" or (
+                p.enable_hr and p.hr_sampler_name
+                and get_sampler(p.hr_sampler_name).solver == "lcm"):
+            raise NotImplementedError("the LCM sampler with an SD3 model is not ported (the "
+                                      "flow schedule has no alphas_cumprod to distil)")
+    if p.soft_inpainting and model.disc.prediction_type == "flow":
+        raise NotImplementedError("soft inpainting with a rectified-flow (SD3) model is not "
+                                  "ported (its blend assumes x = x0 + sigma * noise)")
+    if model.is_unclip and p.enable_hr:
+        raise NotImplementedError("enable_hr with an unclip model is not ported (the JAX "
+                                  "package's hires pass builds no adm vector)")
+    if uses_refiner(p) and (not model.is_sdxl
+                            or (refiner_model is not None and not refiner_model.is_sdxl)):
+        raise NotImplementedError(
+            f"refiner_checkpoint with a {model.kind!r} model"
+            + (f" and a {refiner_model.kind!r} refiner" if refiner_model is not None else "")
+            + " is not ported: the refiner handoff is SDXL's only")
+
 
 def _check_slice(p: GenerationParams) -> None:
     """Raise for every request field and option the slice does not run."""
@@ -122,7 +170,8 @@ def make_denoise_fn(model: SDModel, quantize_t: bool, compute_dtype, solver: str
                     hypernet=None, controls=(), conds_per_image: int = 1):
     """denoise(x, sigma, ctx, y=None, step=0, c_concat=None) → denoised:
     k-diffusion CompVis(V)Denoiser scalings around the UNet
-    (processing.py:150-202); y is the SDXL vector cond; c_concat, a hybrid
+    (processing.py:150-202), or for SD3's rectified flow the MMDiT's
+    velocity at t = σ·1000; y is the SDXL / SD3 / unclip vector cond; c_concat, a hybrid
     UNet's image conditioning, joins the scaled latent on the channel axis
     after the ControlNet towers have read its 4 channels
     (processing.py:187-188).  For LCM, σ snaps to the distillation
@@ -139,6 +188,13 @@ def make_denoise_fn(model: SDModel, quantize_t: bool, compute_dtype, solver: str
 
     def denoise(x, sigma: float, ctx, y=None, step: int = 0, c_concat=None):
         s = np.float32(sigma)
+        if prediction_type == "flow":
+            # rectified flow (SD3, processing.py:153-159): the raw latent,
+            # timestep σ·1000, a velocity out, x0 = x − v·σ
+            timesteps = torch.full((x.shape[0],), float(s * np.float32(1000.0)),
+                                   dtype=torch.float32, device=x.device)
+            out = model.unet(x.to(compute_dtype), timesteps, ctx, y).float()
+            return x - out * float(s)
         if lcm:
             j = int(np.argmin(np.abs(np.log(np.maximum(s, np.float32(1e-12))) - sub)))
             t = np.float32(j * skip + (skip - 1))
@@ -415,13 +471,16 @@ def _skip_uncond_mask(sigmas, p: GenerationParams):
 def _build_conds(model: SDModel, p: GenerationParams, steps: int,
                  cfg_scale: float | None = None, prompt: str | None = None,
                  negative: str | None = None, width: int | None = None,
-                 height: int | None = None, hires_steps: int | None = None) -> CondSchedule:
-    """The CFG schedule (processing.py:1061-1102) of the request's prompts,
+                 height: int | None = None, hires_steps: int | None = None,
+                 adm_vector=None) -> CondSchedule:
+    """The CFG schedule (processing.py:1061-1113) of the request's prompts,
     or of the given ones (the hires pass).  SDXL keeps CLIP-L at the
     penultimate layer unless opts.sdxl_clip_l_skip, and adds the y vectors
-    (sizes, crop, and for the refiner the aesthetic scores).  hires_steps:
-    the second pass's steps, which the prompt-edit schedule continues into
-    unless opts.use_old_scheduling."""
+    (sizes, crop, and for the refiner the aesthetic scores); SD3's y is the
+    pooled CLIP-L ⊕ bigG; adm_vector (unclip's) is one vector for every
+    schedule entry and both CFG branches.  hires_steps: the second pass's
+    steps, which the prompt-edit schedule continues into unless
+    opts.use_old_scheduling."""
     if model.is_sdxl and not opts.get("sdxl_clip_l_skip", False):
         model.conditioner.clip_skip = 2
     else:
@@ -435,12 +494,20 @@ def _build_conds(model: SDModel, p: GenerationParams, steps: int,
             crop=(int(opts.get("sdxl_crop_top", 0)), int(opts.get("sdxl_crop_left", 0))),
             aesthetic_score=float(opts.get("sdxl_refiner_high_aesthetic_score", 6.0)),
             negative_aesthetic_score=float(opts.get("sdxl_refiner_low_aesthetic_score", 2.5)))
-    return build_cond_schedule(
+    elif model.is_sd3:
+        vector_maker = lambda pooled, is_uncond: pooled.float()   # noqa: E731
+    sched = build_cond_schedule(
         model.encode_texts, p.prompt if prompt is None else prompt,
         p.negative_prompt if negative is None else negative, steps,
         cond_scale=p.cfg_scale if cfg_scale is None else cfg_scale,
         vector_maker=vector_maker, hires_steps=hires_steps,
         use_old_scheduling=bool(opts.get("use_old_scheduling", False)))
+    if adm_vector is not None:
+        k, max_sched = sched.cond_bank.shape[:2]
+        v = adm_vector.float()
+        sched.vector_bank = v.expand((k, max_sched) + v.shape)
+        sched.vector_uncond_bank = v.expand((sched.uncond_bank.shape[0],) + v.shape)
+    return sched
 
 
 def _refiner_split_idx(model: SDModel, sigmas, switch_at: float, max_steps: int) -> int:
@@ -555,7 +622,11 @@ def _hires_pass(model: SDModel, p: GenerationParams, latents, seeds, subseeds,
     rng = create_rng((c, th, tw), seeds, subseeds=subseeds,
                      subseed_strength=p.subseed_strength)
     noise0 = torch.from_numpy(rng.first()).to(model.device)
-    x = up + noise0 * float(np.float32(sigma_sched[0]))
+    if model.disc.prediction_type == "flow":   # the LERP (processing.py:733-735)
+        s0 = float(sigma_sched[0])
+        x = s0 * noise0 + (1.0 - s0) * up
+    else:
+        x = up + noise0 * float(np.float32(sigma_sched[0]))
     extra_noise = float(opts.get("img2img_extra_noise", 0.0) or 0.0)
     if extra_noise > 0:
         # the un-scheduled extra noise img2img adds, shared by the hires
@@ -827,6 +898,7 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
                      callback: Callable | None = None) -> Processed:
     _check_slice(p)
     check_hybrid(model)
+    check_family(model, p, refiner_model)
     hybrid = model.unet_cfg.in_channels != model.latent_channels
     if model.unet_cfg.in_channels == 8:
         raise NotImplementedError(
@@ -868,7 +940,9 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
         lo = n * p.batch_size
         seeds = p.all_seeds[lo: lo + p.batch_size]
         subseeds = p.all_subseeds[lo: lo + p.batch_size]
-        sched = _build_conds(model, p, p.steps, prompt=clean_prompt)
+        # unclip: a zero adm vector in txt2img (processing.py:1416-1418)
+        adm = unclip_adm(model) if model.is_unclip else None
+        sched = _build_conds(model, p, p.steps, prompt=clean_prompt, adm_vector=adm)
         sched.skip_uncond = _skip_uncond_mask(sigmas, p)
         sched.c_concat = c_concat
         rng = create_rng((c, h, w), seeds, subseeds=subseeds,

@@ -1,8 +1,9 @@
 """The loaded-model bundle: UNet + VAE + text encoder(s) + discretization.
 
-Port of ``sdwebui_tpu/pipeline/sd_model.py:29-113,223-258,319-411,445-464``
-for SD1.x, SD2.x (and SD2-depth's MiDaS tower) and the SDXL base and
-refiner (a checkpoint file's
+Port of ``sdwebui_tpu/pipeline/sd_model.py:29-113,223-300,319-464``
+for SD1.x, SD2.x (SD2-depth's MiDaS tower, SD2.1-unclip's ViT and
+``unclip_adm``), the SDXL base and refiner, AltDiffusion (XLM-R) and SD3
+(the MMDiT, CLIP-L ⊕ bigG and an optional T5-XXL) (a checkpoint file's
 bundle comes from ``loader/load.py``).  The bundle holds ``nn.Module``s
 on one explicit device.  Random weights come
 from an explicit ``torch.Generator`` on that device, with the
@@ -17,6 +18,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from sdwebui_tpu_torch.models.clip import CLIPTextModel
 from sdwebui_tpu_torch.models.configs import (CLIP_L, OPEN_CLIP_BIGG, OPEN_CLIP_H,
@@ -51,7 +53,7 @@ class SDModel:
     device: torch.device
     title: str = "random-sd15"            # "<file name> [<sha256[:10]>]" when loaded
     sha256: str = ""
-    kind: str = "sd1"                     # sd1 | sd2 | sdxl | sdxl-refiner
+    kind: str = "sd1"                     # sd1 | sd2 | sdxl | sdxl-refiner | sd3 | alt
     conditioner2: TextConditioner | None = None   # SDXL base's OpenCLIP-bigG
     filename: str = ""                    # the checkpoint file, when loaded from one
     vae_file: str = ""                    # an external VAE file in use, else ""
@@ -62,10 +64,28 @@ class SDModel:
     network_cache: dict = dataclasses.field(default_factory=dict, repr=False)
     # SD2-depth's MiDaS tower (fp32), the 5-channel UNet's conditioner
     depth_model: DPTDepthModel | None = None
+    # SD3's third text encoder (T5-XXL) with its config and tokenizer
+    # (text -> 77 ids), when loaded and sd3_enable_t5
+    t5: torch.nn.Module | None = None
+    t5_cfg: object = None
+    t5_tokenizer: object = None
+    # SD2.1-unclip: the open_clip ViT and the noise augmentor's
+    # {"mean": (D,), "std": (D,)} data statistics
+    image_embedder: torch.nn.Module | None = None
+    noise_aug_stats: dict | None = None
 
     @property
     def is_sdxl(self) -> bool:
         return self.kind.startswith("sdxl")
+
+    @property
+    def is_sd3(self) -> bool:
+        return self.kind == "sd3"
+
+    @property
+    def is_unclip(self) -> bool:
+        """crossattn-adm conditioning (SD2.1-unclip)."""
+        return self.image_embedder is not None
 
     @property
     def is_depth(self) -> bool:
@@ -85,16 +105,32 @@ class SDModel:
         for cond in (self.conditioner, self.conditioner2):
             if cond is not None:
                 cond.model.to(self.device)
-        for module in (self.unet, self.vae, self.embedded_vae, self.depth_model):
+        for module in (self.unet, self.vae, self.embedded_vae, self.depth_model, self.t5,
+                       self.image_embedder):
             if module is not None:
                 module.to(self.device)
+        if self.noise_aug_stats is not None:
+            self.noise_aug_stats = {k: v.to(self.device) for k, v in self.noise_aug_stats.items()}
         return self
 
     def encode_texts(self, texts, target_chunks=None):
-        """texts → (N, S, D) crossattn conds, or (conds, pooled) for SDXL:
-        the base concatenates CLIP-L and bigG on features and pools bigG;
-        the refiner has bigG alone (sd_model.py:80-113)."""
+        """texts → (N, S, D) crossattn conds, or (conds, pooled) for SDXL and
+        SD3 (sd_model.py:71-113): the SDXL base concatenates CLIP-L and bigG
+        on features and pools bigG; the refiner has bigG alone.  SD3: CLIP-L
+        ⊕ bigG on features, zero-padded to the MMDiT's context width, then
+        T5's context on the token axis when T5 and its tokenizer are loaded
+        (without T5 the joint sequence is CLIP's 77 tokens, as in JAX);
+        pooled = CLIP-L's ⊕ bigG's (2048)."""
         cond, pooled = self.conditioner.encode(texts, target_chunks=target_chunks)
+        if self.kind == "sd3":
+            cond2, pooled2 = self.conditioner2.encode(texts, target_chunks=target_chunks)
+            lg = torch.cat([cond, cond2], dim=-1)
+            lg = F.pad(lg, (0, self.unet_cfg.context_dim - lg.shape[-1]))
+            if self.t5 is not None and self.t5_tokenizer is not None:
+                ids = torch.as_tensor([self.t5_tokenizer(t) for t in texts], dtype=torch.int64,
+                                      device=lg.device)
+                lg = torch.cat([lg, self.t5(ids).to(lg.dtype)], dim=1)
+            return lg, torch.cat([pooled, pooled2], dim=-1)
         if self.kind == "sdxl":
             cond2, pooled = self.conditioner2.encode(texts, target_chunks=target_chunks)
             return torch.cat([cond, cond2], dim=-1), pooled
@@ -183,6 +219,128 @@ def create_random_sd2_depth(seed: int = 0, device="cuda") -> SDModel:
                    conditioner=TextConditioner(clip, OPEN_CLIP_H, get_tokenizer(), clip_skip=2),
                    device=device, title="random-sd2-depth.safetensors [0000000000]",
                    kind="sd2", depth_model=create_random_dpt(seed + 4, device))
+
+
+def _full_random(module, seed: int, device):
+    """A module whose own ``reset_random`` covers what layers.reset_random
+    does not (position tables, class embeddings, RMS norms)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    module.reset_random(gen)
+    return module
+
+
+#: SD3-medium's 16-channel VAE: no quant convs, scale 1.5305, shift 0.0609
+SD3_VAE = VAEConfig(embed_dim=16, z_channels=16, scale_factor=1.5305, shift_factor=0.0609)
+
+
+def create_random_sd3(seed: int = 0, device="cuda", t5: bool = False) -> SDModel:
+    """Random-weight SD3-medium at the published widths: the MMDiT (depth
+    24, hidden 1536, 24 heads, pos_embed_max_size 192, context 4096,
+    pooled 2048) in the policy's param_dtype, the 16-channel VAE in
+    vae_dtype, CLIP-L and bigG in fp32 at the penultimate layer without the
+    final norm; with `t5`, T5-XXL (d_model 4096, 24 layers, 64 heads, d_ff
+    10240, vocab 32128) in param_dtype, which takes token ids: set
+    ``t5_tokenizer`` to use it."""
+    from sdwebui_tpu_torch.models.mmdit import SD3_MEDIUM, MMDiT
+    from sdwebui_tpu_torch.models.t5 import T5_XXL, T5Encoder
+    from sdwebui_tpu_torch.sampling.discretization import FlowDiscretization
+
+    device = get_device(device)
+    dtype = get_policy().param_dtype
+    unet = _full_random(MMDiT(SD3_MEDIUM, device=device, dtype=dtype), seed, device)
+    vae = _random(AutoencoderKL(SD3_VAE, device=device, dtype=get_policy().vae_dtype,
+                                quant_conv=False), seed + 2, device)
+    f32 = torch.float32
+    clip_l = _random(CLIPTextModel(CLIP_L, device=device, dtype=f32), seed + 1, device)
+    clip_g = _random(CLIPTextModel(OPEN_CLIP_BIGG, device=device, dtype=f32), seed + 3, device)
+    model = SDModel(
+        unet=unet, unet_cfg=SD3_MEDIUM, vae=vae, vae_cfg=SD3_VAE,
+        disc=FlowDiscretization(shift=3.0),
+        conditioner=TextConditioner(clip_l, CLIP_L, get_tokenizer(), clip_skip=2,
+                                    apply_final_norm=False),
+        conditioner2=TextConditioner(clip_g, OPEN_CLIP_BIGG, get_tokenizer(), clip_skip=2,
+                                     apply_final_norm=False),
+        device=device, title="random-sd3-medium.safetensors [0000000000]", kind="sd3")
+    if t5:
+        model.t5 = _full_random(T5Encoder(T5_XXL, device=device, dtype=dtype), seed + 5, device)
+        model.t5_cfg = T5_XXL
+    return model
+
+
+def create_random_sd2_unclip(seed: int = 0, device="cuda") -> SDModel:
+    """Random-weight SD2.1-unclip-h at the published widths: the SD2 UNet
+    with a 2048-wide adm (ViT-H's 1024-wide embedding ⊕ the noise level's
+    1024-wide sinusoid), OpenCLIP-H at clip skip 2, the SD VAE, the
+    open_clip ViT-H/14 image embedder (fp32) and unit noise statistics.
+    UNet in the policy's param_dtype."""
+    from sdwebui_tpu_torch.models.clip_vision import VIT_H, CLIPVisionModel
+
+    device = get_device(device)
+    unet_cfg = dataclasses.replace(SD21_UNET, adm_in_channels=2 * VIT_H.projection_dim)
+    unet = _random(UNetModel(unet_cfg, device=device, dtype=get_policy().param_dtype), seed,
+                   device)
+    clip = _random(CLIPTextModel(OPEN_CLIP_H, device=device, dtype=torch.float32), seed + 1,
+                   device)
+    vae = _random(AutoencoderKL(SD_VAE, device=device, dtype=torch.float32), seed + 2, device)
+    gen = torch.Generator(device=device).manual_seed(seed + 6)
+    stats = {"mean": 0.1 * torch.randn(VIT_H.projection_dim, generator=gen, device=device),
+             "std": 1.0 + 0.1 * torch.rand(VIT_H.projection_dim, generator=gen, device=device)}
+    return SDModel(unet=unet, unet_cfg=unet_cfg, vae=vae, vae_cfg=SD_VAE,
+                   disc=Discretization(make_alphas_cumprod()),
+                   conditioner=TextConditioner(clip, OPEN_CLIP_H, get_tokenizer(), clip_skip=2),
+                   device=device, title="random-sd21-unclip-h.safetensors [0000000000]",
+                   kind="sd2", noise_aug_stats=stats,
+                   image_embedder=_full_random(CLIPVisionModel(VIT_H, device=device,
+                                                               dtype=torch.float32),
+                                               seed + 4, device))
+
+
+def create_random_alt(seed: int = 0, device="cuda", tokenizer=None) -> SDModel:
+    """Random-weight AltDiffusion at the published widths: the SD1.5 UNet
+    and VAE with XLM-R large (24 layers, width 1024, 16 heads, vocab
+    250002) and its 768-wide projection as the conditioner (fp32); the UNet
+    in the policy's param_dtype.  `tokenizer`: text → XLM-R ids."""
+    from sdwebui_tpu_torch.models.xlmr import XLMR_LARGE, AltConditioner, XLMRModel
+
+    device = get_device(device)
+    unet = _random(UNetModel(SD15_UNET, device=device, dtype=get_policy().param_dtype), seed,
+                   device)
+    vae = _random(AutoencoderKL(SD_VAE, device=device, dtype=torch.float32), seed + 2, device)
+    xlmr = _random(XLMRModel(XLMR_LARGE, device=device, dtype=torch.float32), seed + 1, device)
+    return SDModel(unet=unet, unet_cfg=SD15_UNET, vae=vae, vae_cfg=SD_VAE,
+                   disc=Discretization(make_alphas_cumprod()),
+                   conditioner=AltConditioner(xlmr, XLMR_LARGE, tokenizer), device=device,
+                   title="random-altdiffusion.safetensors [0000000000]", kind="alt")
+
+
+def unclip_adm(model: SDModel, images=None, noise_level: int = 0, seed: int = 0):
+    """The unclip model's adm vector (sd_model.py:261-300): img2img: the
+    ViT's raw projected embedding of the first init image, normalised by
+    the noise augmentor's statistics, noised to `noise_level` with
+    Philox(seed) noise (ldm's CLIPEmbeddingNoiseAugmentation; the reference
+    uses level 0), un-normalised, and the level's sinusoid embedding
+    appended; txt2img (no images): zeros.  One (adm_in_channels,) fp32
+    vector on the model's device."""
+    from sdwebui_tpu_torch.models.clip_vision import preprocess
+    from sdwebui_tpu_torch.rng.philox import PhiloxGenerator
+
+    adm_ch = int(model.unet_cfg.adm_in_channels)
+    if images is None:
+        return torch.zeros((adm_ch,), dtype=torch.float32, device=model.device)
+    cfg = model.image_embedder.cfg
+    dim = adm_ch - cfg.projection_dim
+    pixels = torch.from_numpy(preprocess(images[0], cfg.image_size)).to(model.device)
+    emb = model.image_embedder(pixels, normalize=False).float()             # (1, D)
+    mean = model.noise_aug_stats["mean"].reshape(1, -1)
+    std = model.noise_aug_stats["std"].reshape(1, -1)
+    x = (emb - mean) / std
+    ac = float(make_alphas_cumprod()[noise_level])
+    noise = torch.from_numpy(PhiloxGenerator(seed).randn(tuple(x.shape))).to(model.device)
+    z = (ac ** 0.5) * x + ((1.0 - ac) ** 0.5) * noise
+    z = z * std + mean
+    lvl = timestep_embedding(torch.tensor([float(noise_level)], device=model.device), dim)
+    return torch.cat([z, lvl], dim=-1)[0]
 
 
 def _sdxl_conditioner(cfg: CLIPTextConfig, seed: int, device, dtype) -> TextConditioner:
@@ -293,6 +451,27 @@ _TINY_SDXL = _SDXLFamily(TINY_SDXL_UNET, TINY_SDXL_REFINER_UNET, TINY_CLIP_L, TI
                          "tiny-sdxl-refiner-test [0000000001]")
 
 
+def create_tiny_sd3(seed: int = 0, device="cpu") -> SDModel:
+    """Miniature SD3 in fp32 (the configs of the JAX package's
+    ``create_tiny_sd3``): an MMDiT of depth 2 on a 96-wide context, a tiny
+    16-channel VAE, tiny CLIP-L and bigG, the flow schedule."""
+    from sdwebui_tpu_torch.models.mmdit import MMDiT, MMDiTConfig
+    from sdwebui_tpu_torch.sampling.discretization import FlowDiscretization
+
+    device = get_device(device)
+    f32 = torch.float32
+    cfg = MMDiTConfig(depth=2, context_dim=96, pooled_dim=96, pos_embed_max_size=16)
+    vae_cfg = dataclasses.replace(TINY_VAE, embed_dim=16, z_channels=16, scale_factor=1.5305,
+                                  shift_factor=0.0609)
+    return SDModel(
+        unet=_full_random(MMDiT(cfg, device=device, dtype=f32), seed, device), unet_cfg=cfg,
+        vae=_random(AutoencoderKL(vae_cfg, device=device, dtype=f32), seed + 2, device),
+        vae_cfg=vae_cfg, disc=FlowDiscretization(shift=3.0),
+        conditioner=_sdxl_conditioner(TINY_CLIP_L, seed + 1, device, f32),
+        conditioner2=_sdxl_conditioner(TINY_CLIP_G, seed + 3, device, f32),
+        device=device, title="tiny-sd3-test [0000000000]", kind="sd3")
+
+
 def create_tiny_sdxl(seed: int = 0, device="cpu", refiner: bool = False,
                      shared: SDModel | None = None, in_channels: int = 4) -> SDModel:
     """Miniature SDXL-shaped model (dual encoders, adm vectors, linear
@@ -366,25 +545,56 @@ def dpt_from_jax(tree: dict, jax_cfg, device="cpu") -> DPTDepthModel:
 
 
 def from_jax(jax_model, device="cpu") -> SDModel:
-    """Build the port's SDModel from a JAX ``SDModel`` (sd1, sd2, sdxl or
-    sdxl-refiner, and an SD2-depth model's MiDaS tower).  The UNet and text
-    encoders keep their trees' dtypes; the VAE and the tower are fp32.
-    Every key of every tree is consumed and every module parameter
-    filled: ``load_state_dict(strict=True)``."""
+    """Build the port's SDModel from a JAX ``SDModel``: sd1, sd2 (with an
+    SD2-depth model's MiDaS tower, or an unclip model's ViT and noise
+    statistics), sdxl, sdxl-refiner, alt (XLM-R) and sd3 (the MMDiT, and
+    T5 with its tokenizer where the JAX model has them).  The UNet, the
+    MMDiT, T5 and the CLIP encoders keep their trees' dtypes; the VAE, the
+    towers and XLM-R are fp32.  Every key of every tree is consumed and
+    every module parameter filled: ``load_state_dict(strict=True)``."""
     device = get_device(device)
-    unet_sd = state_dict_from_tree(jax_model.unet_params)
-    unet = UNetModel(jax_model.unet_cfg, device=device,
-                     dtype=next(iter(unet_sd.values())).dtype)
+    if jax_model.kind == "sd3":
+        from sdwebui_tpu_torch.models.mmdit import mmdit_from_jax
+        from sdwebui_tpu_torch.sampling.discretization import FlowDiscretization
+
+        unet = mmdit_from_jax(jax_model.unet_params, jax_model.unet_cfg, device)
+        disc = FlowDiscretization(shift=jax_model.disc.shift)
+    else:
+        unet_sd = state_dict_from_tree(jax_model.unet_params)
+        unet = UNetModel(jax_model.unet_cfg, device=device,
+                         dtype=next(iter(unet_sd.values())).dtype)
+        unet.load_state_dict(unet_sd, strict=True)
+        disc = Discretization(np.asarray(jax_model.disc.alphas_cumprod),
+                              prediction_type=jax_model.disc.prediction_type)
     vae = AutoencoderKL(jax_model.vae_cfg, device=device, dtype=torch.float32)
-    unet.load_state_dict(unet_sd, strict=True)
     vae.load_state_dict(state_dict_from_tree(jax_model.vae_params), strict=True)
-    disc = Discretization(np.asarray(jax_model.disc.alphas_cumprod),
-                          prediction_type=jax_model.disc.prediction_type)
+    if jax_model.kind == "alt":
+        from sdwebui_tpu_torch.models.xlmr import AltConditioner, XLMRConfig, xlmr_from_jax
+
+        jc = jax_model.conditioner
+        xlmr = xlmr_from_jax(jc.params, jc.cfg, device)
+        cond = AltConditioner(xlmr, XLMRConfig(**dataclasses.asdict(jc.cfg)), jc.tokenizer,
+                              jc.max_length)
+    else:
+        cond = _conditioner_from_jax(jax_model.conditioner, device)
     cond2 = jax_model.conditioner2
-    return SDModel(unet=unet, unet_cfg=unet.cfg, vae=vae, vae_cfg=vae.cfg, disc=disc,
-                   conditioner=_conditioner_from_jax(jax_model.conditioner, device),
-                   conditioner2=None if cond2 is None else _conditioner_from_jax(cond2, device),
-                   device=device, title=jax_model.title, sha256=jax_model.sha256,
-                   kind=jax_model.kind,
-                   depth_model=None if jax_model.depth_params is None else dpt_from_jax(
-                       jax_model.depth_params, jax_model.depth_cfg, device))
+    model = SDModel(unet=unet, unet_cfg=unet.cfg, vae=vae, vae_cfg=vae.cfg, disc=disc,
+                    conditioner=cond,
+                    conditioner2=None if cond2 is None else _conditioner_from_jax(cond2, device),
+                    device=device, title=jax_model.title, sha256=jax_model.sha256,
+                    kind=jax_model.kind,
+                    depth_model=None if jax_model.depth_params is None else dpt_from_jax(
+                        jax_model.depth_params, jax_model.depth_cfg, device))
+    if jax_model.t5_params is not None:
+        from sdwebui_tpu_torch.models.t5 import t5_from_jax
+
+        model.t5 = t5_from_jax(jax_model.t5_params, jax_model.t5_cfg, device)
+        model.t5_cfg, model.t5_tokenizer = model.t5.cfg, jax_model.t5_tokenizer
+    if jax_model.image_embedder_params is not None:
+        from sdwebui_tpu_torch.models.clip_vision import clip_vision_from_jax
+
+        model.image_embedder = clip_vision_from_jax(jax_model.image_embedder_params,
+                                                    jax_model.image_embedder_cfg, device)
+        model.noise_aug_stats = {k: torch.as_tensor(np.array(v, np.float32), device=device)
+                                 .reshape(-1) for k, v in jax_model.noise_aug_stats.items()}
+    return model

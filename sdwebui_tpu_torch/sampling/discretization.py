@@ -3,7 +3,8 @@
 A copy of what the port's samplers need from
 ``sdwebui_tpu/sampling/discretization.py`` (the JAX package's ``sampling``
 ``__init__`` imports jax, so the module cannot be reused from there): the
-sigma table and LCM's distillation subtable.  Tests hold both equal.
+sigma table, LCM's distillation subtable and SD3's rectified-flow table.
+Tests hold both equal.
 """
 
 from __future__ import annotations
@@ -100,3 +101,22 @@ def lcm_schedule(disc, n: int, original_timesteps: int = 50) -> np.ndarray:
     w = ts - low
     log_sigma = (1 - w) * log_sub[low] + w * log_sub[high]
     return np.concatenate([np.exp(log_sigma), [0.0]])
+
+
+class FlowDiscretization(Discretization):
+    """Rectified-flow (SD3) sigma table (discretization.py:111-136):
+    σ(t) = shift·t / (1 + (shift−1)·t), t = 1/T … 1, so σ_max = 1; the model
+    timestep is σ·1000.  x_t is the LERP σ·noise + (1−σ)·x0, not variance
+    exploding: the pipeline branches on prediction_type == "flow"."""
+
+    def __init__(self, shift: float = 3.0, timesteps: int = 1000):
+        self.shift = shift
+        t = np.arange(1, timesteps + 1, dtype=np.float64) / timesteps
+        self.prediction_type = "flow"
+        self.quantize = False
+        self.alphas_cumprod = None
+        self.sigmas = self.shift * t / (1 + (self.shift - 1) * t)
+        self.log_sigmas = np.log(self.sigmas)
+
+    def noise_scaling(self, sigma, noise, latent):
+        return sigma * noise + (1.0 - sigma) * latent

@@ -183,7 +183,9 @@ OPTIONS = OVERRIDES | IMG2IMG_OVERRIDES | {
     "sd_vae_checkpoint_cache", "sd_vae_overrides_per_model_preferences",
     "list_hidden_files", "disable_mmap_load_safetensors", "postprocessing_operation_order",
     "postprocessing_disable_in_extras", "realesrgan_enabled_models", "dat_enabled_models",
-    "live_previews_image_format", "interrupt_after_current"}
+    "live_previews_image_format", "interrupt_after_current",
+    # read by the loader at the next checkpoint load: SD3's bundled T5-XXL
+    "sd3_enable_t5"}
 
 #: the Extras request's fields (ExtrasSingleImageRequest; ``name`` is a
 #: batch item's file name)

@@ -316,3 +316,37 @@ def test_ldsr_schedule_equals_jax():
                                   jax_ldsr.make_alphas(jax_ldsr.LDSRConfig()))
     assert [f.name for f in dataclasses.fields(ldsr.LDSRConfig)] == \
         [f.name for f in dataclasses.fields(jax_ldsr.LDSRConfig)]
+
+
+SPM_SHARED = ("_read_varint", "_iter_fields", "parse_model_proto", "SentencePieceUnigram",
+              "make_t5_tokenizer")
+
+
+@pytest.mark.parametrize("name", SPM_SHARED)
+def test_sentencepiece_source_equals_jax(name):
+    """The SentencePiece reader is a copy: every shared function and class
+    has JAX's source text (the port's tokenizer.json branch and its XLM-R
+    guard are its own, held to JAX's behaviour in test_torch_alt)."""
+    import inspect
+
+    from sdwebui_tpu.text import sentencepiece as jax_spm
+    from sdwebui_tpu_torch.text import sentencepiece as spm
+
+    assert inspect.getsource(getattr(spm, name)) == inspect.getsource(getattr(jax_spm, name))
+    assert (spm.NORMAL, spm.UNKNOWN, spm.CONTROL, spm.USER_DEFINED, spm.UNUSED, spm.BYTE) == \
+        (jax_spm.NORMAL, jax_spm.UNKNOWN, jax_spm.CONTROL, jax_spm.USER_DEFINED,
+         jax_spm.UNUSED, jax_spm.BYTE)
+
+
+def test_sentencepiece_on_a_corpus(tmp_path):
+    from sdwebui_tpu.text import sentencepiece as jax_spm
+    from sdwebui_tpu_torch.text import sentencepiece as spm
+    from test_sentencepiece import VOCAB, _model_proto
+
+    path = tmp_path / "v.model"
+    path.write_bytes(_model_proto(VOCAB))
+    ours, theirs = spm.load_sentencepiece(str(path)), jax_spm.load_sentencepiece(str(path))
+    for prompt in PROMPTS + ["the cat on the mat", "Ünïcode cat", "  spaced   out  "]:
+        assert ours.encode(prompt, add_bos=True, add_eos=True) == \
+            theirs.encode(prompt, add_bos=True, add_eos=True)
+        assert ours.decode(ours.encode(prompt)) == theirs.decode(theirs.encode(prompt))

@@ -136,7 +136,8 @@ def test_png_roundtrip_and_pil_interop():
 
 _HYGIENE = r"""
 import importlib, json, pkgutil, sys
-BLOCKED = ("sdwebui_tpu", "jax", "jaxlib", "PIL", "pydantic", "ml_dtypes", "safetensors", "cv2")
+BLOCKED = ("sdwebui_tpu", "jax", "jaxlib", "PIL", "pydantic", "ml_dtypes", "safetensors", "cv2",
+           "tokenizers", "transformers", "sentencepiece")
 
 
 class Recorder:
@@ -253,6 +254,24 @@ with tempfile.TemporaryDirectory() as d:
     assert status == 200 and len(out["images"]) == 1, out
     set_lora_dirs(DEFAULT_LORA_DIRS)
     control.set_model_dirs([control.DEFAULT_CONTROLNET_DIR])
+from sdwebui_tpu_torch.loader.load import load_model
+from sdwebui_tpu_torch.models import clip_vision
+from sdwebui_tpu_torch.pipeline.sd_model import create_tiny_sd3
+from sdwebui_tpu_torch.text import sentencepiece
+with tempfile.TemporaryDirectory() as d:
+    path = os.path.join(d, "sd3.safetensors")
+    sd = ldm_state_dict(create_tiny_sd3(0, "cpu"))
+    write_safetensors(path, {k: v.to(torch.float8_e4m3fn) if "clip_l" in k and v.dim() == 2
+                             else v for k, v in sd.items()})
+    res = process_txt2img(load_model(path, device="cpu"), GenerationParams(
+        prompt="a cat", seed=3, steps=2, width=64, height=64, sampler_name="Euler"))
+    assert res.images[0].shape == (64, 64, 3)
+    with open(os.path.join(d, "tokenizer.json"), "w") as f:
+        json.dump({"model": {"type": "Unigram", "unk_id": 0,
+                             "vocab": [["<unk>", 0.0], ["\u2581cat", -1.0]]}}, f)
+    assert sentencepiece.make_t5_tokenizer(os.path.join(d, "tokenizer.json"), 4)("cat") == \
+        [1, 1, 0, 0]
+assert clip_vision.preprocess(np.zeros((40, 30, 3), np.uint8), 32).shape == (1, 3, 32, 32)
 from sdwebui_tpu_torch.models.hed import create_random_hed
 from sdwebui_tpu_torch.models.midas import create_random_dpt
 from sdwebui_tpu_torch.pipeline import annotators
