@@ -33,7 +33,10 @@ Phases, in order; any failure exits non-zero:
      (1, 4096, 20·32), also as fused-qkv views) and B1 f32 at S = 65536
      (LDSR's VQ decoder at a 256² input, held against the plain version over
      blocks of 4096 query rows) with one checked, timed call at S = 262144
-     (a 512² input),
+     (a 512² input, with SDPA's f32 backends tried there), the option
+     shapes of phase 4k (B2 at hypertile's tiles (8, 1024, 8·40), (32,
+     1024, 8·40), (8, 1024, 10·64), ToMe's (2, 2048, 8·40), and in f32 at
+     (2, 4096, 8·40) and (2, 1024, 8·80) for upcast_attn, max|Δ| <= 1e-4),
      and B4 (3x3 conv at the
      JAX docstring's shapes, the SD1.5 UNet's B=2 shapes and two ragged
      widths);
@@ -234,6 +237,27 @@ Phases, in order; any failure exits non-zero:
      embedding); (c) AltDiffusion (XLM-R large) at 512² txt2img.  Every
      request's B1, B2 and B5 launches equal the plan written before it
      (SD3 1024²: B2 = 20 x 24, B5 = 20 x 96 + CLIP's 90, B1 = 1).
+  4k. the options of a stock client (run on the SD1.5 server after 4b and
+     on the SDXL server after 7): (a) SD1.5 512² batch 1 with, in turn, no
+     option, hypertile, ToMe 0.5, upcast_attn, Zero Terminal SNR with the
+     SGM noise multiplier, old emphasis, randn_source "GPU" and the plain
+     request again, each with the cond cache on: s/request, each image's
+     level difference from the plain one (the repeat 0 levels), launches
+     equal to `options_plan` (written before the run: hypertile B2 200,
+     100 of them at (8, 1024, 8·40); ToMe 100 at (2, 2048, 8·40); a
+     cond-cache hit B5 960), then a ToMe request under torch.profiler, as
+     phase 7; (c) the device Philox stream on the card
+     against the CPU run of the same code and the host NV stream (<= 2 f32
+     ulps each) and torch.randn with a CUDA generator; (d) openpose: the
+     body net (seeded, published widths) on the card against the CPU at
+     1e-4 (a 96² input), its ms a forward at 512², /controlnet/detect openpose and a
+     request with an openpose unit on a seeded tower (B2 20 x 14); (e) a
+     PNG embedding card (text chunk) in a prompt; (b) SDXL 1024² (DPM++ 2M Karras, 20 steps) with fp8_storage
+     "Enable for SDXL" and cache_fp16_weight: the UNet's bytes in fp8 and
+     bf16, s/request, the level difference, and the switch back restoring
+     the bf16 weights bit for bit; (f) an SSD-1B-pruned SDXL file
+     (`loader.load.ssd1b_state_dict`) served once at 1024² through an
+     Engine with ckpt=, its launches against the pruned depths' plan.
 Each phase's seconds are logged as it ends.  The last two lines are the
 kernels JSON and {"ok": true, "device": ...}.
 Needs a CUDA card; without one it exits 1 and prints no result.
@@ -354,6 +378,20 @@ HEAD_SHAPES = [
     ("sd3_512_t5off", 2, 1101, 24, 64),
     ("unclip_96x96", 2, 9216, 5, 64),
     ("unclip_48x48", 2, 2304, 10, 64),
+    # phase 4k: hypertile's tiles (SD1.5 512²: the 64² level as 2 × 2 tiles
+    # of 32², the 32² level untiled as h·w = tile²; the hires pass at 128²:
+    # 4 × 4 tiles; SDXL 1024²: the 64² level as 2 × 2 tiles) and ToMe 0.5's
+    # merged 64² level (its 32² level merges to 512 tokens, the plain path)
+    ("sd15_hypertile_64x64", 8, 1024, 8, 40),
+    ("sd15_hr_hypertile_128x128", 32, 1024, 8, 40),
+    ("sdxl_hypertile_64x64", 8, 1024, 10, 64),
+    ("sd15_tome_64x64", 2, 2048, 8, 40),
+]
+# upcast_attn (phase 4k): B2 at SD1.5's two long-KV levels in f32, held to
+# max|Δ| <= F32_TOL
+F32_HEAD_SHAPES = [
+    ("sd15_upcast_64x64", 2, 4096, 8, 40),
+    ("sd15_upcast_32x32", 2, 1024, 8, 80),
 ]
 # B4 rows: (name, B, H, W, Cin, Cout): the shapes of the JAX kernel's
 # docstring (sdwebui_tpu/ops/conv.py:6-8), the SD1.5 UNet's at B = 2 (the
@@ -672,6 +710,25 @@ def phase_kernel(device):
         del q, k, v, q4, k4, v4, heads
         torch.cuda.empty_cache()
 
+    f32 = torch.float32
+    for name, b, s, h, d in F32_HEAD_SHAPES:
+        g = torch.Generator(device=device).manual_seed(2)
+        q, k, v = (randn((b, s, h * d), g, f32) for _ in range(3))
+        heads = [t.unflatten(-1, (h, d)).transpose(1, 2) for t in (q, k, v)]
+        _compare("flash_attention_packed", name, (b, s, h, d), f32,
+                 lambda: fa.flash_attention_packed(q, k, v, num_heads=h),
+                 lambda: fa.flash_attention_packed_plain(q, k, v, num_heads=h),
+                 lambda: sdpa(*heads), _attn_work(b * h, s, s, d, f32), rows)
+        qkv = randn((b, s, 3 * h * d), g, f32)   # the fused projection's chunk views
+        qc, kc, vc = qkv.chunk(3, dim=-1)
+        chunk_heads = [t.unflatten(-1, (h, d)).transpose(1, 2) for t in (qc, kc, vc)]
+        _compare("flash_attention_packed", name + "_fused_qkv", (b, s, h, d), f32,
+                 lambda: fa.flash_attention_packed(qc, kc, vc, num_heads=h),
+                 lambda: fa.flash_attention_packed_plain(qc, kc, vc, num_heads=h),
+                 lambda: sdpa(*chunk_heads), _attn_work(b * h, s, s, d, f32), rows)
+        del q, k, v, heads, qkv, qc, kc, vc, chunk_heads
+        torch.cuda.empty_cache()
+
     for case in layer_norm_cases(device):
         _compare(**case, rows=rows, library_host=True)
     for case in conv_cases(device):
@@ -692,7 +749,10 @@ def blocked_plain(q, k, v, block: int = B1_BLOCK_ROWS):
 def b1_at_ldsr_512(device) -> dict:
     """B1 f32 at S = 262144, d = 512 (a 512² LDSR input's VQ decode): one
     call checked against blocked_plain (max|Δ| <= F32_TOL), then timed once;
-    no library time (SDPA's f32 backends do not take it whole)."""
+    SDPA's f32 backends tried at the same inputs, one timed call each, or
+    the error each gives (library_ms: the fastest that ran)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
     from sdwebui_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device=device).manual_seed(0)
@@ -704,9 +764,22 @@ def b1_at_ldsr_512(device) -> dict:
         f"{agree['text']}, kernel {ms:.1f} ms (one call), bound {bound_ms:.1f} ms ({bound_by})")
     if not agree["ok"]:
         raise AssertionError(f"flash_attention disagrees at S = {B1_LDSR_512}: {agree['text']}")
+    library = {}
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                library[backend.name] = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(q[None], k[None], v[None]),
+                    iters=1, warmup=0)
+        except (RuntimeError, torch.OutOfMemoryError) as e:
+            library[backend.name] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+        torch.cuda.empty_cache()
+    log(f"SDPA f32 at S = {B1_LDSR_512}, d = 512: {library}")
+    ran = [t for t in library.values() if isinstance(t, float)]
     del q, k, v
     torch.cuda.empty_cache()
-    return dict(s=B1_LDSR_512, max_abs_err=agree["max_abs_err"], ms=ms, bound_ms=bound_ms)
+    return dict(s=B1_LDSR_512, max_abs_err=agree["max_abs_err"], ms=ms, bound_ms=bound_ms,
+                library_ms=min(ran) if ran else None, library=library)
 
 
 def _randn(shape, g, dtype, device):
@@ -3158,6 +3231,369 @@ def phase_families(directory: str, device):
     return results, info
 
 
+# --------------------------------------------------------------------------
+# 4k: the UNet and sampling options, fp8 storage, the card's noise stream,
+# PNG embedding cards and a pruned SDXL file
+# --------------------------------------------------------------------------
+
+OPT_PROMPT = "a photograph of an (astronaut:1.2) riding a ((horse)), [blurry]"
+OPT_SEED = 4242
+NOISE_ULP_TOL = 2         # the card's device Philox vs the same code on the CPU, f32 ulps
+# the requests of 4k(a), SD1.5 512² batch 1, 20 steps, each with the cond
+# cache on: (label, override_settings, a cond-cache hit).  A request whose
+# options replace the model bundle (hypertile, ToMe, upcast_attn, the
+# schedule override) encodes anew: the cache keys on the bundle; the
+# "GPU" noise source and the repeat reuse the plain request's conds.
+OPTION_REQUESTS = [
+    ("plain", {}, False),
+    ("hypertile", {"hypertile_enable_unet": True}, False),
+    ("tome_0.5", {"token_merging_ratio": 0.5}, False),
+    ("upcast_attn", {"upcast_attn": True}, False),
+    ("ztsnr_sgm", {"sd_noise_schedule": "Zero Terminal SNR", "sgm_noise_multiplier": True},
+     False),
+    ("old_emphasis", {"use_old_emphasis_implementation": True}, False),
+    ("gpu_noise", {"randn_source": "GPU"}, True),      # the NV floats, drawn on the card
+    ("plain_repeat", {}, True),
+]
+
+
+def options_plan(model, label: str, overrides: dict, cached: bool, latent: int = 64) -> dict:
+    """B1, B2 and B5 launches of one 4k(a) request, written before the run
+    from the config, the request's attention options and the dispatch rule:
+    B2 for every self-attention whose KV reaches FLASH_MIN_KV after ToMe's
+    merge or hypertile's split (SD1.5 512², 20 steps: plain 200; hypertile
+    200 = 100 at (8, 1024, 8·40) + 100 at (2, 1024, 8·80); ToMe 0.5 100 at
+    (2, 2048, 8·40), its 32² level merged to 512 tokens on the plain path;
+    upcast_attn 200 in f32), B5 three a transformer block a step plus
+    CLIP's 26 unless the conds come from the cache (986, a hit 960), B1
+    the decode."""
+    from sdwebui_tpu_torch.models.unet import AttentionOptions, self_attention_shapes
+    from sdwebui_tpu_torch.ops.attention import FLASH_MIN_KV
+
+    tile = 0
+    if overrides.get("hypertile_enable_unet"):
+        tile = max(int(overrides.get("hypertile_max_tile_unet", 256)) // 8, 16)
+    attn = AttentionOptions(tile, float(overrides.get("token_merging_ratio", 0.0)),
+                            bool(overrides.get("upcast_attn", False)))
+    shapes = self_attention_shapes(model.unet_cfg, latent, 2, attn)
+    b2 = STEPS * sum(s >= FLASH_MIN_KV for _, s, _, _ in shapes)
+    b5 = STEPS * ln_plan(model.unet_cfg, latent) + (0 if cached else clip_ln_plan(model))
+    return _plan(b1=1, b2=b2, b5=b5)
+
+
+def noise_stream(device) -> dict:
+    """4k(c): the device Philox source (randn_source "GPU") on the card
+    against the same code on the CPU and against the host "NV" Philox (in
+    f32 ulps of the larger magnitude, <= NOISE_ULP_TOL each), and against
+    torch.randn with a CUDA generator seeded alike (reported only): 21
+    draws of 4×64×64 for two seeds, a txt2img run's first noise and its
+    ancestral steps."""
+    from sdwebui_tpu_torch.rng.device_philox import DevicePhiloxRNG
+    from sdwebui_tpu_torch.rng.image_rng import ImageRNG
+
+    seeds, shape = [OPT_SEED, 7], (4, 64, 64)
+
+    def draws(dev):
+        rng = DevicePhiloxRNG(shape, seeds, dev)
+        return torch.cat([rng.first()[None], rng.next_k(STEPS)]).cpu()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = draws(device)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu = draws("cpu")
+    host_rng = ImageRNG(shape, seeds, channels_last=False)
+    host = torch.cat([torch.from_numpy(host_rng.first())[None],
+                      torch.from_numpy(host_rng.next_k(STEPS))])
+    scale = torch.maximum(card.abs(), cpu.abs())
+    ulps = ((card - cpu).abs() / torch_spacing(scale)).max().item()
+    g = torch.Generator(device=device).manual_seed(OPT_SEED)
+    randn = torch.randn(shape, generator=g, device=device).cpu()
+    out = dict(card_s=card_s, max_ulps_card_vs_cpu=ulps,
+               max_abs_card_vs_cpu=(card - cpu).abs().max().item(),
+               max_abs_card_vs_host_nv=(card - host).abs().max().item(),
+               max_abs_card_vs_torch_randn=(card[0, 0] - randn).abs().max().item())
+    log(f"4k(c) noise stream: {out}")
+    if not torch.isfinite(card).all() or ulps > NOISE_ULP_TOL:
+        raise AssertionError(f"the card's noise stream is {ulps} ulps from the CPU's "
+                             f"(bound {NOISE_ULP_TOL})")
+    out["max_ulps_card_vs_host_nv"] = ((card - host).abs() / torch_spacing(
+        torch.maximum(card.abs(), host.abs()))).max().item()
+    if out["max_ulps_card_vs_host_nv"] > NOISE_ULP_TOL:
+        raise AssertionError(f"the card's noise stream is {out['max_ulps_card_vs_host_nv']} "
+                             "ulps from the host NV stream")
+    return out
+
+
+def torch_spacing(x):
+    """float32 ulp of each magnitude."""
+    return torch.nextafter(x.float(), torch.full_like(x.float(), float("inf"))) - x.float()
+
+
+def write_embedding_card(directory: str, model, name: str = "chipcard", seed: int = 13) -> str:
+    """A PNG embedding card at the model's CLIP width with its embedding in
+    the ``sd-ti-embedding`` text chunk (the reference's base64 JSON,
+    tensors as {"TORCHTENSOR": nested lists}), written with the port's PNG
+    encoder over a seeded preview."""
+    from sdwebui_tpu_torch.utils.png import encode_png
+
+    g = torch.Generator().manual_seed(seed)
+    vec = torch.randn((2, model.conditioner.cfg.width), generator=g) * 0.02
+    data = {"string_to_param": {"*": {"TORCHTENSOR": vec.tolist()}}, "name": name,
+            "step": 500}
+    text = base64.b64encode(json.dumps(data).encode()).decode()
+    preview = torch.randint(0, 256, (64, 64, 3), generator=g, dtype=torch.uint8).numpy()
+    path = os.path.join(directory, f"{name}.png")
+    with open(path, "wb") as f:
+        f.write(encode_png(preview, {"sd-ti-embedding": text}))
+    return path
+
+
+def _level_diff(a, b) -> dict:
+    d = abs(a.astype(int) - b.astype(int))
+    return dict(mean_levels=float(d.mean()), max_levels=int(d.max()))
+
+
+def phase_options(engine, model, directory: str, device):
+    """4k(a), (c), (d), (e) on the SD1.5 server; returns (results, info)."""
+    from sdwebui_tpu_torch.networks.textual_inversion import DEFAULT_EMBEDDINGS_DIR
+
+    def check(params, seed):
+        _sd15_check(params, seed)
+
+    info, results = {}, []
+    base = dict(SD15_BASE, prompt=OPT_PROMPT, seed=OPT_SEED, batch_size=1)
+    with _server(engine) as url:
+        _post(f"{url}/txt2img", dict(base, steps=2, seed=1, override_settings={
+            "hypertile_enable_unet": True, "token_merging_ratio": 0.5}))
+        for label, overrides, _ in OPTION_REQUESTS:
+            body = dict(base, override_settings=dict(overrides, persistent_cond_cache=True))
+            results.append(_request(url, "txt2img", body, check, 512, label=f"4k {label}"))
+        plain = results[0]["image"]
+        info["options"] = {}
+        for (label, overrides, cached), r in zip(OPTION_REQUESTS, results):
+            info["options"][label] = dict(seconds=r["seconds"], launches=r["launches"],
+                                          plan=options_plan(model, label, overrides, cached),
+                                          **_level_diff(r["image"], plain))
+        log(f"4k(a) options against the plain image: "
+            f"{ {k: (v['mean_levels'], v['seconds']) for k, v in info['options'].items()} }")
+        _check_launches(results, [options_plan(model, *r) for r in OPTION_REQUESTS])
+        if info["options"]["plain_repeat"]["max_levels"] != 0:
+            raise AssertionError("the repeated plain request differs from the first")
+        for label in ("hypertile", "tome_0.5", "ztsnr_sgm", "old_emphasis"):
+            if info["options"][label]["max_levels"] == 0:
+                raise AssertionError(f"option {label} left the image as it was")
+        # the device source draws the host NV floats: the plain image again
+        if info["options"]["gpu_noise"]["max_levels"] > REPEAT_TOL:
+            raise AssertionError("the 'GPU' noise source's image differs from the NV one's")
+        for want, label in (("Token merging ratio: 0.5", "tome_0.5"),
+                            ("Noise Schedule: Zero Terminal SNR", "ztsnr_sgm"),
+                            ("SGM noise multiplier: True", "ztsnr_sgm")):
+            if want not in results[[r[0] for r in OPTION_REQUESTS].index(label)]["infotext"]:
+                raise AssertionError(f"{label}'s infotext lacks {want!r}")
+        info["noise"] = noise_stream(device)
+        pose_result, info["openpose"] = openpose_part(engine, model, directory, device, url,
+                                                      results[0]["png_b64"])
+        results.append(pose_result)
+        # (e) a PNG embedding card in the prompt
+        write_embedding_card(directory, model)
+        engine.embeddings_dir = directory
+        engine.refresh_embeddings()
+        try:
+            body = dict(base, prompt=OPT_PROMPT + ", chipcard", seed=OPT_SEED)
+            card = _request(url, "txt2img", body, check, 512, label="4k(e) embedding card")
+        finally:
+            engine.embeddings_dir = DEFAULT_EMBEDDINGS_DIR
+            engine.refresh_embeddings()
+        if 'TI hashes: "chipcard: ' not in card["infotext"]:
+            raise AssertionError(f"the card's embedding is not in the infotext: "
+                                 f"{card['infotext']!r}")
+        _check_launches([card], [_plan(b1=1, b2=STEPS * launch_plan(model.unet_cfg, 64),
+                                       b5=STEPS * ln_plan(model.unet_cfg, 64)
+                                       + clip_ln_plan(model))])
+        info["embedding_card"] = dict(seconds=card["seconds"], **_level_diff(card["image"], plain))
+        results.append(card)
+    # where ToMe's time goes (it runs slower than the plain request)
+    tome = next(o for name, o, _ in OPTION_REQUESTS if name == "tome_0.5")
+    info["profile_tome"] = phase_profile(
+        engine, dict(base, override_settings=dict(tome, persistent_cond_cache=True)), "4k ToMe")
+    return results, info
+
+
+OPENPOSE_REL_TOL = 1e-4    # max|Δ| / max|ref|, the body net on the card vs the CPU, f32
+OPENPOSE_SEED = 17
+
+
+def openpose_part(engine, model, directory: str, device, url: str, png_b64: str) -> tuple:
+    """4k(d): a body_pose_model.safetensors and a ControlNet tower written
+    from seeds at the published widths; the body net on the card against
+    the CPU (f32, TF32 off) at a 96² input, its ms a forward at 512²; /controlnet/detect openpose on a 512² PNG; a 512² request with
+    an openpose unit (B2 = 20 × (10 + 4), B5 = 20 × (48 + 21) + 26)."""
+    from sdwebui_tpu_torch.loader.safetensors_io import write_safetensors
+    from sdwebui_tpu_torch.models.openpose import (body_pose_state_dict,
+                                                   create_random_openpose,
+                                                   openpose_from_state_dict)
+    from sdwebui_tpu_torch.pipeline import annotators, control
+    from sdwebui_tpu_torch.utils.png import decode_png
+
+    from sdwebui_tpu_torch.models.openpose import pose_maps
+
+    net = create_random_openpose(OPENPOSE_SEED, device)
+    sd = {k: v.cpu() for k, v in body_pose_state_dict(net).items()}
+    # the random net's maps are flat (~1e-5): its last convs are scaled on
+    # the phase's image so that heatmaps hold peaks (0.05 ± 0.15) and PAFs
+    # vary (0 ± 0.15), and the hint draws people
+    image = decode_png(base64.b64decode(png_b64))[0]
+    heat, paf = pose_maps(net, image)
+    for branch, maps, offset in ((2, heat, 0.05), (1, paf, 0.0)):
+        gain = 0.15 / maps.std()
+        w, b = f"Mconv7_stage6_L{branch}.weight", f"Mconv7_stage6_L{branch}.bias"
+        sd[w], sd[b] = sd[w] * gain, sd[b] * gain - maps.mean() * gain + offset
+    write_safetensors(os.path.join(directory, "body_pose_model.safetensors"), sd)
+    net = openpose_from_state_dict(sd, device)
+    cpu_net = openpose_from_state_dict(sd, "cpu")
+    g = torch.Generator().manual_seed(OPENPOSE_SEED)
+    x = torch.rand((1, 3, 96, 96), generator=g) - 0.5
+    with torch.inference_mode():
+        ref = cpu_net(x)
+        out = [t.cpu() for t in net(x.to(device))]
+        agree = [agreement(o, r, torch.float32, rel_tol=OPENPOSE_REL_TOL)
+                 for o, r in zip(out, ref)]
+        x512 = (torch.rand((1, 3, 512, 512), generator=g) - 0.5).to(device)
+        forward_ms = cuda_ms(lambda: net(x512), iters=3, warmup=1)
+    log(f"4k(d) body net card vs CPU: paf {agree[0]['text']}, heatmap {agree[1]['text']}; "
+        f"{forward_ms:.2f} ms a forward at 512²")
+    if not all(a["ok"] for a in agree):
+        raise AssertionError("the openpose body net on the card disagrees with the CPU's")
+    del net, cpu_net
+    tower = random_tower(model.unet_cfg, 11, device)
+    write_safetensors(os.path.join(directory, "chipcn.safetensors"),
+                      {"control_model." + k: v.half() for k, v in tower.state_dict().items()})
+    del tower
+    torch.cuda.empty_cache()
+    prev = list(annotators._model_dirs)
+    annotators.set_annotator_dirs([directory])
+    control.set_model_dirs([directory])
+    try:
+        t0 = time.perf_counter()
+        detect = _post(url.replace("/sdapi/v1", "/controlnet/detect"), {
+            "controlnet_module": "openpose", "controlnet_input_images": [png_b64],
+            "controlnet_processor_res": 512})
+        detect_s = time.perf_counter() - t0
+        hint = decode_png(base64.b64decode(detect["images"][0]))[0]
+        if hint.shape[:2] != (512, 512):
+            raise AssertionError(f"the openpose hint is {hint.shape}")
+        body = dict(SD15_BASE, seed=OPT_SEED, batch_size=1, controlnet_units=[
+            dict(model="chipcn", module="openpose", image=png_b64, weight=1.0)])
+        r = _request(url, "txt2img", body, _sd15_check, 512, label="4k(d) openpose unit")
+    finally:
+        annotators.set_annotator_dirs(prev)
+        control.set_model_dirs([control.DEFAULT_CONTROLNET_DIR])
+    cfg = model.unet_cfg
+    plan = _plan(b1=1, b2=STEPS * (launch_plan(cfg, 64) + launch_plan(cfg, 64, False)),
+                 b5=STEPS * (ln_plan(cfg, 64) + ln_plan(cfg, 64, False)) + clip_ln_plan(model))
+    _check_launches([r], [plan])
+    info = dict(forward_ms_512=forward_ms, paf_rel_err=agree[0]["rel_err"],
+                heatmap_rel_err=agree[1]["rel_err"], detect_s=detect_s,
+                hint_nonzero_share=float((hint > 0).any(axis=-1).mean()),
+                unit_request_s=r["seconds"])
+    log(f"4k(d) openpose: {info}")
+    return r, info
+
+
+def _unet_state(unet) -> dict:
+    return {k: v.detach().clone() for k, v in unet.state_dict().items()}
+
+
+def phase_options_sdxl(engine, base, directory: str, device):
+    """4k(b): fp8 storage "Enable for SDXL" with cache_fp16_weight on the
+    SDXL server (the UNet's resident bytes in fp8 and bf16, s/request, the
+    image's level difference, the switch back bit for bit); 4k(f): an
+    SSD-1B-pruned SDXL file served once at 1024².  Returns (results, info)."""
+    from sdwebui_tpu_torch.loader.load import ssd1b_state_dict
+    from sdwebui_tpu_torch.models.unet import state_dict_depths
+    from sdwebui_tpu_torch.pipeline.sd_model import has_fp8
+    from sdwebui_tpu_torch.server.app import Engine
+
+    body = dict(prompt=OPT_PROMPT, negative_prompt="blurry", seed=OPT_SEED, steps=STEPS,
+                cfg_scale=7.0, sampler_name="DPM++ 2M", scheduler="Karras", width=1024,
+                height=1024, batch_size=1)
+
+    def check(params, seed):
+        if f"Seed: {seed}" not in params:
+            raise AssertionError(f"infotext lacks the seed: {params!r}")
+
+    plan = _plan(b1=1, b2=STEPS * launch_plan(base.unet_cfg, 128),
+                 b5=STEPS * ln_plan(base.unet_cfg, 128) + clip_ln_plan(base))
+    before = _unet_state(base.unet)
+    info = {}
+    with _server(engine) as url:
+        plain = _request(url, "txt2img", body, check, 1024, label="4k(b) bf16")
+        torch.cuda.synchronize()
+        bf16_bytes = torch.cuda.memory_allocated()
+        on = {"fp8_storage": "Enable for SDXL", "cache_fp16_weight": True}
+        fp8 = _request(url, "txt2img", dict(body, override_settings=on), check, 1024,
+                       label="4k(b) fp8")
+        torch.cuda.synchronize()
+        fp8_bytes = torch.cuda.memory_allocated()
+        if not has_fp8(base):
+            raise AssertionError("fp8_storage 'Enable for SDXL' left the SDXL UNet in bf16")
+        fp8_unet = sum(p.numel() * p.element_size() for p in base.unet.parameters())
+        back = _request(url, "txt2img", dict(body, override_settings={"fp8_storage": "Disable"}),
+                        check, 1024, label="4k(b) back to bf16")
+    after = _unet_state(base.unet)
+    if has_fp8(base) or any(not torch.equal(after[k], v) for k, v in before.items()):
+        raise AssertionError("the switch back from fp8 did not restore the bf16 weights bit "
+                             "for bit")
+    del before, after
+    bf16_unet = sum(p.numel() * p.element_size() for p in base.unet.parameters())
+    _check_launches([plain, fp8, back], [plan] * 3)
+    info["fp8"] = dict(unet_bytes_bf16=bf16_unet, unet_bytes_fp8=fp8_unet,
+                       allocated_bf16=bf16_bytes, allocated_fp8=fp8_bytes,
+                       seconds_bf16=plain["seconds"], seconds_fp8=fp8["seconds"],
+                       back_levels=_level_diff(back["image"], plain["image"]),
+                       **_level_diff(fp8["image"], plain["image"]))
+    log(f"4k(b) fp8 storage: {info['fp8']}")
+    if info["fp8"]["back_levels"]["max_levels"] > REPEAT_TOL:
+        raise AssertionError("the request after the switch back differs from the bf16 one")
+    # (f) the pruned file
+    t0 = time.perf_counter()
+    sd = ssd1b_state_dict(base)
+    path = os.path.join(directory, "ssd1b-random.safetensors")
+    _need_disk(directory, 6.0)
+    gb = _write_ckpt(path, sd)
+    depths = state_dict_depths(k[len("model.diffusion_model."):] for k in sd
+                               if k.startswith("model.diffusion_model."))
+    del sd
+    write_s = time.perf_counter() - t0
+    pruned_engine = Engine(ckpt=path, device=device, hash_cache=None)
+    try:
+        pruned = pruned_engine.sd_model
+        if any(p.is_meta for p in pruned.unet.parameters()) or len(pruned.unet.middle_block) != 1:
+            raise AssertionError("the pruned file did not build its own depths")
+        from sdwebui_tpu_torch.models.unet import self_attention_calls
+        from sdwebui_tpu_torch.ops.attention import FLASH_MIN_KV
+
+        calls = self_attention_calls(pruned.unet_cfg, 128, depths=depths)
+        pruned_plan = _plan(b1=1, b2=STEPS * sum(s >= FLASH_MIN_KV for s, _, _ in calls),
+                            b5=STEPS * 3 * len(calls) + clip_ln_plan(pruned))
+        with _server(pruned_engine) as url:
+            r = _request(url, "txt2img", body, check, 1024, label="4k(f) pruned SDXL")
+        _check_launches([r], [pruned_plan])
+        if r["image"].std() < 1.0:
+            raise AssertionError("the pruned SDXL image is flat")
+    finally:
+        del pruned_engine
+        os.remove(path)
+        gc.collect()
+        torch.cuda.empty_cache()
+    info["pruned"] = dict(file_gb=gb, write_s=write_s, seconds=r["seconds"],
+                          transformer_blocks=len(calls), launches=r["launches"])
+    log(f"4k(f) pruned SDXL: {info['pruned']}")
+    return [plain, fp8, back, r], info
+
+
 def kernel_class(name: str) -> str:
     if "flash_attention" in name or "attn_" in name:   # csrc/flash_attention.cu
         return "flash_attn"
@@ -3278,6 +3714,7 @@ def main() -> int:
     from sdwebui_tpu_torch.pipeline.sd_model import create_random_sd15
     from sdwebui_tpu_torch.postprocessing.upscalers import unregister_upscaler
     from sdwebui_tpu_torch.server.app import Engine, random_models
+    from sdwebui_tpu_torch.utils.options import opts
 
     device = torch.device("cuda")
     # the library calls and plain versions of phase 1 in full fp32 (no TF32)
@@ -3285,6 +3722,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = marks = time.perf_counter()
     phase_s = {}
+    # the persistent cond cache (on by default) would skip the CLIP encode of
+    # every repeated prompt; the phases' plans count one encode a request,
+    # and 4k turns the cache on for its own requests
+    opts.data["persistent_cond_cache"] = False
 
     def mark(phase: str):
         """The seconds since the previous mark, logged under `phase`."""
@@ -3355,6 +3796,9 @@ def main() -> int:
     mark("4a checkpoints")
     sampler_results = phase_samplers(ckpt_engine)
     mark("4b samplers")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_options_") as opt4k_dir:
+        opt4k_results, opt4k_info = phase_options(engine, model, opt4k_dir, device)
+    mark("4k(a, c, d, e) options and openpose")
     del model, engine, ckpt_engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -3376,6 +3820,10 @@ def main() -> int:
     mark("6c SDXL img2img")
     profile = phase_profile(engine, sdxl_request(1234, refiner.title), "SDXL")
     mark("7 SDXL profile")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_options_sdxl_") as opt4k_dir:
+        opt4k_xl_results, opt4k_info["sdxl"] = phase_options_sdxl(engine, base, opt4k_dir,
+                                                                  device)
+    mark("4k(b, f) fp8 storage and a pruned SDXL file")
     del base, refiner, extra, engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -3391,8 +3839,8 @@ def main() -> int:
                  if k not in ("image", "png_b64", "infotext", "extras")}
                 for r in (results + i2i_results + opt_results + hr_results + c4_results
                           + hy_results + face_results + zoo_results + ckpt_results
-                          + sampler_results
-                          + sdxl_results
+                          + sampler_results + opt4k_results
+                          + sdxl_results + opt4k_xl_results
                           + [sdxl_hr_result] + sdxl_i2i_results + family_results)]
     log(json.dumps({"card": smi, "kernel_shapes": rows, "unet_step": unet,
                     "sdxl_unet_step": sdxl_unet, "img2img_unet_calls": i2i_calls,
@@ -3400,7 +3848,7 @@ def main() -> int:
                     "hires": hr_info, "extras": extras, "sdxl_hires": sdxl_hr_info,
                     "config4": c4_info, "hybrid": hy_info, "img2img_options": opt_info,
                     "faces": face_info, "zoo": zoo_info,
-                    "sdxl_img2img": sdxl_i2i_info,
+                    "sdxl_img2img": sdxl_i2i_info, "options": opt4k_info,
                     "families": {k: v for k, v in family_info.items() if k != "b1_calls"},
                     "requests": requests, "sdxl_profile": profile, "phase_s": phase_s}))
 

@@ -109,6 +109,20 @@ def derive_unet_config(sd: dict, prefix: str = "model.diffusion_model.") -> UNet
     if level_depth > 0:
         attention_resolutions.append(ds)
     res_counts.append(res_per_level)
+    # an output block may hold more transformer blocks than its level's
+    # input blocks (SSD-1B prunes input_blocks.7 and .8 to 4 and keeps
+    # output_blocks.2 at 10): the level's depth is the deepest of either,
+    # and the module is built to each block's own (ROADMAP C: JAX takes the
+    # input blocks' and drops the rest as unexpected)
+    out_re = re.compile(re.escape(prefix)
+                        + r"output_blocks\.(\d+)\.1\.transformer_blocks\.(\d+)\.")
+    per_level = res_counts[0] + 1
+    for k in sd:
+        m = out_re.match(k)
+        if m:
+            level = len(transformer_depth) - 1 - int(m.group(1)) // per_level
+            if 0 <= level and transformer_depth[level] > 0:
+                transformer_depth[level] = max(transformer_depth[level], int(m.group(2)) + 1)
 
     # context dim from any cross-attention key projection
     context_dim = None

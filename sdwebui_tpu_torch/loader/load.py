@@ -29,6 +29,7 @@ from sdwebui_tpu_torch.loader import convert, sniff
 from sdwebui_tpu_torch.loader.safetensors_io import read_state_dict
 from sdwebui_tpu_torch.loader.torch_ckpt import load_torch_checkpoint
 from sdwebui_tpu_torch.models.clip_vision import convert_openclip_vision
+from sdwebui_tpu_torch.models.unet import state_dict_depths
 from sdwebui_tpu_torch.models.t5 import convert_t5
 from sdwebui_tpu_torch.models.xlmr import AltConditioner, convert_xlmr
 from sdwebui_tpu_torch.pipeline.sd_model import SDModel
@@ -114,7 +115,10 @@ def model_from_state_dict(sd: dict, prediction_type: str | None = None,
                      pre_only_proj=convert.has_pre_only_proj(unet_sd, unet_cfg.depth))
     else:
         unet_sd, unet_cfg = convert.convert_unet(sd)
-        unet = build("unet", unet_cfg, unet_sd, device, policy.param_dtype)
+        # the file's own per-block depths: SSD-1B-style pruned stacks and
+        # middle block (convert.verify_tree_names tolerates the groups)
+        unet = build("unet", unet_cfg, unet_sd, device, policy.param_dtype,
+                     depths=state_dict_depths(unet_sd))
     scale = {"sdxl": 0.13025, "sdxl-refiner": 0.13025, "sd3": 1.5305}.get(info.family, 0.18215)
     vae_sd, vae_cfg = convert.convert_vae(sd, scale_factor=scale)
     if sd3:
@@ -242,12 +246,14 @@ def ldm_state_dict(model: SDModel) -> dict:
     in open_clip's layout, an SD2-depth model's tower under
     ``depth_model.model.``, an unclip model's ViT under
     ``embedder.model.visual.`` and its noise statistics; AltDiffusion's
-    XLM-R under ``cond_stage_model.``; SD3 in the published files' layout
+    XLM-R under ``cond_stage_model.``; the SDXL base with CLIP-L under
+    ``conditioner.embedders.0.transformer.`` and bigG in open_clip's layout
+    under ``conditioner.embedders.1.model.``; SD3 in the published files' layout
     (CLIP-L and bigG under ``text_encoders.clip_{l,g}.transformer.``, T5
     under ``text_encoders.t5xxl.transformer.``)."""
     from sdwebui_tpu_torch.models.clip_vision import openclip_vision_state_dict
 
-    if model.kind not in ("sd1", "sd2", "alt", "sd3"):
+    if model.kind not in ("sd1", "sd2", "alt", "sd3", "sdxl"):
         raise NotImplementedError(f"writing a {model.kind!r} model's checkpoint is not ported")
 
     def under(prefix, module):
@@ -261,6 +267,10 @@ def ldm_state_dict(model: SDModel) -> dict:
                for k, v in convert.openclip_state_dict(text).items()}
     elif model.kind == "alt":
         out = under("cond_stage_model.", model.conditioner.model)
+    elif model.kind == "sdxl":
+        out = under("conditioner.embedders.0.transformer.text_model.", model.conditioner.model)
+        out.update({"conditioner.embedders.1.model." + k: v for k, v in convert.openclip_state_dict(
+            model.conditioner2.model.state_dict()).items()})
     else:
         out = under("text_encoders.clip_l.transformer.text_model.", model.conditioner.model)
         g = dict(model.conditioner2.model.state_dict())
@@ -280,6 +290,38 @@ def ldm_state_dict(model: SDModel) -> dict:
         out.update({f"noise_augmentor.data_{k}": v.reshape(1, -1)
                     for k, v in model.noise_aug_stats.items()})
     return out
+
+
+#: the transformer depths SSD-1B keeps where it prunes an SDXL UNet; its
+#: middle block keeps only the first ResBlock (the reference's
+#: convert_sdxl_to_ssd, modules/sd_hijack.py:191)
+SSD1B_DEPTHS = {"input_blocks.7.1": 4, "input_blocks.8.1": 4, "output_blocks.0.1": 4,
+                "output_blocks.1.1": 4, "output_blocks.4.1": 1, "output_blocks.5.1": 1}
+
+
+def pruned_state_dict(sd: dict, depths: dict) -> dict:
+    """A checkpoint `sd` less the transformer blocks past `depths[block]` of
+    each block and less middle_block.1 and .2: SSD-1B's kind of pruning
+    (``ssd1b_state_dict``)."""
+    prefix = "model.diffusion_model."
+    drop = [f"{prefix}middle_block.1.", f"{prefix}middle_block.2."]
+
+    def kept(name):
+        if any(name.startswith(d) for d in drop):
+            return False
+        for block, depth in depths.items():
+            head = f"{prefix}{block}.transformer_blocks."
+            if name.startswith(head) and int(name[len(head):].split(".", 1)[0]) >= depth:
+                return False
+        return True
+
+    return {k: v for k, v in sd.items() if kept(k)}
+
+
+def ssd1b_state_dict(model: SDModel) -> dict:
+    """An SDXL base's checkpoint with SSD-1B's pruning (``SSD1B_DEPTHS``
+    and no middle attention): the pruned SDXL file at published widths."""
+    return pruned_state_dict(ldm_state_dict(model), SSD1B_DEPTHS)
 
 
 def resolve_vae(checkpoint_path: str, vae_dirs=("models/VAE",)) -> str | None:

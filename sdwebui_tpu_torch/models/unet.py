@@ -26,6 +26,18 @@ hypernetwork's MLPs for its width (``networks/hypernetwork``);
 ``forward(tiling=True)`` wraps the padding of every 3×3 conv, the stride-2
 downsample's too (seamless textures, ``unet.py:260-345``).
 
+``forward(attn=AttentionOptions(...))`` carries a request's self-attention
+options (``unet.py:106-113,160-229``): hypertile runs each self-attention
+over spatial tiles of at most tile×tile tokens where the map is larger
+than one tile, ToMe (``ops/tome``) merges tokens around it, and
+``upcast`` runs every attention, its projections included, in fp32.  The
+ControlNet tower runs without them, as JAX's tower does.  Weights stored
+as ``torch.float8_e4m3fn`` (fp8 storage) are upcast at use by
+``layers.linear`` / ``layers.conv2d``.  ``UNetModel(cfg, depths=...)``
+builds each transformer stack at a checkpoint's own depth and drops a
+pruned middle block (SSD-1B, ``unet.py:264-271,327-335``;
+:func:`state_dict_depths`).
+
 ``UNetModel(cfg, legacy_attention=True)`` is the context-free LDM UNet of
 LDSR: each attention layer is the legacy ``AttentionBlock`` (GroupNorm,
 a fused-qkv 1×1 conv, multi-head self-attention through ``ops.attention``,
@@ -37,6 +49,10 @@ head 1, ...), so the two agree only for one head.
 
 from __future__ import annotations
 
+import dataclasses
+import math
+import re
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -47,6 +63,24 @@ from sdwebui_tpu_torch.models.layers import (Conv2d, GroupNorm, LayerNorm,
                                              timestep_embedding,
                                              upsample_nearest_2x)
 from sdwebui_tpu_torch.ops.attention import attention
+from sdwebui_tpu_torch.ops.tome import build_merge, merged_tokens
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionOptions:
+    """A request's self-attention options: hypertile's latent tile (0: off),
+    ToMe's ratio (0: off) and upcast_attn."""
+
+    tile: int = 0
+    tome_ratio: float = 0.0
+    upcast: bool = False
+
+    @classmethod
+    def of(cls, cfg: UNetConfig) -> "AttentionOptions":
+        return cls(cfg.hypertile_tile, cfg.tome_ratio, cfg.upcast_attn)
+
+
+NO_OPTIONS = AttentionOptions()
 
 
 def build_plan(cfg: UNetConfig):
@@ -96,24 +130,52 @@ def build_plan(cfg: UNetConfig):
     return input_plan, middle_depth, output_plan, input_chs
 
 
-def self_attention_calls(cfg: UNetConfig, latent: int, decoder: bool = True):
+def self_attention_calls(cfg: UNetConfig, latent: int, decoder: bool = True,
+                         depths: dict | None = None):
     """(tokens, heads, head_dim) of every self-attention one forward makes
     at a latent×latent input, in call order: the launch plan of the
     attention kernels.  decoder=False: the encoder and middle block only
-    (a ControlNet tower's)."""
+    (a ControlNet tower's); depths: a pruned module's
+    (:func:`state_dict_depths`)."""
+    depths = depths or {}
     input_plan, middle_depth, output_plan, _ = build_plan(cfg)
-    middle = [("attn", cfg.model_channels * cfg.channel_mult[-1], middle_depth)]
+    middle = [("attn", cfg.model_channels * cfg.channel_mult[-1], middle_depth)] \
+        if depths.get("middle_block", 3) == 3 else []
+    named = [(f"input_blocks.{i}.{j}", layer) for i, plan in enumerate(input_plan)
+             for j, layer in enumerate(plan)] + [("middle_block.1", layer) for layer in middle]
+    if decoder:
+        named += [(f"output_blocks.{i}.{j}", layer) for i, plan in enumerate(output_plan)
+                  for j, layer in enumerate(plan)]
     calls, res = [], latent
-    for layer in [layer for plan in input_plan for layer in plan] + middle + \
-            [layer for plan in (output_plan if decoder else []) for layer in plan]:
+    for path, layer in named:
         if layer[0] == "down":
             res //= 2
         elif layer[0] == "up":
             res *= 2
         elif layer[0] == "attn":
             heads = cfg.heads_for(layer[1])
-            calls += [(res * res, heads, layer[1] // heads)] * layer[2]
+            calls += [(res * res, heads, layer[1] // heads)] * depths.get(path, layer[2])
     return calls
+
+
+def self_attention_shapes(cfg: UNetConfig, latent: int, batch: int,
+                          attn: "AttentionOptions | None" = None, depths: dict | None = None):
+    """(B, S, heads, head_dim) of every self-attention one forward at a
+    latent×latent input of `batch` rows hands the attention, with a
+    request's ToMe (merged tokens) and hypertile (B·tiles rows of a tile's
+    tokens) as ``BasicTransformerBlock`` applies them."""
+    attn = attn or NO_OPTIONS
+    out = []
+    for s, heads, d in self_attention_calls(cfg, latent, depths=depths):
+        side = math.isqrt(s)
+        if attn.tome_ratio > 0 and merged_tokens(side, side, attn.tome_ratio) != s:
+            out.append((batch, merged_tokens(side, side, attn.tome_ratio), heads, d))
+        elif attn.tile > 0 and s > attn.tile * attn.tile:
+            n = split_factor(side, attn.tile)
+            out.append((batch * n * n, (side // n) ** 2, heads, d))
+        else:
+            out.append((batch, s, heads, d))
+    return out
 
 
 class ResBlock(nn.Module):
@@ -149,11 +211,16 @@ class CrossAttention(nn.Module):
         self.to_v = Linear(context_dim, c, bias=False, **kw)
         self.to_out = nn.Sequential(Linear(c, c, **kw), nn.Dropout(0.0))
 
-    def forward(self, x, context=None, hypernet=None):
+    def forward(self, x, context=None, hypernet=None, upcast: bool = False):
+        """context None: self-attention.  upcast: the whole attention in
+        fp32, a self-attention still fused (unet.py:106-113)."""
+        if upcast and x.dtype != torch.float32:
+            ctx = None if context is None else context.float()
+            return self.forward(x.float(), ctx, hypernet).to(x.dtype)
         if context is None and hypernet is None:
             # self-attention: one fused qkv matmul (unet.py:112-121)
-            w = torch.cat([self.to_q.weight, self.to_k.weight,
-                           self.to_v.weight], dim=0)
+            w = torch.cat([self.to_q.weight.to(x.dtype), self.to_k.weight.to(x.dtype),
+                           self.to_v.weight.to(x.dtype)], dim=0)
             q, k, v = linear(x, w).chunk(3, dim=-1)
         else:
             ctx_k = ctx_v = x if context is None else context
@@ -162,6 +229,30 @@ class CrossAttention(nn.Module):
                 ctx_k, ctx_v = pair
             q, k, v = self.to_q(x), self.to_k(ctx_k), self.to_v(ctx_v)
         return self.to_out[0](attention(q, k, v, num_heads=self.heads))
+
+
+def split_factor(dim: int, tile: int) -> int:
+    """Smallest divisor of `dim` whose quotient is ≤ tile (unet.py:160-168)."""
+    for f in range(math.ceil(dim / tile), dim + 1):
+        if dim % f == 0:
+            return f
+    return dim
+
+
+def hypertiled_self_attention(attn: CrossAttention, x, hw, tile: int, hypernet=None,
+                              upcast: bool = False):
+    """Self-attention over spatial tiles (unet.py:170-186): (B, h·w, C) →
+    (B·nh·nw, th·tw, C) around the attention."""
+    h, w = hw
+    b, s, c = x.shape
+    nh, nw = split_factor(h, tile), split_factor(w, tile)
+    if s != h * w or (nh == 1 and nw == 1):
+        return attn(x, hypernet=hypernet, upcast=upcast)
+    th, tw = h // nh, w // nw
+    xt = x.reshape(b, nh, th, nw, tw, c).permute(0, 1, 3, 2, 4, 5).reshape(
+        b * nh * nw, th * tw, c)
+    out = attn(xt, hypernet=hypernet, upcast=upcast)
+    return out.reshape(b, nh, nw, th, tw, c).permute(0, 1, 3, 2, 4, 5).reshape(b, s, c)
 
 
 class GEGLU(nn.Module):
@@ -196,9 +287,22 @@ class BasicTransformerBlock(nn.Module):
         self.norm2 = LayerNorm(c, **kw)
         self.norm3 = LayerNorm(c, **kw)
 
-    def forward(self, x, context, hypernet=None):
-        x = x + self.attn1(self.norm1(x), hypernet=hypernet)
-        x = x + self.attn2(self.norm2(x), context, hypernet)
+    def forward(self, x, context, hypernet=None, hw=None, opts: AttentionOptions = NO_OPTIONS):
+        """hw: the (h, w) of x's token grid; opts: the self-attention's
+        ToMe, hypertile and upcast (unet.py:188-208)."""
+        h = self.norm1(x)
+        merged = None
+        if opts.tome_ratio > 0 and hw is not None:
+            merged = build_merge(h, hw[0], hw[1], opts.tome_ratio)
+        if merged is not None:
+            merge, unmerge, _ = merged
+            x = x + unmerge(self.attn1(merge(h), hypernet=hypernet, upcast=opts.upcast))
+        elif opts.tile > 0 and hw is not None and hw[0] * hw[1] > opts.tile * opts.tile:
+            x = x + hypertiled_self_attention(self.attn1, h, hw, opts.tile, hypernet,
+                                              opts.upcast)
+        else:
+            x = x + self.attn1(h, hypernet=hypernet, upcast=opts.upcast)
+        x = x + self.attn2(self.norm2(x), context, hypernet, upcast=opts.upcast)
         return x + self.ff(self.norm3(x))
 
 
@@ -219,7 +323,7 @@ class SpatialTransformer(nn.Module):
             for _ in range(depth))
         self.proj_out = Linear(c, c, **kw) if self.use_linear else Conv2d(c, c, 1, **kw)
 
-    def forward(self, x, context, hypernet=None):
+    def forward(self, x, context, hypernet=None, opts: AttentionOptions = NO_OPTIONS):
         b, c, h, w = x.shape
         residual = x
         x = self.norm(x)
@@ -228,7 +332,7 @@ class SpatialTransformer(nn.Module):
         else:
             x = self.proj_in(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
         for block in self.transformer_blocks:
-            x = block(x, context, hypernet)
+            x = block(x, context, hypernet, (h, w), opts)
         if self.use_linear:
             return self.proj_out(x).reshape(b, h, w, c).permute(0, 3, 1, 2) + residual
         return self.proj_out(x.reshape(b, h, w, c).permute(0, 3, 1, 2)) + residual
@@ -285,19 +389,32 @@ class Upsample(nn.Module):
         return self.conv(upsample_nearest_2x(x), circular)
 
 
-def _unsupported(cfg: UNetConfig) -> str | None:
-    if cfg.hypertile_tile:
-        return "hypertile"
-    if cfg.tome_ratio:
-        return "token merging (ToMe)"
-    if cfg.upcast_attn:
-        return "upcast_attn"
-    return None
+_TRANSFORMER_BLOCK = re.compile(r"^(.*)\.transformer_blocks\.(\d+)\.")
+_MIDDLE = re.compile(r"^middle_block\.(\d+)\.")
 
 
-def make_layer(layer, cfg: UNetConfig, legacy_attention: bool = False, **kw) -> nn.Module:
+def state_dict_depths(names) -> dict:
+    """The per-block depths of a UNet state dict's names: {"input_blocks.i.1"
+    | "middle_block.1" | "output_blocks.i.1": transformer blocks present}
+    and {"middle_block": modules present}.  SSD-1B-style pruning
+    (convert_sdxl_to_ssd) shortens stacks and drops middle_block.1 and .2
+    (JAX reads the same from its params: unet.py:264-271,327-335)."""
+    depths: dict = {}
+    for name in names:
+        m = _TRANSFORMER_BLOCK.match(name)
+        if m:
+            depths[m.group(1)] = max(depths.get(m.group(1), 0), int(m.group(2)) + 1)
+        m = _MIDDLE.match(name)
+        if m:
+            depths["middle_block"] = max(depths.get("middle_block", 0), int(m.group(1)) + 1)
+    return depths
+
+
+def make_layer(layer, cfg: UNetConfig, legacy_attention: bool = False, depth: int | None = None,
+               **kw) -> nn.Module:
     """The module of one `build_plan` layer descriptor (attention layers:
-    the legacy AttentionBlock with `legacy_attention`)."""
+    the legacy AttentionBlock with `legacy_attention`; a SpatialTransformer
+    of `depth` blocks where given)."""
     kind = layer[0]
     if kind == "attn" and legacy_attention:
         return AttentionBlock(layer[1], cfg.heads_for(layer[1]), **kw)
@@ -306,20 +423,21 @@ def make_layer(layer, cfg: UNetConfig, legacy_attention: bool = False, **kw) -> 
     if kind == "res":
         return ResBlock(layer[1], layer[2], cfg.time_embed_dim, **kw)
     if kind == "attn":
-        return SpatialTransformer(layer[1], layer[2], cfg, **kw)
+        return SpatialTransformer(layer[1], layer[2] if depth is None else depth, cfg, **kw)
     if kind == "down":
         return Downsample(layer[1], **kw)
     return Upsample(layer[1], **kw)
 
 
-def run_layers(layers, h, emb, context, hypernet=None, circular: bool = False):
+def run_layers(layers, h, emb, context, hypernet=None, circular: bool = False,
+               attn: AttentionOptions = NO_OPTIONS):
     """circular: every 3×3 conv wraps its padding (seamless tiling,
-    unet.py:260-276)."""
+    unet.py:260-276); attn: the transformers' self-attention options."""
     for layer in layers:
         if isinstance(layer, ResBlock):
             h = layer(h, emb, circular)
         elif isinstance(layer, SpatialTransformer):
-            h = layer(h, context, hypernet)
+            h = layer(h, context, hypernet, attn)
         elif isinstance(layer, AttentionBlock):
             h = layer(h)
         else:
@@ -333,12 +451,13 @@ class UNetEncoder(nn.Module):
 
     kind = "UNet"
 
-    def __init__(self, cfg: UNetConfig, *, device, dtype, legacy_attention: bool = False):
+    def __init__(self, cfg: UNetConfig, *, device, dtype, legacy_attention: bool = False,
+                 depths: dict | None = None):
+        """depths: :func:`state_dict_depths` of a checkpoint whose blocks
+        may be pruned (None: the config's depths)."""
         super().__init__()
-        missing = _unsupported(cfg)
-        if missing:
-            raise NotImplementedError(f"{self.kind} option not ported yet: {missing}")
         self.cfg = cfg
+        depths = depths or {}
         kw = dict(device=device, dtype=dtype)
         input_plan, middle_depth, _, _ = build_plan(cfg)
         ted = cfg.time_embed_dim
@@ -349,13 +468,21 @@ class UNetEncoder(nn.Module):
             self.label_emb = nn.Sequential(nn.Sequential(
                 Linear(cfg.adm_in_channels, ted, **kw), nn.SiLU(), Linear(ted, ted, **kw)))
         self.input_blocks = nn.ModuleList(
-            nn.ModuleList(make_layer(layer, cfg, legacy_attention, **kw) for layer in plan)
-            for plan in input_plan)
+            nn.ModuleList(make_layer(layer, cfg, legacy_attention,
+                                     depths.get(f"input_blocks.{i}.{j}"), **kw)
+                          for j, layer in enumerate(plan))
+            for i, plan in enumerate(input_plan))
         mid = mc * cfg.channel_mult[-1]
-        self.middle_block = nn.ModuleList([
-            ResBlock(mid, mid, ted, **kw),
-            make_layer(("attn", mid, middle_depth), cfg, legacy_attention, **kw),
-            ResBlock(mid, mid, ted, **kw)])
+        n_middle = depths.get("middle_block", 3)
+        if n_middle not in (1, 3):
+            raise ValueError(f"a middle block of {n_middle} modules: only SSD-1B's pruning "
+                             "(middle_block.1 and .2 both gone) is known")
+        self.middle_block = nn.ModuleList([ResBlock(mid, mid, ted, **kw)])
+        if n_middle == 3:
+            self.middle_block.extend([
+                make_layer(("attn", mid, middle_depth), cfg, legacy_attention,
+                           depths.get("middle_block.1"), **kw),
+                ResBlock(mid, mid, ted, **kw)])
 
     def embed(self, timesteps, y, dtype):
         """The timestep (+ SDXL vector) embedding in `dtype`."""
@@ -370,40 +497,47 @@ class UNetEncoder(nn.Module):
 
 
 class UNetModel(UNetEncoder):
-    def __init__(self, cfg: UNetConfig, *, device, dtype, legacy_attention: bool = False):
-        super().__init__(cfg, device=device, dtype=dtype, legacy_attention=legacy_attention)
+    def __init__(self, cfg: UNetConfig, *, device, dtype, legacy_attention: bool = False,
+                 depths: dict | None = None):
+        super().__init__(cfg, device=device, dtype=dtype, legacy_attention=legacy_attention,
+                         depths=depths)
         kw = dict(device=device, dtype=dtype)
         _, _, output_plan, _ = build_plan(cfg)
         mc = cfg.model_channels
+        depths = depths or {}
         self.output_blocks = nn.ModuleList(
-            nn.ModuleList(make_layer(layer, cfg, legacy_attention, **kw) for layer in plan)
-            for plan in output_plan)
+            nn.ModuleList(make_layer(layer, cfg, legacy_attention,
+                                     depths.get(f"output_blocks.{i}.{j}"), **kw)
+                          for j, layer in enumerate(plan))
+            for i, plan in enumerate(output_plan))
         self.out = nn.Sequential(GroupNorm(mc, **kw), nn.SiLU(),
                                  Conv2d(mc, cfg.out_channels, 3, **kw))
 
     def forward(self, x, timesteps, context, y=None, control=None, hypernet=None,
-                tiling: bool = False):
+                tiling: bool = False, attn: AttentionOptions = NO_OPTIONS):
         """x: (B, C_in, H, W) latent; timesteps: (B,); context: (B, S, D);
         None for a legacy-attention UNet;
         y: (B, adm_in_channels) SDXL vector conds; control: a ControlNet's
         {"input": per-input-block residuals, "middle": residual}, added the
         cldm way (module docstring); hypernet: a
         ``networks.hypernetwork.Hypernetwork``; tiling: circular padding on
-        every 3×3 conv (unet.py:260-345).  Activations run channels-last in
-        memory (NCHW indexing)."""
+        every 3×3 conv (unet.py:260-345); attn: the request's
+        self-attention options.  Activations run channels-last in memory
+        (NCHW indexing)."""
         emb = self.embed(timesteps, y, x.dtype)
         context = context.to(x.dtype) if context is not None else None
         hs = []
         h = x.contiguous(memory_format=torch.channels_last)
         for block in self.input_blocks:
-            h = run_layers(block, h, emb, context, hypernet, tiling)
+            h = run_layers(block, h, emb, context, hypernet, tiling, attn)
             hs.append(h)
-        h = run_layers(self.middle_block, h, emb, context, hypernet, tiling)
+        h = run_layers(self.middle_block, h, emb, context, hypernet, tiling, attn)
         if control is not None:
             h = h + control["middle"]
         for block in self.output_blocks:
             skip = hs.pop()
             if control is not None:
                 skip = skip + control["input"][len(hs)]
-            h = run_layers(block, torch.cat([h, skip], dim=1), emb, context, hypernet, tiling)
+            h = run_layers(block, torch.cat([h, skip], dim=1), emb, context, hypernet, tiling,
+                           attn)
         return self.out[2](self.out[0](h, silu=True), tiling)

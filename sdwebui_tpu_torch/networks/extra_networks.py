@@ -195,7 +195,8 @@ def _merge(model, nets: list, registry: LoraRegistry) -> tuple:
         te_mult = net.mult(1, default_mult)
         loras_unet.append((sd, net.mult(2, te_mult)))
         loras_te.append((sd, te_mult))
-    unet_patch, _, _ = apply_loras(dict(model.unet.named_parameters()), loras_unet, "lora_unet_")
+    unet_patch, _, _ = apply_loras(dict(model.unet.named_parameters()), loras_unet, "lora_unet_",
+                                   hp=model.unet_hp)
     clip = model.conditioner.model
     clip_params = dict(clip.named_parameters())
     te_patch, n_te, _ = apply_loras(clip_params, loras_te, "lora_te_")

@@ -215,11 +215,19 @@ def apply_dora(delta, orig, dora_scale):
 # application (lora.py:251-344)
 # --------------------------------------------------------------------------
 
-def apply_loras(params: dict, loras: list, prefix: str = "lora_unet_"):
-    """params: a module's {name: tensor}; loras: [(lora state dict, mult)].
-    Returns ({name: new tensor} for every patched parameter, modules
-    applied, unmatched module names).  The patched tensors are new; the
-    given ones are not touched."""
+def apply_loras(params: dict, loras: list, prefix: str = "lora_unet_", hp: dict | None = None):
+    """params: a module's {name: tensor}; loras: [(lora state dict, mult)];
+    hp: the high-precision copies of weights stored in fp8 (fp8 storage
+    with opts.cache_fp16_weight), the base of their merges (lora.py:256).
+    Returns ({name: new tensor} for every patched parameter, in the stored
+    dtype, modules applied, unmatched module names).  The patched tensors
+    are new; the given ones are not touched."""
+    hp = hp or {}
+
+    def base(name):
+        w = params[name]
+        return hp[name].to(w.device) if name in hp else w
+
     lookup = build_path_lookup(params)
     patches: dict = {}
     unmatched = []
@@ -232,7 +240,7 @@ def apply_loras(params: dict, loras: list, prefix: str = "lora_unet_"):
             if path is None:
                 unmatched.append(module)
                 continue
-            w = params[path + ".weight"]
+            w = base(path + ".weight")
             if "dora_scale" in mods:
                 # the alpha-scaled delta decomposed against the merged
                 # weight's row norms; the multiplier scales the result
@@ -250,7 +258,7 @@ def apply_loras(params: dict, loras: list, prefix: str = "lora_unet_"):
     out = {}
     for path, ops in patches.items():
         w = params[path + ".weight"]
-        wf = w.float()
+        wf = base(path + ".weight").float()
         for kind, payload in ops:
             if kind == "add":
                 wf = wf + payload

@@ -3,8 +3,9 @@
 Port of ``sdwebui_tpu/networks/textual_inversion.py:19-45,62-163``.
 Embeddings load from ``.safetensors`` (``emb_params``, or SDXL's
 ``clip_l`` / ``clip_g`` pair), ``.pt`` (``string_to_param``) and ``.bin``
-(diffusers' ``{name: tensor}``); PNG / WebP embedding cards raise
-``NotImplementedError``.  Triggers match on token ids while a prompt is
+(diffusers' ``{name: tensor}``) and PNG embedding cards (the
+``sd-ti-embedding`` text chunk or the pixel panels,
+``networks/image_embedding``); WebP cards raise ``NotImplementedError``.  Triggers match on token ids while a prompt is
 tokenized (``TextConditioner.tokenize_line``), and each match is logged in
 ``used_names`` for the infotext's "TI hashes" field.
 """
@@ -16,11 +17,15 @@ import hashlib
 import os
 import pickle
 
+import numpy as np
 import torch
 
 from sdwebui_tpu_torch.loader.safetensors_io import read_state_dict
 from sdwebui_tpu_torch.loader.torch_ckpt import load_torch_checkpoint
+from sdwebui_tpu_torch.networks.image_embedding import (embedding_from_b64,
+                                                        extract_image_data_embed)
 from sdwebui_tpu_torch.utils.options import opts
+from sdwebui_tpu_torch.utils.png import decode_png
 
 #: where embeddings live unless the caller says otherwise
 DEFAULT_EMBEDDINGS_DIR = "embeddings"
@@ -50,8 +55,40 @@ def as_rows(t) -> torch.Tensor:
 def load_embedding_file(path: str, name: str | None = None) -> Embedding:
     """An embedding file → Embedding, its shorthash the file's sha256[:10]."""
     name = name or os.path.splitext(os.path.basename(path))[0]
-    if path.lower().endswith((".png", ".webp")):
-        raise NotImplementedError(f"{path}: PNG / WebP embedding cards are not ported yet")
+    if path.lower().endswith(".webp"):
+        raise NotImplementedError(f"{path}: WebP embedding cards are not ported (the port has "
+                                  "no WebP decoder)")
+    if path.lower().endswith(".png"):
+        emb = _load_png_card(path, name)
+    else:
+        emb = _load_tensor_file(path, name)
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    emb.shorthash = h.hexdigest()[:10]
+    return emb
+
+
+def _load_png_card(path: str, name: str) -> Embedding:
+    """A PNG embedding card (textual_inversion.py:47-67 of the JAX package):
+    the ``sd-ti-embedding`` text chunk first, then the pixel panels; the
+    card's own name and step."""
+    with open(path, "rb") as f:
+        image, text = decode_png(f.read())
+    data = None
+    if "sd-ti-embedding" in text:
+        data = embedding_from_b64(text["sd-ti-embedding"])
+    if data is None:
+        data = extract_image_data_embed(image)
+    if not data:
+        raise ValueError(f"no embedded embedding data in {path}")
+    vec = np.atleast_2d(np.asarray(next(iter(data["string_to_param"].values())), np.float32))
+    return Embedding(data.get("name", name), as_rows(torch.from_numpy(vec)),
+                     step=data.get("step"))
+
+
+def _load_tensor_file(path: str, name: str) -> Embedding:
     sd = read_state_dict(path) if path.endswith(".safetensors") else load_torch_checkpoint(path)
     if "emb_params" in sd:
         emb = Embedding(name, as_rows(sd["emb_params"]))
@@ -61,11 +98,6 @@ def load_embedding_file(path: str, name: str | None = None) -> Embedding:
         emb = Embedding(name, as_rows(next(iter(sd.values()))))
     else:
         raise ValueError(f"no embedding tensor found in {path}")
-    h = hashlib.sha256()
-    with open(path, "rb") as f:
-        for chunk in iter(lambda: f.read(1 << 20), b""):
-            h.update(chunk)
-    emb.shorthash = h.hexdigest()[:10]
     return emb
 
 

@@ -28,8 +28,8 @@ OpenCV in the tests:
 ``processor_res`` resizes the short side to `res` (both sides rounded to
 /8) with cv2's INTER_AREA when it shrinks and INTER_LANCZOS4 when it
 grows.  Every annotator: uint8 RGB (H, W, 3) → uint8 (H, W) or (H, W, 3)
-hint, white where the feature is.  ``openpose`` raises
-``NotImplementedError``.
+hint, white where the feature is; ``openpose`` draws the body-pose
+skeleton (``models/openpose``, its cv2 calls restated in ``utils/cv``).
 """
 
 from __future__ import annotations
@@ -267,12 +267,24 @@ def depth_midas(img, res: int = 512, a: float = 0, b: float = 0, device=None):
     return ((depth - lo) / max(hi - lo, 1e-8) * 255).astype(np.uint8)
 
 
-def openpose(img, *args, **kw):
-    raise NotImplementedError("annotator 'openpose' (a controlnet_units module) is not "
-                              "ported yet: its PAF assembly is out of this slice")
+def _build_openpose(sd: dict, device):
+    from sdwebui_tpu_torch.models.openpose import openpose_from_state_dict
+
+    return openpose_from_state_dict(sd, device)
 
 
-_MODEL_BASED = (hed, hed_safe, scribble_hed, depth_midas)
+def openpose(img, res: int = 512, a: float = 0, b: float = 0, device=None):
+    """The body-pose skeleton (``models/openpose``; body_pose_model.pth),
+    annotators.py:183-191 of the JAX package."""
+    from sdwebui_tpu_torch.models import openpose as pose
+
+    img = _resize_for_detect(img, res)
+    net = _load("openpose", ("body_pose",), _build_openpose, get_device(device or "cuda"))
+    candidate, subset = pose.estimate(net, img)
+    return pose.draw_bodypose(img.shape[0], img.shape[1], candidate, subset)
+
+
+_MODEL_BASED = (hed, hed_safe, scribble_hed, depth_midas, openpose)
 
 ANNOTATORS = {
     "none": None,

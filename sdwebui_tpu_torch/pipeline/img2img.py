@@ -55,6 +55,8 @@ from sdwebui_tpu_torch.pipeline.processing import (_apply_grid, _build_conds,
                                                    decode_first_stage_u8,
                                                    encode_first_stage,
                                                    check_family, check_hybrid,
+                                                   apply_attention_options,
+                                                   apply_schedule_overrides,
                                                    maybe_restore_faces,
                                                    prepare_sampler,
                                                    sample_latents, setup_img2img_steps,
@@ -230,6 +232,8 @@ def _process_img2img(model: SDModel, p: GenerationParams,
     _strip_prompt_comments(p)
     clean_prompt, model, hypernet = extra_networks.activate(model, p.prompt)
     model = with_tiling(model, p)
+    model = apply_attention_options(model, "img2img")
+    model = apply_schedule_overrides(model, p)
     h, w = p.latent_size()
     c = model.latent_channels
 
@@ -294,13 +298,13 @@ def _process_img2img(model: SDModel, p: GenerationParams,
         sched.c_concat = c_concat
         if model.unet_cfg.in_channels == 8 and p.image_cfg_scale not in (None, 1.0):
             sched.image_cfg_scale = float(p.image_cfg_scale)
-        rng = create_rng((c, h, w), seeds, subseeds=subseeds,
+        rng = create_rng((c, h, w), seeds, model.device, subseeds=subseeds,
                          subseed_strength=p.subseed_strength)
         if p.init_noise_override is not None:
             x = torch.as_tensor(np.asarray(p.init_noise_override, np.float32),
                                 device=model.device)
         else:
-            x = torch.from_numpy(rng.first()).to(model.device)
+            x = torch.as_tensor(rng.first(), device=model.device)
         if p.initial_noise_multiplier != 1.0:
             x = x * p.initial_noise_multiplier
         if model.disc.prediction_type == "flow":

@@ -25,11 +25,13 @@ nothing falls back to a different computation.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import logging
 import math
 import os
 import random
+import weakref
 from typing import Callable
 
 import numpy as np
@@ -38,14 +40,16 @@ import torch.nn.functional as F
 
 from sdwebui_tpu_torch import __version__
 from sdwebui_tpu_torch.models import vae_approx
+from sdwebui_tpu_torch.models.unet import AttentionOptions
 from sdwebui_tpu_torch.networks import extra_networks
 from sdwebui_tpu_torch.pipeline.control import control_residuals, prepare_controls
 from sdwebui_tpu_torch.pipeline.params import GenerationParams, Processed
 from sdwebui_tpu_torch.postprocessing import faces, upscalers
 from sdwebui_tpu_torch.pipeline.sd_model import SDModel, sdxl_vector_maker, unclip_adm
-from sdwebui_tpu_torch.rng.image_rng import ImageRNG, TorchCPUGenerator
-from sdwebui_tpu_torch.rng.philox import PhiloxGenerator
+from sdwebui_tpu_torch.rng import image_rng
 from sdwebui_tpu_torch.sampling.cfg import CondSchedule, make_cfg_denoiser
+from sdwebui_tpu_torch.sampling.discretization import (Discretization,
+                                                       rescale_zero_terminal_snr_abar)
 from sdwebui_tpu_torch.sampling.registry import SamplerData, build_sigmas, get_sampler
 from sdwebui_tpu_torch.sampling.sampler import prepare_noise, sample
 from sdwebui_tpu_torch.sampling.solvers import get_solver
@@ -59,23 +63,15 @@ log = logging.getLogger(__name__)
 
 MAX_SEED = 2 ** 32 - 1
 
-#: options the JAX pipeline reads whose other values are not ported yet,
-#: with the value the slice runs
-UNPORTED_OPTIONS = {
-    "sgm_noise_multiplier": False,
-    "use_downcasted_alpha_bar": False,
-    "sd_noise_schedule": "Default",
-    "hypertile_enable_unet": False,
-    "token_merging_ratio": 0.0,
-    "upcast_attn": False,
-    "fp8_storage": "Disable",
-}
-
 #: options of the hires pass whose other values are not ported yet
 UNPORTED_HIRES_OPTIONS = {
-    "token_merging_ratio_hr": 0.0,
     "save_images_before_highres_fix": False,
 }
+
+#: the sd_unet values the port runs: the slot's providers register through
+#: the scripts framework (sdwebui_tpu/pipeline/sd_unet.py:43-79), which the
+#: port does not have
+SD_UNET_PORTED = ("Automatic", "None")
 
 def check_family(model: SDModel, p: GenerationParams,
                  refiner_model: SDModel | None = None) -> None:
@@ -131,18 +127,15 @@ def _check_slice(p: GenerationParams) -> None:
     for name, used in fields.items():
         if used:
             raise NotImplementedError(f"{name!r} is not ported yet")
-    for name, value in UNPORTED_OPTIONS.items():
-        if opts.get(name, value) != value:
-            raise NotImplementedError(f"option {name!r} is not ported yet")
+    if str(opts.get("sd_unet", "Automatic")) not in SD_UNET_PORTED:
+        raise NotImplementedError(f"sd_unet {opts.get('sd_unet')!r} is not ported (the "
+                                  "port has no scripts framework to register UNets)")
     if p.restore_faces and opts.get("save_images_before_face_restoration", False):
         raise NotImplementedError("option 'save_images_before_face_restoration' with "
                                   "restore_faces is not ported yet: output saving is not")
     for name, value in UNPORTED_HIRES_OPTIONS.items():
         if p.enable_hr and opts.get(name, value) != value:
             raise NotImplementedError(f"option {name!r} of the enable_hr pass is not ported yet")
-    if str(opts.get("randn_source", "NV")) not in ("NV", "CPU"):
-        raise NotImplementedError(
-            f"randn_source {opts.get('randn_source')!r} is not ported yet (use NV or CPU)")
 
 
 # --------------------------------------------------------------------------
@@ -185,6 +178,7 @@ def make_denoise_fn(model: SDModel, quantize_t: bool, compute_dtype, solver: str
     lcm = solver == "lcm"
     skip = len(log_sigmas) // LCM_ORIGINAL_STEPS
     sub = log_sigmas[skip - 1::skip]
+    attn_opts = None if prediction_type == "flow" else AttentionOptions.of(model.unet_cfg)
 
     def denoise(x, sigma: float, ctx, y=None, step: int = 0, c_concat=None):
         s = np.float32(sigma)
@@ -210,7 +204,7 @@ def make_denoise_fn(model: SDModel, quantize_t: bool, compute_dtype, solver: str
         if c_concat is not None:
             x_in = torch.cat([x_in, c_concat.to(x_in.dtype)], dim=1)
         out = model.unet(x_in, timesteps, ctx, y, control=control, hypernet=hypernet,
-                         tiling=model.unet_cfg.tiling).float()
+                         tiling=model.unet_cfg.tiling, attn=attn_opts).float()
         if prediction_type == "v":
             return x / float(s * s + 1) - out * float(s / np.sqrt(s * s + 1))
         if lcm:
@@ -375,17 +369,72 @@ def _strip_prompt_comments(p: GenerationParams):
     p.all_negative_prompts = [strip_comments(x) for x in p.all_negative_prompts]
 
 
-def create_rng(shape, seeds, subseeds=None, subseed_strength=0.0,
+def create_rng(shape, seeds, device, subseeds=None, subseed_strength=0.0,
                seed_resize_from_h=0, seed_resize_from_w=0, eta_noise_seed_delta=0):
-    """Host noise streams in NCHW: "NV" (Philox, the reference's NVIDIA
-    bits) or "CPU" (the torch CPU generator) — image_rng.py:181-209."""
-    source = str(opts.get("randn_source", "NV"))
-    gen_cls = TorchCPUGenerator if source == "CPU" else PhiloxGenerator
-    return ImageRNG(shape, seeds, subseeds=subseeds, subseed_strength=subseed_strength,
-                    seed_resize_from_h=seed_resize_from_h,
-                    seed_resize_from_w=seed_resize_from_w,
-                    eta_noise_seed_delta=eta_noise_seed_delta,
-                    channels_last=False, gen_cls=gen_cls)
+    """The noise streams of opts.randn_source in NCHW (image_rng.py:181-209):
+    "NV" (host Philox, the reference's NVIDIA bits), "CPU" (the torch CPU
+    generator), or "TPU" / "GPU" / "JAX" (the same Philox counters on
+    `device`, ``rng/device_philox``; a seed resize takes the host path)."""
+    return image_rng.create_rng(shape, seeds, subseeds=subseeds,
+                                subseed_strength=subseed_strength,
+                                seed_resize_from_h=seed_resize_from_h,
+                                seed_resize_from_w=seed_resize_from_w,
+                                eta_noise_seed_delta=eta_noise_seed_delta,
+                                channels_last=False, device=device)
+
+
+def apply_attention_options(model: SDModel, kind: str = "txt2img") -> SDModel:
+    """The UNet's attention options of this request (processing.py:1115-1147):
+    hypertile (the latent tile is hypertile_max_tile_unet // 8, at least
+    16), token merging (img2img and the hires pass fall back to the base
+    ratio when their own option is 0) and upcast_attn; a copy of the
+    bundle, the same modules.  SD3's MMDiT takes none of them."""
+    cfg = model.unet_cfg
+    if not hasattr(cfg, "tome_ratio"):
+        return model
+    tile = 0
+    if opts.get("hypertile_enable_unet", False):
+        tile = max(int(opts.get("hypertile_max_tile_unet", 256)) // 8, 16)
+    base = float(opts.get("token_merging_ratio", 0.0))
+    own = {"img2img": "token_merging_ratio_img2img", "hr": "token_merging_ratio_hr"}.get(kind)
+    ratio = (float(opts.get(own, 0.0)) if own else 0.0) or base
+    new = dataclasses.replace(cfg, hypertile_tile=tile or cfg.hypertile_tile,
+                              tome_ratio=ratio if ratio > 0 else 0.0,
+                              upcast_attn=bool(opts.get("upcast_attn", False)))
+    return model if new == cfg else dataclasses.replace(model, unet_cfg=new)
+
+
+def apply_schedule_overrides(model: SDModel, p: GenerationParams) -> SDModel:
+    """sd_noise_schedule "Zero Terminal SNR" and use_downcasted_alpha_bar
+    (an fp16 round trip of ᾱ) rebuild the sigma table for this run, with
+    their infotext fields (processing.py:1260-1284); a flow model has no ᾱ
+    table and is left as it is."""
+    disc = model.disc
+    if getattr(disc, "alphas_cumprod", None) is None:
+        return model
+    abar, changed = disc.alphas_cumprod, False
+    if opts.get("use_downcasted_alpha_bar", False):
+        abar = np.asarray(abar).astype(np.float16).astype(np.float64)
+        p.extra_generation_params["Downcast alphas_cumprod"] = "True"
+        changed = True
+    if opts.get("sd_noise_schedule", "Default") == "Zero Terminal SNR":
+        abar = rescale_zero_terminal_snr_abar(abar)
+        p.extra_generation_params["Noise Schedule"] = "Zero Terminal SNR"
+        changed = True
+    if not changed:
+        return model
+    return dataclasses.replace(model, disc=Discretization(
+        abar, prediction_type=disc.prediction_type, quantize=disc.quantize))
+
+
+def initial_noise_scale(p: GenerationParams, sigma0: float) -> float:
+    """txt2img's first-noise scale: σ₀, or √(1+σ₀²) with
+    opts.sgm_noise_multiplier (processing.py:1436-1442), recorded in the
+    infotext."""
+    if opts.get("sgm_noise_multiplier", False):
+        p.extra_generation_params["SGM noise multiplier"] = "True"
+        return float(np.sqrt(1.0 + float(sigma0) ** 2))
+    return float(sigma0)
 
 
 _TIMESTEP_SOLVERS = ("ddim", "ddim_cfgpp", "plms", "unipc")
@@ -468,11 +517,73 @@ def _skip_uncond_mask(sigmas, p: GenerationParams):
     return mask if mask.any() else None
 
 
+#: opts.persistent_cond_cache (processing.py:1015-1056): schedules of
+#: prompts seen before, by everything that shapes their banks; at most
+#: COND_CACHE_SIZE, the least recently used leaving first
+_COND_CACHE: dict = {}
+COND_CACHE_SIZE = 16
+
+
+def _cond_cache_key(model: SDModel, p: GenerationParams, steps, cfg_scale, prompt, negative,
+                    width, height, hires_steps) -> tuple:
+    """The JAX package's key (processing.py:1030-1043), with the options
+    that change the tokens and weights it leaves out (use_old_emphasis_
+    implementation, enable_emphasis, comma_padding_backtrack: ROADMAP C)."""
+    return (id(model), model.kind, id(model.conditioner.embedding_db),
+            prompt if prompt is not None else p.prompt,
+            negative if negative is not None else p.negative_prompt,
+            steps, hires_steps, cfg_scale if cfg_scale is not None else p.cfg_scale,
+            p.clip_skip, width or p.width, height or p.height,
+            bool(opts.get("use_old_scheduling", False)),
+            bool(opts.get("sdxl_clip_l_skip", False)),
+            int(opts.get("sdxl_crop_top", 0)), int(opts.get("sdxl_crop_left", 0)),
+            str(opts.get("emphasis", "Original")),
+            bool(opts.get("use_old_emphasis_implementation", False)),
+            bool(opts.get("enable_emphasis", True)),
+            int(opts.get("comma_padding_backtrack", 20)))
+
+
 def _build_conds(model: SDModel, p: GenerationParams, steps: int,
                  cfg_scale: float | None = None, prompt: str | None = None,
                  negative: str | None = None, width: int | None = None,
                  height: int | None = None, hires_steps: int | None = None,
                  adm_vector=None) -> CondSchedule:
+    """`_encode_conds` through the persistent cond cache: off with an adm
+    vector; a hit is a shallow copy (callers set ``skip_uncond`` and
+    ``c_concat`` per run) and marks the textual-inversion embeddings it
+    used, so the infotext's TI hashes stay.  An entry holds its model
+    weakly: a model built at a freed model's address misses."""
+    if not opts.get("persistent_cond_cache", True) or adm_vector is not None:
+        return _encode_conds(model, p, steps, cfg_scale, prompt, negative, width, height,
+                             hires_steps, adm_vector)
+    key = _cond_cache_key(model, p, steps, cfg_scale, prompt, negative, width, height,
+                          hires_steps)
+    db = model.conditioner.embedding_db
+    hit = _COND_CACHE.pop(key, None)
+    if hit is not None and hit[0]() is model:
+        _COND_CACHE[key] = hit                  # most recently used
+        if db is not None:
+            db.used_names.update(hit[2])
+        return copy.copy(hit[1])
+    before = set(db.used_names) if db is not None else set()
+    if db is not None:
+        db.used_names.clear()
+    sched = _encode_conds(model, p, steps, cfg_scale, prompt, negative, width, height,
+                          hires_steps, adm_vector)
+    used = frozenset(db.used_names) if db is not None else frozenset()
+    if db is not None:
+        db.used_names.update(before)
+    _COND_CACHE[key] = (weakref.ref(model), copy.copy(sched), used)
+    while len(_COND_CACHE) > COND_CACHE_SIZE:
+        _COND_CACHE.pop(next(iter(_COND_CACHE)))
+    return sched
+
+
+def _encode_conds(model: SDModel, p: GenerationParams, steps: int,
+                  cfg_scale: float | None = None, prompt: str | None = None,
+                  negative: str | None = None, width: int | None = None,
+                  height: int | None = None, hires_steps: int | None = None,
+                  adm_vector=None) -> CondSchedule:
     """The CFG schedule (processing.py:1061-1113) of the request's prompts,
     or of the given ones (the hires pass).  SDXL keeps CLIP-L at the
     penultimate layer unless opts.sdxl_clip_l_skip, and adds the y vectors
@@ -601,6 +712,7 @@ def _hires_pass(model: SDModel, p: GenerationParams, latents, seeds, subseeds,
     stay active) and the ControlNet units re-prepared at the target size
     (processing.py:745-777); for SDXL handed to `refiner_model` inside it.
     Its noise takes no seed resize and no ENSD (processing.py:730)."""
+    model = apply_attention_options(model, "hr")
     hr_w, hr_h = calculate_hr_target(p)
     th, tw = hr_h // 8, hr_w // 8
     c = model.latent_channels
@@ -619,9 +731,9 @@ def _hires_pass(model: SDModel, p: GenerationParams, latents, seeds, subseeds,
         cond_w, cond_h = hr_w, hr_h
     sched = _build_conds(model, p, p.steps, cfg_scale=cfg, prompt=prompt, negative=negative,
                          width=cond_w, height=cond_h, hires_steps=t_enc + 1)
-    rng = create_rng((c, th, tw), seeds, subseeds=subseeds,
+    rng = create_rng((c, th, tw), seeds, model.device, subseeds=subseeds,
                      subseed_strength=p.subseed_strength)
-    noise0 = torch.from_numpy(rng.first()).to(model.device)
+    noise0 = torch.as_tensor(rng.first(), device=model.device)
     if model.disc.prediction_type == "flow":   # the LERP (processing.py:733-735)
         s0 = float(sigma_sched[0])
         x = s0 * noise0 + (1.0 - s0) * up
@@ -743,6 +855,9 @@ def create_infotext(p: GenerationParams, model: SDModel, index: int = 0) -> str:
         pairs["ENSD"] = ensd
     if p.tiling:
         pairs["Tiling"] = "True"
+    tome = float(opts.get("token_merging_ratio", 0.0) or 0.0)
+    if tome > 0:
+        pairs["Token merging ratio"] = tome
     emphasis = opts.get("emphasis", "Original")
     if emphasis != "Original":
         pairs["Emphasis"] = emphasis
@@ -919,6 +1034,8 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
     # conds see, a LoRA set swaps in the merged model; the infotext keeps them
     clean_prompt, model, hypernet = extra_networks.activate(model, p.prompt)
     model = with_tiling(model, p)
+    model = apply_attention_options(model)
+    model = apply_schedule_overrides(model, p)
     sampler, spec, sigmas, solver_extra = prepare_sampler(model, p, p.steps)
     # which passes the refiner takes when hires fix is on
     # (processing.py:1449-1453,1488; sd_samplers_common.py:183)
@@ -945,13 +1062,14 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
         sched = _build_conds(model, p, p.steps, prompt=clean_prompt, adm_vector=adm)
         sched.skip_uncond = _skip_uncond_mask(sigmas, p)
         sched.c_concat = c_concat
-        rng = create_rng((c, h, w), seeds, subseeds=subseeds,
+        rng = create_rng((c, h, w), seeds, model.device, subseeds=subseeds,
                          subseed_strength=p.subseed_strength,
                          seed_resize_from_h=max(p.seed_resize_from_h, 0),
                          seed_resize_from_w=max(p.seed_resize_from_w, 0),
                          eta_noise_seed_delta=p.override_settings.get(
                              "eta_noise_seed_delta", 0))
-        x = torch.from_numpy(rng.first()).to(model.device) * float(np.float32(sigmas[0]))
+        x = torch.as_tensor(rng.first(), device=model.device) * initial_noise_scale(
+            p, float(np.float32(sigmas[0])))
         noise = prepare_noise(spec, len(sigmas) - 1, rng, model.device)
         if refine_first:
             # base → refiner at the switch-point sigma; the refiner's run is

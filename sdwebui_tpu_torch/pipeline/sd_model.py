@@ -27,7 +27,7 @@ from sdwebui_tpu_torch.models.configs import (CLIP_L, OPEN_CLIP_BIGG, OPEN_CLIP_
                                               CLIPTextConfig, UNetConfig, VAEConfig)
 from sdwebui_tpu_torch.models.layers import reset_random, timestep_embedding
 from sdwebui_tpu_torch.models.midas import DPTConfig, DPTDepthModel, create_random_dpt
-from sdwebui_tpu_torch.models.unet import UNetModel
+from sdwebui_tpu_torch.models.unet import UNetModel, state_dict_depths
 from sdwebui_tpu_torch.models.vae import AutoencoderKL
 from sdwebui_tpu_torch.sampling.discretization import (Discretization,
                                                        make_alphas_cumprod)
@@ -73,6 +73,9 @@ class SDModel:
     # {"mean": (D,), "std": (D,)} data statistics
     image_embedder: torch.nn.Module | None = None
     noise_aug_stats: dict | None = None
+    # fp8 storage with opts.cache_fp16_weight: the high-precision UNet
+    # weights by parameter name, in host RAM, while the UNet holds fp8
+    unet_hp: dict | None = None
 
     @property
     def is_sdxl(self) -> bool:
@@ -485,10 +488,13 @@ def create_tiny_sdxl(seed: int = 0, device="cpu", refiner: bool = False,
 # weights from the JAX package
 # --------------------------------------------------------------------------
 
+_FP8 = {"float8_e4m3fn": torch.float8_e4m3fn, "float8_e5m2": torch.float8_e5m2}
+
+
 def _to_torch(arr) -> torch.Tensor:
     a = np.asarray(arr)
-    if a.dtype.name.startswith("float8"):
-        raise NotImplementedError("fp8 weight storage is not ported yet")
+    if a.dtype.name in _FP8:        # ml_dtypes leaf: its codes, reinterpreted
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint8)).view(_FP8[a.dtype.name])
     if a.dtype.name == "bfloat16":     # ml_dtypes leaf: widen for torch
         return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
     return torch.from_numpy(np.array(a))
@@ -562,8 +568,10 @@ def from_jax(jax_model, device="cpu") -> SDModel:
     else:
         unet_sd = state_dict_from_tree(jax_model.unet_params)
         unet = UNetModel(jax_model.unet_cfg, device=device,
-                         dtype=next(iter(unet_sd.values())).dtype)
+                         dtype=next(t.dtype for t in unet_sd.values() if t.dtype not in FP8_DTYPES),
+                         depths=state_dict_depths(unet_sd))
         unet.load_state_dict(unet_sd, strict=True)
+        _keep_fp8(unet, unet_sd)
         disc = Discretization(np.asarray(jax_model.disc.alphas_cumprod),
                               prediction_type=jax_model.disc.prediction_type)
     vae = AutoencoderKL(jax_model.vae_cfg, device=device, dtype=torch.float32)
@@ -597,4 +605,67 @@ def from_jax(jax_model, device="cpu") -> SDModel:
                                                     jax_model.image_embedder_cfg, device)
         model.noise_aug_stats = {k: torch.as_tensor(np.array(v, np.float32), device=device)
                                  .reshape(-1) for k, v in jax_model.noise_aug_stats.items()}
+    return model
+
+
+# --------------------------------------------------------------------------
+# fp8 weight storage (sd_model.py:467-517)
+# --------------------------------------------------------------------------
+
+FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def _keep_fp8(unet: torch.nn.Module, sd: dict) -> None:
+    """Store the fp8 tensors of `sd` as they are: ``load_state_dict``
+    copies them into the module's dtype."""
+    params = dict(unet.named_parameters())
+    for name, t in sd.items():
+        if t.dtype in FP8_DTYPES:
+            params[name].data = t.to(params[name].device)
+
+
+def _fp8_quantizable(name: str, p: torch.Tensor) -> bool:
+    """Conv and linear weights (2-D and up, not of a norm): what
+    quantize_unet_fp8 stores in fp8 (sd_model.py:483-486)."""
+    return (name.endswith(".weight") and p.dim() >= 2
+            and p.dtype in (torch.bfloat16, torch.float32, torch.float16)
+            and "norm" not in name.rsplit(".", 2)[-2])
+
+
+def has_fp8(model: SDModel) -> bool:
+    return any(p.dtype == torch.float8_e4m3fn for p in model.unet.parameters())
+
+
+def quantize_unet_fp8(model: SDModel, keep_hp: bool = False) -> SDModel:
+    """Store the UNet's conv and linear weights as float8_e4m3fn on the
+    device (opts.fp8_storage; norms, biases and embeddings stay as they
+    are); the forward upcasts each at use.  keep_hp (opts.cache_fp16_weight)
+    keeps host copies of the original weights: LoRA merges take them as
+    their base, and ``dequantize_unet_fp8`` restores them exactly.  In
+    place; merged LoRA copies are dropped."""
+    hp = {}
+    for name, p in model.unet.named_parameters():
+        if _fp8_quantizable(name, p):
+            if keep_hp:
+                hp[name] = p.detach().to("cpu", copy=True)
+            fmt = torch.channels_last if p.dim() == 4 else torch.contiguous_format
+            p.data = p.data.to(torch.float8_e4m3fn).contiguous(memory_format=fmt)
+    model.unet_hp = hp if keep_hp else None
+    model.network_cache.clear()
+    return model
+
+
+def dequantize_unet_fp8(model: SDModel, dtype=torch.bfloat16) -> SDModel:
+    """Undo fp8 storage from the kept copies (exact) or, without them, by
+    upcasting the stored codes to `dtype` (lossy, as the reference without a
+    checkpoint reload).  In place; merged LoRA copies are dropped."""
+    hp = model.unet_hp or {}
+    for name, p in model.unet.named_parameters():
+        if p.dtype == torch.float8_e4m3fn:
+            src = hp.get(name)
+            fmt = torch.channels_last if p.dim() == 4 else torch.contiguous_format
+            new = src.to(p.device) if src is not None else p.data.to(dtype)
+            p.data = new.contiguous(memory_format=fmt)
+    model.unet_hp = None
+    model.network_cache.clear()
     return model

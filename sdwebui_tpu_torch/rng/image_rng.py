@@ -1,7 +1,7 @@
 """Seeded per-image latent noise — reference-compatible semantics.
 
-Copy of ``sdwebui_tpu/rng/image_rng.py`` with the NV and CPU sources; the
-TPU device-Philox source is not carried over ("TPU"/"GPU"/"JAX" raise).
+Copy of ``sdwebui_tpu/rng/image_rng.py``; the device sources ("TPU",
+"GPU", "JAX") are ``rng/device_philox``'s torch port of its device Philox.
 
 Replicates the observable behaviour of `modules/rng.py` (ImageRNG: per-seed
 generators, subseed slerp, seed-resize overlay, eta-noise-seed-delta) in the
@@ -183,19 +183,27 @@ class ImageRNG:
 
 def create_rng(shape, seeds, subseeds=None, subseed_strength=0.0,
                seed_resize_from_h=0, seed_resize_from_w=0,
-               eta_noise_seed_delta=0, channels_last=True):
+               eta_noise_seed_delta=0, channels_last=True, device="cpu"):
     """randn_source dispatch (reference modules/rng.py:6-19 source switch).
 
     "NV" (default): host Philox, bit-exact with NVIDIA-GPU reference runs.
     "CPU": host torch CPU generator, bit-exact with reference CPU runs.
-    The device-side sources ("TPU", "GPU", "JAX") are not ported and raise.
+    "TPU" (aliases "GPU"/"JAX"): the same Philox counters generated on
+    `device` (``rng/device_philox``), NCHW tensors.  Seed-resize falls back
+    to the host path (uses numpy slicing).
     """
     from sdwebui_tpu_torch.utils.options import opts
 
     source = str(opts.get("randn_source", "NV"))
-    if source in ("TPU", "GPU", "JAX"):
-        raise NotImplementedError(
-            f"randn_source {source!r} is not ported yet (use NV or CPU)")
+    if source in ("TPU", "GPU", "JAX") and not (
+            seed_resize_from_h > 0 and seed_resize_from_w > 0):
+        if channels_last:
+            raise ValueError("the device noise source draws NCHW only")
+        from sdwebui_tpu_torch.rng.device_philox import DevicePhiloxRNG
+
+        return DevicePhiloxRNG(shape, seeds, device, subseeds=subseeds,
+                               subseed_strength=subseed_strength,
+                               eta_noise_seed_delta=eta_noise_seed_delta)
     gen_cls = TorchCPUGenerator if source == "CPU" else PhiloxGenerator
     return ImageRNG(shape, seeds, subseeds=subseeds,
                     subseed_strength=subseed_strength,

@@ -14,6 +14,18 @@ import dataclasses
 import numpy as np
 
 
+def rescale_zero_terminal_snr_abar(alphas_cumprod: np.ndarray) -> np.ndarray:
+    """Shift/scale √ᾱ so the terminal step has zero SNR (Lin et al. 2023;
+    the reference's rescale_zero_terminal_snr_abar, applied by the
+    sd_noise_schedule='Zero Terminal SNR' setting): discretization.py:17."""
+    sqrt = np.sqrt(np.asarray(alphas_cumprod, np.float64))
+    sqrt_0, sqrt_t = sqrt[0], sqrt[-1]
+    sqrt = (sqrt - sqrt_t) * sqrt_0 / (sqrt_0 - sqrt_t)
+    abar = sqrt ** 2
+    abar[-1] = 4.8973451890853435e-08   # the reference's terminal epsilon
+    return abar
+
+
 def make_alphas_cumprod(linear_start: float = 0.00085, linear_end: float = 0.0120,
                         timesteps: int = 1000) -> np.ndarray:
     """ldm 'linear' schedule: betas linear in sqrt-space."""

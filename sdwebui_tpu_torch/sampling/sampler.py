@@ -22,9 +22,10 @@ from sdwebui_tpu_torch.sampling.solvers import (SolverSpec, build_restart_plan,
 
 def prepare_noise(spec: SolverSpec, n_steps: int, image_rng, device) -> torch.Tensor:
     """(n_steps, noises_per_step, B, C, H, W) solver noise from the seeded
-    per-image stream (ImageRNG.next_k with channels_last=False)."""
+    per-image stream (``next_k`` of an NCHW ImageRNG, or of the device
+    source's ``DevicePhiloxRNG``, which draws on the device)."""
     flat = image_rng.next_k(n_steps * spec.noises_per_step)   # (n·per, B, C, H, W)
-    noise = torch.from_numpy(flat).to(device)
+    noise = torch.as_tensor(flat, device=device)
     return noise.reshape(n_steps, spec.noises_per_step, *noise.shape[1:])
 
 

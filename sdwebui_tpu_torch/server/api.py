@@ -56,8 +56,7 @@ from sdwebui_tpu_torch.networks.extra_networks import lora_registry
 from sdwebui_tpu_torch.networks.hypernetwork import hypernet_registry
 from sdwebui_tpu_torch.pipeline import annotators, control
 from sdwebui_tpu_torch.pipeline.params import GenerationParams
-from sdwebui_tpu_torch.pipeline.processing import (LATENT_UPSCALE_MODES, UNPORTED_HIRES_OPTIONS,
-                                                   UNPORTED_OPTIONS)
+from sdwebui_tpu_torch.pipeline.processing import LATENT_UPSCALE_MODES, UNPORTED_HIRES_OPTIONS
 from sdwebui_tpu_torch.postprocessing import faces, upscalers
 from sdwebui_tpu_torch.postprocessing.stages import StageArgs
 from sdwebui_tpu_torch.sampling.registry import SAMPLER_MAP, SAMPLERS
@@ -109,7 +108,7 @@ HIRES_FIELDS = {
 HIRES_NEUTRAL = {k: (default,) for k, (default, _) in HIRES_FIELDS.items()
                  if k != "denoising_strength"}
 
-#: override_settings keys the slice reads; UNPORTED_OPTIONS keys are
+#: override_settings keys the slice reads; UNPORTED_HIRES_OPTIONS keys are
 #: accepted too and raise in the pipeline unless at their neutral value
 OVERRIDES = {
     "CLIP_stop_at_last_layers", "eta_noise_seed_delta", "randn_source",
@@ -146,7 +145,15 @@ OVERRIDES = {
     # live previews (Engine._step_callback) and face restoration
     "live_previews_enable", "show_progress_every_n_steps", "show_progress_grid",
     "face_restoration_model", "code_former_weight", "save_images_before_face_restoration",
-    *UNPORTED_OPTIONS, *UNPORTED_HIRES_OPTIONS,
+    # the UNet's attention options, fp8 storage, the schedule overrides,
+    # old emphasis and the cond cache (processing.apply_attention_options,
+    # apply_schedule_overrides, Engine._apply_fp8_storage, _build_conds);
+    # sd_unet runs Automatic and None only
+    "hypertile_enable_unet", "hypertile_max_tile_unet", "token_merging_ratio",
+    "token_merging_ratio_hr", "token_merging_ratio_img2img", "upcast_attn", "fp8_storage",
+    "cache_fp16_weight", "sgm_noise_multiplier", "sd_noise_schedule",
+    "use_downcasted_alpha_bar", "use_old_emphasis_implementation", "persistent_cond_cache",
+    "sd_unet", *UNPORTED_HIRES_OPTIONS,
 }
 
 

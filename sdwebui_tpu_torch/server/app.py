@@ -51,7 +51,8 @@ from sdwebui_tpu_torch.pipeline.processing import (decode_first_stage, image_gri
 from sdwebui_tpu_torch.pipeline.sd_model import (SDModel, create_random_sd15,
                                                  create_random_sdxl,
                                                  create_tiny_sd,
-                                                 create_tiny_sdxl)
+                                                 create_tiny_sdxl, dequantize_unet_fp8,
+                                                 has_fp8, quantize_unet_fp8)
 from sdwebui_tpu_torch.postprocessing.stages import StageArgs, run_stages
 from sdwebui_tpu_torch.runtime.state import State
 from sdwebui_tpu_torch.text.styles import StyleDatabase
@@ -60,9 +61,11 @@ from sdwebui_tpu_torch.utils.options import opts
 
 log = logging.getLogger(__name__)
 
-#: opts.cross_attention_optimization → attention impl
+#: opts.cross_attention_optimization → attention impl; "xla" is the JAX
+#: package's plain einsum path (sdwebui_tpu/ops/attention.py:33-37), here
+#: the plain PyTorch one
 ATTENTION_IMPLS = {"Automatic": None, "flash": "flash", "flash-packed": "flash-packed",
-                   "plain": "plain"}
+                   "plain": "plain", "xla": "plain"}
 
 #: seed offset of the random SDXL refiner (the JAX bench's 100 for base 0)
 REFINER_SEED_OFFSET = 100
@@ -269,6 +272,24 @@ class Engine:
                 f"cross_attention_optimization {impl!r} is not ported "
                 f"(one of {sorted(ATTENTION_IMPLS)})")
         set_attention_impl(ATTENTION_IMPLS[impl])
+        self._apply_fp8_storage(self.sd_model)
+
+    def _apply_fp8_storage(self, model: SDModel):
+        """opts.fp8_storage "Enable", "Enable for SDXL" or "Disable"
+        (app.py:94-125): the live UNet's conv and linear weights stored as
+        fp8, converted in place; "Disable" restores the cache_fp16_weight
+        copies where kept, else upcasts the stored codes (lossy)."""
+        mode = opts.get("fp8_storage", "Disable")
+        want = mode == "Enable" or (mode == "Enable for SDXL" and model.is_sdxl)
+        if want and model.is_sd3:
+            raise NotImplementedError("fp8_storage with an SD3 model is not ported (the JAX "
+                                      "package's MMDiT has no fp8 upcast)")
+        if want == has_fp8(model):
+            return
+        if want:
+            quantize_unet_fp8(model, keep_hp=bool(opts.get("cache_fp16_weight", False)))
+        else:
+            dequantize_unet_fp8(model)
 
     def _step_callback(self, i: int, n: int, latents) -> bool:
         """The sampler's per-step hook (app.py:440-460): progress, a stop on

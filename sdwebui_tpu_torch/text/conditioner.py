@@ -69,14 +69,74 @@ class TextConditioner:
         self.embedding_db = None
         self.embedding_field = "vec"
 
+    def _token_mults(self) -> dict:
+        """token id → nesting multiplier of the vocabulary entries that hold
+        literal paren/bracket characters (conditioner.py:80-106): the old
+        emphasis reads emphasis from tokens, not from a parsed tree."""
+        cached = getattr(self, "_token_mults_cache", None)
+        if cached is not None:
+            return cached
+        mults = {}
+        for text, ident in getattr(self.tokenizer, "encoder", {}).items():
+            if not any(c in str(text) for c in "()[]"):
+                continue
+            m = 1.0
+            for c in str(text):
+                if c == "[":
+                    m /= 1.1
+                elif c == "]":
+                    m *= 1.1
+                elif c == "(":
+                    m *= 1.1
+                elif c == ")":
+                    m /= 1.1
+            if m != 1.0:
+                mults[ident] = m
+        self._token_mults_cache = mults
+        return mults
+
+    def _tokenize_line_old(self, line: str):
+        """opts.use_old_emphasis_implementation (conditioner.py:109-149):
+        one 75-token window (no chunking, no BREAK, no comma backtrack),
+        literal paren/bracket tokens multiplying the weight of what follows,
+        the overflow cut."""
+        ids = self.tokenizer.encode(line)
+        token_mults = self._token_mults()
+        tokens, mults, fixes = [], [], []
+        mult = 1.0
+        i = 0
+        while i < len(ids):
+            token = ids[i]
+            change = token_mults.get(token) if self.emphasis != "None" else None
+            if change is not None:
+                mult *= change
+                i += 1
+                continue
+            if self.embedding_db is not None:
+                emb, emb_len = self.embedding_db.find_at(ids, i)
+                if emb is not None:
+                    fixes.append((len(tokens), emb))
+                    tokens += [0] * emb.vectors
+                    mults += [mult] * emb.vectors
+                    i += emb_len
+                    continue
+            tokens.append(token)
+            mults.append(mult)
+            i += 1
+        token_count = len(tokens)
+        tokens, mults = tokens[:CHUNK_LEN], mults[:CHUNK_LEN]
+        fixes = [(pos, e) for (pos, e) in fixes if pos < CHUNK_LEN]
+        tokens += [EOS] * (CHUNK_LEN - len(tokens))
+        mults += [1.0] * (CHUNK_LEN - len(mults))
+        return [PromptChunk(tokens, mults, fixes)], token_count
+
     def tokenize_line(self, line: str):
         """line → (List[PromptChunk], token_count) (reference
         sd_hijack_clip.py:81 semantics)."""
         from sdwebui_tpu_torch.utils.options import opts
 
         if bool(opts.get("use_old_emphasis_implementation", False)):
-            raise NotImplementedError(
-                "option 'use_old_emphasis_implementation' is not ported yet")
+            return self._tokenize_line_old(line)
         parsed = prompt_parser.parse_prompt_attention(line)
 
         chunks: List[PromptChunk] = []

@@ -265,11 +265,12 @@ def _cubic(x: np.float32) -> np.ndarray:
     return np.array([c0, c1, c2, one - c0 - c1 - c2], np.float32)
 
 
-def _taps_coeffs(ssize: int, dsize: int, ksize: int, coeff_fn):
+def _taps_coeffs(ssize: int, dsize: int, ksize: int, coeff_fn, inv_scale: float | None = None):
     """Source index of each tap and its coefficient, per destination index:
     fx = (d + 0.5)·scale - 0.5 in float32, the taps replicated at the
-    border (cubic and Lanczos keep their fraction there)."""
-    scale = 1.0 / (dsize / ssize)
+    border (cubic and Lanczos keep their fraction there); scale is
+    1 / inv_scale, dsize / ssize unless given (``resize_by``'s fx)."""
+    scale = 1.0 / (dsize / ssize if inv_scale is None else inv_scale)
     idx = np.empty((dsize, ksize), np.int64)
     coef = np.empty((dsize, ksize), np.float32)
     for d in range(dsize):
@@ -281,11 +282,50 @@ def _taps_coeffs(ssize: int, dsize: int, ksize: int, coeff_fn):
     return idx, coef
 
 
+def _coef_fixed(c: np.ndarray) -> np.ndarray:
+    """saturate_cast<short>(c · INTER_RESIZE_COEF_SCALE)."""
+    return np.clip(np.rint(c.astype(np.float64) * (1 << _RESIZE_COEF_BITS)), -32768,
+                   32767).astype(np.int64)
+
+
+#: the lanes of VResizeCubicVec_32s8u's float loop (v_int16 of the build's
+#: SIMD width): the row's last width·cn % 16 values take the integer path
+_CUBIC_U8_LANES = 16
+
+
+def _resize_cubic_u8(img: np.ndarray, dw: int, dh: int, fx=None, fy=None) -> np.ndarray:
+    """INTER_CUBIC on uint8: coefficients quantised to 2048, the row pass in
+    integers (HResizeCubic), the column pass as VResizeCubicVec_32s8u does
+    it: the sums in float32 with the coefficients times 2⁻²², each product
+    rounded and added from the last tap to the first (the baseline build's
+    v_muladd), rounded half to even and saturated; the row's tail of < 16 values in integers rounded off 22
+    bits (VResizeCubic, FixedPtCast)."""
+    h, w = img.shape[:2]
+    x = img.reshape(h, w, -1).astype(np.int64)
+    xi, xc = _taps_coeffs(w, dw, 4, _cubic, fx)
+    yi, yc = _taps_coeffs(h, dh, 4, _cubic, fy)
+    qx, qy = _coef_fixed(xc), _coef_fixed(yc)
+    rows = sum(x[:, xi[:, k]] * qx[None, :, k, None] for k in range(4))   # (h, dw, cn)
+    rows = rows.reshape(h, -1)
+    width = rows.shape[1]
+    vec = width - width % _CUBIC_U8_LANES if width >= _CUBIC_U8_LANES else 0
+    scale = np.float32(1.0 / (1 << (2 * _RESIZE_COEF_BITS)))
+    b = (qy.astype(np.float32) * scale).astype(np.float32)          # (dh, 4)
+    s = [rows[yi[:, k], :vec].astype(np.float32) for k in range(4)]
+    acc = (s[3] * b[:, 3, None]).astype(np.float32)
+    for k in (2, 1, 0):      # v_muladd of the baseline build: a product, then a sum
+        acc = (s[k] * b[:, k, None]).astype(np.float32) + acc
+    out = np.empty((dh, width), np.int64)
+    out[:, :vec] = np.rint(acc).astype(np.int64)
+    tail = sum(rows[yi[:, k], vec:] * qy[:, k, None] for k in range(4))
+    out[:, vec:] = (tail + (1 << (2 * _RESIZE_COEF_BITS - 1))) >> (2 * _RESIZE_COEF_BITS)
+    return np.clip(out, 0, 255).astype(np.uint8).reshape((dh, dw) + img.shape[2:])
+
+
 def _resize_lanczos4_u8(img: np.ndarray, dw: int, dh: int) -> np.ndarray:
     h, w = img.shape[:2]
     x = img.reshape(h, w, -1).astype(np.int64)
-    q = lambda c: np.clip(np.rint(c * (1 << _RESIZE_COEF_BITS)), -32768,   # noqa: E731
-                          32767).astype(np.int64)
+    q = _coef_fixed
     xi, xc = _taps_coeffs(w, dw, 8, _lanczos4)
     yi, yc = _taps_coeffs(h, dh, 8, _lanczos4)
     rows = sum(x[:, xi[:, k]] * q(xc[:, k])[None, :, None] for k in range(8))
@@ -294,13 +334,13 @@ def _resize_lanczos4_u8(img: np.ndarray, dw: int, dh: int) -> np.ndarray:
     return np.clip(out, 0, 255).astype(np.uint8).reshape((dh, dw) + img.shape[2:])
 
 
-def _resize_cubic_f32(img: np.ndarray, dw: int, dh: int) -> np.ndarray:
+def _resize_cubic_f32(img: np.ndarray, dw: int, dh: int, fx=None, fy=None) -> np.ndarray:
     """Rows: the four taps in order, unfused; columns: the taps last to
     first (VResizeCubicVec_32f), but for a tail of < 4 in order."""
     h, w = img.shape[:2]
     x = img.reshape(h, w, -1)
-    xi, xc = _taps_coeffs(w, dw, 4, _cubic)
-    yi, yc = _taps_coeffs(h, dh, 4, _cubic)
+    xi, xc = _taps_coeffs(w, dw, 4, _cubic, fx)
+    yi, yc = _taps_coeffs(h, dh, 4, _cubic, fy)
     rows = x[:, xi[:, 0]] * xc[None, :, 0, None]
     for k in range(1, 4):
         rows = rows + x[:, xi[:, k]] * xc[None, :, k, None]
@@ -358,9 +398,25 @@ def resize(img: np.ndarray, size: tuple, interpolation: str) -> np.ndarray:
         return _resize_lanczos4_u8(img, dw, dh)
     if key == ("cubic", "float32"):
         return _resize_cubic_f32(img, dw, dh)
+    if key == ("cubic", "uint8"):
+        return _resize_cubic_u8(img, dw, dh)
     if key == ("linear", "float32"):
         return _resize_linear_f32(img, dw, dh)
     raise NotImplementedError(f"cv2.resize {interpolation} on {img.dtype} is not restated")
+
+
+def resize_by(img: np.ndarray, fx: float, fy: float, interpolation: str) -> np.ndarray:
+    """``cv2.resize(img, (0, 0), fx=fx, fy=fy, interpolation=...)`` for
+    "cubic" on uint8 and float32: the size rounds w·fx and h·fy to the
+    nearest (half to even, cvRound), and the map goes through 1/fx and 1/fy,
+    not through w/dw."""
+    h, w = img.shape[:2]
+    dw, dh = int(np.rint(w * fx)), int(np.rint(h * fy))
+    if interpolation != "cubic" or img.dtype.name not in ("uint8", "float32"):
+        raise NotImplementedError(f"cv2.resize by fx, fy {interpolation} on {img.dtype} "
+                                  "is not restated")
+    fn = _resize_cubic_u8 if img.dtype == np.uint8 else _resize_cubic_f32
+    return fn(img, dw, dh, fx, fy)
 
 
 # --------------------------------------------------------------------------
@@ -392,3 +448,230 @@ def remap_linear(img: np.ndarray, map_x: np.ndarray, map_y: np.ndarray) -> np.nd
     v1 = p10 + a * (p11 - p10)
     out = np.clip(np.rint(_fma(b, v1 - v0, v0)), 0, 255).astype(np.uint8)
     return out.reshape(map_x.shape + img.shape[2:])
+
+
+# --------------------------------------------------------------------------
+# drawing (imgproc/src/drawing.cpp): LINE_8, shift 0
+# --------------------------------------------------------------------------
+
+#: drawing.cpp's SinTable: sin of 0..450 degrees as float constants of 7
+#: decimals
+_SIN_TABLE = np.array([round(math.sin(math.radians(d)), 7) for d in range(451)], np.float32)
+
+
+def _cv_round(v: float) -> int:
+    """cvRound: to the nearest integer, halves to even."""
+    return int(np.rint(v))
+
+
+def ellipse2poly(center, axes, angle: int, arc_start: int, arc_end: int, delta: int) -> np.ndarray:
+    """``cv2.ellipse2Poly``: (n, 2) int32 points, consecutive repeats dropped."""
+    while angle < 0:
+        angle += 360
+    while angle > 360:
+        angle -= 360
+    if arc_start > arc_end:
+        arc_start, arc_end = arc_end, arc_start
+    while arc_start < 0:
+        arc_start += 360
+        arc_end += 360
+    while arc_end > 360:
+        arc_end -= 360
+        arc_start -= 360
+    if arc_end - arc_start > 360:
+        arc_start, arc_end = 0, 360
+    alpha = float(_SIN_TABLE[450 - angle])      # cos
+    beta = float(_SIN_TABLE[angle])             # sin
+    cx, cy = float(center[0]), float(center[1])
+    pts = []
+    for i in range(arc_start, arc_end + delta, delta):
+        a = min(i, arc_end)
+        if a < 0:
+            a += 360
+        x = axes[0] * float(_SIN_TABLE[450 - a])
+        y = axes[1] * float(_SIN_TABLE[a])
+        pts.append((cx + x * alpha - y * beta, cy + x * beta + y * alpha))
+    if len(pts) == 1:
+        pts = [(cx, cy)] * 2
+    out, prev = [], None
+    for px, py in pts:
+        pt = (_cv_round(px), _cv_round(py))
+        if pt != prev:
+            out.append(pt)
+            prev = pt
+    if len(out) == 1:
+        out = [(int(center[0]), int(center[1]))] * 2
+    return np.array(out, np.int32)
+
+
+def _clip_line(w: int, h: int, p1, p2):
+    """clipLine: the segment inside the image, or None."""
+    (x1, y1), (x2, y2) = p1, p2
+    right, bottom = w - 1, h - 1
+
+    def code(x, y):
+        return (x < 0) + (x > right) * 2 + (y < 0) * 4 + (y > bottom) * 8
+
+    c1, c2 = code(x1, y1), code(x2, y2)
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int((a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int((a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int((a - x1) * (y2 - y1) / (x2 - x1))
+                x1 = a
+                c1 = 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int((a - x2) * (y2 - y1) / (x2 - x1))
+                x2 = a
+                c2 = 0
+    return ((x1, y1), (x2, y2)) if (c1 | c2) == 0 else None
+
+
+def _line8(img: np.ndarray, p1, p2, color) -> None:
+    """Line(img, pt1, pt2, color, 8): the 8-connected LineIterator, left
+    to right, clipped to the image."""
+    h, w = img.shape[:2]
+    if not (0 <= p1[0] < w and 0 <= p2[0] < w and 0 <= p1[1] < h and 0 <= p2[1] < h):
+        clipped = _clip_line(w, h, p1, p2)
+        if clipped is None:
+            return
+        p1, p2 = clipped
+    dx, dy = p2[0] - p1[0], p2[1] - p1[1]
+    if dx < 0:
+        dx, dy = -dx, -dy
+        p1, p2 = p2, p1
+    sx, sy = 1, 1
+    if dy < 0:
+        dy, sy = -dy, -1
+    vert = dy > dx
+    if vert:
+        dx, dy = dy, dx
+    err = dx - 2 * dy
+    x, y = p1
+    for _ in range(dx + 1):
+        img[y, x] = color
+        step_minor = err < 0
+        err += -2 * dy + (2 * dx if step_minor else 0)
+        if vert:
+            y += sy
+            x += sx if step_minor else 0
+        else:
+            x += sx
+            y += sy if step_minor else 0
+
+
+def fill_convex_poly(img: np.ndarray, pts: np.ndarray, color) -> None:
+    """``cv2.fillConvexPoly(img, pts, color)`` (LINE_8, shift 0), in place:
+    the outline by 8-connected lines, then the rows between the two edges
+    walked in 16.16 fixed point from the topmost vertex (FillConvexPoly)."""
+    shift_xy, one = 16, 1 << 16
+    v = [(int(p[0]), int(p[1])) for p in pts]
+    n = len(v)
+    h, w = img.shape[:2]
+    color = np.asarray(color, img.dtype)
+    xs = [p[0] for p in v]
+    ys = [p[1] for p in v]
+    imin = int(np.argmin(ys))
+    p0 = v[-1]
+    for p in v:
+        _line8(img, p0, p, color)
+        p0 = p
+    xmin, xmax, ymin, ymax = min(xs), max(xs), min(ys), max(ys)
+    if n < 3 or xmax < 0 or ymax < 0 or xmin >= w or ymin >= h:
+        return
+    ymax = min(ymax, h - 1)
+    delta1 = delta2 = one >> 1
+    edges = n
+    edge = [dict(idx=imin, di=1, x=-one, dx=0, ye=ymin),
+            dict(idx=imin, di=n - 1, x=-one, dx=0, ye=ymin)]
+    y = ymin
+    while True:
+        for e in edge:
+            if y >= e["ye"]:
+                idx0, di = e["idx"], e["di"]
+                idx = idx0 + di
+                if idx >= n:
+                    idx -= n
+                while edges > 0:
+                    edges -= 1
+                    ty = v[idx][1]
+                    if ty > y:
+                        xs_, xe_ = v[idx0][0] << shift_xy, v[idx][0] << shift_xy
+                        e["ye"] = ty
+                        num = (xe_ - xs_) * 2 + (ty - y)
+                        q = abs(num) // (2 * (ty - y))          # C's division: toward 0
+                        e["dx"] = -q if num < 0 else q
+                        e["x"] = xs_
+                        e["idx"] = idx
+                        break
+                    idx0 = idx
+                    idx += di
+                    if idx >= n:
+                        idx -= n
+                else:
+                    edges -= 1
+        if edges < 0:
+            break
+        if y >= 0:
+            left, right = (1, 0) if edge[0]["x"] > edge[1]["x"] else (0, 1)
+            xx1 = (edge[left]["x"] + delta1) >> shift_xy
+            xx2 = (edge[right]["x"] + delta2) >> shift_xy
+            if xx2 >= 0 and xx1 < w:
+                img[y, max(xx1, 0):min(xx2, w - 1) + 1] = color
+        edge[0]["x"] += edge[0]["dx"]
+        edge[1]["x"] += edge[1]["dx"]
+        y += 1
+        if y > ymax:
+            break
+
+
+def fill_circle(img: np.ndarray, center, radius: int, color) -> None:
+    """``cv2.circle(img, center, radius, color, -1)`` (LINE_8, shift 0), in
+    place: drawing.cpp's Circle with fill, rows of the midpoint walk."""
+    h, w = img.shape[:2]
+    color = np.asarray(color, img.dtype)
+    cx, cy = int(center[0]), int(center[1])
+    err, dx, dy, plus, minus = 0, radius, 0, 1, (radius << 1) - 1
+    inside = radius <= cx < w - radius and radius <= cy < h - radius
+
+    def hline(y, x1, x2):
+        img[y, x1:x2 + 1] = color
+
+    while dx >= dy:
+        y11, y12, y21, y22 = cy - dy, cy + dy, cy - dx, cy + dx
+        x11, x12, x21, x22 = cx - dx, cx + dx, cx - dy, cx + dy
+        if inside:
+            hline(y11, x11, x12)
+            hline(y12, x11, x12)
+            hline(y21, x21, x22)
+            hline(y22, x21, x22)
+        elif x11 < w and x12 >= 0 and y21 < h and y22 >= 0:
+            x11, x12 = max(x11, 0), min(x12, w - 1)
+            if 0 <= y11 < h:
+                hline(y11, x11, x12)
+            if 0 <= y12 < h:
+                hline(y12, x11, x12)
+            if x21 < w and x22 >= 0:
+                x21, x22 = max(x21, 0), min(x22, w - 1)
+                if 0 <= y21 < h:
+                    hline(y21, x21, x22)
+                if 0 <= y22 < h:
+                    hline(y22, x21, x22)
+        dy += 1
+        err += plus
+        plus += 2
+        mask = -1 if err > 0 else 0      # (err <= 0) - 1
+        err -= minus & mask
+        dx += mask
+        minus -= mask & 2

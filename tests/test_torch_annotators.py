@@ -310,7 +310,9 @@ def test_model_annotators_default_to_the_card(annotator_dir):
         annotators.run_annotator("hed", _photo(), res=0)
 
 
-def test_openpose_still_raises():
-    with pytest.raises(NotImplementedError, match="openpose"):
+def test_openpose_needs_its_weights():
+    """openpose is ported (tests/test_torch_openpose.py); without a
+    body_pose file it raises naming the file, as JAX's lookup does."""
+    with pytest.raises(RuntimeError, match="body_pose"):
         annotators.run_annotator("openpose", _photo(), res=0, device="cpu")
     assert annotators.list_modules() == jax_ann.list_modules()

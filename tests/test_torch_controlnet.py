@@ -313,8 +313,8 @@ def test_annotator_dispatch():
     np.testing.assert_array_equal(
         annotators.run_annotator("canny", img, res=512),
         cv2.Canny(cv2.resize(img, (512, 512), interpolation=cv2.INTER_LANCZOS4), 100, 200))
-    with pytest.raises(NotImplementedError, match="openpose"):
-        annotators.run_annotator("openpose", img)
+    with pytest.raises(RuntimeError, match="body_pose"):    # ported: its weights are absent
+        annotators.run_annotator("openpose", img, device="cpu")
     with pytest.raises(NetworkNotFound, match="nope"):
         annotators.run_annotator("nope", img)
     assert annotators.list_modules()[:3] == ["none", "canny", "invert"]
@@ -412,6 +412,45 @@ def test_hires_with_unit_matches_jax(models, f32_policies, tower_dir):
     _assert_same(out, ref)
 
 
+@pytest.fixture
+def pose_dir(tmp_path_factory):
+    """A seeded body_pose_model.pth found by both packages' annotators
+    (its maps scaled to hold peaks: test_torch_openpose), cv2's own resize
+    code (its IPP float resize moves JAX's peaks)."""
+    from sdwebui_tpu.pipeline import annotators as jax_ann
+    from test_torch_openpose import _state_dict
+
+    d = tmp_path_factory.mktemp("Annotators")
+    torch.save(_state_dict(), d / "body_pose_model.pth")
+    prev_jax, prev = list(jax_ann._model_dirs), list(annotators._model_dirs)
+    jax_ann._model_dirs[:] = [str(d)]
+    jax_ann._loaded.clear()
+    annotators.set_annotator_dirs([str(d)])
+    cv2.ipp.setUseIPP(False)
+    yield d
+    cv2.ipp.setUseIPP(True)
+    jax_ann._model_dirs[:] = prev_jax
+    jax_ann._loaded.clear()
+    annotators.set_annotator_dirs(prev)
+
+
+def test_openpose_unit_matches_jax(models, f32_policies, tower_dir, pose_dir):
+    """A unit with the openpose module (the request's image, processor_res
+    64) within 1 uint8 level of JAX's, identical infotext (img2img reaches
+    the same unit code: test_img2img_unit_takes_the_init_image)."""
+    jm, pm = models
+    photo = cv2.GaussianBlur(np.random.default_rng(3).integers(0, 256, (64, 64, 3),
+                                                               dtype=np.uint8), (0, 0), 6)
+    unit = dict(model="midonly", image=photo, module="openpose", weight=2.0,
+                processor_res=64)
+    kw = dict(steps=3, batch_size=1, controlnet_units=[unit])
+    ref = jax_proc.process_txt2img(jm, _params(**kw))
+    out = port_proc.process_txt2img(pm, _params(**kw))
+    _assert_same(out, ref)
+    hint = annotators.run_annotator("openpose", photo, res=64, device="cpu")
+    assert (hint > 0).any()
+
+
 def test_img2img_unit_takes_the_init_image(models, f32_policies, tower_dir):
     """A unit without an image of its own takes img2img's init image."""
     jm, pm = models
@@ -448,7 +487,7 @@ def test_unit_errors(models, tower_dir):
     with pytest.raises(NetworkNotFound, match="missing"):
         port_proc.process_txt2img(pm, _params(steps=1, controlnet_units=[
             dict(model="missing", image=_hint())]))
-    with pytest.raises(NotImplementedError, match="openpose"):
+    with pytest.raises(RuntimeError, match="body_pose"):    # ported: its weights are absent
         port_proc.process_txt2img(pm, _params(steps=1, controlnet_units=[
             dict(model="full", image=_hint(), module="openpose")]))
     with pytest.raises(ValueError, match="control_mode"):
@@ -496,7 +535,7 @@ def test_controlnet_routes(tower_dir):
     assert a[0] == b[0] == 200 and a[1]["images"] == b[1]["images"]
     for body, status_want, words in (
             (dict(base, controlnet_units=[dict(unit, model="gone")]), 404, "gone"),
-            (dict(base, controlnet_units=[dict(unit, module="openpose")]), 422, "openpose"),
+            (dict(base, controlnet_units=[dict(unit, module="nope")]), 404, "nope"),
             (dict(base, controlnet_units=[dict(unit, pixel_perfect=True)]), 422, "pixel_perfect"),
             (dict(base, alwayson_scripts={"adetailer": {"args": []}}), 422, "adetailer")):
         status, out = api.handle("POST", "/sdapi/v1/txt2img", body)

@@ -87,8 +87,17 @@ def test_create_rng_sources():
     np.testing.assert_array_equal(a.first(), b.first())
     np.testing.assert_array_equal(a.next_k(2), b.next_k(2))
     with options.opts.override({"randn_source": "GPU"}):
-        with pytest.raises(NotImplementedError, match="randn_source"):
-            image_rng.create_rng((4, 8, 8), [5])
+        from sdwebui_tpu.utils import options as jax_opts
+
+        with jax_opts.opts.override({"randn_source": "GPU"}):
+            a = image_rng.create_rng((4, 8, 8), [5], subseeds=[6], subseed_strength=0.3,
+                                     channels_last=False)
+            b = jax_image_rng.create_rng((4, 8, 8), [5], subseeds=[6], subseed_strength=0.3)
+        # the device source: XLA's CPU f32 sin is up to 1.5e-6 off (ROADMAP C)
+        np.testing.assert_allclose(a.first().numpy(),
+                                   np.moveaxis(np.asarray(b.first()), -1, -3), atol=2e-6)
+        np.testing.assert_allclose(a.next_k(2).numpy(),
+                                   np.moveaxis(np.asarray(b.next_k(2)), -1, -3), atol=2e-6)
 
 
 def test_every_option_key_and_default():

@@ -199,6 +199,10 @@ HIRES_CASES = {
         "sdtpu_vae_bf16": False, "img2img_extra_noise": 0.3}),
     "lanczos_route": dict(hr_upscaler="Lanczos", hr_scale=2.0),
     "esrgan_route": dict(hr_upscaler="ESRGAN", hr_scale=2.0),
+    # the hires pass's own ToMe ratio and hypertile (processing.py:672)
+    "tome_hr_hypertile": dict(hr_scale=2.0, steps=2, override_settings={
+        "sdtpu_vae_bf16": False, "token_merging_ratio_hr": 0.5,
+        "hypertile_enable_unet": True}),
 }
 
 
@@ -231,7 +235,6 @@ def test_hires_without_denoising_strength_takes_0_7(models, f32_policies):
 
 
 @pytest.mark.parametrize("kw,name", [
-    (dict(override_settings={"token_merging_ratio_hr": 0.5}), "token_merging_ratio_hr"),
     (dict(override_settings={"save_images_before_highres_fix": True}),
      "save_images_before_highres_fix"),
     (dict(hr_upscaler="No such upscaler"), "No such upscaler"),

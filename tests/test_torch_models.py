@@ -82,15 +82,32 @@ def test_from_jax_consumes_every_key(models):
         pm.conditioner.model.embeddings["token_embedding"].weight.numpy(), e)
 
 
-@pytest.mark.parametrize("field,value,match", [
-    ("tome_ratio", 0.5, "ToMe"),
-    ("hypertile_tile", 32, "hypertile"),
-    ("upcast_attn", True, "upcast_attn"),
+@pytest.mark.parametrize("field,value", [
+    ("tome_ratio", 0.5),
+    ("hypertile_tile", 4),
+    ("upcast_attn", True),
 ])
-def test_unsupported_unet_options_raise(field, value, match):
+def test_unet_config_options_match_jax(models, field, value):
+    """A UNet config with ToMe, hypertile or upcast_attn builds (the
+    options are per request: ``AttentionOptions.of(cfg)``) and runs them
+    as JAX's ``unet.apply`` does, within 1e-4 at f32 on an 8² latent
+    (a 4-token tile splits it 2 × 2)."""
+    from sdwebui_tpu_torch.models.unet import AttentionOptions
+
+    jm, pm = models
     cfg = dataclasses.replace(port_sd.TINY_UNET, **{field: value})
-    with pytest.raises(NotImplementedError, match=match):
-        UNetModel(cfg, device="cpu", dtype=torch.float32)
+    assert getattr(UNetModel(cfg, device="meta", dtype=torch.float32).cfg, field) == value
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, 8, 8, 4), dtype=np.float32)
+    ctx = rng.standard_normal((2, 77, 64), dtype=np.float32)
+    t = np.array([600.0, 3.0], np.float32)
+    ref = np.asarray(jax.jit(jax_unet.apply, static_argnums=1)(
+        jm.unet_params, dataclasses.replace(jm.unet_cfg, **{field: value}),
+        jnp.asarray(x), jnp.asarray(t), jnp.asarray(ctx)))
+    with torch.no_grad():
+        out = pm.unet(_nchw(x), torch.from_numpy(t), torch.from_numpy(ctx),
+                      attn=AttentionOptions.of(cfg))
+    _assert_rel(_nhwc(out), ref, 1e-4)
 
 
 def test_unported_unet_inputs_raise(models):
@@ -122,12 +139,18 @@ def test_modules_move_with_to(models):
         assert {p.dtype for p in moved.parameters()} == {torch.float64}
 
 
-def test_fp8_leaves_raise():
+def test_fp8_leaves_carry_their_codes():
+    """A JAX float8 leaf crosses as torch.float8_e4m3fn with the same codes
+    (the port reads them as uint8: the card's machine has no ml_dtypes)."""
     import ml_dtypes
 
-    tree = {"w": {"weight": np.zeros((2, 2), ml_dtypes.float8_e4m3fn)}}
-    with pytest.raises(NotImplementedError, match="fp8"):
-        port_sd.state_dict_from_tree(tree)
+    a = (np.arange(-8, 8, dtype=np.float32).reshape(4, 4) * 0.37).astype(
+        ml_dtypes.float8_e4m3fn)
+    sd = port_sd.state_dict_from_tree({"w": {"weight": a}})
+    t = sd["w.weight"]
+    assert t.dtype == torch.float8_e4m3fn
+    np.testing.assert_array_equal(t.view(torch.uint8).numpy(), a.view(np.uint8).T)
+    np.testing.assert_array_equal(t.float().numpy(), a.astype(np.float32).T)
 
 
 @pytest.mark.parametrize("silu", [False, True])

@@ -345,15 +345,44 @@ def test_embedding_files_load_as_jax(tmp_path, layout):
         np.testing.assert_array_equal(out.vec_g.numpy(), np.asarray(ref.vec_g))
 
 
-def test_png_embedding_card_raises(tmp_path):
+@pytest.mark.parametrize("kind", ["panels", "text_chunk", "panels_rgba"])
+def test_png_embedding_card_matches_jax(tmp_path, kind):
+    """A card the JAX package writes here (its Pillow encoder: the data
+    panels, or an ``sd-ti-embedding`` text chunk; an RGBA save too) loads
+    in the port as in JAX: the card's name, step, vectors and shorthash.
+    A WebP card and a PNG without data still raise."""
+    from PIL import Image
+    from PIL.PngImagePlugin import PngInfo
+
+    from sdwebui_tpu.training import image_embedding as jax_ie
+
+    rng = np.random.default_rng(12)
+    vec = rng.standard_normal((2, 64)).astype(np.float32)
+    data = {"string_to_param": {"*": vec}, "name": "card-emb", "step": 150}
+    preview = Image.fromarray(rng.integers(1, 255, (64, 48, 3), dtype=np.uint8))
     path = str(tmp_path / "card.png")
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-    with pytest.raises(NotImplementedError, match="PNG / WebP embedding cards"):
-        port_ti.load_embedding_file(path)
+    if kind == "text_chunk":
+        info = PngInfo()
+        info.add_text("sd-ti-embedding", jax_ie.embedding_to_b64(data).decode())
+        preview.save(path, pnginfo=info)
+    else:
+        card = jax_ie.insert_image_data_embed(preview, data)
+        (card.convert("RGBA") if kind == "panels_rgba" else card).save(path)
+    ref = jax_ti.load_embedding_file(path)
+    out = port_ti.load_embedding_file(path)
+    assert (out.name, out.step, out.shorthash) == (ref.name, ref.step, ref.shorthash) == (
+        "card-emb", 150, out.shorthash)
+    np.testing.assert_array_equal(out.vec.numpy(), np.asarray(ref.vec))
+    np.testing.assert_array_equal(out.vec.numpy(), vec)
+    webp = str(tmp_path / "card.webp")
+    preview.save(webp)
+    with pytest.raises(NotImplementedError, match="WebP"):
+        port_ti.load_embedding_file(webp)
+    preview.save(str(tmp_path / "plain.png"))
     db = port_ti.EmbeddingDatabase()
     db.load_from_dir(str(tmp_path))
-    assert not db.embeddings and db.skipped[0].startswith("card.png")
+    assert list(db.embeddings) == ["card-emb"]
+    assert sorted(x.split(" ")[0] for x in db.skipped) == ["card.webp", "plain.png"]
 
 
 # --------------------------------------------------------------------------

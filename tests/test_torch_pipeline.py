@@ -76,18 +76,43 @@ def test_same_seed_same_image(models):
 
 
 @pytest.mark.parametrize("kw,name", [
-    (dict(enable_hr=True, override_settings={"token_merging_ratio_hr": 0.5}), "enable_hr"),
+    (dict(enable_hr=True, override_settings={"save_images_before_highres_fix": True}),
+     "enable_hr"),
     (dict(restore_faces=True, override_settings={"save_images_before_face_restoration": True}),
      "restore_faces"),
     (dict(enable_hr=True, hr_prompt="a cat <lora:foo:0.5>"), "lora"),
-    (dict(override_settings={"sgm_noise_multiplier": True}), "sgm_noise_multiplier"),
-    (dict(override_settings={"token_merging_ratio": 0.5}), "token_merging_ratio"),
-    (dict(override_settings={"randn_source": "GPU"}), "randn_source"),
-    (dict(override_settings={"sd_noise_schedule": "Zero Terminal SNR"}), "sd_noise_schedule"),
+    (dict(override_settings={"sd_unet": "some-unet"}), "sd_unet"),
 ])
 def test_out_of_slice_requests_raise(models, kw, name):
     with pytest.raises(NotImplementedError, match=name):
         port_proc.process_txt2img(models[1], _params(batch_size=1, steps=1, **kw))
+
+
+@pytest.mark.parametrize("kw,field", [
+    (dict(enable_hr=True, hr_scale=1.5, denoising_strength=0.6,
+          override_settings={"token_merging_ratio_hr": 0.5}), None),
+    (dict(override_settings={"sgm_noise_multiplier": True}), "SGM noise multiplier: True"),
+    (dict(override_settings={"token_merging_ratio": 0.5}), "Token merging ratio: 0.5"),
+    (dict(sampler_name="Euler a", subseed=3, subseed_strength=0.3,
+          override_settings={"randn_source": "GPU", "eta_noise_seed_delta": 7}), None),
+    (dict(override_settings={"sd_noise_schedule": "Zero Terminal SNR"}),
+     "Noise Schedule: Zero Terminal SNR"),
+], ids=["token_merging_ratio_hr", "sgm_noise_multiplier", "token_merging_ratio",
+        "randn_source_gpu", "sd_noise_schedule"])
+def test_lifted_options_match_jax(models, f32_policies, kw, field):
+    """The options the slice used to refuse, against JAX's process_txt2img:
+    uint8 within 1 level, identical infotext."""
+    jm, pm = models
+    kw = dict(kw, batch_size=1, steps=2)
+    kw["override_settings"] = {"sdtpu_vae_bf16": False, **kw["override_settings"]}
+    ref = jax_proc.process_txt2img(jm, _params(**kw))
+    out = port_proc.process_txt2img(pm, _params(**kw))
+    assert len(out.images) == len(ref.images) == 1
+    a, b = out.images[0], np.asarray(ref.images[0])
+    assert a.shape == b.shape and np.abs(a.astype(int) - b.astype(int)).max() <= 1
+    assert out.infotexts == ref.infotexts
+    if field:
+        assert field in out.infotexts[0]
 
 
 def test_bf16_vae_nan_retries_in_fp32(models, monkeypatch):

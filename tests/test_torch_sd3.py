@@ -532,7 +532,7 @@ def test_sd3_txt2img_route(server_url):
     opts.data["sd3_enable_t5"] = False
 
 
-def test_checkpoint_switch_to_and_from_sd3(tmp_path):
+def test_checkpoint_switch_to_and_from_sd3(tmp_path, monkeypatch):
     """An SD3 file beside an SD1 file: sd-models lists both, a switch to SD3
     and back parks the displaced model in the LRU (sd_checkpoints_limit 2)
     with no second file read, and each serves txt2img."""
@@ -550,6 +550,9 @@ def test_checkpoint_switch_to_and_from_sd3(tmp_path):
 
     body = {"prompt": "a cat", "steps": 2, "width": 64, "height": 64, "seed": 3,
             "sampler_name": "Euler"}
+    # the switches set the process's checkpoint settings: back to the defaults after
+    for key in ("sd_model_checkpoint", "sd_checkpoint_hash"):
+        monkeypatch.setitem(opts.data, key, opts.data.get(key))
     with opts.override({"sd_checkpoints_limit": 2}):
         load.read_checkpoint = counted
         try:

@@ -62,11 +62,12 @@ def test_txt2img_returns_png_with_infotext(server_url):
 
 
 @pytest.mark.parametrize("body,field", [
-    ({"enable_hr": True, "override_settings": {"token_merging_ratio_hr": 0.5}}, "enable_hr"),
+    ({"enable_hr": True, "override_settings": {"save_images_before_highres_fix": True}},
+     "enable_hr"),
     ({"no_such_field": 1}, "no_such_field"),
     ({"override_settings": {"samples_save": True}}, "samples_save"),
     ({"override_settings": {"sd_model_checkpoint": "x"}}, "sd_model_checkpoint"),
-    ({"override_settings": {"token_merging_ratio": 0.5}}, "token_merging_ratio"),
+    ({"override_settings": {"sd_unet": "x"}}, "sd_unet"),
     ({"enable_hr": True, "hr_scale": 1.5, "hr_prompt": "a <lora:x:1>"}, "lora"),
 ])
 def test_out_of_slice_fields_answer_422(server_url, body, field):
@@ -74,6 +75,56 @@ def test_out_of_slice_fields_answer_422(server_url, body, field):
                         {"steps": 1, "width": 64, "height": 64, **body})
     assert status == 422
     assert field in res["detail"]
+
+
+@pytest.mark.parametrize("override,field", [
+    ({"token_merging_ratio": 0.5}, "Token merging ratio: 0.5"),
+    ({"token_merging_ratio_hr": 0.5, "hypertile_enable_unet": True, "upcast_attn": True,
+      "sd_unet": "None"}, "Hires upscale: 1.5"),
+], ids=["token_merging_ratio", "token_merging_ratio_hr"])
+def test_unet_options_over_http(server_url, override, field):
+    """The options the server used to refuse serve a request."""
+    hr = {"enable_hr": True, "hr_scale": 1.5, "denoising_strength": 0.5} \
+        if "token_merging_ratio_hr" in override else {}
+    status, res = _call(server_url, "/sdapi/v1/txt2img", {
+        "prompt": "a cat", "seed": 4, "steps": 2, "width": 64, "height": 64,
+        "override_settings": override, **hr})
+    assert status == 200, res
+    assert field in json.loads(res["info"])["infotexts"][0]
+
+
+def test_xla_attention_serves_on_the_plain_path(monkeypatch):
+    """cross_attention_optimization "xla" (the option table's JAX name)
+    set over /sdapi/v1/options serves a request on the plain path: no B2
+    launch, the forced impl "plain" (JAX maps it to its einsum path)."""
+    from sdwebui_tpu_torch.ops import attention, flash_attention
+    from sdwebui_tpu_torch.server.api import make_server
+    from sdwebui_tpu_torch.server.app import Engine
+    from sdwebui_tpu_torch.utils.options import opts
+
+    seen = []
+    real = attention.plain_attention
+    monkeypatch.setattr(attention, "plain_attention",
+                        lambda *a, **k: seen.append(attention.get_forced_impl()) or real(*a, **k))
+    server = make_server(Engine(device="cpu", tiny=True, seed=1), "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        flash_attention.reset_launch_count()
+        assert _call(url, "/sdapi/v1/options", {"cross_attention_optimization": "xla"})[0] == 200
+        status, res = _call(url, "/sdapi/v1/txt2img", {"prompt": "a cat", "steps": 1,
+                                                      "width": 64, "height": 64})
+        assert status == 200 and len(res["images"]) == 1
+        assert flash_attention.launch_count("flash_attention_packed") == 0
+        assert seen and set(seen) == {"plain"}
+    finally:
+        _call(url, "/sdapi/v1/options", {"cross_attention_optimization": "Automatic"})
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+        opts.data.pop("cross_attention_optimization", None)
+        attention.set_attention_impl(None)
 
 
 def test_engine_keeps_job_state():
