@@ -258,6 +258,33 @@ Phases, in order; any failure exits non-zero:
      the bf16 weights bit for bit; (f) an SSD-1B-pruned SDXL file
      (`loader.load.ssd1b_state_dict`) served once at 1024² through an
      Engine with ckpt=, its launches against the pruned depths' plan.
+  4l. training and interrogation on the SD1.5 server (after 4k; phase 1
+     adds B5's f32 rows of BLIP's ViT-B/16 (577, 768), its BERT decoder
+     (16, 768) at eps 1e-12, CLIP ViT-L/14 (257, 1024) and the text tower
+     over a category of 8 items (616, 768)): (a) create/embedding and
+     train/embedding on 4 seeded 512² PNGs (one RGBA, use_weight), 8
+     steps, saves every 4, one preview: s per step and the peak
+     allocation, every loss finite, the embedding moved, 0 B1/B2/B5
+     launches inside the steps, the preview's launches equal to a 256²
+     8-step txt2img's plan; a 512² request naming the embedding twice
+     (infotext, the repeat within REPEAT_TOL, launches as planned); a step
+     resumed from a saved embedding and .optim against the unbroken run's
+     (RESUME_REL_TOL, the Adam count restored); (b) the same through
+     create/hypernetwork and train/hypernetwork (layer structure 1, 2, 2,
+     1, dropout on), then a request with <hypernet:...> that differs from
+     the one without; (c) one TI step's loss and embedding gradient on a
+     tiny model, card against CPU (GRAD_REL_TOL, f32, TF32 off, no kernel
+     launched), a kernel refusing a tensor that requires grad and
+     training_xattention_optimizations raising; (d) /interrogate with
+     DeepDanbooru (the published plan, seeded, BOORU_TAGS tags) and with
+     clip and BLIP (seeded at the published widths: ViT-B/16 384² with a
+     BERT-base decoder, CLIP ViT-L/14; a vocab.txt and two category files
+     the phase writes): each caption equal to the CPU port's on the same
+     files, the tagger's scores within BOORU_TOL, ms a forward of each
+     net, B5 launches as planned; (e) /preprocess (split, focal crop,
+     flip, DeepDanbooru captions) on 3 seeded PNGs: files and captions
+     byte for byte the CPU port's.  Every file lives in a temporary
+     directory removed at the phase's end.
 Each phase's seconds are logged as it ends.  The last two lines are the
 kernels JSON and {"ok": true, "device": ...}.
 Needs a CUDA card; without one it exits 1 and prints no result.
@@ -418,6 +445,14 @@ HOST_CALLS = 20           # calls per host-cost reading
 SD3_LN_SHAPES = [("sd3_mmdit_s8192_c1536", 8192, 1536), ("sd3_mmdit_ctx154_c1536", 154, 1536),
                  ("sd3_mmdit_ctx308_c1536", 308, 1536)]
 TEXT_LN_SHAPES = [("xlmr_154_c1024", 154, 1024), ("vit_h_257_c1280", 257, 1280)]
+# B5 rows of phase 4l, f32: (name, rows, width, eps): BLIP's ViT-B/16 at 384²
+# (577 tokens of 768) and its BERT decoder (a 16-token prefix, eps 1e-12),
+# the interrogator's CLIP ViT-L/14 (257 of 1024) and its text tower over a
+# category of 8 items (8 x 77 rows of 768)
+INTERROGATE_LN_SHAPES = [("blip_vit_577_c768", 577, 768, 1e-5),
+                         ("blip_bert_16_c768", 16, 768, 1e-12),
+                         ("clip_vit_l_257_c1024", 257, 1024, 1e-5),
+                         ("clip_text_616_c768", 8 * 77, 768, 1e-5)]
 # B5 f32 rows of the upscaler zoo: (name, rows, width)
 ZOO_LN_SHAPES = [("swinir_l_c240", 331776, 240), ("swin_c180", 331776, 180),
                  ("dat_sgfn_c360", 331776, 360), ("swinir_light_c60", 331776, 60),
@@ -844,6 +879,15 @@ def layer_norm_cases(device):
                    kernel=lambda: ln_mod.layer_norm(xt, wt, bt),
                    plain=lambda: ln_mod.layer_norm_plain(xt, wt, bt),
                    library=lambda: F.layer_norm(xt, (xt.shape[1],), wt, bt, 1e-5),
+                   work=(7.0 * n_rows * c, 4 * (2 * n_rows * c + 2 * c), "fp32"))
+    for name, n_rows, c, eps in INTERROGATE_LN_SHAPES:
+        g = torch.Generator(device=device).manual_seed(2)
+        xi = _randn((n_rows, c), g, torch.float32, device) * 2 + 0.5
+        wi, bi = _randn((c,), g, torch.float32, device), _randn((c,), g, torch.float32, device)
+        yield dict(entry="layer_norm", name=name, shape=(n_rows, c), dtype=torch.float32,
+                   kernel=lambda: ln_mod.layer_norm(xi, wi, bi, eps),
+                   plain=lambda: ln_mod.layer_norm_plain(xi, wi, bi, eps),
+                   library=lambda: F.layer_norm(xi, (xi.shape[1],), wi, bi, eps),
                    work=(7.0 * n_rows * c, 4 * (2 * n_rows * c + 2 * c), "fp32"))
     # CodeFormer's transformer (phase 4h): 256 codes of 512 per face, f32, eps 1e-5
     g = torch.Generator(device=device).manual_seed(2)
@@ -2625,6 +2669,498 @@ def phase_faces(engine, model, phase3: list, directory: str, device):
     return results, info
 
 
+# ---------------------------------------------------------------------------
+# phase 4l: training and interrogation
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 8           # phase 4l: steps of each training run
+TRAIN_SAVE_EVERY = 4
+TRAIN_SIZE = 512
+GRAD_REL_TOL = 1e-4       # a TI step's gradient, card vs CPU, tiny model, f32, TF32 off
+RESUME_REL_TOL = 1e-5     # a resumed step vs the unbroken run's, on the card
+BOORU_TOL = 1e-4          # DeepDanbooru's scores, card vs CPU
+BOORU_TAGS = 1000
+CAPTION_MAX, CAPTION_MIN = 16, 8     # BLIP's new tokens in phase 4l
+
+
+def write_training_pngs(directory: str, count: int = 4, size: int = TRAIN_SIZE,
+                        seed: int = 21) -> None:
+    """`count` smooth seeded PNGs of size² (the first RGBA, its top half
+    opaque), captioned by their names."""
+    from sdwebui_tpu_torch.utils.png import encode_png
+
+    os.makedirs(directory, exist_ok=True)
+    g = torch.Generator().manual_seed(seed)
+    for i in range(count):
+        low = torch.rand((1, 3, size // 16, size // 16), generator=g)
+        img = (F.interpolate(low, size=(size, size), mode="bicubic", align_corners=False)
+               .clamp(0, 1)[0].permute(1, 2, 0) * 255).to(torch.uint8)
+        if i == 0:
+            alpha = torch.full((size, size, 1), 40, dtype=torch.uint8)
+            alpha[: size // 2] = 255
+            img = torch.cat([img, alpha], dim=-1)
+        with open(os.path.join(directory, f"{i}-red fox {i}.png"), "wb") as f:
+            f.write(encode_png(img.numpy()))
+
+
+class _StepSpy:
+    """Wraps a trainer's step function: each step's seconds (synchronised),
+    loss and the kernel launches inside it, and the inputs and outputs of
+    the step `keep` (0-based)."""
+
+    def __init__(self, module, factory: str, keep: int | None = None):
+        self.module, self.factory, self.keep = module, factory, keep
+        self.real = getattr(module, factory)
+        self.seconds, self.losses, self.launches, self.kept = [], [], [], None
+
+    def __enter__(self):
+        spy = self
+
+        def make(*a, **kw):
+            step, init = spy.real(*a, **kw)
+
+            def timed(*args, **kwargs):
+                i = len(spy.seconds)
+                if i == spy.keep:
+                    spy.kept = {"inputs": args, "emb_before": args[0].detach().clone()}
+                torch.cuda.synchronize()
+                counts = read_counts()
+                t0 = time.perf_counter()
+                out = step(*args, **kwargs)
+                torch.cuda.synchronize()
+                spy.seconds.append(time.perf_counter() - t0)
+                after = read_counts()
+                spy.launches.append({k: after[k] - counts[k] for k in after})
+                loss = out[2] if isinstance(out, tuple) else out
+                spy.losses.append(float(loss))
+                if i == spy.keep:
+                    spy.kept["emb_after"] = args[0].detach().clone()
+                    spy.kept["lr"] = args[1].param_groups[0]["lr"]
+                return out
+
+            timed.loss = getattr(step, "loss", None)
+            return timed, init
+
+        setattr(self.module, self.factory, make)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.factory, self.real)
+
+
+class _PreviewSpy:
+    """Counts the launches of a trainer's preview (a txt2img)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.real = getattr(module, name)
+        self.launches = []
+
+    def __enter__(self):
+        def preview(*a, **kw):
+            torch.cuda.synchronize()
+            before = read_counts()
+            self.real(*a, **kw)
+            torch.cuda.synchronize()
+            after = read_counts()
+            self.launches.append({k: after[k] - before[k] for k in after})
+
+        setattr(self.module, self.name, preview)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def _check_steps(spy: _StepSpy, label: str) -> dict:
+    import math
+
+    if len(spy.losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in spy.losses):
+        raise AssertionError(f"{label}: losses {spy.losses}")
+    inside = {k: sum(launch[k] for launch in spy.launches) for k in spy.launches[0]}
+    if any(inside[k] for k in ("flash_attention", "flash_attention_packed", "layer_norm")):
+        raise AssertionError(f"{label}: kernels launched inside the steps: {inside}")
+    step_s = sorted(spy.seconds[1:])[len(spy.seconds[1:]) // 2]
+    log(f"{label}: {TRAIN_STEPS} steps, losses {[round(x, 5) for x in spy.losses]}, "
+        f"s per step {step_s:.4f} (first {spy.seconds[0]:.3f}), launches inside {inside}")
+    return dict(losses=spy.losses, step_s=step_s, first_step_s=spy.seconds[0],
+                launches_inside=inside)
+
+
+def _preview_plan(model) -> dict:
+    """The preview's launches: a 256² txt2img of 8 Euler a steps."""
+    return _plan(b1=1, b2=8 * launch_plan(model.unet_cfg, 32),
+                 b5=8 * ln_plan(model.unet_cfg, 32) + clip_ln_plan(model))
+
+
+def _ti_resume(model, data: str, directory: str) -> dict:
+    """An unbroken 5-step run against a 4-step run saved with its .optim:
+    one step from the saved embedding and state, on the unbroken run's
+    fifth inputs, lands where the unbroken run's fifth step did."""
+    from sdwebui_tpu_torch.loader.safetensors_io import read_state_dict
+    from sdwebui_tpu_torch.training import textual_inversion as ti
+    from sdwebui_tpu_torch.training.step import set_lr
+    from sdwebui_tpu_torch.utils.options import opts
+
+    kw = dict(n_vectors=2, learn_rate="0.005", width=TRAIN_SIZE, height=TRAIN_SIZE, seed=3)
+    with opts.override({"save_optimizer_state": True, "training_write_csv_every": 0,
+                        "save_training_settings_to_txt": False}):
+        saved = os.path.join(directory, "resume.safetensors")
+        four, _ = ti.train_embedding_from_dir(model, "resume", data, steps=4, save_path=saved,
+                                              **kw)
+        with _StepSpy(ti, "make_ti_train_step", keep=4) as spy:
+            ti.train_embedding_from_dir(model, "resume", data, steps=5, **kw)
+    before = spy.kept["emb_before"].cpu()
+    if float((before - four.vec).abs().max() / four.vec.abs().max()) > RESUME_REL_TOL:
+        raise AssertionError("the unbroken run's fourth step differs from the saved run's")
+    step, init = ti.make_ti_train_step(model, n_vectors=2)
+    emb = read_state_dict(saved)["emb_params"].to(model.device).requires_grad_(True)
+    optimizer = init(emb)
+    ti.load_optim_state(optimizer, emb, saved)
+    set_lr(optimizer, spy.kept["lr"])
+    step(emb, optimizer, *spy.kept["inputs"][2:])
+    want = spy.kept["emb_after"]
+    rel = float((emb.detach() - want).abs().max() / want.abs().max())
+    count = int(optimizer.state[emb]["step"])
+    log(f"4l (a) resume: the saved count {read_state_dict(saved + '.optim')['leaf0'].tolist()}, "
+        f"the resumed step's max|Δ|/max|ref| vs the unbroken run {rel:.2e} "
+        f"(bound {RESUME_REL_TOL}), Adam count after {count}")
+    if rel > RESUME_REL_TOL or count != 5:
+        raise AssertionError(f"resumed step: rel {rel}, count {count}")
+    return dict(resume_rel=rel)
+
+
+def _grad_check(device) -> dict:
+    """One TI step's loss and embedding gradient on a tiny model, on the
+    card against the CPU (both plain: training_ctx), f32, TF32 off; and
+    the kernels' and the option's refusals."""
+    import copy
+
+    from sdwebui_tpu_torch.ops import layer_norm as ln_mod
+    from sdwebui_tpu_torch.pipeline.sd_model import create_tiny_sd
+    from sdwebui_tpu_torch.training import textual_inversion as ti
+    from sdwebui_tpu_torch.training.step import training_ctx
+    from sdwebui_tpu_torch.utils.options import opts
+
+    cpu = create_tiny_sd(5, "cpu")
+    card = copy.deepcopy(cpu).to(device)
+    g = torch.Generator().manual_seed(7)
+    latents, noise = torch.randn((2, 4, 8, 8), generator=g), torch.randn((2, 4, 8, 8), generator=g)
+    emb0 = torch.randn((2, cpu.conditioner.cfg.width), generator=g) * 0.01
+    toks, pos = ti.prepare_tokens(cpu.conditioner.tokenizer, "a photo of {} in snow", 2)
+    toks = torch.as_tensor(toks, dtype=torch.long)[None].repeat(2, 1)
+    pos, t = torch.tensor([pos, pos]), torch.tensor([120, 870])
+    out = {}
+    for name, model in (("cpu", cpu), ("card", card)):
+        dev = model.device
+        emb = emb0.to(dev).clone().requires_grad_(True)
+        step, _ = ti.make_ti_train_step(model, n_vectors=2)
+        reset_counts()
+        with training_ctx():
+            loss = step.loss(emb, latents.to(dev), noise.to(dev), t.to(dev), toks.to(dev),
+                             pos.to(dev), torch.ones_like(latents).to(dev))
+        loss.backward()
+        out[name] = (loss.item(), emb.grad.cpu(), read_counts())
+    loss_rel = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    grad_rel = float((out["card"][1] - out["cpu"][1]).abs().max() / out["cpu"][1].abs().max())
+    log(f"4l (c) TI step on the card vs the CPU: loss rel {loss_rel:.2e}, gradient "
+        f"max|Δ|/max|ref| {grad_rel:.2e} (bound {GRAD_REL_TOL}), card launches "
+        f"{out['card'][2]}")
+    if loss_rel > GRAD_REL_TOL or grad_rel > GRAD_REL_TOL or any(out["card"][2].values()):
+        raise AssertionError(f"card step: loss rel {loss_rel}, grad rel {grad_rel}")
+    x = torch.randn((4, 768), device=device, requires_grad=True)
+    try:
+        ln_mod.layer_norm(x, None, None)
+        raise AssertionError("layer_norm returned on a tensor that requires grad")
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+    with opts.override({"training_xattention_optimizations": True}):
+        try:
+            with training_ctx():
+                pass
+            raise AssertionError("training_xattention_optimizations did not raise")
+        except NotImplementedError as e:
+            if "training_xattention_optimizations" not in str(e):
+                raise
+    return dict(loss_rel=loss_rel, grad_rel=grad_rel)
+
+
+def write_interrogate_files(root: str, device, seed: int = 13) -> dict:
+    """The interrogators' files at the published widths, from `seed`, fp16,
+    in the reference's layout under `root`: DeepDanbooru (the published
+    plan, BOORU_TAGS tags), CLIP ViT-L/14 (HF CLIPModel keys), BLIP
+    ViT-B/16 384² with a BERT-base decoder and its vocab.txt, two category
+    files."""
+    import dataclasses
+
+    from sdwebui_tpu_torch.loader.safetensors_io import write_safetensors
+    from sdwebui_tpu_torch.models import blip, deepbooru
+    from sdwebui_tpu_torch.models.clip import CLIPTextModel
+    from sdwebui_tpu_torch.models.clip_vision import CLIPVisionConfig, CLIPVisionModel
+    from sdwebui_tpu_torch.models.configs import CLIP_L
+    from sdwebui_tpu_torch.models.layers import reset_random
+
+    paths = {k: os.path.join(root, *v) for k, v in (
+        ("deepbooru", ("models", "torch_deepdanbooru")), ("clip", ("models", "clip_vision")),
+        ("blip", ("models", "BLIP")), ("categories", ("interrogate",)))}
+    for d in paths.values():
+        os.makedirs(d, exist_ok=True)
+    tags = [f"tag_{i}" if i % 100 else f"rating:r{i}" for i in range(BOORU_TAGS)]
+    sd = deepbooru.random_state_dict(tags, seed)
+    torch.save({k: (v.half() if isinstance(v, torch.Tensor) else v) for k, v in sd.items()},
+               os.path.join(paths["deepbooru"], "chip.pt"))
+    g = torch.Generator(device=device).manual_seed(seed)
+    vision = CLIPVisionModel(CLIPVisionConfig(), device=device, dtype=torch.float32)
+    vision.reset_random(g)
+    text = CLIPTextModel(dataclasses.replace(CLIP_L, projection_dim=768), device=device,
+                         dtype=torch.float32)
+    reset_random(text, g)
+    clip = {f"vision_model.{k}": v for k, v in vision.state_dict().items()
+            if k != "visual_projection.weight"}
+    clip["visual_projection.weight"] = vision.visual_projection.weight
+    clip.update({f"text_model.{k}": v for k, v in text.state_dict().items()
+                 if k != "text_projection.weight"})
+    clip["text_projection.weight"] = text.text_projection.weight
+    write_safetensors(os.path.join(paths["clip"], "clip.safetensors"),
+                      {k: v.half() for k, v in clip.items()})
+    del vision, text, clip
+    write_safetensors(os.path.join(paths["blip"], "blip.safetensors"),
+                      blip.random_state_dict(blip.BlipConfig(), seed))
+    vocab = [f"w{i}" for i in range(30524)]
+    for i, t in ((0, "[PAD]"), (100, "[UNK]"), (101, "[CLS]"), (102, "[SEP]"), (1037, "a"),
+                 (3861, "picture"), (1997, "of"), (30522, "[DEC]"), (30523, "[ENC]")):
+        vocab[i] = t
+    with open(os.path.join(paths["blip"], "vocab.txt"), "w") as f:
+        f.write("\n".join(vocab))
+    with open(os.path.join(paths["categories"], "artists.txt"), "w") as f:
+        f.write("\n".join(f"an artist {i}" for i in range(6)))
+    with open(os.path.join(paths["categories"], "flavors.top3.txt"), "w") as f:
+        f.write("\n".join(f"a flavor {i}" for i in range(8)))
+    return paths
+
+
+def _interrogate(url, paths: dict, phase3: list, device) -> dict:
+    """4l (d): the tagger and the CLIP interrogator with BLIP over HTTP on a
+    phase-3 PNG, each caption against the CPU port's on the same files, the
+    tagger's scores card vs CPU, ms per forward and B5 launches."""
+    from sdwebui_tpu_torch.models import blip, clip_vision, deepbooru
+    from sdwebui_tpu_torch.postprocessing import interrogate as interrogators
+
+    image = phase3[0]["image"]
+    info, captions = {}, {}
+    for model in ("deepdanbooru", "clip"):
+        reset_counts()
+        t0 = time.perf_counter()
+        captions[model] = _post(f"{url}/interrogate", {"image": phase3[0]["png_b64"],
+                                                       "model": model})["caption"]
+        info[f"{model}_s"] = time.perf_counter() - t0
+        info[f"{model}_launches"] = read_counts()
+    booru_path = os.path.join(paths["deepbooru"], "chip.pt")
+    card_net = deepbooru.load_deepbooru(booru_path, device)
+    cpu_net = deepbooru.load_deepbooru(booru_path, "cpu")
+    card_scores, cpu_scores = deepbooru.scores(card_net, image), deepbooru.scores(cpu_net, image)
+    info["booru_max_abs_err"] = float(abs(card_scores - cpu_scores).max())
+    cpu_tags = deepbooru.tag_image(cpu_net, image, threshold=0.5, alpha_sort=True)
+    x = torch.rand((1, 3, 512, 512), device=device)
+    with torch.inference_mode():
+        info["booru_ms"] = cuda_ms(lambda: card_net(x), iters=3, warmup=1, hide_host=False)
+    del card_net, cpu_net
+    clip_path = os.path.join(paths["clip"], "clip.safetensors")
+    found = interrogators.find_blip_model(paths["blip"])
+    cpu_clip = interrogators.ClipInterrogator(clip_path, paths["categories"], device="cpu")
+    cpu_blip = interrogators.BlipCaptioner(*found, device="cpu")
+    cpu_caption = cpu_clip.interrogate(image, captioner=cpu_blip)
+    card_blip = interrogators.BlipCaptioner(*found, device=device)
+    card_clip = interrogators.ClipInterrogator(clip_path, paths["categories"], device=device)
+    px = torch.from_numpy(clip_vision.preprocess(image, 224)).to(device)
+    bx = torch.from_numpy(blip.preprocess(image, 384)).to(device)
+    with torch.inference_mode():
+        info["clip_vit_ms"] = cuda_ms(lambda: card_clip.vision(px), iters=3, warmup=1,
+                                      hide_host=False)
+        info["blip_vit_ms"] = cuda_ms(lambda: card_blip.net.vision(bx), iters=3, warmup=1,
+                                      hide_host=False)
+    prompt = [card_blip.cfg.bos_token_id] + card_blip.tok.encode(card_blip.PROMPT)
+    ids = cpu_blip.net.generate(torch.from_numpy(blip.preprocess(image, 384)), prompt,
+                                CAPTION_MAX, CAPTION_MIN)
+    decode_steps = len(ids) - len(prompt)
+    n_categories = len(cpu_clip.categories)
+    planned = _plan(b5=(2 * 24 + 2) + n_categories * (2 * 12 + 2) + (2 * 12 + 1)
+                    + decode_steps * (1 + 3 * 12 + 1))
+    log(f"4l (d) interrogate: deepdanbooru {captions['deepdanbooru'][:80]!r}..., clip "
+        f"{captions['clip'][:120]!r}; tagger scores card vs CPU max|Δ| "
+        f"{info['booru_max_abs_err']:.2e} (bound {BOORU_TOL}); ms per forward: DeepDanbooru "
+        f"512² {info['booru_ms']:.2f}, CLIP ViT-L/14 {info['clip_vit_ms']:.2f}, BLIP ViT-B/16 "
+        f"384² {info['blip_vit_ms']:.2f}; clip launches {info['clip_launches']}, planned "
+        f"{planned} ({decode_steps} decode steps)")
+    if captions["deepdanbooru"] != cpu_tags or captions["clip"] != cpu_caption:
+        raise AssertionError(f"captions differ from the CPU port's: {captions} vs "
+                             f"{cpu_tags!r}, {cpu_caption!r}")
+    if info["booru_max_abs_err"] > BOORU_TOL:
+        raise AssertionError(f"DeepDanbooru's scores differ by {info['booru_max_abs_err']}")
+    if info["clip_launches"] != planned or any(info["deepdanbooru_launches"].values()):
+        raise AssertionError(f"interrogate launches {info['clip_launches']} != {planned}")
+    return info
+
+
+def _preprocess(url, paths: dict, directory: str) -> dict:
+    """4l (e): the preprocess route (split, focal crop, flip, DeepDanbooru
+    captions) against the CPU port's pass on the same three PNGs."""
+    from sdwebui_tpu_torch.training import preprocess
+    from sdwebui_tpu_torch.utils.png import encode_png
+
+    src = os.path.join(directory, "pre_src")
+    os.makedirs(src)
+    g = torch.Generator().manual_seed(31)
+    for name, (h, w) in (("wide", (320, 560)), ("tall", (640, 448)), ("square", (512, 512))):
+        low = torch.rand((1, 3, h // 32, w // 32), generator=g)
+        img = (F.interpolate(low, size=(h, w), mode="bicubic", align_corners=False)
+               .clamp(0, 1)[0].permute(1, 2, 0) * 255).to(torch.uint8)
+        with open(os.path.join(src, f"{name}.png"), "wb") as f:
+            f.write(encode_png(img.numpy()))
+    body = {"process_src": src, "process_dst": os.path.join(directory, "pre_card"),
+            "process_width": 512, "process_height": 512, "process_split": True,
+            "process_split_threshold": 1.5, "process_flip": True, "process_focal_crop": True,
+            "process_caption_deepbooru": True}
+    t0 = time.perf_counter()
+    res = _post(f"{url}/preprocess", body)
+    seconds = time.perf_counter() - t0
+    ref = preprocess.preprocess_dir(src, os.path.join(directory, "pre_cpu"), width=512,
+                                    height=512, split=True, split_threshold=1.5, flip=True,
+                                    focal_crop=True,
+                                    caption_deepbooru=True, device="cpu",
+                                    deepbooru_dir=paths["deepbooru"])
+    card = sorted(os.listdir(body["process_dst"]))
+    if card != sorted(os.listdir(os.path.join(directory, "pre_cpu"))) or \
+            len(res["outputs"]) != len(ref):
+        raise AssertionError(f"preprocess files {card} vs the CPU's")
+    for f in card:
+        with open(os.path.join(body["process_dst"], f), "rb") as a, \
+                open(os.path.join(directory, "pre_cpu", f), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"preprocess output {f} differs from the CPU port's")
+    log(f"4l (e) preprocess: {res['info']} in {seconds:.2f} s, {len(card)} files equal to the "
+        "CPU port's")
+    return dict(seconds=seconds, files=len(card))
+
+
+def phase_training(engine, model, phase3: list, directory: str, device):
+    """4l: training and interrogation on the phase-3 server.  Returns
+    (results, info)."""
+    from sdwebui_tpu_torch.loader.safetensors_io import read_state_dict
+    from sdwebui_tpu_torch.networks import hypernetwork as hn_mod
+    from sdwebui_tpu_torch.training import hypernetwork as hn_train
+    from sdwebui_tpu_torch.training import textual_inversion as ti
+    from sdwebui_tpu_torch.utils.options import opts
+
+    data = os.path.join(directory, "data")
+    write_training_pngs(data)
+    prev_emb_dir = engine.embeddings_dir
+    engine.embeddings_dir = os.path.join(directory, "embeddings")
+    hn_mod.set_hypernetwork_dirs([os.path.join(directory, "hypernetworks")])
+    t0 = time.perf_counter()
+    paths = write_interrogate_files(os.path.join(directory, "interrogate_root"), device)
+    log(f"4l: wrote the interrogators' files in {time.perf_counter() - t0:.2f} s")
+    info, results = {}, []
+    saved = {k: opts.data.get(k) for k in ("interrogate_clip_max_length",
+                                           "interrogate_clip_min_length")}
+    train = {"data_root": data, "steps": TRAIN_STEPS, "training_width": TRAIN_SIZE,
+             "training_height": TRAIN_SIZE, "create_image_every": TRAIN_STEPS,
+             "use_weight": True, "preview_prompt": "a photo of a red fox"}
+    try:
+        with _server(engine) as url, _interrogate_server(engine, paths) as iurl:
+            # (a) textual inversion
+            _post(f"{url}/create/embedding", {"name": "chip-ti", "num_vectors_per_token": 2})
+            torch.cuda.reset_peak_memory_stats()
+            with _StepSpy(ti, "make_ti_train_step", keep=0) as spy, \
+                    _PreviewSpy(ti, "_save_preview") as previews:
+                t0 = time.perf_counter()
+                res = _post(f"{url}/train/embedding", dict(
+                    train, embedding_name="chip-ti", num_vectors_per_token=2,
+                    learn_rate="0.005", save_embedding_every=TRAIN_SAVE_EVERY))
+                info["ti_route_s"] = time.perf_counter() - t0
+            info["ti_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            info["ti"] = _check_steps(spy, "4l (a) textual inversion")
+            vec = read_state_dict(os.path.join(engine.embeddings_dir, "chip-ti.safetensors"))[
+                "emb_params"]
+            moved = float((vec - spy.kept["emb_before"].cpu()).abs().max())
+            if moved < 1e-3:
+                raise AssertionError(f"the embedding did not move ({moved})")
+            if previews.launches != [_preview_plan(model)]:
+                raise AssertionError(f"preview launches {previews.launches} != "
+                                     f"{_preview_plan(model)}")
+            log(f"4l (a) {res['info']}; route {info['ti_route_s']:.2f} s, peak "
+                f"{info['ti_peak_gib']:.2f} GiB, embedding moved {moved:.4f}, preview "
+                f"launches {previews.launches[0]}")
+            prompt = dict(SD15_BASE, prompt="a photo of chip-ti in the snow", steps=8,
+                          batch_size=1, seed=404)
+            ti_runs = [_request(url, "txt2img", prompt, _sd15_check, 512, label="4l TI")
+                       for _ in range(2)]
+            if "chip-ti" not in ti_runs[0]["infotext"]:
+                raise AssertionError(f"infotext lacks the embedding: {ti_runs[0]['infotext']!r}")
+            _check_repeat(ti_runs, 0, 1)
+            planned = _plan(b1=1, b2=8 * launch_plan(model.unet_cfg, 64),
+                            b5=8 * ln_plan(model.unet_cfg, 64) + clip_ln_plan(model))
+            _check_launches(ti_runs, [planned] * 2)
+            results += ti_runs
+            info["resume"] = _ti_resume(model, data, directory)
+            # (b) hypernetwork, dropout on
+            _post(f"{url}/create/hypernetwork", {"name": "chip-hn",
+                                                 "enable_sizes": [768, 320, 640, 1280]})
+            with _StepSpy(hn_train, "make_hn_train_step") as spy, \
+                    _PreviewSpy(hn_train, "_save_hn_preview") as previews:
+                t0 = time.perf_counter()
+                res = _post(f"{url}/train/hypernetwork", dict(
+                    train, hypernetwork_name="chip-hn", learn_rate="0.0001",
+                    layer_structure=[1, 2, 2, 1], use_dropout=True,
+                    save_hypernetwork_every=TRAIN_SAVE_EVERY))
+                info["hn_route_s"] = time.perf_counter() - t0
+            info["hn"] = _check_steps(spy, "4l (b) hypernetwork")
+            if previews.launches != [_preview_plan(model)]:
+                raise AssertionError(f"HN preview launches {previews.launches}")
+            log(f"4l (b) {res['info']}; route {info['hn_route_s']:.2f} s")
+            hn_runs = [_request(url, "txt2img", dict(prompt, prompt=p), _sd15_check, 512,
+                                label=label)
+                       for p, label in (("a fox <hypernet:chip-hn:1>", "4l HN"),
+                                        ("a fox", "4l no HN"))]
+            if abs(hn_runs[0]["image"].astype(int) - hn_runs[1]["image"].astype(int)).max() == 0:
+                raise AssertionError("the trained hypernetwork changed nothing")
+            _check_launches(hn_runs, [planned] * 2)
+            results += hn_runs
+            # (c) the gradient on the card
+            info["grad"] = _grad_check(device)
+            # (d) interrogate, (e) preprocess
+            _post(f"{url}/options", {"interrogate_clip_max_length": CAPTION_MAX,
+                                     "interrogate_clip_min_length": CAPTION_MIN})
+            info["interrogate"] = _interrogate(iurl, paths, phase3, device)
+            info["preprocess"] = _preprocess(iurl, paths, directory)
+    finally:
+        opts.data.update(saved)
+        engine.embeddings_dir = prev_emb_dir
+        engine.refresh_embeddings()
+        hn_mod.set_hypernetwork_dirs([hn_mod.DEFAULT_HYPERNETWORK_DIR])
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results, info
+
+
+@contextlib.contextmanager
+def _interrogate_server(engine, paths: dict):
+    """A server around `engine` whose interrogate and preprocess routes read
+    `paths`; yields its /sdapi/v1 URL."""
+    from sdwebui_tpu_torch.server.api import make_server
+
+    server = make_server(engine, "127.0.0.1", 0, interrogate_dirs=paths)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}/sdapi/v1"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+
+
 def phase_checkpoint(model, device, phase3: dict, ckpt_dir: str):
     """4a: the random SD1.5 and a second one (seed 1, fp16) as checkpoint
     files, served by a checkpoint Engine; returns (engine, results, info)."""
@@ -3799,6 +4335,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_options_") as opt4k_dir:
         opt4k_results, opt4k_info = phase_options(engine, model, opt4k_dir, device)
     mark("4k(a, c, d, e) options and openpose")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_training_") as train_dir:
+        train_results, train_info = phase_training(engine, model, results, train_dir, device)
+    mark("4l training and interrogation")
     del model, engine, ckpt_engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -3839,7 +4378,7 @@ def main() -> int:
                  if k not in ("image", "png_b64", "infotext", "extras")}
                 for r in (results + i2i_results + opt_results + hr_results + c4_results
                           + hy_results + face_results + zoo_results + ckpt_results
-                          + sampler_results + opt4k_results
+                          + sampler_results + opt4k_results + train_results
                           + sdxl_results + opt4k_xl_results
                           + [sdxl_hr_result] + sdxl_i2i_results + family_results)]
     log(json.dumps({"card": smi, "kernel_shapes": rows, "unet_step": unet,
@@ -3847,7 +4386,7 @@ def main() -> int:
                     "sdxl_refiner_after_step": s_idx, "checkpoint": ckpt_info,
                     "hires": hr_info, "extras": extras, "sdxl_hires": sdxl_hr_info,
                     "config4": c4_info, "hybrid": hy_info, "img2img_options": opt_info,
-                    "faces": face_info, "zoo": zoo_info,
+                    "faces": face_info, "zoo": zoo_info, "training": train_info,
                     "sdxl_img2img": sdxl_i2i_info, "options": opt4k_info,
                     "families": {k: v for k, v in family_info.items() if k != "b1_calls"},
                     "requests": requests, "sdxl_profile": profile, "phase_s": phase_s}))

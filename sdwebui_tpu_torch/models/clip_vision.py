@@ -212,6 +212,29 @@ def convert_openclip_vision(sd: dict, prefix: str = "embedder.model.visual.",
     return flat, cfg
 
 
+def convert_clip_vision(sd: dict):
+    """An HF ``CLIPModel`` / ``CLIPVisionModelWithProjection`` state dict →
+    (the tower's state dict, CLIPVisionConfig) (clip_vision.py:107-141):
+    ``vision_model.*`` and ``visual_projection.weight``, the head count
+    from the width as JAX derives it (64-channel heads from 256 wide)."""
+    flat = {}
+    for k, v in sd.items():
+        if k.startswith("vision_model.") and not k.endswith("position_ids"):
+            flat[k[len("vision_model."):]] = v
+        elif k.startswith("visual_projection"):
+            flat[k] = v
+    w = flat["embeddings.patch_embedding.weight"]
+    width = int(w.shape[0])
+    cfg = CLIPVisionConfig(
+        patch_size=int(w.shape[-1]), width=width,
+        layers=1 + max(int(k.split(".")[2]) for k in flat if k.startswith("encoder.layers.")),
+        heads=width // 64 if width >= 256 else max(width // 16, 1),
+        projection_dim=int(flat["visual_projection.weight"].shape[0]),
+        image_size=int((flat["embeddings.position_embedding.weight"].shape[0] - 1) ** 0.5)
+        * int(w.shape[-1]))
+    return flat, cfg
+
+
 def openclip_vision_state_dict(model: CLIPVisionModel,
                                prefix: str = "embedder.model.visual.") -> dict:
     """The inverse of :func:`convert_openclip_vision`: the tower's tensors

@@ -28,7 +28,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from sdwebui_tpu_torch.ops import _build
+from sdwebui_tpu_torch.ops import _build, refuse_autograd
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _launches = 0
@@ -191,6 +191,7 @@ def conv3x3(x, weight, bias=None):
         return conv3x3_plain(x, weight, bias)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3 has no kernel for {x.device}")
+    refuse_autograd("conv3x3", x, weight, bias)
     _check(x, weight, bias)
     bsz, cin, h, w = x.shape
     cout = weight.shape[0]

@@ -31,7 +31,7 @@ import math
 
 import torch
 
-from sdwebui_tpu_torch.ops import _build
+from sdwebui_tpu_torch.ops import _build, refuse_autograd
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 ENTRY_POINTS = ("flash_attention", "flash_attention_packed", "flash_attention_4d")
@@ -141,6 +141,14 @@ def _on_cuda(q, name: str) -> bool:
     return True
 
 
+def _on_cuda_no_grad(name: str, q, k, v) -> bool:
+    """_on_cuda, and on CUDA no operand that requires grad."""
+    if not _on_cuda(q, name):
+        return False
+    refuse_autograd(name, q, k, v)
+    return True
+
+
 def _aligned16(t) -> bool:
     """TMA's (and the 16-byte loads') rule: a 16-byte aligned base and every
     stride of a dim longer than 1 a positive multiple of 16 bytes."""
@@ -180,7 +188,7 @@ def flash_attention(q, k, v, scale=None):
 
     q: (BH, Sq, D); k, v: (BH, Skv, D).  Returns (BH, Sq, D) in q's dtype.
     """
-    if not _on_cuda(q, "flash_attention"):
+    if not _on_cuda_no_grad("flash_attention", q, k, v):
         return flash_attention_plain(q, k, v, scale)
     _check(q, k, v)
     bh, sq, d = q.shape
@@ -197,7 +205,7 @@ def flash_attention_packed(q, k, v, *, num_heads: int, scale=None):
     chunks of a fused (B, S, 3·H·D) projection included).  Head h is the
     column slice [h·D, (h+1)·D).  Returns a contiguous (B, Sq, H·D).
     """
-    if not _on_cuda(q, "flash_attention_packed"):
+    if not _on_cuda_no_grad("flash_attention_packed", q, k, v):
         return flash_attention_packed_plain(q, k, v, num_heads=num_heads, scale=scale)
     _check_packed(q, k, v, num_heads)
     b, sq, hd = q.shape
@@ -211,7 +219,7 @@ def flash_attention_4d(q, k, v, *, scale=None):
     """Softmax(q kᵀ · scale) v per head over head-interleaved (B, S, H, D)
     tensors, read through their strides.  Returns a contiguous (B, Sq, H, D).
     """
-    if not _on_cuda(q, "flash_attention_4d"):
+    if not _on_cuda_no_grad("flash_attention_4d", q, k, v):
         return flash_attention_4d_plain(q, k, v, scale=scale)
     _check_4d(q, k, v)
     b, sq, h, d = q.shape

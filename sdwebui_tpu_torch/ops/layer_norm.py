@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from sdwebui_tpu_torch.ops import _build
+from sdwebui_tpu_torch.ops import _build, refuse_autograd
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _launches = 0
@@ -135,6 +135,7 @@ def layer_norm(x, weight=None, bias=None, eps: float = 1e-5):
         if x.device.type == "cpu":
             return layer_norm_plain(x, weight, bias, eps)
         raise ValueError(f"layer_norm has no kernel for {x.device}")
+    refuse_autograd("layer_norm", x, weight, bias)
     dtype = _DTYPES.get(x.dtype)
     if dtype is None:
         raise TypeError(f"layer_norm takes bf16 or f32, got {x.dtype}")

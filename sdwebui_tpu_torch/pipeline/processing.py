@@ -118,10 +118,12 @@ def check_family(model: SDModel, p: GenerationParams,
             + " is not ported: the refiner handoff is SDXL's only")
 
 
-def _check_slice(p: GenerationParams) -> None:
-    """Raise for every request field and option the slice does not run."""
+def _check_slice(p: GenerationParams, txt2img: bool = False) -> None:
+    """Raise for every request field and option the slice does not run
+    (hypernet_override, the training preview's live network, runs in
+    txt2img only, as in JAX)."""
     fields = {
-        "hypernet_override": p.hypernet_override is not None,
+        "hypernet_override": p.hypernet_override is not None and not txt2img,
         "postprocessing": p.postprocessing,
     }
     for name, used in fields.items():
@@ -1011,7 +1013,7 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
                      refiner_model: SDModel | None,
                      interrupted: Callable | None = None,
                      callback: Callable | None = None) -> Processed:
-    _check_slice(p)
+    _check_slice(p, txt2img=True)
     check_hybrid(model)
     check_family(model, p, refiner_model)
     hybrid = model.unet_cfg.in_channels != model.latent_channels
@@ -1033,6 +1035,8 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
     # extra networks (processing.py:1340-1346): the tags leave the prompt the
     # conds see, a LoRA set swaps in the merged model; the infotext keeps them
     clean_prompt, model, hypernet = extra_networks.activate(model, p.prompt)
+    if p.hypernet_override is not None:     # a training preview's live network
+        hypernet = p.hypernet_override
     model = with_tiling(model, p)
     model = apply_attention_options(model)
     model = apply_schedule_overrides(model, p)

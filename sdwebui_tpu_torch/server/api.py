@@ -12,7 +12,13 @@ CodeFormer) and answer one PNG per image; ``save_output`` and extras
 resize modes other than 0 and 1 answer 422, and so does a face restorer
 without weights.  Job control: ``progress``, ``interrupt``, ``skip`` and
 ``/internal/{interrupt,progress}`` read and set the Engine's job state
-without its queue lock, the live preview as a PNG; ``png-info``,
+without its queue lock, the live preview as a PNG.  Training and
+interrogation (``api.py:349-415,1206-1365``): ``interrogate``
+(DeepDanbooru, or the CLIP interrogator with BLIP's caption when BLIP is
+there; 501 naming what is absent), ``preprocess``, ``create/embedding``,
+``create/hypernetwork``, ``train/embedding`` and ``train/hypernetwork``;
+a training run is a job (``progress`` reports its steps, ``interrupt``
+stops it after the step in flight).  ``png-info``,
 ``memory``, ``cmd-flags``, ``refresh-vae``, ``realesrgan-models`` and
 ``face-restorers`` answer as JAX's (``api.py:437-539,587-592,899,916``).
 Requests are plain JSON mapped
@@ -192,7 +198,43 @@ OPTIONS = OVERRIDES | IMG2IMG_OVERRIDES | {
     "postprocessing_disable_in_extras", "realesrgan_enabled_models", "dat_enabled_models",
     "live_previews_image_format", "interrupt_after_current",
     # read by the loader at the next checkpoint load: SD3's bundled T5-XXL
-    "sd3_enable_t5"}
+    "sd3_enable_t5",
+    # training and interrogation (training/*, postprocessing/interrogate,
+    # models/deepbooru)
+    "training_xattention_optimizations", "unload_models_when_training",
+    "save_optimizer_state", "save_training_settings_to_txt", "training_write_csv_every",
+    "training_image_repeats_per_epoch", "dataset_filename_word_regex",
+    "dataset_filename_join_string", "interrogate_keep_models_in_memory",
+    "interrogate_deepbooru_score_threshold", "deepbooru_sort_alpha", "deepbooru_use_spaces",
+    "deepbooru_escape", "deepbooru_filter_tags", "interrogate_return_ranks",
+    "interrogate_clip_num_beams", "interrogate_clip_min_length", "interrogate_clip_max_length",
+    "interrogate_clip_dict_limit", "interrogate_clip_skip_categories"}
+
+#: the training routes' request fields: the ones JAX's handlers read
+#: (api.py:1206-1365); another field answers 422
+PREPROCESS_FIELDS = {"process_src", "input_dir", "process_dst", "output_dir", "process_width",
+                     "process_height", "process_split", "process_split_threshold",
+                     "process_overlap_ratio", "process_flip", "process_focal_crop",
+                     "process_multicrop", "process_caption_deepbooru",
+                     "existing_caption_action"}
+CREATE_EMBEDDING_FIELDS = {"name", "num_vectors_per_token"}
+CREATE_HYPERNETWORK_FIELDS = {"name", "enable_sizes", "layer_structure", "weight_init",
+                              "add_layer_norm", "activation_func"}
+_DATASET_FIELDS = {"data_root", "steps", "learn_rate", "batch_size", "template_filename",
+                   "template", "training_width", "training_height", "varsize", "use_weight",
+                   "shuffle_tags", "tag_drop_out", "latent_sampling_method",
+                   "create_image_every", "preview_prompt"}
+TRAIN_EMBEDDING_FIELDS = _DATASET_FIELDS | {"embedding_name", "placeholder",
+                                            "num_vectors_per_token", "save_embedding_every"}
+TRAIN_HYPERNETWORK_FIELDS = _DATASET_FIELDS | {
+    "hypernetwork_name", "layer_structure", "activation_func", "weight_init", "add_layer_norm",
+    "use_dropout", "last_layer_dropout", "dropout_structure", "save_hypernetwork_every"}
+
+#: where interrogate and preprocess find their files unless the caller
+#: says otherwise (the reference's layout, relative to the working directory)
+INTERROGATE_DIRS = {"deepbooru": os.path.join("models", "torch_deepdanbooru"),
+                    "clip": os.path.join("models", "clip_vision"),
+                    "categories": "interrogate", "blip": os.path.join("models", "BLIP")}
 
 #: the Extras request's fields (ExtrasSingleImageRequest; ``name`` is a
 #: batch item's file name)
@@ -368,9 +410,13 @@ class Api:
     (``/cmd-flags``); realesrgan: the upscaler names registered from the
     Real-ESRGAN directory (``/realesrgan-models``)."""
 
-    def __init__(self, engine: Engine, flags: dict | None = None, realesrgan=()):
+    def __init__(self, engine: Engine, flags: dict | None = None, realesrgan=(),
+                 interrogate_dirs: dict | None = None):
         self.engine = engine
         self.flags = dict(flags or {})
+        #: deepbooru, clip, categories and blip directories (INTERROGATE_DIRS)
+        self.interrogate_dirs = {**INTERROGATE_DIRS, **(interrogate_dirs or {})}
+        self._interrogators: dict = {}
         self.realesrgan = tuple(realesrgan)
         self._preview_lock = threading.Lock()
         self._preview = (0, None)          # (id_live_preview, base64 PNG)
@@ -416,6 +462,13 @@ class Api:
             ("POST", "/sdapi/v1/refresh-vae"): lambda body: {},
             ("GET", "/sdapi/v1/realesrgan-models"): self.realesrgan_models,
             ("GET", "/sdapi/v1/face-restorers"): self.face_restorers,
+            # training and interrogation (api.py:349-415,1206-1365)
+            ("POST", "/sdapi/v1/interrogate"): self.interrogate,
+            ("POST", "/sdapi/v1/preprocess"): self.preprocess,
+            ("POST", "/sdapi/v1/create/embedding"): self.create_embedding,
+            ("POST", "/sdapi/v1/create/hypernetwork"): self.create_hypernetwork,
+            ("POST", "/sdapi/v1/train/embedding"): self.train_embedding,
+            ("POST", "/sdapi/v1/train/hypernetwork"): self.train_hypernetwork,
         }
 
     def _generate(self, body, img2img: bool):
@@ -735,6 +788,240 @@ class Api:
     def face_restorers(self, body=None):
         return [{"name": n, "cmd_dir": None} for n in faces.available_restorers()]
 
+    # ---- interrogation (api.py:349-415) ----------------------------------
+
+    def interrogate(self, body):
+        """The image's caption by DeepDanbooru, or by the CLIP interrogator
+        (with BLIP's caption first when BLIP's files are there); 501 naming
+        what is absent.  The nets stay loaded with
+        opts.interrogate_keep_models_in_memory, else go after the request."""
+        if not isinstance(body, dict):
+            raise ApiError(422, "request body must be a JSON object")
+        req = _check_fields(body, {"image": ("", str), "model": ("clip", str)}, {})
+        try:
+            return self._interrogate(req)
+        finally:
+            if not opts.get("interrogate_keep_models_in_memory", False):
+                self._interrogators.clear()
+
+    def _interrogator(self, key: str, make):
+        if key not in self._interrogators:
+            self._interrogators[key] = make()
+        return self._interrogators[key]
+
+    def _interrogate(self, req: dict):
+        from sdwebui_tpu_torch.models import deepbooru
+        from sdwebui_tpu_torch.postprocessing import interrogate as interrogators
+        from sdwebui_tpu_torch.training.preprocess import find_deepbooru
+
+        if not req["image"]:
+            raise ApiError(404, "Image not found")
+        dirs, device = self.interrogate_dirs, self.engine.device
+        with self.engine.queue_lock:
+            if req["model"] == "deepdanbooru":
+                path = find_deepbooru(dirs["deepbooru"])
+                if path:
+                    net = self._interrogator(
+                        "deepbooru", lambda: deepbooru.load_deepbooru(path, device))
+                    return {"caption": deepbooru.tag_image(
+                        net, _decode_image(req["image"], "image"),
+                        threshold=float(opts.get("interrogate_deepbooru_score_threshold", 0.5)),
+                        alpha_sort=bool(opts.get("deepbooru_sort_alpha", True)),
+                        use_spaces=bool(opts.get("deepbooru_use_spaces", True)),
+                        use_escape=bool(opts.get("deepbooru_escape", True)),
+                        filter_tags=str(opts.get("deepbooru_filter_tags", "")),
+                        include_ranks=bool(opts.get("interrogate_return_ranks", False)))}
+            if req["model"] == "clip":
+                captioner = None
+                found = interrogators.find_blip_model(dirs["blip"])
+                if found:
+                    captioner = self._interrogator(
+                        "blip", lambda: interrogators.BlipCaptioner(*found, device=device))
+                path = interrogators.find_clip_model(dirs["clip"])
+                if path and os.path.isdir(dirs["categories"]):
+                    clip = self._interrogator("clip", lambda: interrogators.ClipInterrogator(
+                        path, dirs["categories"], device=device))
+                    return {"caption": clip.interrogate(_decode_image(req["image"], "image"),
+                                                        captioner=captioner)}
+                if captioner is not None:
+                    return {"caption": captioner.caption(_decode_image(req["image"], "image"))}
+        raise ApiError(
+            501, f"interrogate model {req['model']!r} weights are not present "
+                 f"(no network access in this deployment); place "
+                 f"TorchDeepDanbooru weights under models/torch_deepdanbooru/, "
+                 f"a CLIP model under models/clip_vision/ plus "
+                 f"interrogate/<category>.txt files, and/or BLIP weights + "
+                 f"vocab.txt under models/BLIP/, to enable")
+
+    # ---- training (api.py:1206-1365) ---------------------------------------
+
+    @staticmethod
+    def _training_body(body, fields: set) -> dict:
+        if not isinstance(body, dict):
+            raise ApiError(422, "request body must be a JSON object")
+        unknown = sorted(set(body) - fields)
+        if unknown:
+            raise ApiError(422, f"fields {unknown} are not supported by this server yet")
+        return body
+
+    def preprocess(self, body):
+        """The dataset preprocessing pass over process_src into process_dst."""
+        from sdwebui_tpu_torch.training.preprocess import preprocess_dir
+
+        body = self._training_body(body, PREPROCESS_FIELDS)
+        src = body.get("process_src", body.get("input_dir", ""))
+        dst = body.get("process_dst", body.get("output_dir", ""))
+        if not src or not os.path.isdir(src):
+            raise ApiError(404, f"source directory not found: {src!r}")
+        if not dst:
+            raise ApiError(400, "process_dst is required")
+        with self.engine.queue_lock:
+            written = preprocess_dir(
+                src, dst, width=int(body.get("process_width", 512)),
+                height=int(body.get("process_height", 512)),
+                split=bool(body.get("process_split", False)),
+                split_threshold=float(body.get("process_split_threshold", 2.0)),
+                overlap_ratio=float(body.get("process_overlap_ratio", 0.2)),
+                flip=bool(body.get("process_flip", False)),
+                focal_crop=bool(body.get("process_focal_crop", False)),
+                auto_size_crop=bool(body.get("process_multicrop", False)),
+                caption_deepbooru=bool(body.get("process_caption_deepbooru", False)),
+                existing_caption_action=str(body.get(
+                    "existing_caption_action",
+                    opts.get("postprocessing_existing_caption_action", "ignore"))).lower(),
+                device=self.engine.device, deepbooru_dir=self.interrogate_dirs["deepbooru"])
+        return {"info": f"preprocess complete: {len(written)} images", "outputs": written}
+
+    def create_embedding(self, body):
+        """A new embedding of num_vectors_per_token rows of the live model's
+        CLIP width, N(0, 0.01²) from seed 0, in the embeddings directory."""
+        import numpy as np
+
+        from sdwebui_tpu_torch.loader.safetensors_io import write_safetensors
+
+        body = self._training_body(body, CREATE_EMBEDDING_FIELDS)
+        name = body.get("name", "embedding")
+        n_vectors = int(body.get("num_vectors_per_token", 1))
+        width = self.engine.sd_model.conditioner.cfg.width
+        os.makedirs(self.engine.embeddings_dir, exist_ok=True)
+        path = os.path.join(self.engine.embeddings_dir, f"{name}.safetensors")
+        vec = np.random.default_rng(0).standard_normal((n_vectors, width)).astype(
+            np.float32) * 0.01
+        write_safetensors(path, {"emb_params": torch.from_numpy(vec)}, metadata={"name": name})
+        return {"info": f"create embedding filename: {path}"}
+
+    def create_hypernetwork(self, body):
+        """A new hypernetwork (create_hypernetwork at seed 0) in the first
+        hypernetwork directory."""
+        from sdwebui_tpu_torch.networks.hypernetwork import (create_hypernetwork,
+                                                             save_hypernetwork)
+
+        body = self._training_body(body, CREATE_HYPERNETWORK_FIELDS)
+        name = body.get("name", "hypernetwork")
+        layer_structure = tuple(float(x) for x in body.get("layer_structure", (1, 2, 1)))
+        directory = hypernet_registry().dirs[0]
+        os.makedirs(directory, exist_ok=True)
+        path = os.path.join(directory, f"{name}.safetensors")
+        hn = create_hypernetwork(
+            dims=tuple(int(x) for x in body.get("enable_sizes", [768, 320, 640, 1280])),
+            layer_structure=layer_structure, weight_init=body.get("weight_init", "Normal"),
+            add_layer_norm=bool(body.get("add_layer_norm", False)),
+            activation=body.get("activation_func", "linear"))
+        save_hypernetwork(hn, path, name=name, layer_structure=layer_structure)
+        hypernet_registry().refresh()
+        return {"info": f"create hypernetwork filename: {path}"}
+
+    def _train(self, job: str, steps: int, run):
+        """run(callback) as a job under the queue lock: each step sets the
+        progress, an interrupt stops the run after the step in flight."""
+        def callback(i, loss):
+            self.engine.state.set_sampling_step(i + 1, steps)
+            return not self.engine.state.interrupted
+
+        with self.engine.queue_lock:
+            self.engine.state.begin(job, 1, self.engine.device)
+            try:
+                return run(callback)
+            except (ValueError, AssertionError) as e:
+                raise ApiError(400, str(e)) from e
+            finally:
+                self.engine.state.end()
+
+    def train_embedding(self, body):
+        """Textual-inversion training from a directory of images into the
+        embeddings directory; the live model's database is rescanned."""
+        from sdwebui_tpu_torch.training.textual_inversion import train_embedding_from_dir
+
+        body = self._training_body(body, TRAIN_EMBEDDING_FIELDS)
+        name = body.get("embedding_name", "embedding")
+        data_dir = body.get("data_root", "")
+        if not os.path.isdir(data_dir):
+            raise ApiError(404, f"data_root not found: {data_dir}")
+        steps = int(body.get("steps", 100))
+        os.makedirs(self.engine.embeddings_dir, exist_ok=True)
+        _, losses = self._train("train-embedding", steps, lambda callback: train_embedding_from_dir(
+            self.engine.sd_model, name, data_dir, placeholder=body.get("placeholder") or name,
+            n_vectors=int(body.get("num_vectors_per_token", 1)), steps=steps,
+            learn_rate=body.get("learn_rate", "0.005"),
+            batch_size=int(body.get("batch_size", 1)),
+            template=body.get("template_filename", body.get("template", "subject")),
+            width=int(body.get("training_width", 512)),
+            height=int(body.get("training_height", 512)),
+            varsize=bool(body.get("varsize", False)),
+            use_weight=bool(body.get("use_weight", False)),
+            shuffle_tags=bool(body.get("shuffle_tags", False)),
+            tag_drop_out=float(body.get("tag_drop_out", 0.0)),
+            latent_sampling_method=body.get("latent_sampling_method", "once"),
+            save_every=int(body.get("save_embedding_every", 0)),
+            preview_every=int(body.get("create_image_every", 0)),
+            preview_prompt=body.get("preview_prompt") or None,
+            save_path=os.path.join(self.engine.embeddings_dir, f"{name}.safetensors"),
+            callback=callback))
+        self.engine.refresh_embeddings()
+        return {"info": f"train embedding complete: {len(losses)} steps, "
+                        f"final loss {losses[-1]:.4f}"}
+
+    def train_hypernetwork(self, body):
+        """Hypernetwork training from a directory of images into the first
+        hypernetwork directory; the registry is rescanned."""
+        from sdwebui_tpu_torch.training.hypernetwork import train_hypernetwork_from_dir
+
+        body = self._training_body(body, TRAIN_HYPERNETWORK_FIELDS)
+        name = body.get("hypernetwork_name", "hypernetwork")
+        data_dir = body.get("data_root", "")
+        if not os.path.isdir(data_dir):
+            raise ApiError(404, f"data_root not found: {data_dir}")
+        steps = int(body.get("steps", 100))
+        directory = hypernet_registry().dirs[0]
+        os.makedirs(directory, exist_ok=True)
+        _, losses = self._train("train-hypernetwork", steps,
+                                lambda callback: train_hypernetwork_from_dir(
+            self.engine.sd_model, name, data_dir, steps=steps,
+            learn_rate=body.get("learn_rate", "0.00001"),
+            batch_size=int(body.get("batch_size", 1)),
+            template=body.get("template_filename", body.get("template", "hypernetwork")),
+            width=int(body.get("training_width", 512)),
+            height=int(body.get("training_height", 512)),
+            varsize=bool(body.get("varsize", False)),
+            use_weight=bool(body.get("use_weight", False)),
+            shuffle_tags=bool(body.get("shuffle_tags", False)),
+            tag_drop_out=float(body.get("tag_drop_out", 0.0)),
+            latent_sampling_method=body.get("latent_sampling_method", "once"),
+            layer_structure=tuple(float(x) for x in body.get("layer_structure", (1, 2, 1))),
+            activation=body.get("activation_func", "linear"),
+            weight_init=body.get("weight_init", "Normal"),
+            add_layer_norm=bool(body.get("add_layer_norm", False)),
+            use_dropout=bool(body.get("use_dropout", False)),
+            last_layer_dropout=bool(body.get("last_layer_dropout", True)),
+            dropout_structure=body.get("dropout_structure"),
+            save_every=int(body.get("save_hypernetwork_every", 0)),
+            preview_every=int(body.get("create_image_every", 0)),
+            preview_prompt=body.get("preview_prompt") or None,
+            save_path=os.path.join(directory, f"{name}.safetensors"), callback=callback))
+        hypernet_registry().refresh()
+        return {"info": f"train hypernetwork complete: {len(losses)} steps, "
+                        f"final loss {losses[-1]:.4f}"}
+
     def handle(self, method: str, path: str, body):
         """→ (status, JSON-able payload)."""
         handler = self.routes.get((method, path.split("?", 1)[0]))
@@ -792,9 +1079,11 @@ def make_handler(api: Api):
 
 
 def make_server(engine: Engine, host: str = "127.0.0.1", port: int = 7860,
-                flags: dict | None = None, realesrgan=()) -> ThreadingHTTPServer:
+                flags: dict | None = None, realesrgan=(),
+                interrogate_dirs: dict | None = None) -> ThreadingHTTPServer:
     """The bound server (port 0 picks a free one); run ``serve_forever()``.
-    flags and realesrgan: the Api's."""
-    server = ThreadingHTTPServer((host, port), make_handler(Api(engine, flags, realesrgan)))
+    flags, realesrgan and interrogate_dirs: the Api's."""
+    server = ThreadingHTTPServer((host, port), make_handler(
+        Api(engine, flags, realesrgan, interrogate_dirs)))
     server.daemon_threads = True
     return server

@@ -30,6 +30,15 @@ follow the arithmetic and not only the formula:
   cv2 runs without Intel IPP; a cv2 built with IPP (such as opencv-python 5.0.0)
   takes IPP's float resize instead, up to 3.3e-5 of the largest magnitude
   away (ROADMAP queue C);
+- :func:`good_features_to_track`: ``goodFeaturesToTrack(gray,
+  maxCorners, qualityLevel, minDistance)`` on uint8 (Shi–Tomasi: the
+  3×3 Sobel derivatives in float32, scaled by 1/(4·3·255), the 3×3
+  unnormalised box sums of their products in float64, the smaller
+  eigenvalue in float32; the quality threshold, the 3×3 non-maximum
+  dilation, interior pixels only, strongest first with ties to the later
+  pixel, then the greedy minimum distance).  The Sobel row pass fuses its
+  taps in cv2's vectorised body (32 elements a step) and not in the row's tail, as the build in
+  this repository's test environment does;
 - :func:`remap_linear`: ``remap(img, map_x, map_y, INTER_LINEAR)`` on
   uint8 with float maps, which OpenCV 5 interpolates in float32 (not on
   the 1/32 grid of its fixed-point tables), a constant 0 border.
@@ -169,6 +178,84 @@ def dilate(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
     for dy, dx in zip(*np.nonzero(kernel)):
         out = np.maximum(out, pad[dy:dy + h, dx:dx + w])
     return out
+
+
+# --------------------------------------------------------------------------
+# Shi-Tomasi corners
+# --------------------------------------------------------------------------
+
+_SOBEL_LANES = 32     # elements a step of cv2's vectorised Sobel row pass
+
+
+def rgb_to_gray(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_RGB2GRAY)`` of uint8 (H, W, 3): the
+    weights 0.299, 0.587, 0.114 in 15-bit fixed point, rounded."""
+    rgb = img.astype(np.int32)
+    return ((rgb[..., 0] * 9798 + rgb[..., 1] * 19235 + rgb[..., 2] * 3735 + (1 << 14))
+            >> 15).astype(np.uint8)
+
+
+def _box3_sum(x: np.ndarray) -> np.ndarray:
+    """``cv2.boxFilter(x, -1, (3, 3), normalize=False)`` of float32 (H, W),
+    border reflect-101: row sums in float64, then the column sums as cv2
+    keeps them, one running float64 sum down the padded rows (add the new
+    row, write, subtract the oldest)."""
+    q = np.pad(x.astype(np.float64), 1, mode="reflect")
+    rows = q[:, :-2] + q[:, 1:-1] + q[:, 2:]
+    out = np.empty(x.shape, np.float32)
+    run = rows[0] + rows[1]
+    for y in range(x.shape[0]):
+        total = run + rows[y + 2]
+        out[y] = total
+        run = total - rows[y]
+    return out
+
+
+def corner_min_eigen_val(gray: np.ndarray) -> np.ndarray:
+    """``cv2.cornerMinEigenVal(gray, 3, 3)`` of a uint8 (H, W) image (border
+    reflect-101), float32."""
+    h, w = gray.shape
+    s = np.float32(1.0 / (4 * 3 * 255.0))
+    p = np.pad(gray.astype(np.float32), 1, mode="reflect")
+    r = p[:, 2:] - p[:, :-2]                   # d/dx row pass: exact
+    dx = _fma(r[:-2] + r[2:], s, r[1:-1] * np.float32(2 * s))
+    x0, x1, x2 = p[:, :-2], p[:, 1:-1], p[:, 2:]
+    t = np.where(np.arange(w) < (w // _SOBEL_LANES) * _SOBEL_LANES,
+                 _fma(x2, s, _fma(x1, 2 * s, x0 * s)),
+                 (x0 * s + x1 * np.float32(2 * s)) + x2 * s)
+    dy = t[2:] - t[:-2]
+    sums = [_box3_sum(prod) for prod in (dx * dx, dx * dy, dy * dy)]
+    a, b, c = sums[0] * np.float32(0.5), sums[1], sums[2] * np.float32(0.5)
+    return (a + c) - np.sqrt((a - c) * (a - c) + b * b)
+
+
+def good_features_to_track(gray: np.ndarray, max_corners: int, quality_level: float,
+                           min_distance: float) -> np.ndarray | None:
+    """``cv2.goodFeaturesToTrack(gray, maxCorners=max_corners,
+    qualityLevel=quality_level, minDistance=min_distance)`` of a uint8
+    (H, W) image: float32 (N, 1, 2) (x, y) corners, strongest first, or
+    None when there are none."""
+    eig = corner_min_eigen_val(gray)
+    eig = np.where(eig > np.float32(float(eig.max()) * quality_level), eig, np.float32(0))
+    peak = dilate(eig, np.ones((3, 3), np.uint8))
+    h, w = eig.shape
+    inner = np.zeros_like(eig, bool)
+    inner[1:h - 1, 1:w - 1] = True
+    ys, xs = np.nonzero(inner & (eig != 0) & (eig == peak))
+    vals = eig[ys, xs]
+    order = np.lexsort((-(ys * w + xs), -vals.astype(np.float64)))
+    min_d2 = float(min_distance) ** 2
+    picked: list = []
+    for i in order:
+        x, y = float(xs[i]), float(ys[i])
+        if min_distance > 0 and any((x - px) ** 2 + (y - py) ** 2 < min_d2 for px, py in picked):
+            continue
+        picked.append((x, y))
+        if max_corners > 0 and len(picked) == max_corners:
+            break
+    if not picked:
+        return None
+    return np.asarray(picked, np.float32).reshape(-1, 1, 2)
 
 
 # --------------------------------------------------------------------------

@@ -201,14 +201,17 @@ FILTERS = {"bicubic": (_bicubic, 2.0), "lanczos": (_lanczos, 3.0)}
 
 
 @functools.lru_cache(maxsize=64)
-def _coeffs(in_size: int, out_size: int, resample: str):
+def _coeffs(in_size: int, out_size: int, resample: str, in0: float = 0.0,
+            in1: float | None = None):
     """Pillow's ``precompute_coeffs`` + ``normalize_coeffs_8bpc``: per
     output index the first input index (xmin, (out,)) and the fixed-point
     weights ((out, ksize) int32, zero past each window), evaluated in
     double precision in Pillow's order (the weights through libm, their sum
-    left to right)."""
+    left to right).  in0, in1: the source span a resize box gives (the
+    whole axis by default)."""
     fn, support = FILTERS[resample]
-    scale = in_size / out_size
+    in1 = in_size if in1 is None else in1
+    scale = float(np.float32(in1) - np.float32(in0)) / out_size     # a C float difference
     filterscale = max(scale, 1.0)
     support = support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
@@ -216,7 +219,7 @@ def _coeffs(in_size: int, out_size: int, resample: str):
     xmins = np.zeros((out_size,), np.int64)
     kk = np.zeros((out_size, ksize), np.int32)
     for xx in range(out_size):
-        center = (xx + 0.5) * scale
+        center = in0 + (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size) - xmin
         w = [fn((x + xmin - center + 0.5) * ss) for x in range(xmax)]
@@ -234,11 +237,11 @@ def _coeffs(in_size: int, out_size: int, resample: str):
     return xmins, kk
 
 
-def _resample_axis0(a: np.ndarray, out_size: int, resample: str) -> np.ndarray:
+def _resample_axis0(a: np.ndarray, out_size: int, resample: str, span=(0.0, None)) -> np.ndarray:
     """One Pillow 8-bit resample pass along axis 0 (int32 accumulators, as
     Pillow's; on torch's CPU kernels, which run it on every core):
     (in, ...) int32 → (out, ...) in [0, 255]."""
-    xmins, kk = _coeffs(a.shape[0], out_size, resample)
+    xmins, kk = _coeffs(a.shape[0], out_size, resample, *span)
     src = torch.from_numpy(np.ascontiguousarray(a))
     idx = torch.from_numpy(np.minimum(xmins[:, None] + np.arange(kk.shape[1]), a.shape[0] - 1))
     k = torch.tensor(kk).view((out_size, kk.shape[1]) + (1,) * (a.ndim - 1))
@@ -259,11 +262,17 @@ def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
     return np.clip(idx, 0, in_size - 1)
 
 
-def resize(image, size, resample: str = "bicubic") -> np.ndarray:
-    """``Image.resize((w, h), resample)`` of an L ((H, W) or (H, W, 1)) or
-    RGB image, in its own layout.  LANCZOS and BICUBIC resample
+def _span(lo, hi) -> tuple:
+    """A box's span as Pillow takes it: C floats."""
+    return float(np.float32(lo)), float(np.float32(hi))
+
+
+def resize(image, size, resample: str = "bicubic", box=None) -> np.ndarray:
+    """``Image.resize((w, h), resample, box)`` of an L ((H, W) or (H, W, 1))
+    or RGB image, in its own layout.  LANCZOS and BICUBIC resample
     horizontally, then vertically, each pass rounded to uint8 (Pillow's
-    ``ImagingResample``); NEAREST takes one source pixel."""
+    ``ImagingResample``; a pass runs when its size or its box span
+    changes); NEAREST takes one source pixel (no box)."""
     a = np.asarray(image)
     hwc = as_hwc(a)
     if hwc.shape[2] not in (1, 3):
@@ -271,16 +280,21 @@ def resize(image, size, resample: str = "bicubic") -> np.ndarray:
     w, h = (int(v) for v in size)
     if w < 1 or h < 1:
         raise ValueError(f"resize to {w}x{h}")
-    if hwc.shape[:2] == (h, w):
+    ih, iw = hwc.shape[:2]
+    x0, y0, x1, y1 = (0, 0, iw, ih) if box is None else box
+    if (ih, iw) == (h, w) and (x0, y0, x1, y1) == (0, 0, iw, ih):
         return a.copy()
     if resample == "nearest":
+        if box is not None:
+            raise NotImplementedError("a resize box with NEAREST is not ported")
         out = hwc[_nearest_index(hwc.shape[0], h)][:, _nearest_index(hwc.shape[1], w)]
     elif resample in FILTERS:
         out = hwc.astype(np.int32)
-        if out.shape[1] != w:
-            out = _resample_axis0(out.transpose(1, 0, 2), w, resample).transpose(1, 0, 2)
-        if out.shape[0] != h:
-            out = _resample_axis0(out, h, resample)
+        if iw != w or x0 or x1 != w:
+            out = _resample_axis0(out.transpose(1, 0, 2), w, resample,
+                                  _span(x0, x1)).transpose(1, 0, 2)
+        if ih != h or y0 or y1 != h:
+            out = _resample_axis0(out, h, resample, _span(y0, y1))
         out = out.astype(np.uint8)
     else:
         raise NotImplementedError(f"resample filter {resample!r} is not ported yet")

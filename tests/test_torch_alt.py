@@ -11,6 +11,7 @@ with its text encoder replaced by a random XLM-R and projection, read by
 both packages' loaders from one ``.safetensors``.
 """
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import dataclasses
 import json
 

@@ -12,6 +12,7 @@ the slice adds end to end against ``sdwebui_tpu.pipeline.annotators``,
 with the model files written to a temporary directory and found by both
 packages' lookup."""
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import itertools
 
 import cv2

@@ -9,6 +9,7 @@ upscalers, ESRGAN's old-key map and architecture sniffing), and the prompt
 styles' CSV database.
 """
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import dataclasses
 
 import numpy as np

@@ -7,6 +7,7 @@ split size read from its position-bias buffers, SCUNet's flat relative
 table), the ``dat_enabled_models`` filter, and both directories through
 the registry (SCUNet at 1x, Lanczos after it)."""
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import dataclasses
 import os
 

@@ -15,6 +15,7 @@ img2img with ``restore_faces`` and the Extras face stages are held to JAX;
 missing weights log once and leave the images as JAX leaves them.
 """
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import dataclasses
 import logging
 import os

@@ -6,6 +6,7 @@ does.  jax is imported inside the JAX-comparison tests so the CUDA cases
 also collect on a machine without jax.
 """
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import numpy as np
 import pytest
 import torch

@@ -3,6 +3,7 @@ tiny models): the pruned file through both loaders, an output block deeper
 than its level's inputs, fp8 storage and its switch back through the
 Engine, the SD3 refusal."""
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import dataclasses
 
 import jax.numpy as jnp

@@ -7,6 +7,7 @@ SDXL base + refiner under each ``hires_fix_refiner_pass``, and
 ``enable_hr`` over HTTP.  Pipelines run under the f32 policy with the bf16
 VAE decode off: images within 1 uint8 level, identical infotext."""
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import base64
 import dataclasses
 import json

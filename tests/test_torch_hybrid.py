@@ -8,6 +8,7 @@ and the c_concat tiling on toy denoisers, and every request the port
 still refuses.  Inputs are made with numpy from a seed; each pipeline is
 held to 1 uint8 level and identical infotext."""
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import dataclasses
 
 import jax.numpy as jnp

@@ -9,6 +9,7 @@ whole ``process_img2img`` against the JAX package on identical weights
 the ``/sdapi/v1/img2img`` route.  Tolerances are stated per test.
 """
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import base64
 import dataclasses
 import io

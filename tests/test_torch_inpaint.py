@@ -14,6 +14,7 @@ and option, within 1 uint8 level with identical infotext; and the
 fields, the prompt-style routes and ``styles`` on both routes.
 """
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import base64
 import dataclasses
 import json

@@ -12,6 +12,7 @@ handlers' keys and types, and are read from one snapshot of the state
 while another thread holds the queue lock.
 """
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import base64
 import json
 import os

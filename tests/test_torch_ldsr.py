@@ -11,6 +11,7 @@ a tiny config), its checkpoint state dict converted by the JAX package's
 own loaders (``convert_unet``, ``_convert_vq``) and carried back with
 ``ldsr_from_jax``."""
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import dataclasses
 import os
 

@@ -17,6 +17,7 @@ JAX package.
   written under tmp_path.
 """
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import base64
 import dataclasses
 import json

@@ -6,6 +6,7 @@ resize), ``depth_conditioning``, both key prefixes, the JAX tree carried
 across by ``dpt_from_jax``, and the published widths built on ``meta``.
 Held to 1e-4 of the largest magnitude."""
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import dataclasses
 
 import jax

@@ -7,6 +7,7 @@ are NHWC on the JAX side and NCHW in the port; tolerances are stated per
 test (summation order differs between XLA and torch on the CPU).
 """
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import dataclasses
 
 import jax

@@ -4,6 +4,7 @@ and diffusers SDXL names, textual-inversion conds (SD1 and an SDXL
 clip_l / clip_g pair, a LoRA-bundled embedding), the hypernetwork UNet,
 whole txt2img runs with tags through both packages' ``process_txt2img``,
 and the base weights after tagged requests.  Inputs are made with numpy
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 from a seed; tolerances are stated per test."""
 
 import dataclasses

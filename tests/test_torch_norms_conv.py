@@ -7,6 +7,7 @@ CUDA cases also collect on a machine without jax.  Layouts: the JAX conv is
 NHWC/HWIO, the port's NCHW/OIHW.
 """
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import math
 
 import numpy as np

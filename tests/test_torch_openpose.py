@@ -6,6 +6,7 @@ the uint8 INTER_CUBIC resize by fx = fy (exact with cv2's own code, within
 1 level of its IPP path), and the whole hint through ``run_annotator`` with
 cv2's own resize code (every pixel)."""
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import cv2
 import jax.numpy as jnp
 import numpy as np

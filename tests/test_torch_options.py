@@ -3,6 +3,7 @@ tiny sizes): hypertile's tiles, ToMe's merge, upcast_attn and fp8 storage
 in the UNet; the Zero Terminal SNR and downcast ᾱ tables; old emphasis;
 the device noise source's Philox; the persistent cond cache."""
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import dataclasses
 
 import jax.numpy as jnp

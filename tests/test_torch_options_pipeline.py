@@ -7,6 +7,7 @@ UNet's tests in ``test_torch_options``); the schedule overrides' tables;
 old emphasis's tokens; the persistent cond cache; the attention options of
 each kind.  Pruned files and fp8 storage: ``test_torch_fp8_ssd``."""
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import numpy as np
 import pytest
 

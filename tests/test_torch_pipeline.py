@@ -2,6 +2,7 @@
 identical weights (tiny model, 64², seeds 7 and 8, 3 steps, batch 2), both
 under the f32 policy with the bf16 VAE decode off."""
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import dataclasses
 
 import jax.numpy as jnp

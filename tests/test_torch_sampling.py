@@ -1,6 +1,7 @@
 """Port sampling vs the JAX package: the numpy schedule copies, σ→t, and
 CFG + Euler ancestral on a toy denoiser (inputs and noise from numpy)."""
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

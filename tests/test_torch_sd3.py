@@ -12,6 +12,7 @@ the port refuses for SD3 answer 422 over HTTP.  Inputs come from numpy
 seeds; tolerances are stated per test.
 """
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import base64
 import dataclasses
 import json

@@ -9,6 +9,7 @@ Inputs are made with numpy from a seed; layouts are NHWC on the JAX side
 and NCHW in the port.  Tolerances are stated per test.
 """
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import base64
 import dataclasses
 import json

@@ -11,6 +11,7 @@ channels at full shape on ``meta``; SDXL img2img over HTTP, and a refiner
 on img2img answering 422.
 """
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import base64
 import dataclasses
 import json

@@ -4,6 +4,7 @@ fix, the upscalers, the Extras route, extra networks and ControlNet included
 — with the JAX package, jax, PIL, pydantic, ml_dtypes, safetensors and cv2
 blocked."""
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import base64
 import json
 import os
@@ -426,6 +427,42 @@ with tempfile.TemporaryDirectory() as d:
     for name in names:
         unregister_upscaler(name)
 assert not Recorder.attempts, Recorder.attempts
+# training, preprocess and the tagger: the modules they import when they run
+from sdwebui_tpu_torch.models import deepbooru
+from sdwebui_tpu_torch.networks.hypernetwork import (DEFAULT_HYPERNETWORK_DIR,
+                                                     set_hypernetwork_dirs)
+with tempfile.TemporaryDirectory() as d:
+    data = os.path.join(d, "data")
+    os.makedirs(data)
+    g = np.random.default_rng(0)
+    for i in range(2):
+        with open(os.path.join(data, f"{i}-cat.png"), "wb") as f:
+            f.write(encode_png(g.integers(0, 256, (64, 160, 3), dtype=np.uint8)))
+    set_hypernetwork_dirs([os.path.join(d, "hn")])
+    api = Api(Engine(device="cpu", tiny=True, embeddings_dir=os.path.join(d, "emb")))
+    for route, body in (
+            ("preprocess", {"process_src": data, "process_dst": os.path.join(d, "pre"),
+                            "process_width": 64, "process_height": 64, "process_split": True,
+                            "process_flip": True, "process_focal_crop": True}),
+            ("create/embedding", {"name": "e"}),
+            ("train/embedding", {"embedding_name": "e", "data_root": os.path.join(d, "pre"),
+                                 "steps": 1, "training_width": 64, "training_height": 64,
+                                 "save_embedding_every": 1, "create_image_every": 1}),
+            ("create/hypernetwork", {"name": "h", "enable_sizes": [64]}),
+            ("train/hypernetwork", {"hypernetwork_name": "h", "data_root": data, "steps": 1,
+                                    "training_width": 64, "training_height": 64,
+                                    "create_image_every": 1})):
+        status, out = api.handle("POST", "/sdapi/v1/" + route, body)
+        assert status == 200, (route, out)
+    set_hypernetwork_dirs([DEFAULT_HYPERNETWORK_DIR])
+    assert os.path.isfile(os.path.join(d, "emb", "images", "e-1.png"))
+    assert os.path.isfile(os.path.join(d, "hn", "images", "h-1.png"))
+    net = deepbooru.convert_deepbooru({
+        "n_Conv_0.weight": torch.ones(4, 3, 7, 7), "n_Conv_1.weight": torch.ones(8, 4, 1, 1),
+        "n_Conv_2.weight": torch.ones(4, 4, 1, 1), "n_Conv_3.weight": torch.ones(4, 4, 3, 3),
+        "n_Conv_4.weight": torch.ones(8, 4, 1, 1), "n_Conv_5.weight": torch.ones(2, 8, 1, 1),
+        "tags": ["a_b", "c"]}, plan=(("stage", 1, 4, 8, 1),))
+    assert deepbooru.tag_image(net, np.full((40, 40, 3), 9, np.uint8)) == "a b, c"
 print("OK", len(mods))
 """
 

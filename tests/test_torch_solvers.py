@@ -8,6 +8,7 @@ runs through the port's tiny txt2img; one name of each kind is held
 against JAX's process_txt2img within 1 uint8 level, with identical
 infotext."""
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import dataclasses
 
 import jax

@@ -12,6 +12,7 @@ jittered (biases, norm gains), written through the JAX package's own
 converter; the port net under test is rebuilt from that JAX tree with
 ``*_from_jax``, so both packages run the same numbers."""
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import base64
 import dataclasses
 import json

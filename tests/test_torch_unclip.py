@@ -10,6 +10,7 @@ the noise augmentor's statistics), read by both packages' loaders from
 one ``.safetensors``, and carried across with ``from_jax``.
 """
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import dataclasses
 
 import jax.numpy as jnp

@@ -8,6 +8,7 @@ the cache; ``run_stages``; img2img's resize modes 0-2 against JAX's
 ``process_img2img``; the Extras, upscaler and img2img routes on the tiny
 server."""
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import base64
 import dataclasses
 import json

@@ -13,6 +13,7 @@ and logs a missing file.  Then the pipelines with
 with identical infotext; the tiled UNet and VAE decode at 1e-4.
 """
 
+import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import dataclasses
 import logging
 
