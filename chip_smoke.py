@@ -285,6 +285,23 @@ Phases, in order; any failure exits non-zero:
      flip, DeepDanbooru captions) on 3 seeded PNGs: files and captions
      byte for byte the CPU port's.  Every file lives in a temporary
      directory removed at the phase's end.
+  4m. the scripts on the SD1.5 server (after 4l), over HTTP, with an
+     always-on recording script whose hooks must come out as planned for
+     every generation and no hook error logged, and each request's B1, B2
+     and B5 launches equal to the plan's: /scripts and /script-info; the
+     X/Y/Z plot of Steps 10, 20 x CFG 5, 7.5 with its legend off (a 1024²
+     grid and four cells, each within REPEAT_TOL of the plain request of
+     its settings, with its infotext), the legend on answering 422 naming
+     the font; prompts from file over 2 lines, the seed iterated; loopback,
+     2 loops; SD upscale of a phase-3 PNG x2 with Lanczos at batch 4 (9
+     tiles of 512² at overlap 64 in 3 batches, a 1024² image); outpainting
+     mk2, 64 px left and right (a 640 x 512 inpaint); the noise inversion
+     of img2img alternative alone at 10 steps (finite, unit std, two runs
+     within NOISE_REPEAT_TOL, 20 UNet calls), then the script; an sd_unet
+     provider registered on list_unets whose bundle's images (its UNet's
+     weights negated) differ from Automatic's and equal those of a server
+     serving the bundle; the main UI's postprocessing (Lanczos x2, a 1024²
+     image, "Postprocessing: Upscale").
 Each phase's seconds are logged as it ends.  The last two lines are the
 kernels JSON and {"ok": true, "device": ...}.
 Needs a CUDA card; without one it exits 1 and prints no result.
@@ -4224,6 +4241,309 @@ def phase_profile(engine, body: dict, label: str, wall: float | None = None,
     return summary
 
 
+SCRIPT_STEPS = (10, 20)   # phase 4m: the X/Y/Z Steps axis
+SCRIPT_CFGS = (5.0, 7.5)  # and its CFG Scale axis
+ALT_STEPS = 10            # img2img alternative's decode steps
+NOISE_REPEAT_TOL = 1e-3   # max|Δ| of two inversions of one image (unit-std noise)
+UPSCALE_DENOISE = 0.4     # SD upscale: 9 UNet calls a batch of tiles
+
+
+def _launch_plan_hw(cfg, h: int, w: int) -> int:
+    """B2 launches of one UNet forward at an h x w latent: the square plan's
+    levels, each at h·w tokens scaled down as the square's are."""
+    from sdwebui_tpu_torch.models.unet import self_attention_calls
+    from sdwebui_tpu_torch.ops.attention import FLASH_MIN_KV
+
+    return sum(s * w >= FLASH_MIN_KV * h for s, _, _ in self_attention_calls(cfg, h))
+
+
+def _hook_plan(batch: int, mask: bool = False, hires: bool = False) -> list:
+    """The hooks one generation fires on an always-on script, in order."""
+    plan = ["setup", "before_process", "after_extra_networks_activate", "process",
+            "before_process_batch", "process_batch", "process_before_every_sampling"]
+    if hires:
+        plan.append("process_before_every_sampling")
+    if mask:
+        plan.append("on_mask_blend")
+    plan += ["post_sample", "postprocess_batch", "postprocess_batch_list"]
+    plan += ["postprocess_image"] * batch
+    if mask:
+        plan += ["postprocess_maskoverlay"] * batch
+    return plan + ["postprocess"]
+
+
+def _img2img_hook_plan(batch: int, mask: bool = False) -> list:
+    plan = _hook_plan(batch, mask)
+    return plan[:-1] + ["postprocess_image_after_composite"] * batch + ["postprocess"]
+
+
+class _HookRecorder:
+    """An always-on script recording each hook it sees, and a log handler
+    catching every hook or callback error the runner logs and swallows."""
+
+    def __init__(self):
+        import logging
+
+        from sdwebui_tpu_torch.scripts import framework
+
+        self.seen, self.errors = [], []
+        seen = self.seen
+
+        class Recorder(framework.Script):
+            name = "chip-recorder"
+            alwayson = True
+
+        for hook in ("setup", "before_process", "process", "before_process_batch",
+                     "after_extra_networks_activate", "process_before_every_sampling",
+                     "process_batch", "on_mask_blend", "post_sample", "postprocess_batch",
+                     "postprocess_batch_list", "postprocess_maskoverlay",
+                     "postprocess_image_after_composite", "postprocess"):
+            setattr(Recorder, hook, lambda self, p, *a, _h=hook, **kw: seen.append(_h))
+
+        def postprocess_image(self, p, image, *a):
+            seen.append("postprocess_image")
+            return image
+
+        Recorder.postprocess_image = postprocess_image
+        self.script = Recorder()
+        errors = self.errors
+
+        class Catch(logging.Handler):
+            def emit(self, record):
+                errors.append(self.format(record))
+
+        self.handler = Catch(logging.ERROR)
+        self.logger = logging.getLogger("sdwebui_tpu_torch.scripts.framework")
+
+    def __enter__(self):
+        from sdwebui_tpu_torch.scripts import framework
+
+        framework.get_runner().add(self.script)
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        from sdwebui_tpu_torch.scripts import framework
+
+        framework.get_runner().alwayson_scripts.remove(self.script)
+        self.logger.removeHandler(self.handler)
+
+    def check(self, label: str, plan: list):
+        """The hooks since the last check equal `plan`, and no hook failed."""
+        seen, self.seen[:] = list(self.seen), []
+        if self.errors:
+            raise AssertionError(f"{label}: a script hook failed: {self.errors[0][-2000:]}")
+        if seen != plan:
+            raise AssertionError(f"{label}: hooks {seen} != planned {plan}")
+
+
+def _post_status(url, body=None):
+    """(HTTP status, decoded JSON answer) of a POST (GET without a body)."""
+    import urllib.error
+
+    try:
+        return 200, _post(url, body)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _script_request(url, route, body, label, planned, hooks, recorder, size=None) -> dict:
+    """POST one script request: its images decoded (the grid first where the
+    script makes one), seconds and launches, each checked against the plan;
+    the recorder's hooks against `hooks`."""
+    from sdwebui_tpu_torch.utils.png import decode_png
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = _post(f"{url}/{route}", body)
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    images = [decode_png(base64.b64decode(b)) for b in res["images"]]
+    for img, _ in images:
+        if str(img.dtype) != "uint8" or not img.std() > 1.0:
+            raise AssertionError(f"{label}: a flat or non-uint8 image")
+    if size is not None and images[-1][0].shape[:2] != size:
+        raise AssertionError(f"{label}: image {images[-1][0].shape}, expected {size}")
+    log(f"4m {label}: {dt:.3f} s, {len(images)} images, launches {launches}")
+    if launches != planned:
+        raise AssertionError(f"{label}: launches {launches} != planned {planned}")
+    recorder.check(label, hooks)
+    return dict(route=route, label=f"4m {label}", batch=len(images), seed=body.get("seed"),
+                seconds=dt, images_per_s=len(images) / dt, launches=launches,
+                images=[img for img, _ in images],
+                infotexts=[text.get("parameters", "") for _, text in images])
+
+
+def phase_scripts(engine, model, phase3: dict, device):
+    """4m: the scripts on the phase-3 server.  Returns (results, info)."""
+    import copy
+    import dataclasses
+
+    from sdwebui_tpu_torch.pipeline import processing
+    from sdwebui_tpu_torch.pipeline.params import GenerationParams
+    from sdwebui_tpu_torch.pipeline.sd_unet import SdUnetOption
+    from sdwebui_tpu_torch.sampling.schedulers import get_schedule
+    from sdwebui_tpu_torch.scripts import framework
+    from sdwebui_tpu_torch.server.app import Engine
+
+    cfg = model.unet_cfg
+    size = SD15_BASE["width"]              # 512: every count below is at this size
+    lat, edge = size // 8, size // 8       # the latent; outpainting's and the tiles' overlap
+    lp, ln, clip = launch_plan(cfg, lat), ln_plan(cfg, lat), clip_ln_plan(model)
+
+    def plan(calls: int, encodes: int, b1: int, b2_per_call: int = lp) -> dict:
+        return _plan(b1=b1, b2=calls * b2_per_call, b5=calls * ln + encodes * clip)
+
+    base = dict(SD15_BASE, seed=1234, batch_size=1)
+    i2i = dict(base, init_images=[phase3["png_b64"]], denoising_strength=DENOISE)
+    results, info = [], {}
+    t_phase = time.perf_counter()
+    with _server(engine) as url, _HookRecorder() as rec:
+        # (a) the two listing routes
+        with urllib.request.urlopen(f"{url}/scripts", timeout=60) as r:
+            names = json.loads(r.read())
+        with urllib.request.urlopen(f"{url}/script-info", timeout=60) as r:
+            script_info = json.loads(r.read())
+        want = {"x/y/z plot", "prompts from file or textbox", "loopback", "sd upscale",
+                "outpainting mk2", "poor man's outpainting", "img2img alternative test",
+                "prompt matrix"}
+        if not want <= set(names["txt2img"]) or "custom code" in names["txt2img"] \
+                or names["img2img"] != names["txt2img"]:
+            raise AssertionError(f"4m /scripts: {names}")
+        if {s["name"] for s in script_info} != set(names["txt2img"]) | {
+                "custom code", "postprocessing (main ui)"} or not all(
+                isinstance(s["args"], list) for s in script_info):
+            raise AssertionError(f"4m /script-info: {[s['name'] for s in script_info]}")
+        # (b) X/Y/Z: Steps x CFG Scale, each cell the plain request's image
+        xyz = ["Steps", ", ".join(map(str, SCRIPT_STEPS)),
+               "CFG Scale", ", ".join(map(str, SCRIPT_CFGS)), "Nothing", "", False]
+        cells = [(s, c) for c in SCRIPT_CFGS for s in SCRIPT_STEPS]
+        res = _script_request(url, "txt2img", dict(base, script_name="X/Y/Z plot",
+                                                   script_args=xyz), "X/Y/Z",
+                              plan(sum(s for s, _ in cells), len(cells), len(cells)),
+                              _hook_plan(1) * len(cells), rec)
+        if [im.shape for im in res["images"]] != [(2 * size, 2 * size, 3)] \
+                + [(size, size, 3)] * 4:
+            raise AssertionError(f"4m X/Y/Z shapes {[im.shape for im in res['images']]}")
+        results.append(res)
+        for (steps, scale), cell, text in zip(cells, res["images"][1:], res["infotexts"][1:]):
+            plain = _script_request(url, "txt2img", dict(base, steps=steps, cfg_scale=scale),
+                                    f"plain {steps} steps CFG {scale}",
+                                    plan(steps, 1, 1), _hook_plan(1), rec)
+            delta = int(abs(plain["images"][0].astype(int) - cell.astype(int)).max())
+            if delta > REPEAT_TOL or plain["infotexts"][0] != text:
+                raise AssertionError(f"4m X/Y/Z cell {steps}/{scale}: max|Δ| {delta} from the "
+                                     f"plain request, infotexts {text!r} {plain['infotexts']!r}")
+            results.append(plain)
+        status, err = _post_status(f"{url}/txt2img", dict(base, script_name="X/Y/Z plot",
+                                                          script_args=xyz[:6] + [True]))
+        if status != 422 or "TrueType font" not in err["detail"]:
+            raise AssertionError(f"4m X/Y/Z legend: {status} {err}")
+        rec.check("X/Y/Z legend", [])
+        # (c) prompts from file, the seed iterated
+        lines = "a photograph of an astronaut riding a horse\na red bicycle in the snow"
+        res = _script_request(url, "txt2img", dict(
+            base, script_name="Prompts from file or textbox", script_args=[True, False, lines]),
+            "prompts from file", plan(2 * STEPS, 2, 2), _hook_plan(1) * 2, rec)
+        if "Seed: 1235," not in res["infotexts"][1]:
+            raise AssertionError(f"4m prompts from file: {res['infotexts']}")
+        results.append(res)
+        # (d) loopback, 2 loops: strengths 0.625 and 0.5
+        calls = [int(d * STEPS) + 1 for d in (DENOISE + (0.5 - DENOISE) * 0.5, 0.5)]
+        results.append(_script_request(
+            url, "img2img", dict(i2i, script_name="Loopback", script_args=[2, 0.5, "Linear"]),
+            "loopback", plan(sum(calls), 2, 4), _img2img_hook_plan(1) * 2, rec))
+        # (e) SD upscale x2, Lanczos, batch 4: 9 tiles of 512² at overlap 64 in
+        # batches of 4, 4 and 1, each an encode and a decode
+        calls = int(UPSCALE_DENOISE * STEPS) + 1
+        res = _script_request(url, "img2img", dict(
+            i2i, batch_size=4, denoising_strength=UPSCALE_DENOISE, script_name="SD upscale",
+            script_args=[edge, "Lanczos", 2.0]), "SD upscale", plan(3 * calls, 3, 6),
+            _img2img_hook_plan(4) * 2 + _img2img_hook_plan(1), rec, size=(2 * size, 2 * size))
+        results.append(res)
+        # (f) outpainting mk2, 64 px left and right: a 640 x 512 inpaint
+        calls = int(DENOISE * STEPS) + 1
+        results.append(_script_request(url, "img2img", dict(
+            i2i, script_name="Outpainting mk2",
+            script_args=[edge, 8, "left, right", 1.0, 0.05]), "outpainting mk2",
+            plan(calls, 1, 2, _launch_plan_hw(cfg, lat, lat + 2 * edge // 8)),
+            _img2img_hook_plan(1, mask=True), rec, size=(size, size + 2 * edge)))
+        # (g) img2img alternative: the inverted noise alone (finite, unit std,
+        # repeatable), then the script: 10 inversion calls and 10 decode calls
+        from sdwebui_tpu_torch.utils.png import decode_png
+
+        init = decode_png(base64.b64decode(phase3["png_b64"]))[0]
+        p = GenerationParams(prompt=base["prompt"], negative_prompt=base["negative_prompt"],
+                             steps=ALT_STEPS, cfg_scale=2.0)
+        p.all_prompts, p.all_negative_prompts = [p.prompt], [p.negative_prompt]
+        with torch.inference_mode():
+            latent = processing.encode_first_stage(model, init[None].astype("float32") / 255.0)
+            sched = processing._build_conds(model, p, ALT_STEPS + 1)
+        sigmas = get_schedule("Automatic", ALT_STEPS, model.disc)[::-1].copy()
+        reset_counts()
+        noise = [processing.invert_noise(model, sched, latent, sigmas) for _ in range(2)]
+        torch.cuda.synchronize()
+        launches = read_counts()
+        std = float(noise[0].std(unbiased=False))
+        repeat = float((noise[0] - noise[1]).abs().max())
+        log(f"4m invert_noise: std {std:.6f}, repeat max|Δ| {repeat:.3g} (bound "
+            f"{NOISE_REPEAT_TOL}), launches {launches}")
+        if not bool(torch.isfinite(noise[0]).all()) or abs(std - 1.0) > 1e-3 \
+                or repeat > NOISE_REPEAT_TOL or launches != plan(2 * ALT_STEPS, 0, 0):
+            raise AssertionError(f"4m invert_noise: std {std}, repeat {repeat}, "
+                                 f"launches {launches}")
+        info["invert_noise"] = dict(std=std, repeat_max_abs=repeat, launches=launches)
+        results.append(_script_request(url, "img2img", dict(
+            i2i, script_name="img2img alternative test",
+            script_args=["", "", True, ALT_STEPS, 2.0]), "img2img alternative",
+            plan(2 * ALT_STEPS, 2, 3), _img2img_hook_plan(1), rec))
+        # (h) an sd_unet provider: its bundle's images, not Automatic's
+        neg = copy.deepcopy(model.unet)
+        with torch.no_grad():
+            for prm in neg.parameters():
+                prm.mul_(-1.0)
+        bundle = dataclasses.replace(model, unet=neg, network_cache={})
+        framework.on("list_unets", lambda lst: lst.append(SdUnetOption("chip-negated",
+                                                                       lambda m: bundle)))
+        try:
+            res = _script_request(url, "txt2img", dict(
+                base, override_settings={"sd_unet": "chip-negated"}), "sd_unet provider",
+                plan(STEPS, 1, 1), _hook_plan(1), rec)
+            own_engine = Engine(model=bundle, device=device,
+                                embeddings_dir=engine.embeddings_dir)
+            with _server(own_engine) as url2:
+                own = _script_request(url2, "txt2img", base, "the provider's bundle",
+                                      plan(STEPS, 1, 1), _hook_plan(1), rec)
+        finally:
+            framework._callbacks["list_unets"].clear()
+        automatic = phase3["image"].astype(int)
+        delta = int(abs(res["images"][0].astype(int) - own["images"][0].astype(int)).max())
+        moved = float(abs(res["images"][0].astype(int) - automatic).mean())
+        if delta > REPEAT_TOL or not moved > 1.0:
+            raise AssertionError(f"4m sd_unet: max|Δ| {delta} from the bundle's image, mean "
+                                 f"|Δ| {moved:.2f} from Automatic's")
+        results += [res, own]
+        del neg, bundle
+        # (i) the main UI's postprocessing: Lanczos x2 after the decode
+        res = _script_request(url, "txt2img", dict(base, postprocessing={
+            "enable": ["Upscale"], "upscaler_1": "Lanczos", "upscaling_resize": 2}),
+            "postprocessing", plan(STEPS, 1, 1), _hook_plan(1), rec, size=(2 * size, 2 * size))
+        if "Postprocessing: Upscale" not in res["infotexts"][0]:
+            raise AssertionError(f"4m postprocessing infotext: {res['infotexts'][0]!r}")
+        results.append(res)
+    info["phase_s"] = time.perf_counter() - t_phase
+    info["seconds"] = {r["label"]: r["seconds"] for r in results}
+    # B1 at the 512² rows of phase 1: the batch-1 decodes (all but SD
+    # upscale's batches and the 640-wide outpaint) and f32 encodes
+    info["decodes_512"] = 4 + 4 + 2 + 2 + 1 + 2 + 1
+    info["f32_encodes_512"] = 2 + 2 + 1
+    for r in results:
+        del r["images"], r["infotexts"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results, info
+
+
 # each kernel of the kernels line: its TPU source line, its CUDA source and
 # the phase-1 row whose times it reports (its dominant main-path shape; for
 # B1, which serves only the VAE, the VAE row chosen in main())
@@ -4338,6 +4658,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_training_") as train_dir:
         train_results, train_info = phase_training(engine, model, results, train_dir, device)
     mark("4l training and interrogation")
+    script_results, script_info = phase_scripts(engine, model, results[0], device)
+    mark("4m scripts")
     del model, engine, ckpt_engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -4378,7 +4700,7 @@ def main() -> int:
                  if k not in ("image", "png_b64", "infotext", "extras")}
                 for r in (results + i2i_results + opt_results + hr_results + c4_results
                           + hy_results + face_results + zoo_results + ckpt_results
-                          + sampler_results + opt4k_results + train_results
+                          + sampler_results + opt4k_results + train_results + script_results
                           + sdxl_results + opt4k_xl_results
                           + [sdxl_hr_result] + sdxl_i2i_results + family_results)]
     log(json.dumps({"card": smi, "kernel_shapes": rows, "unet_step": unet,
@@ -4388,6 +4710,7 @@ def main() -> int:
                     "config4": c4_info, "hybrid": hy_info, "img2img_options": opt_info,
                     "faces": face_info, "zoo": zoo_info, "training": train_info,
                     "sdxl_img2img": sdxl_i2i_info, "options": opt4k_info,
+                    "scripts": script_info,
                     "families": {k: v for k, v in family_info.items() if k != "b1_calls"},
                     "requests": requests, "sdxl_profile": profile, "phase_s": phase_s}))
 
@@ -4407,7 +4730,8 @@ def main() -> int:
     b1_calls[("vae_mid_1536", "bfloat16")] = 1
     b1_calls[("ldsr_vq_256_f32", "float32")] = zoo_info["ldsr_b1_calls"]
     b1_calls[("vae_mid_1024", "bfloat16")] += 1                # phase 4i's hires request
-    b1_calls[("vae_mid_512", "bfloat16")] += 1
+    b1_calls[("vae_mid_512", "bfloat16")] += 1 + script_info["decodes_512"]
+    b1_calls[("vae_mid_512_f32", "float32")] += script_info["f32_encodes_512"]
     b1_calls[("vae_mid_1024_f32", "float32")] += 1
     for row, n in family_info["b1_calls"].items():
         b1_calls[row] = b1_calls.get(row, 0) + n

@@ -31,7 +31,10 @@ by the flow's LERP, σ·noise + (1−σ)·x0; an unclip model's adm vector is
 the first init image's noised ViT embedding.  What JAX's img2img does
 not run raises ``NotImplementedError`` naming it: ``refiner_checkpoint``,
 ``inpainting_mask_weight`` other than 1.0, ControlNet units and soft
-inpainting with instruct-pix2pix.
+inpainting with instruct-pix2pix.  The always-on scripts' hooks fire as in
+txt2img, with ``on_mask_blend`` once before sampling, and
+``postprocess_maskoverlay`` and ``postprocess_image_after_composite`` around
+the overlay (img2img.py:141-445).
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ import torch
 from sdwebui_tpu_torch.pipeline.params import GenerationParams, Processed
 from sdwebui_tpu_torch.networks import extra_networks
 from sdwebui_tpu_torch.models.midas import depth_conditioning
+from sdwebui_tpu_torch.pipeline import sd_unet
 from sdwebui_tpu_torch.pipeline.processing import (_apply_grid, _build_conds,
                                                    _check_slice, _prepare_units,
                                                    _reset_ti_usage, _resolve_seeds,
@@ -58,12 +62,15 @@ from sdwebui_tpu_torch.pipeline.processing import (_apply_grid, _build_conds,
                                                    apply_attention_options,
                                                    apply_schedule_overrides,
                                                    maybe_restore_faces,
-                                                   prepare_sampler,
+                                                   postprocess_batch, prepare_sampler,
                                                    sample_latents, setup_img2img_steps,
                                                    uses_refiner, with_tiling)
 from sdwebui_tpu_torch.pipeline.sd_model import SDModel, unclip_adm
 from sdwebui_tpu_torch.rng.philox import PhiloxGenerator
 from sdwebui_tpu_torch.sampling.sampler import prepare_noise
+from sdwebui_tpu_torch.scripts.framework import (MaskBlendArgs, PostprocessImageArgs,
+                                                 PostProcessMaskOverlayArgs, PostSampleArgs,
+                                                 get_runner)
 from sdwebui_tpu_torch.utils import color
 from sdwebui_tpu_torch.utils import images as images_util
 from sdwebui_tpu_torch.utils import masking
@@ -214,7 +221,8 @@ def process_img2img(model: SDModel, p: GenerationParams,
     decode with the preview method; ``callback`` is txt2img's batch
     callback (img2img.py:257,430)."""
     with opts.override(p.override_settings):
-        return _process_img2img(model, p, step_callback, interrupted, callback)
+        return _process_img2img(sd_unet.resolve(model), p, step_callback, interrupted,
+                                callback)
 
 
 @torch.inference_mode()
@@ -225,12 +233,18 @@ def _process_img2img(model: SDModel, p: GenerationParams,
     if not p.init_images:
         raise ValueError("img2img requires init_images")
     _check_img2img(model, p)
+    # the always-on scripts' hooks fire where JAX fires them (img2img.py:141-445)
+    runner = get_runner()
+    runner.setup_scripts(p)
+    runner.before_process(p)
     _reset_ti_usage(model)
     if p.denoising_strength is None:
         p.denoising_strength = 0.75
     _resolve_seeds(p)
     _strip_prompt_comments(p)
     clean_prompt, model, hypernet = extra_networks.activate(model, p.prompt)
+    runner.after_extra_networks_activate(p)
+    runner.process(p)
     model = with_tiling(model, p)
     model = apply_attention_options(model, "img2img")
     model = apply_schedule_overrides(model, p)
@@ -291,17 +305,20 @@ def _process_img2img(model: SDModel, p: GenerationParams,
         lo = n * b
         seeds = p.all_seeds[lo: lo + b]
         subseeds = p.all_subseeds[lo: lo + b]
+        runner.before_process_batch(p, batch_number=n, seeds=seeds)
         adm = None
         if model.is_unclip:    # the first init image's noised ViT embedding (img2img.py:265-270)
             adm = unclip_adm(model, images=mask_info["originals"], seed=p.all_seeds[0])
         sched = _build_conds(model, p, t_enc + 1, prompt=clean_prompt, adm_vector=adm)
+        runner.process_batch(p, batch_number=n, seeds=seeds)
+        runner.process_before_every_sampling(p, batch_number=n)
         sched.c_concat = c_concat
         if model.unet_cfg.in_channels == 8 and p.image_cfg_scale not in (None, 1.0):
             sched.image_cfg_scale = float(p.image_cfg_scale)
         rng = create_rng((c, h, w), seeds, model.device, subseeds=subseeds,
                          subseed_strength=p.subseed_strength)
         if p.init_noise_override is not None:
-            x = torch.as_tensor(np.asarray(p.init_noise_override, np.float32),
+            x = torch.as_tensor(p.init_noise_override, dtype=torch.float32,
                                 device=model.device)
         else:
             x = torch.as_tensor(rng.first(), device=model.device)
@@ -320,21 +337,36 @@ def _process_img2img(model: SDModel, p: GenerationParams,
             xi = xi + x * extra_noise
         sched.skip_uncond = _skip_uncond_mask(sigma_sched, p)
         noise = prepare_noise(spec, len(sigma_sched) - 1, rng, model.device)
+        if nmask is not None:
+            # the blend runs inside the CFG denoiser; the hook sees its
+            # inputs once, as in JAX (img2img.py:333-337)
+            runner.on_mask_blend(p, MaskBlendArgs(xi, nmask, init_latent, mask))
         latents = sample_latents(model, sched, xi, sigma_sched, noise, sampler.solver,
                                  solver_extra, step_callback=step_callback,
                                  mask=mask, nmask=nmask, init_latent=init_latent,
                                  hypernet=hypernet, controls=controls, soft_inpainting=soft)
         if mask is not None and soft is None:
             latents = latents * nmask + init_latent * mask
+        runner.post_sample(p, PostSampleArgs(latents))
         images = list(decode_first_stage_u8(model, latents,
                                             bool(interrupted and interrupted())))
+        images = postprocess_batch(runner, p, images, n)
         images = maybe_restore_faces(p, images, model.device)
         if corrections is not None:
             images = [color.apply_color_correction(corrections[min(i, len(corrections) - 1)],
                                                    img) for i, img in enumerate(images)]
+        images = [runner.postprocess_image(p, img) for img in images]
+        if mask_info["mask"] is not None:
+            for i in range(len(images)):
+                runner.postprocess_maskoverlay(p, PostProcessMaskOverlayArgs(
+                    i, mask_info["overlay_mask"], mask_info["originals"]))
         pre_overlay = list(images)
         if opts.get("overlay_inpaint", True):
             images = [apply_overlay(img, mask_info, i) for i, img in enumerate(images)]
+        for i in range(len(images)):
+            after = PostprocessImageArgs(images[i], i)
+            runner.postprocess_image_after_composite(p, after)
+            images[i] = after.image
         infotexts.extend(create_infotext(p, model, lo + i) for i in range(len(images)))
         all_images.extend(images)
         if mask_info["mask"] is not None:
@@ -345,10 +377,12 @@ def _process_img2img(model: SDModel, p: GenerationParams,
             callback("batch_done", n, images)
 
     first_idx = _apply_grid(all_images, infotexts, p, model)
-    return Processed(
+    res = Processed(
         images=all_images, params=p, seed=p.all_seeds[0], subseed=p.all_subseeds[0],
         infotexts=infotexts, all_seeds=p.all_seeds, all_subseeds=p.all_subseeds,
         all_prompts=p.all_prompts, width=p.width, height=p.height,
         index_of_first_image=first_idx,
         sd_model_name=(model.title or "").split(" [")[0],
         sd_model_hash=model.sha256[:10] if model.sha256 else "")
+    runner.postprocess(p, res)
+    return res

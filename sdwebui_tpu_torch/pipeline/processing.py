@@ -21,6 +21,13 @@ on the raw latent at t = σ·1000 and noises by the LERP σ·noise + (1−σ)·x
 decoded image.  Images leave as uint8 HWC numpy arrays.  Options and request
 fields outside the slice raise ``NotImplementedError`` naming them;
 nothing falls back to a different computation.
+
+The always-on scripts' hooks (``scripts/framework``) fire where JAX fires
+them, ``postprocess_image`` after face restoration and before the
+infotext and the grid; ``opts.sd_unet`` picks the model bundle of a
+registered UNet provider (``pipeline/sd_unet``) before the job starts.
+``invert_noise`` is img2img alternative's reverse-Euler inversion
+(processing.py:1150-1195).
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from sdwebui_tpu_torch import __version__
 from sdwebui_tpu_torch.models import vae_approx
 from sdwebui_tpu_torch.models.unet import AttentionOptions
 from sdwebui_tpu_torch.networks import extra_networks
+from sdwebui_tpu_torch.pipeline import sd_unet
 from sdwebui_tpu_torch.pipeline.control import control_residuals, prepare_controls
 from sdwebui_tpu_torch.pipeline.params import GenerationParams, Processed
 from sdwebui_tpu_torch.postprocessing import faces, upscalers
@@ -53,6 +61,9 @@ from sdwebui_tpu_torch.sampling.discretization import (Discretization,
 from sdwebui_tpu_torch.sampling.registry import SamplerData, build_sigmas, get_sampler
 from sdwebui_tpu_torch.sampling.sampler import prepare_noise, sample
 from sdwebui_tpu_torch.sampling.solvers import get_solver
+from sdwebui_tpu_torch.scripts import framework
+from sdwebui_tpu_torch.scripts.framework import (PostprocessBatchListArgs, PostSampleArgs,
+                                                 get_runner)
 from sdwebui_tpu_torch.text.conditioner import build_cond_schedule
 from sdwebui_tpu_torch.text.prompt_parser import strip_comments
 from sdwebui_tpu_torch.utils import devices
@@ -67,11 +78,6 @@ MAX_SEED = 2 ** 32 - 1
 UNPORTED_HIRES_OPTIONS = {
     "save_images_before_highres_fix": False,
 }
-
-#: the sd_unet values the port runs: the slot's providers register through
-#: the scripts framework (sdwebui_tpu/pipeline/sd_unet.py:43-79), which the
-#: port does not have
-SD_UNET_PORTED = ("Automatic", "None")
 
 def check_family(model: SDModel, p: GenerationParams,
                  refiner_model: SDModel | None = None) -> None:
@@ -122,16 +128,8 @@ def _check_slice(p: GenerationParams, txt2img: bool = False) -> None:
     """Raise for every request field and option the slice does not run
     (hypernet_override, the training preview's live network, runs in
     txt2img only, as in JAX)."""
-    fields = {
-        "hypernet_override": p.hypernet_override is not None and not txt2img,
-        "postprocessing": p.postprocessing,
-    }
-    for name, used in fields.items():
-        if used:
-            raise NotImplementedError(f"{name!r} is not ported yet")
-    if str(opts.get("sd_unet", "Automatic")) not in SD_UNET_PORTED:
-        raise NotImplementedError(f"sd_unet {opts.get('sd_unet')!r} is not ported (the "
-                                  "port has no scripts framework to register UNets)")
+    if p.hypernet_override is not None and not txt2img:
+        raise NotImplementedError("'hypernet_override' is not ported yet")
     if p.restore_faces and opts.get("save_images_before_face_restoration", False):
         raise NotImplementedError("option 'save_images_before_face_restoration' with "
                                   "restore_faces is not ported yet: output saving is not")
@@ -247,6 +245,26 @@ def sample_latents(model: SDModel, sched: CondSchedule, x, sigmas, noise,
                              ("uni_pc_lower_order_final", True)):
             extra[key] = opts.get(key, default)
     return sample(model_fn, x, sig, solver, noise, extra, callback=callback)
+
+
+@torch.inference_mode()
+def invert_noise(model: SDModel, sched: CondSchedule, init_latent, sigmas):
+    """Reverse-Euler noise reconstruction (processing.py:1150-1195, the
+    reference's scripts/img2imgalt.py find_noise_for_image): from the init
+    latent at sigmas[0] (= 0) up the ascending `sigmas`, each step taken
+    with the CFG denoiser's estimate at the step's target σ; t is the
+    nearest entry of the model's log-σ table, ε and v prediction alike.
+    Returns x at the last σ over its standard deviation, (B, C, h, w) fp32
+    on the model's device; the UNet runs in the policy's compute dtype."""
+    denoise = make_denoise_fn(model, True, devices.get_policy().compute_dtype)
+    model_fn = make_cfg_denoiser(denoise, sched)
+    sig = np.asarray(sigmas, np.float32)
+    x = init_latent.float()
+    for i in range(1, len(sig)):
+        s = float(max(sig[i], np.float32(1e-5)))
+        denoised = model_fn(x, s, i - 1)
+        x = x + (x - denoised) / s * float(sig[i] - sig[i - 1])
+    return x / x.std(unbiased=False)
 
 
 def setup_img2img_steps(steps: int, denoising_strength: float,
@@ -913,24 +931,43 @@ def _grid_rows(n: int, batch_size: int) -> int:
     return min(rows, n)
 
 
-def image_grid(images: list, batch_size: int) -> np.ndarray:
-    """Equal-sized uint8 HWC images → one RGB grid image, row-major, empty
-    cells in opts.grid_background_color (utils/images.py:333); an RGBA
-    image (img2img's mask composite) loses its alpha, as Pillow's paste
-    into an RGB grid drops it."""
-    rows = _grid_rows(len(images), batch_size)
-    cols = -(-len(images) // rows)
-    h, w, c = images[0].shape[0], images[0].shape[1], 3
+class ImageGridLoopParams:
+    """The ``image_grid`` callback's argument (the reference's
+    script_callbacks.ImageGridLoopParams): callbacks may change the images
+    and the grid's columns and rows."""
+
+    def __init__(self, imgs, cols, rows):
+        self.imgs = imgs
+        self.cols = cols
+        self.rows = rows
+
+
+def image_grid(images: list, batch_size: int = 1, rows: int | None = None) -> np.ndarray:
+    """uint8 HWC images → one RGB grid image, row-major (utils/images.py:333):
+    `rows` given, or from opts.n_rows; each cell the largest image's size,
+    an image centred in its cell, the rest opts.grid_background_color; the
+    ``image_grid`` callbacks see the images, columns and rows first.  An
+    RGBA image (img2img's mask composite) loses its alpha, as Pillow's
+    paste into an RGB grid drops it."""
+    if rows is None:
+        rows = _grid_rows(len(images), batch_size)
+    rows = min(rows, len(images))
+    params = ImageGridLoopParams(images, -(-len(images) // rows), rows)
+    framework.invoke("image_grid", params)
+    h = max(img.shape[0] for img in images)
+    w = max(img.shape[1] for img in images)
     color = str(opts.get("grid_background_color", "#ffffff") or "#ffffff").lstrip("#")
     try:
         bg = [int(color[i:i + 2], 16) for i in (0, 2, 4)]
     except ValueError:
         bg = [255, 255, 255]
-    grid = np.empty((rows * h, cols * w, c), np.uint8)
+    grid = np.empty((params.rows * h, params.cols * w, 3), np.uint8)
     grid[...] = np.asarray(bg, np.uint8)
-    for i, img in enumerate(images):
-        r, col = divmod(i, cols)
-        grid[r * h:(r + 1) * h, col * w:(col + 1) * w] = img[:, :, :3]
+    for i, img in enumerate(params.imgs):
+        ih, iw = img.shape[:2]
+        y = (i // params.cols) * h + (h - ih) // 2
+        x = (i % params.cols) * w + (w - iw) // 2
+        grid[y:y + ih, x:x + iw] = img[:, :, :3]
     return grid
 
 
@@ -961,8 +998,8 @@ def process_txt2img(model: SDModel, p: GenerationParams,
     0 < ``refiner_switch_at`` < 1 needs `refiner_model`; with
     ``enable_hr``, opts.hires_fix_refiner_pass says which pass it refines."""
     with opts.override(p.override_settings):
-        return _process_txt2img(model, p, step_callback, refiner_model, interrupted,
-                                callback)
+        return _process_txt2img(sd_unet.resolve(model), p, step_callback, refiner_model,
+                                interrupted, callback)
 
 
 def with_tiling(model: SDModel, p: GenerationParams) -> SDModel:
@@ -1028,6 +1065,10 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
     if uses_refiner(p) and refiner_model is None:
         raise ValueError(f"refiner {p.refiner_checkpoint!r} was requested, "
                          "but no refiner model was given")
+    # the always-on scripts' hooks fire where JAX fires them (processing.py:1333-1535)
+    runner = get_runner()
+    runner.setup_scripts(p)
+    runner.before_process(p)
     _reset_ti_usage(model)
     apply_old_hires_behavior(p)
     _resolve_seeds(p)
@@ -1037,6 +1078,8 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
     clean_prompt, model, hypernet = extra_networks.activate(model, p.prompt)
     if p.hypernet_override is not None:     # a training preview's live network
         hypernet = p.hypernet_override
+    runner.after_extra_networks_activate(p)
+    runner.process(p)
     model = with_tiling(model, p)
     model = apply_attention_options(model)
     model = apply_schedule_overrides(model, p)
@@ -1061,11 +1104,14 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
         lo = n * p.batch_size
         seeds = p.all_seeds[lo: lo + p.batch_size]
         subseeds = p.all_subseeds[lo: lo + p.batch_size]
+        runner.before_process_batch(p, batch_number=n, seeds=seeds)
         # unclip: a zero adm vector in txt2img (processing.py:1416-1418)
         adm = unclip_adm(model) if model.is_unclip else None
         sched = _build_conds(model, p, p.steps, prompt=clean_prompt, adm_vector=adm)
         sched.skip_uncond = _skip_uncond_mask(sigmas, p)
         sched.c_concat = c_concat
+        runner.process_batch(p, batch_number=n, seeds=seeds)
+        runner.process_before_every_sampling(p, batch_number=n)
         rng = create_rng((c, h, w), seeds, model.device, subseeds=subseeds,
                          subseed_strength=p.subseed_strength,
                          seed_resize_from_h=max(p.seed_resize_from_h, 0),
@@ -1096,21 +1142,38 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
                                      solver_extra, step_callback=step_callback,
                                      hypernet=hypernet, controls=controls)
         if p.enable_hr:
+            runner.process_before_every_sampling(p, batch_number=n, is_hr_pass=True)
             latents = _hires_pass(model, p, latents, seeds, subseeds, refiner_model=hr_refiner,
                                   step_callback=step_callback, hypernet=hypernet)
+        runner.post_sample(p, PostSampleArgs(latents))
         images = list(decode_first_stage_u8(model, latents,
                                             bool(interrupted and interrupted())))
+        images = postprocess_batch(runner, p, images, n)
         images = maybe_restore_faces(p, images, model.device)
+        # a script's postprocess_image may replace an image or add to the
+        # infotext, so it runs before the infotexts are written
+        images = [runner.postprocess_image(p, img) for img in images]
         infotexts.extend(create_infotext(p, model, lo + i) for i in range(len(images)))
         all_images.extend(images)
         if callback is not None:
             callback("batch_done", n, images)
 
     first_idx = _apply_grid(all_images, infotexts, p, model)
-    return Processed(
+    res = Processed(
         images=all_images, params=p, seed=p.all_seeds[0], subseed=p.all_subseeds[0],
         infotexts=infotexts, all_seeds=p.all_seeds, all_subseeds=p.all_subseeds,
         all_prompts=p.all_prompts, width=p.width, height=p.height,
         index_of_first_image=first_idx,
         sd_model_name=(model.title or "").split(" [")[0],
         sd_model_hash=model.sha256[:10] if model.sha256 else "")
+    runner.postprocess(p, res)
+    return res
+
+
+def postprocess_batch(runner, p: GenerationParams, images: list, n: int) -> list:
+    """The postprocess_batch and postprocess_batch_list hooks over batch n's
+    decoded images; the list a script left in the latter's argument."""
+    runner.postprocess_batch(p, images=images, batch_number=n)
+    blist = PostprocessBatchListArgs(images)
+    runner.postprocess_batch_list(p, blist)
+    return blist.images

@@ -25,7 +25,8 @@ embeddings under ``--embeddings-dir`` (``embeddings``) and the ControlNet
 towers under ``--controlnet-dir`` (``models/ControlNet``).  Random weights at full
 width, made from ``--seed``, only with ``--model``: SD1.5, or the SDXL
 base with its refiner, which requests name by its title
-(``refiner_checkpoint``); ``--tiny`` for the test models.
+(``refiner_checkpoint``); ``--tiny`` for the test models.  The "Custom
+code" script runs only with ``--allow-code``.
 """
 
 from __future__ import annotations
@@ -82,6 +83,8 @@ def main(argv=None):
                     help="embeddings directory for textual inversion (default: embeddings)")
     ap.add_argument("--controlnet-dir", default=DEFAULT_CONTROLNET_DIR,
                     help="Path to directory with ControlNet models")
+    ap.add_argument("--allow-code", action="store_true",
+                    help="allow custom script execution from webui")
     ap.add_argument("--tiny", action="store_true", help="with --model: the tiny test model(s)")
     ap.add_argument("--seed", type=int, default=0, help="seed of the random weights")
     args = ap.parse_args(argv)
@@ -98,11 +101,11 @@ def main(argv=None):
     faces.set_model_dirs("CodeFormer", [args.codeformer_models_path])
     if args.model:
         engine = Engine(device=args.device, tiny=args.tiny, seed=args.seed, family=args.model,
-                        embeddings_dir=args.embeddings_dir)
+                        embeddings_dir=args.embeddings_dir, allow_code=args.allow_code)
     else:
         engine = Engine(device=args.device, ckpt=args.ckpt,
                         ckpt_dirs=[args.ckpt_dir or DEFAULT_CKPT_DIR], vae_path=args.vae_path,
-                        embeddings_dir=args.embeddings_dir)
+                        embeddings_dir=args.embeddings_dir, allow_code=args.allow_code)
         engine.sd_model           # load now: a checkpoint that fails fails at start
     # ESRGAN, RealESRGAN, then models/SwinIR, ScuNET, LDSR, HAT and DAT
     upscalers, realesrgan = register_model_dirs(

@@ -33,7 +33,13 @@ the sd-webui-controlnet extension's ``alwayson_scripts.controlnet.args``
 (loras, embeddings, hypernetworks and their refreshes), the prompt-style
 routes (GET, POST and DELETE ``/sdapi/v1/prompt-styles``) and the
 extension's ``/controlnet/*`` routes are served too.  A request's
-``styles`` are applied to its prompts before either route runs.  A request field, override or
+``styles`` are applied to its prompts before either route runs.  Both
+generation routes run a selectable script (``script_name`` and
+``script_args``, ``scripts/builtin``) through ``Engine.run_script``, and
+the main UI's ``postprocessing`` stages; ``/sdapi/v1/scripts`` and
+``/sdapi/v1/script-info`` list the scripts (api.py:972-999), and a
+script_args value a script cannot take answers 400 naming its control.
+A request field, override or
 option the port does not run answers 422 naming it — it is never silently
 ignored — and so does a checkpoint name the server does not hold; a LoRA,
 hypernetwork, ControlNet model or annotator it does not hold answers 404
@@ -64,9 +70,12 @@ from sdwebui_tpu_torch.pipeline import annotators, control
 from sdwebui_tpu_torch.pipeline.params import GenerationParams
 from sdwebui_tpu_torch.pipeline.processing import LATENT_UPSCALE_MODES, UNPORTED_HIRES_OPTIONS
 from sdwebui_tpu_torch.postprocessing import faces, upscalers
-from sdwebui_tpu_torch.postprocessing.stages import StageArgs
+from sdwebui_tpu_torch.postprocessing.stages import STAGES, StageArgs
 from sdwebui_tpu_torch.sampling.registry import SAMPLER_MAP, SAMPLERS
 from sdwebui_tpu_torch.sampling.schedulers import ALIASES, SCHEDULERS
+from sdwebui_tpu_torch.scripts.framework import (ScriptArgError, get_script,
+                                                 list_alwayson_scripts,
+                                                 list_selectable_scripts)
 from sdwebui_tpu_torch.server.app import CheckpointNotFound, Engine
 from sdwebui_tpu_torch.text.styles import PromptStyle
 from sdwebui_tpu_torch.utils import infotext
@@ -90,6 +99,9 @@ FIELDS = {
     "refiner_switch_at": (None, _NUM), "controlnet_units": (None, list),
     "alwayson_scripts": ({}, dict), "styles": ([], list), "tiling": (None, bool),
     "restore_faces": (None, bool),
+    # a selectable script and its arguments (scripts/builtin), and the main
+    # UI's postprocessing stages (the always-on MainUIPostprocessing)
+    "script_name": (None, str), "script_args": ([], list), "postprocessing": ({}, dict),
 }
 
 #: fields of the reference schema outside the slice: accepted only at
@@ -97,9 +109,8 @@ FIELDS = {
 NEUTRAL = {
     "disable_extra_networks": (False,), "comments": ({},),
     "firstphase_width": (0,), "firstphase_height": (0,), "hr_checkpoint_name": (None,),
-    "script_name": (None,), "script_args": ([],),
     "save_images": (False,), "infotext": (None,),
-    "postprocessing": ({},), "override_settings_restore_afterwards": (True,),
+    "override_settings_restore_afterwards": (True,),
 }
 
 #: txt2img's hires-fix fields (``hr_cfg`` is GenerationParams.hr_cfg_scale)
@@ -154,12 +165,14 @@ OVERRIDES = {
     # the UNet's attention options, fp8 storage, the schedule overrides,
     # old emphasis and the cond cache (processing.apply_attention_options,
     # apply_schedule_overrides, Engine._apply_fp8_storage, _build_conds);
-    # sd_unet runs Automatic and None only
+    # sd_unet names a provider of the list_unets channel (pipeline/sd_unet)
     "hypertile_enable_unet", "hypertile_max_tile_unet", "token_merging_ratio",
     "token_merging_ratio_hr", "token_merging_ratio_img2img", "upcast_attn", "fp8_storage",
     "cache_fp16_weight", "sgm_noise_multiplier", "sd_noise_schedule",
     "use_downcasted_alpha_bar", "use_old_emphasis_implementation", "persistent_cond_cache",
-    "sd_unet", *UNPORTED_HIRES_OPTIONS,
+    "sd_unet",
+    # the scripts: X/Y/Z's grid size guard, the main UI's postprocessing stages
+    "img_max_size_mp", "postprocessing_enable_in_main_ui", *UNPORTED_HIRES_OPTIONS,
 }
 
 
@@ -364,8 +377,12 @@ def _params_from_request(body: dict, img2img: bool = False) -> GenerationParams:
     if "CLIP_stop_at_last_layers" in req["override_settings"]:
         kw["clip_skip"] = int(req["override_settings"]["CLIP_stop_at_last_layers"])
     kw["controlnet_units"] = _units_from_request(req)
-    # save_images is off: nothing is written, no grid is assembled
-    kw["do_not_save_grid"] = True
+    kw["postprocessing"] = _check_postprocessing(req["postprocessing"] or {})
+    if not req["script_name"]:
+        # save_images is off: nothing is written, no grid is assembled.  JAX's
+        # run_script leaves do_not_save_grid as the request has it, so a
+        # script's cells of several images get their grid (app.py:395-409)
+        kw["do_not_save_grid"] = True
     if img2img:
         if not req["init_images"]:
             raise ApiError(404, "Init image not found")
@@ -375,6 +392,23 @@ def _params_from_request(body: dict, img2img: bool = False) -> GenerationParams:
         else:
             kw.pop("mask", None)
     return GenerationParams(**kw)
+
+
+def _check_postprocessing(pp: dict) -> dict:
+    """The main UI's ``postprocessing`` field: the Extras stage fields and
+    an "enable" list of stage names; another key, stage or upscaler
+    answers 422 naming it."""
+    unknown = sorted(set(pp) - set(StageArgs.__dataclass_fields__) - {"enable"})
+    if unknown:
+        raise ApiError(422, f"postprocessing fields {unknown} are not supported")
+    enable = pp.get("enable") or []
+    if not isinstance(enable, list) or not set(enable) <= set(STAGES):
+        raise ApiError(422, f"postprocessing 'enable' must list stages of {sorted(STAGES)}, "
+                            f"got {enable!r}")
+    for field in ("upscaler_1", "upscaler_2"):
+        if pp.get(field) not in (None, "", "None"):
+            _check_upscaler(pp[field], f"postprocessing {field}")
+    return dict(pp)
 
 
 def _decode_image(encoding, field: str):
@@ -457,6 +491,8 @@ class Api:
             ("GET", "/internal/progress"): self.internal_progress,
             ("POST", "/internal/progress"): self.internal_progress,
             ("POST", "/sdapi/v1/png-info"): self.png_info,
+            ("GET", "/sdapi/v1/scripts"): self.scripts,
+            ("GET", "/sdapi/v1/script-info"): self.script_info,
             ("GET", "/sdapi/v1/memory"): self.memory,
             ("GET", "/sdapi/v1/cmd-flags"): self.cmd_flags,
             ("POST", "/sdapi/v1/refresh-vae"): lambda body: {},
@@ -475,8 +511,12 @@ class Api:
         if not isinstance(body, dict):
             raise ApiError(422, "request body must be a JSON object")
         p = _params_from_request(body, img2img)
-        run = self.engine.img2img if img2img else self.engine.txt2img
-        res = run(p)
+        name = body.get("script_name")
+        if name:
+            self._check_script(name)
+            res = self.engine.run_script(name, p, body.get("script_args") or [])
+        else:
+            res = (self.engine.img2img if img2img else self.engine.txt2img)(p)
         images = None
         if body.get("send_images", True):
             images = [base64.b64encode(encode_png(
@@ -488,6 +528,32 @@ class Api:
 
     def txt2img(self, body: dict):
         return self._generate(body, img2img=False)
+
+    def _check_script(self, name: str):
+        """A script_name JAX's API runs (api.py:240-250): a selectable
+        script; "Custom code" only with --allow-code, as the reference
+        hides it without (its show() is cmd_opts.allow_code)."""
+        script = get_script(name)
+        if script is None or (script.name == "Custom code" and not self.engine.allow_code):
+            hint = " (the server runs without --allow-code)" if script is not None else ""
+            raise ApiError(400, f"Script not found: {name!r}{hint}")
+        if script.alwayson:
+            raise ApiError(400, f"Script {name!r} is always-on and cannot be selected as "
+                                "script_name")
+
+    def scripts(self, body=None):
+        """The selectable scripts of both tabs (api.py:972-981)."""
+        names = [n for n in list_selectable_scripts()
+                 if n != "custom code" or self.engine.allow_code]
+        return {"txt2img": names, "img2img": names}
+
+    def script_info(self, body=None):
+        """Every script's argument spec (api.py:983-999)."""
+        return [{"name": n, "is_alwayson": alwayson, "is_img2img": True,
+                 "args": list(get_script(n).ui_params)}
+                for alwayson, names in ((False, list_selectable_scripts()),
+                                        (True, list_alwayson_scripts()))
+                for n in names]
 
     def img2img(self, body: dict):
         return self._generate(body, img2img=True)
@@ -1031,6 +1097,8 @@ class Api:
             return 200, handler(body)
         except ApiError as e:
             return e.status, {"detail": e.message}
+        except ScriptArgError as e:     # a caller's script_args: 400 naming the control
+            return 400, {"detail": str(e)}
         except NetworkNotFound as e:
             return 404, {"detail": str(e)}
         except (NotImplementedError, CheckpointNotFound, upscalers.UpscalerNotFound,

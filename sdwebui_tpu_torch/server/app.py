@@ -1,7 +1,7 @@
 """Server application state: the models, the queue lock and the job state.
 
-Port of ``sdwebui_tpu/server/app.py:24-380`` (txt2img, img2img and the
-checkpoint half).  An ``Engine`` serves either checkpoint files — a
+Port of ``sdwebui_tpu/server/app.py:24-409`` (txt2img, img2img, the
+scripts and the checkpoint half).  An ``Engine`` serves either checkpoint files — a
 ``CheckpointRegistry`` over the checkpoint directories, the first model
 loaded when first needed, ``reload_checkpoint`` with the
 ``sd_checkpoints_limit`` LRU of resident models (the displaced one parked
@@ -24,6 +24,10 @@ directory (app.py:143-154).  A request's LoRA set runs on a merged copy
 that the base model caches and drops whenever it moves
 (``networks/extra_networks``): the live, parked and cached models are
 always the checkpoints' own weights.
+
+Selectable scripts (``scripts/builtin``) run through ``run_script``: one
+job for the whole script, each cell through ``txt2img_inner`` /
+``img2img_inner`` on the cell's checkpoint (JAX's app.py:381-409).
 
 Unlike JAX (``app.py:208-226``), a checkpoint load that fails leaves the
 resident models as they were: the live model is moved back, and no parked
@@ -55,6 +59,8 @@ from sdwebui_tpu_torch.pipeline.sd_model import (SDModel, create_random_sd15,
                                                  has_fp8, quantize_unet_fp8)
 from sdwebui_tpu_torch.postprocessing.stages import StageArgs, run_stages
 from sdwebui_tpu_torch.runtime.state import State
+from sdwebui_tpu_torch.scripts import builtin  # noqa: F401  (registers the scripts)
+from sdwebui_tpu_torch.scripts.framework import get_script, validate_script_args
 from sdwebui_tpu_torch.text.styles import StyleDatabase
 from sdwebui_tpu_torch.utils.devices import get_device
 from sdwebui_tpu_torch.utils.options import opts
@@ -103,7 +109,8 @@ class Engine:
     weights of `family`.  vae_path: one VAE file for every checkpoint
     (the sd_vae setting is then not read); hash_cache: the sha256 cache
     file (None: no cache); embeddings_dir: the textual-inversion files;
-    styles_path: the prompt styles' CSV."""
+    styles_path: the prompt styles' CSV; allow_code: the "Custom code"
+    script runs (``--allow-code``)."""
 
     def __init__(self, device="cuda", tiny: bool = False, seed: int = 0,
                  model: SDModel | None = None, family: str = "sd15",
@@ -111,8 +118,9 @@ class Engine:
                  ckpt: str | None = None, ckpt_dirs=None, vae_path: str | None = None,
                  vae_dirs=(DEFAULT_VAE_DIR,), hash_cache: str | None = DEFAULT_HASH_CACHE,
                  embeddings_dir: str = DEFAULT_EMBEDDINGS_DIR,
-                 styles_path: str = DEFAULT_STYLES):
+                 styles_path: str = DEFAULT_STYLES, allow_code: bool = False):
         self.device = get_device(device)
+        self.allow_code = allow_code
         self.embeddings_dir = embeddings_dir
         self.styles = StyleDatabase(styles_path)
         self.queue_lock = threading.RLock()
@@ -227,12 +235,17 @@ class Engine:
             path, self.device, scale_factor=model.vae_cfg.scale_factor)
         model.vae_file, model.vae_sha256 = path, file_sha256(path, self.hash_cache)
 
-    def _maybe_switch(self, p: GenerationParams):
-        """override_settings.sd_model_checkpoint / sd_vae of one request
-        (app.py:238-280); the switch lasts past the request, as in JAX."""
+    def _maybe_switch_checkpoint(self, p: GenerationParams):
+        """override_settings.sd_model_checkpoint of one request (app.py:238-248);
+        the switch lasts past the request, as in JAX."""
         want = (p.override_settings or {}).get("sd_model_checkpoint")
         if want and (self.registry is not None or want != self._model.title):
             self.reload_checkpoint(self._find(want, "sd_model_checkpoint").name)
+
+    def _maybe_switch(self, p: GenerationParams):
+        """override_settings.sd_model_checkpoint / sd_vae of one request
+        (app.py:238-280)."""
+        self._maybe_switch_checkpoint(p)
         if self.registry is not None and not self.vae_path:
             model = self.sd_model
             with opts.override({"sd_vae": (p.override_settings or {}).get(
@@ -385,3 +398,47 @@ class Engine:
         return self._run("img2img", p, lambda: process_img2img(
             self.sd_model, p, step_callback=self._step_callback,
             interrupted=self._interrupted, callback=self._batch_callback))
+
+    # ---- scripts (app.py:381-409) ---------------------------------------
+
+    def txt2img_inner(self, p: GenerationParams) -> Processed:
+        """One script cell's txt2img: the cell's checkpoint and refiner, no
+        new job and no VAE switch or styles, as in JAX (app.py:382-387).
+        The sampler's step callback runs, so /progress shows the cell's
+        steps and an interrupt stops it after the step in flight."""
+        self._maybe_switch_checkpoint(p)
+        return process_txt2img(self.sd_model, p, step_callback=self._step_callback,
+                               refiner_model=self._resolve_refiner(p),
+                               interrupted=self._interrupted)
+
+    def img2img_inner(self, p: GenerationParams) -> Processed:
+        """One script cell's img2img (app.py:389-393), as txt2img_inner."""
+        self._maybe_switch_checkpoint(p)
+        return process_img2img(self.sd_model, p, step_callback=self._step_callback,
+                               interrupted=self._interrupted)
+
+    def run_script(self, script_name: str, p: GenerationParams, script_args: list) -> Processed:
+        """A selectable script over the request (app.py:395-409): its
+        arguments checked, then one job, "script:<name>", for every cell it
+        runs, under the queue lock.  What JAX's script path drops raises
+        naming it: the request's styles and its sd_vae override (JAX's
+        run_script applies neither)."""
+        script = get_script(script_name)
+        if script is None or script.alwayson:
+            raise ValueError(f"unknown script {script_name!r}")
+        validate_script_args(script, list(script_args or []))
+        if p.styles:
+            raise NotImplementedError("styles with a script_name are not ported (the JAX "
+                                      "package's script path applies no styles)")
+        if "sd_vae" in (p.override_settings or {}):
+            raise NotImplementedError("override_settings 'sd_vae' with a script_name is not "
+                                      "ported (the JAX package's script cells never switch "
+                                      "the VAE)")
+        with self.queue_lock:
+            with opts.override(p.override_settings):
+                self._apply_runtime_opts()
+            self.state.begin(f"script:{script_name}", device=self.device)
+            try:
+                return script.run(self, p, *(script_args or []))
+            finally:
+                self.state.end()

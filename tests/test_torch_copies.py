@@ -5,8 +5,8 @@ corpus, infotext round-trips, the generation params, the pytree helpers,
 the checkpoint sniffer, every sigma schedule under the options that reshape
 it, LCM's distillation subtable, and the tables of the hires and upscale
 path (latent upscale modes, the Extras stage fields, the built-in
-upscalers, ESRGAN's old-key map and architecture sniffing), and the prompt
-styles' CSV database.
+upscalers, ESRGAN's old-key map and architecture sniffing), the prompt
+styles' CSV database, and outpainting mk2's noise fill.
 """
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
@@ -360,3 +360,22 @@ def test_sentencepiece_on_a_corpus(tmp_path):
         assert ours.encode(prompt, add_bos=True, add_eos=True) == \
             theirs.encode(prompt, add_bos=True, add_eos=True)
         assert ours.decode(ours.encode(prompt)) == theirs.decode(theirs.encode(prompt))
+
+
+def test_noise_match_equals_jax():
+    """Outpainting mk2's noise fill is a copy: every function has JAX's
+    source text, and matched_noise gives JAX's values."""
+    import inspect
+
+    from sdwebui_tpu.postprocessing import noise_match as jax_nm
+    from sdwebui_tpu_torch.postprocessing import noise_match as nm
+
+    for name in ("_fft2c", "_ifft2c", "_lowpass_window", "match_histograms_1d", "matched_noise"):
+        assert inspect.getsource(getattr(nm, name)) == inspect.getsource(getattr(jax_nm, name))
+    rng = np.random.default_rng(6)
+    src = rng.random((24, 40, 3))
+    mask = np.zeros((24, 40, 3))
+    mask[:, :8] = mask[:, -8:] = 1.0
+    for q, variation in ((1.0, 0.05), (0.5, 0.3)):
+        np.testing.assert_array_equal(nm.matched_noise(src, mask, q, variation),
+                                      jax_nm.matched_noise(src, mask, q, variation))

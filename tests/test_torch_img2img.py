@@ -358,7 +358,6 @@ def test_img2img_matches_jax(models, f32_policies, case):
 
 
 @pytest.mark.parametrize("kw,name", [
-    (dict(override_settings={"sd_unet": "some-unet"}), "sd_unet"),
     (dict(refiner_checkpoint="refiner", refiner_switch_at=0.8), "refiner_checkpoint"),
 ])
 def test_unported_img2img_requests_raise(models, kw, name):

@@ -82,7 +82,6 @@ def test_same_seed_same_image(models):
     (dict(restore_faces=True, override_settings={"save_images_before_face_restoration": True}),
      "restore_faces"),
     (dict(enable_hr=True, hr_prompt="a cat <lora:foo:0.5>"), "lora"),
-    (dict(override_settings={"sd_unet": "some-unet"}), "sd_unet"),
 ])
 def test_out_of_slice_requests_raise(models, kw, name):
     with pytest.raises(NotImplementedError, match=name):

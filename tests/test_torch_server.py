@@ -68,7 +68,6 @@ def test_txt2img_returns_png_with_infotext(server_url):
     ({"no_such_field": 1}, "no_such_field"),
     ({"override_settings": {"samples_save": True}}, "samples_save"),
     ({"override_settings": {"sd_model_checkpoint": "x"}}, "sd_model_checkpoint"),
-    ({"override_settings": {"sd_unet": "x"}}, "sd_unet"),
     ({"enable_hr": True, "hr_scale": 1.5, "hr_prompt": "a <lora:x:1>"}, "lora"),
 ])
 def test_out_of_slice_fields_answer_422(server_url, body, field):
@@ -229,6 +228,15 @@ status, out = api.handle("POST", "/sdapi/v1/img2img", {
     "init_images": [png], "mask": png, "inpaint_full_res": False, "inpainting_fill": 1,
     "steps": 2, "width": 64, "height": 64})
 assert status == 200, out
+status, out = api.handle("POST", "/sdapi/v1/txt2img", {
+    "steps": 1, "width": 64, "height": 64, "script_name": "X/Y/Z plot",
+    "script_args": ["Seed", "1-2", "Nothing", "", "Nothing", "", False]})
+assert status == 200 and len(out["images"]) == 3, out
+status, out = api.handle("POST", "/sdapi/v1/txt2img", {
+    "steps": 1, "width": 64, "height": 64, "postprocessing": {
+        "enable": ["Upscale"], "upscaler_1": "Lanczos", "upscaling_resize": 1.5}})
+assert status == 200, out
+assert "Postprocessing: Upscale" in json.loads(out["info"])["infotexts"][0], out
 import os, tempfile, torch
 from sdwebui_tpu_torch.loader.load import ldm_state_dict
 from sdwebui_tpu_torch.loader.safetensors_io import write_safetensors
