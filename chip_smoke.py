@@ -302,6 +302,24 @@ Phases, in order; any failure exits non-zero:
      weights negated) differ from Automatic's and equal those of a server
      serving the bundle; the main UI's postprocessing (Lanczos x2, a 1024²
      image, "Postprocessing: Upscale").
+  4n. saving and JPEG on the SD1.5 server (after 4m), its --outdir a
+     temporary directory: (a) txt2img batch 2 without and with
+     save_images in turn (off, on, on, off; sdtpu_async_save on): two PNGs
+     and a grid on disk, each equal in pixels and infotext to the
+     response, nothing written without it; (b) the same with
+     samples_format jpg: two JPEGs whose EXIF UserComment is the infotext,
+     each byte for byte the port's encoding of the response's image (held
+     to Pillow's bytes on the CPU), decoded within JPEG_MEAN_TOL levels of
+     it on average; (c) img2img from a JPEG init image (the
+     port's encoder at quality 90) and from its decoded pixels as a PNG,
+     twice each: within REPEAT_TOL; (d) /internal/img2img-batch over 2
+     JPEGs and 1 PNG: three 512² PNGs; (e) /internal/save-images with a zip:
+     the files, the zip and the log.csv row.  Each generation's B1, B2 and
+     B5 launches equal the plan's (txt2img: B1 1, B2 200, B5 986; img2img:
+     B1 2 (the f32 encode, the decode), B2 160, B5 794; the batch 3x that);
+     logged: the seconds of each request and the host ms of the codecs at
+     512² and 1024² (PNG level 1 and JPEG quality 80 encodes, JPEG decodes
+     at quality 80 and 95, 4:2:0 and 4:4:4).
 Each phase's seconds are logged as it ends.  The last two lines are the
 kernels JSON and {"ok": true, "device": ...}.
 Needs a CUDA card; without one it exits 1 and prints no result.
@@ -342,6 +360,11 @@ LN_ULP_TOL = 1.0
 UNET_REL_TOL = 5e-2
 UNET_ROUNDS = 3         # interleaved timing rounds per UNet arm
 REPEAT_TOL = 2          # uint8 levels
+# mean uint8 levels of a saved JPEG (quality 80) from its PNG: random weights
+# make high-frequency texture, which quality 80 loses 11.8-11.9 levels of on
+# average on the H100 run (quality 95: 9.9-10.1); a file that is not the
+# encoding of the response fails the byte check before this sanity bound
+JPEG_MEAN_TOL = 16
 OVERLAY_TOL = 1         # uint8 levels, inpaint pixels outside the blurred mask
 STEPS = 20
 SAMPLER_STEPS = 8       # phase 4b
@@ -4561,6 +4584,242 @@ KERNEL_ENTRIES = [
 ]
 
 
+def _saved_files(root: str) -> dict:
+    """{path relative to root: full path} of every file under root."""
+    return {os.path.relpath(os.path.join(r, f), root): os.path.join(r, f)
+            for r, _, fs in os.walk(root) for f in fs}
+
+
+def codec_host_ms(image) -> dict:
+    """The host ms of the PNG and JPEG codecs (medians of three): a 512²
+    sample saved as PNG at level 1 and as JPEG at quality 80 (with its EXIF
+    block), JPEG decodes at 512² (quality 80 and 95, 4:2:0 and 4:4:4) and
+    at 1024² (quality 80, the sample upscaled 2x)."""
+    import importlib.util
+
+    from sdwebui_tpu_torch.utils import exif, images, jpeg
+    from sdwebui_tpu_torch.utils.png import encode_png
+
+    # the 4:4:4 files: the test helper's encoder (the port writes 4:2:0 only)
+    spec = importlib.util.spec_from_file_location(
+        "torch_jpeg_files", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                         "torch_jpeg_files.py"))
+    jpeg_files = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jpeg_files)
+    text = exif.build_exif_bytes("a photograph\nSteps: 20, Seed: 1")
+    big = images.resize(image, (1024, 1024), "lanczos")
+    files = {"q80_420": jpeg.encode_jpeg(image, 80), "q95_420": jpeg.encode_jpeg(image, 95),
+             "q80_444": jpeg_files.encode_sampled(image, 80, "4:4:4"),
+             "q95_444": jpeg_files.encode_sampled(image, 95, "4:4:4"),
+             "1024_q80_420": jpeg.encode_jpeg(big, 80)}
+    out = {"png_level1_encode_512": host_ms(lambda: encode_png(image, None, level=1)),
+           "jpeg_q80_encode_512": host_ms(lambda: jpeg.encode_jpeg(image, 80, text)),
+           "jpeg_q80_encode_1024": host_ms(lambda: jpeg.encode_jpeg(big, 80))}
+    for name, data in files.items():
+        size = "" if name.startswith("1024") else "512_"
+        out[f"jpeg_decode_{size}{name}"] = host_ms(lambda: jpeg.decode_jpeg(data))
+        out[f"bytes_{size}{name}"] = len(data)
+    log("4n codec host ms: " + json.dumps({k: round(v, 2) for k, v in out.items()}))
+    return out
+
+
+def phase_saving(engine, model, phase3: dict, directory: str):
+    """4n: saving and JPEG on the phase-3 SD1.5 server, its --outdir a
+    temporary directory: (a) txt2img batch 2 in four arms, three times
+    each, interleaved: without save_images, with it but no file saved (the
+    same response), saving on the writer thread and saving inside the
+    request, the files (two samples and the grid) equal in pixels and
+    infotext to the response; (b) the same with
+    samples_format jpg: the JPEGs' UserComment equal to the infotext, each
+    the port's encoding of the response's image, decoded within
+    JPEG_MEAN_TOL of it on average; (c) img2img from a JPEG init image and from the same pixels as
+    a PNG, within REPEAT_TOL; (d) /internal/img2img-batch over 2 JPEGs and 1
+    PNG; (e) /internal/save-images with its log.csv row; the codecs' host ms.
+    Every generation's B1, B2 and B5 launches equal the plan's.  Returns
+    (results, info)."""
+    import csv
+
+    from sdwebui_tpu_torch.pipeline.img2img import setup_img2img_steps
+    from sdwebui_tpu_torch.utils import exif, jpeg, saving
+    from sdwebui_tpu_torch.utils.options import opts
+    from sdwebui_tpu_torch.utils.png import decode_png, encode_png
+
+    outdir = os.path.join(directory, "outputs")
+    prev_outdir, engine.outdir = engine.outdir, outdir
+    txt_plan = _plan(b1=1, b2=STEPS * launch_plan(model.unet_cfg, 64),
+                     b5=STEPS * ln_plan(model.unet_cfg, 64) + clip_ln_plan(model))
+    _, t_enc = setup_img2img_steps(STEPS, DENOISE)
+    i2i_plan = _plan(b1=2, b2=(t_enc + 1) * launch_plan(model.unet_cfg, 64),
+                     b5=(t_enc + 1) * ln_plan(model.unet_cfg, 64) + clip_ln_plan(model))
+    results, info = [], {}
+    base = dict(SD15_BASE, batch_size=2, seed=2468)
+
+    def generate(route, body, label, plan):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = _post(f"{url}/{route}", body)
+        dt = time.perf_counter() - t0
+        launches = read_counts()
+        log(f"4n {label}: {dt:.3f} s, launches {launches}")
+        if launches != plan:
+            raise AssertionError(f"4n {label}: launches {launches} != planned {plan}")
+        images = [decode_png(base64.b64decode(b)) for b in res["images"]]
+        for img, _ in images:
+            if img.std() < 1.0:
+                raise AssertionError(f"4n {label}: a flat image")
+        results.append(dict(route=route, label=f"4n {label}", batch=body.get("batch_size", 1),
+                            seed=body["seed"], seconds=dt, launches=launches))
+        return res, images, dt
+
+    try:
+        with _server(engine) as url:
+            _post(f"{url}/txt2img", dict(SD15_BASE, seed=1, steps=2))       # warm-up
+            # (a) the save's cost, four arms interleaved: without
+            # save_images (two images, no grid); with it but samples_save
+            # and grid_save off (the same response as a saving request: the
+            # grid and two images, no file); with it and sdtpu_async_save on
+            # (the writer thread) and off (the writes inside the request)
+            arms = {"save_off": {"save_images": False},
+                    "grid_no_files": {"save_images": True, "override_settings": {
+                        "samples_save": False, "grid_save": False}},
+                    "save_async": {"save_images": True},
+                    "save_sync": {"save_images": True, "override_settings": {
+                        "sdtpu_async_save": False}}}
+            info["txt2img_s"] = {arm: [] for arm in arms}
+            order = list(arms) + list(arms)[::-1] + list(arms)
+            for arm in order:
+                before = set(_saved_files(outdir)) if os.path.isdir(outdir) else set()
+                res, images, dt = generate("txt2img", dict(base, **arms[arm]),
+                                           f"txt2img batch 2 {arm}", txt_plan)
+                info["txt2img_s"][arm].append(dt)
+                listed = set(_saved_files(outdir)) if os.path.isdir(outdir) else set()
+                saving.flush_saves()
+                written = sorted(set(_saved_files(outdir)) - before) \
+                    if os.path.isdir(outdir) else []
+                if len(images) != (2 if arm == "save_off" else 3):
+                    raise AssertionError(f"4n {arm}: {len(images)} images in the response")
+                if arm in ("save_off", "grid_no_files"):
+                    if written:
+                        raise AssertionError(f"4n {arm}: the request wrote {written}")
+                    continue
+                if arm == "save_sync" and sorted(listed - before) != written:
+                    raise AssertionError(f"4n save_sync: {sorted(listed - before)} on disk when "
+                                         f"the response came, {written} after the flush")
+                saved_names = written
+                if len(written) != 3 or sum("txt2img-grids" in f for f in written) != 1:
+                    raise AssertionError(f"4n: save_images wrote {written}")
+                files = _saved_files(outdir)
+                grid = [f for f in written if "txt2img-grids" in f]
+                samples = [f for f in written if f not in grid]
+                for name, (img, text) in zip(grid + samples, images):
+                    saved, saved_text = decode_png(open(files[name], "rb").read())
+                    if not (saved == img).all() or saved_text != text:
+                        raise AssertionError(f"4n: {name} differs from the response's image")
+                saved_res = res
+            log("4n txt2img s by arm: " + json.dumps(info["txt2img_s"]))
+            log(f"4n save_images: {saved_names} equal to the response in pixels and infotext")
+            # (b) samples_format jpg
+            res, images, _ = generate("txt2img", dict(
+                base, save_images=True, override_settings={"samples_format": "jpg"}),
+                "txt2img batch 2 samples_format jpg", txt_plan)
+            saving.flush_saves()
+            jpgs = sorted(f for f in _saved_files(outdir) if f.endswith(".jpg"))
+            if len(jpgs) != 2:
+                raise AssertionError(f"4n: samples_format jpg wrote {jpgs}")
+            means, q95 = [], []
+            for name, (img, text) in zip(jpgs, images[1:]):
+                data = open(os.path.join(outdir, name), "rb").read()
+                pixels, jinfo = jpeg.decode_jpeg(data)
+                if exif.read_user_comment(jinfo.get("exif")) != text["parameters"]:
+                    raise AssertionError(f"4n: {name}'s UserComment is not the infotext")
+                if data != jpeg.encode_jpeg(img, opts.get("jpeg_quality"),
+                                            exif.build_exif_bytes(text["parameters"])):
+                    raise AssertionError(f"4n: {name} is not the encoding of the response")
+                means.append(float(abs(pixels.astype(int) - img.astype(int)).mean()))
+                q95.append(float(abs(jpeg.decode_jpeg_rgb(jpeg.encode_jpeg(img, 95)).astype(int)
+                                     - img.astype(int)).mean()))
+            log(f"4n samples_format jpg: {jpgs}, the encodings of the responses, mean|Δ| "
+                f"{means} levels (bound {JPEG_MEAN_TOL}; at quality 95 {q95})")
+            if max(means) > JPEG_MEAN_TOL:
+                raise AssertionError(f"4n: the JPEGs differ by {means} levels on average")
+            info["jpeg_mean_levels"], info["jpeg_q95_mean_levels"] = means, q95
+            # (c) img2img from a JPEG init image and from its pixels as a PNG
+            sample = phase3["image"]
+            init_jpg = jpeg.encode_jpeg(sample, 90)
+            init_png = encode_png(jpeg.decode_jpeg_rgb(init_jpg))
+            i2i = dict(SD15_BASE, denoising_strength=DENOISE, seed=1357)
+            outs = {}
+            for kind, data in (("jpeg", init_jpg), ("png", init_png), ("jpeg", init_jpg),
+                               ("png", init_png)):
+                res, images, dt = generate("img2img", dict(
+                    i2i, init_images=[base64.b64encode(data).decode()]),
+                    f"img2img from a {kind} init image", i2i_plan)
+                outs.setdefault(kind, []).append((images[-1][0], dt))
+            delta = int(abs(outs["jpeg"][0][0].astype(int) - outs["png"][0][0].astype(int)).max())
+            log(f"4n img2img: the JPEG init's image within {delta} levels of the PNG's "
+                f"(bound {REPEAT_TOL})")
+            if delta > REPEAT_TOL:
+                raise AssertionError(f"4n: the JPEG init image's answer differs by {delta}")
+            info["img2img_s"] = {k: [dt for _, dt in v] for k, v in outs.items()}
+            # (d) the img2img batch over 2 JPEGs and 1 PNG
+            src, dst = os.path.join(directory, "batch_in"), os.path.join(directory, "batch_out")
+            os.makedirs(src)
+            for name, data in (("a.jpg", init_jpg), ("b.png", encode_png(sample)),
+                               ("c.jpeg", jpeg.encode_jpeg(sample[::-1].copy(), 80))):
+                with open(os.path.join(src, name), "wb") as f:
+                    f.write(data)
+            reset_counts()
+            t0 = time.perf_counter()
+            res = _post(url.replace("/sdapi/v1", "/internal/img2img-batch"), dict(
+                i2i, input_dir=src, output_dir=dst))
+            dt = time.perf_counter() - t0
+            launches = read_counts()
+            planned = {k: 3 * v for k, v in i2i_plan.items()}
+            log(f"4n img2img-batch of 3 files: {dt:.3f} s, launches {launches}")
+            if launches != planned or sorted(os.listdir(dst)) != ["a.png", "b.png", "c.png"] \
+                    or res["processed"] != 3:
+                raise AssertionError(f"4n img2img-batch: {res['outputs']}, launches {launches}"
+                                     f" != planned {planned}")
+            for name in os.listdir(dst):
+                img, text = decode_png(open(os.path.join(dst, name), "rb").read())
+                if img.shape != sample.shape or img.std() < 1.0 or "Seed: 1357" not in \
+                        text.get("parameters", ""):
+                    raise AssertionError(f"4n img2img-batch: {name} is wrong")
+            results.append(dict(route="img2img-batch", label="4n img2img-batch", batch=3,
+                                seed=1357, seconds=dt, launches=launches))
+            info["img2img_batch_s"] = dt
+            # (e) the gallery's Save button: the last saved txt2img posted back
+            save_dir = os.path.join(directory, "saved")
+            prev_save = opts.get("outdir_save")
+            _post(f"{url}/options", {"outdir_save": save_dir})
+            try:
+                reset_counts()
+                res = _post(url.replace("/sdapi/v1", "/internal/save-images"), {
+                    "info": saved_res["info"], "images": saved_res["images"],
+                    "do_make_zip": True})
+                if read_counts() != _plan():
+                    raise AssertionError("4n: save-images launched a kernel")
+            finally:
+                _post(f"{url}/options", {"outdir_save": prev_save})
+            files = _saved_files(save_dir)
+            with open(files["log.csv"], newline="") as f:
+                rows = list(csv.reader(f))
+            if len(res["files"]) != 3 or not res["zip"] or len(files) != 5 or \
+                    rows[1][:2] != [SD15_BASE["prompt"], str(base["seed"])]:
+                raise AssertionError(f"4n save-images: {sorted(files)}, log.csv {rows}")
+            log(f"4n save-images: {sorted(files)}, log.csv row {rows[1]}")
+    finally:
+        engine.outdir = prev_outdir
+    info["codec_ms"] = codec_host_ms(phase3["image"])
+    # the VAE's launches at 512² for B1's row: a decode an image batch (the
+    # warm-up's too), and an f32 encode an init image
+    encodes = sum(r["batch"] for r in results if r["route"].startswith("img2img"))
+    info["decodes_512"] = 1 + sum(r["batch"] if r["route"] == "img2img-batch" else 1
+                                  for r in results)
+    info["f32_encodes_512"] = encodes
+    return results, info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -4660,6 +4919,9 @@ def main() -> int:
     mark("4l training and interrogation")
     script_results, script_info = phase_scripts(engine, model, results[0], device)
     mark("4m scripts")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_saving_") as save_dir:
+        save_results, save_info = phase_saving(engine, model, results[0], save_dir)
+    mark("4n saving and JPEG")
     del model, engine, ckpt_engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -4701,7 +4963,7 @@ def main() -> int:
                 for r in (results + i2i_results + opt_results + hr_results + c4_results
                           + hy_results + face_results + zoo_results + ckpt_results
                           + sampler_results + opt4k_results + train_results + script_results
-                          + sdxl_results + opt4k_xl_results
+                          + save_results + sdxl_results + opt4k_xl_results
                           + [sdxl_hr_result] + sdxl_i2i_results + family_results)]
     log(json.dumps({"card": smi, "kernel_shapes": rows, "unet_step": unet,
                     "sdxl_unet_step": sdxl_unet, "img2img_unet_calls": i2i_calls,
@@ -4710,7 +4972,7 @@ def main() -> int:
                     "config4": c4_info, "hybrid": hy_info, "img2img_options": opt_info,
                     "faces": face_info, "zoo": zoo_info, "training": train_info,
                     "sdxl_img2img": sdxl_i2i_info, "options": opt4k_info,
-                    "scripts": script_info,
+                    "scripts": script_info, "saving": save_info,
                     "families": {k: v for k, v in family_info.items() if k != "b1_calls"},
                     "requests": requests, "sdxl_profile": profile, "phase_s": phase_s}))
 
@@ -4732,6 +4994,8 @@ def main() -> int:
     b1_calls[("vae_mid_1024", "bfloat16")] += 1                # phase 4i's hires request
     b1_calls[("vae_mid_512", "bfloat16")] += 1 + script_info["decodes_512"]
     b1_calls[("vae_mid_512_f32", "float32")] += script_info["f32_encodes_512"]
+    b1_calls[("vae_mid_512", "bfloat16")] += save_info["decodes_512"]
+    b1_calls[("vae_mid_512_f32", "float32")] += save_info["f32_encodes_512"]
     b1_calls[("vae_mid_1024_f32", "float32")] += 1
     for row, n in family_info["b1_calls"].items():
         b1_calls[row] = b1_calls.get(row, 0) + n

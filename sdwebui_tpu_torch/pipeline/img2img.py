@@ -16,7 +16,10 @@ denoise, or soft inpainting's σ-scheduled blend before it → the final
 blend (not with soft inpainting) → decode → ``restore_faces`` → colour
 correction against the init images → the original pasted back outside the blurred mask (into the
 crop region with ``inpaint_full_res``) → the mask and the mask composite
-when ``return_mask`` / ``return_mask_composite`` ask for them.  Extra
+when ``return_mask`` / ``return_mask_composite`` ask for them.  Given an
+``outdir`` the samples are saved (``utils/saving``, img2img.py:345-410),
+with the ``-before-face-restoration``, ``-before-color-correction``,
+``-mask`` and ``-mask-composite`` copies their options ask for.  Extra
 networks apply as in txt2img, and a ControlNet unit without an image of
 its own takes the first init image (``img2img.py:317-323``).  Images are
 uint8 numpy arrays throughout (``utils/images`` and ``utils/masking``
@@ -40,7 +43,6 @@ the overlay (img2img.py:141-445).
 from __future__ import annotations
 
 import hashlib
-import os
 from typing import Callable
 
 import numpy as np
@@ -63,7 +65,8 @@ from sdwebui_tpu_torch.pipeline.processing import (_apply_grid, _build_conds,
                                                    apply_schedule_overrides,
                                                    maybe_restore_faces,
                                                    postprocess_batch, prepare_sampler,
-                                                   sample_latents, setup_img2img_steps,
+                                                   sample_latents, save_extra_copies,
+                                                   save_samples, setup_img2img_steps,
                                                    uses_refiner, with_tiling)
 from sdwebui_tpu_torch.pipeline.sd_model import SDModel, unclip_adm
 from sdwebui_tpu_torch.rng.philox import PhiloxGenerator
@@ -75,7 +78,7 @@ from sdwebui_tpu_torch.utils import color
 from sdwebui_tpu_torch.utils import images as images_util
 from sdwebui_tpu_torch.utils import masking
 from sdwebui_tpu_torch.utils.options import opts
-from sdwebui_tpu_torch.utils.png import encode_png
+from sdwebui_tpu_torch.utils.saving import save_image
 
 
 def _check_img2img(model: SDModel, p: GenerationParams) -> None:
@@ -93,15 +96,15 @@ def _check_img2img(model: SDModel, p: GenerationParams) -> None:
             "JAX package's edit-model CFG passes no step to the units)")
 
 
-def _save_init_image(p: GenerationParams, image: np.ndarray) -> None:
-    """save_init_img (img2img.py:70-80): the flattened init image as
-    ``<outdir_init_images>/<md5 of its RGB bytes>.png``; the hash goes to
-    the infotext as "Init image hash"."""
+def _save_init_image(p: GenerationParams, image: np.ndarray, info: dict) -> None:
+    """save_init_img (img2img.py:70-80): the flattened init image saved as
+    ``<outdir_init_images>/<md5 of its RGB bytes>.png`` with the decoded
+    file's info as its text; the hash goes to the infotext as "Init image
+    hash"."""
     p.init_img_hash = hashlib.md5(image.tobytes()).hexdigest()
-    outdir = opts.get("outdir_init_images", "outputs/init-images") or "outputs/init-images"
-    os.makedirs(outdir, exist_ok=True)
-    with open(os.path.join(outdir, f"{p.init_img_hash}.png"), "wb") as f:
-        f.write(encode_png(image))
+    save_image(image, opts.get("outdir_init_images", "outputs/init-images")
+               or "outputs/init-images", forced_filename=p.init_img_hash, save_to_dirs=False,
+               existing_info=info)
 
 
 def _prepare_images_and_mask(p: GenerationParams, device="cpu"):
@@ -110,7 +113,10 @@ def _prepare_images_and_mask(p: GenerationParams, device="cpu"):
     size (None without a mask), "overlay_mask" the blurred mask at the
     init image's size, "crop_region" the inpaint-full-res box or None,
     "originals" the init images as RGB.  inpainting_fill 0's colour fill
-    runs on `device`."""
+    runs on `device`.  p.init_images_info, where the server sets it, holds
+    each init image's decoded info (its PNG text, a JPEG's Pillow info):
+    save_init_img writes it, except for an RGBA image, whose flattening
+    makes a new image in JAX (images.py:330)."""
     init_images = p.init_images if isinstance(p.init_images, list) else [p.init_images]
     mask_img = overlay_mask = crop_region = final_mask = None
     if p.mask is not None:
@@ -118,12 +124,13 @@ def _prepare_images_and_mask(p: GenerationParams, device="cpu"):
         mask_img = masking.blur_mask(mask_img, p.mask_blur)
     bg = opts.get("img2img_background_color", "#ffffff") or "#ffffff"
     upscaler = opts.get("upscaler_for_img2img", "None")
+    infos = getattr(p, "init_images_info", None) or []
     imgs, originals = [], []
-    for im in init_images:
+    for i, im in enumerate(init_images):
         a = images_util.as_hwc(im)
         flat = images_util.flatten(a, bg)
         if opts.get("save_init_img", False):
-            _save_init_image(p, flat)
+            _save_init_image(p, flat, infos[i] if i < len(infos) and a.shape[2] != 4 else {})
         if mask_img is not None and p.inpaint_full_res:
             ih, iw = flat.shape[:2]
             overlay_mask = images_util.resize(mask_img, (iw, ih))
@@ -214,22 +221,40 @@ def _mask_outputs(mask_info: dict, pre_overlay: list) -> list:
 def process_img2img(model: SDModel, p: GenerationParams,
                     step_callback: Callable | None = None,
                     interrupted: Callable | None = None,
-                    callback: Callable | None = None) -> Processed:
+                    callback: Callable | None = None,
+                    outdir: str | None = None) -> Processed:
     """img2img with per-request override_settings applied and restored.
     ``step_callback(i, n, latents)`` returning False stops sampling;
     ``interrupted()`` true at the decode lets live_preview_fast_interrupt
     decode with the preview method; ``callback`` is txt2img's batch
-    callback (img2img.py:257,430)."""
+    callback (img2img.py:257,430); with `outdir` the images are saved."""
     with opts.override(p.override_settings):
         return _process_img2img(sd_unet.resolve(model), p, step_callback, interrupted,
-                                callback)
+                                callback, outdir)
+
+
+def _save_mask_copies(mask_info: dict, pre_overlay: list, p: GenerationParams, model: SDModel,
+                      outdir: str | None, seeds, lo: int, interrupted: Callable | None):
+    """save_mask and save_mask_composite (img2img.py:378-394): the grey mask
+    and the pre-overlay images' RGBa composites under it."""
+    if mask_info["mask"] is None or not outdir or p.do_not_save_samples:
+        return
+    mask_l = mask_info["mask"]
+    if opts.get("save_mask", False):
+        save_extra_copies([mask_l] * len(pre_overlay), p, model, outdir, seeds, "-mask", lo,
+                          interrupted)
+    if opts.get("save_mask_composite", False):
+        comps = [images_util.mask_composite(img, images_util.resize(
+            mask_l, (img.shape[1], img.shape[0]))) for img in pre_overlay]
+        save_extra_copies(comps, p, model, outdir, seeds, "-mask-composite", lo, interrupted)
 
 
 @torch.inference_mode()
 def _process_img2img(model: SDModel, p: GenerationParams,
                      step_callback: Callable | None,
                      interrupted: Callable | None,
-                     callback: Callable | None = None) -> Processed:
+                     callback: Callable | None = None,
+                     outdir: str | None = None) -> Processed:
     if not p.init_images:
         raise ValueError("img2img requires init_images")
     _check_img2img(model, p)
@@ -351,8 +376,14 @@ def _process_img2img(model: SDModel, p: GenerationParams,
         images = list(decode_first_stage_u8(model, latents,
                                             bool(interrupted and interrupted())))
         images = postprocess_batch(runner, p, images, n)
+        if p.restore_faces and opts.get("save_images_before_face_restoration", False):
+            save_extra_copies(images, p, model, outdir, seeds, "-before-face-restoration", lo,
+                              interrupted)
         images = maybe_restore_faces(p, images, model.device)
         if corrections is not None:
+            if opts.get("save_images_before_color_correction", False):
+                save_extra_copies(images, p, model, outdir, seeds, "-before-color-correction",
+                                  lo, interrupted)
             images = [color.apply_color_correction(corrections[min(i, len(corrections) - 1)],
                                                    img) for i, img in enumerate(images)]
         images = [runner.postprocess_image(p, img) for img in images]
@@ -367,7 +398,10 @@ def _process_img2img(model: SDModel, p: GenerationParams,
             after = PostprocessImageArgs(images[i], i)
             runner.postprocess_image_after_composite(p, after)
             images[i] = after.image
-        infotexts.extend(create_infotext(p, model, lo + i) for i in range(len(images)))
+        _save_mask_copies(mask_info, pre_overlay, p, model, outdir, seeds, lo, interrupted)
+        texts = [create_infotext(p, model, lo + i) for i in range(len(images))]
+        save_samples(images, texts, p, model, outdir, seeds, lo, n, interrupted)
+        infotexts.extend(texts)
         all_images.extend(images)
         if mask_info["mask"] is not None:
             extra = _mask_outputs(mask_info, pre_overlay)

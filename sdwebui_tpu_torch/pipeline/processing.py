@@ -18,7 +18,11 @@ an unclip model its zero adm vector.  SD3's rectified flow runs the MMDiT
 on the raw latent at t = σ·1000 and noises by the LERP σ·noise + (1−σ)·x
 (processing.py:153-159,733-735).
 ``restore_faces`` runs the face restorer (``postprocessing/faces``) on each
-decoded image.  Images leave as uint8 HWC numpy arrays.  Options and request
+decoded image.  Images leave as uint8 HWC numpy arrays.  Given an
+``outdir``, the samples are saved there (``utils/saving.save_image``,
+processing.py:829-891,1482-1520), with the ``-before-highres-fix`` and
+``-before-face-restoration`` copies their options ask for, and the grid
+under ``p.outpath_grids``.  Options and request
 fields outside the slice raise ``NotImplementedError`` naming them;
 nothing falls back to a different computation.
 
@@ -68,16 +72,12 @@ from sdwebui_tpu_torch.text.conditioner import build_cond_schedule
 from sdwebui_tpu_torch.text.prompt_parser import strip_comments
 from sdwebui_tpu_torch.utils import devices
 from sdwebui_tpu_torch.utils import infotext as infotext_util
+from sdwebui_tpu_torch.utils import saving
 from sdwebui_tpu_torch.utils.options import opts
 
 log = logging.getLogger(__name__)
 
 MAX_SEED = 2 ** 32 - 1
-
-#: options of the hires pass whose other values are not ported yet
-UNPORTED_HIRES_OPTIONS = {
-    "save_images_before_highres_fix": False,
-}
 
 def check_family(model: SDModel, p: GenerationParams,
                  refiner_model: SDModel | None = None) -> None:
@@ -130,12 +130,6 @@ def _check_slice(p: GenerationParams, txt2img: bool = False) -> None:
     txt2img only, as in JAX)."""
     if p.hypernet_override is not None and not txt2img:
         raise NotImplementedError("'hypernet_override' is not ported yet")
-    if p.restore_faces and opts.get("save_images_before_face_restoration", False):
-        raise NotImplementedError("option 'save_images_before_face_restoration' with "
-                                  "restore_faces is not ported yet: output saving is not")
-    for name, value in UNPORTED_HIRES_OPTIONS.items():
-        if p.enable_hr and opts.get(name, value) != value:
-            raise NotImplementedError(f"option {name!r} of the enable_hr pass is not ported yet")
 
 
 # --------------------------------------------------------------------------
@@ -971,23 +965,83 @@ def image_grid(images: list, batch_size: int = 1, rows: int | None = None) -> np
     return grid
 
 
+def should_save_samples(p: GenerationParams, outdir: str | None,
+                        interrupted: Callable | None = None) -> bool:
+    """processing.py:829-841: an outdir, no do_not_save_samples,
+    opts.samples_save, and an interrupted job's images only with
+    opts.save_incomplete_images."""
+    if not outdir or p.do_not_save_samples or not opts.get("samples_save", True):
+        return False
+    return bool(opts.get("save_incomplete_images", False)) or \
+        not bool(interrupted and interrupted())
+
+
+def save_extra_copies(images: list, p: GenerationParams, model: SDModel, outdir: str | None,
+                      seeds, suffix: str, lo: int = 0, interrupted: Callable | None = None):
+    """The "-before-*" and mask copies beside the samples (processing.py:844-855),
+    in opts.samples_format."""
+    if not should_save_samples(p, outdir, interrupted):
+        return
+    for i, img in enumerate(images):
+        saving.save_image(img, outdir, seed=seeds[i] if i < len(seeds) else p.seed,
+                          prompt=p.all_prompts[lo + i] if lo + i < len(p.all_prompts)
+                          else p.prompt, info=create_infotext(p, model, lo + i),
+                          extension=opts.get("samples_format", "png") or "png", p=p,
+                          suffix=suffix)
+
+
+def save_samples(images: list, infotexts: list, p: GenerationParams, model: SDModel,
+                 outdir: str | None, seeds, lo: int, n: int,
+                 interrupted: Callable | None = None):
+    """Batch n's images under their infotexts, in opts.samples_format
+    (processing.py:1508-1520, whose save passes no format: the JAX package
+    writes PNG whatever samples_format says, the port the format it names,
+    as the reference does): the filename tokens read the batch position,
+    the model's title and hash and its VAE file from the request."""
+    for i, img in enumerate(images):
+        if should_save_samples(p, outdir, interrupted):
+            p.batch_index, p.iteration = i, n
+            p.sd_model_name, p.sd_model_hash = model.title, (model.sha256 or "")[:10]
+            p.sd_vae_file = model.vae_file
+            saving.save_image(img, outdir, seed=seeds[i], prompt=p.all_prompts[lo + i],
+                              info=infotexts[i],
+                              extension=opts.get("samples_format", "png") or "png", p=p)
+
+
 def _apply_grid(all_images: list, infotexts: list, p: GenerationParams,
                 model: SDModel) -> int:
-    """Prepend a grid when opts.return_grid asks for one (processing.py:858);
-    grids are returned, never saved."""
+    """The grid stage (processing.py:858-891): a grid when opts.return_grid
+    or opts.grid_save asks for one, prepended to the images with
+    return_grid and saved under p.outpath_grids in opts.grid_format with
+    grid_save; returns index_of_first_image."""
     unwanted = len(all_images) < 2 and opts.get("grid_only_if_multiple", True)
-    if not opts.get("return_grid", True) or p.do_not_save_grid or unwanted:
+    return_grid = opts.get("return_grid", True)
+    grid_save = opts.get("grid_save", True)
+    if not (return_grid or grid_save) or p.do_not_save_grid or unwanted:
         return 0
-    infotexts.insert(0, infotexts[0] if infotexts else create_infotext(p, model, 0))
-    all_images.insert(0, image_grid(all_images, p.batch_size))
-    return 1
+    grid = image_grid(all_images, p.batch_size)
+    text = infotexts[0] if infotexts else create_infotext(p, model, 0)
+    first = 0
+    if return_grid:
+        infotexts.insert(0, text)
+        all_images.insert(0, grid)
+        first = 1
+    if grid_save and p.outpath_grids:
+        saving.save_image(grid, p.outpath_grids, basename="grid",
+                          seed=p.all_seeds[0] if p.all_seeds else p.seed,
+                          prompt=p.all_prompts[0] if p.all_prompts else p.prompt, info=text,
+                          extension=opts.get("grid_format", "png") or "png",
+                          short_filename=not opts.get("grid_extended_filename", False),
+                          p=p, grid=True)
+    return first
 
 
 def process_txt2img(model: SDModel, p: GenerationParams,
                     step_callback: Callable | None = None,
                     refiner_model: SDModel | None = None,
                     interrupted: Callable | None = None,
-                    callback: Callable | None = None) -> Processed:
+                    callback: Callable | None = None,
+                    outdir: str | None = None) -> Processed:
     """txt2img with per-request override_settings applied and restored
     (processing.py:1304).  ``step_callback(i, n, latents)`` returning False
     stops sampling; ``interrupted()`` true at the decode lets
@@ -996,10 +1050,11 @@ def process_txt2img(model: SDModel, p: GenerationParams,
     there) and ``callback("batch_done", n, images)`` after it
     (processing.py:1404,1524).  A request with ``refiner_checkpoint`` and
     0 < ``refiner_switch_at`` < 1 needs `refiner_model`; with
-    ``enable_hr``, opts.hires_fix_refiner_pass says which pass it refines."""
+    ``enable_hr``, opts.hires_fix_refiner_pass says which pass it refines.
+    With `outdir` the images are saved there (``should_save_samples``)."""
     with opts.override(p.override_settings):
         return _process_txt2img(sd_unet.resolve(model), p, step_callback, refiner_model,
-                                interrupted, callback)
+                                interrupted, callback, outdir)
 
 
 def with_tiling(model: SDModel, p: GenerationParams) -> SDModel:
@@ -1049,7 +1104,8 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
                      step_callback: Callable | None,
                      refiner_model: SDModel | None,
                      interrupted: Callable | None = None,
-                     callback: Callable | None = None) -> Processed:
+                     callback: Callable | None = None,
+                     outdir: str | None = None) -> Processed:
     _check_slice(p, txt2img=True)
     check_hybrid(model)
     check_family(model, p, refiner_model)
@@ -1143,17 +1199,26 @@ def _process_txt2img(model: SDModel, p: GenerationParams,
                                      hypernet=hypernet, controls=controls)
         if p.enable_hr:
             runner.process_before_every_sampling(p, batch_number=n, is_hr_pass=True)
+            if opts.get("save_images_before_highres_fix", False) and outdir \
+                    and not p.do_not_save_samples:
+                save_extra_copies(list(decode_first_stage_u8(model, latents)), p, model, outdir,
+                                  seeds, "-before-highres-fix", lo, interrupted)
             latents = _hires_pass(model, p, latents, seeds, subseeds, refiner_model=hr_refiner,
                                   step_callback=step_callback, hypernet=hypernet)
         runner.post_sample(p, PostSampleArgs(latents))
         images = list(decode_first_stage_u8(model, latents,
                                             bool(interrupted and interrupted())))
         images = postprocess_batch(runner, p, images, n)
+        if p.restore_faces and opts.get("save_images_before_face_restoration", False):
+            save_extra_copies(images, p, model, outdir, seeds, "-before-face-restoration", lo,
+                              interrupted)
         images = maybe_restore_faces(p, images, model.device)
         # a script's postprocess_image may replace an image or add to the
         # infotext, so it runs before the infotexts are written
         images = [runner.postprocess_image(p, img) for img in images]
-        infotexts.extend(create_infotext(p, model, lo + i) for i in range(len(images)))
+        texts = [create_infotext(p, model, lo + i) for i in range(len(images))]
+        save_samples(images, texts, p, model, outdir, seeds, lo, n, interrupted)
+        infotexts.extend(texts)
         all_images.extend(images)
         if callback is not None:
             callback("batch_done", n, images)

@@ -26,7 +26,10 @@ towers under ``--controlnet-dir`` (``models/ControlNet``).  Random weights at fu
 width, made from ``--seed``, only with ``--model``: SD1.5, or the SDXL
 base with its refiner, which requests name by its title
 (``refiner_checkpoint``); ``--tiny`` for the test models.  The "Custom
-code" script runs only with ``--allow-code``.
+code" script runs only with ``--allow-code``.  Requests with
+``save_images`` write under ``--outdir`` (default ``outputs``):
+``txt2img-images``, ``img2img-images`` and their ``-grids``, unless the
+saving-path options name other directories.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ from sdwebui_tpu_torch.pipeline.control import DEFAULT_CONTROLNET_DIR, set_model
 from sdwebui_tpu_torch.postprocessing import faces
 from sdwebui_tpu_torch.postprocessing.upscalers import register_model_dirs
 from sdwebui_tpu_torch.server.api import make_server
-from sdwebui_tpu_torch.server.app import DEFAULT_CKPT_DIR, Engine
+from sdwebui_tpu_torch.server.app import DEFAULT_CKPT_DIR, DEFAULT_OUTDIR, Engine
 
 #: the upscaler files' directories (the reference's layout, relative to the
 #: working directory)
@@ -83,6 +86,8 @@ def main(argv=None):
                     help="embeddings directory for textual inversion (default: embeddings)")
     ap.add_argument("--controlnet-dir", default=DEFAULT_CONTROLNET_DIR,
                     help="Path to directory with ControlNet models")
+    ap.add_argument("--outdir", default=DEFAULT_OUTDIR,
+                    help="where saved images go (txt2img-images, img2img-images, ...)")
     ap.add_argument("--allow-code", action="store_true",
                     help="allow custom script execution from webui")
     ap.add_argument("--tiny", action="store_true", help="with --model: the tiny test model(s)")
@@ -101,11 +106,13 @@ def main(argv=None):
     faces.set_model_dirs("CodeFormer", [args.codeformer_models_path])
     if args.model:
         engine = Engine(device=args.device, tiny=args.tiny, seed=args.seed, family=args.model,
-                        embeddings_dir=args.embeddings_dir, allow_code=args.allow_code)
+                        embeddings_dir=args.embeddings_dir, allow_code=args.allow_code,
+                        outdir=args.outdir)
     else:
         engine = Engine(device=args.device, ckpt=args.ckpt,
                         ckpt_dirs=[args.ckpt_dir or DEFAULT_CKPT_DIR], vae_path=args.vae_path,
-                        embeddings_dir=args.embeddings_dir, allow_code=args.allow_code)
+                        embeddings_dir=args.embeddings_dir, allow_code=args.allow_code,
+                        outdir=args.outdir)
         engine.sd_model           # load now: a checkpoint that fails fails at start
     # ESRGAN, RealESRGAN, then models/SwinIR, ScuNET, LDSR, HAT and DAT
     upscalers, realesrgan = register_model_dirs(

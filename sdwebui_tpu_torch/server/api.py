@@ -8,11 +8,17 @@ Port of the generation, extras, option and checkpoint routes of
 upscalers, latent upscale modes, sd-models, sd-vae, and refresh / reload /
 unload of checkpoints.  ``extra-single-image`` and ``extra-batch-images``
 run the stage chain (``postprocessing/stages``: Upscale, GFPGAN,
-CodeFormer) and answer one PNG per image; ``save_output`` and extras
-resize modes other than 0 and 1 answer 422, and so does a face restorer
-without weights.  Job control: ``progress``, ``interrupt``, ``skip`` and
+CodeFormer) and answer one PNG per image, saved under
+``outdir_extras_samples`` with ``save_output``; extras resize modes other
+than 0 and 1 answer 422, and so does a face restorer without weights.
+Job control: ``progress``, ``interrupt``, ``skip`` and
 ``/internal/{interrupt,progress}`` read and set the Engine's job state
-without its queue lock, the live preview as a PNG.  Training and
+without its queue lock, the live preview as a PNG (or a JPEG, with
+``live_previews_image_format``).  Saving (``utils/saving``): both
+generation routes write their images and grid with ``save_images``;
+``/internal/save-images`` writes the posted images with a ``log.csv`` row
+and a zip (``server/ui_actions``); ``/internal/img2img-batch`` runs img2img
+over a directory of PNG and JPEG files (api.py:645-745).  Training and
 interrogation (``api.py:349-415,1206-1365``): ``interrogate``
 (DeepDanbooru, or the CLIP interrogator with BLIP's caption when BLIP is
 there; 501 naming what is absent), ``preprocess``, ``create/embedding``,
@@ -24,12 +30,14 @@ stops it after the step in flight).  ``png-info``,
 Requests are plain JSON mapped
 onto ``GenerationParams`` (no pydantic); responses have the reference's
 shape, ``{"images": [b64 png], "parameters": {...}, "info": "<json>"}``.
-img2img's ``init_images`` and ``mask`` are base64 PNGs (a ``data:image/png``
-URL prefix is accepted); another image format answers 400 naming it, and
+Every image a client sends (img2img's ``init_images`` and ``mask``, Extras,
+ControlNet, interrogate, png-info) is a base64 PNG or JPEG (a ``data:``
+URL prefix is accepted); GIF, BMP, WebP and TIFF answer 400 naming the
+format, and
 ``parameters`` leaves them out unless ``include_init_images`` is set, as
 the reference does.  ControlNet units come as ``controlnet_units`` or as
 the sd-webui-controlnet extension's ``alwayson_scripts.controlnet.args``
-(``api.py:112-119``), their images base64 PNGs.  The extra-network routes
+(``api.py:112-119``), their images base64 PNGs or JPEGs.  The extra-network routes
 (loras, embeddings, hypernetworks and their refreshes), the prompt-style
 routes (GET, POST and DELETE ``/sdapi/v1/prompt-styles``) and the
 extension's ``/controlnet/*`` routes are served too.  A request's
@@ -68,7 +76,7 @@ from sdwebui_tpu_torch.networks.extra_networks import lora_registry
 from sdwebui_tpu_torch.networks.hypernetwork import hypernet_registry
 from sdwebui_tpu_torch.pipeline import annotators, control
 from sdwebui_tpu_torch.pipeline.params import GenerationParams
-from sdwebui_tpu_torch.pipeline.processing import LATENT_UPSCALE_MODES, UNPORTED_HIRES_OPTIONS
+from sdwebui_tpu_torch.pipeline.processing import LATENT_UPSCALE_MODES
 from sdwebui_tpu_torch.postprocessing import faces, upscalers
 from sdwebui_tpu_torch.postprocessing.stages import STAGES, StageArgs
 from sdwebui_tpu_torch.sampling.registry import SAMPLER_MAP, SAMPLERS
@@ -78,9 +86,13 @@ from sdwebui_tpu_torch.scripts.framework import (ScriptArgError, get_script,
                                                  list_selectable_scripts)
 from sdwebui_tpu_torch.server.app import CheckpointNotFound, Engine
 from sdwebui_tpu_torch.text.styles import PromptStyle
-from sdwebui_tpu_torch.utils import infotext
+from sdwebui_tpu_torch.utils import images as images_util
+from sdwebui_tpu_torch.utils import infotext, saving
+from sdwebui_tpu_torch.utils.image_io import (OTHER_FORMATS, UnsupportedImageFormat,
+                                              decode_image, read_image_file)
+from sdwebui_tpu_torch.utils.jpeg import encode_jpeg
 from sdwebui_tpu_torch.utils.options import opts
-from sdwebui_tpu_torch.utils.png import decode_png, encode_png
+from sdwebui_tpu_torch.utils.png import encode_png
 
 _NUM = (int, float)
 
@@ -102,6 +114,8 @@ FIELDS = {
     # a selectable script and its arguments (scripts/builtin), and the main
     # UI's postprocessing stages (the always-on MainUIPostprocessing)
     "script_name": (None, str), "script_args": ([], list), "postprocessing": ({}, dict),
+    # write the images and the grid under the Engine's outdir
+    "save_images": (False, bool),
 }
 
 #: fields of the reference schema outside the slice: accepted only at
@@ -109,7 +123,7 @@ FIELDS = {
 NEUTRAL = {
     "disable_extra_networks": (False,), "comments": ({},),
     "firstphase_width": (0,), "firstphase_height": (0,), "hr_checkpoint_name": (None,),
-    "save_images": (False,), "infotext": (None,),
+    "infotext": (None,),
     "override_settings_restore_afterwards": (True,),
 }
 
@@ -125,9 +139,21 @@ HIRES_FIELDS = {
 HIRES_NEUTRAL = {k: (default,) for k, (default, _) in HIRES_FIELDS.items()
                  if k != "denoising_strength"}
 
-#: override_settings keys the slice reads; UNPORTED_HIRES_OPTIONS keys are
-#: accepted too and raise in the pipeline unless at their neutral value
-OVERRIDES = {
+#: the saving options (utils/saving, the pipelines' save stages)
+SAVING_OPTIONS = {
+    "samples_save", "samples_format", "grid_save", "grid_format", "grid_extended_filename",
+    "enable_pnginfo", "outdir_samples", "outdir_grids", "outdir_txt2img_samples",
+    "outdir_img2img_samples", "outdir_txt2img_grids", "outdir_img2img_grids",
+    "save_incomplete_images", "samples_filename_pattern", "save_images_add_number",
+    "save_images_replace_action", "save_to_dirs", "grid_save_to_dirs",
+    "directories_filename_pattern", "directories_max_prompt_words", "jpeg_quality",
+    "export_for_4chan", "img_downscale_threshold", "target_side_length", "save_txt",
+    "save_images_before_face_restoration", "save_images_before_highres_fix",
+    "sdtpu_async_save", "sdtpu_png_compress_level",
+}
+
+#: override_settings keys the slice reads
+OVERRIDES = SAVING_OPTIONS | {
     "CLIP_stop_at_last_layers", "eta_noise_seed_delta", "randn_source",
     "enable_quantization", "emphasis", "enable_emphasis", "comma_padding_backtrack",
     "sdtpu_vae_bf16", "auto_vae_precision", "eta_ancestral", "s_min_uncond",
@@ -161,7 +187,7 @@ OVERRIDES = {
     "show_progress_type",
     # live previews (Engine._step_callback) and face restoration
     "live_previews_enable", "show_progress_every_n_steps", "show_progress_grid",
-    "face_restoration_model", "code_former_weight", "save_images_before_face_restoration",
+    "face_restoration_model", "code_former_weight",
     # the UNet's attention options, fp8 storage, the schedule overrides,
     # old emphasis and the cond cache (processing.apply_attention_options,
     # apply_schedule_overrides, Engine._apply_fp8_storage, _build_conds);
@@ -172,7 +198,7 @@ OVERRIDES = {
     "use_downcasted_alpha_bar", "use_old_emphasis_implementation", "persistent_cond_cache",
     "sd_unet",
     # the scripts: X/Y/Z's grid size guard, the main UI's postprocessing stages
-    "img_max_size_mp", "postprocessing_enable_in_main_ui", *UNPORTED_HIRES_OPTIONS,
+    "img_max_size_mp", "postprocessing_enable_in_main_ui",
 }
 
 
@@ -200,7 +226,8 @@ IMG2IMG_NEUTRAL = {
 
 IMG2IMG_OVERRIDES = {"img2img_extra_noise", "img2img_background_color", "overlay_inpaint",
                      "upscaler_for_img2img", "img2img_color_correction", "save_init_img",
-                     "outdir_init_images", "return_mask", "return_mask_composite"}
+                     "outdir_init_images", "return_mask", "return_mask_composite",
+                     "save_images_before_color_correction", "save_mask", "save_mask_composite"}
 
 #: options POST /sdapi/v1/options sets: the overrides, how checkpoints are
 #: kept and read, and the Extras stage order
@@ -210,6 +237,10 @@ OPTIONS = OVERRIDES | IMG2IMG_OVERRIDES | {
     "list_hidden_files", "disable_mmap_load_safetensors", "postprocessing_operation_order",
     "postprocessing_disable_in_extras", "realesrgan_enabled_models", "dat_enabled_models",
     "live_previews_image_format", "interrupt_after_current",
+    # Extras' save_output, the Save button, the img2img batch
+    "outdir_extras_samples", "use_original_name_batch", "use_upscaler_name_as_suffix",
+    "outdir_save", "save_selected_only", "save_write_log_csv", "use_save_to_dirs_for_ui",
+    "grid_zip_filename_pattern", "img2img_batch_show_results_limit",
     # read by the loader at the next checkpoint load: SD3's bundled T5-XXL
     "sd3_enable_t5",
     # training and interrogation (training/*, postprocessing/interrogate,
@@ -264,11 +295,6 @@ EXTRAS_FIELDS = {
 UNIT_FIELDS = {f.name for f in dataclasses.fields(control.ControlNetUnit)} | {"input_image"}
 UNIT_NEUTRAL = {"lowvram": (False,), "pixel_perfect": (False,), "guessmode": (False,),
                 "mask": (None,), "resize_mode": (0, "Just Resize")}
-
-#: magic bytes of the image formats a client may send instead of PNG
-_FORMATS = ((b"\xff\xd8\xff", "JPEG"), (b"GIF8", "GIF"), (b"BM", "BMP"),
-            (b"RIFF", "WEBP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
-
 
 class ApiError(Exception):
     def __init__(self, status: int, message: str):
@@ -335,7 +361,13 @@ def _units_from_request(req: dict) -> list:
     return out
 
 
-def _params_from_request(body: dict, img2img: bool = False) -> GenerationParams:
+def _params_from_request(body: dict, img2img: bool = False,
+                         init_images: list | None = None) -> GenerationParams:
+    """The request's GenerationParams; init_images: img2img's (pixels, info)
+    already decoded (the batch route's files), else ``init_images`` is read
+    from the body.  The init images' decoded info goes to
+    p.init_images_info (save_init_img writes it, as JAX's PIL images carry
+    theirs)."""
     fields, neutral, overrides = {**FIELDS, **HIRES_FIELDS}, NEUTRAL, OVERRIDES
     if img2img:
         fields = {**FIELDS, **IMG2IMG_FIELDS}
@@ -378,20 +410,26 @@ def _params_from_request(body: dict, img2img: bool = False) -> GenerationParams:
         kw["clip_skip"] = int(req["override_settings"]["CLIP_stop_at_last_layers"])
     kw["controlnet_units"] = _units_from_request(req)
     kw["postprocessing"] = _check_postprocessing(req["postprocessing"] or {})
-    if not req["script_name"]:
-        # save_images is off: nothing is written, no grid is assembled.  JAX's
-        # run_script leaves do_not_save_grid as the request has it, so a
-        # script's cells of several images get their grid (app.py:395-409)
+    if not req["script_name"] and not req["save_images"]:
+        # nothing is written, so no grid is assembled (JAX's
+        # _apply_save_flags).  JAX's run_script leaves do_not_save_grid as
+        # the request has it, so a script's cells of several images get
+        # their grid (app.py:395-409)
         kw["do_not_save_grid"] = True
+    decoded = []
     if img2img:
-        if not req["init_images"]:
+        if init_images is None and not req["init_images"]:
             raise ApiError(404, "Init image not found")
-        kw["init_images"] = [_decode_image(x, "init_images") for x in req["init_images"]]
+        decoded = init_images if init_images is not None else \
+            [_decode_with_info(x, "init_images") for x in req["init_images"]]
+        kw["init_images"] = [pixels for pixels, _ in decoded]
         if req["mask"]:
             kw["mask"] = _decode_image(req["mask"], "mask")
         else:
             kw.pop("mask", None)
-    return GenerationParams(**kw)
+    p = GenerationParams(**kw)
+    p.init_images_info = [info for _, info in decoded]
+    return p
 
 
 def _check_postprocessing(pp: dict) -> dict:
@@ -412,13 +450,13 @@ def _check_postprocessing(pp: dict) -> dict:
 
 
 def _decode_image(encoding, field: str):
-    """A base64 PNG (optionally a data: URL) → uint8 (H, W, C)."""
-    return _decode_png(encoding, field)[0]
+    """A base64 PNG or JPEG (optionally a data: URL) → uint8 (H, W, C)."""
+    return _decode_with_info(encoding, field)[0]
 
 
-def _decode_png(encoding, field: str):
-    """A base64 PNG (optionally a data: URL) → (uint8 (H, W, C), its text
-    chunks)."""
+def _decode_with_info(encoding, field: str):
+    """A base64 PNG or JPEG (optionally a data: URL) → (uint8 (H, W, C), its
+    info: a PNG's text chunks, a JPEG's Pillow ``img.info``)."""
     if not isinstance(encoding, str):
         raise ApiError(422, f"field {field!r} must hold base64 strings")
     if encoding.startswith(("http://", "https://")):
@@ -429,12 +467,11 @@ def _decode_png(encoding, field: str):
         data = base64.b64decode(encoding, validate=True)
     except (binascii.Error, ValueError) as e:
         raise ApiError(400, f"field {field!r} is not valid base64: {e}") from e
-    for magic, fmt in _FORMATS:
-        if data.startswith(magic):
-            raise ApiError(400, f"field {field!r} holds a {fmt} image; this server reads "
-                                "PNG only")
     try:
-        return decode_png(data)
+        return decode_image(data)
+    except UnsupportedImageFormat as e:
+        raise ApiError(400, f"field {field!r} holds a {e.fmt} image; this server reads "
+                            "PNG and JPEG only") from e
     except ValueError as e:
         raise ApiError(400, f"field {field!r}: {e}") from e
 
@@ -505,6 +542,9 @@ class Api:
             ("POST", "/sdapi/v1/create/hypernetwork"): self.create_hypernetwork,
             ("POST", "/sdapi/v1/train/embedding"): self.train_embedding,
             ("POST", "/sdapi/v1/train/hypernetwork"): self.train_hypernetwork,
+            # saving (api.py:645-745)
+            ("POST", "/internal/save-images"): self.save_images_action,
+            ("POST", "/internal/img2img-batch"): self.img2img_batch,
         }
 
     def _generate(self, body, img2img: bool):
@@ -516,7 +556,8 @@ class Api:
             self._check_script(name)
             res = self.engine.run_script(name, p, body.get("script_args") or [])
         else:
-            res = (self.engine.img2img if img2img else self.engine.txt2img)(p)
+            res = (self.engine.img2img if img2img else self.engine.txt2img)(
+                p, save=bool(body.get("save_images", False)))
         images = None
         if body.get("send_images", True):
             images = [base64.b64encode(encode_png(
@@ -564,8 +605,7 @@ class Api:
             raise ApiError(422, "request body must be a JSON object")
         req = _check_fields(body, EXTRAS_FIELDS, {})
         if req["save_output"]:
-            raise ApiError(422, "'save_output' is not supported by this server: it writes "
-                                "no files")
+            saving.check_format(opts.get("samples_format", "png") or "png")
         if req["resize_mode"] not in (0, 1):
             raise ApiError(422, f"extras resize_mode {req['resize_mode']} is not supported "
                                 "(0 scale by, 1 scale to)")
@@ -574,12 +614,31 @@ class Api:
             _check_upscaler(req["upscaler_2"], "upscaler_2")
         return StageArgs.from_obj(req)
 
+    @staticmethod
+    def _save_extras(image, args: StageArgs, name: str | None) -> str:
+        """save_output (api.py:310-333): under opts.outdir_extras_samples in
+        opts.samples_format, the "extras" text naming the upscale; the
+        original name kept with use_original_name_batch, the upscaler's
+        name as a suffix with use_upscaler_name_as_suffix."""
+        suffix = f"-{args.upscaler_1}" if opts.get("use_upscaler_name_as_suffix", False) else ""
+        forced = None
+        if opts.get("use_original_name_batch", True) and name:
+            forced = os.path.splitext(os.path.basename(name))[0] + suffix
+        return saving.save_image(
+            image, path=opts.get("outdir_extras_samples", "outputs/extras-images"),
+            info=f"Postprocess upscale by: {float(args.upscaling_resize)}, "
+                 f"Postprocess upscaler: {args.upscaler_1}",
+            extension=opts.get("samples_format", "png"), short_filename=True, no_prompt=True,
+            pnginfo_section_name="extras", forced_filename=forced, suffix=suffix)
+
     def extras_single(self, body: dict):
-        """api.py:301: the Upscale stage over one base64 PNG."""
+        """api.py:301: the Upscale stage over one base64 image."""
         args = self._extras_args(body)
         if not body.get("image"):
             raise ApiError(404, "Image not found")
         (out,) = self.engine.extras([_decode_image(body["image"], "image")], args)
+        if body.get("save_output", False):
+            self._save_extras(out, args, body.get("name"))
         return {"html_info": f"<p>Upscaled with {args.upscaler_1}</p>",
                 "image": base64.b64encode(encode_png(out)).decode("ascii")}
 
@@ -594,6 +653,9 @@ class Api:
         args = self._extras_args(body)
         images = [_decode_image(item.get("data", ""), "imageList") for item in items]
         outs = self.engine.extras(images, args)
+        if body.get("save_output", False):
+            for item, out in zip(items, outs):
+                self._save_extras(out, args, item.get("name"))
         return {"html_info": f"<p>{len(outs)} images upscaled</p>",
                 "images": [base64.b64encode(encode_png(o)).decode("ascii") for o in outs]}
 
@@ -760,16 +822,19 @@ class Api:
 
     # ---- job control (api.py:437-539,587-592,899,916) ---------------------
 
-    def _preview_b64(self, snap: dict) -> str | None:
+    def _preview_b64(self, snap: dict, fmt: str = "png") -> str | None:
         """The live preview as a base64 PNG, encoded once per preview and
         stored uncompressed (deflate level 0): compressing a noisy 1024²
-        grid costs many times what the rest of a poll does."""
+        grid costs many times what the rest of a poll does; or as a JPEG at
+        Pillow's default quality, 75."""
         if snap["current_image"] is None:
             return None
         with self._preview_lock:
-            if self._preview[0] != snap["id_live_preview"] or self._preview[1] is None:
-                png = encode_png(snap["current_image"], level=0)
-                self._preview = (snap["id_live_preview"], base64.b64encode(png).decode("ascii"))
+            key = (snap["id_live_preview"], fmt)
+            if self._preview[0] != key or self._preview[1] is None:
+                img = snap["current_image"]
+                data = encode_png(img, level=0) if fmt == "png" else encode_jpeg(img, 75)
+                self._preview = (key, base64.b64encode(data).decode("ascii"))
             return self._preview[1]
 
     def progress(self, body=None):
@@ -788,17 +853,21 @@ class Api:
             "textinfo": snap["textinfo"]}
 
     def internal_progress(self, body=None):
-        """The UI's progress poll: the preview as a data URL in
-        opts.live_previews_image_format (PNG only in the port)."""
+        """The UI's progress poll (api.py:470-490): the preview as a data URL
+        in opts.live_previews_image_format, png or jpeg (an RGBA preview
+        stays PNG, as in JAX); webp raises naming it."""
         body = body if isinstance(body, dict) else {}
         snap = self.engine.state.snapshot()
         live = None
         if snap["current_image"] is not None and body.get("live_preview", True):
             fmt = str(opts.get("live_previews_image_format", "png")).lower()
-            if fmt != "png":
+            img = snap["current_image"]
+            if fmt == "jpeg" and img.ndim == 3 and img.shape[2] == 4:
+                fmt = "png"
+            if fmt not in ("png", "jpeg"):
                 raise NotImplementedError(f"live_previews_image_format {fmt!r} is not ported "
-                                          "yet (png only)")
-            live = "data:image/png;base64," + self._preview_b64(snap)
+                                          "yet (png and jpeg)")
+            live = f"data:image/{fmt};base64," + self._preview_b64(snap, fmt)
         return {"active": bool(snap["job"]), "queued": False, "completed": not snap["job"],
                 "progress": snap["progress"], "eta": None, "live_preview": live,
                 "id_live_preview": snap["id_live_preview"], "textinfo": snap["textinfo"]}
@@ -818,15 +887,110 @@ class Api:
         return {}
 
     def png_info(self, body):
-        """The generation parameters of a base64 PNG: its "parameters"
-        text, every text chunk and the parsed infotext."""
+        """The generation parameters of a base64 PNG or JPEG (api.py:437-447):
+        its "parameters" text or EXIF UserComment, the image's info (a PNG's
+        text chunks; a JPEG's Pillow ``img.info`` less the raw EXIF bytes,
+        which JSON cannot carry) and the parsed infotext."""
         if not isinstance(body, dict):
             raise ApiError(422, "request body must be a JSON object")
         if not body.get("image"):
             raise ApiError(404, "Image not found")
-        _, text = _decode_png(body["image"], "image")
-        info = text.get("parameters", "")
-        return {"info": info, "items": text, "parameters": infotext.parse(info)}
+        _, items = _decode_with_info(body["image"], "image")
+        info = saving.read_info_from_image(items) or ""
+        items = {k: v for k, v in items.items() if not isinstance(v, bytes)}
+        return {"info": info, "items": items, "parameters": infotext.parse(info)}
+
+    # ---- saving (api.py:645-745) --------------------------------------------
+
+    def save_images_action(self, body):
+        """The gallery's Save / Save-as-zip button (``server/ui_actions``): the
+        posted images under opts.outdir_save, a log.csv row, a zip."""
+        from sdwebui_tpu_torch.server.ui_actions import save_files_from_json
+
+        if body is not None and not isinstance(body, dict):
+            raise ApiError(422, "request body must be a JSON object")
+        try:
+            return save_files_from_json(body or {})
+        except (binascii.Error, ValueError) as e:
+            raise ApiError(400, f"images: {e}") from e
+
+    def img2img_batch(self, body):
+        """img2img over every PNG and JPEG of input_dir (api.py:653-745): each
+        file an init image, its mask the same-named file of inpaint_mask_dir,
+        with use_png_info its infotext's png_info_props (read from the file or
+        the same-named one in png_info_dir) merged into the request; the
+        outputs saved as PNG under output_dir (default <input_dir>/out) by the
+        file's name, the first opts.img2img_batch_show_results_limit of them
+        answered.  A WebP, BMP or other file answers 422 naming it."""
+        import glob
+
+        if not isinstance(body, dict):
+            raise ApiError(422, "request body must be a JSON object")
+        body = dict(body)
+        input_dir = body.pop("input_dir", "")
+        output_dir = body.pop("output_dir", "")
+        mask_dir = body.pop("inpaint_mask_dir", "")
+        use_png_info = bool(body.pop("use_png_info", False))
+        png_info_props = set(body.pop("png_info_props", None) or [])
+        png_info_dir = body.pop("png_info_dir", "")
+        if not input_dir or not os.path.isdir(input_dir):
+            raise ApiError(404, f"input directory not found: {input_dir!r}")
+        files = sorted(f for f in glob.glob(os.path.join(input_dir, "*"))
+                       if f.lower().endswith((".png", ".jpg", ".jpeg", ".webp", ".bmp")))
+        if not files:
+            raise ApiError(404, "no images in input directory")
+        for path in files:
+            with open(path, "rb") as f:
+                head = f.read(8)
+            for magic, fmt in OTHER_FORMATS:
+                if head.startswith(magic):
+                    raise NotImplementedError(f"{os.path.basename(path)}: a {fmt} image; the "
+                                              "img2img batch reads PNG and JPEG only")
+        limit = int(opts.get("img2img_batch_show_results_limit", 32))
+        outd = output_dir or os.path.join(input_dir, "out")
+        shown, done = [], []
+        for path in files:
+            sub = dict(body)
+            pixels, info = read_image_file(path)
+            if use_png_info:
+                try:
+                    source = read_image_file(os.path.join(
+                        png_info_dir, os.path.basename(path)))[1] if png_info_dir else info
+                    parsed = infotext.parse(saving.read_info_from_image(source) or "")
+                    parsed = {k: v for k, v in parsed.items() if k in png_info_props}
+                except (OSError, ValueError):
+                    parsed = {}
+                if "Prompt" in parsed:
+                    sub["prompt"] = (sub.get("prompt", "") + " " + parsed["Prompt"]).strip()
+                if "Negative prompt" in parsed:
+                    sub["negative_prompt"] = (sub.get("negative_prompt", "") + " "
+                                              + parsed["Negative prompt"]).strip()
+                if "Seed" in parsed:
+                    sub["seed"] = int(parsed["Seed"])
+                if "CFG scale" in parsed:
+                    sub["cfg_scale"] = float(parsed["CFG scale"])
+                if "Sampler" in parsed:
+                    sub["sampler_name"] = parsed["Sampler"]
+                if "Steps" in parsed:
+                    sub["steps"] = int(parsed["Steps"])
+            # JAX converts each file to RGB first, which keeps its info
+            p = _params_from_request(sub, img2img=True,
+                                     init_images=[(images_util.to_rgb(pixels), info)])
+            mask_path = os.path.join(mask_dir, os.path.basename(path)) if mask_dir else ""
+            if mask_path and os.path.isfile(mask_path):
+                p.mask = images_util.to_l(read_image_file(mask_path)[0])
+            res = self.engine.img2img(p, save=False)
+            base = os.path.splitext(os.path.basename(path))[0]
+            for i, im in enumerate(res.images):
+                done.append(saving.save_image(
+                    im, outd, seed=p.all_seeds[i] if i < len(p.all_seeds) else p.seed,
+                    prompt=p.prompt, info=res.infotexts[i] if i < len(res.infotexts) else None,
+                    forced_filename=f"{base}-{i}" if len(res.images) > 1 else base, p=p,
+                    save_to_dirs=False))
+                if limit != 0 and (limit < 0 or len(shown) < limit):
+                    shown.append(base64.b64encode(encode_png(im)).decode("ascii"))
+        saving.flush_saves()
+        return {"processed": len(files), "outputs": done, "images": shown}
 
     def memory(self, body=None):
         """Host RAM (this process's peak RSS) and the card's memory, with the

@@ -25,6 +25,10 @@ that the base model caches and drops whenever it moves
 (``networks/extra_networks``): the live, parked and cached models are
 always the checkpoints' own weights.
 
+A request with ``save`` writes its images under the ``--outdir``
+(``outdir``): ``<outdir>/<txt2img|img2img>-images`` and ``-grids`` unless
+the saving-path options name other directories (JAX's app.py:282-315).
+
 Selectable scripts (``scripts/builtin``) run through ``run_script``: one
 job for the whole script, each cell through ``txt2img_inner`` /
 ``img2img_inner`` on the cell's checkpoint (JAX's app.py:381-409).
@@ -62,6 +66,7 @@ from sdwebui_tpu_torch.runtime.state import State
 from sdwebui_tpu_torch.scripts import builtin  # noqa: F401  (registers the scripts)
 from sdwebui_tpu_torch.scripts.framework import get_script, validate_script_args
 from sdwebui_tpu_torch.text.styles import StyleDatabase
+from sdwebui_tpu_torch.utils import saving
 from sdwebui_tpu_torch.utils.devices import get_device
 from sdwebui_tpu_torch.utils.options import opts
 
@@ -82,6 +87,7 @@ DEFAULT_CKPT_DIR = os.path.join("models", "Stable-diffusion")
 DEFAULT_VAE_DIR = os.path.join("models", "VAE")
 DEFAULT_HASH_CACHE = "cache.json"
 DEFAULT_STYLES = "styles.csv"
+DEFAULT_OUTDIR = "outputs"
 
 
 class CheckpointNotFound(LookupError):
@@ -110,7 +116,8 @@ class Engine:
     (the sd_vae setting is then not read); hash_cache: the sha256 cache
     file (None: no cache); embeddings_dir: the textual-inversion files;
     styles_path: the prompt styles' CSV; allow_code: the "Custom code"
-    script runs (``--allow-code``)."""
+    script runs (``--allow-code``); outdir: where saved images go
+    (``--outdir``)."""
 
     def __init__(self, device="cuda", tiny: bool = False, seed: int = 0,
                  model: SDModel | None = None, family: str = "sd15",
@@ -118,8 +125,10 @@ class Engine:
                  ckpt: str | None = None, ckpt_dirs=None, vae_path: str | None = None,
                  vae_dirs=(DEFAULT_VAE_DIR,), hash_cache: str | None = DEFAULT_HASH_CACHE,
                  embeddings_dir: str = DEFAULT_EMBEDDINGS_DIR,
-                 styles_path: str = DEFAULT_STYLES, allow_code: bool = False):
+                 styles_path: str = DEFAULT_STYLES, allow_code: bool = False,
+                 outdir: str = DEFAULT_OUTDIR):
         self.device = get_device(device)
+        self.outdir = outdir
         self.allow_code = allow_code
         self.embeddings_dir = embeddings_dir
         self.styles = StyleDatabase(styles_path)
@@ -369,11 +378,42 @@ class Engine:
             finally:
                 self.state.end()
 
-    def txt2img(self, p: GenerationParams) -> Processed:
+    def _resolve_outdirs(self, which: str) -> tuple[str, str]:
+        """(samples, grids) directories of `which` (txt2img or img2img),
+        app.py:282-302: opts.outdir_samples / outdir_grids first, then the
+        per-kind options unless at their defaults, else <outdir>/<kind>-images
+        and <outdir>/<kind>-grids."""
+        def pick(override_key, specific_key, kind_dir):
+            v = opts.get(override_key, "") or opts.get(specific_key, "")
+            tpl = opts.data_labels.get(specific_key)
+            default = tpl.default if tpl is not None else f"outputs/{kind_dir}"
+            if v and v != default:
+                return v
+            return os.path.join(self.outdir, kind_dir)
+
+        return (pick("outdir_samples", f"outdir_{which}_samples", f"{which}-images"),
+                pick("outdir_grids", f"outdir_{which}_grids", f"{which}-grids"))
+
+    def _apply_save_flags(self, p: GenerationParams, save: bool, which: str) -> str | None:
+        """app.py:304-315: without `save` nothing is written (the API asks
+        for no grid then, as JAX's Engine does here); with it the samples'
+        directory, p.outpath_grids set.  The request's formats are checked
+        first, so an unported one fails before any device work."""
+        if not save:
+            return None
+        with opts.override(p.override_settings):
+            saving.check_format(opts.get("samples_format", "png") or "png")
+            saving.check_format(opts.get("grid_format", "png") or "png", "grid_format")
+        samples, grids = self._resolve_outdirs(which)
+        p.outpath_grids = grids
+        return samples
+
+    def txt2img(self, p: GenerationParams, save: bool = False) -> Processed:
+        """app.py:317-341; `save` writes the images (save_images)."""
         return self._run("txt2img", p, lambda: process_txt2img(
             self.sd_model, p, step_callback=self._step_callback,
             refiner_model=self._resolve_refiner(p), interrupted=self._interrupted,
-            callback=self._batch_callback))
+            callback=self._batch_callback, outdir=self._apply_save_flags(p, save, "txt2img")))
 
     def extras(self, images: list, args: StageArgs) -> list:
         """The Extras stage chain over RGB uint8 images, one job; the face
@@ -392,12 +432,13 @@ class Engine:
     def _interrupted(self) -> bool:
         return self.state.interrupted
 
-    def img2img(self, p: GenerationParams) -> Processed:
+    def img2img(self, p: GenerationParams, save: bool = False) -> Processed:
         """app.py:363-379: img2img and inpainting on the live model (an SDXL
-        base or its 9-channel inpainting variant too)."""
+        base or its 9-channel inpainting variant too); `save` as txt2img's."""
         return self._run("img2img", p, lambda: process_img2img(
             self.sd_model, p, step_callback=self._step_callback,
-            interrupted=self._interrupted, callback=self._batch_callback))
+            interrupted=self._interrupted, callback=self._batch_callback,
+            outdir=self._apply_save_flags(p, save, "img2img")))
 
     # ---- scripts (app.py:381-409) ---------------------------------------
 

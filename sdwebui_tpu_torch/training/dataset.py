@@ -1,10 +1,10 @@
 """The training dataset: templates, captions, the learn-rate schedule, the
 pre-encoded latents and the focal-point crop.
 
-Port of ``sdwebui_tpu/training/dataset.py:21-384``.  Images are PNG files
-read by ``utils/png.decode_png`` (a JPEG, WebP, BMP or GIF in the dataset
-raises, naming the file and its format: the port has no decoder for them;
-JAX reads them through Pillow), resized with ``utils/images.resize``
+Port of ``sdwebui_tpu/training/dataset.py:21-384``.  Images are PNG and
+JPEG files read by ``utils/image_io.decode_image`` (a WebP, BMP, GIF or
+TIFF in the dataset raises, naming the file and its format: the port has
+no decoder for them yet; JAX reads them through Pillow), resized with ``utils/images.resize``
 (Pillow's bicubic) and encoded once by the port's first stage.  Every
 draw of ``np.random.default_rng(seed)`` (the flips, the bucket and entry
 choices, the template line, tag dropout and shuffling) comes in JAX's
@@ -31,7 +31,7 @@ import torch
 from sdwebui_tpu_torch.utils import cv
 from sdwebui_tpu_torch.utils import images as images_util
 from sdwebui_tpu_torch.utils.options import opts
-from sdwebui_tpu_torch.utils.png import decode_png
+from sdwebui_tpu_torch.utils.image_io import UnsupportedImageFormat, read_image_file
 
 log = logging.getLogger(__name__)
 
@@ -77,11 +77,6 @@ _TEMPLATES["style_filewords"] = [t.replace(", art by [name]", " of [filewords], 
 _TEMPLATES["hypernetwork"] = ["a photo of a [filewords]", "a painting of a [filewords]"]
 
 IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".webp", ".bmp")
-
-#: magic bytes of the formats a dataset may hold that the port cannot read
-_OTHER_FORMATS = ((b"\xff\xd8\xff", "JPEG"), (b"RIFF", "WEBP"), (b"BM", "BMP"),
-                  (b"GIF8", "GIF"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
-
 
 def load_template(name_or_path: str) -> list[str]:
     """A template set by its name, or the non-empty lines of a template file."""
@@ -166,15 +161,13 @@ class LearnRateScheduler:
 
 
 def read_image(path: str) -> np.ndarray:
-    """A dataset file's uint8 (H, W, C) pixels; another format than PNG
-    raises, naming the file and the format."""
-    with open(path, "rb") as f:
-        data = f.read()
-    for magic, fmt in _OTHER_FORMATS:
-        if data.startswith(magic):
-            raise NotImplementedError(f"{path}: a {fmt} image; the port reads PNG datasets "
-                                      "only (no decoder for other formats)")
-    return decode_png(data)[0]
+    """A dataset file's uint8 (H, W, C) pixels; another format than PNG and
+    JPEG raises NotImplementedError, naming the file and the format."""
+    try:
+        return read_image_file(path)[0]
+    except UnsupportedImageFormat as e:
+        raise NotImplementedError(f"{path}: a {e.fmt} image; the port reads PNG and JPEG "
+                                  "datasets only (no decoder for other formats yet)") from e
 
 
 @dataclasses.dataclass
@@ -222,7 +215,7 @@ class PersonalizedDataset:
         for path in paths:
             try:
                 pixels = read_image(path)
-            except ValueError:           # not a readable PNG: skipped, as JAX skips it
+            except ValueError:           # not a readable image: skipped, as JAX skips it
                 continue
             alpha = pixels[:, :, -1] if use_weight and pixels.shape[2] in (2, 4) else None
             img = images_util.to_rgb(pixels)

@@ -1,12 +1,15 @@
 """A small PNG writer and reader on numpy and the standard library.
 
-Writes 8-bit RGB/RGBA images with text chunks — the ``parameters`` chunk
-carries the infotext, as the JAX server writes it through PIL
-(``sdwebui_tpu/server/app.py:499``).  The reader takes the non-interlaced
+Writes 8-bit grey, grey + alpha, RGB and RGBA images with text chunks —
+the ``parameters`` chunk carries the infotext, as the JAX server writes it
+through PIL (``sdwebui_tpu/server/app.py:499``); ``utils/saving`` writes
+saved files with it, and ``utils/jpeg`` reads and writes JPEG.  The reader takes the non-interlaced
 8-bit PNGs clients send, PIL's included: colour types 0 (grey), 2 (RGB), 3
 (palette, expanded to RGB as PIL's ``convert("RGB")`` does), 4 (grey +
 alpha) and 6 (RGBA), rows under any of the five filters.  Interlaced
-images and other bit depths raise ``ValueError``.
+images and other bit depths raise ``ValueError``, and so does an image
+over Pillow's pixel limit (``check_image_size``, which the JPEG reader
+shares), before anything is allocated or inflated.
 """
 
 from __future__ import annotations
@@ -17,8 +20,19 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_COLOR_TYPES = {1: 0, 3: 2, 4: 6}  # channels → PNG colour type
+_COLOR_TYPES = {1: 0, 2: 4, 3: 2, 4: 6}  # channels → PNG colour type
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # PNG colour type → samples per pixel
+#: Pillow's ``Image.MAX_IMAGE_PIXELS``; ``Image.open`` refuses twice that
+MAX_IMAGE_PIXELS = 1024 * 1024 * 1024 // 4 // 3
+
+
+def check_image_size(width: int, height: int) -> None:
+    """Pillow's decompression-bomb check in ``Image.open``: a frame of more
+    than 2 · MAX_IMAGE_PIXELS pixels raises (``ValueError`` here)."""
+    pixels = max(1, width) * max(1, height)
+    if pixels > 2 * MAX_IMAGE_PIXELS:
+        raise ValueError(f"Image size ({pixels} pixels) exceeds limit of "
+                         f"{2 * MAX_IMAGE_PIXELS} pixels, could be decompression bomb DOS attack.")
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -35,13 +49,13 @@ def _text_chunk(key: str, value: str) -> bytes:
 
 
 def encode_png(image: np.ndarray, text: dict | None = None, level: int = 6) -> bytes:
-    """uint8 (H, W, 3|4), or grey (H, W[, 1]) → PNG bytes with optional text
-    chunks."""
+    """uint8 (H, W, 3|4), or grey (H, W[, 1|2]) → PNG bytes with optional
+    text chunks."""
     image = np.ascontiguousarray(image)
     if image.ndim == 2:
         image = image[:, :, None]
     if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] not in _COLOR_TYPES:
-        raise ValueError(f"expected uint8 (H, W[, 1|3|4]), got {image.dtype} {image.shape}")
+        raise ValueError(f"expected uint8 (H, W[, 1-4]), got {image.dtype} {image.shape}")
     h, w, c = image.shape
     ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPES[c], 0, 0, 0)
     rows = np.empty((h, 1 + w * c), np.uint8)
@@ -115,6 +129,7 @@ def decode_png(data: bytes) -> tuple[np.ndarray, dict]:
         pos += 12 + length
         if kind == b"IHDR":
             hdr = struct.unpack(">IIBBBBB", body)
+            check_image_size(hdr[0], hdr[1])
         elif kind == b"PLTE":
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
@@ -137,10 +152,14 @@ def decode_png(data: bytes) -> tuple[np.ndarray, dict]:
         raise ValueError(f"unsupported PNG: depth {depth}, colour type {ctype}, "
                          f"interlace {interlace} (8-bit, non-interlaced only)")
     bpp = _CHANNELS[ctype]
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if rows.size < h * (1 + w * bpp):
+    size = h * (1 + w * bpp)
+    try:   # inflate no more than the image holds
+        rows = np.frombuffer(zlib.decompressobj().decompress(b"".join(idat), size), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f"corrupt PNG image data: {e}") from e
+    if rows.size < size:
         raise ValueError("truncated PNG image data")
-    pixels = _unfilter(rows[:h * (1 + w * bpp)].reshape(h, 1 + w * bpp), bpp)
+    pixels = _unfilter(rows.reshape(h, 1 + w * bpp), bpp)
     image = pixels.reshape(h, w, bpp)
     if ctype == 3:
         if palette is None:

@@ -1,0 +1,299 @@
+"""Saving images with their infotext — port of the saving half of
+``sdwebui_tpu/utils/images.py:34-330``.
+
+``save_image`` takes every step JAX's takes: the file name from
+``utils/filename.FilenameGenerator`` (``samples_filename_pattern``,
+``save_to_dirs`` with ``directories_filename_pattern``, numbering,
+``save_images_replace_action``), the ``before_image_saved`` /
+``image_saved`` callbacks of ``scripts/framework``, the ``f_namemax``
+cut, the name reserved synchronously, then the write: PNG at
+``sdtpu_png_compress_level`` with its ``parameters`` text
+(``utils/png``), JPEG at ``jpeg_quality`` with its EXIF UserComment
+(``utils/jpeg``, ``utils/exif``), the ``export_for_4chan`` JPEG copy
+(resized with Pillow's LANCZOS, ``utils/images.resize``) and the ``.txt``
+sidecar, on one background writer thread with ``sdtpu_async_save``
+(``flush_saves`` joins it).  Images are uint8 (H, W, 3|4) or grey (H, W[,
+1]) numpy arrays.  Formats other than PNG and JPEG (``webp``, ``avif``,
+``gif``, ...) raise ``NotImplementedError`` naming the format.
+
+The port's PNG encoder writes every row with filter None, so its files are
+not Pillow's bytes (the pixels and text chunks are the same): the
+``img_downscale_threshold`` test of ``export_for_4chan`` reads the port's
+file size.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+
+import numpy as np
+
+from sdwebui_tpu_torch.utils import exif as exif_util
+from sdwebui_tpu_torch.utils import images as images_util
+from sdwebui_tpu_torch.utils.jpeg import encode_jpeg
+from sdwebui_tpu_torch.utils.options import opts
+from sdwebui_tpu_torch.utils.png import encode_png
+
+#: the extensions ``save_image`` writes
+FORMATS = ("png", "jpg", "jpeg")
+
+_INVALID_FN_CHARS = '#<>:"/\\|?*\n\r\t'
+
+
+def sanitize_filename_part(text: str, replace_spaces=True) -> str:
+    """Reference modules/images.py:343 semantics: invalid chars become '_',
+    leading spaces and trailing ' .' are stripped, 128-char cap."""
+    if text is None:
+        return None
+    if replace_spaces:
+        text = text.replace(" ", "_")
+    text = text.translate({ord(x): "_" for x in _INVALID_FN_CHARS})
+    text = text.lstrip(" ")[:128]
+    return text.rstrip(" .")
+
+
+def check_format(extension: str, what: str = "samples_format") -> None:
+    """NotImplementedError naming an image format the port cannot write."""
+    if str(extension).lower().lstrip(".") not in FORMATS:
+        raise NotImplementedError(f"{what} {extension!r} is not ported yet (the port writes "
+                                  "png and jpg)")
+
+
+class PixelView:
+    """What ``FilenameGenerator`` reads of an image: its width, height and
+    raw bytes (row-major channels, as Pillow's ``tobytes()`` of the same
+    image)."""
+
+    def __init__(self, image: np.ndarray):
+        self._a = np.ascontiguousarray(image)
+        self.height, self.width = self._a.shape[:2]
+
+    def tobytes(self) -> bytes:
+        return self._a.tobytes()
+
+
+# --------------------------------------------------------------------------
+# the background writer: names are reserved synchronously (an empty
+# placeholder, so numbering stays collision-free); the encode and write
+# happen on one worker thread through a tmp file and os.replace;
+# flush_saves() joins the queue.
+# --------------------------------------------------------------------------
+
+_save_queue = None
+_save_thread = None
+_save_init_lock = threading.Lock()
+
+
+def _writer_loop():
+    while True:
+        item = _save_queue.get()
+        try:
+            if item is None:
+                return
+            item()
+        except Exception:   # pragma: no cover - never kill the writer
+            import traceback
+            traceback.print_exc()
+        finally:
+            _save_queue.task_done()
+
+
+def _enqueue_save(fn):
+    global _save_queue, _save_thread
+    import atexit
+    import queue
+    import threading
+
+    with _save_init_lock:
+        if _save_thread is None or not _save_thread.is_alive():
+            _save_queue = queue.Queue()
+            _save_thread = threading.Thread(target=_writer_loop, daemon=True)
+            _save_thread.start()
+            atexit.register(flush_saves)
+    _save_queue.put(fn)
+
+
+def flush_saves() -> None:
+    """Block until every queued async save hit disk."""
+    if _save_queue is not None:
+        _save_queue.join()
+
+
+def _write_settings() -> dict:
+    """The options a write reads, taken when the save is queued: the
+    request's override_settings are gone by the time the writer runs."""
+    return {k: opts.get(k, d) for k, d in (("enable_pnginfo", True),
+                                           ("sdtpu_png_compress_level", 1),
+                                           ("jpeg_quality", 80))}
+
+
+def save_image_with_geninfo(image: np.ndarray, geninfo: str | None, filename: str,
+                            extension: str | None = None,
+                            existing_pnginfo: dict | None = None,
+                            pnginfo_section_name: str = "parameters",
+                            settings: dict | None = None) -> None:
+    """Format-aware write with the infotext embedded (images.py:97-146): a
+    PNG text chunk, or a JPEG EXIF UserComment.  settings: enable_pnginfo,
+    sdtpu_png_compress_level and jpeg_quality (default: the options now)."""
+    settings = settings or _write_settings()
+    ext = (extension or os.path.splitext(filename)[1]).lower()
+    if not ext.startswith("."):
+        ext = "." + ext
+    image = images_util.as_hwc(image)
+    if ext == ".png":
+        text = None
+        if settings["enable_pnginfo"]:
+            text = {k: str(v) for k, v in (existing_pnginfo or {}).items()}
+            if geninfo is not None:
+                text[pnginfo_section_name] = str(geninfo)
+        data = encode_png(image, text, level=int(settings["sdtpu_png_compress_level"]))
+    elif ext in (".jpg", ".jpeg"):
+        pixels = image[:, :, 0] if image.shape[2] <= 2 else image[:, :, :3]
+        exif = None
+        if settings["enable_pnginfo"] and geninfo is not None:
+            exif = exif_util.build_exif_bytes(geninfo)
+        data = encode_jpeg(pixels, int(settings["jpeg_quality"]), exif)
+    else:
+        check_format(ext.lstrip("."), "image format")
+    with open(filename, "wb") as f:
+        f.write(data)
+
+
+def save_image(image: np.ndarray, path: str, basename: str = "", seed=None, prompt=None,
+               info: str | None = None, extension: str = "png", short_filename: bool = False,
+               no_prompt: bool = False, grid: bool = False,
+               pnginfo_section_name: str = "parameters", p=None,
+               existing_info: dict | None = None, forced_filename: str | None = None,
+               suffix: str = "", save_to_dirs: bool | None = None) -> str:
+    """Save with the reference's naming rules and callbacks (images.py:148-299);
+    returns the full path.  With opts.sdtpu_async_save the encode and write
+    run on the background thread (``flush_saves`` joins it)."""
+    from sdwebui_tpu_torch.scripts import framework
+    from sdwebui_tpu_torch.utils.filename import FilenameGenerator, get_next_sequence_number
+
+    height, width = np.asarray(image).shape[:2]
+    namegen = FilenameGenerator(p, seed, prompt, PixelView(image), basename=basename)
+
+    if ((height > 65535 or width > 65535) and extension.lower() in ("jpg", "jpeg")) or \
+            ((height > 16383 or width > 16383) and extension.lower() == "webp"):
+        extension = "png"
+    check_format(extension)
+
+    if save_to_dirs is None:
+        save_to_dirs = (grid and opts.get("grid_save_to_dirs", False)) or \
+            (not grid and opts.get("save_to_dirs", False) and not no_prompt)
+
+    if save_to_dirs:
+        dirname = namegen.apply(
+            opts.get("directories_filename_pattern") or "[prompt_words]"
+        ).lstrip(" ").rstrip("\\ /")
+        path = os.path.join(path, dirname)
+
+    os.makedirs(path, exist_ok=True)
+
+    if forced_filename is None:
+        if short_filename or seed is None:
+            file_decoration = ""
+        elif opts.get("save_to_dirs", False):
+            file_decoration = opts.get("samples_filename_pattern") or "[seed]"
+        else:
+            file_decoration = opts.get("samples_filename_pattern") or "[seed]-[prompt_spaces]"
+
+        file_decoration = namegen.apply(file_decoration) + suffix
+
+        add_number = opts.get("save_images_add_number", True) or file_decoration == ""
+
+        if file_decoration != "" and add_number:
+            file_decoration = f"-{file_decoration}"
+
+        if add_number:
+            basecount = get_next_sequence_number(path, basename)
+            fullfn = None
+            for i in range(500):
+                fn = f"{basecount + i:05}" if basename == "" else f"{basename}-{basecount + i:04}"
+                fullfn = os.path.join(path, f"{fn}{file_decoration}.{extension}")
+                if not os.path.exists(fullfn):
+                    break
+        else:
+            fullfn = os.path.join(path, f"{file_decoration}.{extension}")
+            if os.path.exists(fullfn) and \
+                    opts.get("save_images_replace_action", "Replace") != "Replace":
+                base_no_ext = os.path.splitext(fullfn)[0]
+                n = 0
+                while os.path.exists(fullfn):
+                    n += 1
+                    fullfn = f"{base_no_ext}-{n}.{extension}"
+    else:
+        fullfn = os.path.join(path, f"{forced_filename}.{extension}")
+
+    pnginfo = dict(existing_info or {})
+    if info is not None:
+        pnginfo[pnginfo_section_name] = info
+
+    # before_image_saved may swap the image or rename the file
+    params = framework.ImageSaveParams(image, p, fullfn, pnginfo)
+    framework.invoke("before_image_saved", params)
+    image = params.image
+    fullfn = params.filename
+    info = params.pnginfo.get(pnginfo_section_name, None)
+
+    fullfn_no_ext, ext = os.path.splitext(fullfn)
+    if hasattr(os, "statvfs"):
+        max_name_len = os.statvfs(path).f_namemax
+        fullfn_no_ext = fullfn_no_ext[:max_name_len - max(4, len(ext))]
+        fullfn = fullfn_no_ext + ext
+
+    # reserve the name synchronously so concurrent numbering never collides
+    open(fullfn, "wb").close()
+
+    oversize_side = int(opts.get("target_side_length", 4000))
+    downscale_mb = float(opts.get("img_downscale_threshold", 4.0))
+    export_4chan = bool(opts.get("export_for_4chan", False))
+    save_txt = bool(opts.get("save_txt", False))
+    settings = _write_settings()
+
+    def _write():
+        tmp = fullfn_no_ext + ".tmp"
+        save_image_with_geninfo(image, info, tmp, ext, existing_pnginfo=params.pnginfo,
+                                pnginfo_section_name=pnginfo_section_name, settings=settings)
+        os.replace(tmp, fullfn)
+
+        h, w = np.asarray(image).shape[:2]
+        oversize = w > oversize_side or h > oversize_side
+        if export_4chan and (oversize or os.stat(fullfn).st_size >
+                             downscale_mb * 1024 * 1024):
+            ratio = w / h
+            resize_to = None
+            if oversize and ratio > 1:
+                resize_to = (round(oversize_side), round(h * oversize_side / w))
+            elif oversize:
+                resize_to = (round(w * oversize_side / h), round(oversize_side))
+            small = image if resize_to is None else \
+                images_util.resize(images_util.to_rgb(image), resize_to, "lanczos")
+            try:
+                save_image_with_geninfo(small, info, fullfn_no_ext + ".jpg", settings=settings)
+            except Exception:
+                pass
+
+        if save_txt and info is not None:
+            with open(fullfn_no_ext + ".txt", "w", encoding="utf8") as f:
+                f.write(f"{info}\n")
+
+        framework.invoke("image_saved", params)
+
+    if opts.get("sdtpu_async_save", True):
+        image = np.array(image, copy=True)     # the writer owns its copy
+        _enqueue_save(_write)
+    else:
+        _write()
+    return fullfn
+
+
+def read_info_from_image(info: dict) -> str | None:
+    """The infotext of a decoded image (images.py:302): its PNG
+    "parameters" text, else its JPEG EXIF UserComment."""
+    geninfo = (info or {}).get("parameters")
+    if geninfo is None:
+        geninfo = exif_util.read_user_comment((info or {}).get("exif"))
+    return geninfo

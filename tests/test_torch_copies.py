@@ -6,7 +6,9 @@ the checkpoint sniffer, every sigma schedule under the options that reshape
 it, LCM's distillation subtable, and the tables of the hires and upscale
 path (latent upscale modes, the Extras stage fields, the built-in
 upscalers, ESRGAN's old-key map and architecture sniffing), the prompt
-styles' CSV database, and outpainting mk2's noise fill.
+styles' CSV database, outpainting mk2's noise fill, and the saving path's
+host code (the filename patterns, the writer thread, the EXIF comment
+reader, log.csv).
 """
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
@@ -379,3 +381,53 @@ def test_noise_match_equals_jax():
     for q, variation in ((1.0, 0.05), (0.5, 0.3)):
         np.testing.assert_array_equal(nm.matched_noise(src, mask, q, variation),
                                       jax_nm.matched_noise(src, mask, q, variation))
+
+
+#: (JAX module, port module, names whose source text is the same)
+SAVING_SHARED = [
+    ("sdwebui_tpu.utils.images", "sdwebui_tpu_torch.utils.saving",
+     ("sanitize_filename_part", "_writer_loop", "_enqueue_save", "flush_saves")),
+    ("sdwebui_tpu.utils.exif", "sdwebui_tpu_torch.utils.exif", ("decode_user_comment",)),
+    ("sdwebui_tpu.server.ui_actions", "sdwebui_tpu_torch.server.ui_actions",
+     ("_update_logfile", "save_files_from_json", "_LOG_FIELDS")),
+    ("sdwebui_tpu.utils.filename", "sdwebui_tpu_torch.utils.filename",
+     ("get_next_sequence_number", "_token", "_SkipToken", "_clean", "_WORD_SPLIT", "_SEGMENT",
+      "_TRAILING_ARG")),
+]
+
+
+@pytest.mark.parametrize("jax_mod,port_mod,names", SAVING_SHARED,
+                         ids=[m[1].rsplit(".", 1)[1] for m in SAVING_SHARED])
+def test_saving_sources_equal_jax(jax_mod, port_mod, names):
+    """The saving path's host code is a copy wherever it can be: the same
+    source text (or value) as the JAX package's."""
+    import importlib
+    import inspect
+
+    theirs, ours = importlib.import_module(jax_mod), importlib.import_module(port_mod)
+    for name in names:
+        a, b = getattr(ours, name), getattr(theirs, name)
+        if callable(a):
+            assert inspect.getsource(a) == inspect.getsource(b), name
+        else:
+            assert a == b, name
+
+
+def test_filename_generator_is_a_copy():
+    """Every FilenameGenerator method but the three that import the port's
+    own modules ([scheduler], [prompt_no_styles]) or read the request's VAE
+    file ([vae_filename]) has JAX's source text; both register the same
+    tokens."""
+    import inspect
+
+    from sdwebui_tpu.utils import filename as jax_fn
+    from sdwebui_tpu_torch.utils import filename as fn
+
+    assert list(fn._TOKENS) == list(jax_fn._TOKENS)
+    own = {"_scheduler_text", "_prompt_no_styles", "_vae_filename"}
+    for name, member in vars(jax_fn.FilenameGenerator).items():
+        if not inspect.isfunction(getattr(member, "__func__", member)) or name in own:
+            continue
+        ours = vars(fn.FilenameGenerator)[name]
+        assert inspect.getsource(getattr(ours, "__func__", ours)) == \
+            inspect.getsource(getattr(member, "__func__", member)), name

@@ -502,11 +502,37 @@ def test_missing_weights_log_once_and_match_jax(models, f32_policies, caplog, tm
     assert out.infotexts == ref.infotexts and "Face restoration: CodeFormer" in out.infotexts[0]
 
 
-def test_save_images_before_face_restoration_raises(models):  # noqa: F811
-    p = GenerationParams(prompt="x", seed=1, steps=1, width=64, height=64, restore_faces=True,
-                         override_settings={"save_images_before_face_restoration": True})
-    with pytest.raises(NotImplementedError, match="save_images_before_face_restoration"):
-        port_proc.process_txt2img(models[1], p)
+def test_save_images_before_face_restoration_raises(models, f32_policies,  # noqa: F811
+                                                     mirror_restorer, tmp_path):
+    """save_images_before_face_restoration, which the port once refused: the
+    decoded image saved as "-before-face-restoration" before the restorer
+    runs, then the restored sample, under JAX's names and infotexts, the
+    pixels within 1 level of JAX's files."""
+    from sdwebui_tpu.utils import images as jax_images
+    from sdwebui_tpu_torch.utils import saving
+    from sdwebui_tpu_torch.utils.png import decode_png
+
+    base = dict(prompt="a face", seed=1, steps=2, width=64, height=64, restore_faces=True,
+                override_settings=dict(FACE_SETTINGS, save_to_dirs=False,
+                                       save_images_before_face_restoration=True))
+    jax_proc.process_txt2img(models[0], JaxParams(**base), outdir=str(tmp_path / "jax"))
+    out = port_proc.process_txt2img(models[1], GenerationParams(**base),
+                                    outdir=str(tmp_path / "port"))
+    jax_images.flush_saves()
+    saving.flush_saves()
+    names = sorted(os.listdir(tmp_path / "port"))
+    assert names == sorted(os.listdir(tmp_path / "jax")) and len(names) == 2
+    assert names[0].endswith("-before-face-restoration.png")
+    saved = []
+    for name in names:
+        img, text = decode_png((tmp_path / "port" / name).read_bytes())
+        with Image.open(tmp_path / "jax" / name) as ref:
+            assert np.abs(img.astype(int) - np.asarray(ref, int)).max() <= 1
+            assert text == {"parameters": ref.info["parameters"]} == \
+                {"parameters": out.infotexts[0]}
+        saved.append(img)
+    np.testing.assert_array_equal(saved[1], out.images[0])
+    assert not np.array_equal(saved[0], saved[1])
 
 
 EXTRAS_CASES = {

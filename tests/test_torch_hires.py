@@ -236,13 +236,14 @@ def test_hires_without_denoising_strength_takes_0_7(models, f32_policies):
 
 
 @pytest.mark.parametrize("kw,name", [
-    (dict(override_settings={"save_images_before_highres_fix": True}),
-     "save_images_before_highres_fix"),
+    (dict(override_settings={"save_images_before_highres_fix": True,
+                             "samples_format": "webp"}), "webp"),
     (dict(hr_upscaler="No such upscaler"), "No such upscaler"),
 ])
-def test_unported_hires_requests_raise(models, kw, name):
+def test_unported_hires_requests_raise(models, kw, name, tmp_path):
     with pytest.raises((NotImplementedError, LookupError), match=name):
-        port_proc.process_txt2img(models[1], GenerationParams(**_hr(steps=1, **kw)))
+        port_proc.process_txt2img(models[1], GenerationParams(**_hr(steps=1, **kw)),
+                                  outdir=str(tmp_path))
 
 
 # --------------------------------------------------------------------------
@@ -350,8 +351,8 @@ def test_txt2img_route_runs_hires(server_url):
     ({"hr_scheduler": "nope"}, 400, "Scheduler not found"),
     ({"hr_scale": "2"}, 422, "hr_scale"),
     ({"hr_checkpoint_name": "x.safetensors"}, 422, "hr_checkpoint_name"),
-    ({"override_settings": {"save_images_before_highres_fix": True}}, 422,
-     "save_images_before_highres_fix"),
+    ({"save_images": True, "override_settings": {"save_images_before_highres_fix": True,
+                                                 "samples_format": "webp"}}, 422, "webp"),
 ])
 def test_txt2img_route_hires_errors(server_url, body, status, word):
     code, res = _call(server_url + "/txt2img", {"steps": 1, "width": 64, "height": 64,

@@ -35,6 +35,7 @@ from sdwebui_tpu.sampling.cfg import CondSchedule as JaxSched
 from sdwebui_tpu.sampling.cfg import make_cfg_denoiser as jax_cfg
 from sdwebui_tpu.sampling.cfg import soft_latent_blend as jax_soft_blend
 from sdwebui_tpu.utils import color as jax_color
+from sdwebui_tpu.utils import images as jax_images
 from sdwebui_tpu.utils import masking as jax_masking
 from sdwebui_tpu_torch.pipeline import img2img as port_i2i
 from sdwebui_tpu_torch.pipeline import processing as port_proc
@@ -42,6 +43,7 @@ from sdwebui_tpu_torch.sampling.cfg import CondSchedule, make_cfg_denoiser, soft
 from sdwebui_tpu_torch.utils import color as port_color
 from sdwebui_tpu_torch.utils import images as port_images
 from sdwebui_tpu_torch.utils import masking as port_masking
+from sdwebui_tpu_torch.utils import saving as port_saving
 from sdwebui_tpu_torch.utils.png import decode_png, encode_png
 from test_torch_img2img import (_init_image, _pair, _rect_mask, f32_policies,  # noqa: F401
                                 models)
@@ -336,6 +338,8 @@ def test_save_init_img_matches_jax(models, f32_policies, tmp_path):  # noqa: F81
     ref = jax_i2i.process_img2img(models[0], jp)
     out = port_i2i.process_img2img(models[1], pp)
     _assert_same_result(ref, out)
+    jax_images.flush_saves()            # both write on their background threads
+    port_saving.flush_saves()
     (name,) = os.listdir(port_dir)
     assert os.listdir(jax_dir) == [name] and f"Init image hash: {name[:-4]}" in out.infotexts[0]
     saved = decode_png((port_dir / name).read_bytes())[0]

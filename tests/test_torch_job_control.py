@@ -237,9 +237,17 @@ def test_progress_routes_match_jax():
                 head, b64 = out["live_preview"].split(",", 1)
                 assert head == "data:image/png;base64"
                 np.testing.assert_array_equal(decode_png(base64.b64decode(b64))[0], img)
-        with opts.override({"live_previews_image_format": "jpeg"}):
+        # jpeg previews: Pillow's bytes at its default quality, as JAX sends
+        # them; webp answers 422 naming it
+        with opts.override({"live_previews_image_format": "jpeg"}), \
+                jax_opts.override({"live_previews_image_format": "jpeg"}):
+            ref = jax_api.Api.internal_progress(None, None)
             status, res = api.handle("GET", "/internal/progress", None)
-        assert status == 422 and "jpeg" in res["detail"]
+        assert status == 200 and res["live_preview"] == ref["live_preview"]
+        assert res["live_preview"].startswith("data:image/jpeg;base64,")
+        with opts.override({"live_previews_image_format": "webp"}):
+            status, res = api.handle("GET", "/internal/progress", None)
+        assert status == 422 and "webp" in res["detail"]
     finally:
         _reset_jax_state()
 

@@ -77,15 +77,16 @@ def test_same_seed_same_image(models):
 
 
 @pytest.mark.parametrize("kw,name", [
-    (dict(enable_hr=True, override_settings={"save_images_before_highres_fix": True}),
-     "enable_hr"),
-    (dict(restore_faces=True, override_settings={"save_images_before_face_restoration": True}),
-     "restore_faces"),
+    (dict(enable_hr=True, override_settings={"save_images_before_highres_fix": True,
+                                             "samples_format": "webp"}), "webp"),
+    (dict(restore_faces=True, override_settings={"save_images_before_face_restoration": True,
+                                                 "samples_format": "gif"}), "gif"),
     (dict(enable_hr=True, hr_prompt="a cat <lora:foo:0.5>"), "lora"),
 ])
-def test_out_of_slice_requests_raise(models, kw, name):
+def test_out_of_slice_requests_raise(models, kw, name, tmp_path):
     with pytest.raises(NotImplementedError, match=name):
-        port_proc.process_txt2img(models[1], _params(batch_size=1, steps=1, **kw))
+        port_proc.process_txt2img(models[1], _params(batch_size=1, steps=1, **kw),
+                                  outdir=str(tmp_path))
 
 
 @pytest.mark.parametrize("kw,field", [

@@ -81,9 +81,21 @@ def test_dataset_matches_jax(models, f32_policies, data_dir, method):  # noqa: F
 
 
 def test_dataset_reads_png_only(models, tmp_path):  # noqa: F811
+    """PNG and JPEG files are read (a JPEG as Pillow decodes it); a BMP
+    raises naming the file and its format."""
+    import io
+
+    jpg = np.random.default_rng(4).integers(0, 256, (40, 56, 3), dtype=np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(jpg).save(buf, "JPEG", quality=80)
     (tmp_path / "a.png").write_bytes(encode_png(np.zeros((64, 64, 3), np.uint8)))
-    (tmp_path / "b.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(20))
-    with pytest.raises(NotImplementedError, match=r"b\.jpg: a JPEG image"):
+    (tmp_path / "b.jpg").write_bytes(buf.getvalue())
+    np.testing.assert_array_equal(port_ds.read_image(str(tmp_path / "b.jpg")),
+                                  np.asarray(Image.open(tmp_path / "b.jpg")))
+    ds = port_ds.PersonalizedDataset(str(tmp_path), models[1], width=64, height=64)
+    assert len(ds.entries) == 2
+    (tmp_path / "c.bmp").write_bytes(b"BM" + bytes(20))
+    with pytest.raises(NotImplementedError, match=r"c\.bmp: a BMP image"):
         port_ds.PersonalizedDataset(str(tmp_path), models[1], width=64, height=64)
 
 

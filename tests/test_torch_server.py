@@ -63,10 +63,9 @@ def test_txt2img_returns_png_with_infotext(server_url):
 
 
 @pytest.mark.parametrize("body,field", [
-    ({"enable_hr": True, "override_settings": {"save_images_before_highres_fix": True}},
-     "enable_hr"),
+    ({"save_images": True, "override_settings": {"grid_format": "avif"}}, "avif"),
     ({"no_such_field": 1}, "no_such_field"),
-    ({"override_settings": {"samples_save": True}}, "samples_save"),
+    ({"override_settings": {"webp_lossless": True}}, "webp_lossless"),
     ({"override_settings": {"sd_model_checkpoint": "x"}}, "sd_model_checkpoint"),
     ({"enable_hr": True, "hr_scale": 1.5, "hr_prompt": "a <lora:x:1>"}, "lora"),
 ])

@@ -191,12 +191,12 @@ def test_training_routes_match_jax(train_models, data_dir, tmp_path, monkeypatch
         status, got = xl.handle("POST", "/sdapi/v1/train/embedding",
                                 {"embedding_name": "e", "data_root": str(data_dir), "steps": 1})
         assert status == 422 and "'sdxl'" in got["detail"]
-        (tmp_path / "jpeg").mkdir()
-        (tmp_path / "jpeg" / "a.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(16))
+        (tmp_path / "bmp").mkdir()
+        (tmp_path / "bmp" / "a.bmp").write_bytes(b"BM" + bytes(16))
         status, got = api.handle("POST", "/sdapi/v1/preprocess",
-                                 {"process_src": str(tmp_path / "jpeg"),
+                                 {"process_src": str(tmp_path / "bmp"),
                                   "process_dst": str(tmp_path / "out")})
-        assert status == 422 and "a.jpg: a JPEG image" in got["detail"]
+        assert status == 422 and "a.bmp: a BMP image" in got["detail"]
     finally:
         port_hn.set_hypernetwork_dirs([port_hn.DEFAULT_HYPERNETWORK_DIR])
 

@@ -520,7 +520,7 @@ def test_extras_batch_route(server_url):
     ({"upscaler_1": "Lanczos", "upscaler_2": "SwinIR 4x"}, 422, "SwinIR 4x"),
     ({"gfpgan_visibility": 0.5}, 422, "GFPGAN"),
     ({"codeformer_visibility": 0.5}, 422, "CodeFormer"),
-    ({"save_output": True}, 422, "save_output"),
+    ({"save_output": "yes"}, 422, "save_output"),
     ({"resize_mode": 3}, 422, "resize_mode 3"),
     ({"upscaling_resize": "2"}, 422, "upscaling_resize"),
     ({"bogus": 1}, 422, "bogus"),
