@@ -320,6 +320,24 @@ Phases, in order; any failure exits non-zero:
      logged: the seconds of each request and the host ms of the codecs at
      512² and 1024² (PNG level 1 and JPEG quality 80 encodes, JPEG decodes
      at quality 80 and 95, 4:2:0 and 4:4:4).
+  4o. the image formats after JPEG on the SD1.5 server (after 4n), its
+     --outdir a temporary directory: (a) img2img from the phase-3 image as
+     lossless WebP, lossy WebP, lossy WebP with an ALPH chunk, GIF, BMP
+     (24-bit and RLE8), TIFF (LZW with the predictor, Deflate), 16-bit and
+     interlaced PNG (the variants the port never writes from
+     tests/torch_image_files.py), each file's decode equal to its reference
+     pixels and its image within REPEAT_TOL of the img2img from a PNG of
+     those pixels; (b) txt2img saving with samples_format webp (lossy and
+     webp_lossless), gif, bmp and tiff: each file decoding to the
+     response's pixels (exactly, or within WEBP_MEAN_TOL / GIF_MEAN_TOL
+     levels on average), the WebP's infotext back through /png-info; (c) a
+     webp live preview from /internal/progress during a job; (d) the host
+     ms of each codec at 512² and of a 1024² WebP; (e) one txt2img with a
+     Full live preview every PREVIEW_EVERY steps fetched by a poller in
+     png, then in webp (the seconds of each: the lossy encoder runs in the
+     poll's handler).  Every request of (a), (b) and (e) launches B1, B2
+     and B5 as planned (img2img B1 2, B2 160, B5 794; txt2img B1 1, B2
+     200, B5 986; (e) B1 once more for each preview).
 Each phase's seconds are logged as it ends.  The last two lines are the
 kernels JSON and {"ok": true, "device": ...}.
 Needs a CUDA card; without one it exits 1 and prints no result.
@@ -358,7 +376,7 @@ CONV_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}   # max|Δ| / max|ref
 # an absolute 2e-2
 LN_ULP_TOL = 1.0
 UNET_REL_TOL = 5e-2
-UNET_ROUNDS = 3         # interleaved timing rounds per UNet arm
+UNET_ROUNDS = 2         # interleaved timing rounds per UNet arm
 REPEAT_TOL = 2          # uint8 levels
 # mean uint8 levels of a saved JPEG (quality 80) from its PNG: random weights
 # make high-frequency texture, which quality 80 loses 11.8-11.9 levels of on
@@ -1017,7 +1035,7 @@ def _unet_step(label, unet, cfg, latent, x, t, ctx, y=None, tower=None, hint=Non
                     res["launches_per_call"] = dict(zip(("b2", "b1", "b5"), counted))
                 res[f"{arm}_events"] = device_events(step)
         # the step is host-bound and the host's pace drifts within a run, so
-        # the arms take turns and each reports its median round
+        # the arms take turns and each reports the median of its rounds
         times = {arm: [] for arm in arms}
         for _ in range(UNET_ROUNDS):
             for arm, ctx_mgr in arms.items():
@@ -4820,6 +4838,281 @@ def phase_saving(engine, model, phase3: dict, directory: str):
     return results, info
 
 
+# lossy WebP (quality 80) and a 256-colour GIF of a random-weight sample:
+# mean uint8 levels from the response's pixels.  The CPU tests hold both
+# codecs within 1.25x the mean error of Pillow's own files; the card has no
+# Pillow, so these are sanity bounds, as JPEG_MEAN_TOL is for JPEG
+WEBP_MEAN_TOL = 20
+GIF_MEAN_TOL = 24
+PREVIEW_EVERY = 10        # 4o (e): a Full live preview every 10 steps, the option's default
+
+
+def _image_files_helper():
+    """tests/torch_image_files.py: the writers of the variants the port reads
+    and never writes (RLE BMP, LZW and Deflate TIFF, 16-bit and interlaced
+    PNG), loaded by path as 4n loads torch_jpeg_files."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_image_files", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                          "torch_image_files.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def format_files(sample) -> tuple:
+    """The init image in every format 4o sends → ({name: (bytes, reference
+    key)}, {reference key: PNG bytes of the pixels those files decode to}):
+    the lossless files decode to the sample, the GIF and the RLE8 BMP to
+    its 256-colour quantization, the lossy WebPs to their own decodes."""
+    from sdwebui_tpu_torch.utils import bmp, gif, webp
+    from sdwebui_tpu_torch.utils.png import encode_png
+
+    files = _image_files_helper()
+    h, w = sample.shape[:2]
+    pal, index = gif.quantize(sample.reshape(-1, 3))
+    quant = pal[index].reshape(sample.shape)
+    alpha = torch.linspace(64, 255, w).to(torch.uint8).view(1, w, 1).expand(h, w, 1)
+    rgba = torch.cat([torch.from_numpy(sample), alpha], dim=2).numpy()
+    noise = torch.randint(0, 256, sample.shape, generator=torch.Generator().manual_seed(4),
+                          dtype=torch.int32).numpy().astype("uint16")
+    lossy, with_alpha = webp.encode_webp(sample, 80), webp.encode_webp_alpha(rgba, 80)
+    out = {"webp_lossless": (webp.encode_webp(sample, lossless=True), "sample"),
+           "webp_lossy": (lossy, "lossy"), "webp_lossy_alpha": (with_alpha, "alpha"),
+           "gif": (gif.encode_gif(sample), "quant"), "bmp_24": (bmp.encode_bmp(sample), "sample"),
+           "bmp_rle8": (files.bmp_file(index.reshape(h, w).astype("uint8"), "rle8", pal),
+                        "quant"),
+           "tiff_lzw_predictor": (files.tiff_file(sample, "lzw", True, rows_per_strip=64),
+                                  "sample"),
+           "tiff_deflate": (files.tiff_file(sample, "deflate", rows_per_strip=64), "sample"),
+           "png_16bit": (files.png_file((sample.astype("uint16") << 8) | noise, 16, 2),
+                         "sample"),
+           "png_interlaced": (files.png_file(sample, 8, 2, interlace=True), "sample")}
+    refs = {"sample": encode_png(sample), "quant": encode_png(quant),
+            "lossy": encode_png(webp.decode_webp(lossy)[0]),
+            "alpha": encode_png(webp.decode_webp(with_alpha)[0])}
+    return out, refs
+
+
+def format_codec_ms(image) -> dict:
+    """The host ms of the new codecs (medians of three) on a 512² sample:
+    WebP lossy (quality 80) and lossless, GIF, BMP and TIFF, each encoded
+    and decoded; the variants only read (RLE8 BMP, LZW TIFF, 16-bit and
+    interlaced PNG) decoded; a 1024² WebP (lossless) both ways."""
+    from sdwebui_tpu_torch.utils import bmp, gif, images, tiff, webp
+    from sdwebui_tpu_torch.utils.image_io import decode_image
+
+    files = _image_files_helper()
+    out = {}
+    writers = {"webp_lossy": lambda a: webp.encode_webp(a, 80),
+               "webp_lossless": lambda a: webp.encode_webp(a, lossless=True),
+               "gif": lambda a: gif.encode_gif(a, "a photograph"), "bmp": bmp.encode_bmp,
+               "tiff": tiff.encode_tiff}
+    for name, write in writers.items():
+        out[f"{name}_encode_512"] = host_ms(lambda: write(image))
+        data = write(image)
+        out[f"{name}_decode_512"] = host_ms(lambda: decode_image(data))
+        out[f"bytes_{name}_512"] = len(data)
+    pal, index = gif.quantize(image.reshape(-1, 3))
+    read_only = {"bmp_rle8": files.bmp_file(index.reshape(image.shape[:2]).astype("uint8"),
+                                            "rle8", pal),
+                 "tiff_lzw_predictor": files.tiff_file(image, "lzw", True, rows_per_strip=64),
+                 "png_16bit": files.png_file(image.astype("uint16") << 8, 16, 2),
+                 "png_interlaced": files.png_file(image, 8, 2, interlace=True)}
+    for name, data in read_only.items():
+        out[f"{name}_decode_512"] = host_ms(lambda: decode_image(data))
+    big = images.resize(image, (1024, 1024), "lanczos")
+    out["webp_lossless_encode_1024"] = host_ms(lambda: webp.encode_webp(big, lossless=True))
+    data = webp.encode_webp(big, lossless=True)
+    out["webp_lossless_decode_1024"] = host_ms(lambda: decode_image(data))
+    out["bytes_webp_lossless_1024"] = len(data)
+    log("4o codec host ms: " + json.dumps({k: round(v, 2) for k, v in out.items()}))
+    return out
+
+
+def preview_jobs(url, root, txt_plan: dict, results: list) -> dict:
+    """4o (e): the same 512² txt2img with a Full live preview every
+    PREVIEW_EVERY steps while the UI's poller fetches each preview from
+    /internal/progress, in png and then in webp (the lossy encoder runs
+    in the poll's handler, beside the sampling thread) → {format: seconds
+    of the request, previews fetched, polls}.  Each launches B2 and B5 as
+    planned and B1 once more for each preview's VAE decode."""
+    keys = ("live_previews_image_format", "show_progress_type", "show_progress_every_n_steps")
+    current = _post(f"{url}/options")
+    before = {k: current[k] for k in keys}
+    plan = dict(txt_plan, flash_attention=txt_plan["flash_attention"] + STEPS // PREVIEW_EVERY)
+    out = {}
+    try:
+        for fmt in ("png", "webp"):
+            _post(f"{url}/options", {"live_previews_image_format": fmt, "show_progress_type": "Full",
+                                     "show_progress_every_n_steps": PREVIEW_EVERY})
+            fetched = {}
+
+            def fetch(p):
+                live = _post(f"{root}/internal/progress",
+                             {"id_task": "chip_smoke", "live_preview": True})
+                if live["live_preview"]:
+                    fetched[live["id_live_preview"]] = live["live_preview"].split(",", 1)[0]
+
+            job, launches, polls = _watched_job(url, root, dict(SD15_BASE, seed=98), fetch)
+            label = f"4o (e) txt2img with {fmt} Full previews"
+            log(f"{label}: {job['seconds']:.3f} s, {len(fetched)} previews fetched in "
+                f"{len(polls)} polls, launches {launches}")
+            if launches != plan:
+                raise AssertionError(f"{label}: launches {launches} != planned {plan}")
+            if not fetched or set(fetched.values()) != {f"data:image/{fmt};base64"}:
+                raise AssertionError(f"{label}: previews {fetched}")
+            results.append(dict(route="txt2img", label=label, batch=1, seed=98,
+                                seconds=job["seconds"], launches=launches))
+            out[fmt] = dict(seconds=job["seconds"], previews=len(fetched), polls=len(polls))
+    finally:
+        _post(f"{url}/options", before)
+    log(f"4o (e) s/request with Full previews every {PREVIEW_EVERY} steps: "
+        + json.dumps(out))
+    return out
+
+
+def phase_formats(engine, model, phase3: dict, directory: str):
+    """4o: the image formats after JPEG on the phase-3 SD1.5 server, its
+    --outdir a temporary directory: (a) img2img from one init image in
+    every format of format_files, each within REPEAT_TOL of the img2img
+    from a PNG of the same decoded pixels (the decode checked equal to it
+    first); (b) txt2img batch 1 saving with samples_format webp (lossy,
+    then webp_lossless), gif, bmp and tiff: each file's decode equal to the
+    response's pixels (lossless) or within WEBP_MEAN_TOL / GIF_MEAN_TOL of
+    them, the WebP's infotext back through /png-info; (c) a webp live
+    preview from /internal/progress during a job; (d) the codecs' host ms;
+    (e) preview_jobs: a job's seconds with png and with webp Full previews.
+    Every request but (c)'s launches B1, B2 and B5 as planned.  Returns
+    (results, info)."""
+    from sdwebui_tpu_torch.pipeline.img2img import setup_img2img_steps
+    from sdwebui_tpu_torch.utils import saving
+    from sdwebui_tpu_torch.utils.image_io import decode_image
+    from sdwebui_tpu_torch.utils.png import decode_png
+
+    outdir = os.path.join(directory, "outputs")
+    prev_outdir, engine.outdir = engine.outdir, outdir
+    txt_plan = _plan(b1=1, b2=STEPS * launch_plan(model.unet_cfg, 64),
+                     b5=STEPS * ln_plan(model.unet_cfg, 64) + clip_ln_plan(model))
+    _, t_enc = setup_img2img_steps(STEPS, DENOISE)
+    i2i_plan = _plan(b1=2, b2=(t_enc + 1) * launch_plan(model.unet_cfg, 64),
+                     b5=(t_enc + 1) * ln_plan(model.unet_cfg, 64) + clip_ln_plan(model))
+    results, info = [], {}
+    sample = phase3["image"]
+
+    def generate(route, body, label, plan):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = _post(f"{url}/{route}", body)
+        dt = time.perf_counter() - t0
+        launches = read_counts()
+        log(f"4o {label}: {dt:.3f} s, launches {launches}")
+        if launches != plan:
+            raise AssertionError(f"4o {label}: launches {launches} != planned {plan}")
+        images = [decode_png(base64.b64decode(b)) for b in res["images"]]
+        if any(img.std() < 1.0 for img, _ in images):
+            raise AssertionError(f"4o {label}: a flat image")
+        results.append(dict(route=route, label=f"4o {label}", batch=1, seed=body["seed"],
+                            seconds=dt, launches=launches))
+        return res, images
+
+    t0 = time.perf_counter()
+    files, refs = format_files(sample)
+    info["files_s"] = time.perf_counter() - t0
+    info["bytes"] = {name: len(data) for name, (data, _) in files.items()}
+    for name, (data, key) in files.items():
+        got = decode_image(data)[0]
+        want = decode_png(refs[key])[0]
+        if got.shape != want.shape or not (got == want).all():
+            raise AssertionError(f"4o: {name} does not decode to its reference pixels")
+    log(f"4o wrote and checked {len(files)} files in {info['files_s']:.2f} s: "
+        + json.dumps(info["bytes"]))
+    try:
+        with _server(engine) as url:
+            root = url.rsplit("/sdapi/v1", 1)[0]
+            # (a) img2img from each format against the PNG of its pixels
+            i2i = dict(SD15_BASE, denoising_strength=DENOISE, seed=2468)
+            ref_out, deltas = {}, {}
+            for key, data in refs.items():
+                _, images = generate("img2img", dict(i2i, init_images=[
+                    base64.b64encode(data).decode()]), f"img2img from the {key} PNG", i2i_plan)
+                ref_out[key] = images[-1][0]
+            for name, (data, key) in files.items():
+                _, images = generate("img2img", dict(i2i, init_images=[
+                    base64.b64encode(data).decode()]), f"img2img from {name}", i2i_plan)
+                deltas[name] = int(abs(images[-1][0].astype(int)
+                                       - ref_out[key].astype(int)).max())
+            log(f"4o (a) max|Δ| against the PNG of the same pixels: {json.dumps(deltas)} "
+                f"(bound {REPEAT_TOL})")
+            if max(deltas.values()) > REPEAT_TOL:
+                raise AssertionError(f"4o: img2img from a format differs from its PNG: {deltas}")
+            info["img2img_max_delta"] = deltas
+            # (b) saving in each format
+            saved = {}
+            for label, fmt, extra in (("webp", "webp", {}),
+                                      ("webp_lossless", "webp", {"webp_lossless": True}),
+                                      ("gif", "gif", {}), ("bmp", "bmp", {}),
+                                      ("tiff", "tiff", {})):
+                before = set(_saved_files(outdir)) if os.path.isdir(outdir) else set()
+                res, images = generate("txt2img", dict(
+                    SD15_BASE, seed=1357, save_images=True, override_settings=dict(
+                        samples_format=fmt, **extra)), f"txt2img saving {label}", txt_plan)
+                saving.flush_saves()
+                written = sorted(set(_saved_files(outdir)) - before)
+                if len(written) != 1 or not written[0].endswith("." + fmt):
+                    raise AssertionError(f"4o {label}: wrote {written}")
+                data = open(os.path.join(outdir, written[0]), "rb").read()
+                got, _ = decode_image(data)
+                shown = images[0][0]
+                mean = float(abs(got.astype(int) - shown.astype(int)).mean())
+                bound = {"webp": WEBP_MEAN_TOL, "gif": GIF_MEAN_TOL}.get(label, 0)
+                saved[label] = dict(file=written[0], bytes=len(data), mean_levels=mean)
+                if got.shape != shown.shape or mean > bound or (bound == 0 and mean != 0):
+                    raise AssertionError(f"4o {label}: {written[0]} is {mean:.2f} levels from "
+                                         f"the response on average (bound {bound})")
+                if fmt == "webp":
+                    text = json.loads(res["info"])["infotexts"][0]
+                    back = _post(f"{url}/png-info", {"image": base64.b64encode(data).decode()})
+                    if back["info"] != text:
+                        raise AssertionError(f"4o {label}: png-info gave {back['info']!r}")
+            log("4o (b) saved: " + json.dumps(saved))
+            info["saved"] = saved
+            # (c) a webp live preview during a job
+            prev_fmt = _post(f"{url}/options")["live_previews_image_format"]
+            _post(f"{url}/options", {"live_previews_image_format": "webp"})
+            seen = {}
+
+            def grab(p):
+                if "preview" not in seen and p["state"]["sampling_step"] >= 5:
+                    live = _post(f"{root}/internal/progress",
+                                 {"id_task": "chip_smoke", "live_preview": True})
+                    if live["live_preview"]:
+                        seen["preview"] = live["live_preview"]
+
+            try:
+                _watched_job(url, root, dict(SD15_BASE, seed=97), grab)
+            finally:
+                _post(f"{url}/options", {"live_previews_image_format": prev_fmt})
+            if "preview" not in seen:
+                raise AssertionError("4o (c): no live preview came")
+            head, b64 = seen["preview"].split(",", 1)
+            preview = decode_image(base64.b64decode(b64))[0]
+            if head != "data:image/webp;base64" or preview.ndim != 3 or preview.std() < 1.0:
+                raise AssertionError(f"4o (c): the preview is {head}, {preview.shape}")
+            info["live_preview"] = dict(head=head, shape=list(preview.shape),
+                                        bytes=len(base64.b64decode(b64)))
+            log(f"4o (c) live preview: {info['live_preview']}")
+            info["preview_jobs"] = preview_jobs(url, root, txt_plan, results)
+    finally:
+        engine.outdir = prev_outdir
+    info["codec_ms"] = format_codec_ms(sample)
+    info["f32_encodes_512"] = sum(r["route"] == "img2img" for r in results)
+    info["decodes_512"] = sum(r["launches"]["flash_attention"] for r in results) \
+        - info["f32_encodes_512"]
+    return results, info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -4922,6 +5215,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_saving_") as save_dir:
         save_results, save_info = phase_saving(engine, model, results[0], save_dir)
     mark("4n saving and JPEG")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_formats_") as formats_dir:
+        format_results, format_info = phase_formats(engine, model, results[0], formats_dir)
+    mark("4o image formats")
     del model, engine, ckpt_engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -4963,7 +5259,7 @@ def main() -> int:
                 for r in (results + i2i_results + opt_results + hr_results + c4_results
                           + hy_results + face_results + zoo_results + ckpt_results
                           + sampler_results + opt4k_results + train_results + script_results
-                          + save_results + sdxl_results + opt4k_xl_results
+                          + save_results + format_results + sdxl_results + opt4k_xl_results
                           + [sdxl_hr_result] + sdxl_i2i_results + family_results)]
     log(json.dumps({"card": smi, "kernel_shapes": rows, "unet_step": unet,
                     "sdxl_unet_step": sdxl_unet, "img2img_unet_calls": i2i_calls,
@@ -4972,7 +5268,7 @@ def main() -> int:
                     "config4": c4_info, "hybrid": hy_info, "img2img_options": opt_info,
                     "faces": face_info, "zoo": zoo_info, "training": train_info,
                     "sdxl_img2img": sdxl_i2i_info, "options": opt4k_info,
-                    "scripts": script_info, "saving": save_info,
+                    "scripts": script_info, "saving": save_info, "formats": format_info,
                     "families": {k: v for k, v in family_info.items() if k != "b1_calls"},
                     "requests": requests, "sdxl_profile": profile, "phase_s": phase_s}))
 
@@ -4996,6 +5292,8 @@ def main() -> int:
     b1_calls[("vae_mid_512_f32", "float32")] += script_info["f32_encodes_512"]
     b1_calls[("vae_mid_512", "bfloat16")] += save_info["decodes_512"]
     b1_calls[("vae_mid_512_f32", "float32")] += save_info["f32_encodes_512"]
+    b1_calls[("vae_mid_512", "bfloat16")] += format_info["decodes_512"]
+    b1_calls[("vae_mid_512_f32", "float32")] += format_info["f32_encodes_512"]
     b1_calls[("vae_mid_1024_f32", "float32")] += 1
     for row, n in family_info["b1_calls"].items():
         b1_calls[row] = b1_calls.get(row, 0) + n

@@ -6,7 +6,7 @@ A card carries its embedding either in an ``sd-ti-embedding`` text chunk
 panels beside the preview: the zlib-compressed JSON split into high and low
 nibbles, each panel XOR-scrambled with an LCG stream and dotted, separated
 from the preview by black columns.  This module reads both from the image
-``utils/png.decode_png`` gives and writes the panels around a preview
+``utils/image_io`` gives (a PNG or WebP card) and writes the panels around a preview
 (no Pillow): the dots Pillow's ``ImageDraw.ellipse`` draws are
 :data:`DOT`, a fixed 7×7 mask equal to Pillow's in every pixel.
 """

@@ -24,8 +24,8 @@ from sdwebui_tpu_torch.loader.safetensors_io import read_state_dict
 from sdwebui_tpu_torch.loader.torch_ckpt import load_torch_checkpoint
 from sdwebui_tpu_torch.networks.image_embedding import (embedding_from_b64,
                                                         extract_image_data_embed)
+from sdwebui_tpu_torch.utils.image_io import read_image_file
 from sdwebui_tpu_torch.utils.options import opts
-from sdwebui_tpu_torch.utils.png import decode_png
 
 #: where embeddings live unless the caller says otherwise
 DEFAULT_EMBEDDINGS_DIR = "embeddings"
@@ -55,11 +55,8 @@ def as_rows(t) -> torch.Tensor:
 def load_embedding_file(path: str, name: str | None = None) -> Embedding:
     """An embedding file → Embedding, its shorthash the file's sha256[:10]."""
     name = name or os.path.splitext(os.path.basename(path))[0]
-    if path.lower().endswith(".webp"):
-        raise NotImplementedError(f"{path}: WebP embedding cards are not ported (the port has "
-                                  "no WebP decoder)")
-    if path.lower().endswith(".png"):
-        emb = _load_png_card(path, name)
+    if path.lower().endswith((".png", ".webp")):
+        emb = _load_image_card(path, name)
     else:
         emb = _load_tensor_file(path, name)
     h = hashlib.sha256()
@@ -70,12 +67,12 @@ def load_embedding_file(path: str, name: str | None = None) -> Embedding:
     return emb
 
 
-def _load_png_card(path: str, name: str) -> Embedding:
-    """A PNG embedding card (textual_inversion.py:47-67 of the JAX package):
-    the ``sd-ti-embedding`` text chunk first, then the pixel panels; the
-    card's own name and step."""
-    with open(path, "rb") as f:
-        image, text = decode_png(f.read())
+def _load_image_card(path: str, name: str) -> Embedding:
+    """A PNG or WebP embedding card (textual_inversion.py:47-67 of the JAX
+    package), read in whatever format it holds: a PNG's
+    ``sd-ti-embedding`` text chunk first, then the pixel panels; the card's
+    own name and step."""
+    image, text = read_image_file(path)
     data = None
     if "sd-ti-embedding" in text:
         data = embedding_from_b64(text["sd-ti-embedding"])

@@ -13,12 +13,13 @@ CodeFormer) and answer one PNG per image, saved under
 than 0 and 1 answer 422, and so does a face restorer without weights.
 Job control: ``progress``, ``interrupt``, ``skip`` and
 ``/internal/{interrupt,progress}`` read and set the Engine's job state
-without its queue lock, the live preview as a PNG (or a JPEG, with
-``live_previews_image_format``).  Saving (``utils/saving``): both
+without its queue lock, the live preview as a PNG (or a JPEG or WebP,
+with ``live_previews_image_format``).  Saving (``utils/saving``): both
 generation routes write their images and grid with ``save_images``;
 ``/internal/save-images`` writes the posted images with a ``log.csv`` row
 and a zip (``server/ui_actions``); ``/internal/img2img-batch`` runs img2img
-over a directory of PNG and JPEG files (api.py:645-745).  Training and
+over a directory of images (api.py:645-745).  Every image field reads
+PNG, JPEG, GIF, BMP, TIFF and WebP (``utils/image_io``).  Training and
 interrogation (``api.py:349-415,1206-1365``): ``interrogate``
 (DeepDanbooru, or the CLIP interrogator with BLIP's caption when BLIP is
 there; 501 naming what is absent), ``preprocess``, ``create/embedding``,
@@ -87,9 +88,9 @@ from sdwebui_tpu_torch.scripts.framework import (ScriptArgError, get_script,
 from sdwebui_tpu_torch.server.app import CheckpointNotFound, Engine
 from sdwebui_tpu_torch.text.styles import PromptStyle
 from sdwebui_tpu_torch.utils import images as images_util
-from sdwebui_tpu_torch.utils import infotext, saving
-from sdwebui_tpu_torch.utils.image_io import (OTHER_FORMATS, UnsupportedImageFormat,
-                                              decode_image, read_image_file)
+from sdwebui_tpu_torch.utils import infotext, saving, webp
+from sdwebui_tpu_torch.utils.image_io import (UnsupportedImageFormat, decode_image,
+                                              other_format, read_image_file)
 from sdwebui_tpu_torch.utils.jpeg import encode_jpeg
 from sdwebui_tpu_torch.utils.options import opts
 from sdwebui_tpu_torch.utils.png import encode_png
@@ -147,7 +148,7 @@ SAVING_OPTIONS = {
     "save_incomplete_images", "samples_filename_pattern", "save_images_add_number",
     "save_images_replace_action", "save_to_dirs", "grid_save_to_dirs",
     "directories_filename_pattern", "directories_max_prompt_words", "jpeg_quality",
-    "export_for_4chan", "img_downscale_threshold", "target_side_length", "save_txt",
+    "webp_lossless", "export_for_4chan", "img_downscale_threshold", "target_side_length", "save_txt",
     "save_images_before_face_restoration", "save_images_before_highres_fix",
     "sdtpu_async_save", "sdtpu_png_compress_level",
 }
@@ -450,13 +451,13 @@ def _check_postprocessing(pp: dict) -> dict:
 
 
 def _decode_image(encoding, field: str):
-    """A base64 PNG or JPEG (optionally a data: URL) → uint8 (H, W, C)."""
+    """A base64 image (optionally a data: URL) → uint8 (H, W, C)."""
     return _decode_with_info(encoding, field)[0]
 
 
 def _decode_with_info(encoding, field: str):
-    """A base64 PNG or JPEG (optionally a data: URL) → (uint8 (H, W, C), its
-    info: a PNG's text chunks, a JPEG's Pillow ``img.info``)."""
+    """A base64 image (optionally a data: URL) in any format the port reads
+    (``utils/image_io``) → (uint8 (H, W, C), its Pillow ``img.info``)."""
     if not isinstance(encoding, str):
         raise ApiError(422, f"field {field!r} must hold base64 strings")
     if encoding.startswith(("http://", "https://")):
@@ -471,7 +472,7 @@ def _decode_with_info(encoding, field: str):
         return decode_image(data)
     except UnsupportedImageFormat as e:
         raise ApiError(400, f"field {field!r} holds a {e.fmt} image; this server reads "
-                            "PNG and JPEG only") from e
+                            "PNG, JPEG, GIF, BMP, TIFF and WebP") from e
     except ValueError as e:
         raise ApiError(400, f"field {field!r}: {e}") from e
 
@@ -490,7 +491,7 @@ class Api:
         self._interrogators: dict = {}
         self.realesrgan = tuple(realesrgan)
         self._preview_lock = threading.Lock()
-        self._preview = (0, None)          # (id_live_preview, base64 PNG)
+        self._previews = {}                # format → (the preview image, its base64 file)
         self.routes = {
             ("POST", "/sdapi/v1/txt2img"): self.txt2img,
             ("POST", "/sdapi/v1/img2img"): self.img2img,
@@ -823,19 +824,28 @@ class Api:
     # ---- job control (api.py:437-539,587-592,899,916) ---------------------
 
     def _preview_b64(self, snap: dict, fmt: str = "png") -> str | None:
-        """The live preview as a base64 PNG, encoded once per preview and
+        """The live preview as a base64 PNG, encoded once per preview image
+        and format (/progress and /internal/progress each keep theirs; the
+        image itself is the key, since id_live_preview restarts with each
+        job) and
         stored uncompressed (deflate level 0): compressing a noisy 1024²
         grid costs many times what the rest of a poll does; or as a JPEG at
-        Pillow's default quality, 75."""
+        Pillow's default quality, 75, or a lossy WebP at Pillow's default,
+        80 (an RGBA preview with its alpha in an ALPH chunk)."""
         if snap["current_image"] is None:
             return None
         with self._preview_lock:
-            key = (snap["id_live_preview"], fmt)
-            if self._preview[0] != key or self._preview[1] is None:
-                img = snap["current_image"]
-                data = encode_png(img, level=0) if fmt == "png" else encode_jpeg(img, 75)
-                self._preview = (key, base64.b64encode(data).decode("ascii"))
-            return self._preview[1]
+            img = snap["current_image"]
+            if self._previews.get(fmt, (None,))[0] is not img:
+                if fmt == "png":
+                    data = encode_png(img, level=0)
+                elif fmt == "webp":
+                    data = webp.encode_webp_alpha(img, 80) if img.ndim == 3 and \
+                        img.shape[2] == 4 else webp.encode_webp(img, 80)
+                else:
+                    data = encode_jpeg(img, 75)
+                self._previews[fmt] = (img, base64.b64encode(data).decode("ascii"))
+            return self._previews[fmt][1]
 
     def progress(self, body=None):
         """The job's progress and live preview, read from one snapshot of the
@@ -854,8 +864,8 @@ class Api:
 
     def internal_progress(self, body=None):
         """The UI's progress poll (api.py:470-490): the preview as a data URL
-        in opts.live_previews_image_format, png or jpeg (an RGBA preview
-        stays PNG, as in JAX); webp raises naming it."""
+        in opts.live_previews_image_format, png, jpeg (an RGBA preview stays
+        PNG, as in JAX) or webp; another format raises naming it."""
         body = body if isinstance(body, dict) else {}
         snap = self.engine.state.snapshot()
         live = None
@@ -864,9 +874,9 @@ class Api:
             img = snap["current_image"]
             if fmt == "jpeg" and img.ndim == 3 and img.shape[2] == 4:
                 fmt = "png"
-            if fmt not in ("png", "jpeg"):
+            if fmt not in ("png", "jpeg", "webp"):
                 raise NotImplementedError(f"live_previews_image_format {fmt!r} is not ported "
-                                          "yet (png and jpeg)")
+                                          "yet (png, jpeg and webp)")
             live = f"data:image/{fmt};base64," + self._preview_b64(snap, fmt)
         return {"active": bool(snap["job"]), "queued": False, "completed": not snap["job"],
                 "progress": snap["progress"], "eta": None, "live_preview": live,
@@ -887,17 +897,18 @@ class Api:
         return {}
 
     def png_info(self, body):
-        """The generation parameters of a base64 PNG or JPEG (api.py:437-447):
-        its "parameters" text or EXIF UserComment, the image's info (a PNG's
-        text chunks; a JPEG's Pillow ``img.info`` less the raw EXIF bytes,
-        which JSON cannot carry) and the parsed infotext."""
+        """The generation parameters of a base64 image (api.py:437-447): its
+        "parameters" text or EXIF UserComment, the image's Pillow ``img.info``
+        less its bytes values (a JPEG's or WebP's raw EXIF, a GIF's version
+        and comment), which JSON cannot carry, and the parsed infotext."""
         if not isinstance(body, dict):
             raise ApiError(422, "request body must be a JSON object")
         if not body.get("image"):
             raise ApiError(404, "Image not found")
         _, items = _decode_with_info(body["image"], "image")
         info = saving.read_info_from_image(items) or ""
-        items = {k: v for k, v in items.items() if not isinstance(v, bytes)}
+        items = {k: v for k, v in items.items() if not isinstance(v, bytes) and not (
+            isinstance(v, tuple) and any(isinstance(x, bytes) for x in v))}
         return {"info": info, "items": items, "parameters": infotext.parse(info)}
 
     # ---- saving (api.py:645-745) --------------------------------------------
@@ -915,13 +926,15 @@ class Api:
             raise ApiError(400, f"images: {e}") from e
 
     def img2img_batch(self, body):
-        """img2img over every PNG and JPEG of input_dir (api.py:653-745): each
-        file an init image, its mask the same-named file of inpaint_mask_dir,
+        """img2img over the .png, .jpg, .jpeg, .webp and .bmp files of
+        input_dir (api.py:653-745), read whatever their format: each file an
+        init image, its mask the same-named file of inpaint_mask_dir,
         with use_png_info its infotext's png_info_props (read from the file or
         the same-named one in png_info_dir) merged into the request; the
         outputs saved as PNG under output_dir (default <input_dir>/out) by the
         file's name, the first opts.img2img_batch_show_results_limit of them
-        answered.  A WebP, BMP or other file answers 422 naming it."""
+        answered.  A file in a format the port does not read (AVIF, ...)
+        answers 422 naming it."""
         import glob
 
         if not isinstance(body, dict):
@@ -941,11 +954,10 @@ class Api:
             raise ApiError(404, "no images in input directory")
         for path in files:
             with open(path, "rb") as f:
-                head = f.read(8)
-            for magic, fmt in OTHER_FORMATS:
-                if head.startswith(magic):
-                    raise NotImplementedError(f"{os.path.basename(path)}: a {fmt} image; the "
-                                              "img2img batch reads PNG and JPEG only")
+                fmt = other_format(f.read(16))
+            if fmt is not None:
+                raise NotImplementedError(f"{os.path.basename(path)}: a {fmt} image; the "
+                                          "img2img batch reads PNG, JPEG, GIF, BMP, TIFF and WebP")
         limit = int(opts.get("img2img_batch_show_results_limit", 32))
         outd = output_dir or os.path.join(input_dir, "out")
         shown, done = [], []

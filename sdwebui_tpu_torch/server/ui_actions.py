@@ -3,7 +3,8 @@
 opts.outdir_save (``utils/saving.save_image``), a ``log.csv`` row (its
 columns padded when new ones appear) and, when asked, a zip archive named
 by opts.grid_zip_filename_pattern (``zipfile``).  The images are base64
-PNGs or JPEGs, saved as they decode (grey, RGB or RGBA)."""
+images in any format ``utils/image_io`` reads, saved as they decode (grey,
+RGB or RGBA)."""
 
 from __future__ import annotations
 
@@ -48,7 +49,7 @@ def _decode(filedata: str):
 
 def save_files(js_data: dict, images: list, do_make_zip: bool = False,
                index: int = -1) -> dict:
-    """Save gallery images (base64 PNG or JPEG strings) to opts.outdir_save
+    """Save gallery images (base64 image strings) to opts.outdir_save
     (ui_actions.py:36-140).
 
     js_data is the Processed.js() dict the generation response carried

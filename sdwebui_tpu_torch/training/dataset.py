@@ -1,10 +1,10 @@
 """The training dataset: templates, captions, the learn-rate schedule, the
 pre-encoded latents and the focal-point crop.
 
-Port of ``sdwebui_tpu/training/dataset.py:21-384``.  Images are PNG and
-JPEG files read by ``utils/image_io.decode_image`` (a WebP, BMP, GIF or
-TIFF in the dataset raises, naming the file and its format: the port has
-no decoder for them yet; JAX reads them through Pillow), resized with ``utils/images.resize``
+Port of ``sdwebui_tpu/training/dataset.py:21-384``.  Images are files read
+by ``utils/image_io.decode_image`` in any format it reads, as JAX reads
+them through Pillow (a file in a format it does not read, AVIF say, raises
+naming the file and its format), resized with ``utils/images.resize``
 (Pillow's bicubic) and encoded once by the port's first stage.  Every
 draw of ``np.random.default_rng(seed)`` (the flips, the bucket and entry
 choices, the template line, tag dropout and shuffling) comes in JAX's
@@ -161,13 +161,13 @@ class LearnRateScheduler:
 
 
 def read_image(path: str) -> np.ndarray:
-    """A dataset file's uint8 (H, W, C) pixels; another format than PNG and
-    JPEG raises NotImplementedError, naming the file and the format."""
+    """A dataset file's uint8 (H, W, C) pixels; a format the port does not
+    read raises NotImplementedError, naming the file and the format."""
     try:
         return read_image_file(path)[0]
     except UnsupportedImageFormat as e:
-        raise NotImplementedError(f"{path}: a {e.fmt} image; the port reads PNG and JPEG "
-                                  "datasets only (no decoder for other formats yet)") from e
+        raise NotImplementedError(f"{path}: a {e.fmt} image; the port reads PNG, JPEG, GIF, "
+                                  "BMP, TIFF and WebP") from e
 
 
 @dataclasses.dataclass

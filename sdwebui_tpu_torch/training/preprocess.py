@@ -6,8 +6,9 @@ arrays: Pillow's resizes are ``utils/images.resize`` (bicubic, and
 Lanczos over a fractional box for the centre crop), the focal crop is
 ``training/dataset.autocrop_image``, the captions DeepDanbooru's
 (``models/deepbooru``), the outputs PNG files written by
-``utils/png.encode_png``.  The inputs are PNG and JPEG files: another
-format raises, naming the file (``training/dataset.read_image``).
+``utils/png.encode_png``.  The inputs are files in any format
+``utils/image_io`` reads; another format raises, naming the file
+(``training/dataset.read_image``).
 """
 
 from __future__ import annotations

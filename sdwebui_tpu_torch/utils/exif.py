@@ -1,4 +1,4 @@
-"""EXIF UserComment embedding for JPEG infotext — port of
+"""EXIF UserComment embedding for JPEG and WebP infotext — port of
 ``sdwebui_tpu/utils/exif.py``.
 
 The JAX package builds the block with Pillow's ``Image.Exif`` writer; the
@@ -7,7 +7,9 @@ TIFF header, IFD0 holding one ExifIFD pointer (0x8769) and the Exif IFD
 holding one UserComment (0x9286) of type BYTE, whose value is the EXIF
 ``UNICODE\\0`` charset prefix + the UTF-16-BE infotext.  ``read_user_comment``
 walks the TIFF structure of an APP1 payload back to that tag, in either byte
-order and for the UNDEFINED or BYTE type cameras and piexif write.
+order and for the UNDEFINED or BYTE type cameras and piexif write; it also
+reads a WebP's EXIF chunk and a PNG's eXIf, which hold the TIFF block
+without the ``Exif\\0\\0`` header (``utils/webp``, ``utils/png``).
 """
 
 from __future__ import annotations

@@ -31,7 +31,12 @@ Pillow's own arithmetic (tests hold every one against Pillow):
                       size x size window, the image's edges replicated
 
 An image is (H, W) or (H, W, C) uint8 with C = 1 (L), 2 (LA), 3 (RGB) or
-4 (RGBA).
+4 (RGBA).  The decoders (``utils/image_io``) give Pillow's other modes in
+the form its ``convert`` makes of them, so ``to_rgb``, ``to_l`` and
+``flatten`` give JAX's results for those too: "1" as 0/255 grey, "P" and
+"PA" expanded through the palette with the transparency dropped, "I;16"
+clipped at 255, 16-bit grey + alpha as RGBA (Pillow opens it so), a
+32-bit BI_RGB BMP as RGB.
 """
 
 from __future__ import annotations

@@ -3,17 +3,18 @@
 Writes 8-bit grey, grey + alpha, RGB and RGBA images with text chunks —
 the ``parameters`` chunk carries the infotext, as the JAX server writes it
 through PIL (``sdwebui_tpu/server/app.py:499``); ``utils/saving`` writes
-saved files with it, and ``utils/jpeg`` reads and writes JPEG.  The reader takes the non-interlaced
-8-bit PNGs clients send, PIL's included: colour types 0 (grey), 2 (RGB), 3
-(palette, expanded to RGB as PIL's ``convert("RGB")`` does), 4 (grey +
-alpha) and 6 (RGBA), rows under any of the five filters.  Interlaced
-images and other bit depths raise ``ValueError``, and so does an image
-over Pillow's pixel limit (``check_image_size``, which the JPEG reader
-shares), before anything is allocated or inflated.
+saved files with it, and ``utils/jpeg`` reads and writes JPEG.  The reader takes every PNG
+Pillow opens: colour types 0 (grey, 1/2/4/8/16-bit), 2 (RGB), 3 (palette,
+1/2/4/8-bit, expanded to RGB as PIL's ``convert("RGB")`` does), 4 (grey +
+alpha) and 6 (RGBA), 8- or 16-bit, plain or Adam7-interlaced, rows under
+any of the five filters.  An image over Pillow's pixel limit
+(``check_image_size``, which the other readers share) raises
+``ValueError`` before anything is allocated or inflated.
 """
 
 from __future__ import annotations
 
+import re
 import struct
 import zlib
 
@@ -112,13 +113,61 @@ def _unfilter(raw: np.ndarray, bpp: int) -> np.ndarray:
     return out.astype(np.uint8).reshape(h, w * bpp)
 
 
+#: Adam7's passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+
+
+def unpack_bits(packed: np.ndarray, depth: int, width: int) -> np.ndarray:
+    """(H, row bytes) uint8 of `depth`-bit samples, MSB first → (H, width)."""
+    if depth == 8:
+        return packed[:, :width]
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    out = (packed[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return out.reshape(packed.shape[0], -1)[:, :width]
+
+
+def _samples(rows: np.ndarray, w: int, h: int, depth: int, chans: int) -> np.ndarray:
+    """Unfiltered rows of one (sub-)image → (h, w, chans) samples (uint8, or
+    uint16 at depth 16)."""
+    bpp = max(1, depth * chans // 8)
+    pixels = _unfilter(rows, bpp)
+    if depth == 16:
+        pairs = pixels.reshape(h, w, chans, 2).astype(np.uint16)
+        return (pairs[..., 0] << 8) | pairs[..., 1]
+    return unpack_bits(pixels, depth, w * chans).reshape(h, w, chans)
+
+
+def _passes(w: int, h: int, interlace: int):
+    if not interlace:
+        return [(0, 0, 1, 1, w, h)]
+    out = []
+    for x0, y0, dx, dy in _ADAM7:
+        pw, ph = (w - x0 + dx - 1) // dx, (h - y0 + dy - 1) // dy
+        if pw > 0 and ph > 0:
+            out.append((x0, y0, dx, dy, pw, ph))
+    return out
+
+
 def decode_png(data: bytes) -> tuple[np.ndarray, dict]:
-    """PNG bytes → (uint8 (H, W, C), text chunks); C = 1 (grey), 2 (grey +
-    alpha), 3 (RGB, palette images too) or 4 (RGBA)."""
+    """PNG bytes → (uint8 (H, W, C), info): the image as Pillow's
+    ``convert`` sees the mode ``Image.open`` gives it, and the text chunks
+    (plus ``transparency`` from ``tRNS``, as Pillow puts it in ``info``).
+
+    C = 1 for grey: "1" as 0/255, 2- and 4-bit grey scaled by 85 and 17,
+    16-bit grey ("I;16") clipped at 255 as Pillow's ``convert("RGB")`` and
+    ``convert("L")`` clip it; 2 for grey + alpha; 3 for RGB and for palette
+    images, expanded through the palette (transparency dropped, as
+    ``convert("RGB")`` drops it); 4 for RGBA.  16-bit samples of the other
+    colour types keep their high byte (16-bit grey + alpha opens as RGBA,
+    C = 4, as in Pillow).  ``info`` also takes ``interlace``, ``gamma``,
+    ``dpi`` / ``aspect``, ``srgb``, ``icc_profile`` and ``exif`` as Pillow
+    reads them.  Adam7 interlacing is read."""
     if not data.startswith(_SIGNATURE):
         raise ValueError("not a PNG file")
     pos = len(_SIGNATURE)
-    idat, text, hdr, palette = [], {}, None, None
+    idat, text, info, hdr, palette, trns = [], {}, {}, None, None, None
     while pos < len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         kind = data[pos + 4:pos + 8]
@@ -131,7 +180,9 @@ def decode_png(data: bytes) -> tuple[np.ndarray, dict]:
             hdr = struct.unpack(">IIBBBBB", body)
             check_image_size(hdr[0], hdr[1])
         elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+            palette = np.frombuffer(body[:len(body) // 3 * 3], np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = body
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"tEXt":
@@ -143,26 +194,66 @@ def decode_png(data: bytes) -> tuple[np.ndarray, dict]:
             _lang, _, rest = rest.partition(b"\0")
             _tkey, _, value = rest.partition(b"\0")
             text[key.decode("latin-1")] = value.decode("utf-8")
+        elif kind == b"zTXt":
+            key, _, value = body.partition(b"\0")
+            text[key.decode("latin-1")] = zlib.decompress(value[1:]).decode("latin-1")
+        elif kind == b"gAMA":
+            info["gamma"] = struct.unpack(">I", body)[0] / 100000.0
+        elif kind == b"pHYs":
+            px, py, unit = struct.unpack(">IIB", body)
+            info["dpi" if unit == 1 else "aspect"] = (px * 0.0254, py * 0.0254) if unit == 1 \
+                else (px, py)
+        elif kind == b"sRGB":
+            info["srgb"] = body[0]
+        elif kind == b"iCCP":
+            info["icc_profile"] = zlib.decompress(body.partition(b"\0")[2][1:])
+        elif kind == b"eXIf":
+            info["exif"] = body
         elif kind == b"IEND":
             break
     if hdr is None:
         raise ValueError("PNG without IHDR")
     w, h, depth, ctype, _, _, interlace = hdr
-    if depth != 8 or ctype not in _CHANNELS or interlace != 0:
-        raise ValueError(f"unsupported PNG: depth {depth}, colour type {ctype}, "
-                         f"interlace {interlace} (8-bit, non-interlaced only)")
-    bpp = _CHANNELS[ctype]
-    size = h * (1 + w * bpp)
+    if ctype not in _CHANNELS or depth not in _DEPTHS[ctype] or interlace > 1:
+        raise ValueError(f"invalid PNG: depth {depth}, colour type {ctype}, "
+                         f"interlace {interlace}")
+    chans = _CHANNELS[ctype]
+    passes = _passes(w, h, interlace)
+    sizes = [ph * (1 + (pw * chans * depth + 7) // 8) for *_, pw, ph in passes]
     try:   # inflate no more than the image holds
-        rows = np.frombuffer(zlib.decompressobj().decompress(b"".join(idat), size), np.uint8)
+        raw = np.frombuffer(zlib.decompressobj().decompress(b"".join(idat), sum(sizes)), np.uint8)
     except zlib.error as e:
         raise ValueError(f"corrupt PNG image data: {e}") from e
-    if rows.size < size:
+    if raw.size < sum(sizes):
         raise ValueError("truncated PNG image data")
-    pixels = _unfilter(rows.reshape(h, 1 + w * bpp), bpp)
-    image = pixels.reshape(h, w, bpp)
+    image = np.zeros((h, w, chans), np.uint16 if depth == 16 else np.uint8)
+    off = 0
+    for (x0, y0, dx, dy, pw, ph), size in zip(passes, sizes):
+        rows = raw[off:off + size].reshape(ph, -1)
+        image[y0::dy, x0::dx] = _samples(rows, pw, ph, depth, chans)
+        off += size
+    text = {**info, **({"interlace": 1} if interlace else {}), **text}
+    if trns is not None:
+        if ctype == 3:
+            if re.fullmatch(rb"\xff*\x00\xff*", trns):
+                text["transparency"] = trns.index(b"\0")
+            else:
+                text["transparency"] = bytes(trns)
+        elif ctype == 0:   # Pillow's "1" gives its 0/255 value
+            text["transparency"] = struct.unpack(">H", trns[:2])[0] * (255 if depth == 1 else 1)
+        elif ctype == 2:
+            text["transparency"] = struct.unpack(">HHH", trns[:6])
     if ctype == 3:
         if palette is None:
             raise ValueError("palette PNG without PLTE")
-        image = palette[image[:, :, 0]]
+        full = np.zeros((256, 3), np.uint8)
+        full[:len(palette)] = palette[:256]
+        return np.ascontiguousarray(full[image[:, :, 0]]), text
+    if depth == 16:
+        image = (np.minimum(image, 255) if ctype == 0 else image >> 8).astype(np.uint8)
+        if ctype == 4:   # Pillow opens 16-bit grey + alpha as RGBA
+            image = image[:, :, [0, 0, 0, 1]]
+        return np.ascontiguousarray(image), text
+    if depth < 8:   # "1" reads as 0/255, 2- and 4-bit grey scaled to 0..255
+        image = image * np.uint8(255 // ((1 << depth) - 1))
     return np.ascontiguousarray(image), text

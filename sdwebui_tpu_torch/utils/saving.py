@@ -6,15 +6,20 @@
 ``save_to_dirs`` with ``directories_filename_pattern``, numbering,
 ``save_images_replace_action``), the ``before_image_saved`` /
 ``image_saved`` callbacks of ``scripts/framework``, the ``f_namemax``
-cut, the name reserved synchronously, then the write: PNG at
-``sdtpu_png_compress_level`` with its ``parameters`` text
-(``utils/png``), JPEG at ``jpeg_quality`` with its EXIF UserComment
-(``utils/jpeg``, ``utils/exif``), the ``export_for_4chan`` JPEG copy
-(resized with Pillow's LANCZOS, ``utils/images.resize``) and the ``.txt``
-sidecar, on one background writer thread with ``sdtpu_async_save``
-(``flush_saves`` joins it).  Images are uint8 (H, W, 3|4) or grey (H, W[,
-1]) numpy arrays.  Formats other than PNG and JPEG (``webp``, ``avif``,
-``gif``, ...) raise ``NotImplementedError`` naming the format.
+cut, the name reserved synchronously, then the write, as JAX's
+``save_image_with_geninfo`` makes it: PNG at ``sdtpu_png_compress_level``
+with its ``parameters`` text (``utils/png``); JPEG (``.jpg`` / ``.jpeg``)
+and WebP at ``jpeg_quality`` with the infotext as an EXIF UserComment
+(``utils/jpeg``, ``utils/webp``, ``utils/exif``), WebP lossless under
+``webp_lossless`` and from RGB (JAX converts RGBA first); GIF with the
+infotext as its comment (``utils/gif``); BMP, DIB, TIFF and JPEG's other
+names (``.jfif``, ``.jpe``) with no infotext, as Pillow writes them from
+``image.save(f, format, quality=...)`` (``utils/bmp``, ``utils/tiff``);
+then the ``export_for_4chan`` JPEG copy (resized with Pillow's LANCZOS,
+``utils/images.resize``) and the ``.txt`` sidecar, on one background writer
+thread with ``sdtpu_async_save`` (``flush_saves`` joins it).  Images are
+uint8 (H, W, 3|4) or grey (H, W[, 1]) numpy arrays.  Other formats
+(``avif``, ...) raise ``NotImplementedError`` naming the format.
 
 The port's PNG encoder writes every row with filter None, so its files are
 not Pillow's bytes (the pixels and text chunks are the same): the
@@ -31,12 +36,16 @@ import numpy as np
 
 from sdwebui_tpu_torch.utils import exif as exif_util
 from sdwebui_tpu_torch.utils import images as images_util
+from sdwebui_tpu_torch.utils.bmp import encode_bmp
+from sdwebui_tpu_torch.utils.gif import encode_gif
 from sdwebui_tpu_torch.utils.jpeg import encode_jpeg
 from sdwebui_tpu_torch.utils.options import opts
 from sdwebui_tpu_torch.utils.png import encode_png
+from sdwebui_tpu_torch.utils.tiff import encode_tiff
+from sdwebui_tpu_torch.utils.webp import encode_webp
 
 #: the extensions ``save_image`` writes
-FORMATS = ("png", "jpg", "jpeg")
+FORMATS = ("png", "jpg", "jpeg", "jfif", "jpe", "webp", "gif", "bmp", "dib", "tif", "tiff")
 
 _INVALID_FN_CHARS = '#<>:"/\\|?*\n\r\t'
 
@@ -57,7 +66,7 @@ def check_format(extension: str, what: str = "samples_format") -> None:
     """NotImplementedError naming an image format the port cannot write."""
     if str(extension).lower().lstrip(".") not in FORMATS:
         raise NotImplementedError(f"{what} {extension!r} is not ported yet (the port writes "
-                                  "png and jpg)")
+                                  f"{', '.join(FORMATS)})")
 
 
 class PixelView:
@@ -125,7 +134,7 @@ def _write_settings() -> dict:
     request's override_settings are gone by the time the writer runs."""
     return {k: opts.get(k, d) for k, d in (("enable_pnginfo", True),
                                            ("sdtpu_png_compress_level", 1),
-                                           ("jpeg_quality", 80))}
+                                           ("jpeg_quality", 80), ("webp_lossless", False))}
 
 
 def save_image_with_geninfo(image: np.ndarray, geninfo: str | None, filename: str,
@@ -134,8 +143,9 @@ def save_image_with_geninfo(image: np.ndarray, geninfo: str | None, filename: st
                             pnginfo_section_name: str = "parameters",
                             settings: dict | None = None) -> None:
     """Format-aware write with the infotext embedded (images.py:97-146): a
-    PNG text chunk, or a JPEG EXIF UserComment.  settings: enable_pnginfo,
-    sdtpu_png_compress_level and jpeg_quality (default: the options now)."""
+    PNG text chunk, a JPEG or WebP EXIF UserComment, a GIF comment.
+    settings: enable_pnginfo, sdtpu_png_compress_level, jpeg_quality and
+    webp_lossless (default: the options now)."""
     settings = settings or _write_settings()
     ext = (extension or os.path.splitext(filename)[1]).lower()
     if not ext.startswith("."):
@@ -154,6 +164,27 @@ def save_image_with_geninfo(image: np.ndarray, geninfo: str | None, filename: st
         if settings["enable_pnginfo"] and geninfo is not None:
             exif = exif_util.build_exif_bytes(geninfo)
         data = encode_jpeg(pixels, int(settings["jpeg_quality"]), exif)
+    elif ext == ".webp":
+        exif = None
+        if settings["enable_pnginfo"] and geninfo is not None:
+            exif = exif_util.build_exif_bytes(geninfo)
+        data = encode_webp(images_util.to_rgb(image), int(settings["jpeg_quality"]),
+                           bool(settings.get("webp_lossless", False)), exif)
+    elif ext == ".gif":
+        data = encode_gif(image, geninfo)
+    elif ext in (".jfif", ".jpe"):    # Pillow's JPEG at `quality`, no infotext
+        if image.shape[2] in (2, 4):
+            raise ValueError(f"cannot write a {image.shape[2]}-channel image as JPEG")
+        data = encode_jpeg(image[:, :, 0] if image.shape[2] == 1 else image,
+                           int(settings["jpeg_quality"]))
+    elif ext in (".bmp", ".dib"):
+        if image.shape[2] == 2:
+            raise ValueError("cannot write a grey + alpha image as BMP")
+        data = encode_bmp(image, dib=ext == ".dib")
+    elif ext in (".tif", ".tiff"):
+        if image.shape[2] == 2:
+            raise ValueError("cannot write a grey + alpha image as TIFF")
+        data = encode_tiff(image)
     else:
         check_format(ext.lstrip("."), "image format")
     with open(filename, "wb") as f:
@@ -292,7 +323,9 @@ def save_image(image: np.ndarray, path: str, basename: str = "", seed=None, prom
 
 def read_info_from_image(info: dict) -> str | None:
     """The infotext of a decoded image (images.py:302): its PNG
-    "parameters" text, else its JPEG EXIF UserComment."""
+    "parameters" text, else the UserComment of its EXIF block (a JPEG's
+    APP1, a WebP's EXIF chunk, a PNG's eXIf).  A GIF's comment is not read,
+    as JAX does not read it."""
     geninfo = (info or {}).get("parameters")
     if geninfo is None:
         geninfo = exif_util.read_user_comment((info or {}).get("exif"))

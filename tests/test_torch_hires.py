@@ -237,7 +237,7 @@ def test_hires_without_denoising_strength_takes_0_7(models, f32_policies):
 
 @pytest.mark.parametrize("kw,name", [
     (dict(override_settings={"save_images_before_highres_fix": True,
-                             "samples_format": "webp"}), "webp"),
+                             "samples_format": "avif"}), "avif"),
     (dict(hr_upscaler="No such upscaler"), "No such upscaler"),
 ])
 def test_unported_hires_requests_raise(models, kw, name, tmp_path):
@@ -352,7 +352,7 @@ def test_txt2img_route_runs_hires(server_url):
     ({"hr_scale": "2"}, 422, "hr_scale"),
     ({"hr_checkpoint_name": "x.safetensors"}, 422, "hr_checkpoint_name"),
     ({"save_images": True, "override_settings": {"save_images_before_highres_fix": True,
-                                                 "samples_format": "webp"}}, 422, "webp"),
+                                                 "samples_format": "avif"}}, 422, "avif"),
 ])
 def test_txt2img_route_hires_errors(server_url, body, status, word):
     code, res = _call(server_url + "/txt2img", {"steps": 1, "width": 64, "height": 64,

@@ -202,11 +202,14 @@ def test_decode_png_every_filter_type(types):
 
 
 def test_decode_png_refuses_what_it_cannot_read():
+    """A PNG no reader opens (an unknown interlace method, 16-bit palette
+    indices) and bytes that are no PNG raise; the interlaced and 16-bit
+    PNGs Pillow opens are read (tests/test_torch_png_variants.py)."""
     img = np.zeros((4, 4, 3), np.uint8)
     with pytest.raises(ValueError, match="interlace"):
-        decode_png(_png(img, 2, (0,), interlace=1))
+        decode_png(_png(img, 2, (0,), interlace=2))
     with pytest.raises(ValueError, match="depth 16"):
-        decode_png(_png(img, 2, (0,), depth=16))
+        decode_png(_png(img, 3, (0,), depth=16))
     with pytest.raises(ValueError, match="not a PNG"):
         decode_png(b"\xff\xd8\xff\xe0")
     np.testing.assert_array_equal(decode_png(encode_png(img))[0], img)

@@ -14,6 +14,7 @@ while another thread holds the queue lock.
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
 import base64
+import io
 import json
 import os
 import sys
@@ -40,6 +41,7 @@ from sdwebui_tpu_torch.postprocessing import upscalers
 from sdwebui_tpu_torch.runtime.state import State
 from sdwebui_tpu_torch.server.api import Api, make_server
 from sdwebui_tpu_torch.server.app import Engine
+from sdwebui_tpu_torch.utils import webp
 from sdwebui_tpu_torch.utils.options import opts
 from sdwebui_tpu_torch.utils.png import decode_png, encode_png
 from test_torch_img2img import f32_policies, models  # noqa: F401
@@ -238,16 +240,25 @@ def test_progress_routes_match_jax():
                 assert head == "data:image/png;base64"
                 np.testing.assert_array_equal(decode_png(base64.b64decode(b64))[0], img)
         # jpeg previews: Pillow's bytes at its default quality, as JAX sends
-        # them; webp answers 422 naming it
+        # them; webp previews: lossy at Pillow's default quality, the port's
+        # encoder within the lossy WebP bound of JAX's Pillow file
         with opts.override({"live_previews_image_format": "jpeg"}), \
                 jax_opts.override({"live_previews_image_format": "jpeg"}):
             ref = jax_api.Api.internal_progress(None, None)
             status, res = api.handle("GET", "/internal/progress", None)
         assert status == 200 and res["live_preview"] == ref["live_preview"]
         assert res["live_preview"].startswith("data:image/jpeg;base64,")
-        with opts.override({"live_previews_image_format": "webp"}):
+        with opts.override({"live_previews_image_format": "webp"}), \
+                jax_opts.override({"live_previews_image_format": "webp"}):
+            ref = jax_api.Api.internal_progress(None, None)
             status, res = api.handle("GET", "/internal/progress", None)
-        assert status == 422 and "webp" in res["detail"]
+        assert status == 200 and res["live_preview"].startswith("data:image/webp;base64,")
+        ours = base64.b64decode(res["live_preview"].split(",", 1)[1])
+        theirs = base64.b64decode(ref["live_preview"].split(",", 1)[1])
+        got = webp.decode_webp(ours)[0]
+        np.testing.assert_array_equal(got, np.asarray(Image.open(io.BytesIO(ours))))
+        err = np.abs(got.astype(int) - img).mean()
+        assert err <= 1.25 * np.abs(np.asarray(Image.open(io.BytesIO(theirs)), int) - img).mean()
     finally:
         _reset_jax_state()
 

@@ -280,7 +280,7 @@ def test_decode_in_bands_equals_pillow(monkeypatch, mode, band_pixels, idct_bloc
         _assert_decodes_like_pillow(data)
 
 
-@pytest.mark.parametrize("fmt,kw", [("GIF", {}), ("BMP", {}), ("WEBP", {}), ("TIFF", {})])
+@pytest.mark.parametrize("fmt,kw", [("AVIF", {}), ("PPM", {}), ("ICO", {}), ("QOI", {})])
 def test_other_formats_name_theirs(fmt, kw):
     buf = io.BytesIO()
     Image.fromarray(_photo(8, 8, 0)).save(buf, fmt, **kw)

@@ -665,7 +665,7 @@ def test_checkpoint_routes(ckpt_engine, tmp_path, monkeypatch):
         assert engine._model is None
         assert _call(url, "/sdapi/v1/reload-checkpoint", {}) == (200, {})
         assert engine.sd_model.title.startswith("b.")    # opts.sd_model_checkpoint
-        for body in ({"sd_model_checkpoint": "nope"}, {"webp_lossless": True}):
+        for body in ({"sd_model_checkpoint": "nope"}, {"samples_log_stdout": True}):
             status, res = _call(url, "/sdapi/v1/options", body)
             assert status == 422 and next(iter(body.values() if "nope" in str(body)
                                                else body)) in res["detail"]

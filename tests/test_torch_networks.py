@@ -350,8 +350,9 @@ def test_embedding_files_load_as_jax(tmp_path, layout):
 def test_png_embedding_card_matches_jax(tmp_path, kind):
     """A card the JAX package writes here (its Pillow encoder: the data
     panels, or an ``sd-ti-embedding`` text chunk; an RGBA save too) loads
-    in the port as in JAX: the card's name, step, vectors and shorthash.
-    A WebP card and a PNG without data still raise."""
+    in the port as in JAX: the card's name, step, vectors and shorthash;
+    so does the panel card saved as a lossless WebP.  A lossy WebP and a
+    PNG without data raise in both, and the database skips them."""
     from PIL import Image
     from PIL.PngImagePlugin import PngInfo
 
@@ -375,10 +376,19 @@ def test_png_embedding_card_matches_jax(tmp_path, kind):
         "card-emb", 150, out.shorthash)
     np.testing.assert_array_equal(out.vec.numpy(), np.asarray(ref.vec))
     np.testing.assert_array_equal(out.vec.numpy(), vec)
+    if kind != "text_chunk":   # the panels survive a lossless WebP
+        (tmp_path / "webp").mkdir()
+        lossless = str(tmp_path / "webp" / "card.webp")
+        Image.open(path).save(lossless, lossless=True)
+        ref = jax_ti.load_embedding_file(lossless)
+        out = port_ti.load_embedding_file(lossless)
+        assert (out.name, out.step, out.shorthash) == (ref.name, ref.step, ref.shorthash)
+        np.testing.assert_array_equal(out.vec.numpy(), vec)
     webp = str(tmp_path / "card.webp")
     preview.save(webp)
-    with pytest.raises(NotImplementedError, match="WebP"):
-        port_ti.load_embedding_file(webp)
+    for package in (jax_ti, port_ti):
+        with pytest.raises(ValueError, match="no embedded embedding data"):
+            package.load_embedding_file(webp)
     preview.save(str(tmp_path / "plain.png"))
     db = port_ti.EmbeddingDatabase()
     db.load_from_dir(str(tmp_path))

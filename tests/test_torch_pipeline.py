@@ -78,9 +78,9 @@ def test_same_seed_same_image(models):
 
 @pytest.mark.parametrize("kw,name", [
     (dict(enable_hr=True, override_settings={"save_images_before_highres_fix": True,
-                                             "samples_format": "webp"}), "webp"),
+                                             "samples_format": "avif"}), "avif"),
     (dict(restore_faces=True, override_settings={"save_images_before_face_restoration": True,
-                                                 "samples_format": "gif"}), "gif"),
+                                                 "samples_format": "heic"}), "heic"),
     (dict(enable_hr=True, hr_prompt="a cat <lora:foo:0.5>"), "lora"),
 ])
 def test_out_of_slice_requests_raise(models, kw, name, tmp_path):

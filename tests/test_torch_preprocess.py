@@ -81,8 +81,9 @@ def test_dataset_matches_jax(models, f32_policies, data_dir, method):  # noqa: F
 
 
 def test_dataset_reads_png_only(models, tmp_path):  # noqa: F811
-    """PNG and JPEG files are read (a JPEG as Pillow decodes it); a BMP
-    raises naming the file and its format."""
+    """PNG and JPEG files are read (a JPEG as Pillow decodes it), and a
+    BMP and a WebP; a file in a format the port does not read (an AVIF
+    under a .bmp name) raises naming the file and its format."""
     import io
 
     jpg = np.random.default_rng(4).integers(0, 256, (40, 56, 3), dtype=np.uint8)
@@ -94,8 +95,15 @@ def test_dataset_reads_png_only(models, tmp_path):  # noqa: F811
                                   np.asarray(Image.open(tmp_path / "b.jpg")))
     ds = port_ds.PersonalizedDataset(str(tmp_path), models[1], width=64, height=64)
     assert len(ds.entries) == 2
-    (tmp_path / "c.bmp").write_bytes(b"BM" + bytes(20))
-    with pytest.raises(NotImplementedError, match=r"c\.bmp: a BMP image"):
+    for name, fmt in (("c.bmp", "BMP"), ("d.webp", "WEBP")):
+        buf = io.BytesIO()
+        Image.fromarray(jpg).save(buf, fmt, **({"lossless": True} if fmt == "WEBP" else {}))
+        (tmp_path / name).write_bytes(buf.getvalue())
+        np.testing.assert_array_equal(port_ds.read_image(str(tmp_path / name)), jpg)
+    ds = port_ds.PersonalizedDataset(str(tmp_path), models[1], width=64, height=64)
+    assert len(ds.entries) == 4
+    (tmp_path / "e.bmp").write_bytes(b"\x00\x00\x00\x1cftypavif" + bytes(20))
+    with pytest.raises(NotImplementedError, match=r"e\.bmp: a AVIF image"):
         port_ds.PersonalizedDataset(str(tmp_path), models[1], width=64, height=64)
 
 
@@ -253,6 +261,8 @@ def test_preprocess_dir_matches_jax(tmp_path, tiny_booru, monkeypatch, action):
 
 
 def test_preprocess_reads_png_only(tmp_path):
-    (tmp_path / "a.webp").write_bytes(b"RIFF\x00\x00\x00\x00WEBPVP8 ")
-    with pytest.raises(NotImplementedError, match="a WEBP image"):
+    """A file in a format the port does not read (an AVIF under a .webp
+    name) raises naming it; WebP and BMP inputs are in test_torch_formats."""
+    (tmp_path / "a.webp").write_bytes(b"\x00\x00\x00\x1cftypavif" + bytes(20))
+    with pytest.raises(NotImplementedError, match="a AVIF image"):
         port_pre.preprocess_dir(str(tmp_path), str(tmp_path / "out"), device="cpu")

@@ -8,8 +8,9 @@ pipelines on the tiny SD1.5 pair of test_torch_img2img).
 a JPEG, ``save_images`` on both generation routes under the Engine's
 outdir, a JPEG as ``init_images``, ``mask``, a ControlNet unit's
 ``input_image`` and ``/controlnet/detect``'s input, a JPEG training and
-preprocess directory; GIF, BMP, WebP and TIFF inputs answer 400 naming the
-format, unported sample formats 422.  Pixels within 1 level of JAX's where
+preprocess directory; AVIF, PSD, QOI and PPM inputs answer 400 naming the
+format, unported sample formats 422 (the other formats' routes are in
+test_torch_format_routes).  Pixels within 1 level of JAX's where
 a model ran, equal elsewhere; names, text and CSV rows equal.
 """
 
@@ -72,6 +73,10 @@ def _b64(data: bytes) -> str:
 
 
 def _other_format(fmt: str) -> bytes:
+    """A file in a format Pillow reads and the port does not (PSD: its
+    signature and a version, which is all the port looks at)."""
+    if fmt == "PSD":
+        return b"8BPS\x00\x01" + bytes(32)
     buf = io.BytesIO()
     Image.fromarray(_smooth(1, 16)).save(buf, fmt)
     return buf.getvalue()
@@ -214,11 +219,13 @@ def test_img2img_batch_equals_jax(models, f32_policies, port_api, tmp_path,  # n
 
 @pytest.mark.parametrize("fmt", ["BMP", "WEBP"])
 def test_img2img_batch_names_an_unported_file(port_api, tmp_path, fmt):
+    """The batch reads its .bmp and .webp files by what they hold: an AVIF
+    under either name answers 422 naming it, before any image is made."""
     (tmp_path / "a.png").write_bytes(_png(_smooth(1)))
-    (tmp_path / f"z.{fmt.lower()}").write_bytes(_other_format(fmt))
+    (tmp_path / f"z.{fmt.lower()}").write_bytes(_other_format("AVIF"))
     status, res = port_api.handle("POST", "/internal/img2img-batch",
                                   {"input_dir": str(tmp_path), "steps": 1})
-    assert status == 422 and f"z.{fmt.lower()}: a {fmt} image" in res["detail"]
+    assert status == 422 and f"z.{fmt.lower()}: a AVIF image" in res["detail"]
     assert not (tmp_path / "out").exists()
 
 
@@ -326,7 +333,7 @@ def test_jpeg_controlnet_inputs_equal_their_png(port_api):
     assert outs[0] == outs[1]
 
 
-@pytest.mark.parametrize("fmt", ["GIF", "BMP", "WEBP", "TIFF"])
+@pytest.mark.parametrize("fmt", ["AVIF", "PSD", "QOI", "PPM"])
 @pytest.mark.parametrize("route,field", [("/sdapi/v1/img2img", "init_images"),
                                          ("/sdapi/v1/img2img", "mask"),
                                          ("/sdapi/v1/extra-single-image", "image"),
@@ -361,7 +368,7 @@ def test_decompression_bombs_answer_400(port_api, route, field, fmt):
 
 def test_save_images_on_both_routes(tmp_path, both, fixed_clock):  # noqa: F811
     """save_images writes under the Engine's outdir as JAX's Engine lays it
-    out; a request without it writes nothing; webp answers 422 naming it."""
+    out; a request without it writes nothing; avif answers 422 naming it."""
     both(sdtpu_async_save=False)
     api = Api(Engine(device="cpu", tiny=True, seed=2, outdir=str(tmp_path / "out")))
     body = {"prompt": "a cat", "seed": 3, "steps": 1, "width": 64, "height": 64,
@@ -381,12 +388,12 @@ def test_save_images_on_both_routes(tmp_path, both, fixed_clock):  # noqa: F811
         "txt2img-images/2024-05-06/00000-3.png", "txt2img-images/2024-05-06/00001-4.png"]
     status, res = api.handle("POST", "/sdapi/v1/img2img", {
         "init_images": [png], "steps": 1, "width": 64, "height": 64, "save_images": True,
-        "override_settings": {"samples_format": "webp"}})
-    assert status == 422 and "webp" in res["detail"]
-    both(samples_format="webp")
+        "override_settings": {"samples_format": "avif"}})
+    assert status == 422 and "avif" in res["detail"]
+    both(samples_format="avif")
     status, res = api.handle("POST", "/sdapi/v1/extra-single-image", {
         "image": png, "upscaler_1": "Lanczos", "save_output": True})
-    assert status == 422 and "webp" in res["detail"]
+    assert status == 422 and "avif" in res["detail"]
 
 
 def test_save_flags_in_override_settings(tmp_path, both, fixed_clock):  # noqa: F811

@@ -65,7 +65,7 @@ def test_txt2img_returns_png_with_infotext(server_url):
 @pytest.mark.parametrize("body,field", [
     ({"save_images": True, "override_settings": {"grid_format": "avif"}}, "avif"),
     ({"no_such_field": 1}, "no_such_field"),
-    ({"override_settings": {"webp_lossless": True}}, "webp_lossless"),
+    ({"override_settings": {"samples_log_stdout": True}}, "samples_log_stdout"),
     ({"override_settings": {"sd_model_checkpoint": "x"}}, "sd_model_checkpoint"),
     ({"enable_hr": True, "hr_scale": 1.5, "hr_prompt": "a <lora:x:1>"}, "lora"),
 ])
@@ -470,6 +470,16 @@ with tempfile.TemporaryDirectory() as d:
         "n_Conv_4.weight": torch.ones(8, 4, 1, 1), "n_Conv_5.weight": torch.ones(2, 8, 1, 1),
         "tags": ["a_b", "c"]}, plan=(("stage", 1, 4, 8, 1),))
     assert deepbooru.tag_image(net, np.full((40, 40, 3), 9, np.uint8)) == "a b, c"
+# every image format: the port's writers, then the readers behind image_io
+from sdwebui_tpu_torch.utils import bmp, gif, tiff, webp
+from sdwebui_tpu_torch.utils.image_io import decode_image
+pic = np.random.default_rng(0).integers(0, 256, (24, 40, 3), dtype=np.uint8)
+for data, exact in ((bmp.encode_bmp(pic), True), (tiff.encode_tiff(pic), True),
+                    (gif.encode_gif(pic, "c"), False), (webp.encode_webp(pic, lossless=True), True),
+                    (webp.encode_webp(pic, 80), False), (webp.encode_webp_alpha(
+                        np.concatenate([pic, pic[:, :, :1]], 2), 80), False)):
+    got = decode_image(data)[0]
+    assert got.shape[:2] == (24, 40) and (not exact or (got == pic).all())
 print("OK", len(mods))
 """
 

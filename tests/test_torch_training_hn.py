@@ -186,17 +186,17 @@ def test_training_routes_match_jax(train_models, data_dir, tmp_path, monkeypatch
                                   "training_height": 64})
         assert status == 400 and "learning rate" in got["detail"]
         # what the port leaves out answers 422 naming it: a family JAX cannot
-        # train, a dataset that is not PNG
+        # train, a dataset file in a format the port does not read (AVIF)
         xl = Api(Engine(device="cpu", tiny=True, family="sdxl", hash_cache=None))
         status, got = xl.handle("POST", "/sdapi/v1/train/embedding",
                                 {"embedding_name": "e", "data_root": str(data_dir), "steps": 1})
         assert status == 422 and "'sdxl'" in got["detail"]
         (tmp_path / "bmp").mkdir()
-        (tmp_path / "bmp" / "a.bmp").write_bytes(b"BM" + bytes(16))
+        (tmp_path / "bmp" / "a.bmp").write_bytes(b"\x00\x00\x00\x1cftypavif" + bytes(16))
         status, got = api.handle("POST", "/sdapi/v1/preprocess",
                                  {"process_src": str(tmp_path / "bmp"),
                                   "process_dst": str(tmp_path / "out")})
-        assert status == 422 and "a.bmp: a BMP image" in got["detail"]
+        assert status == 422 and "a.bmp: a AVIF image" in got["detail"]
     finally:
         port_hn.set_hypernetwork_dirs([port_hn.DEFAULT_HYPERNETWORK_DIR])
 
