@@ -338,6 +338,23 @@ Phases, in order; any failure exits non-zero:
      poll's handler).  Every request of (a), (b) and (e) launches B1, B2
      and B5 as planned (img2img B1 2, B2 160, B5 794; txt2img B1 1, B2
      200, B5 986; (e) B1 once more for each preview).
+  4p. the page and the checkpoint merger on a server over two files in a
+     temporary directory (phase 3's model in its own dtypes, a random
+     SD1.5 of seed 2 in fp16), built as --ckpt-dir builds it: (a) GET /
+     answers the port's page; (b) /sdapi/v1/modelmerger twice: (i)
+     Weighted sum 0.5 with save_as_half, the file torch.equal to the
+     phase's own merge of the same files on the card and on the CPU,
+     listed after /refresh-checkpoints, a seed-1234 txt2img from it through
+     override_settings twice (not phase 3's image, the repeat within
+     REPEAT_TOL); (ii) Add difference with tertiary = secondary, its
+     tensors equal to the primary's and its image within REPEAT_TOL of
+     phase 3's; (c) parse-infotext of (i)'s infotext, token-count of a
+     BREAK prompt against the host's count, last-result against the last
+     response; (d) one (i) request with profiling_enable, whose Chrome
+     trace names B2's kernel 200 times, B1's once and B5's 986 times;
+     (e) /internal/sysinfo names the card.  Every request launches B1 1,
+     B2 200, B5 986; logged: the merges' seconds and GB/s, the profiled and
+     unprofiled requests' seconds.
 Each phase's seconds are logged as it ends.  The last two lines are the
 kernels JSON and {"ok": true, "device": ...}.
 Needs a CUDA card; without one it exits 1 and prints no result.
@@ -5113,6 +5130,200 @@ def phase_formats(engine, model, phase3: dict, directory: str):
     return results, info
 
 
+UI_MERGE_M = 0.5          # 4p (i): Weighted sum's multiplier
+UI_ADD_M = 0.7            # 4p (ii): Add difference's, with tertiary = secondary
+UI_BREAK_PROMPT = "a (red:1.2) astronaut, [oil painting] BREAK a horse on the moon, stars"
+#: JAX's /internal/token-count of UI_BREAK_PROMPT over the fallback CLIP
+#: tokenizer (tests/test_torch_ui_routes.py holds it to JAX's Api on the CPU)
+UI_BREAK_TOKENS = {"token_count": 96, "max_length": 150}
+
+
+def _trace_kernels(path: str) -> dict:
+    """Kernel launches of a Chrome trace by class: B2's and B1's attention
+    kernels and B5's LayerNorm kernels by name, and every kernel."""
+    with open(path, encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in sorted(
+        (e for e in events if e.get("cat") == "kernel"), key=lambda e: e.get("ts", 0))]
+    return dict(first=[k[:60] for k in kernels[:6]], last=[k[:60] for k in kernels[-3:]],
+                attn_tc_kernel=sum("attn_tc_kernel" in k for k in kernels),
+                attn_wide_kernel=sum("attn_wide_kernel" in k for k in kernels),
+                layer_norm=sum("layer_norm_reg_kernel" in k or "layer_norm_kernel" in k
+                               for k in kernels),
+                all=len(kernels), events=len(events), mb=os.path.getsize(path) / 1e6)
+
+
+def phase_ui(model, device, phase3: dict, directory: str):
+    """4p: the page and the checkpoint merger on a server over two files in a
+    temporary directory, served as --ckpt-dir serves them: phase 3's model
+    in its own dtypes and a random SD1.5 of seed 2 in fp16.  (a) GET /
+    answers the port's page; (b) /sdapi/v1/modelmerger, (i) Weighted sum
+    0.5 with save_as_half: the file equal tensor for tensor to this phase's
+    own merge of the same files on the card and on the CPU, listed after
+    /refresh-checkpoints, a seed-1234 txt2img from it through
+    override_settings twice (finite, not phase 3's image, the repeat within
+    REPEAT_TOL); (ii) Add difference with tertiary = secondary: the file's
+    tensors equal the primary's, its image within REPEAT_TOL of phase 3's;
+    (c) parse-infotext of (i)'s infotext, token-count of a BREAK prompt
+    against JAX's count (UI_BREAK_TOKENS), last-result against the last
+    response;
+    (d) one (i) request with profiling_enable: its Chrome trace names B2's
+    and B5's kernels as often as the plan launches them, and keeps at
+    least one of utils/profiling's pad kernels; (e) /internal/sysinfo
+    names the card.  Every txt2img launches B1 1, B2 200 and B5 986.
+    Returns (results, info)."""
+    from sdwebui_tpu_torch.loader import load
+    from sdwebui_tpu_torch.loader.safetensors_io import read_state_dict, write_safetensors
+    from sdwebui_tpu_torch.pipeline.sd_model import create_random_sd15
+    from sdwebui_tpu_torch.postprocessing.merger import merge_checkpoints
+    from sdwebui_tpu_torch.server.app import Engine
+    from sdwebui_tpu_torch.utils import profiling
+
+    _need_disk(directory, 12.0)
+    primary = os.path.join(directory, "chip-sd15.safetensors")
+    secondary = os.path.join(directory, "chip-sd15-seed2-fp16.safetensors")
+    write_safetensors(primary, load.ldm_state_dict(model), metadata={"format": "pt"})
+    other = create_random_sd15(seed=2, device=device)
+    write_safetensors(secondary, {k: v.half() for k, v in load.ldm_state_dict(other).items()})
+    del other
+    torch.cuda.empty_cache()
+    engine = Engine(device=device, ckpt=primary, ckpt_dirs=[directory],
+                    hash_cache=os.path.join(directory, "hashes.json"))
+    plan = _plan(b1=1, b2=STEPS * launch_plan(model.unet_cfg, 64),
+                 b5=STEPS * ln_plan(model.unet_cfg, 64) + clip_ln_plan(model))
+    body = dict(SD15_BASE, seed=1234, batch_size=1)
+    results, info = [], {}
+
+    size = SD15_BASE["width"]
+
+    def request(url, name, label):
+        return _request(url, "txt2img", dict(body, override_settings={
+            "sd_model_checkpoint": name}), _sd15_check, size, f"4p {label}")
+
+    with _server(engine) as url:
+        root = url[: -len("/sdapi/v1")]
+        # (a) the page
+        ms, page = _get_raw(root + "/")
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "sdwebui_tpu_torch",
+                               "server", "webui.html"), "rb") as f:
+            if page != f.read():
+                raise AssertionError("4p (a): GET / is not the port's page")
+        info["page"] = dict(ms=ms, bytes=len(page))
+        # (b) (i) Weighted sum with save_as_half
+        merges = {}
+        for label, req in (("weighted", dict(secondary_model=os.path.basename(secondary),
+                                             interp_method="Weighted sum",
+                                             multiplier=UI_MERGE_M, save_as_half=True,
+                                             custom_name="chip-ws")),
+                           ("add_difference", dict(secondary_model=os.path.basename(secondary),
+                                                   tertiary_model=os.path.basename(secondary),
+                                                   interp_method="Add difference",
+                                                   multiplier=UI_ADD_M, custom_name="chip-ad"))):
+            t0 = time.perf_counter()
+            answer = _post(f"{url}/modelmerger", dict(req, primary_model=primary))
+            seconds = time.perf_counter() - t0
+            out = os.path.join(directory, req["custom_name"] + ".safetensors")
+            if answer != {"info": f"merged checkpoint saved to {out}"}:
+                raise AssertionError(f"4p (b) {label}: {answer}")
+            moved = sum(os.path.getsize(p) for p in (primary, secondary, out)) + \
+                (os.path.getsize(secondary) if "tertiary_model" in req else 0)
+            merges[label] = dict(seconds=seconds, gb_moved=moved / 1e9, gb_per_s=moved / 1e9
+                                 / seconds, file_gb=os.path.getsize(out) / 1e9, path=out)
+            log(f"4p (b) {label} merge: {seconds:.3f} s, {moved / 1e9:.3f} GB read and "
+                f"written, {moved / 1e9 / seconds:.3f} GB/s")
+        info["merges"] = merges
+        a, b = read_state_dict(primary), read_state_dict(secondary)
+        written = read_state_dict(merges["weighted"]["path"])
+        for where in (torch.device(device).type, "cpu"):
+            t0 = time.perf_counter()
+            mine = merge_checkpoints(a, b, None, "Weighted sum", UI_MERGE_M, True, device=where)
+            merges["weighted"][f"{where}_merge_s"] = time.perf_counter() - t0
+            bad = [k for k in written if not torch.equal(written[k], mine[k])]
+            if list(mine) != list(written) or bad:
+                raise AssertionError(f"4p (b)(i): the file differs from the {where} merge at "
+                                     f"{bad[:3]}")
+            del mine
+        added = read_state_dict(merges["add_difference"]["path"])
+        bad = [k for k in a if not torch.equal(added[k], a[k].float())]
+        if list(added) != list(a) or bad:
+            raise AssertionError(f"4p (b)(ii): Add difference changed {bad[:3]}")
+        del a, b, written, added
+        log("4p (b): the Weighted sum file is torch.equal to the merge on the card and on the "
+            "CPU (" + ", ".join(f"{w} {merges['weighted'][w + '_merge_s']:.3f} s"
+                                for w in (torch.device(device).type, "cpu"))
+            + "); the Add difference file equals the primary")
+        _post(f"{url}/refresh-checkpoints", {})
+        listed = {m["model_name"] for m in _post(f"{url}/sd-models")}
+        if not {"chip-ws", "chip-ad"} <= listed:
+            raise AssertionError(f"4p (b): sd-models lists {sorted(listed)}")
+        results += [request(url, "chip-ws", "(i) weighted sum"),
+                    request(url, "chip-ws", "(i) repeat")]
+        _check_repeat(results, 0, 1)
+        diff = float(abs(results[0]["image"].astype(int) - phase3["image"].astype(int)).mean())
+        if not diff > 1.0:
+            raise AssertionError(f"4p (i): mean|Δ| {diff:.2f} from phase 3's image")
+        # (c) the UI's routes
+        last = _post(f"{root}/internal/last-result")
+        if last["images"][-1] != results[1]["png_b64"] or \
+                json.loads(last["info"])["infotexts"][0] != results[1]["infotext"]:
+            raise AssertionError("4p (c): last-result is not the last response")
+        parsed = _post(f"{root}/internal/parse-infotext", {"text": results[1]["infotext"]})
+        want = {"Seed": "1234", "Steps": str(STEPS), "Sampler": "Euler a",
+                "CFG scale": str(SD15_BASE["cfg_scale"]), "Size-1": size, "Size-2": size}
+        got = {k: parsed["parsed"].get(k) for k in want}
+        if got != want:
+            raise AssertionError(f"4p (c): parse-infotext gave {got}, not {want}")
+        counted = _post(f"{root}/internal/token-count", {"text": UI_BREAK_PROMPT})
+        tokenizer = type(engine.sd_model.conditioner.tokenizer).__name__
+        if tokenizer != "FallbackTokenizer" or counted != UI_BREAK_TOKENS:
+            raise AssertionError(f"4p (c): token-count {counted} over {tokenizer}, JAX's "
+                                 f"{UI_BREAK_TOKENS} over FallbackTokenizer")
+        info["token_count"] = counted
+        # (d) a profiled request
+        trace = os.path.join(directory, "traces", "chip-ws.json")
+        t0 = time.perf_counter()
+        profiled = _request(url, "txt2img", dict(body, override_settings={
+            "sd_model_checkpoint": "chip-ws", "profiling_enable": True,
+            "profiling_filename": trace, "profiling_activities": ["CPU"],
+            "profiling_with_stack": False, "profiling_record_shapes": False,
+            "profiling_profile_memory": False}), _sd15_check, size, "4p (d) profiled")
+        profiled["seconds"] = time.perf_counter() - t0
+        results.append(profiled)
+        seen = _trace_kernels(trace)
+        seen["pad_kept"] = profiling.last_pad_kept
+        plain_s = results[1]["seconds"]         # the repeat: the same model, no load
+        info["profile"] = dict(seconds=profiled["seconds"], unprofiled_s=plain_s,
+                               overhead_s=profiled["seconds"] - plain_s, trace=seen)
+        log(f"4p (d) profiled request {profiled['seconds']:.3f} s against {plain_s:.3f} s "
+            f"unprofiled; its trace: {seen} (kept {seen['pad_kept']} of "
+            f"{profiling.PAD_KERNELS} pad kernels)")
+        if (seen["attn_tc_kernel"], seen["layer_norm"], seen["attn_wide_kernel"]) != \
+                (plan["flash_attention_packed"], plan["layer_norm"], plan["flash_attention"]) \
+                or not seen["pad_kept"]:
+            raise AssertionError(f"4p (d): the trace names {seen}, planned {plan} after at "
+                                 "least one pad kernel")
+        # (ii) Add difference: phase 3's image again
+        results.append(request(url, "chip-ad", "(ii) add difference"))
+        back = int(abs(results[-1]["image"].astype(int) - phase3["image"].astype(int)).max())
+        log(f"4p (ii): {back} levels from phase 3's image (bound {REPEAT_TOL}); (i) mean|Δ| "
+            f"{diff:.2f} from it")
+        if back > REPEAT_TOL:
+            raise AssertionError(f"4p (ii): {back} levels from phase 3's image")
+        # (e) the system report
+        sysinfo = _post(f"{root}/internal/sysinfo")
+        card = (sysinfo.get("backend"), sysinfo.get("device_name"), sysinfo.get("device_count"))
+        cuda = torch.device(device).type == "cuda"
+        if card != (torch.device(device).type, torch.cuda.get_device_name(0) if cuda else None,
+                    torch.cuda.device_count() if cuda else 1):
+            raise AssertionError(f"4p (e): sysinfo names {card}")
+        info["sysinfo"] = dict(device_name=card[1], torch=sysinfo["torch"])
+    _check_launches(results, [plan] * len(results))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results, info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -5218,6 +5429,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_formats_") as formats_dir:
         format_results, format_info = phase_formats(engine, model, results[0], formats_dir)
     mark("4o image formats")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ui_") as ui_dir:
+        ui_results, ui_info = phase_ui(model, device, results[0], ui_dir)
+    mark("4p page and merger")
     del model, engine, ckpt_engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -5259,7 +5473,8 @@ def main() -> int:
                 for r in (results + i2i_results + opt_results + hr_results + c4_results
                           + hy_results + face_results + zoo_results + ckpt_results
                           + sampler_results + opt4k_results + train_results + script_results
-                          + save_results + format_results + sdxl_results + opt4k_xl_results
+                          + save_results + format_results + ui_results + sdxl_results
+                          + opt4k_xl_results
                           + [sdxl_hr_result] + sdxl_i2i_results + family_results)]
     log(json.dumps({"card": smi, "kernel_shapes": rows, "unet_step": unet,
                     "sdxl_unet_step": sdxl_unet, "img2img_unet_calls": i2i_calls,
@@ -5269,6 +5484,7 @@ def main() -> int:
                     "faces": face_info, "zoo": zoo_info, "training": train_info,
                     "sdxl_img2img": sdxl_i2i_info, "options": opt4k_info,
                     "scripts": script_info, "saving": save_info, "formats": format_info,
+                    "ui": ui_info,
                     "families": {k: v for k, v in family_info.items() if k != "b1_calls"},
                     "requests": requests, "sdxl_profile": profile, "phase_s": phase_s}))
 
@@ -5294,6 +5510,7 @@ def main() -> int:
     b1_calls[("vae_mid_512_f32", "float32")] += save_info["f32_encodes_512"]
     b1_calls[("vae_mid_512", "bfloat16")] += format_info["decodes_512"]
     b1_calls[("vae_mid_512_f32", "float32")] += format_info["f32_encodes_512"]
+    b1_calls[("vae_mid_512", "bfloat16")] += len(ui_results)
     b1_calls[("vae_mid_1024_f32", "float32")] += 1
     for row, n in family_info["b1_calls"].items():
         b1_calls[row] = b1_calls.get(row, 0) + n

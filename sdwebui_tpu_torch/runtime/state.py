@@ -4,8 +4,10 @@ Port of ``sdwebui_tpu/runtime/state.py``: the fields the Engine sets and
 reads, the interrupt/skip flags (``interrupt_ui`` with
 opts.interrupt_after_current), the progress fraction, the live preview
 (``current_image``, ``id_live_preview``, ``textinfo``) and the job's peak
-device memory (``utils/memmon``, in place of JAX's polling thread).  The
-JAX package's console line and server commands are not ported.
+device memory (``utils/memmon``, in place of JAX's polling thread), the
+server commands (``server_command``: stop, restart or kill, which
+``server/__main__`` waits for) and the end of the console's progress line
+(``runtime/console``) when a job ends.
 
 Generation holds the Engine's queue lock; the progress routes do not, and
 run in other threads of the threaded server.  So every write of more than
@@ -18,6 +20,7 @@ from __future__ import annotations
 import threading
 import time
 
+from sdwebui_tpu_torch.runtime import console
 from sdwebui_tpu_torch.utils.memmon import MemMonitor
 from sdwebui_tpu_torch.utils.options import opts
 
@@ -40,6 +43,8 @@ class State:
         self.server_start = time.time()
         self.memmon = MemMonitor()
         self._lock = threading.Lock()
+        self.server_command_signal = threading.Event()
+        self._server_command = None
 
     # ---- flags --------------------------------------------------------
 
@@ -96,6 +101,7 @@ class State:
         with self._lock:
             self.job = ""
             self.job_count = 0
+        console.finish()
         self.memmon.stop()
 
     def set_sampling_step(self, step: int, steps: int):
@@ -141,3 +147,24 @@ class State:
         snap["progress"] = self._progress(snap["job_no"], snap["job_count"],
                                           snap["sampling_step"], snap["sampling_steps"])
         return snap
+
+    # ---- server commands (JAX's state.py:128-145) --------------------------
+
+    @property
+    def server_command(self):
+        return self._server_command
+
+    @server_command.setter
+    def server_command(self, value):
+        self._server_command = value
+        self.server_command_signal.set()
+
+    def wait_for_server_command(self, timeout=None):
+        """The next command ("stop", "restart" or "kill"), or None after
+        `timeout` seconds without one."""
+        if self.server_command_signal.wait(timeout):
+            self.server_command_signal.clear()
+            req = self._server_command
+            self._server_command = None
+            return req
+        return None

@@ -30,12 +30,22 @@ code" script runs only with ``--allow-code``.  Requests with
 ``save_images`` write under ``--outdir`` (default ``outputs``):
 ``txt2img-images``, ``img2img-images`` and their ``-grids``, unless the
 saving-path options name other directories.
+
+The options are read from ``--config-path`` (default ``config.json``), where
+a ``restore_config_state_file`` is applied once and cleared
+(``utils/config_states``).  Start-up's stages are timed
+(``/internal/profile-startup``).  The server runs until
+``/sdapi/v1/server-stop`` or ``server-kill`` (or Ctrl-C) and then returns
+0; ``server-restart`` is logged and the server carries on, as in JAX: the
+models are explicit state, so there is nothing to reload.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
+import threading
 
 from sdwebui_tpu_torch.networks.extra_networks import DEFAULT_LORA_DIRS, set_lora_dirs
 from sdwebui_tpu_torch.networks.hypernetwork import (DEFAULT_HYPERNETWORK_DIR,
@@ -46,6 +56,9 @@ from sdwebui_tpu_torch.postprocessing import faces
 from sdwebui_tpu_torch.postprocessing.upscalers import register_model_dirs
 from sdwebui_tpu_torch.server.api import make_server
 from sdwebui_tpu_torch.server.app import DEFAULT_CKPT_DIR, DEFAULT_OUTDIR, Engine
+from sdwebui_tpu_torch.utils import timer
+from sdwebui_tpu_torch.utils.config_states import restore_config_state_file
+from sdwebui_tpu_torch.utils.options import opts
 
 #: the upscaler files' directories (the reference's layout, relative to the
 #: working directory)
@@ -53,6 +66,8 @@ DEFAULT_ESRGAN_DIRS = (os.path.join("models", "ESRGAN"), os.path.join("models", 
 
 
 def main(argv=None):
+    st = timer.startup_timer
+    st.reset()
     ap = argparse.ArgumentParser(prog="python -m sdwebui_tpu_torch.server")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=7860)
@@ -92,6 +107,7 @@ def main(argv=None):
                     help="allow custom script execution from webui")
     ap.add_argument("--tiny", action="store_true", help="with --model: the tiny test model(s)")
     ap.add_argument("--seed", type=int, default=0, help="seed of the random weights")
+    ap.add_argument("--config-path", default="config.json", help="the options' file")
     args = ap.parse_args(argv)
     if args.model and (args.ckpt or args.ckpt_dir or args.vae_path):
         ap.error("--model serves random weights: it takes no --ckpt, --ckpt-dir or --vae-path")
@@ -99,6 +115,10 @@ def main(argv=None):
         ap.error("--tiny needs --model")
     if args.vae_path and not os.path.isfile(args.vae_path):
         ap.error(f"--vae-path {args.vae_path!r} is not a file")
+    st.record("parse args")
+    opts.load(args.config_path)
+    restore_config_state_file(args.config_path)
+    st.record("load options")
     set_lora_dirs([args.lora_dir] if args.lora_dir else DEFAULT_LORA_DIRS)
     set_hypernetwork_dirs([args.hypernetwork_dir])
     set_model_dirs([args.controlnet_dir])
@@ -114,22 +134,46 @@ def main(argv=None):
                         embeddings_dir=args.embeddings_dir, allow_code=args.allow_code,
                         outdir=args.outdir)
         engine.sd_model           # load now: a checkpoint that fails fails at start
+    st.record("create engine")
     # ESRGAN, RealESRGAN, then models/SwinIR, ScuNET, LDSR, HAT and DAT
     upscalers, realesrgan = register_model_dirs(
         (args.esrgan_models_path, args.realesrgan_models_path), models_root="models",
         dat_dir=args.dat_models_path, device=engine.device)
+    st.record("create engine/list upscalers")
     server = make_server(engine, args.host, args.port, flags=vars(args), realesrgan=realesrgan)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    st.record("start server")
+    timer.startup_record = st.dump()
     extras = "".join(f", refiner {t!r}" for t in engine._extra_models) + \
         "".join(f", upscaler {n!r}" for n in upscalers)
     print(f"serving {engine.sd_model.title!r}{extras} on "
           f"http://{args.host}:{server.server_address[1]}", flush=True)
     try:
-        server.serve_forever()
+        return wait_for_command(engine, thread)
     except KeyboardInterrupt:
-        pass
+        return 0
     finally:
+        if thread.is_alive():
+            server.shutdown()
+            thread.join(timeout=30)
         server.server_close()
 
 
+def wait_for_command(engine, thread: threading.Thread | None = None) -> int:
+    """Block until /server-stop or /server-kill (JAX's __main__.py:124-136),
+    or until `thread` (the server's loop) has ended: 0 for the caller to
+    shut down; /server-restart is logged and waited past."""
+    while thread is None or thread.is_alive():
+        cmd = engine.state.wait_for_server_command(timeout=1.0)
+        if cmd in ("stop", "kill"):
+            print(f"server command: {cmd}; shutting down", flush=True)
+            return 0
+        if cmd == "restart":
+            print("restart requested (in-process reload not needed: models are explicit "
+                  "state); continuing", flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -32,13 +32,15 @@ Requests are plain JSON mapped
 onto ``GenerationParams`` (no pydantic); responses have the reference's
 shape, ``{"images": [b64 png], "parameters": {...}, "info": "<json>"}``.
 Every image a client sends (img2img's ``init_images`` and ``mask``, Extras,
-ControlNet, interrogate, png-info) is a base64 PNG or JPEG (a ``data:``
-URL prefix is accepted); GIF, BMP, WebP and TIFF answer 400 naming the
-format, and
-``parameters`` leaves them out unless ``include_init_images`` is set, as
-the reference does.  ControlNet units come as ``controlnet_units`` or as
-the sd-webui-controlnet extension's ``alwayson_scripts.controlnet.args``
-(``api.py:112-119``), their images base64 PNGs or JPEGs.  The extra-network routes
+ControlNet, interrogate, png-info) is a base64 image in any format
+``utils/image_io`` reads (a ``data:`` URL prefix is accepted), or an
+http(s) URL: fetched with opts.api_enable_requests and opts.api_useragent,
+and only from a host whose every address is global (``utils/url_fetch``;
+JAX fetches any URL); ``parameters`` leaves them out unless
+``include_init_images`` is set, as the reference does.  ControlNet units
+come as ``controlnet_units`` or as the sd-webui-controlnet extension's
+``alwayson_scripts.controlnet.args`` (``api.py:112-119``), their images
+encoded as the other image fields.  The extra-network routes
 (loras, embeddings, hypernetworks and their refreshes), the prompt-style
 routes (GET, POST and DELETE ``/sdapi/v1/prompt-styles``) and the
 extension's ``/controlnet/*`` routes are served too.  A request's
@@ -48,6 +50,15 @@ generation routes run a selectable script (``script_name`` and
 the main UI's ``postprocessing`` stages; ``/sdapi/v1/scripts`` and
 ``/sdapi/v1/script-info`` list the scripts (api.py:972-999), and a
 script_args value a script cannot take answers 400 naming its control.
+``GET /`` serves the single-page UI (``server/webui.html``), and the rest
+of JAX's route table with it (api.py:293-299,420-435,600-643,813-887,
+1000-1201,1387-1397): ``modelmerger`` (``postprocessing/merger``; a
+``custom_name`` that is not one path component answers 400),
+``/internal/{last-result,options-metadata,ui-config,localization,
+save-style,delete-style,token-count,parse-infotext,sysinfo,
+sysinfo-download,profile-startup}``, the extra-network cards' previews and
+user metadata, the extensions (``extensions.py``) and the server commands
+``server-{kill,restart,stop}``, which ``server/__main__`` acts on.
 A request field, override or
 option the port does not run answers 422 naming it — it is never silently
 ignored — and so does a checkpoint name the server does not hold; a LoRA,
@@ -63,14 +74,19 @@ import dataclasses
 import glob
 import json
 import os
+import platform
 import resource
+import sys
 import threading
 import time
 import traceback
+import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
 
+from sdwebui_tpu_torch import __version__
+from sdwebui_tpu_torch import extensions as ext_mod
 from sdwebui_tpu_torch.loader.safetensors_io import read_metadata
 from sdwebui_tpu_torch.networks import NetworkNotFound
 from sdwebui_tpu_torch.networks.extra_networks import lora_registry
@@ -79,6 +95,7 @@ from sdwebui_tpu_torch.pipeline import annotators, control
 from sdwebui_tpu_torch.pipeline.params import GenerationParams
 from sdwebui_tpu_torch.pipeline.processing import LATENT_UPSCALE_MODES
 from sdwebui_tpu_torch.postprocessing import faces, upscalers
+from sdwebui_tpu_torch.postprocessing.merger import check_output_name, run_modelmerger
 from sdwebui_tpu_torch.postprocessing.stages import STAGES, StageArgs
 from sdwebui_tpu_torch.sampling.registry import SAMPLER_MAP, SAMPLERS
 from sdwebui_tpu_torch.sampling.schedulers import ALIASES, SCHEDULERS
@@ -86,9 +103,10 @@ from sdwebui_tpu_torch.scripts.framework import (ScriptArgError, get_script,
                                                  list_alwayson_scripts,
                                                  list_selectable_scripts)
 from sdwebui_tpu_torch.server.app import CheckpointNotFound, Engine
+from sdwebui_tpu_torch.text.prompt_parser import parse_prompt_attention
 from sdwebui_tpu_torch.text.styles import PromptStyle
 from sdwebui_tpu_torch.utils import images as images_util
-from sdwebui_tpu_torch.utils import infotext, saving, webp
+from sdwebui_tpu_torch.utils import infotext, saving, timer, url_fetch, webp
 from sdwebui_tpu_torch.utils.image_io import (UnsupportedImageFormat, decode_image,
                                               other_format, read_image_file)
 from sdwebui_tpu_torch.utils.jpeg import encode_jpeg
@@ -200,6 +218,9 @@ OVERRIDES = SAVING_OPTIONS | {
     "sd_unet",
     # the scripts: X/Y/Z's grid size guard, the main UI's postprocessing stages
     "img_max_size_mp", "postprocessing_enable_in_main_ui",
+    # a generation under torch.profiler (utils/profiling)
+    "profiling_enable", "profiling_activities", "profiling_record_shapes",
+    "profiling_profile_memory", "profiling_with_stack", "profiling_filename",
 }
 
 
@@ -253,7 +274,13 @@ OPTIONS = OVERRIDES | IMG2IMG_OVERRIDES | {
     "interrogate_deepbooru_score_threshold", "deepbooru_sort_alpha", "deepbooru_use_spaces",
     "deepbooru_escape", "deepbooru_filter_tags", "interrogate_return_ranks",
     "interrogate_clip_num_beams", "interrogate_clip_min_length", "interrogate_clip_max_length",
-    "interrogate_clip_dict_limit", "interrogate_clip_skip_categories"}
+    "interrogate_clip_dict_limit", "interrogate_clip_skip_categories",
+    # image URLs in request fields, the UI's token counter, infotext paste
+    # and localization, extensions
+    "api_enable_requests", "api_useragent", "include_styles_into_token_counters",
+    "infotext_styles", "infotext_skip_pasting", "disable_weights_auto_swap", "localization",
+    "disabled_extensions", "disable_all_extensions", "enable_extension_scripts",
+    "restore_config_state_file", "multiple_tqdm", "extra_networks_hidden_models"}
 
 #: the training routes' request fields: the ones JAX's handlers read
 #: (api.py:1206-1365); another field answers 422
@@ -302,6 +329,15 @@ class ApiError(Exception):
         super().__init__(message)
         self.status = status
         self.message = message
+
+
+class RawResponse:
+    """A handler's answer that is not JSON: the page, an image, a download."""
+
+    def __init__(self, body, content_type: str, headers: dict | None = None):
+        self.body = body.encode("utf-8") if isinstance(body, str) else body
+        self.content_type = content_type
+        self.headers = headers or {}
 
 
 def _check_fields(body: dict, fields: dict, neutral: dict) -> dict:
@@ -461,19 +497,32 @@ def _decode_with_info(encoding, field: str):
     if not isinstance(encoding, str):
         raise ApiError(422, f"field {field!r} must hold base64 strings")
     if encoding.startswith(("http://", "https://")):
-        raise ApiError(422, f"image URLs in {field!r} are not supported by this server yet")
-    if encoding.startswith("data:"):
-        encoding = encoding.split(",", 1)[-1]
-    try:
-        data = base64.b64decode(encoding, validate=True)
-    except (binascii.Error, ValueError) as e:
-        raise ApiError(400, f"field {field!r} is not valid base64: {e}") from e
+        data = _fetch_image(encoding, field)
+    else:
+        if encoding.startswith("data:"):
+            encoding = encoding.split(",", 1)[-1]
+        try:
+            data = base64.b64decode(encoding, validate=True)
+        except (binascii.Error, ValueError) as e:
+            raise ApiError(400, f"field {field!r} is not valid base64: {e}") from e
     try:
         return decode_image(data)
     except UnsupportedImageFormat as e:
         raise ApiError(400, f"field {field!r} holds a {e.fmt} image; this server reads "
                             "PNG, JPEG, GIF, BMP, TIFF and WebP") from e
     except ValueError as e:
+        raise ApiError(400, f"field {field!r}: {e}") from e
+
+
+def _fetch_image(url: str, field: str) -> bytes:
+    """An image URL's bytes (app.py:478-492): only with
+    opts.api_enable_requests, with opts.api_useragent, and only from a host
+    whose every address is global (``utils/url_fetch``; JAX fetches any)."""
+    if not opts.get("api_enable_requests", True):
+        raise ApiError(400, f"field {field!r}: requests not allowed (api_enable_requests is off)")
+    try:
+        return url_fetch.fetch(url, useragent=str(opts.get("api_useragent", "") or ""))
+    except url_fetch.URLRefused as e:
         raise ApiError(400, f"field {field!r}: {e}") from e
 
 
@@ -546,7 +595,36 @@ class Api:
             # saving (api.py:645-745)
             ("POST", "/internal/save-images"): self.save_images_action,
             ("POST", "/internal/img2img-batch"): self.img2img_batch,
+            # the page and its routes (api.py:293-299,420-435,600-643,813-887,
+            # 1000-1201,1376-1397)
+            ("GET", "/"): self.index_html,
+            ("POST", "/sdapi/v1/modelmerger"): self.modelmerger,
+            ("GET", "/internal/last-result"): self.last_result,
+            ("GET", "/internal/options-metadata"): self.options_metadata,
+            ("GET", "/internal/ui-config"): self.ui_config_get,
+            ("POST", "/internal/ui-config"): self.ui_config_set,
+            ("GET", "/internal/localization"): self.localization,
+            ("POST", "/internal/save-style"): self.save_style,
+            ("POST", "/internal/delete-style"): self.delete_style,
+            ("POST", "/internal/token-count"): self.token_count,
+            ("POST", "/internal/parse-infotext"): self.parse_infotext,
+            ("GET", "/internal/sysinfo"): self.sysinfo,
+            ("GET", "/internal/sysinfo-download"): self.sysinfo_download,
+            ("GET", "/internal/profile-startup"): self.profile_startup,
+            ("POST", "/internal/extra-networks/user-metadata"): self.extra_network_user_metadata,
+            ("GET", "/internal/extra-networks/preview"): self.extra_network_preview,
+            ("POST", "/internal/extra-networks/preview"): self.extra_network_set_preview,
+            ("GET", "/sdapi/v1/extensions"): self.extensions,
+            ("POST", "/internal/extensions/install"): self.extensions_install,
+            ("POST", "/internal/extensions/available"): self.extensions_available,
+            ("POST", "/internal/extensions/check-updates"): self.extensions_check_updates,
+            ("POST", "/sdapi/v1/server-kill"): self.server_kill,
+            ("POST", "/sdapi/v1/server-restart"): self.server_restart,
+            ("POST", "/sdapi/v1/server-stop"): self.server_stop,
         }
+        #: the last finished generation's images and info, for a reloaded
+        #: page's gallery (api.py:264,288)
+        self._last_result: dict | None = None
 
     def _generate(self, body, img2img: bool):
         if not isinstance(body, dict):
@@ -564,6 +642,8 @@ class Api:
             images = [base64.b64encode(encode_png(
                 img, {"parameters": res.infotexts[i]} if i < len(res.infotexts) else None)
             ).decode("ascii") for i, img in enumerate(res.images)]
+        if images:
+            self._last_result = {"images": images, "info": json.dumps(res.js())}
         if img2img and not body.get("include_init_images", False):
             body = {k: v for k, v in body.items() if k not in ("init_images", "mask")}
         return {"images": images, "parameters": body, "info": json.dumps(res.js())}
@@ -733,12 +813,31 @@ class Api:
 
     def loras(self, body=None):
         """name, alias (kohya's ss_output_name), path and the safetensors
-        metadata of each LoRA file."""
+        metadata of each LoRA file, with its mtime, whether a dot-directory
+        hides it (extra_networks_hidden_models "Never" leaves it out), its
+        preview's URL and its <file>.json user metadata (api.py:759-811)."""
+        hidden_mode = opts.get("extra_networks_hidden_models", "When searched")
         out = []
         for name, path in lora_registry().files.items():
+            hidden = any(part.startswith(".")
+                         for part in os.path.normpath(path).split(os.sep)[:-1])
+            if hidden and hidden_mode == "Never":
+                continue
             meta = read_metadata(path) if path.endswith(".safetensors") else {}
-            out.append({"name": name, "alias": meta.get("ss_output_name") or name,
-                        "path": path, "metadata": meta})
+            entry = {"name": name, "alias": meta.get("ss_output_name") or name,
+                     "path": path, "metadata": meta, "mtime": os.path.getmtime(path),
+                     "hidden": hidden}
+            if self._find_network_preview(path):
+                entry["preview"] = ("/internal/extra-networks/preview?name="
+                                    + urllib.parse.quote(name))
+            side = os.path.splitext(path)[0] + ".json"
+            if os.path.isfile(side):
+                try:
+                    with open(side, encoding="utf-8") as f:
+                        entry["user_metadata"] = json.load(f)
+                except (OSError, ValueError):
+                    pass
+            out.append(entry)
         return out
 
     def refresh_loras(self, body=None):
@@ -1264,11 +1363,326 @@ class Api:
         return {"info": f"train hypernetwork complete: {len(losses)} steps, "
                         f"final loss {losses[-1]:.4f}"}
 
+    # ---- the page (api.py:1376-1383) ----------------------------------------
+
+    def index_html(self, body=None):
+        """The single-page UI, ``server/webui.html`` (a copy of JAX's page)."""
+        with open(os.path.join(os.path.dirname(__file__), "webui.html"), encoding="utf-8") as f:
+            return RawResponse(f.read(), "text/html; charset=utf-8")
+
+    def last_result(self, body=None):
+        """The last finished generation's images and info (api.py:293-299)."""
+        if not self._last_result:
+            raise ApiError(404, "No generation has completed yet")
+        return self._last_result
+
+    # ---- the checkpoint merger (api.py:420-435) -----------------------------
+
+    def _merge_input(self, name) -> str | None:
+        """A merge input: a file path, else a checkpoint the registry holds
+        by name or title (the page sends titles)."""
+        if name in (None, "", "None"):
+            return None
+        if not isinstance(name, str):
+            raise ApiError(422, f"checkpoint names must be strings, got {name!r}")
+        return name if os.path.isfile(name) else self.engine._find(name).filename
+
+    @staticmethod
+    def _vae_file(path) -> str | None:
+        if path in (None, "", "None"):
+            return None
+        if not isinstance(path, str) or not os.path.isfile(path):
+            raise ApiError(404, f"bake_in_vae {path!r} is not a file")
+        return path
+
+    def modelmerger(self, body):
+        """Merge checkpoints under the queue lock into the first checkpoint
+        directory (``postprocessing/merger``), then rescan the registry.
+        custom_name must be one path component (400 otherwise)."""
+        from sdwebui_tpu_torch.server.app import DEFAULT_CKPT_DIR
+
+        if not isinstance(body, dict) or not body.get("primary_model"):
+            raise ApiError(422, "request body must be a JSON object naming 'primary_model'")
+        name = body.get("custom_name") or "merged"
+        try:
+            check_output_name(str(name))
+        except ValueError as e:
+            raise ApiError(400, str(e)) from e
+        registry = self.engine.registry
+        try:
+            with self.engine.queue_lock:
+                path = run_modelmerger(
+                    primary_path=self._merge_input(body["primary_model"]),
+                    secondary_path=self._merge_input(body.get("secondary_model")),
+                    tertiary_path=self._merge_input(body.get("tertiary_model")),
+                    method=body.get("interp_method", "Weighted sum"),
+                    multiplier=float(body.get("multiplier", 0.5)),
+                    save_as_half=bool(body.get("save_as_half", False)), output_name=str(name),
+                    output_dir=registry.model_dirs[0] if registry is not None
+                    else DEFAULT_CKPT_DIR,
+                    bake_in_vae_path=self._vae_file(body.get("bake_in_vae")),
+                    discard_weights=body.get("discard_weights", "") or "",
+                    device=self.engine.device)
+        except ValueError as e:
+            raise ApiError(400, str(e)) from e
+        if registry is not None:
+            registry.refresh()
+        return {"info": f"merged checkpoint saved to {path}"}
+
+    # ---- the UI's settings, styles and prompt tools (api.py:600-643,1056-1144)
+
+    def options_metadata(self, body=None):
+        """Each option's label, section, type and choices, for the settings
+        page (api.py:600-618)."""
+        out = {}
+        for key, info in opts.data_labels.items():
+            sec = info.section or (None, None)
+            row = {"label": info.label, "section": sec[0] or "other",
+                   "section_title": sec[1] or "Other"}
+            choices = (info.component_args or {}).get("choices")
+            if choices:
+                row["choices"] = list(choices)
+            row["type"] = type(info.default).__name__
+            out[key] = row
+        return out
+
+    def ui_config_get(self, body=None):
+        """The widget defaults of ``ui-config.json`` in the working
+        directory, as JAX keeps them (api.py:1109-1117)."""
+        try:
+            with open("ui-config.json", encoding="utf-8") as f:
+                return json.load(f)
+        except (FileNotFoundError, ValueError):
+            return {}
+
+    def ui_config_set(self, body):
+        with open("ui-config.json", "w", encoding="utf-8") as f:
+            json.dump(body or {}, f, indent=2)
+        return {"saved": True}
+
+    def localization(self, body=None):
+        """The dictionary named by opts.localization: a JSON file of
+        ``localizations/`` or of an enabled extension's (api.py:1126-1144)."""
+        selected = opts.get("localization", "None")
+        if selected in (None, "None"):
+            return {}
+        dirs = ["localizations"] + [os.path.join(e.path, "localizations")
+                                    for e in ext_mod.active_extensions()]
+        for d in dirs:
+            for path in glob.glob(os.path.join(d, "*.json")):
+                if os.path.splitext(os.path.basename(path))[0] == selected:
+                    with open(path, encoding="utf-8") as f:
+                        return json.load(f)
+        return {}
+
+    def token_count(self, body):
+        """The prompt's tokens after the attention syntax is stripped (BREAK
+        pads to the next 75), with its styles applied under
+        include_styles_into_token_counters, and the 75-token chunks' length
+        (api.py:1085-1107)."""
+        if not isinstance(body, dict):
+            raise ApiError(422, "request body must be a JSON object")
+        text = str(body.get("text", ""))
+        styles = body.get("styles") or []
+        negative = bool(body.get("negative"))
+        if styles and opts.get("include_styles_into_token_counters", True):
+            pos, neg = self.engine.styles.apply(text if not negative else "",
+                                                text if negative else "", styles)
+            text = neg if negative else pos
+        tok = (self.engine._model or self.engine.sd_model).conditioner.tokenizer
+        n = 0
+        for part, _w in parse_prompt_attention(text):
+            if part == "BREAK":
+                n += 75 - (n % 75 or 75)
+                continue
+            n += len(tok.encode(part))
+        return {"token_count": n, "max_length": max((n + 74) // 75, 1) * 75}
+
+    def parse_infotext(self, body):
+        """A pasted infotext as fields (api.py:1056-1083): the known styles
+        taken out of its prompts under opts.infotext_styles, the fields of
+        opts.infotext_skip_pasting dropped, and Model / Model hash dropped
+        with opts.disable_weights_auto_swap."""
+        if not isinstance(body, dict):
+            raise ApiError(422, "request body must be a JSON object")
+        parsed = infotext.backcompat(infotext.parse(str(body.get("text", ""))))
+        styles_mode = str(opts.get("infotext_styles", "Apply if any"))
+        if styles_mode != "Ignore" and "Prompt" in parsed:
+            found, prompt, negative = self.engine.styles.extract_styles_from_prompt(
+                str(parsed.get("Prompt", "")), str(parsed.get("Negative prompt", "")))
+            parsed["Prompt"], parsed["Negative prompt"] = prompt, negative
+            if found and styles_mode in ("Apply", "Apply if any"):
+                parsed["Styles array"] = found
+        for k in opts.get("infotext_skip_pasting", []) or []:
+            parsed.pop(k, None)
+        if opts.get("disable_weights_auto_swap", False):
+            parsed.pop("Model", None)
+            parsed.pop("Model hash", None)
+        return {"parsed": {str(k): v for k, v in parsed.items()}}
+
+    # ---- the system report and the startup profile (api.py:1146-1201) ------
+
+    def sysinfo(self, body=None):
+        """JAX's report (api.py:1155-1190) with torch's version, the device
+        type and the card count and name in place of jax, backend and
+        device_count."""
+        device = self.engine.device
+        model = self.engine._model
+        cuda = device.type == "cuda"
+        return {
+            "version": f"sdwebui-tpu-{__version__}",
+            "python": sys.version.split()[0],
+            "platform": platform.platform(),
+            "torch": torch.__version__,
+            "backend": device.type,
+            "device_count": torch.cuda.device_count() if cuda else 1,
+            "device_name": torch.cuda.get_device_name(device) if cuda else None,
+            "ram_peak_mb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss // 1024,
+            "checkpoint": getattr(model, "title", None),
+            "checkpoint_hash": (model.sha256[:10] if getattr(model, "sha256", "") else None),
+            "model_kind": getattr(model, "kind", None),
+            "cmd_flags": {k: v for k, v in self.flags.items() if v not in (None, False, "")},
+            "config": dict(opts.data),
+            "extensions": [{"name": e.name, "enabled": e.enabled}
+                           for e in ext_mod.list_extensions()],
+        }
+
+    def sysinfo_download(self, body=None):
+        name = f"sysinfo-{time.strftime('%Y-%m-%d-%H-%M')}.json"
+        return RawResponse(json.dumps(self.sysinfo(), indent=2), "application/json",
+                           {"Content-Disposition": f'attachment; filename="{name}"'})
+
+    def profile_startup(self, body=None):
+        """The server's start-up stages, in seconds (``utils/timer``)."""
+        return timer.startup_record or timer.startup_timer.dump()
+
+    # ---- extra-network cards (api.py:813-887) ------------------------------
+
+    _PREVIEW_EXTS = ("png", "jpg", "jpeg", "webp", "gif")
+    _PREVIEW_TYPES = {"png": "image/png", "jpg": "image/jpeg", "jpeg": "image/jpeg",
+                      "webp": "image/webp", "gif": "image/gif"}
+
+    @classmethod
+    def _find_network_preview(cls, path: str):
+        """<base>.<ext>, then <base>.preview.<ext>, for each preview
+        extension (reference ui_extra_networks.py:647 find_preview)."""
+        base = os.path.splitext(path)[0]
+        for ext in cls._PREVIEW_EXTS:
+            for cand in (f"{base}.{ext}", f"{base}.preview.{ext}"):
+                if os.path.isfile(cand):
+                    return cand
+        return None
+
+    @staticmethod
+    def _network_path(body) -> str:
+        if not isinstance(body, dict):
+            raise ApiError(422, "request body must be a JSON object")
+        name = body.get("name", "")
+        path = lora_registry().files.get(name)
+        if path is None:
+            raise ApiError(404, f"network {name!r} not found")
+        return path
+
+    def extra_network_preview(self, body):
+        """A card's preview image, as its file's bytes."""
+        path = self._network_path(body)
+        found = self._find_network_preview(path)
+        if found is None:
+            raise ApiError(404, f"no preview image for {body.get('name')!r}")
+        with open(found, "rb") as f:
+            return RawResponse(f.read(), self._PREVIEW_TYPES[found.rsplit(".", 1)[-1].lower()])
+
+    def extra_network_set_preview(self, body):
+        """The posted image written as <base>.preview.png with its geninfo
+        (the request's, else the image's own "parameters")."""
+        path = self._network_path(body)
+        if not body.get("image"):
+            raise ApiError(400, "image required")
+        pixels, info = _decode_with_info(body["image"], "image")
+        target = os.path.splitext(path)[0] + ".preview.png"
+        saving.save_image_with_geninfo(pixels, body.get("geninfo") or info.get("parameters"),
+                                       target)
+        return {"path": target}
+
+    def extra_network_user_metadata(self, body):
+        """The <file>.json user-metadata sidecar: the body less its name."""
+        path = self._network_path(body)
+        side = os.path.splitext(path)[0] + ".json"
+        with open(side, "w", encoding="utf-8") as f:
+            json.dump({k: v for k, v in body.items() if k != "name"}, f, indent=2)
+        return {"path": side}
+
+    # ---- extensions (api.py:1000-1054) ---------------------------------------
+
+    def extensions(self, body=None):
+        out = []
+        for ext in ext_mod.list_extensions():
+            ext.read_info_from_repo()
+            out.append({"name": ext.name, "remote": ext.remote, "branch": ext.branch,
+                        "commit_hash": ext.commit_hash, "commit_date": ext.commit_date,
+                        "version": ext.version, "enabled": ext.enabled})
+        return out
+
+    def extensions_install(self, body):
+        """git clone into extensions/ (a local path or a file:// remote needs
+        no network); its install.py runs only with --allow-code."""
+        if not isinstance(body, dict):
+            raise ApiError(422, "request body must be a JSON object")
+        try:
+            ext = ext_mod.install_from_url(body.get("url", ""),
+                                              dirname=body.get("dirname") or None,
+                                              branch=body.get("branch") or None,
+                                              allow_code=self.engine.allow_code)
+        except (ValueError, FileExistsError, RuntimeError) as e:
+            raise ApiError(400, str(e)) from e
+        return {"name": ext.name, "path": ext.path, "commit_hash": ext.commit_hash,
+                "branch": ext.branch}
+
+    def extensions_available(self, body):
+        """The extensions index, filtered and sorted: {url?, refresh?, tags?,
+        search?, sort?, hide_installed?}; url a local index file or an
+        http(s) URL."""
+        body = body if isinstance(body, dict) else {}
+        if body.get("refresh") or ext_mod._available_index is None:
+            try:
+                ext_mod.load_available_index(body.get("url") or None)
+            except Exception as e:
+                raise ApiError(400, f"could not load extensions index: {e}") from e
+        try:
+            return ext_mod.browse_available(
+                selected_tags=body.get("tags") or (), filter_text=body.get("search") or "",
+                sort_column=int(body.get("sort") or 0),
+                hide_installed=bool(body.get("hide_installed", True)))
+        except ValueError as e:
+            raise ApiError(400, str(e)) from e
+
+    def extensions_check_updates(self, body=None):
+        return ext_mod.check_updates()
+
+    # ---- server commands (api.py:1387-1397; server/__main__ acts on them) --
+
+    def server_kill(self, body=None):
+        self.engine.state.server_command = "kill"
+        return {}
+
+    def server_restart(self, body=None):
+        self.engine.state.server_command = "restart"
+        return {}
+
+    def server_stop(self, body=None):
+        self.engine.state.server_command = "stop"
+        return {}
+
     def handle(self, method: str, path: str, body):
-        """→ (status, JSON-able payload)."""
-        handler = self.routes.get((method, path.split("?", 1)[0]))
+        """→ (status, JSON-able payload or RawResponse); a query string is
+        the body of a request that has none (api.py:1441-1454)."""
+        route, _, query = path.partition("?")
+        handler = self.routes.get((method, route))
         if handler is None:
             return 404, {"detail": "Not Found"}
+        if query and not body:
+            body = {k: v[0] if len(v) == 1 else v
+                    for k, v in urllib.parse.parse_qs(query).items()}
         try:
             return 200, handler(body)
         except ApiError as e:
@@ -1290,10 +1704,13 @@ def make_handler(api: Api):
         protocol_version = "HTTP/1.1"
 
         def _respond(self, status: int, payload):
-            data = json.dumps(payload).encode("utf-8")
+            raw = isinstance(payload, RawResponse)
+            data = payload.body if raw else json.dumps(payload).encode("utf-8")
             self.send_response(status)
-            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Type", payload.content_type if raw else "application/json")
             self.send_header("Content-Length", str(len(data)))
+            for key, value in (payload.headers.items() if raw else ()):
+                self.send_header(key, value)
             self.end_headers()
             self.wfile.write(data)
 

@@ -36,6 +36,15 @@ job for the whole script, each cell through ``txt2img_inner`` /
 Unlike JAX (``app.py:208-226``), a checkpoint load that fails leaves the
 resident models as they were: the live model is moved back, and no parked
 duplicate of it stays in the cache.
+
+Extensions (app.py:59-66, ``extensions.py``): their scripts load under the
+compat shim only with ``allow_code`` or ``enable_extension_scripts``; their
+``styles.csv`` files join the styles when the Engine is made, and their
+``embeddings/`` join every model's embedding database.  The sampler's step
+callback draws the console's progress line (app.py:443-445), and
+``profiling_enable`` runs a generation under ``torch.profiler``
+(app.py:329-335; ``utils/profiling``).  The construction's stages go to the
+startup timer (``utils/timer``).
 """
 
 from __future__ import annotations
@@ -43,9 +52,12 @@ from __future__ import annotations
 import logging
 import os
 import threading
+import types
 
 import torch
 
+from sdwebui_tpu_torch.extensions import (load_extension_embeddings, load_extension_scripts,
+                                         load_extension_styles)
 from sdwebui_tpu_torch.loader import load
 from sdwebui_tpu_torch.loader.registry import CheckpointRegistry, file_sha256
 from sdwebui_tpu_torch.models import vae_approx
@@ -62,13 +74,15 @@ from sdwebui_tpu_torch.pipeline.sd_model import (SDModel, create_random_sd15,
                                                  create_tiny_sdxl, dequantize_unet_fp8,
                                                  has_fp8, quantize_unet_fp8)
 from sdwebui_tpu_torch.postprocessing.stages import StageArgs, run_stages
+from sdwebui_tpu_torch.runtime import console
 from sdwebui_tpu_torch.runtime.state import State
 from sdwebui_tpu_torch.scripts import builtin  # noqa: F401  (registers the scripts)
 from sdwebui_tpu_torch.scripts.framework import get_script, validate_script_args
 from sdwebui_tpu_torch.text.styles import StyleDatabase
-from sdwebui_tpu_torch.utils import saving
+from sdwebui_tpu_torch.utils import profiling, saving
 from sdwebui_tpu_torch.utils.devices import get_device
 from sdwebui_tpu_torch.utils.options import opts
+from sdwebui_tpu_torch.utils.timer import startup_timer
 
 log = logging.getLogger(__name__)
 
@@ -155,8 +169,15 @@ class Engine:
                 raise FileNotFoundError(f"checkpoint {ckpt!r} is neither a file nor in "
                                         f"{self.registry.model_dirs}")
             self._requested_ckpt = ckpt
+        startup_timer.record("create engine/list SD models")
+        # third-party extensions: scripts only with consent, the styles always
+        self.extension_scripts = load_extension_scripts(
+            allow=allow_code, state=self.state,
+            cmd_opts=types.SimpleNamespace(allow_code=allow_code))
+        load_extension_styles(self.styles)
         if self._model is not None:
-            attach_embeddings(self._model, self.embeddings_dir)
+            self._attach_embeddings(self._model)
+        startup_timer.record("create engine/load extensions")
 
     # ---- model lifecycle ----------------------------------------------
 
@@ -185,14 +206,20 @@ class Engine:
                                 device=self.device)
         opts.data["sd_checkpoint_hash"] = model.sha256
         self._set_vae(model, self.vae_path or load.resolve_vae(info.filename, self.vae_dirs))
-        attach_embeddings(model, self.embeddings_dir)
+        self._attach_embeddings(model)
         return model
+
+    def _attach_embeddings(self, model: SDModel):
+        """A new embedding database of `model`: the embeddings directory's
+        files and the enabled extensions' embeddings."""
+        attach_embeddings(model, self.embeddings_dir)
+        load_extension_embeddings(model)
 
     def refresh_embeddings(self):
         """Scan the embeddings directory into a new database of the live
         model (api.py:905)."""
         with self.queue_lock:
-            attach_embeddings(self.sd_model, self.embeddings_dir)
+            self._attach_embeddings(self.sd_model)
 
     def reload_checkpoint(self, name: str | None = None):
         """Make `name` (default opts.sd_model_checkpoint) the live model: from
@@ -319,6 +346,7 @@ class Engine:
         flight), and every opts.show_progress_every_n_steps steps a live
         preview of the latents in opts.show_progress_type."""
         self.state.set_sampling_step(i + 1, n)
+        console.update(i + 1, n, self.state.job_no, self.state.job_count)
         skipped = self.state.take_skip()
         if self.state.interrupted or skipped:
             return False
@@ -366,15 +394,19 @@ class Engine:
 
     def _run(self, job: str, p: GenerationParams, fn) -> Processed:
         """One generation under the queue lock, with the job state set and
-        the request's styles applied."""
+        the request's styles applied; under torch.profiler with
+        profiling_enable (JAX profiles txt2img only, app.py:329-335; the
+        reference every generation)."""
         self.apply_styles(p)
         with self.queue_lock:
             self._maybe_switch(p)
             with opts.override(p.override_settings):
                 self._apply_runtime_opts()
+                trace = profiling.settings()
             self.state.begin(job, p.n_iter, self.device)
             try:
-                return fn()
+                with profiling.profile(trace, self.device):
+                    return fn()
             finally:
                 self.state.end()
 

@@ -6,9 +6,11 @@ the checkpoint sniffer, every sigma schedule under the options that reshape
 it, LCM's distillation subtable, and the tables of the hires and upscale
 path (latent upscale modes, the Extras stage fields, the built-in
 upscalers, ESRGAN's old-key map and architecture sniffing), the prompt
-styles' CSV database, outpainting mk2's noise fill, and the saving path's
+styles' CSV database, outpainting mk2's noise fill, the saving path's
 host code (the filename patterns, the writer thread, the EXIF comment
-reader, log.csv).
+reader, log.csv), the web UI's page, the start-up timer, the console line
+and the parts of the extensions manager, config states and compat shim
+that are JAX's.
 """
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
@@ -431,3 +433,58 @@ def test_filename_generator_is_a_copy():
         ours = vars(fn.FilenameGenerator)[name]
         assert inspect.getsource(getattr(ours, "__func__", ours)) == \
             inspect.getsource(getattr(member, "__func__", member)), name
+
+
+def test_web_ui_page_is_a_copy():
+    """The page GET / serves is JAX's, after its one header comment."""
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "sdwebui_tpu", "server", "webui.html"), encoding="utf-8") as f:
+        theirs = f.read()
+    with open(os.path.join(root, "sdwebui_tpu_torch", "server", "webui.html"),
+              encoding="utf-8") as f:
+        ours = f.read()
+    doctype, rest = ours.split("\n", 1)
+    header, rest = rest.split("-->\n", 1)
+    assert header.startswith("<!-- A copy of sdwebui_tpu/server/webui.html")
+    assert doctype + "\n" + rest == theirs
+
+
+#: (JAX module, port module, names whose source text is the same once the
+#: package's name is the JAX one)
+UI_SHARED = [
+    ("sdwebui_tpu.utils.timer", "sdwebui_tpu_torch.utils.timer", ("Timer",)),
+    ("sdwebui_tpu.runtime.console", "sdwebui_tpu_torch.runtime.console",
+     ("update", "finish", "_BAR_W")),
+    ("sdwebui_tpu.utils.config_states", "sdwebui_tpu_torch.utils.config_states",
+     ("_webui_info", "save_config_state", "list_config_states", "CONFIG_STATES_DIR")),
+    ("sdwebui_tpu.extensions", "sdwebui_tpu_torch.extensions",
+     ("Extension", "_topo_sort", "check_updates", "_normalize_git_url", "_SORT_KEYS",
+      "DEFAULT_INDEX_URL")),
+    ("sdwebui_tpu.scripts.compat", "sdwebui_tpu_torch.scripts.compat",
+     ("_CALLBACK_ALIASES", "shim_installed")),
+]
+
+
+@pytest.mark.parametrize("jax_mod,port_mod,names", UI_SHARED,
+                         ids=[m[1].rsplit(".", 1)[1] for m in UI_SHARED])
+def test_ui_host_sources_equal_jax(jax_mod, port_mod, names):
+    """The start-up timer and the console line are copies; config states,
+    extensions and the compat shim share these parts with JAX's."""
+    import importlib
+    import inspect
+
+    theirs, ours = importlib.import_module(jax_mod), importlib.import_module(port_mod)
+    for name in names:
+        a, b = getattr(ours, name), getattr(theirs, name)
+        if callable(a):
+            src = inspect.getsource(a).replace("sdwebui_tpu_torch.", "sdwebui_tpu.")
+            if name == "shim_installed":    # the port's passes the Engine's state and flags
+                src = src.replace("extension_path: str = \"\", state=None, cmd_opts=None",
+                                  "extension_path: str = \"\"").replace(
+                    "build_shim(extension_path, state, cmd_opts)", "build_shim(extension_path)")
+            assert src == inspect.getsource(b), name
+        else:
+            assert a == b, name
+    assert theirs.__name__ != ours.__name__

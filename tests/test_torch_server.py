@@ -1,7 +1,7 @@
 """The port's HTTP server (tiny model, CPU), its PNG codec, and its import
 hygiene: the slice imports and runs — checkpoint files, the samplers, hires
-fix, the upscalers, the Extras route, extra networks and ControlNet included
-— with the JAX package, jax, PIL, pydantic, ml_dtypes, safetensors and cv2
+fix, the upscalers, the Extras route, extra networks, ControlNet, the
+merger, the UI's routes and extensions included — with the JAX package, jax, PIL, pydantic, ml_dtypes, safetensors and cv2
 blocked."""
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
@@ -480,6 +480,42 @@ for data, exact in ((bmp.encode_bmp(pic), True), (tiff.encode_tiff(pic), True),
                         np.concatenate([pic, pic[:, :, :1]], 2), 80), False)):
     got = decode_image(data)[0]
     assert got.shape[:2] == (24, 40) and (not exact or (got == pic).all())
+# the page, the merger, the UI's routes, extensions, config states, profiling
+from sdwebui_tpu_torch import extensions
+from sdwebui_tpu_torch.postprocessing.merger import merge_checkpoints
+from sdwebui_tpu_torch.scripts.compat import shim_installed
+from sdwebui_tpu_torch.utils import config_states, profiling, url_fetch
+a, b = ldm_state_dict(create_tiny_sd(0, "cpu")), ldm_state_dict(create_tiny_sd(1, "cpu"))
+merged = merge_checkpoints(a, b, None, "Weighted sum", 0.5, True, device="cpu")
+assert len(merged) == len(a) and all(v.dtype != torch.float32 for v in merged.values())
+here = os.getcwd()
+with tempfile.TemporaryDirectory() as d:
+    os.chdir(d)
+    write_safetensors(os.path.join(d, "a.safetensors"), a)
+    write_safetensors(os.path.join(d, "b.safetensors"), b)
+    api = Api(Engine(device="cpu", ckpt_dirs=[d], hash_cache=os.path.join(d, "h.json")))
+    status, out = api.handle("POST", "/sdapi/v1/modelmerger", {
+        "primary_model": "a", "secondary_model": "b", "custom_name": "ab"})
+    assert status == 200 and os.path.isfile(os.path.join(d, "ab.safetensors")), out
+    status, page = api.handle("GET", "/", None)
+    assert status == 200 and page.body.startswith(b"<!DOCTYPE html>")
+    for method, route, body in (("POST", "/internal/token-count", {"text": "a BREAK b"}),
+                                ("POST", "/internal/parse-infotext", {"text": "a\nSeed: 3"}),
+                                ("GET", "/internal/sysinfo", None),
+                                ("GET", "/internal/options-metadata", None),
+                                ("GET", "/internal/profile-startup", None),
+                                ("GET", "/sdapi/v1/extensions", None),
+                                ("POST", "/internal/extensions/check-updates", {}),
+                                ("POST", "/sdapi/v1/server-restart", {})):
+        status, out = api.handle(method, route, body)
+        assert status == 200, (route, out)
+    assert config_states.list_config_states() == [] and extensions.list_extensions() == []
+    with shim_installed(d):
+        import modules.scripts
+    assert "modules" not in sys.modules
+    status, out = api.handle("POST", "/sdapi/v1/png-info", {"image": "http://127.0.0.1/x.png"})
+    assert status == 400, out
+    os.chdir(here)
 print("OK", len(mods))
 """
 
