@@ -37,6 +37,8 @@ Phases, in order; any failure exits non-zero:
      shapes of phase 4k (B2 at hypertile's tiles (8, 1024, 8·40), (32,
      1024, 8·40), (8, 1024, 10·64), ToMe's (2, 2048, 8·40), and in f32 at
      (2, 4096, 8·40) and (2, 1024, 8·80) for upcast_attn, max|Δ| <= 1e-4),
+     phase 4q's shapes (B2 per model shard at (2, 4096, 4·40) and (2, 1024,
+     4·80) in bf16 and f32, B1 at (1, 4096, 16384, 512) in bf16 and f32),
      and B4 (3x3 conv at the
      JAX docstring's shapes, the SD1.5 UNet's B=2 shapes and two ragged
      widths);
@@ -355,6 +357,26 @@ Phases, in order; any failure exits non-zero:
      (e) /internal/sysinfo names the card.  Every request launches B1 1,
      B2 200, B5 986; logged: the merges' seconds and GB/s, the profiled and
      unprofiled requests' seconds.
+  4q. the parallel runtime (parallel/) on meshes that name the card several
+     times (the data shards one after another, the model and row shards
+     each on a thread of its own): (a) a data=4 runtime under
+     the in-process server: /sdapi/v1/txt2img at 512², Euler a, 20 steps,
+     batch 4, B1 4, B2 800, B5 3866 (every shard's UNet at (2, S, 8·d),
+     every shard's decode), image i within DP_TOL levels of one device's
+     batch-1 request of seed + i (one device's batch-4 images logged
+     beside them), and a batch-3 request on the unsharded path (B1 1,
+     B2 200, B5 986); (b) model=2 (batch 1) and data=2 × model=2 (batch 2)
+     txt2img at 512², 8 steps, in f32, within TP_TOL levels of one device,
+     B2 per model shard at (2, 4096, 4·40) and (2, 1024, 4·80); (c) a 1024² decode
+     of a seeded (1, 4, 128, 128) latent on 4 row shards in bf16 and f32
+     against the whole decode (B1 4 at (1, 4096, 16384, 512)), both
+     decodes' ms and peak memory; (d) ring attention at (1, 8, 16384, 64)
+     f32 on 4 shards against plain attention; (e) one (data=2, model=2)
+     training step at SD1.5 widths, 256², batch 2, f32, against the
+     one-device step: loss, parameters and gradients within their bounds,
+     and the update itself, element for element above rounding level,
+     within TRAIN_UPDATE_TOL of one device's; each step's ms and peak
+     memory.
 Each phase's seconds are logged as it ends.  The last two lines are the
 kernels JSON and {"ok": true, "device": ...}.
 Needs a CUDA card; without one it exits 1 and prints no result.
@@ -364,6 +386,7 @@ from __future__ import annotations
 
 import base64
 import contextlib
+import copy
 import gc
 import json
 import os
@@ -431,6 +454,9 @@ B1_SHAPES = [
     ("vae_mid_1536", 1, 36864, 36864, 512, torch.bfloat16),
     ("vae_mid_1536_f32", 1, 36864, 36864, 512, torch.float32),
     ("ragged_d64", 3, 1000, 1100, 64, torch.bfloat16),
+    # phase 4q: a 1024² decode on 4 row shards (q local, k and v gathered)
+    ("vae_rows4_1024", 1, 4096, 16384, 512, torch.bfloat16),
+    ("vae_rows4_1024_f32", 1, 4096, 16384, 512, torch.float32),
 ]
 # B1 at LDSR's VQ decode (phase 4i): S = the LR image's pixels, f32, held
 # against the plain version taken over blocks of B1_BLOCK_ROWS query rows
@@ -488,12 +514,18 @@ HEAD_SHAPES = [
     ("sd15_hr_hypertile_128x128", 32, 1024, 8, 40),
     ("sdxl_hypertile_64x64", 8, 1024, 10, 64),
     ("sd15_tome_64x64", 2, 2048, 8, 40),
+    # phase 4q: each model shard of the tensor-parallel SD1.5 UNet (half the
+    # heads)
+    ("sd15_tp2_64x64", 2, 4096, 4, 40),
+    ("sd15_tp2_32x32", 2, 1024, 4, 80),
 ]
 # upcast_attn (phase 4k): B2 at SD1.5's two long-KV levels in f32, held to
 # max|Δ| <= F32_TOL
 F32_HEAD_SHAPES = [
     ("sd15_upcast_64x64", 2, 4096, 8, 40),
     ("sd15_upcast_32x32", 2, 1024, 8, 80),
+    ("sd15_tp2_f32_64x64", 2, 4096, 4, 40),     # phase 4q (b)
+    ("sd15_tp2_f32_32x32", 2, 1024, 4, 80),
 ]
 # B4 rows: (name, B, H, W, Cin, Cout): the shapes of the JAX kernel's
 # docstring (sdwebui_tpu/ops/conv.py:6-8), the SD1.5 UNet's at B = 2 (the
@@ -514,7 +546,7 @@ FUSED_QKV_ROWS = ("sd15_64x64", "sdxl_base_64x64", "sd15_hr_128x128", "sd15_hr_6
                   "sd15_hr_32x32", "sd15_hr_96x96", "sd15_hr_48x48", "sd2_depth_64x64",
                   "sd2_depth_32x32", "p2p_b3_64x64", "p2p_b3_32x32", "ldsr_32x32",
                   "ldsr_64x64", "sd3_1024_t5off", "sd3_1024_t5on", "sd3_512_t5off",
-                  "unclip_96x96", "unclip_48x48")
+                  "unclip_96x96", "unclip_48x48", "sd15_tp2_64x64", "sd15_tp2_32x32")
 HOST_CALLS = 20           # calls per host-cost reading
 # B5 rows of phase 4j: (name, rows, width); the MMDiT's bf16 and non-affine
 SD3_LN_SHAPES = [("sd3_mmdit_s8192_c1536", 8192, 1536), ("sd3_mmdit_ctx154_c1536", 154, 1536),
@@ -1165,10 +1197,12 @@ def _server(engine):
         thread.join(timeout=30)
 
 
-def _request(url, route, body, check, size, label=None, extra: int = 0) -> dict:
+def _request(url, route, body, check, size, label=None, extra: int = 0,
+             keep_all: bool = False) -> dict:
     """POST one generation request and check its images: (seconds, the
     last image decoded and as sent, launches); `extra` images follow the
-    batch's (img2img's returned masks), decoded under "extras"."""
+    batch's (img2img's returned masks), decoded under "extras"; keep_all:
+    every image of the batch under "all_images"."""
     from sdwebui_tpu_torch.utils.png import decode_png
 
     reset_counts()
@@ -1188,10 +1222,13 @@ def _request(url, route, body, check, size, label=None, extra: int = 0) -> dict:
         check(text.get("parameters", ""), body["seed"] + i)
     log(f"{label or route} {size}² batch {len(images)} seed {body['seed']}: {dt:.3f} s, "
         f"{len(images) / dt:.3f} images/s, launches {launches}")
-    return dict(route=route, label=label or route, batch=len(images), seed=body["seed"],
-                seconds=dt, images_per_s=len(images) / dt, launches=launches, image=images[-1][0],
-                png_b64=res["images"][first + len(images) - 1], extras=extras,
-                infotext=images[-1][1].get("parameters", ""))
+    out = dict(route=route, label=label or route, batch=len(images), seed=body["seed"],
+               seconds=dt, images_per_s=len(images) / dt, launches=launches, image=images[-1][0],
+               png_b64=res["images"][first + len(images) - 1], extras=extras,
+               infotext=images[-1][1].get("parameters", ""))
+    if keep_all:
+        out["all_images"] = [img for img, _ in images]
+    return out
 
 
 def _serve(engine, route, requests, warmup, check, size):
@@ -5324,6 +5361,410 @@ def phase_ui(model, device, phase3: dict, directory: str):
     return results, info
 
 
+# --------------------------------------------------------------------------
+# 4q: the parallel runtime on meshes that name the card several times
+# --------------------------------------------------------------------------
+
+DP_DATA = 4               # 4q (a): the data axis, the card named four times
+# uint8 levels: data=4 image i against one device's batch-1 request of seed + i
+# (the same rows through the same kernels); one device's batch-4 images, whose
+# GEMMs run over 8 rows, are logged beside it as the yardstick
+DP_TOL = 0
+TP_TOL = 1                # uint8 levels: f32 tensor-parallel vs one device
+TP_STEPS = SAMPLER_STEPS  # 4q (b)'s steps: every op of the model shards hands the GIL over
+# uint8 levels (max, mean): a row-sharded 1024² decode against the whole one; in
+# bf16 the shards' convs round apart (measured 4, 0.42; the whole decode's bf16
+# vs f32 is logged beside it)
+ROWS_TOL = {torch.bfloat16: (8, 1.0), torch.float32: (1, 0.05)}
+RING_SHAPE = (1, 8, 16384, 64)
+TRAIN_LOSS_TOL = 1e-5     # relative: the (data=2, model=2) step's loss vs one device's
+TRAIN_PARAM_TOL = 1e-5    # max|Δ| / max|p| over the UNet after the step, f32, TF32 off
+TRAIN_GRAD_TOL = 1e-4     # max|Δ| / max|g| over the UNet's gradients
+# the update Δp = p after − p before: max|Δp − Δp_one| / max|Δp_one| over the
+# elements whose one-device gradient is above TRAIN_ROUNDING of the largest |g|
+# (below it Adam turns rounding into steps of up to lr).  One f32 ulp of a
+# parameter just above 1 is 1.2e-2 of lr = 1e-5; a skipped update reads 1
+TRAIN_UPDATE_TOL = 2e-2
+TRAIN_ROUNDING = 1e-6
+TRAIN_MOVED_TOL = 0.05    # |max|Δp| / max|Δp_one| − 1|
+
+
+@contextlib.contextmanager
+def _attention_shapes():
+    """Records (entry, q shape, k shape, heads) of every B1 / B2 call the
+    attention dispatch makes inside the block (ops.attention's names)."""
+    from sdwebui_tpu_torch.ops import attention
+
+    seen, lock = [], threading.Lock()
+    real = attention.flash_attention, attention.flash_attention_packed
+
+    def b1(q, k, v, **kw):
+        with lock:
+            seen.append(("flash_attention", tuple(q.shape), tuple(k.shape), 1))
+        return real[0](q, k, v, **kw)
+
+    def b2(q, k, v, num_heads, **kw):
+        with lock:
+            seen.append(("flash_attention_packed", tuple(q.shape), tuple(k.shape), num_heads))
+        return real[1](q, k, v, num_heads=num_heads, **kw)
+
+    attention.flash_attention, attention.flash_attention_packed = b1, b2
+    try:
+        yield seen
+    finally:
+        attention.flash_attention, attention.flash_attention_packed = real
+
+
+def _check_shapes(seen, want: set, label: str):
+    got = {(e, q, k, h) for e, q, k, h in seen}
+    log(f"{label}: kernel shapes {sorted(got)}")
+    if got != want:
+        raise AssertionError(f"{label}: kernel shapes {sorted(got)} != planned {sorted(want)}")
+
+
+def _levels(a, b) -> dict:
+    d = abs(a.astype(int) - b.astype(int))
+    return dict(max=int(d.max()), mean=float(d.mean()))
+
+
+def _images_within(label, got: list, ref: list, tol: int, mean_tol: float = 1.0) -> list:
+    if len(got) != len(ref):
+        raise AssertionError(f"{label}: {len(got)} images against {len(ref)}")
+    levels = [_levels(a, b) for a, b in zip(got, ref)]
+    log(f"{label}: uint8 levels vs one device {levels} (bound {tol}, mean {mean_tol})")
+    if max(lv["max"] for lv in levels) > tol or max(lv["mean"] for lv in levels) > mean_tol:
+        raise AssertionError(f"{label}: {levels} past {tol} levels")
+    if any(a.std() < 1.0 for a in got):
+        raise AssertionError(f"{label}: a flat image")
+    return levels
+
+
+def _run_counted(fn):
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_counts()
+
+
+def _peak(fn):
+    """(result, seconds, peak bytes above what was allocated before)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base
+
+
+def _dp_http(engine, model, card, info) -> list:
+    """(a): data=4 under the in-process server against one device."""
+    from sdwebui_tpu_torch.parallel import mesh
+
+    cfg = model.unet_cfg
+    b2, b5 = STEPS * launch_plan(cfg, 64), STEPS * ln_plan(cfg, 64)
+    body = dict(SD15_BASE, seed=4321, batch_size=DP_DATA)
+    results = []
+    heads = cfg.heads_for(cfg.model_channels)
+    try:
+        mesh.set_runtime(mesh.MeshRuntime.create(data=DP_DATA, devices=[card] * DP_DATA))
+        with _server(engine) as url, _attention_shapes() as seen:
+            dp = _request(url, "txt2img", body, _sd15_check, 512, "4q (a) data=4", keep_all=True)
+            _check_launches([dp], [_plan(b1=DP_DATA, b2=DP_DATA * b2,
+                                         b5=DP_DATA * b5 + clip_ln_plan(model))])
+            _check_shapes(seen, {("flash_attention_packed", (2, s, heads * 40 * m),
+                                  (2, s, heads * 40 * m), heads)
+                                 for s, m in ((4096, 1), (1024, 2))}
+                          | {("flash_attention", (1, 4096, 512), (1, 4096, 512), 1)},
+                          "4q (a) data=4")
+            seen.clear()
+            b3 = _request(url, "txt2img", dict(SD15_BASE, seed=77, batch_size=3), _sd15_check,
+                          512, "4q (a) batch 3 falls back")
+            _check_launches([b3], [_plan(b1=1, b2=b2, b5=b5 + clip_ln_plan(model))])
+            _check_shapes(seen, {("flash_attention_packed", (6, s, heads * 40 * m),
+                                  (6, s, heads * 40 * m), heads)
+                                 for s, m in ((4096, 1), (1024, 2))}
+                          | {("flash_attention", (3, 4096, 512), (3, 4096, 512), 1)},
+                          "4q (a) batch 3")
+        mesh.set_runtime(mesh.MeshRuntime.create(data=1, devices=[card]))
+        with _server(engine) as url:
+            one = _request(url, "txt2img", body, _sd15_check, 512, "4q (a) one device",
+                           keep_all=True)
+            _check_launches([one], [_plan(b1=1, b2=b2, b5=b5 + clip_ln_plan(model))])
+            # what each data shard computes: one device's batch-1 request of
+            # seed + i
+            singles = []
+            for i in range(DP_DATA):
+                singles.append(_request(url, "txt2img", dict(body, batch_size=1,
+                                                             seed=body["seed"] + i),
+                                        _sd15_check, 512, f"4q (a) one device seed + {i}"))
+                _check_launches(singles[-1:], [_plan(b1=1, b2=b2, b5=b5 + clip_ln_plan(model))])
+    finally:
+        mesh.set_runtime(None)
+    # the yardstick: one device's batch-4 images against its batch-1 ones
+    # (bf16 GEMMs over 8 rows against 2)
+    yard = [_levels(r["image"], a) for r, a in zip(singles, one["all_images"])]
+    log(f"4q (a) one device, batch 4 vs batch 1 of each seed: {yard}")
+    info["dp"] = dict(levels=_images_within("4q (a) data=4 vs one device batch 1",
+                                            dp["all_images"], [r["image"] for r in singles],
+                                            DP_TOL, 0.0),
+                      batch4_vs_batch1=yard, seconds=dp["seconds"],
+                      one_device_seconds=one["seconds"], batch3_seconds=b3["seconds"],
+                      batch1_seconds=[r["seconds"] for r in singles])
+    return [dp, b3, one] + singles
+
+
+def _tp_f32(model, card, info) -> list:
+    """(b): model=2 and data=2 × model=2 txt2img at 512² in f32."""
+    from sdwebui_tpu_torch.parallel import mesh
+    from sdwebui_tpu_torch.pipeline.params import GenerationParams
+    from sdwebui_tpu_torch.pipeline.processing import process_txt2img
+    from sdwebui_tpu_torch.utils import devices as dv
+
+    cfg = model.unet_cfg
+    b2, b5 = TP_STEPS * launch_plan(cfg, 64), TP_STEPS * ln_plan(cfg, 64)
+    clip = clip_ln_plan(model)
+    heads = cfg.heads_for(cfg.model_channels)
+    results, prev = [], dv.get_policy()
+
+    def params(batch):
+        return GenerationParams(**dict(SD15_BASE, seed=2468, batch_size=batch, steps=TP_STEPS,
+                                       override_settings={"sdtpu_vae_bf16": False}))
+
+    def images(res):
+        return list(res.images[res.index_of_first_image:])
+
+    dv.set_policy(dv.FP32_POLICY)
+    try:
+        for data, model_axis in ((1, 2), (2, 2)):
+            mesh.set_runtime(mesh.MeshRuntime.create(data=1, devices=[card]))
+            one, one_s, one_counts = _run_counted(lambda: process_txt2img(model, params(data)))
+            _check_launches([dict(launches=one_counts)],
+                            [_plan(b1=1, b2=b2, b5=b5 + clip)])
+            rt = mesh.MeshRuntime.create(data=data, model=model_axis,
+                                         devices=[card] * (data * model_axis))
+            mesh.set_runtime(rt)
+            label = f"4q (b) data={data} model={model_axis} f32"
+            with _attention_shapes() as seen:
+                out, secs, counts = _run_counted(lambda: process_txt2img(model.replicate(rt),
+                                                                         params(data)))
+            n = data * model_axis
+            _check_launches([dict(launches=counts)],
+                            [_plan(b1=data, b2=n * b2, b5=n * b5 + clip)])
+            _check_shapes(seen, {("flash_attention_packed", (2, s, heads // 2 * 40 * m),
+                                  (2, s, heads // 2 * 40 * m), heads // 2)
+                                 for s, m in ((4096, 1), (1024, 2))}
+                          | {("flash_attention", (1, 4096, 512), (1, 4096, 512), 1)}, label)
+            log(f"{label}: {secs:.3f} s, one device {one_s:.3f} s ({TP_STEPS} steps)")
+            info[f"tp_{data}x{model_axis}"] = dict(
+                levels=_images_within(label, images(out), images(one), TP_TOL),
+                seconds=secs, one_device_seconds=one_s)
+            results += [dict(label=label, launches=counts, seconds=secs),
+                        dict(label=label + " one device", launches=one_counts, seconds=one_s)]
+    finally:
+        dv.set_policy(prev)
+        mesh.set_runtime(None)
+    return results
+
+
+def _rows_decode(model, card, info) -> list:
+    """(c): a 1024² decode on 4 row shards against the whole decode."""
+    from sdwebui_tpu_torch.parallel import mesh
+    from sdwebui_tpu_torch.parallel.spatial import decode_spatial
+
+    g = torch.Generator(device=card).manual_seed(31)
+    z = torch.randn((1, 4, 128, 128), generator=g, device=card)
+    rt = mesh.MeshRuntime.create(data=4, devices=[card] * 4)
+    results = []
+    try:
+        for dtype in (torch.bfloat16, torch.float32):
+            zz = z.to(dtype)
+            name = str(dtype)[6:]
+            with torch.inference_mode():
+                model.vae.decode(zz)                     # warm: the convs' algorithms
+                decode_spatial(model.vae, zz, rt)
+                ref, whole_s, whole_peak = _peak(lambda: model.vae.decode(zz))
+                with _attention_shapes() as seen:
+                    (got, rows_s, rows_peak), _, counts = _run_counted(
+                        lambda: _peak(lambda: decode_spatial(model.vae, zz, rt)))
+            _check_launches([dict(launches=counts)], [_plan(b1=4)])
+            _check_shapes(seen, {("flash_attention", (1, 4096, 512), (1, 16384, 512), 1)},
+                          f"4q (c) rows {name}")
+            a, b = (_to_u8(t[0]).numpy() for t in (got, ref))
+            lv = _levels(a, b)
+            rel = float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
+            if dtype == torch.bfloat16:
+                with torch.inference_mode():
+                    whole_f32 = _to_u8(model.vae.decode(z.float())[0]).numpy()
+                yard = _levels(b, whole_f32)
+                del whole_f32
+            log(f"4q (c) 1024² decode {name}: 4 row shards {rows_s * 1e3:.1f} ms, peak "
+                f"{rows_peak / 2 ** 30:.3f} GiB; whole {whole_s * 1e3:.1f} ms, peak "
+                f"{whole_peak / 2 ** 30:.3f} GiB; uint8 {lv} (bound {ROWS_TOL[dtype]}), "
+                f"max|Δ|/max|ref| {rel:.2e}; the whole decode bf16 vs f32: {yard}")
+            tol, mean_tol = ROWS_TOL[dtype]
+            if lv["max"] > tol or lv["mean"] > mean_tol or not torch.isfinite(got).all():
+                raise AssertionError(f"4q (c) {name}: the row-sharded decode is {lv} levels off")
+            info[f"rows_{name}"] = dict(levels=lv, rel_err=rel, whole_bf16_vs_f32=yard,
+                                        rows_ms=rows_s * 1e3,
+                                        whole_ms=whole_s * 1e3, rows_peak_gib=rows_peak / 2 ** 30,
+                                        whole_peak_gib=whole_peak / 2 ** 30)
+            results.append(dict(label=f"4q (c) rows {name}", launches=counts, seconds=rows_s))
+            del ref, got
+    finally:
+        mesh.set_runtime(None)
+    return results
+
+
+def _ring(card, info):
+    """(d): ring attention on four shards against plain attention, f32."""
+    from sdwebui_tpu_torch.ops import flash_attention as fa
+    from sdwebui_tpu_torch.parallel.sequence import ring_attention, seq_mesh
+
+    g = torch.Generator(device=card).manual_seed(41)
+    b, h, s, d = RING_SHAPE
+    q, k, v = (torch.randn(RING_SHAPE, generator=g, device=card) for _ in range(3))
+    group = seq_mesh(4, [card] * 4)
+    ring_attention(q, k, v, group)
+    out, ring_s, ring_peak = _peak(lambda: ring_attention(q, k, v, group))
+    ref, plain_s, plain_peak = _peak(lambda: fa.flash_attention_plain(
+        q.reshape(b * h, s, d), k.reshape(b * h, s, d), v.reshape(b * h, s, d)).reshape(
+        RING_SHAPE))
+    err = (out - ref).abs()
+    ok = bool((err <= 2e-5 + 1e-4 * ref.abs()).all())
+    log(f"4q (d) ring attention {RING_SHAPE} f32 on 4 shards: {ring_s * 1e3:.1f} ms, peak "
+        f"{ring_peak / 2 ** 30:.3f} GiB; plain {plain_s * 1e3:.1f} ms, peak "
+        f"{plain_peak / 2 ** 30:.3f} GiB; max|Δ| {float(err.max()):.2e} (atol 2e-5, rtol 1e-4)")
+    if not ok:
+        raise AssertionError("4q (d): ring attention disagrees with plain attention")
+    info["ring"] = dict(ms=ring_s * 1e3, plain_ms=plain_s * 1e3, max_abs_err=float(err.max()),
+                        peak_gib=ring_peak / 2 ** 30, plain_peak_gib=plain_peak / 2 ** 30)
+
+
+def _train(model, card, info):
+    """(e): one (data=2, model=2) step at SD1.5 widths against one device's."""
+    from sdwebui_tpu_torch.parallel import mesh
+    from sdwebui_tpu_torch.parallel.sharding import gather_state_dict
+    from sdwebui_tpu_torch.training.train_step import make_train_step
+
+    g = torch.Generator(device=card).manual_seed(51)
+    cfg = model.unet_cfg
+    batch = {"x0": torch.randn((2, 4, 32, 32), generator=g, device=card),
+             "noise": torch.randn((2, 4, 32, 32), generator=g, device=card),
+             "t": torch.randint(0, 1000, (2,), generator=g, device=card),
+             "ctx": torch.randn((2, 77, cfg.context_dim), generator=g, device=card)}
+    src = {k: v.float() for k, v in model.unet.state_dict().items()}
+    out = {}
+    for data, model_axis in ((1, 1), (2, 2)):
+        rt = mesh.MeshRuntime.create(data=data, model=model_axis,
+                                     devices=[card] * (data * model_axis))
+        step, shard_batch, prepare = make_train_step(rt, cfg, model.disc)
+
+        def run():
+            t0 = time.perf_counter()
+            unet = copy.deepcopy(model.unet).float()
+            shards, opts = prepare(unet)
+            del unet
+            torch.cuda.synchronize()
+            log(f"4q (e) data={data} model={model_axis}: the f32 copy and prepare "
+                f"{time.perf_counter() - t0:.2f} s")
+            t0 = time.perf_counter()
+            shards, opts, loss = step(shards, opts, shard_batch(batch))
+            torch.cuda.synchronize()
+            row = shards[0]
+            named = [dict(s.named_parameters()) for s in row]
+            grads = [{k: p.grad for k, p in n.items()} for n in named]
+            params = gather_state_dict(row) if model_axis > 1 else row[0].state_dict()
+            grads = gather_state_dict(row, grads) if model_axis > 1 else grads[0]
+            return (float(loss), {k: v.detach().clone() for k, v in params.items()},
+                    {k: v.detach().clone() for k, v in grads.items()}, time.perf_counter() - t0)
+
+        (loss, params, grads, step_s), secs, peak = _peak(run)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[(data, model_axis)] = (loss, params, grads)
+        log(f"4q (e) train step data={data} model={model_axis}: loss {loss:.6f}, step "
+            f"{step_s * 1e3:.1f} ms ({secs:.2f} s with the copies), peak {peak / 2 ** 30:.2f} GiB")
+        info[f"train_{data}x{model_axis}"] = dict(loss=loss, step_ms=step_s * 1e3,
+                                                  seconds=secs, peak_gib=peak / 2 ** 30)
+    (l1, p1, g1), (l4, p4, g4) = out[(1, 1)], out[(2, 2)]
+
+    def rel(a, b):
+        return max(float((a[k] - b[k]).abs().max()) for k in b) / max(
+            float(b[k].abs().max()) for k in b)
+
+    loss_rel = abs(l4 - l1) / abs(l1)
+    p_rel, g_rel, moved, moved4 = rel(p4, p1), rel(g4, g1), rel(p1, src), rel(p4, src)
+    upd = _update_rel(src, p4, p1, g1)
+    log(f"4q (e) (2, 2) vs one device: loss {loss_rel:.2e} (bound {TRAIN_LOSS_TOL}), params "
+        f"{p_rel:.2e} ({TRAIN_PARAM_TOL}), grads {g_rel:.2e} ({TRAIN_GRAD_TOL}); the update "
+        f"{upd['rel']:.2e} of max|Δp_one| {upd['max_step']:.3e} ({TRAIN_UPDATE_TOL}) over the "
+        f"elements above rounding level, {upd['masked']} of {upd['total']} masked (|g| <= "
+        f"{upd['floor']:.3e}; the most in {upd['masked_in']}); the step moved the params by "
+        f"{moved4:.3e} of max|p| against one device's {moved:.3e}")
+    if loss_rel > TRAIN_LOSS_TOL or p_rel > TRAIN_PARAM_TOL or g_rel > TRAIN_GRAD_TOL \
+            or upd["rel"] > TRAIN_UPDATE_TOL or not moved > 0 \
+            or abs(moved4 / moved - 1) > TRAIN_MOVED_TOL:
+        raise AssertionError("4q (e): the sharded train step disagrees with one device's")
+    info["train_rel"] = dict(loss=loss_rel, params=p_rel, grads=g_rel, moved=moved,
+                             moved_sharded=moved4, update=upd)
+
+
+def _update_rel(src: dict, got: dict, one: dict, one_grads: dict) -> dict:
+    """The sharded update against the one-device update, element for
+    element: max|(got − src) − (one − src)| / max|one − src| over the
+    elements whose one-device gradient is above TRAIN_ROUNDING of the
+    largest |g|, with what was masked."""
+    peak = max(float(g.abs().max()) for g in one_grads.values())
+    floor = TRAIN_ROUNDING * peak
+    num, step, masked, total, per_key = 0.0, 0.0, 0, 0, {}
+    for k, g in one_grads.items():
+        mask = g.abs() <= floor
+        n = int(mask.sum())
+        masked, total = masked + n, total + mask.numel()
+        if n:
+            per_key[k] = n
+        one_step = one[k] - src[k]
+        diff = ((got[k] - src[k]) - one_step).abs()[~mask]
+        if diff.numel():
+            num = max(num, float(diff.max()))
+        step = max(step, float(one_step.abs().max()))
+    top = sorted(per_key.items(), key=lambda kv: -kv[1])[:4]
+    return dict(rel=num / step, max_step=step, masked=masked, total=total, floor=floor,
+                masked_in=[f"{k} {n}/{one_grads[k].numel()}" for k, n in top])
+
+
+def phase_parallel(engine, model, device):
+    """4q: the parallel runtime on meshes that name the card several times:
+    (a) data=4 under the in-process server, batch 4, image i within
+    DP_TOL levels of one device's batch-1 request of seed + i, B1 4, B2
+    800, B5 3866 (each shard's UNet at (2, S, 8·d)), a batch-3 request on
+    the unsharded path; (b) model=2 (batch 1) and data=2 × model=2 (batch
+    2) txt2img at 512², TP_STEPS steps, in f32 within TP_TOL of one device,
+    B2 per model shard at (2, 4096, 4·40) and (2, 1024, 4·80); (c) a 1024²
+    decode of a seeded latent on 4 row shards in bf16 and f32 against the
+    whole decode, B1 4 at (1, 4096, 16384, 512); (d) ring attention at (1,
+    8, 16384, 64) on 4 shards against plain attention; (e) one (data=2,
+    model=2) training step at SD1.5 widths, 256², batch 2, f32 against one
+    device's, its update element for element.  Returns (results, info)."""
+    card = torch.device("cuda", torch.cuda.current_device() if device.index is None
+                        else device.index)
+    info = {}
+    results = _dp_http(engine, model, card, info)
+    results += _tp_f32(model, card, info)
+    results += _rows_decode(model, card, info)
+    _ring(card, info)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _train(model, card, info)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results, info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -5432,6 +5873,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ui_") as ui_dir:
         ui_results, ui_info = phase_ui(model, device, results[0], ui_dir)
     mark("4p page and merger")
+    par_results, par_info = phase_parallel(engine, model, device)
+    mark("4q parallel")
     del model, engine, ckpt_engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -5469,11 +5912,12 @@ def main() -> int:
     if leaked:
         raise AssertionError(f"the port imported JAX or the JAX package: {leaked[:5]}")
     requests = [{k: v for k, v in r.items()
-                 if k not in ("image", "png_b64", "infotext", "extras")}
+                 if k not in ("image", "png_b64", "infotext", "extras", "all_images")}
                 for r in (results + i2i_results + opt_results + hr_results + c4_results
                           + hy_results + face_results + zoo_results + ckpt_results
                           + sampler_results + opt4k_results + train_results + script_results
-                          + save_results + format_results + ui_results + sdxl_results
+                          + save_results + format_results + ui_results + par_results
+                          + sdxl_results
                           + opt4k_xl_results
                           + [sdxl_hr_result] + sdxl_i2i_results + family_results)]
     log(json.dumps({"card": smi, "kernel_shapes": rows, "unet_step": unet,
@@ -5484,7 +5928,7 @@ def main() -> int:
                     "faces": face_info, "zoo": zoo_info, "training": train_info,
                     "sdxl_img2img": sdxl_i2i_info, "options": opt4k_info,
                     "scripts": script_info, "saving": save_info, "formats": format_info,
-                    "ui": ui_info,
+                    "ui": ui_info, "parallel": par_info,
                     "families": {k: v for k, v in family_info.items() if k != "b1_calls"},
                     "requests": requests, "sdxl_profile": profile, "phase_s": phase_s}))
 

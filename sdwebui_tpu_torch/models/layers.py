@@ -7,6 +7,13 @@ with ``load_state_dict`` and no transposes.  Weights are cast to the
 activation dtype at use, as the JAX code does; random init draws from an
 explicit ``torch.Generator`` with the distributions of
 ``sdwebui_tpu/models/init_utils.HostInit``.
+
+Two mesh hooks (``sdwebui_tpu/models/layers.py:25-72``): inside
+``parallel.collectives.spatial_sharding`` a tensor holds a row slice of
+the image, and a stride-1 padded conv first takes the row above and the
+row below from its neighbours (zeros at the image border, as the zero
+padding); a ``Conv2d`` that ``parallel/sharding`` split over ``model``
+computes its slice of the output channels and all-gathers it.
 """
 
 from __future__ import annotations
@@ -18,15 +25,21 @@ import torch.nn.functional as F
 from torch import nn
 
 from sdwebui_tpu_torch.ops.norms import group_norm, layer_norm
+from sdwebui_tpu_torch.parallel import collectives
 
 
 def conv2d(x, weight, bias=None, stride: int = 1, padding: int = 1,
            circular: bool = False):
     """circular=True wraps the padding (seamless tiling) — an argument here,
-    not a patched module (reference modules/sd_hijack.py:311)."""
+    not a patched module (reference modules/sd_hijack.py:311).  Under
+    spatial sharding a stride-1 padded conv exchanges its halo rows."""
     if circular and padding > 0:
         x = F.pad(x, (padding,) * 4, mode="circular")
         padding = 0
+    elif padding > 0 and stride == 1 and collectives.spatial_axis() is not None:
+        above, below = collectives.halo_rows(x, collectives.spatial_axis(), padding)
+        x = torch.cat([above, x, below], dim=2)
+        padding = (0, padding)
     b = bias.to(x.dtype) if bias is not None else None
     return F.conv2d(x, weight.to(x.dtype), b, stride, padding)
 
@@ -64,6 +77,10 @@ def _normal_(p, std: float, gen: torch.Generator):
 
 
 class Conv2d(nn.Module):
+    #: (rank, size) when this module holds model shard `rank`'s slice of
+    #: the output channels (``parallel/sharding.shard_params``)
+    model_shard = None
+
     def __init__(self, cin, cout, kernel: int, stride: int = 1,
                  padding: int | None = None, bias: bool = True, *, device, dtype):
         super().__init__()
@@ -73,8 +90,13 @@ class Conv2d(nn.Module):
         self.padding = kernel // 2 if padding is None else padding
 
     def forward(self, x, circular: bool = False):
-        return conv2d(x, self.weight, self.bias, self.stride, self.padding,
-                      circular)
+        if self.model_shard is None:
+            return conv2d(x, self.weight, self.bias, self.stride, self.padding, circular)
+        rank, size = self.model_shard
+        bias = None if self.bias is None else self.bias.chunk(size)[rank]
+        out = conv2d(collectives.copy_to_model(x), self.weight, bias, self.stride,
+                     self.padding, circular)
+        return collectives.gather_from_model(out, dim=1)
 
     @torch.no_grad()
     def reset_random(self, gen):
@@ -85,6 +107,10 @@ class Conv2d(nn.Module):
 
 
 class Linear(nn.Module):
+    #: (rank, size) when split over ``model``; the module that holds it
+    #: (an attention, a feed-forward) runs the collectives
+    model_shard = None
+
     def __init__(self, cin, cout, bias: bool = True, *, device, dtype):
         super().__init__()
         self.weight = _param((cout, cin), device, dtype)

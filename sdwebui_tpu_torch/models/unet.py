@@ -45,6 +45,14 @@ proj_out; ``unet.py:239-253``) and ``forward`` takes ``context=None``.
 The fused qkv splits into [q | k | v] over all heads, as JAX splits it;
 ldm's ``QKVAttentionLegacy`` reads it per head ([q k v] of head 0, then
 head 1, ...), so the two agree only for one head.
+
+Split over a mesh's ``model`` axis by ``parallel/sharding.shard_params``,
+``CrossAttention``, ``GEGLU`` and ``FeedForward`` run Megatron's tensor
+parallelism (``sdwebui_tpu/parallel/sharding.py``, which GSPMD runs from
+the layout alone): each model shard runs its H/model heads through the
+same ``attention`` dispatch, so the kernel launches per shard at
+(B, S, (H/model)·D); ``to_out.0``'s and ``ff.net.2``'s partial products
+are summed over ``model`` and their bias is added once, after the sum.
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ from sdwebui_tpu_torch.models.layers import (Conv2d, GroupNorm, LayerNorm,
                                              upsample_nearest_2x)
 from sdwebui_tpu_torch.ops.attention import attention
 from sdwebui_tpu_torch.ops.tome import build_merge, merged_tokens
+from sdwebui_tpu_torch.parallel import collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,6 +226,10 @@ class CrossAttention(nn.Module):
         if upcast and x.dtype != torch.float32:
             ctx = None if context is None else context.float()
             return self.forward(x.float(), ctx, hypernet).to(x.dtype)
+        shard = self.to_out[0].model_shard
+        if shard is not None:
+            x = collectives.copy_to_model(x)
+            context = collectives.copy_to_model(context)
         if context is None and hypernet is None:
             # self-attention: one fused qkv matmul (unet.py:112-121)
             w = torch.cat([self.to_q.weight.to(x.dtype), self.to_k.weight.to(x.dtype),
@@ -228,7 +241,17 @@ class CrossAttention(nn.Module):
             if pair is not None:        # unet.py:125-145
                 ctx_k, ctx_v = pair
             q, k, v = self.to_q(x), self.to_k(ctx_k), self.to_v(ctx_v)
-        return self.to_out[0](attention(q, k, v, num_heads=self.heads))
+        if shard is None:
+            return self.to_out[0](attention(q, k, v, num_heads=self.heads))
+        rank, size = shard
+        if self.heads % size == 0:
+            out = attention(q, k, v, num_heads=self.heads // size)
+        else:   # heads that do not divide: every shard runs all of them
+            q, k, v = (collectives.gather_from_model(t, dim=-1) for t in (q, k, v))
+            out = collectives.scatter_to_model(attention(q, k, v, num_heads=self.heads), dim=-1)
+        proj = self.to_out[0]
+        out = collectives.reduce_from_model(linear(out, proj.weight))
+        return out + proj.bias.to(out.dtype)
 
 
 def split_factor(dim: int, tile: int) -> int:
@@ -261,7 +284,15 @@ class GEGLU(nn.Module):
         self.proj = Linear(cin, cout * 2, device=device, dtype=dtype)
 
     def forward(self, x):
-        h, gate = self.proj(x).chunk(2, dim=-1)
+        """Split over ``model``, the projection holds the shard's slice of
+        both halves and its bias is sliced to match."""
+        shard = self.proj.model_shard
+        bias = self.proj.bias
+        if shard is not None and bias is not None:
+            rank, size = shard
+            h_b, g_b = bias.chunk(2)
+            bias = torch.cat([h_b.chunk(size)[rank], g_b.chunk(size)[rank]])
+        h, gate = linear(x, self.proj.weight, bias).chunk(2, dim=-1)
         return h * F.gelu(gate)
 
 
@@ -273,7 +304,12 @@ class FeedForward(nn.Module):
                                  Linear(c * 4, c, device=device, dtype=dtype))
 
     def forward(self, x):
-        return self.net[2](self.net[0](x))
+        out_proj = self.net[2]
+        if out_proj.model_shard is None:
+            return out_proj(self.net[0](x))
+        h = self.net[0](collectives.copy_to_model(x))
+        out = collectives.reduce_from_model(linear(h, out_proj.weight))
+        return out + out_proj.bias.to(out.dtype)
 
 
 class BasicTransformerBlock(nn.Module):

@@ -10,6 +10,15 @@ attention is single-head over H·W tokens and goes through
 A ``tiling`` decode wraps the padding of the decoder's 3×3 convs
 (``vae.py:117-139``); the encoder never does, as in JAX.
 
+Row-sharded (``parallel/spatial``, inside
+``collectives.spatial_sharding``): the 3×3 convs exchange halo rows and
+GroupNorm sums its statistics over the shards (``models/layers``,
+``ops/norms``); the mid-block attention keeps q local and all-gathers k
+and v, so B1 runs at Sq = S/n, Skv = S (``vae.py:39-53``); the encoder's
+stride-2 downsample takes its one extra row from the shard below, zeros
+at the bottom (``vae.py:73-92``); the decoder's upsample already runs as
+upsample-then-conv, the form JAX keeps for sharded rows (``vae.py:127-135``).
+
 ``VQModel`` is LDSR's first stage, a VQGAN with ``double_z: false`` (the
 encoder's conv_out and quant_conv z-wide, a codebook under
 ``quantize.embedding``): ``vq_quantize`` picks each latent's nearest
@@ -27,6 +36,7 @@ from sdwebui_tpu_torch.models.configs import VAEConfig
 from sdwebui_tpu_torch.models.layers import (Conv2d, Embedding, GroupNorm, conv2d,
                                              upsample_nearest_2x)
 from sdwebui_tpu_torch.ops.attention import attention
+from sdwebui_tpu_torch.parallel import collectives
 
 
 class ResnetBlock(nn.Module):
@@ -64,7 +74,11 @@ class AttnBlock(nn.Module):
         def tokens(conv):   # (B, C, H, W) → (B, H·W, C), one head of width C
             return conv(hn).permute(0, 2, 3, 1).reshape(b, h * w, c)
 
-        out = attention(tokens(self.q), tokens(self.k), tokens(self.v))
+        q, k, v = tokens(self.q), tokens(self.k), tokens(self.v)
+        axis = collectives.spatial_axis()
+        if axis is not None:     # q's rows are this shard's; k and v are every row
+            k, v = collectives.all_gather(torch.stack([k, v]), axis, dim=2).unbind(0)
+        out = attention(q, k, v)
         return x + self.proj_out(out.reshape(b, h, w, c).permute(0, 3, 1, 2))
 
 
@@ -86,6 +100,18 @@ class _Resample(nn.Module):
     def __init__(self, c, *, device, dtype):
         super().__init__()
         self.conv = Conv2d(c, c, 3, device=device, dtype=dtype)
+
+
+def _pad_bottom_right(h):
+    """ldm's (0, 1, 0, 1) pad before the stride-2 downsample; row-sharded,
+    the bottom row is the first row of the shard below (zeros for the
+    last shard)."""
+    axis = collectives.spatial_axis()
+    if axis is None:
+        return F.pad(h, (0, 1, 0, 1))
+    n = collectives.axis_size(axis)
+    below = collectives.ppermute(h[:, :, :1], axis, [(i + 1, i) for i in range(n - 1)])
+    return F.pad(torch.cat([h, below], dim=2), (0, 1, 0, 0))
 
 
 class Encoder(nn.Module):
@@ -118,8 +144,7 @@ class Encoder(nn.Module):
                 h = block(h)
             if hasattr(lp, "downsample"):
                 conv = lp.downsample.conv
-                h = conv2d(F.pad(h, (0, 1, 0, 1)), conv.weight, conv.bias, stride=2,
-                           padding=0)
+                h = conv2d(_pad_bottom_right(h), conv.weight, conv.bias, stride=2, padding=0)
         h = self.mid["block_1"](h)
         h = self.mid["attn_1"](h)
         h = self.mid["block_2"](h)

@@ -6,6 +6,8 @@ with scale and shift cast to the input dtype, so bf16 rounds where the JAX
 code rounds.  LayerNorm dispatches to B5 (``ops/layer_norm.py``): the
 kernel for CUDA tensors, its plain version on the CPU, or the plain version
 everywhere inside :func:`forced_plain` (the yardstick arm of a comparison).
+Under ``parallel.collectives.spatial_sharding`` GroupNorm's (Σx, Σx²) and
+its count sum over the row shards (``norms.py:30-58``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from sdwebui_tpu_torch.ops import layer_norm as _ln
+from sdwebui_tpu_torch.parallel import collectives
 
 _PLAIN = False
 
@@ -33,6 +36,10 @@ def group_norm(x, weight, bias, num_groups: int = 32, eps: float = 1e-5,
     n_spatial = 1
     for a in red:
         n_spatial *= x.shape[a]
+    axis = collectives.spatial_axis()
+    if axis is not None:
+        s1, s2 = collectives.psum(torch.stack([s1, s2]), axis).unbind(0)
+        n_spatial *= collectives.axis_size(axis)
     cnt = n_spatial * (c // g)
     mean_g = s1.reshape(b, g, c // g).sum(-1) / cnt
     var_g = s2.reshape(b, g, c // g).sum(-1) / cnt - mean_g * mean_g

@@ -32,6 +32,21 @@ infotext and the grid; ``opts.sd_unet`` picks the model bundle of a
 registered UNet provider (``pipeline/sd_unet``) before the job starts.
 ``invert_noise`` is img2img alternative's reverse-Euler inversion
 (processing.py:1150-1195).
+
+On a mesh (``parallel/mesh``: the bundle's own runtime from
+``SDModel.replicate``, else the process's) :func:`sample_latents` runs
+the CFG denoiser per data shard when the batch divides the data axis
+(processing.py:407-415): x, the image conds, the masks and the init
+latent split along the batch, and each shard's UNet (tensor-parallel over
+its model group when the model axis is > 1) runs on its replica, one
+shard after another (``collectives.Group.map``).  The solver's
+arithmetic stays on the whole batch on the bundle's device, so the step
+callback, /progress, interrupt and skip see each step once with every
+image, and a solver whose step reads the whole batch (DPM adaptive's
+error norm) keeps its one-device result; JAX partitions that arithmetic as well, to the same
+values.  The decode splits the batch the same way; a big single image
+that the batch cannot split decodes row-sharded
+(:func:`_spatial_decode_if_beneficial`, processing.py:499-513).
 """
 
 from __future__ import annotations
@@ -53,11 +68,14 @@ from sdwebui_tpu_torch import __version__
 from sdwebui_tpu_torch.models import vae_approx
 from sdwebui_tpu_torch.models.unet import AttentionOptions
 from sdwebui_tpu_torch.networks import extra_networks
+from sdwebui_tpu_torch.parallel.mesh import data_group, on_device, runtime_for
+from sdwebui_tpu_torch.parallel.spatial import decode_spatial
 from sdwebui_tpu_torch.pipeline import sd_unet
 from sdwebui_tpu_torch.pipeline.control import control_residuals, prepare_controls
 from sdwebui_tpu_torch.pipeline.params import GenerationParams, Processed
 from sdwebui_tpu_torch.postprocessing import faces, upscalers
-from sdwebui_tpu_torch.pipeline.sd_model import SDModel, sdxl_vector_maker, unclip_adm
+from sdwebui_tpu_torch.pipeline.sd_model import (SDModel, sdxl_vector_maker, shard_bundles,
+                                                 unclip_adm)
 from sdwebui_tpu_torch.rng import image_rng
 from sdwebui_tpu_torch.sampling.cfg import CondSchedule, make_cfg_denoiser
 from sdwebui_tpu_torch.sampling.discretization import (Discretization,
@@ -222,12 +240,18 @@ def sample_latents(model: SDModel, sched: CondSchedule, x, sigmas, noise,
     soft_inpainting (power, scale, detail) the σ-scheduled soft blend;
     hypernet / controls: make_denoise_fn's."""
     quantize = bool(opts.get("enable_quantization", False))
-    denoise = make_denoise_fn(model, quantize, devices.get_policy().compute_dtype, solver,
-                              hypernet=hypernet, controls=controls,
-                              conds_per_image=sched.cond_bank.shape[0])
-    model_fn = make_cfg_denoiser(denoise, sched, mask=mask, nmask=nmask,
-                                 init_latent=init_latent, soft_inpainting=soft_inpainting,
-                                 return_uncond=solver == "ddim_cfgpp")
+    mesh = _mesh_for(model, x.shape[0])
+    if mesh is not None:
+        model_fn = _mesh_denoiser(model, *mesh, sched, x.shape[0], quantize, solver,
+                                  hypernet=hypernet, controls=controls, mask=mask, nmask=nmask,
+                                  init_latent=init_latent, soft_inpainting=soft_inpainting)
+    else:
+        denoise = make_denoise_fn(model, quantize, devices.get_policy().compute_dtype, solver,
+                                  hypernet=hypernet, controls=controls,
+                                  conds_per_image=sched.cond_bank.shape[0])
+        model_fn = make_cfg_denoiser(denoise, sched, mask=mask, nmask=nmask,
+                                     init_latent=init_latent, soft_inpainting=soft_inpainting,
+                                     return_uncond=solver == "ddim_cfgpp")
     sig = np.asarray(sigmas, np.float32)
     n = total_steps or len(sig) - 1
     callback = None
@@ -239,6 +263,68 @@ def sample_latents(model: SDModel, sched: CondSchedule, x, sigmas, noise,
                              ("uni_pc_lower_order_final", True)):
             extra[key] = opts.get(key, default)
     return sample(model_fn, x, sig, solver, noise, extra, callback=callback)
+
+
+def _mesh_for(model: SDModel, batch: int):
+    """(runtime, data shards) when `model` runs sharded for a batch of
+    `batch`, else None: the batch splits over the data axis when it
+    divides it (an indivisible batch runs on data shard 0's model group:
+    unsharded when the model axis is 1, as JAX's processing.py:407-415)."""
+    rt = runtime_for(model.device, model.runtime)
+    if rt is None:
+        return None
+    n_data = rt.data_size if batch % rt.data_size == 0 else 1
+    if n_data == 1 and rt.model_size == 1:
+        return None
+    return rt, n_data
+
+
+def _mesh_denoiser(model: SDModel, rt, n_data: int, sched: CondSchedule, batch: int,
+                   quantize: bool, solver: str, hypernet=None, controls=(), mask=None,
+                   nmask=None, init_latent=None, soft_inpainting=None):
+    """The CFG denoiser of :func:`sample_latents` over the mesh: one per
+    data shard on its bundle (``sd_model.shard_bundles``) with its rows of
+    everything batch-shaped, run over the data group (``Group.map``); the
+    output joins on x's device."""
+    b = batch // n_data
+    uncond_out = solver == "ddim_cfgpp"
+    fns = []
+    for d, shard in enumerate(shard_bundles(model, rt, n_data)):
+        dev = shard.device
+
+        def rows(t, d=d, dev=dev):
+            if t is None:
+                return None
+            return (t[d * b:(d + 1) * b] if t.shape[0] == batch else t).to(dev, copy=True)
+
+        def to(t, dev=dev):
+            return None if t is None else t.to(dev)
+
+        s_d = dataclasses.replace(sched, cond_bank=to(sched.cond_bank),
+                                  uncond_bank=to(sched.uncond_bank),
+                                  vector_bank=to(sched.vector_bank),
+                                  vector_uncond_bank=to(sched.vector_uncond_bank),
+                                  c_concat=rows(sched.c_concat))
+        ctrls = [dataclasses.replace(c, tower=on_device(c.tower, dev), hint=c.hint.to(dev))
+                 for c in controls]
+        denoise = make_denoise_fn(shard, quantize, devices.get_policy().compute_dtype, solver,
+                                  hypernet=on_device(hypernet, dev), controls=ctrls,
+                                  conds_per_image=sched.cond_bank.shape[0])
+        fns.append(make_cfg_denoiser(denoise, s_d, mask=rows(mask), nmask=rows(nmask),
+                                     init_latent=rows(init_latent),
+                                     soft_inpainting=soft_inpainting,
+                                     return_uncond=uncond_out))
+    if n_data == 1:
+        dev = rt.grid[0][0]
+        return lambda x, sigma, i: fns[0](x.to(dev), sigma, i).to(x.device)
+    group = data_group(rt)
+
+    def model_fn(x, sigma: float, i: int):
+        parts = rt.shard_batch(x)
+        outs = group.map(lambda d: fns[d](parts[d], sigma, i))
+        return torch.cat([o.to(x.device) for o in outs], dim=1 if uncond_out else 0)
+
+    return model_fn
 
 
 @torch.inference_mode()
@@ -311,10 +397,25 @@ def to_u8(img) -> np.ndarray:
     return (img * 255.0 + 0.5).to(torch.uint8).permute(0, 2, 3, 1).cpu().numpy()
 
 
+def _vae_decode(model: SDModel, z):
+    """The VAE decode of `z`, split over the data axis when the batch
+    divides it (each shard on its replica, the images joined on z's
+    device)."""
+    mesh = _mesh_for(model, z.shape[0])
+    tiling = model.vae_cfg.tiling
+    if mesh is None or mesh[1] == 1:
+        return model.vae.decode(z, tiling=tiling)
+    rt = mesh[0]
+    parts = rt.shard_batch(z)
+    outs = data_group(rt).map(lambda d: on_device(model.vae, rt.data_devices[d]).decode(
+        parts[d], tiling=tiling))
+    return torch.cat([o.to(z.device) for o in outs])
+
+
 def _decode_u8(model: SDModel, latents, dtype):
     """(uint8 (B, H, W, 3), whether the decode gave NaN or inf); NaN reads
     as 0, as JAX's ``tensor_to_pil`` reads it."""
-    img = model.vae.decode(latents.to(dtype), tiling=model.vae_cfg.tiling)
+    img = _vae_decode(model, latents.to(dtype))
     bad = not devices.all_finite(img)
     return to_u8(torch.nan_to_num(torch.clamp(img.float() / 2.0 + 0.5, 0.0, 1.0))), bad
 
@@ -341,6 +442,20 @@ def decode_first_stage(model: SDModel, latents) -> np.ndarray:
     return _decode_u8(model, latents, devices.get_policy().vae_dtype)[0]
 
 
+def _spatial_decode_if_beneficial(model: SDModel, latents):
+    """The row-sharded f32 decode of a big image the batch cannot split
+    (batch % data ≠ 0, rows % data = 0, rows ≥ 128: processing.py:499-513)
+    as [0, 1] images, or None."""
+    rt = runtime_for(model.device, model.runtime)
+    if rt is None:
+        return None
+    n, rows = rt.data_size, latents.shape[2]
+    if n > 1 and latents.shape[0] % n and rows % n == 0 and rows >= 128:
+        img = decode_spatial(model.vae, latents.float(), rt, tiling=model.vae_cfg.tiling)
+        return torch.clamp(img.float() / 2.0 + 0.5, 0.0, 1.0)
+    return None
+
+
 def decode_first_stage_u8(model: SDModel, latents, interrupted: bool = False) -> np.ndarray:
     """latents (B, C, h, w) → uint8 (B, H, W, 3).  An interrupted job's
     preview decode or TAESD when the options ask for them; else a bf16
@@ -349,6 +464,9 @@ def decode_first_stage_u8(model: SDModel, latents, interrupted: bool = False) ->
     u8 = _approx_u8(model, latents, interrupted)
     if u8 is not None:
         return u8
+    spatial = _spatial_decode_if_beneficial(model, latents)
+    if spatial is not None:
+        return to_u8(torch.nan_to_num(spatial))
     if opts.get("sdtpu_vae_bf16", True):
         u8, bad = _decode_u8(model, latents, torch.bfloat16)
         if not bad or not opts.get("auto_vae_precision", True):

@@ -14,6 +14,7 @@ model's weights across, so both packages can run on identical parameters.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -29,6 +30,9 @@ from sdwebui_tpu_torch.models.layers import reset_random, timestep_embedding
 from sdwebui_tpu_torch.models.midas import DPTConfig, DPTDepthModel, create_random_dpt
 from sdwebui_tpu_torch.models.unet import UNetModel, state_dict_depths
 from sdwebui_tpu_torch.models.vae import AutoencoderKL
+from sdwebui_tpu_torch.parallel.mesh import (cached, check_device_type, drop_replicas,
+                                             get_runtime, on_device)
+from sdwebui_tpu_torch.parallel.sharding import TensorParallelUNet, shard_params
 from sdwebui_tpu_torch.sampling.discretization import (Discretization,
                                                        make_alphas_cumprod)
 from sdwebui_tpu_torch.text.conditioner import TextConditioner
@@ -76,6 +80,9 @@ class SDModel:
     # fp8 storage with opts.cache_fp16_weight: the high-precision UNet
     # weights by parameter name, in host RAM, while the UNet holds fp8
     unet_hp: dict | None = None
+    # the mesh this bundle was replicated over (:meth:`replicate`), else the
+    # process's runtime decides (parallel.mesh.runtime_for)
+    runtime: object = None
 
     @property
     def is_sdxl(self) -> bool:
@@ -101,9 +108,11 @@ class SDModel:
 
     def to(self, device) -> "SDModel":
         """Move every module to `device` (in place; parks a displaced
-        checkpoint in host RAM with "cpu").  Merged LoRA copies are dropped,
-        never moved."""
+        checkpoint in host RAM with "cpu").  Merged LoRA copies and the
+        modules' mesh replicas are dropped, never moved."""
         self.network_cache.clear()
+        drop_replicas(self.unet, self.vae, *(getattr(c, "model", None)
+                                             for c in (self.conditioner, self.conditioner2)))
         self.device = torch.device(device)
         for cond in (self.conditioner, self.conditioner2):
             if cond is not None:
@@ -115,6 +124,29 @@ class SDModel:
         if self.noise_aug_stats is not None:
             self.noise_aug_stats = {k: v.to(self.device) for k, v in self.noise_aug_stats.items()}
         return self
+
+    def replicate(self, rt=None) -> "SDModel":
+        """This bundle for generation over `rt` (default: the process's
+        runtime): each data shard gets its UNet (split over ``model`` when
+        the mesh has a model axis > 1), its VAE and its conditioners
+        (``sdwebui_tpu/pipeline/sd_model.py:139-169``).  A copy: the source
+        bundle, its conditioners and its modules stay as they are.  The
+        shards are made here and kept in ``parallel.mesh``'s replica cache
+        while their source modules live; the sampler makes them on demand
+        as well, so a bundle that was not replicated (or whose LoRA
+        merge is new) runs sharded all the same."""
+        rt = rt or get_runtime()
+        check_device_type(rt, self.device)
+        if rt.n_devices <= 1:
+            return self
+        new = dataclasses.replace(self, runtime=rt)
+        # dataclasses.replace shares the conditioner objects: copy them, so
+        # the replica never changes the source's
+        new.conditioner = copy.copy(self.conditioner)
+        if self.conditioner2 is not None:
+            new.conditioner2 = copy.copy(self.conditioner2)
+        shard_bundles(new, rt, rt.data_size)
+        return new
 
     def encode_texts(self, texts, target_chunks=None):
         """texts → (N, S, D) crossattn conds, or (conds, pooled) for SDXL and
@@ -140,6 +172,39 @@ class SDModel:
         if self.kind == "sdxl-refiner":
             return cond, pooled
         return cond
+
+
+def _conditioner_on(cond, device):
+    if cond is None:
+        return None
+    model = on_device(cond.model, device)
+    if model is cond.model:
+        return cond
+    new = copy.copy(cond)
+    new.model = model
+    return new
+
+
+def shard_bundles(model: SDModel, rt, n_data: int) -> list:
+    """Data shard d's bundle for d < n_data, on its device ``rt.grid[d][0]``:
+    its UNet (a ``TensorParallelUNet`` over ``rt.grid[d]`` when the model
+    axis is > 1), its VAE and its conditioners.  A shard on the source's
+    device shares the source's modules (read-only); others get copies,
+    cached while the source modules live (``parallel.mesh.on_device``)."""
+    out = []
+    for d in range(n_data):
+        devs = rt.grid[d]
+        dev = devs[0]
+        if rt.model_size > 1:
+            unet = cached(model.unet, ("model_shards", rt, d), lambda devs=devs: TensorParallelUNet(
+                shard_params(model.unet, devs), devs))
+        else:
+            unet = on_device(model.unet, dev)
+        out.append(dataclasses.replace(
+            model, unet=unet, vae=on_device(model.vae, dev), device=dev, runtime=None,
+            conditioner=_conditioner_on(model.conditioner, dev),
+            conditioner2=_conditioner_on(model.conditioner2, dev)))
+    return out
 
 
 def sdxl_vector_maker(model: SDModel, width: int, height: int, crop: tuple = (0, 0),
@@ -652,6 +717,7 @@ def quantize_unet_fp8(model: SDModel, keep_hp: bool = False) -> SDModel:
             p.data = p.data.to(torch.float8_e4m3fn).contiguous(memory_format=fmt)
     model.unet_hp = hp if keep_hp else None
     model.network_cache.clear()
+    drop_replicas(model.unet)
     return model
 
 
@@ -668,4 +734,5 @@ def dequantize_unet_fp8(model: SDModel, dtype=torch.bfloat16) -> SDModel:
             p.data = new.contiguous(memory_format=fmt)
     model.unet_hp = None
     model.network_cache.clear()
+    drop_replicas(model.unet)
     return model

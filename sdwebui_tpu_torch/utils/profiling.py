@@ -25,8 +25,10 @@ import torch
 from sdwebui_tpu_torch.utils.options import opts
 
 
-#: zero-cycle spin kernels that open every trace on the card
-PAD_KERNELS = 256
+#: zero-cycle spin kernels that open every trace on the card: about four times
+#: the most first kernel records a request's trace has lost on an H100 (0 to
+#: 57 in 28 traces, at least 259 in one; PERF.md §7)
+PAD_KERNELS = 1024
 #: how many of them the last trace on the card kept (None before one)
 last_pad_kept: int | None = None
 
@@ -38,9 +40,11 @@ def _pad(device):
     after an earlier one in the same process lacks the records of its first
     kernels: on an H100, 0 to 57 of them in the 24 traces of
     ``tools/profiler_trace_probe_cuda.py``, each time the first ones in
-    launch order.  Draining the card before the trace opens, leaving it idle 50 ms
-    after, or a profiler schedule's warmup step did not stop the loss.  So
-    the trace opens on kernels it may lose, and the loss is counted after
+    launch order, and at least 259 once in a whole run of ``chip_smoke.py``.
+    Draining the card before the trace opens, leaving it idle 50 ms after,
+    or a profiler schedule's warmup step did not stop the loss; traces of
+    spin kernels alone lost nothing (``tools/profiler_window_probe_cuda.py``).
+    So the trace opens on kernels it may lose, and the loss is counted after
     (``_count_pad``)."""
     for _ in range(PAD_KERNELS):
         torch.cuda._sleep(0)

@@ -218,6 +218,12 @@ from sdwebui_tpu_torch.utils.png import encode_png
 res = process_txt2img(create_tiny_sd(0, "cpu"), GenerationParams(
     prompt="a cat", seed=3, steps=2, width=64, height=64))
 assert res.images[0].shape == (64, 64, 3)
+from sdwebui_tpu_torch.parallel import collectives, mesh, sequence, sharding, spatial
+from sdwebui_tpu_torch.training import train_step
+rt = mesh.MeshRuntime.create(data=2, model=2, devices=["cpu"] * 4)
+res = process_txt2img(create_tiny_sd(0, "cpu").replicate(rt), GenerationParams(
+    prompt="a cat", seed=3, steps=1, width=64, height=64, batch_size=2))
+assert len(res.images) == 3 and res.images[-1].shape == (64, 64, 3)
 api = Api(Engine(device="cpu", tiny=True))
 status, out = api.handle(
     "POST", "/sdapi/v1/txt2img", {"steps": 1, "width": 64, "height": 64})
