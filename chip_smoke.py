@@ -293,8 +293,9 @@ Phases, in order; any failure exits non-zero:
      and B5 launches equal to the plan's: /scripts and /script-info; the
      X/Y/Z plot of Steps 10, 20 x CFG 5, 7.5 with its legend off (a 1024²
      grid and four cells, each within REPEAT_TOL of the plain request of
-     its settings, with its infotext), the legend on answering 422 naming
-     the font; prompts from file over 2 lines, the seed iterated; loopback,
+     its settings, with its infotext), the legend (drawn in 4s) answering
+     422 when the font option names a missing file (JAX's fall-back, the
+     auto-hinted default font, is not ported); prompts from file over 2 lines, the seed iterated; loopback,
      2 loops; SD upscale of a phase-3 PNG x2 with Lanczos at batch 4 (9
      tiles of 512² at overlap 64 in 3 batches, a 1024² image); outpainting
      mk2, 64 px left and right (a 640 x 512 inpaint); the noise inversion
@@ -353,8 +354,10 @@ Phases, in order; any failure exits non-zero:
      phase 3's; (c) parse-infotext of (i)'s infotext, token-count of a
      BREAK prompt against the host's count, last-result against the last
      response; (d) one (i) request with profiling_enable, whose Chrome
-     trace names B2's kernel 200 times, B1's once and B5's 986 times;
-     (e) /internal/sysinfo names the card.  Every request launches B1 1,
+     trace names B2's kernel 200 times, B1's once and B5's 986 times and
+     loses none of the request's kernel records (its launch records
+     matched to kernel records by correlation id, behind the profiler's
+     pad); (e) /internal/sysinfo names the card.  Every request launches B1 1,
      B2 200, B5 986; logged: the merges' seconds and GB/s, the profiled and
      unprofiled requests' seconds.
   4q. the parallel runtime (parallel/) on meshes that name the card several
@@ -377,6 +380,17 @@ Phases, in order; any failure exits non-zero:
      and the update itself, element for element above rounding level,
      within TRAIN_UPDATE_TOL of one device's; each step's ms and peak
      memory.
+  4r. tensor-parallel SD3 (inside 4j, on its served SD3-medium, T5 off):
+     model=2 (batch 1) and data=2 × model=2 (batch 2) at 1024² bf16,
+     TP_SD3_STEPS steps, each image within TP_SD3_TOL of one device's;
+     every (data, model) shard launches B2 at (2, 4173, 24·64) and B5 as
+     planned (TP_SD3_STEPS × 24 and × 96).
+  4s. the text on grids and cards (after 4q, on the phase-3 server): an
+     X/Y/Z request with draw_legend (Prompt S/R over kerned words × Seed),
+     its legend gutters inked, equal to the port's own redraw on the
+     response's cells and unequal to a copy drawn without kerning; a
+     prompt-matrix request with a struck-through part; an embedding card
+     with its name; the host ms of a legend and a card.
 Each phase's seconds are logged as it ends.  The last two lines are the
 kernels JSON and {"ok": true, "device": ...}.
 Needs a CUDA card; without one it exits 1 and prints no result.
@@ -3703,6 +3717,116 @@ def check_mmdit(path: str, module, device) -> dict:
     return dict(rel_err=rel, cpu_forward_s=cpu_s)
 
 
+# 4r: tensor-parallel SD3 on meshes that name the card several times
+TP_SD3_STEPS = SAMPLER_STEPS
+# uint8 levels (max, mean): a bf16 model-sharded SD3 image against one
+# device's; fc2's partial products are summed in fp32 and rounded once, one
+# device rounds its GEMM once too, so the images differ by bf16 rounding
+# carried through TP_SD3_STEPS steps of 24 blocks
+TP_SD3_TOL = (24, 2.0)
+
+
+@contextlib.contextmanager
+def _per_shard_launches():
+    """{(data rank, model rank): {"b2": n, "b5": n, "b2_shapes": set}} of
+    the B2 and B5 launches made inside the block, by the shard that made
+    them (parallel.collectives' thread-local axes; data rank 0 where the
+    data axis is 1, model rank None outside a model shard)."""
+    from sdwebui_tpu_torch.ops import attention
+    from sdwebui_tpu_torch.ops import layer_norm as ln_mod
+    from sdwebui_tpu_torch.parallel import collectives
+
+    seen, lock = {}, threading.Lock()
+    real_b2, real_b5 = attention.flash_attention_packed, ln_mod.layer_norm
+
+    def who():
+        axes = collectives.axes()
+        return (axes["data"][1] if "data" in axes else 0,
+                axes["model"][1] if "model" in axes else None)
+
+    def entry(k):
+        return seen.setdefault(k, {"b2": 0, "b5": 0, "b2_shapes": set()})
+
+    def b2(q, k, v, num_heads, **kw):
+        with lock:
+            e = entry(who())
+            e["b2"] += q.is_cuda
+            e["b2_shapes"].add((tuple(q.shape), num_heads))
+        return real_b2(q, k, v, num_heads=num_heads, **kw)
+
+    def b5(x, *a, **kw):
+        with lock:
+            entry(who())["b5"] += x.is_cuda
+        return real_b5(x, *a, **kw)
+
+    attention.flash_attention_packed, ln_mod.layer_norm = b2, b5
+    try:
+        yield seen
+    finally:
+        attention.flash_attention_packed, ln_mod.layer_norm = real_b2, real_b5
+
+
+def _tp_sd3(model, card, b2_fwd: int, b5_fwd: int, clip_ln: int, info: dict) -> tuple:
+    """4r: the served SD3-medium (bf16, T5 off) over model=2 (batch 1) and
+    data=2 × model=2 (batch 2) at 1024², TP_SD3_STEPS steps of Euler: each
+    image within TP_SD3_TOL of one device's; every model shard runs every
+    joint attention at (2, 4173, 24·64) with all 24 heads and every MMDiT
+    LayerNorm.  Returns (results, plans)."""
+    import dataclasses
+
+    from sdwebui_tpu_torch.parallel import mesh
+    from sdwebui_tpu_torch.pipeline.params import GenerationParams
+    from sdwebui_tpu_torch.pipeline.processing import process_txt2img
+
+    steps = TP_SD3_STEPS
+    cfg = model.unet_cfg
+    tokens = (SD3_BASE["width"] // 8 // cfg.patch_size) ** 2 + 77
+    shape = ((2, tokens, cfg.hidden), cfg.num_heads)
+    results, plans = [], []
+
+    def params(batch):
+        return GenerationParams(**dict(SD3_BASE, seed=3060, batch_size=batch, steps=steps))
+
+    def images(res):
+        return list(res.images[res.index_of_first_image:])
+
+    try:
+        for data, model_axis in ((1, 2), (2, 2)):
+            n = data * model_axis
+            mesh.set_runtime(mesh.MeshRuntime.create(data=1, devices=[card]))
+            one, one_s, one_counts = _run_counted(lambda: process_txt2img(model, params(data)))
+            one_plan = _plan(b1=1, b2=steps * b2_fwd, b5=steps * b5_fwd + clip_ln)
+            rt = mesh.MeshRuntime.create(data=data, model=model_axis, devices=[card] * n)
+            mesh.set_runtime(rt)
+            label = f"4r SD3 data={data} model={model_axis} bf16"
+            rep = model.replicate(rt)
+            process_txt2img(rep, dataclasses.replace(params(data), steps=1))  # shards made
+            with _per_shard_launches() as per:
+                out, secs, counts = _run_counted(lambda: process_txt2img(rep, params(data)))
+            plan = _plan(b1=data, b2=n * steps * b2_fwd, b5=n * steps * b5_fwd + clip_ln)
+            shards = {k: v for k, v in per.items() if k[1] is not None}
+            want = {(d, m) for d in range(data) for m in range(model_axis)}
+            per_shard = {str(k): dict(b2=v["b2"], b5=v["b5"]) for k, v in sorted(shards.items())}
+            log(f"{label}: {secs:.3f} s, one device {one_s:.3f} s ({steps} steps); launches "
+                f"per (data, model) shard {per_shard}")
+            if set(shards) != want or any(
+                    v["b2"] != steps * b2_fwd or v["b5"] != steps * b5_fwd
+                    or v["b2_shapes"] != {shape} for v in shards.values()):
+                raise AssertionError(f"{label}: per-shard launches {shards}, planned "
+                                     f"B2 {steps * b2_fwd} at {shape} and B5 "
+                                     f"{steps * b5_fwd} on each of {sorted(want)}")
+            info[f"tp_sd3_{data}x{model_axis}"] = dict(
+                levels=_images_within(label, images(out), images(one), TP_SD3_TOL[0],
+                                      TP_SD3_TOL[1]),
+                seconds=secs, one_device_seconds=one_s, per_shard=per_shard)
+            results += [dict(label=label, launches=counts, seconds=secs),
+                        dict(label=label + " one device", launches=one_counts, seconds=one_s)]
+            plans += [plan, one_plan]
+    finally:
+        mesh.set_runtime(None)
+    return results, plans
+
+
 def phase_families(directory: str, device):
     """4j: SD3, SD2.1-unclip-h and AltDiffusion from files written from a
     seed at the published layouts, each served through --ckpt over HTTP;
@@ -3786,6 +3910,16 @@ def phase_families(directory: str, device):
                                b5=(STEPS + t_hr + 1) * b5_fwd + 2 * clip_ln))
             info["sd3_profile"] = phase_profile(
                 engine, body, "SD3", wall=statistics.median(r["seconds"] for r in results[:2]))
+            t0 = time.perf_counter()
+            card = torch.device("cuda", torch.cuda.current_device() if device.index is None
+                                else device.index)
+            tp_results, tp_plans = _tp_sd3(served, card, b2_1024, b5_fwd, clip_ln, info)
+            results += tp_results
+            plans += tp_plans
+            gc.collect()
+            torch.cuda.empty_cache()
+            info["tp_sd3_s"] = time.perf_counter() - t0
+            log(f"4r tensor-parallel SD3: {info['tp_sd3_s']:.1f} s")
             # T5 on: the next load converts the file's fp8 T5 to bf16
             _post(f"{url}/options", {"sd3_enable_t5": True})
             _post(f"{url}/unload-checkpoint", {})
@@ -3872,8 +4006,9 @@ def phase_families(directory: str, device):
     _check_launches(results, plans)
     info["seconds"] = {r["label"]: r["seconds"] for r in results}
     # B1 calls by phase-1 row: the SD3 VAE's mid block at 128² (the 1024²
-    # decodes, bf16; the img2img encode, f32) and unclip's at 96²
-    info["b1_calls"] = {("vae_mid_1024", "bfloat16"): 5, ("vae_mid_1024_f32", "float32"): 1,
+    # decodes, bf16, 4r's five among them; the img2img encode, f32) and
+    # unclip's at 96²
+    info["b1_calls"] = {("vae_mid_1024", "bfloat16"): 5 + 5, ("vae_mid_1024_f32", "float32"): 1,
                         ("vae_mid_768", "bfloat16"): 2, ("vae_mid_768_f32", "float32"): 1,
                         ("vae_mid_512", "bfloat16"): 1}
     return results, info
@@ -4530,11 +4665,19 @@ def phase_scripts(engine, model, phase3: dict, device):
                 raise AssertionError(f"4m X/Y/Z cell {steps}/{scale}: max|Δ| {delta} from the "
                                      f"plain request, infotexts {text!r} {plain['infotexts']!r}")
             results.append(plain)
-        status, err = _post_status(f"{url}/txt2img", dict(base, script_name="X/Y/Z plot",
-                                                          script_args=xyz[:6] + [True]))
+        # the legend's one refusal (4s draws the legend): Pillow's default font
+        # at a size other than 10, which JAX falls back to when the font
+        # option names a file that cannot be opened; one 1-step cell
+        _post(f"{url}/options", {"font": "/no/such/font.ttf"})
+        try:
+            status, err = _post_status(f"{url}/txt2img", dict(
+                base, steps=1, script_name="X/Y/Z plot",
+                script_args=["Nothing", "", "Nothing", "", "Nothing", "", True]))
+        finally:
+            _post(f"{url}/options", {"font": ""})
         if status != 422 or "TrueType font" not in err["detail"]:
-            raise AssertionError(f"4m X/Y/Z legend: {status} {err}")
-        rec.check("X/Y/Z legend", [])
+            raise AssertionError(f"4m X/Y/Z legend in a missing font: {status} {err}")
+        rec.check("X/Y/Z legend", _hook_plan(1))
         # (c) prompts from file, the seed iterated
         lines = "a photograph of an astronaut riding a horse\na red bicycle in the snow"
         res = _script_request(url, "txt2img", dict(
@@ -5205,8 +5348,10 @@ def phase_ui(model, device, phase3: dict, directory: str):
     against JAX's count (UI_BREAK_TOKENS), last-result against the last
     response;
     (d) one (i) request with profiling_enable: its Chrome trace names B2's
-    and B5's kernels as often as the plan launches them, and keeps at
-    least one of utils/profiling's pad kernels; (e) /internal/sysinfo
+    and B5's kernels as often as the plan launches them, and loses no
+    kernel record of the request (its launches matched to kernel records
+    by correlation id, utils/profiling.last_lost) behind utils/profiling's
+    pad kernels; (e) /internal/sysinfo
     names the card.  Every txt2img launches B1 1, B2 200 and B5 986.
     Returns (results, info)."""
     from sdwebui_tpu_torch.loader import load
@@ -5328,17 +5473,19 @@ def phase_ui(model, device, phase3: dict, directory: str):
         results.append(profiled)
         seen = _trace_kernels(trace)
         seen["pad_kept"] = profiling.last_pad_kept
+        seen["lost"] = profiling.last_lost
         plain_s = results[1]["seconds"]         # the repeat: the same model, no load
         info["profile"] = dict(seconds=profiled["seconds"], unprofiled_s=plain_s,
                                overhead_s=profiled["seconds"] - plain_s, trace=seen)
         log(f"4p (d) profiled request {profiled['seconds']:.3f} s against {plain_s:.3f} s "
             f"unprofiled; its trace: {seen} (kept {seen['pad_kept']} of "
-            f"{profiling.PAD_KERNELS} pad kernels)")
+            f"{profiling.PAD_KERNELS} pad kernels; the request's launches with no kernel "
+            f"record, by correlation id: {seen['lost']})")
         if (seen["attn_tc_kernel"], seen["layer_norm"], seen["attn_wide_kernel"]) != \
                 (plan["flash_attention_packed"], plan["layer_norm"], plan["flash_attention"]) \
-                or not seen["pad_kept"]:
-            raise AssertionError(f"4p (d): the trace names {seen}, planned {plan} after at "
-                                 "least one pad kernel")
+                or seen["lost"] != 0:
+            raise AssertionError(f"4p (d): the trace names {seen}, planned {plan}, and must "
+                                 "lose none of the request's kernel records")
         # (ii) Add difference: phase 3's image again
         results.append(request(url, "chip-ad", "(ii) add difference"))
         back = int(abs(results[-1]["image"].astype(int) - phase3["image"].astype(int)).max())
@@ -5737,6 +5884,120 @@ def _update_rel(src: dict, got: dict, one: dict, one_grads: dict) -> dict:
                 masked_in=[f"{k} {n}/{one_grads[k].numel()}" for k, n in top])
 
 
+# 4s: the text JAX draws on grids and cards
+TEXT_STEPS = SAMPLER_STEPS
+#: Prompt S/R values with kerned pairs (WA, AV, VY, TO, OY in DejaVuSans)
+TEXT_SR = "astronaut, WAVY TOY"
+LEGEND_REPEATS = 5
+
+
+def phase_text(engine, model):
+    """4s: the text on grids and cards over the phase-3 server: (a) an X/Y/Z
+    request (Prompt S/R over two values × Seed, draw_legend on) whose grid
+    has a legend gutter above and to the left, not blank, and equal to the
+    legend the port draws on the response's own cells, and unequal to a
+    planted copy drawn with kerning removed; (b) a prompt-matrix request
+    with one variable part, its legend's struck-through part; (c) the
+    embedding card of a trained embedding: its name and step drawn; the
+    host ms to draw a legend and a card.  Each request launches B1, B2
+    and B5 as its cells plan.  Returns (results, info)."""
+    from sdwebui_tpu_torch.training.textual_inversion import card_image
+    from sdwebui_tpu_torch.utils import grid_annotations, text_raster
+    from sdwebui_tpu_torch.utils.png import decode_png
+
+    cfg = model.unet_cfg
+    size = SD15_BASE["width"]
+    lp, ln, clip = launch_plan(cfg, size // 8), ln_plan(cfg, size // 8), clip_ln_plan(model)
+    base = dict(SD15_BASE, seed=4242, steps=TEXT_STEPS)
+    results, info = [], {}
+
+    def request(url, body, cells, label):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = _post(f"{url}/txt2img", body)
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        plan = _plan(b1=cells, b2=cells * TEXT_STEPS * lp, b5=cells * (TEXT_STEPS * ln + clip))
+        if counts != plan:
+            raise AssertionError(f"4s {label}: launches {counts} != planned {plan}")
+        imgs = [decode_png(base64.b64decode(b))[0] for b in res["images"]]
+        log(f"4s {label}: {dt:.3f} s, images {[im.shape for im in imgs]}, launches {counts}")
+        results.append(dict(route="txt2img", label=f"4s {label}", batch=len(imgs),
+                            seed=body["seed"], seconds=dt, launches=counts))
+        return imgs
+
+    with _server(engine) as url:
+        # (a) X/Y/Z with its legend
+        xs = [v.strip() for v in TEXT_SR.split(",")]
+        imgs = request(url, dict(base, script_name="X/Y/Z plot", script_args=[
+            "Prompt S/R", TEXT_SR, "Seed", "1-2", "Nothing", "", True]), 4, "X/Y/Z legend")
+        grid, cells = imgs[0], imgs[1:]
+        gutter_left = size * 3 // 4
+        top = grid.shape[0] - 2 * size
+        if grid.shape[1] != 2 * size + gutter_left or top <= 0:
+            raise AssertionError(f"4s X/Y/Z grid {grid.shape}: no legend gutters")
+        bare = torch.cat([torch.cat([torch.from_numpy(c) for c in cells[r * 2:r * 2 + 2]], 1)
+                          for r in (0, 1)]).numpy()
+        hor = [[grid_annotations.GridAnnotation(f"Prompt S/R: {v}")] for v in xs]
+        ver = [[grid_annotations.GridAnnotation(f"Seed: {v}")] for v in (1, 2)]
+        t0 = time.perf_counter()
+        redrawn = grid_annotations.draw_grid_annotations(bare, size, size, hor, ver)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        times = []
+        for _ in range(LEGEND_REPEATS):
+            t0 = time.perf_counter()
+            grid_annotations.draw_grid_annotations(bare, size, size, hor, ver)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ink = int((grid[:top] != 255).any(-1).sum()
+                  + (grid[top:, :gutter_left] != 255).any(-1).sum())
+        real_font = grid_annotations.get_font
+
+        def unkerned(fontsize):
+            face = real_font(fontsize)
+            return text_raster.Face(face.path, face.size, kerning=False)
+
+        grid_annotations.get_font = unkerned
+        try:
+            planted = grid_annotations.draw_grid_annotations(bare, size, size, hor, ver)
+        finally:
+            grid_annotations.get_font = real_font
+        kern_px = int((planted != redrawn).any(-1).sum())
+        log(f"4s X/Y/Z legend: {ink} ink pixels in the gutters; the port's redraw on the "
+            f"response's cells differs from the response in "
+            f"{int((redrawn != grid).any(-1).sum())} pixels, the planted copy without kerning "
+            f"in {kern_px}; a legend {statistics.median(times):.2f} ms on the host "
+            f"(first {first_ms:.2f} ms)")
+        if not ink or redrawn.shape != grid.shape or (redrawn != grid).any() or not kern_px:
+            raise AssertionError("4s X/Y/Z legend: blank, unlike the port's own redraw, or "
+                                 "the same without kerning")
+        info["legend_ms"] = statistics.median(times)
+        info["legend_first_ms"] = first_ms
+        info["legend_ink_px"] = ink
+        info["unkerned_px"] = kern_px
+        # (b) the prompt matrix
+        imgs = request(url, dict(base, seed=4243, prompt=SD15_BASE["prompt"] + " | at night",
+                                 script_name="Prompt matrix", script_args=[False]), 2,
+                       "prompt matrix")
+        strike = int((imgs[0][:imgs[0].shape[0] - size] == (153, 153, 153)).all(-1).sum())
+        log(f"4s prompt matrix: grid {imgs[0].shape}, {strike} strike-line pixels")
+        if imgs[0].shape[:2] == (size, 2 * size) or not strike:
+            raise AssertionError("4s prompt matrix: no legend or no struck-through part")
+        info["matrix_strike_px"] = strike
+    # (c) the embedding card
+    vec = torch.ones((2, 768)).numpy()
+    card_image("chip-card", vec, 500)
+    t0 = time.perf_counter()
+    card = card_image("chip-card", vec, 500)
+    info["card_ms"] = (time.perf_counter() - t0) * 1e3
+    left = (card.shape[1] - 512) // 2
+    text_px = int((card[228:242, left + 24:left + 120] != (32, 38, 48)).any(-1).sum())
+    log(f"4s embedding card: {text_px} ink pixels of the name, {info['card_ms']:.2f} ms")
+    if not text_px:
+        raise AssertionError("4s embedding card: no name drawn")
+    info["card_ink_px"] = text_px
+    return results, info
+
+
 def phase_parallel(engine, model, device):
     """4q: the parallel runtime on meshes that name the card several times:
     (a) data=4 under the in-process server, batch 4, image i within
@@ -5875,6 +6136,8 @@ def main() -> int:
     mark("4p page and merger")
     par_results, par_info = phase_parallel(engine, model, device)
     mark("4q parallel")
+    text_results, text_info = phase_text(engine, model)
+    mark("4s text")
     del model, engine, ckpt_engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -5917,6 +6180,7 @@ def main() -> int:
                           + hy_results + face_results + zoo_results + ckpt_results
                           + sampler_results + opt4k_results + train_results + script_results
                           + save_results + format_results + ui_results + par_results
+                          + text_results
                           + sdxl_results
                           + opt4k_xl_results
                           + [sdxl_hr_result] + sdxl_i2i_results + family_results)]
@@ -5928,7 +6192,7 @@ def main() -> int:
                     "faces": face_info, "zoo": zoo_info, "training": train_info,
                     "sdxl_img2img": sdxl_i2i_info, "options": opt4k_info,
                     "scripts": script_info, "saving": save_info, "formats": format_info,
-                    "ui": ui_info, "parallel": par_info,
+                    "ui": ui_info, "parallel": par_info, "text": text_info,
                     "families": {k: v for k, v in family_info.items() if k != "b1_calls"},
                     "requests": requests, "sdxl_profile": profile, "phase_s": phase_s}))
 
@@ -5955,6 +6219,8 @@ def main() -> int:
     b1_calls[("vae_mid_512", "bfloat16")] += format_info["decodes_512"]
     b1_calls[("vae_mid_512_f32", "float32")] += format_info["f32_encodes_512"]
     b1_calls[("vae_mid_512", "bfloat16")] += len(ui_results)
+    b1_calls[("vae_mid_512", "bfloat16")] += sum(r["launches"]["flash_attention"]
+                                                 for r in text_results)
     b1_calls[("vae_mid_1024_f32", "float32")] += 1
     for row, n in family_info["b1_calls"].items():
         b1_calls[row] = b1_calls.get(row, 0) + n

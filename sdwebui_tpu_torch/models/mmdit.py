@@ -31,10 +31,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sdwebui_tpu_torch.models.layers import (Conv2d, Linear, _normal_, _param, reset_random,
-                                             timestep_embedding)
+from sdwebui_tpu_torch.models.layers import (Conv2d, Linear, _normal_, _param, linear,
+                                             reset_random, timestep_embedding)
 from sdwebui_tpu_torch.ops.attention import attention
 from sdwebui_tpu_torch.ops.norms import layer_norm
+from sdwebui_tpu_torch.parallel import collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,7 +106,19 @@ class MLP(nn.Module):
         self.fc2 = Linear(4 * hidden, hidden, device=device, dtype=dtype)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        """Split over ``model`` (``parallel/sharding``), fc1 holds the
+        shard's columns and uses its slice of the bias, fc2 its rows; the
+        partial products are summed over the model group and fc2's bias is
+        added once, after the sum."""
+        shard = self.fc1.model_shard
+        if shard is None:
+            return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        rank, size = shard
+        h = linear(collectives.copy_to_model(x), self.fc1.weight,
+                   self.fc1.bias.chunk(size)[rank])
+        out = collectives.reduce_from_model(linear(F.gelu(h, approximate="tanh"),
+                                                   self.fc2.weight))
+        return out + self.fc2.bias.to(out.dtype)
 
 
 class DismantledBlock(nn.Module):

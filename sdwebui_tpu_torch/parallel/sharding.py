@@ -1,5 +1,5 @@
-"""Sharding rules: which dim of each UNet weight splits over ``model``, and
-the tensor-parallel UNet they make.
+"""Sharding rules: which dim of each UNet (or SD3 MMDiT) weight splits over
+``model``, and the tensor-parallel model they make.
 
 Port of ``sdwebui_tpu/parallel/sharding.py``.  The rule table is JAX's
 ``_spec_for`` key for key, in torch's layouts: JAX's (I, O) linears and
@@ -24,6 +24,14 @@ projection: model shard r takes the r-th slice of BOTH halves, so its
 ``chunk(2)`` pairs h with its own gate (a contiguous split would give
 shard 0 all of h and shard 1 all of gate).
 
+The same table applied to SD3's MMDiT, as JAX's ``replicate`` applies it to
+any model's ``unet_params`` (``sdwebui_tpu/pipeline/sd_model.py:155``),
+splits each block's ``mlp.fc1`` by columns and ``mlp.fc2`` by rows (one
+psum a block side) and the 2×2 patch conv ``x_embedder.proj`` by output
+channels (gathered); ``attn.qkv``, ``attn.proj``, the adaLN modulations,
+the embedders and the final layer match no rule, so every model shard
+runs all the heads of each joint attention, as GSPMD does.
+
 :func:`shard_params` gives each model shard a UNet that stores only its part
 of each split weight; :class:`TensorParallelUNet` runs them together.
 """
@@ -35,6 +43,7 @@ import copy
 import torch
 from torch import nn
 
+from sdwebui_tpu_torch.models.mmdit import MMDiT
 from sdwebui_tpu_torch.parallel.collectives import Group
 from sdwebui_tpu_torch.parallel.mesh import MODEL_AXIS, MeshRuntime, on_device
 
@@ -92,17 +101,17 @@ def _owner(path: str) -> str:
 
 
 def shard_params(unet: nn.Module, devices, share: bool = True) -> list:
-    """One UNet per model shard on `devices`, each storing its slice of
-    every split weight (the others whole).  share: a shard on the source's
-    device shares the replicated tensors with the source (generation);
-    False gives every shard tensors of its own (training).  Only the
-    UNet's modules run split (``models/unet``); an SD3 MMDiT raises."""
+    """One UNet (or SD3 MMDiT) per model shard on `devices`, each storing
+    its slice of every split weight (the others whole).  share: a shard on
+    the source's device shares the replicated tensors with the source
+    (generation); False gives every shard tensors of its own (training).
+    The modules that hold a split weight run the collectives
+    (``models/unet``, ``models/mmdit.MLP``, ``models/layers.Conv2d``)."""
     from sdwebui_tpu_torch.models.unet import UNetModel
 
-    if not isinstance(unet, UNetModel):
-        raise NotImplementedError(
-            f"tensor-parallel {type(unet).__name__} is not ported: only the UNet runs over a "
-            "model axis > 1 (tensor-parallel SD3 (MMDiT) is left out)")
+    if not isinstance(unet, (UNetModel, MMDiT)):
+        raise NotImplementedError(f"tensor-parallel {type(unet).__name__} is not ported: only "
+                                  "the UNet and SD3's MMDiT run over a model axis > 1")
     size = len(devices)
     named = dict(unet.named_parameters())
     named.update(dict(unet.named_buffers()))
@@ -160,8 +169,9 @@ def _to(t, device, copy_it: bool):
 
 
 class TensorParallelUNet:
-    """A UNet split over one model group: called as the UNet is, it runs
-    every shard on its thread and returns model shard 0's output."""
+    """A UNet or an SD3 MMDiT split over one model group: called as the
+    whole module is, it runs every shard on its thread and returns model
+    shard 0's output."""
 
     def __init__(self, shards: list, devices):
         self.shards = shards
@@ -174,6 +184,9 @@ class TensorParallelUNet:
 
         def run(rank):
             dev, own = self.group.devices[rank], rank > 0
+            if isinstance(self.shards[rank], MMDiT):     # SD3: its own signature
+                return self.shards[rank](_to(x, dev, own), _to(timesteps, dev, own),
+                                         _to(context, dev, own), _to(y, dev, own))
             ctrl = None
             if control is not None:
                 ctrl = {"input": tuple(_to(t, dev, own) for t in control["input"]),

@@ -90,6 +90,7 @@ from sdwebui_tpu_torch.text.conditioner import build_cond_schedule
 from sdwebui_tpu_torch.text.prompt_parser import strip_comments
 from sdwebui_tpu_torch.utils import devices
 from sdwebui_tpu_torch.utils import infotext as infotext_util
+from sdwebui_tpu_torch.utils import image_color
 from sdwebui_tpu_torch.utils import saving
 from sdwebui_tpu_torch.utils.options import opts
 
@@ -1068,11 +1069,10 @@ def image_grid(images: list, batch_size: int = 1, rows: int | None = None) -> np
     framework.invoke("image_grid", params)
     h = max(img.shape[0] for img in images)
     w = max(img.shape[1] for img in images)
-    color = str(opts.get("grid_background_color", "#ffffff") or "#ffffff").lstrip("#")
     try:
-        bg = [int(color[i:i + 2], 16) for i in (0, 2, 4)]
+        bg = image_color.getcolor_rgb(opts.get("grid_background_color", "#ffffff") or "#ffffff")
     except ValueError:
-        bg = [255, 255, 255]
+        bg = (255, 255, 255)
     grid = np.empty((params.rows * h, params.cols * w, 3), np.uint8)
     grid[...] = np.asarray(bg, np.uint8)
     for i, img in enumerate(params.imgs):

@@ -11,11 +11,11 @@ cells share the request's ``override_settings`` and
 ``extra_generation_params`` dicts, so an options axis writes into the
 request's dict and an infotext key one cell adds stays for the next.
 
-What draws text raises ``NotImplementedError`` naming the missing
-TrueType font: the X/Y/Z legend and the prompt matrix, which always draws
-its legend.  So does every value the JAX package's script path ignores
-(an options axis whose cell JAX leaves unchanged, the Styles axis, "Use
-same random seed for all lines"): the port never drops one silently.
+The X/Y/Z legend and the prompt matrix's legend are drawn by
+``utils/grid_annotations`` as JAX's Pillow draws them.  Every value the
+JAX package's script path ignores (an options axis whose cell JAX leaves
+unchanged, the Styles axis, "Use same random seed for all lines") raises
+``NotImplementedError`` naming it: the port never drops one silently.
 """
 
 from __future__ import annotations
@@ -38,12 +38,9 @@ from sdwebui_tpu_torch.sampling.schedulers import get_schedule
 from sdwebui_tpu_torch.scripts.framework import Script, ScriptArgError, register_script
 from sdwebui_tpu_torch.utils import images as images_util
 from sdwebui_tpu_torch.utils import masking
+from sdwebui_tpu_torch.utils.grid_annotations import (GridAnnotation, draw_grid_annotations,
+                                                      draw_prompt_matrix)
 from sdwebui_tpu_torch.utils.options import opts
-
-#: what the port lacks to draw text on a grid
-NO_FONT = ("no TrueType font is available to the port (JAX draws it with Pillow's "
-           "FreeType), so the legend is not ported")
-
 
 def _clone(p: GenerationParams) -> GenerationParams:
     q = copy.copy(p)
@@ -389,8 +386,6 @@ class XYZPlot(Script):
         if grid_mp >= max_mp:
             raise ValueError(f"Error: Resulting grid would be too large ({grid_mp} MPixels) "
                              f"(max configured size is {int(max_mp)} MPixels)")
-        if draw_legend:
-            raise NotImplementedError(f"X/Y/Z plot with draw_legend: {NO_FONT}")
 
         all_images, infotexts, cell_rows = [], [], []
         first = None
@@ -411,14 +406,32 @@ class XYZPlot(Script):
                 rows.append(row_imgs)
             cell_rows.append(rows)
 
-        # one grid a z value, then the z grids side by side (xyz_grid.py:287-395)
+        # one grid a z value, x labels above and y labels left, then the z
+        # grids side by side under their titles (xyz_grid.py:287-395)
+        def label(axis, val):
+            return "" if axis == "Nothing" else f"{axis}: {val}"
+
         grids = []
         for rows in cell_rows:
             flat = [im for row in rows for im in row]
-            if flat:
-                grids.append(image_grid(flat, rows=len(rows)))
+            if not flat:
+                continue
+            grid = image_grid(flat, rows=len(rows))
+            if draw_legend:
+                w = max(im.shape[1] for im in flat)
+                h = max(im.shape[0] for im in flat)
+                hor = [[GridAnnotation(label(x_axis, v))] for v in xs]
+                ver = [[GridAnnotation(label(y_axis, v))] for v in ys]
+                grid = draw_grid_annotations(grid, w, h, hor, ver)
+            grids.append(grid)
         if len(grids) > 1:
-            grids = [image_grid(grids, rows=1)] + (grids if include_sub_grids else [])
+            z_grid = image_grid(grids, rows=1)
+            if draw_legend:
+                w = max(g.shape[1] for g in grids)
+                h = max(g.shape[0] for g in grids)
+                titles = [[GridAnnotation(label(z_axis, v))] for v in zs]
+                z_grid = draw_grid_annotations(z_grid, w, h, titles, [[GridAnnotation()]])
+            grids = [z_grid] + (grids if include_sub_grids else [])
         return Processed(
             images=grids + all_images, params=p,
             seed=first.seed if first else p.seed,
@@ -436,8 +449,9 @@ class XYZPlot(Script):
 
 @register_script
 class PromptMatrix(Script):
-    """Registered, so ``/scripts`` lists it as JAX's does; it always draws
-    its legend, which needs the font the port lacks."""
+    """Every subset of the prompt's "|"-separated parts, one cell each,
+    and the grid under its legend: active parts plain, inactive ones
+    struck through (builtin.py:443-480)."""
 
     name = "Prompt matrix"
     ui_params = [
@@ -445,7 +459,30 @@ class PromptMatrix(Script):
     ]
 
     def run(self, engine, p: GenerationParams, put_at_start=False, *rest):
-        raise NotImplementedError(f"the prompt matrix always draws its legend: {NO_FONT}")
+        parts = [s.strip() for s in p.prompt.split("|")]
+        base, variable = parts[0], parts[1:]
+        combos = []
+        for n in range(2 ** len(variable)):
+            selected = [variable[i] for i in range(len(variable)) if n & (1 << i)]
+            combos.append(", ".join([*selected, base] if put_at_start else [base, *selected]))
+        all_images, infotexts = [], []
+        first = None
+        for prompt in combos:
+            q = _clone(p)
+            q.prompt = prompt
+            q.do_not_save_grid = True       # the reference's prompt_matrix.py:87
+            res = _run_cell(engine, q)
+            if first is None:
+                first = res
+            all_images.extend(res.images)
+            infotexts.extend(res.infotexts)
+        grid = image_grid(all_images, rows=1 << (len(variable) // 2))
+        grid = draw_prompt_matrix(grid, all_images[0].shape[1], all_images[0].shape[0], parts)
+        return Processed(images=[grid] + all_images, params=p,
+                         seed=first.seed, subseed=first.subseed,
+                         infotexts=infotexts[:1] + infotexts,
+                         all_seeds=first.all_seeds, all_subseeds=first.all_subseeds,
+                         all_prompts=combos, width=p.width, height=p.height)
 
 
 # ==========================================================================

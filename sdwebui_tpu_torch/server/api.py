@@ -178,6 +178,8 @@ OVERRIDES = SAVING_OPTIONS | {
     "sdtpu_vae_bf16", "auto_vae_precision", "eta_ancestral", "s_min_uncond",
     "s_min_uncond_all", "skip_early_cond", "use_old_scheduling",
     "enable_prompt_comments", "return_grid", "n_rows", "grid_background_color",
+    # the grid legends' font and colours (utils/grid_annotations)
+    "font", "grid_text_active_color", "grid_text_inactive_color",
     "grid_only_if_multiple", "grid_prevent_empty_spots", "add_model_hash_to_info",
     "add_model_name_to_info", "add_version_to_infotext", "add_user_name_to_info",
     "cross_attention_optimization", "sdxl_clip_l_skip", "sdxl_crop_top",

@@ -17,9 +17,9 @@ count.  The families JAX trains
 (SD1.x and SD2.x, one CLIP) train here; others raise, naming the family.
 
 Unlike JAX, which drops every exception of the embedding card and the
-preview (``except Exception: pass``), the port logs them.  The card is
-written without the name and step JAX draws on it as text (the port has
-no text rasteriser); its data panels hold the same embedding.
+preview (``except Exception: pass``), the port logs them.  The card
+carries the name and step as JAX draws them (``utils/text_raster``) and
+the same data panels.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ from sdwebui_tpu_torch.networks.textual_inversion import Embedding
 from sdwebui_tpu_torch.text.tokenizer import BOS, EOS
 from sdwebui_tpu_torch.training.step import (ADAM_BETAS, ADAM_EPS, check_trainable,
                                              diffusion_loss, nhwc_noise, set_lr, training_ctx)
+from sdwebui_tpu_torch.utils import text_raster
 from sdwebui_tpu_torch.utils.options import opts
 from sdwebui_tpu_torch.utils.png import encode_png
 
@@ -278,10 +279,14 @@ def load_optim_state(optimizer, emb, save_path: str):
 
 
 def card_image(name: str, vec, step: int) -> np.ndarray:
-    """The PNG card's pixels: the embedding's data panels around a plain
-    512² preview (JAX also writes the name and step on it as text)."""
+    """The PNG card's pixels: the embedding's data panels around a 512²
+    preview with the name at (24, 230) and ``step {n}`` at (24, 260) in
+    Pillow's default font (textual_inversion.py:376-380)."""
     preview = np.empty((512, 512, 3), np.uint8)
     preview[:] = CARD_COLOUR
+    font = text_raster.load_default()
+    text_raster.draw_text(preview, (24, 230), name, font, (235, 235, 235))
+    text_raster.draw_text(preview, (24, 260), f"step {step}", font, (150, 150, 150))
     data = {"string_to_token": {"*": 265}, "string_to_param": {"*": vec}, "name": name,
             "step": step, "sd_checkpoint": None, "sd_checkpoint_name": None}
     return insert_image_data_embed(preview, data)

@@ -49,6 +49,8 @@ import numpy as np
 import torch
 from scipy import ndimage
 
+from sdwebui_tpu_torch.utils import image_color
+
 _PRECISION_BITS = 22          # Pillow's Resample.c: 32 - 8 - 2
 
 
@@ -95,18 +97,13 @@ def _blend(mask, under, over):
                    ).astype(np.uint8)
 
 
-def parse_color(color: str) -> tuple:
-    """'#rrggbb' or '#rgb' → (r, g, b)."""
-    s = str(color).strip()
-    if s.startswith("#") and len(s) in (4, 7):
-        try:
-            digits = s[1:]
-            if len(digits) == 3:
-                return tuple(int(c, 16) * 17 for c in digits)
-            return tuple(int(digits[i:i + 2], 16) for i in (0, 2, 4))
-        except ValueError:
-            pass
-    raise NotImplementedError(f"colour {color!r} is not ported yet (use #rrggbb or #rgb)")
+def parse_color(color) -> tuple:
+    """A colour as ``Image.new`` takes it → (r, g, b): a string in any form
+    of Pillow's ``ImageColor`` grammar (``utils/image_color.py``; ValueError
+    for anything else, as Pillow raises), or an (r, g, b[, a]) tuple."""
+    if isinstance(color, str):
+        return image_color.getcolor_rgb(color)
+    return tuple(int(c) for c in color)[:3]
 
 
 def flatten(image, bgcolor: str) -> np.ndarray:

@@ -488,3 +488,15 @@ def test_ui_host_sources_equal_jax(jax_mod, port_mod, names):
         else:
             assert a == b, name
     assert theirs.__name__ != ours.__name__
+
+
+def test_colour_table_equals_pillows():
+    """utils/image_color's COLORMAP is Pillow 12.1.0's ImageColor.colormap,
+    name for name (the table both packages' colour options go through)."""
+    from PIL import ImageColor
+
+    from sdwebui_tpu_torch.utils import image_color
+
+    assert set(image_color.COLORMAP) == set(ImageColor.colormap)
+    for name in image_color.COLORMAP:
+        assert image_color.getrgb(name) == ImageColor.getrgb(name), name

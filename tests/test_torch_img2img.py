@@ -119,8 +119,12 @@ def test_composite_and_flatten_match_pillow():
         ref = np.asarray(jax_images.flatten(Image.fromarray(rgba), color))
         np.testing.assert_array_equal(port_images.flatten(rgba, color), ref)
     np.testing.assert_array_equal(port_images.flatten(a, "#000"), a)
-    with pytest.raises(NotImplementedError, match="colour"):
-        port_images.flatten(rgba, "white")
+    ref = np.asarray(jax_images.flatten(Image.fromarray(rgba), "white"))
+    np.testing.assert_array_equal(port_images.flatten(rgba, "white"), ref)
+    with pytest.raises(ValueError):
+        jax_images.flatten(Image.fromarray(rgba), "#12345")
+    with pytest.raises(ValueError, match="color"):
+        port_images.flatten(rgba, "#12345")
 
 
 # --------------------------------------------------------------------------

@@ -252,13 +252,21 @@ def test_replicate_leaves_the_source_untouched(models):
 
 
 def test_tensor_parallel_sd3_raises():
-    """Only the UNet runs over a model axis > 1: an SD3 MMDiT under one
-    raises NotImplementedError naming it, from replicate and from a request
-    (nothing falls back to one device)."""
+    """SD3 runs over a model axis > 1 as JAX's GSPMD runs it (the MMDiT's
+    MLPs and patch conv split, ``tests/test_torch_parallel_sd3.py`` holds
+    it to JAX): replicate gives each data shard a tensor-parallel MMDiT and
+    a request runs to its images.  What raises is a module the rule table
+    has no collectives for: the VAE under shard_params, NotImplementedError
+    naming it (nothing falls back to one device)."""
+    from sdwebui_tpu_torch.parallel.sharding import TensorParallelUNet, shard_params
+
     sd3 = port_sd.create_tiny_sd3(0, device="cpu")
     rt = mesh.MeshRuntime.create(data=1, model=2, devices=[CPU] * 2)
-    with pytest.raises(NotImplementedError, match=r"tensor-parallel SD3 \(MMDiT\)"):
-        sd3.replicate(rt)
+    rep = sd3.replicate(rt)
+    (shard,) = port_sd.shard_bundles(rep, rt, 1)
+    assert isinstance(shard.unet, TensorParallelUNet) and len(shard.unet.shards) == 2
     mesh.set_runtime(rt)
-    with pytest.raises(NotImplementedError, match=r"tensor-parallel SD3 \(MMDiT\)"):
-        port_proc.process_txt2img(sd3, _params(sampler_name="Euler"))
+    res = port_proc.process_txt2img(sd3, _params(sampler_name="Euler", batch_size=1))
+    assert len(_samples(res)) == 1 and _samples(res)[0].shape == (64, 64, 3)
+    with pytest.raises(NotImplementedError, match="tensor-parallel AutoencoderKL"):
+        shard_params(sd3.vae, [CPU] * 2)

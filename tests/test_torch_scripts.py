@@ -454,10 +454,14 @@ REFUSALS = [
     ("img2img", dict(script_name="Loopback", script_args=["four"]), 400, "(Loops)"),
     ("txt2img", dict(script_name="X/Y/Z plot", script_args=["Steps", "2, many"]), 400,
      "X values"),
-    # 422: what the port does not draw, and what JAX's script path ignores
-    ("txt2img", dict(script_name="X/Y/Z plot", script_args=["Seed", "1-2"]), 422,
-     "TrueType font"),
-    ("txt2img", dict(script_name="Prompt matrix", prompt="a|b"), 422, "TrueType font"),
+    # 422: what the port does not draw (a legend in Pillow's default font at
+    # a size other than 10, which JAX falls back to when the font option
+    # names a file that cannot be opened; "options": the server's options
+    # while the request runs), and what JAX's script path ignores
+    ("txt2img", dict(script_name="X/Y/Z plot", script_args=["Seed", "1-2"],
+                     options={"font": "/no/such/font.ttf"}), 422, "TrueType font"),
+    ("txt2img", dict(script_name="Prompt matrix", prompt="a|b",
+                     options={"font": "/no/such/font.ttf"}), 422, "TrueType font"),
     ("txt2img", dict(script_name="X/Y/Z plot",
                      script_args=["Emphasis", "Original, No norm", "Nothing", "", "Nothing", "",
                                   False]), 422, "'Emphasis'"),
@@ -482,8 +486,9 @@ REFUSALS = [
 @pytest.mark.parametrize("route,body,status,detail", REFUSALS)
 def test_refusals_name_what_they_refuse(engines, route, body, status, detail):
     api = Api(engines[1])
-    request = dict(BASE, **body)
+    request = dict(BASE, **{k: v for k, v in body.items() if k != "options"})
     if route == "img2img":
         request["init_images"] = [_b64(_init_image())]
-    code, res = api.handle("POST", f"/sdapi/v1/{route}", request)
+    with opts.override(body.get("options", {})):
+        code, res = api.handle("POST", f"/sdapi/v1/{route}", request)
     assert (code, detail in res["detail"]) == (status, True), res

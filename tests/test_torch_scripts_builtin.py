@@ -16,7 +16,6 @@ from PIL import Image
 from sdwebui_tpu.pipeline import processing as jax_proc
 from sdwebui_tpu.server import cmd_flags
 from sdwebui_tpu_torch.pipeline import processing as port_proc
-from sdwebui_tpu_torch.scripts import builtin
 from test_torch_img2img import f32_policies, models  # noqa: F401
 from torch_scripts_common import (as_arrays, assert_same, make_engines, params, run_both,
                                   run_route)
@@ -208,11 +207,13 @@ def test_postprocessing_field_matches_jax(engines, img2img):
 
 
 def test_script_outputs_are_numpy_images(engines):
-    """A script hands the API uint8 HWC arrays (the PNG encoder's input);
-    the prompt matrix raises naming the missing font."""
+    """A script hands the API uint8 HWC arrays (the PNG encoder's input),
+    the prompt matrix's legend-drawn grid among them (its pixels are held
+    to JAX's in ``tests/test_torch_grid_annotations.py``)."""
     out = engines[1].run_script("Loopback", params(True)[1], [1, 0.5, "Linear"])
     assert all(isinstance(im, np.ndarray) and im.dtype == np.uint8 and im.shape == (64, 64, 3)
                for im in out.images)
-    with pytest.raises(NotImplementedError) as e:
-        engines[1].run_script("Prompt matrix", params()[1], [False])
-    assert builtin.NO_FONT in str(e.value)
+    out = engines[1].run_script("Prompt matrix", params(prompt="a cat | red")[1], [False])
+    assert all(isinstance(im, np.ndarray) and im.dtype == np.uint8 for im in out.images)
+    assert [im.shape for im in out.images[1:]] == [(64, 64, 3)] * 2
+    assert out.images[0].shape[0] > 64 and out.images[0].shape[1] == 128

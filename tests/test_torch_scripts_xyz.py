@@ -92,8 +92,14 @@ def test_xyz_megapixel_guard_matches_jax(engines):
 
 
 def test_xyz_legend_names_the_font(engines):
-    with pytest.raises(NotImplementedError, match="TrueType font"):
-        engines[1].run_script("X/Y/Z plot", params()[1], _xyz("Seed", "1-2", legend=True))
+    """draw_legend (on by default) answers 200 over the route with JAX's
+    legend: the x labels in a top gutter drawn in DejaVuSans as Pillow
+    draws it, the whole grid within 1 level of JAX's (its text exactly)."""
+    _, out = run_both(engines, "X/Y/Z plot", _xyz("Seed", "1-2", legend=True))
+    grid = out.images[0]
+    assert grid.shape[1] == 128 and grid.shape[0] > 64
+    gutter = grid[:grid.shape[0] - 64]
+    assert (gutter != 255).any() and (gutter[:, :, 0] == gutter[:, :, 1]).all()
 
 
 HIRES = dict(enable_hr=True, hr_scale=1.5, denoising_strength=0.6, hr_upscaler="Latent")

@@ -187,7 +187,7 @@ def test_png_roundtrip_and_pil_interop():
 _HYGIENE = r"""
 import importlib, json, pkgutil, sys
 BLOCKED = ("sdwebui_tpu", "jax", "jaxlib", "PIL", "pydantic", "ml_dtypes", "safetensors", "cv2",
-           "tokenizers", "transformers", "sentencepiece")
+           "tokenizers", "transformers", "sentencepiece", "fontTools")
 
 
 class Recorder:
@@ -237,6 +237,21 @@ status, out = api.handle("POST", "/sdapi/v1/txt2img", {
     "steps": 1, "width": 64, "height": 64, "script_name": "X/Y/Z plot",
     "script_args": ["Seed", "1-2", "Nothing", "", "Nothing", "", False]})
 assert status == 200 and len(out["images"]) == 3, out
+status, out = api.handle("POST", "/sdapi/v1/txt2img", {
+    "steps": 1, "width": 64, "height": 64, "script_name": "X/Y/Z plot",
+    "script_args": ["Seed", "1-2", "Steps", "1", "Nothing", "", True]})
+assert status == 200 and len(out["images"]) == 3, out
+status, out = api.handle("POST", "/sdapi/v1/txt2img", {
+    "prompt": "a cat | red", "steps": 1, "width": 64, "height": 64,
+    "script_name": "Prompt matrix", "script_args": [False]})
+assert status == 200 and len(out["images"]) == 3, out
+from sdwebui_tpu_torch.training.textual_inversion import card_image
+assert card_image("card", np.ones((1, 8), np.float32), 3)[230:240].std() > 0
+from sdwebui_tpu_torch.pipeline.sd_model import create_tiny_sd3
+rt = mesh.MeshRuntime.create(data=1, model=2, devices=["cpu"] * 2)
+res = process_txt2img(create_tiny_sd3(0, "cpu").replicate(rt), GenerationParams(
+    prompt="a cat", seed=3, steps=1, width=64, height=64, sampler_name="Euler"))
+assert res.images[0].shape == (64, 64, 3)
 status, out = api.handle("POST", "/sdapi/v1/txt2img", {
     "steps": 1, "width": 64, "height": 64, "postprocessing": {
         "enable": ["Upscale"], "upscaler_1": "Lanczos", "upscaling_resize": 1.5}})

@@ -507,27 +507,36 @@ def test_console_line_from_the_step_callback(ui, monkeypatch):
     assert "   3/3 [" in out and out.endswith("\n") and not console._line_open[0]
 
 
-def test_profiling_counts_the_pad_it_kept(caplog):
-    """The pad kernels a finished trace kept are counted by name on the
-    card's events; a trace that kept none warns that it may lack the
-    generation's first kernels."""
+def test_profiling_counts_the_pad_it_kept(caplog, monkeypatch):
+    """A finished trace's kernel launches against its kernel records, by
+    correlation id: the first PAD_KERNELS launches are the pad's, counted
+    as kept; the generation's launches with no kernel record are counted
+    as lost, with a warning."""
     from torch.autograd import DeviceType
 
     from sdwebui_tpu_torch.utils import profiling
 
-    def prof(names):
-        events = [types.SimpleNamespace(name=lambda n=n: n, device_type=lambda d=d: d)
-                  for n, d in names]
+    monkeypatch.setattr(profiling, "PAD_KERNELS", 3)
+
+    def ev(name, device, corr, t):
+        return types.SimpleNamespace(name=lambda: name, device_type=lambda: device,
+                                     correlation_id=lambda: corr, start_ns=lambda: t)
+
+    def prof(events):
         return types.SimpleNamespace(profiler=types.SimpleNamespace(
             kineto_results=types.SimpleNamespace(events=lambda: events)))
+
     spin = "at::cuda::(anonymous namespace)::spin_kernel(long)"
-    kept = [(spin, DeviceType.CUDA)] * 3 + [("cudaLaunchKernel", DeviceType.CPU),
-                                            ("attn_tc_kernel", DeviceType.CUDA)]
+    launches = [ev("cudaLaunchKernel", DeviceType.CPU, c, 10 * c) for c in range(1, 7)]
+    launches[-1] = ev("cuLaunchKernel", DeviceType.CPU, 6, 60)      # a driver launch
+    kernels = [ev(spin, DeviceType.CUDA, c, 10 * c + 5) for c in (1, 2, 3)] \
+        + [ev("attn_tc_kernel", DeviceType.CUDA, c, 10 * c + 5) for c in (4, 5, 6)]
     with caplog.at_level("WARNING", logger=profiling.__name__):
-        assert profiling._count_pad(prof(kept)) == 3
+        assert profiling._count_lost(prof(launches + kernels)) == (3, 0)
         assert caplog.records == []
-        assert profiling._count_pad(prof(kept[3:] + [(spin, DeviceType.CPU)])) == 0
-    assert f"lost all {profiling.PAD_KERNELS} padding kernels" in caplog.text
+        # the pad's first two and the generation's first kernel lost
+        assert profiling._count_lost(prof(launches[::-1] + kernels[2:3] + kernels[4:])) == (1, 1)
+    assert "lost 1 of the generation's 3 kernel records (and 2 of 3 padding" in caplog.text
 
 
 def test_profiling_writes_a_chrome_trace(ui, monkeypatch):
