@@ -172,7 +172,7 @@ Phases, in order; any failure exits non-zero:
      forward of a 64² tile on the card against the CPU (f32: max|Δ|/max|ref|
      <= 1e-4; LDSR's bf16 UNet step within 5e-2, its VQ decode 1e-4); two
      4x Extras requests of a 512² phase-3 PNG per model (SCUNet at 1x, then
-     Lanczos; LDSR a 256² image at ldsr_steps 100) with the upscale cache
+     Lanczos; LDSR a 256² image at ldsr_steps 50) with the upscale cache
      off: the repeat within 2 levels, 2048² (1024²) RGB PNGs that are not
      flat, each net's ms a forward (CUDA events around its forward); a
      hires fix 512² → 1024² with SwinIR-L as hr_upscaler; every request's
@@ -369,7 +369,7 @@ Phases, in order; any failure exits non-zero:
      batch-1 request of seed + i (one device's batch-4 images logged
      beside them), and a batch-3 request on the unsharded path (B1 1,
      B2 200, B5 986); (b) model=2 (batch 1) and data=2 × model=2 (batch 2)
-     txt2img at 512², 8 steps, in f32, within TP_TOL levels of one device,
+     txt2img at 512², 4 steps, in f32, within TP_TOL levels of one device,
      B2 per model shard at (2, 4096, 4·40) and (2, 1024, 4·80); (c) a 1024² decode
      of a seeded (1, 4, 128, 128) latent on 4 row shards in bf16 and f32
      against the whole decode (B1 4 at (1, 4096, 16384, 512)), both
@@ -391,6 +391,24 @@ Phases, in order; any failure exits non-zero:
      response's cells and unequal to a copy drawn without kerning; a
      prompt-matrix request with a struck-through part; an embedding card
      with its name; the host ms of a legend and a card.
+  4t. the rarer image formats (after 4s, on the phase-3 server): (a) every
+     format and variant of ``tests/torch_image_files.rare_files`` written
+     from the phase-3 image at 512² (TGA, Netpbm, SGI, PCX / DCX, ICO, CUR,
+     ICNS, PSD, DDS with BC1 / BC3 / BC7, FTEX, BLP, IMT, SUN, MSP, XBM,
+     XPM, PIXAR, SPIDER, GBR, XV thumbnail, FITS, McIdas, IPTC, FLI, TIFF
+     with JPEG, LZMA, Zstandard, CCITT, CMYK and float samples), each
+     decoded equal to the pixels its writer put in, each decoder's host
+     ms, and a 1728×2200 Group 4 page of text-like strokes, with the two
+     committed files libzstd (compressed blocks: Huffman literals, FSE
+     sequences) and libtiff (a Group 4 page) wrote,
+     ``tests/torch_image_files.library_files``; (b) two img2img requests
+     from a TGA (RLE) and a PSD (PackBits) of the image, each within REPEAT_TOL of the request from its PNG, B1, B2
+     and B5 as 4o plans them; (c) a txt2img request with samples_format
+     tga, the file decoded equal to the response; (d) the response saved
+     as qoi, ppm, sgi, pcx, dds, im, ico and icns through
+     ``save_image_with_geninfo``, each decoded equal to it (ICO's largest
+     entry to its LANCZOS thumbnail, ICNS's to its BICUBIC 1024²), each
+     writer's host ms.
 Each phase's seconds are logged as it ends.  The last two lines are the
 kernels JSON and {"ok": true, "device": ...}.
 Needs a CUDA card; without one it exits 1 and prints no result.
@@ -646,7 +664,12 @@ def read_counts() -> dict:
 def phase_env():
     from sdwebui_tpu_torch.ops import _build
 
+    import lzma      # TIFF's LZMA compression reads through the standard library's
+
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if lzma.decompress(lzma.compress(b"lzma")) != b"lzma":
+        raise AssertionError("the standard library's lzma does not round-trip")
+    log(f"lzma from {lzma.__file__}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip()
@@ -904,7 +927,8 @@ def blocked_plain(q, k, v, block: int = B1_BLOCK_ROWS):
 
 def b1_at_ldsr_512(device) -> dict:
     """B1 f32 at S = 262144, d = 512 (a 512² LDSR input's VQ decode): one
-    call checked against blocked_plain (max|Δ| <= F32_TOL), then timed once;
+    call, timed with CUDA events and checked against blocked_plain (max|Δ|
+    <= F32_TOL);
     SDPA's f32 backends tried at the same inputs, one timed call each, or
     the error each gives (library_ms: the fastest that ran)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -913,8 +937,15 @@ def b1_at_ldsr_512(device) -> dict:
 
     g = torch.Generator(device=device).manual_seed(0)
     q, k, v = (_randn((1, B1_LDSR_512, 512), g, torch.float32, device) for _ in range(3))
-    agree = agreement(fa.flash_attention(q, k, v), blocked_plain(q, k, v), torch.float32)
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), iters=1, warmup=0)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fa.flash_attention(q, k, v)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    agree = agreement(out, blocked_plain(q, k, v), torch.float32)
+    del out
     bound_ms, bound_by = bound(*_attn_work(1, B1_LDSR_512, B1_LDSR_512, 512, torch.float32))
     log(f"flash_attention ldsr_vq_512_f32 (1, {B1_LDSR_512}, {B1_LDSR_512}, 512) float32: "
         f"{agree['text']}, kernel {ms:.1f} ms (one call), bound {bound_ms:.1f} ms ({bound_by})")
@@ -1736,7 +1767,7 @@ def phase_extras(engine, pngs: list, upscaler_paths: dict):
 # widths, under a temporary models root laid out as the server reads it
 ZOO_REL_TOL = 1e-4        # max|Δ| / max|ref|, a zoo net's 64² forward, card vs CPU, f32
 ZOO_TILE = 64
-LDSR_STEPS = 100
+LDSR_STEPS = 50            # the option's default is 100: halved to keep the run's time
 LDSR_SIZE = 256
 ZOO_SCALE = 4
 
@@ -5518,7 +5549,7 @@ DP_DATA = 4               # 4q (a): the data axis, the card named four times
 # GEMMs run over 8 rows, are logged beside it as the yardstick
 DP_TOL = 0
 TP_TOL = 1                # uint8 levels: f32 tensor-parallel vs one device
-TP_STEPS = SAMPLER_STEPS  # 4q (b)'s steps: every op of the model shards hands the GIL over
+TP_STEPS = 4              # 4q (b)'s steps: every op of the model shards hands the GIL over
 # uint8 levels (max, mean): a row-sharded 1024² decode against the whole one; in
 # bf16 the shards' convs round apart (measured 4, 0.42; the whole decode's bf16
 # vs f32 is logged beside it)
@@ -5998,6 +6029,141 @@ def phase_text(engine, model):
     return results, info
 
 
+# --------------------------------------------------------------------------
+# 4t: the rarer image formats
+# --------------------------------------------------------------------------
+
+#: the writers 4t (d) runs on a response, through save_image_with_geninfo
+RARE_WRITERS = ("qoi", "ppm", "sgi", "pcx", "dds", "im", "ico", "icns")
+
+
+def phase_rare_formats(engine, model, phase3: dict, directory: str):
+    """4t: (a) the numpy writers' files of every rarer format at 512², and
+    the committed files libzstd and libtiff wrote, each decoded equal to its
+    pixels, with each decoder's host ms; (b) img2img
+    from a TGA (RLE) and a PSD (PackBits) within REPEAT_TOL of the same
+    request from the PNG; (c) txt2img saving a tga; (d) the other writers
+    on that response.  Returns (results, info)."""
+    from sdwebui_tpu_torch.pipeline.img2img import setup_img2img_steps
+    from sdwebui_tpu_torch.utils import images as images_util, saving
+    from sdwebui_tpu_torch.utils.image_io import decode_image
+    from sdwebui_tpu_torch.utils.png import decode_png, encode_png
+
+    files_mod = _image_files_helper()
+    sample = phase3["image"]
+    info: dict = {}
+    t0 = time.perf_counter()
+    files = files_mod.rare_files(sample)
+    info["files_s"] = time.perf_counter() - t0
+    files.update(files_mod.library_files())
+    decode_ms = {}
+    for name, (data, want) in files.items():
+        t = time.perf_counter()
+        got = decode_image(data)[0]
+        decode_ms[name] = (time.perf_counter() - t) * 1e3
+        if got.shape != want.shape or not (got == want).all():
+            bad = int((got != want).any(axis=-1).sum()) if got.shape == want.shape else -1
+            raise AssertionError(f"4t (a): {name} decodes to {got.shape}, {bad} pixels off its "
+                                 f"writer's {want.shape}")
+    info["decode_ms_512"] = decode_ms
+    info["bytes_512"] = {name: len(data) for name, (data, _) in files.items()}
+    page = files_mod.scanned_page()
+    g4 = files_mod.tiff_file(page, "g4", depth=1, photometric=0)
+    t = time.perf_counter()
+    got = decode_image(g4)[0]
+    info["g4_page_1728x2200_ms"] = (time.perf_counter() - t) * 1e3
+    if not (got[:, :, 0] == (1 - page) * 255).all():
+        raise AssertionError("4t (a): the Group 4 page does not decode to its writer's bits")
+    log(f"4t (a) {len(files)} files (the numpy writers' in {info['files_s']:.2f} s); decode "
+        "host ms: "
+        + json.dumps({k: round(v, 2) for k, v in decode_ms.items()})
+        + f"; a 1728×2200 Group 4 page ({len(g4)} bytes) "
+        f"{info['g4_page_1728x2200_ms']:.2f} ms")
+
+    outdir = os.path.join(directory, "outputs")
+    prev_outdir, engine.outdir = engine.outdir, outdir
+    txt_plan = _plan(b1=1, b2=STEPS * launch_plan(model.unet_cfg, 64),
+                     b5=STEPS * ln_plan(model.unet_cfg, 64) + clip_ln_plan(model))
+    _, t_enc = setup_img2img_steps(STEPS, DENOISE)
+    i2i_plan = _plan(b1=2, b2=(t_enc + 1) * launch_plan(model.unet_cfg, 64),
+                     b5=(t_enc + 1) * ln_plan(model.unet_cfg, 64) + clip_ln_plan(model))
+    results = []
+
+    def generate(url, route, body, label, plan):
+        reset_counts()
+        t = time.perf_counter()
+        res = _post(f"{url}/{route}", body)
+        dt = time.perf_counter() - t
+        launches = read_counts()
+        log(f"4t {label}: {dt:.3f} s, launches {launches}")
+        if launches != plan:
+            raise AssertionError(f"4t {label}: launches {launches} != planned {plan}")
+        images = [decode_png(base64.b64decode(b))[0] for b in res["images"]]
+        if any(img.std() < 1.0 for img in images):
+            raise AssertionError(f"4t {label}: a flat image")
+        results.append(dict(route=route, label=f"4t {label}", batch=1, seed=body["seed"],
+                            seconds=dt, launches=launches))
+        return res, images
+
+    try:
+        with _server(engine) as url:
+            # (b) img2img from a TGA and a PSD against the PNG of the same pixels
+            i2i = dict(SD15_BASE, denoising_strength=DENOISE, seed=97531)
+            inits = {"png": encode_png(sample), "tga_rle": files_mod.tga_file(sample, rle=True),
+                     "psd_packbits": files_mod.psd_file(sample.transpose(2, 0, 1), 3, True)}
+            outs = {}
+            for name, data in inits.items():
+                _, images = generate(url, "img2img", dict(i2i, init_images=[
+                    base64.b64encode(data).decode()]), f"img2img from the {name}", i2i_plan)
+                outs[name] = images[0]
+            deltas = {name: int(abs(outs[name].astype(int) - outs["png"].astype(int)).max())
+                      for name in ("tga_rle", "psd_packbits")}
+            log(f"4t (b) max|Δ| against the PNG of the same pixels: {json.dumps(deltas)} "
+                f"(bound {REPEAT_TOL})")
+            if max(deltas.values()) > REPEAT_TOL:
+                raise AssertionError(f"4t (b): img2img from a format differs from its PNG: "
+                                     f"{deltas}")
+            info["img2img_max_delta"] = deltas
+            # (c) txt2img saving a tga
+            before = set(_saved_files(outdir)) if os.path.isdir(outdir) else set()
+            _, images = generate(url, "txt2img", dict(
+                SD15_BASE, seed=8642, save_images=True,
+                override_settings=dict(samples_format="tga")), "txt2img saving tga", txt_plan)
+            saving.flush_saves()
+            written = sorted(set(_saved_files(outdir)) - before)
+            if len(written) != 1 or not written[0].endswith(".tga"):
+                raise AssertionError(f"4t (c): wrote {written}")
+            shown = images[0]
+            got = decode_image(open(os.path.join(outdir, written[0]), "rb").read())[0]
+            if got.shape != shown.shape or not (got == shown).all():
+                raise AssertionError(f"4t (c): {written[0]} does not decode to the response")
+            info["saved_tga"] = written[0]
+            log(f"4t (c) {written[0]} decodes to the response's pixels")
+    finally:
+        engine.outdir = prev_outdir
+
+    # (d) the other writers on the response
+    write_ms = {}
+    for ext in RARE_WRITERS:
+        path = os.path.join(directory, f"response.{ext}")
+        t = time.perf_counter()
+        saving.save_image_with_geninfo(shown, None, path)
+        write_ms[ext] = (time.perf_counter() - t) * 1e3
+        got = decode_image(open(path, "rb").read())[0]
+        want = {"ico": lambda: images_util.resize(shown, (256, 256), "lanczos"),
+                "icns": lambda: images_util.resize(shown, (1024, 1024), "bicubic")}.get(
+                    ext, lambda: shown)()
+        if got.shape != want.shape or not (got == want).all():
+            raise AssertionError(f"4t (d): the {ext} file decodes to {got.shape}, not the "
+                                 f"response's {want.shape}")
+    info["write_ms_512"] = write_ms
+    log("4t (d) writer host ms: " + json.dumps({k: round(v, 2) for k, v in write_ms.items()}))
+    info["f32_encodes_512"] = sum(r["route"] == "img2img" for r in results)
+    info["decodes_512"] = sum(r["launches"]["flash_attention"] for r in results) \
+        - info["f32_encodes_512"]
+    return results, info
+
+
 def phase_parallel(engine, model, device):
     """4q: the parallel runtime on meshes that name the card several times:
     (a) data=4 under the in-process server, batch 4, image i within
@@ -6138,6 +6304,9 @@ def main() -> int:
     mark("4q parallel")
     text_results, text_info = phase_text(engine, model)
     mark("4s text")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rare_") as rare_dir:
+        rare_results, rare_info = phase_rare_formats(engine, model, results[0], rare_dir)
+    mark("4t rarer formats")
     del model, engine, ckpt_engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -6180,7 +6349,7 @@ def main() -> int:
                           + hy_results + face_results + zoo_results + ckpt_results
                           + sampler_results + opt4k_results + train_results + script_results
                           + save_results + format_results + ui_results + par_results
-                          + text_results
+                          + text_results + rare_results
                           + sdxl_results
                           + opt4k_xl_results
                           + [sdxl_hr_result] + sdxl_i2i_results + family_results)]
@@ -6193,6 +6362,7 @@ def main() -> int:
                     "sdxl_img2img": sdxl_i2i_info, "options": opt4k_info,
                     "scripts": script_info, "saving": save_info, "formats": format_info,
                     "ui": ui_info, "parallel": par_info, "text": text_info,
+                    "rare_formats": rare_info,
                     "families": {k: v for k, v in family_info.items() if k != "b1_calls"},
                     "requests": requests, "sdxl_profile": profile, "phase_s": phase_s}))
 
@@ -6218,6 +6388,8 @@ def main() -> int:
     b1_calls[("vae_mid_512_f32", "float32")] += save_info["f32_encodes_512"]
     b1_calls[("vae_mid_512", "bfloat16")] += format_info["decodes_512"]
     b1_calls[("vae_mid_512_f32", "float32")] += format_info["f32_encodes_512"]
+    b1_calls[("vae_mid_512", "bfloat16")] += rare_info["decodes_512"]
+    b1_calls[("vae_mid_512_f32", "float32")] += rare_info["f32_encodes_512"]
     b1_calls[("vae_mid_512", "bfloat16")] += len(ui_results)
     b1_calls[("vae_mid_512", "bfloat16")] += sum(r["launches"]["flash_attention"]
                                                  for r in text_results)

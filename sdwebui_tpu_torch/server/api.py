@@ -19,7 +19,7 @@ generation routes write their images and grid with ``save_images``;
 ``/internal/save-images`` writes the posted images with a ``log.csv`` row
 and a zip (``server/ui_actions``); ``/internal/img2img-batch`` runs img2img
 over a directory of images (api.py:645-745).  Every image field reads
-PNG, JPEG, GIF, BMP, TIFF and WebP (``utils/image_io``).  Training and
+what JAX's Pillow reads but AVIF and JPEG 2000 (``utils/image_io``).  Training and
 interrogation (``api.py:349-415,1206-1365``): ``interrogate``
 (DeepDanbooru, or the CLIP interrogator with BLIP's caption when BLIP is
 there; 501 naming what is absent), ``preprocess``, ``create/embedding``,
@@ -108,7 +108,7 @@ from sdwebui_tpu_torch.text.styles import PromptStyle
 from sdwebui_tpu_torch.utils import images as images_util
 from sdwebui_tpu_torch.utils import infotext, saving, timer, url_fetch, webp
 from sdwebui_tpu_torch.utils.image_io import (UnsupportedImageFormat, decode_image,
-                                              other_format, read_image_file)
+                                              read_image_file)
 from sdwebui_tpu_torch.utils.jpeg import encode_jpeg
 from sdwebui_tpu_torch.utils.options import opts
 from sdwebui_tpu_torch.utils.png import encode_png
@@ -510,8 +510,8 @@ def _decode_with_info(encoding, field: str):
     try:
         return decode_image(data)
     except UnsupportedImageFormat as e:
-        raise ApiError(400, f"field {field!r} holds a {e.fmt} image; this server reads "
-                            "PNG, JPEG, GIF, BMP, TIFF and WebP") from e
+        raise ApiError(400, f"field {field!r} holds a {e.fmt} image, which this server does "
+                            "not read") from e
     except ValueError as e:
         raise ApiError(400, f"field {field!r}: {e}") from e
 
@@ -1034,8 +1034,11 @@ class Api:
         the same-named one in png_info_dir) merged into the request; the
         outputs saved as PNG under output_dir (default <input_dir>/out) by the
         file's name, the first opts.img2img_batch_show_results_limit of them
-        answered.  A file in a format the port does not read (AVIF, ...)
-        answers 422 naming it."""
+        answered.  Each file is decoded once, all before the first
+        generation (held as RGB until its turn), so a file in a format the
+        port does not read (AVIF, ...) answers 422 naming it before anything
+        runs; a file that is not an image raises when its turn comes, as in
+        JAX."""
         import glob
 
         if not isinstance(body, dict):
@@ -1053,18 +1056,26 @@ class Api:
                        if f.lower().endswith((".png", ".jpg", ".jpeg", ".webp", ".bmp")))
         if not files:
             raise ApiError(404, "no images in input directory")
+        decoded = []
         for path in files:
-            with open(path, "rb") as f:
-                fmt = other_format(f.read(16))
-            if fmt is not None:
-                raise NotImplementedError(f"{os.path.basename(path)}: a {fmt} image; the "
-                                          "img2img batch reads PNG, JPEG, GIF, BMP, TIFF and WebP")
+            try:
+                pixels, info = read_image_file(path)
+            except UnsupportedImageFormat as e:
+                raise NotImplementedError(f"{os.path.basename(path)}: a {e.fmt} image, which "
+                                          "the img2img batch does not read") from e
+            except ValueError as e:
+                decoded.append(e)
+                continue
+            # JAX converts each file to RGB first, which keeps its info
+            decoded.append((images_util.to_rgb(pixels), info))
         limit = int(opts.get("img2img_batch_show_results_limit", 32))
         outd = output_dir or os.path.join(input_dir, "out")
         shown, done = [], []
-        for path in files:
+        for path, read in zip(files, decoded):
+            if isinstance(read, ValueError):
+                raise read
+            rgb, info = read
             sub = dict(body)
-            pixels, info = read_image_file(path)
             if use_png_info:
                 try:
                     source = read_image_file(os.path.join(
@@ -1086,9 +1097,7 @@ class Api:
                     sub["sampler_name"] = parsed["Sampler"]
                 if "Steps" in parsed:
                     sub["steps"] = int(parsed["Steps"])
-            # JAX converts each file to RGB first, which keeps its info
-            p = _params_from_request(sub, img2img=True,
-                                     init_images=[(images_util.to_rgb(pixels), info)])
+            p = _params_from_request(sub, img2img=True, init_images=[(rgb, info)])
             mask_path = os.path.join(mask_dir, os.path.basename(path)) if mask_dir else ""
             if mask_path and os.path.isfile(mask_path):
                 p.mask = images_util.to_l(read_image_file(mask_path)[0])

@@ -166,8 +166,8 @@ def read_image(path: str) -> np.ndarray:
     try:
         return read_image_file(path)[0]
     except UnsupportedImageFormat as e:
-        raise NotImplementedError(f"{path}: a {e.fmt} image; the port reads PNG, JPEG, GIF, "
-                                  "BMP, TIFF and WebP") from e
+        raise NotImplementedError(f"{path}: a {e.fmt} image, which the port does not "
+                                  "read") from e
 
 
 @dataclasses.dataclass

@@ -110,8 +110,7 @@ def decode_bmp(data: bytes, dib: bool = False) -> tuple[np.ndarray, dict]:
         width, height, _planes, bits, compression, _size, ppx, ppy, colors = \
             struct.unpack_from("<iiHHIIiiI", data, 18)
         pad = 4
-        if ppx and ppy:
-            info["dpi"] = (ppx / 39.3701, ppy / 39.3701)
+        info["dpi"] = (ppx / 39.3701, ppy / 39.3701)
     else:
         raise ValueError(f"unsupported BMP header size ({hsize})")
     info["compression"] = compression

@@ -582,12 +582,17 @@ def _info_dpi(info: dict) -> None:
         info["dpi"] = (72, 72)
 
 
-def decode_jpeg(data: bytes) -> tuple[np.ndarray, dict]:
+def decode_jpeg(data: bytes, ycc: bool | None = None,
+                raw_planes: bool = False) -> tuple[np.ndarray, dict]:
     """JPEG bytes → (uint8 (H, W, 1) grey or (H, W, 3) RGB, info): info holds
     what Pillow's JPEG reader puts in ``img.info`` (jfif, jfif_version,
     jfif_unit, jfif_density, dpi, exif — the APP1 payload with its
     ``Exif\\0\\0`` header —, adobe, adobe_transform, progressive,
-    progression, comment)."""
+    progression, comment).  `ycc` overrides libjpeg's guess of a
+    three-component stream's colour space (libtiff sets it from the TIFF's
+    photometric interpretation).  With `raw_planes`, a list of each
+    component's samples at its own resolution (libjpeg's raw data output)
+    stands in for the image."""
     if not data.startswith(b"\xff\xd8"):
         raise ValueError("not a JPEG file")
     info: dict = {}
@@ -757,10 +762,14 @@ def decode_jpeg(data: bytes) -> tuple[np.ndarray, dict]:
         qt = np.empty(64, np.int64)
         qt[ZIGZAG] = qtables[c.tq]
         planes.append(_idct_plane(c, qt))
+    if raw_planes:
+        return [p[:c.dh, :c.dw] for c, p in zip(comps, planes)], info
     # jdapimin.c: JFIF means YCbCr; else an Adobe marker's transform, else
     # the component ids "R", "G", "B" mean RGB
-    ycc = len(comps) == 3 and (saw_jfif or not (adobe_transform == 0 if saw_adobe else
-                                                 [c.cid for c in comps] == [82, 71, 66]))
+    if ycc is None:
+        ycc = saw_jfif or not (adobe_transform == 0 if saw_adobe else
+                               [c.cid for c in comps] == [82, 71, 66])
+    ycc = ycc and len(comps) == 3
     out = np.empty((height, width, len(comps)), np.uint8)
     step = max(2, (_BAND_PIXELS // width) & ~1)
     for y0 in range(0, height, step):

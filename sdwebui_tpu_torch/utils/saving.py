@@ -12,14 +12,22 @@ with its ``parameters`` text (``utils/png``); JPEG (``.jpg`` / ``.jpeg``)
 and WebP at ``jpeg_quality`` with the infotext as an EXIF UserComment
 (``utils/jpeg``, ``utils/webp``, ``utils/exif``), WebP lossless under
 ``webp_lossless`` and from RGB (JAX converts RGBA first); GIF with the
-infotext as its comment (``utils/gif``); BMP, DIB, TIFF and JPEG's other
-names (``.jfif``, ``.jpe``) with no infotext, as Pillow writes them from
-``image.save(f, format, quality=...)`` (``utils/bmp``, ``utils/tiff``);
+infotext as its comment (``utils/gif``); every other extension Pillow
+registers a writer for goes through JAX's generic branch
+(``image.save(f, format, quality=...)``, no infotext), and is written as
+Pillow writes it: BMP, DIB, TIFF, JPEG's other names (``.jfif``, ``.jpe``)
+and MPO (a plain JPEG), APNG (a PNG), Netpbm (``utils/netpbm``: P6 or P5
+whatever the extension), TGA (``.tga``, ``.icb``, ``.vda``, ``.vst``), QOI,
+SGI (``.sgi``, ``.rgb``, ``.rgba``, ``.bw``), PCX, DDS, IM, ICO, ICNS, PDF
+and EPS / PS (``utils/pdf``); BLP, MSP, XBM and Palm raise what Pillow
+raises for an RGB image, and the stub formats (HDF5, GRIB, BUFR, WMF/EMF)
+its "save handler not installed";
 then the ``export_for_4chan`` JPEG copy (resized with Pillow's LANCZOS,
 ``utils/images.resize``) and the ``.txt`` sidecar, on one background writer
 thread with ``sdtpu_async_save`` (``flush_saves`` joins it).  Images are
 uint8 (H, W, 3|4) or grey (H, W[, 1]) numpy arrays.  Other formats
-(``avif``, ...) raise ``NotImplementedError`` naming the format.
+(``avif``, the JPEG 2000 family, ...) raise ``NotImplementedError`` naming
+the format.
 
 The port's PNG encoder writes every row with filter None, so its files are
 not Pillow's bytes (the pixels and text chunks are the same): the
@@ -37,15 +45,68 @@ import numpy as np
 from sdwebui_tpu_torch.utils import exif as exif_util
 from sdwebui_tpu_torch.utils import images as images_util
 from sdwebui_tpu_torch.utils.bmp import encode_bmp
+from sdwebui_tpu_torch.utils.dds import encode_dds
 from sdwebui_tpu_torch.utils.gif import encode_gif
+from sdwebui_tpu_torch.utils.ico import encode_icns, encode_ico
+from sdwebui_tpu_torch.utils.im import encode_im
 from sdwebui_tpu_torch.utils.jpeg import encode_jpeg
+from sdwebui_tpu_torch.utils.netpbm import encode_netpbm
 from sdwebui_tpu_torch.utils.options import opts
+from sdwebui_tpu_torch.utils.pcx import encode_pcx
+from sdwebui_tpu_torch.utils.pdf import encode_eps, encode_pdf
 from sdwebui_tpu_torch.utils.png import encode_png
+from sdwebui_tpu_torch.utils.qoi import encode_qoi
+from sdwebui_tpu_torch.utils.sgi import encode_sgi
+from sdwebui_tpu_torch.utils.tga import encode_tga
 from sdwebui_tpu_torch.utils.tiff import encode_tiff
 from sdwebui_tpu_torch.utils.webp import encode_webp
 
+_MODES = {1: "L", 2: "LA", 3: "RGB", 4: "RGBA"}
+
+
+def _mpo(image: np.ndarray, filename: str, quality: int) -> bytes:
+    """One frame: Pillow's plain JPEG."""
+    c = image.shape[2]
+    if c in (2, 4):
+        raise OSError(f"cannot write mode {_MODES[c]} as JPEG")
+    return encode_jpeg(image[:, :, 0] if c == 1 else image, quality)
+
+
+#: JAX's generic branch: extension → the bytes Pillow writes for
+#: ``image.save(filename, format, quality=quality)``, as f(image, filename, quality)
+_GENERIC = {
+    "mpo": _mpo,
+    "apng": lambda image, filename, quality: encode_png(image, None, level=6),  # no text
+    **dict.fromkeys(("ppm", "pgm", "pbm", "pnm", "pfm"),
+                    lambda image, filename, quality: encode_netpbm(image)),
+    **dict.fromkeys(("tga", "icb", "vda", "vst"),
+                    lambda image, filename, quality: encode_tga(image)),
+    "qoi": lambda image, filename, quality: encode_qoi(image),
+    **dict.fromkeys(("sgi", "rgb", "rgba", "bw"),
+                    lambda image, filename, quality: encode_sgi(image, filename)),
+    "pcx": lambda image, filename, quality: encode_pcx(image),
+    "dds": lambda image, filename, quality: encode_dds(image),
+    "im": lambda image, filename, quality: encode_im(image, filename),
+    "ico": lambda image, filename, quality: encode_ico(image),
+    "icns": lambda image, filename, quality: encode_icns(image),
+    "pdf": lambda image, filename, quality: encode_pdf(image, quality, filename),
+    **dict.fromkeys(("eps", "ps"), lambda image, filename, quality: encode_eps(image)),
+}
 #: the extensions ``save_image`` writes
-FORMATS = ("png", "jpg", "jpeg", "jfif", "jpe", "webp", "gif", "bmp", "dib", "tif", "tiff")
+FORMATS = ("png", "jpg", "jpeg", "jfif", "jpe", "webp", "gif", "bmp", "dib", "tif",
+           "tiff") + tuple(_GENERIC)
+#: extensions JAX's path takes whose writer Pillow refuses for the images it
+#: hands it: the error Pillow raises
+PILLOW_REFUSES = {"blp": (ValueError, "Unsupported BLP image mode"),
+                  "msp": (OSError, "cannot write mode {mode} as MSP"),
+                  "xbm": (OSError, "cannot write mode {mode} as XBM"),
+                  "palm": (OSError, "cannot write mode {mode} as Palm"),
+                  "h5": (OSError, "HDF5 save handler not installed"),
+                  "hdf": (OSError, "HDF5 save handler not installed"),
+                  "grib": (OSError, "GRIB save handler not installed"),
+                  "bufr": (OSError, "BUFR save handler not installed"),
+                  "wmf": (OSError, "WMF save handler not installed"),
+                  "emf": (OSError, "WMF save handler not installed")}
 
 _INVALID_FN_CHARS = '#<>:"/\\|?*\n\r\t'
 
@@ -63,8 +124,11 @@ def sanitize_filename_part(text: str, replace_spaces=True) -> str:
 
 
 def check_format(extension: str, what: str = "samples_format") -> None:
-    """NotImplementedError naming an image format the port cannot write."""
-    if str(extension).lower().lstrip(".") not in FORMATS:
+    """NotImplementedError naming an image format the port cannot write.
+    The extensions whose writer Pillow refuses at the write (``PILLOW_REFUSES``)
+    pass, as JAX's path takes them."""
+    ext = str(extension).lower().lstrip(".")
+    if ext not in FORMATS and ext not in PILLOW_REFUSES:
         raise NotImplementedError(f"{what} {extension!r} is not ported yet (the port writes "
                                   f"{', '.join(FORMATS)})")
 
@@ -186,9 +250,21 @@ def save_image_with_geninfo(image: np.ndarray, geninfo: str | None, filename: st
             raise ValueError("cannot write a grey + alpha image as TIFF")
         data = encode_tiff(image)
     else:
-        check_format(ext.lstrip("."), "image format")
+        data = _generic(image, ext, filename, int(settings["jpeg_quality"]))
     with open(filename, "wb") as f:
         f.write(data)
+
+
+def _generic(image: np.ndarray, ext: str, filename: str, quality: int) -> bytes:
+    """The bytes Pillow writes for JAX's generic branch, ``image.save(filename,
+    format, quality=quality)``, of the formats after PNG, JPEG, WebP, GIF,
+    BMP and TIFF; ``check_format`` refuses an extension the port does not write."""
+    name = ext.lstrip(".")
+    if name in PILLOW_REFUSES:
+        kind, msg = PILLOW_REFUSES[name]
+        raise kind(msg.format(mode=_MODES[image.shape[2]]))
+    check_format(name, "image format")
+    return _GENERIC[name](image, filename, quality)
 
 
 def save_image(image: np.ndarray, path: str, basename: str = "", seed=None, prompt=None,

@@ -12,6 +12,7 @@ both packages' loaders from one ``.safetensors``.
 """
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
+from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
 import dataclasses
 import json
 

@@ -3,6 +3,7 @@ residuals (SD1.5 and SDXL tiny configs), ``convert_controlnet`` on the
 cldm, bare and diffusers layouts, the UNet's cldm-form ``control=`` against
 a composition of JAX's own block functions (and where JAX's form differs
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
+from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
 from it), the canny / threshold annotators against cv2 in every pixel, and
 whole txt2img / hires / img2img requests with units through both packages.
 Inputs are made with numpy from a seed; tolerances are stated per test."""

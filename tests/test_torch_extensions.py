@@ -8,6 +8,7 @@ available index), each JAX function's answer beside the port's where both
 run, and the Engine, routes and server start-up around them."""
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
+from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
 import json
 import os
 import shutil

@@ -16,6 +16,7 @@ missing weights log once and leave the images as JAX leaves them.
 """
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
+from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
 import dataclasses
 import logging
 import os

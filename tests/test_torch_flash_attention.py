@@ -7,6 +7,7 @@ also collect on a machine without jax.
 """
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
+from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
 import numpy as np
 import pytest
 import torch

@@ -8,6 +8,7 @@ JAX's where a model ran, equal elsewhere (lossy WebP and GIF writes within
 their bounds); names, infotexts and png-info items equal."""
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
+from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
 import base64
 import io
 import json

@@ -283,8 +283,10 @@ def test_tiff_layouts(case):
 
 
 def test_tiff_refuses_what_it_does_not_read():
-    data = _pillow(Image.fromarray(_photo(16, 16, 0)), "TIFF", compression="jpeg")
-    with pytest.raises(ValueError, match="JPEG"):
+    """WebP in TIFF (compression 50001), which libtiff here cannot decode,
+    raises naming itself; JPEG in TIFF is read (test_torch_tiff_codecs)."""
+    data = tiff_file(_photo(16, 16, 0), tags={259: (3, [50001])})
+    with pytest.raises(ValueError, match="WebP"):
         tiff.decode_tiff(data)
 
 

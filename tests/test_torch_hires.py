@@ -8,6 +8,7 @@ SDXL base + refiner under each ``hires_fix_refiner_pass``, and
 VAE decode off: images within 1 uint8 level, identical infotext."""
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
+from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
 import base64
 import dataclasses
 import json

@@ -9,6 +9,7 @@ still refuses.  Inputs are made with numpy from a seed; each pipeline is
 held to 1 uint8 level and identical infotext."""
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
+from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
 import dataclasses
 
 import jax.numpy as jnp

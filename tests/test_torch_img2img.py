@@ -10,6 +10,7 @@ the ``/sdapi/v1/img2img`` route.  Tolerances are stated per test.
 """
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
+from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
 import base64
 import dataclasses
 import io

@@ -16,6 +16,7 @@ frame over Pillow's pixel limit included (JAX's ``Image.open`` raises
 """
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
+from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
 import base64
 import io
 import struct
@@ -280,13 +281,24 @@ def test_decode_in_bands_equals_pillow(monkeypatch, mode, band_pixels, idct_bloc
         _assert_decodes_like_pillow(data)
 
 
-@pytest.mark.parametrize("fmt,kw", [("AVIF", {}), ("PPM", {}), ("ICO", {}), ("QOI", {})])
+@pytest.mark.parametrize("fmt,kw", [("AVIF", {}), ("JPEG 2000", {}),
+                                    ("JPEG 2000", {"no_jp2": True})])
 def test_other_formats_name_theirs(fmt, kw):
     buf = io.BytesIO()
-    Image.fromarray(_photo(8, 8, 0)).save(buf, fmt, **kw)
+    Image.fromarray(_photo(8, 8, 0)).save(buf, fmt.replace(" ", ""), **kw)
     with pytest.raises(UnsupportedImageFormat, match=fmt) as e:
         decode_image(buf.getvalue())
     assert e.value.fmt == fmt
+
+
+@pytest.mark.parametrize("fmt", ["PPM", "ICO", "QOI"])
+def test_other_formats_are_read(fmt):
+    """PPM, ICO and QOI, refused before the port read them: Pillow's pixels."""
+    buf = io.BytesIO()
+    Image.fromarray(_photo(24, 24, 0)).save(buf, fmt)
+    with Image.open(io.BytesIO(buf.getvalue())) as im:
+        want = np.asarray(im.convert("RGB"))
+    np.testing.assert_array_equal(decode_image(buf.getvalue())[0][:, :, :3], want)
 
 
 # --------------------------------------------------------------------------

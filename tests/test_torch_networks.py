@@ -5,6 +5,7 @@ clip_l / clip_g pair, a LoRA-bundled embedding), the hypernetwork UNet,
 whole txt2img runs with tags through both packages' ``process_txt2img``,
 and the base weights after tagged requests.  Inputs are made with numpy
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
+from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
 from a seed; tolerances are stated per test."""
 
 import dataclasses

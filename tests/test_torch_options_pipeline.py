@@ -8,6 +8,7 @@ old emphasis's tokens; the persistent cond cache; the attention options of
 each kind.  Pruned files and fp8 storage: ``test_torch_fp8_ssd``."""
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
+from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
 import numpy as np
 import pytest
 

@@ -10,6 +10,7 @@ against JAX within 1 level under the f32 policy, with identical infotext.
 """
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
+from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
 import dataclasses
 
 import jax

@@ -14,6 +14,7 @@ and every LayerNorm, and its own slice of each MLP.  Weights: JAX's
 """
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
+from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
 import dataclasses
 import threading
 

@@ -3,6 +3,7 @@ identical weights (tiny model, 64², seeds 7 and 8, 3 steps, batch 2), both
 under the f32 policy with the bf16 VAE decode off."""
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
+from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
 import dataclasses
 
 import jax.numpy as jnp

@@ -15,6 +15,7 @@ encoding of the port's image.
 """
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
+from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
 import datetime as real_datetime
 import io
 import os
@@ -253,7 +254,7 @@ def test_callbacks_rename_and_see_the_save(tmp_path, both):
     assert decode_png((tmp_path / "port" / "renamed.png").read_bytes())[1]["added"] == "yes"
 
 
-@pytest.mark.parametrize("fmt", ["avif", "heic", "jxl", "qoi"])
+@pytest.mark.parametrize("fmt", ["avif", "heic", "jxl", "jp2"])
 def test_unported_formats_raise_naming_them(fmt, tmp_path):
     img = np.zeros((8, 8, 3), np.uint8)
     with pytest.raises(NotImplementedError, match=fmt):

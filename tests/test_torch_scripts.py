@@ -11,6 +11,7 @@ inpainting, the sd_unet slot, the job state of a script, and the routes:
 infotexts."""
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
+from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
 
 import base64
 import copy

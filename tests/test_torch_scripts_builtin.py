@@ -8,6 +8,7 @@ UI's ``postprocessing`` field.  Images within 1 uint8 level, identical
 infotexts."""
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
+from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
 
 import numpy as np
 import pytest

@@ -9,6 +9,7 @@ the port's match them: images within 1 uint8 level, identical
 infotexts."""
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
+from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
 
 import numpy as np
 import pytest

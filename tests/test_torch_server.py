@@ -5,6 +5,7 @@ merger, the UI's routes and extensions included — with the JAX package, jax, P
 blocked."""
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
+from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
 import base64
 import json
 import os
@@ -229,6 +230,14 @@ status, out = api.handle(
     "POST", "/sdapi/v1/txt2img", {"steps": 1, "width": 64, "height": 64})
 assert status == 200, out
 png = base64.b64encode(encode_png(np.full((64, 64, 3), 90, np.uint8))).decode()
+# the rarer formats read and written with no Pillow: a TGA and a QOI
+# through the open order, and the generic branch's writers
+from sdwebui_tpu_torch.utils import image_io, qoi, tga, saving
+a = np.random.default_rng(0).integers(0, 256, (16, 16, 3), dtype=np.uint8)
+for data in (tga.encode_tga(a), qoi.encode_qoi(a)):
+    assert (image_io.decode_image(data)[0] == a).all()
+for ext in ("ppm", "tga", "qoi", "sgi", "pcx", "dds", "im", "pdf", "eps", "mpo", "ico"):
+    assert saving._generic(a, "." + ext, "x." + ext, 80)
 status, out = api.handle("POST", "/sdapi/v1/img2img", {
     "init_images": [png], "mask": png, "inpaint_full_res": False, "inpainting_fill": 1,
     "steps": 2, "width": 64, "height": 64})

@@ -9,6 +9,7 @@ against JAX's process_txt2img within 1 uint8 level, with identical
 infotext."""
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
+from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
 import dataclasses
 
 import jax

@@ -13,6 +13,7 @@ converter; the port net under test is rebuilt from that JAX tree with
 ``*_from_jax``, so both packages run the same numbers."""
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
+from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
 import base64
 import dataclasses
 import json

@@ -9,6 +9,7 @@ before any connection; fetched from a local server through a stub
 resolver), the console line, profiling and the server commands."""
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
+from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
 import base64
 import http.server
 import inspect

@@ -11,6 +11,7 @@ one ``.safetensors``, and carried across with ``from_jax``.
 """
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
+from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
 import dataclasses
 
 import jax.numpy as jnp

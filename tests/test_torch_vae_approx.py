@@ -14,6 +14,7 @@ with identical infotext; the tiled UNet and VAE decode at 1e-4.
 """
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
+from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
 import dataclasses
 import logging
 

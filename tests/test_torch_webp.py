@@ -8,6 +8,7 @@ quality and at most twice its size; the infotext of a saved WebP reads
 back through JAX's ``read_user_comment``."""
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
+from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
 import io
 import struct
 

@@ -1,6 +1,7 @@
 """Which kernel records a profiler trace loses, counted by correlation id.
 
     python3 tools/profiler_window_probe_cuda.py [TRACES]
+    python3 tools/profiler_window_probe_cuda.py modules
 
 In one process, after a first trace, four sets of traces with the card's
 and the host's activity:
@@ -17,6 +18,15 @@ and the host's activity:
   but no pad, an untraced request between two traces;
 * ``late``: the same after LOAD_S seconds of untraced requests, to see
   whether the loss grows with the process's age.
+
+``modules`` runs one arm instead: the launch mix in two fresh child
+processes, one with ``CUDA_MODULE_LOADING=EAGER`` and one with ``LAZY``
+(each set in the child's own environment, before CUDA initialises).  Each
+child traces the mix MODULE_TRACES times at about AGES_S[0] s of its age,
+then loads a random SD1.5 and runs untraced requests (which load cuRAND's,
+cuDNN's and cuBLAS's modules) until about AGES_S[1] s, then traces the mix
+and one request again; it prints the lost count of each trace.  Whether
+loading every module at start removes the loss is what the two arms tell.
 
 Per trace, from the profiler's own results: every kernel launch (a
 ``*LaunchKernel*`` runtime or driver record) and every device record,
@@ -48,6 +58,8 @@ IDLE_S = 0.05
 MIX_ROUNDS = 40
 REQUESTS = 6
 LOAD_S = 90.0
+AGES_S = (50.0, 240.0)
+MODULE_TRACES = 4
 T0 = time.perf_counter()
 
 
@@ -158,12 +170,69 @@ def _request(model, seed: int):
     return body
 
 
+def _modules_child() -> dict:
+    """One arm of ``modules``: the mix's lost counts at the two ages."""
+    from sdwebui_tpu_torch.pipeline.sd_model import create_random_sd15
+
+    device = torch.device("cuda")
+    mix = _mix(device)
+    mix()                                    # builds B2 and B5 before any trace
+    out = {"mode": os.environ.get("CUDA_MODULE_LOADING"), "ages": []}
+    model = None
+    for k, age in enumerate(AGES_S):
+        while time.perf_counter() - T0 < age:
+            if model is None and k > 0:
+                model = create_random_sd15(seed=0, device=device)
+            if model is not None:
+                _request(model, 600)()
+            else:
+                mix()
+        rows = [_traced(mix) for _ in range(MODULE_TRACES)]
+        if model is not None:
+            rows.append(dict(_traced(_request(model, 700)), request=True))
+        out["ages"].append(dict(age_s=time.perf_counter() - T0,
+                                lost=[r["lost"] for r in rows],
+                                launches=[r["launches"] for r in rows]))
+        print(json.dumps(out["ages"][-1]), flush=True)
+    return out
+
+
+def _modules() -> int:
+    """The EAGER and LAZY arms, each in a fresh process."""
+    import subprocess
+
+    arms = {}
+    for mode in ("EAGER", "LAZY"):
+        t0 = time.perf_counter()
+        env = dict(os.environ, CUDA_MODULE_LOADING=mode)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "modules-child"],
+                              env=env, capture_output=True, text=True, timeout=900)
+        sys.stdout.write(proc.stdout)
+        sys.stderr.write(proc.stderr[-4000:])
+        if proc.returncode:
+            print(f"{mode}: exit {proc.returncode}", file=sys.stderr)
+            return proc.returncode
+        arms[mode] = dict(json.loads(proc.stdout.strip().splitlines()[-1]),
+                          seconds=time.perf_counter() - t0)
+    print(json.dumps({"modules": {m: [a["lost"] for a in arm["ages"]]
+                                  for m, arm in arms.items()}}), flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "profiler_modules_probe.json"), "w") as f:
+        json.dump(arms, f, indent=1)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
     from sdwebui_tpu_torch.pipeline.sd_model import create_random_sd15
 
+    if sys.argv[1:] == ["modules"]:
+        return _modules()
+    if sys.argv[1:] == ["modules-child"]:
+        print(json.dumps(_modules_child()), flush=True)
+        return 0
     traces = int(sys.argv[1]) if len(sys.argv) > 1 else 8
     device = torch.device("cuda")
     out = {"torch": torch.__version__, "cuda": torch.version.cuda}
