@@ -287,7 +287,7 @@ Phases, in order; any failure exits non-zero:
      flip, DeepDanbooru captions) on 3 seeded PNGs: files and captions
      byte for byte the CPU port's.  Every file lives in a temporary
      directory removed at the phase's end.
-  4m. the scripts on the SD1.5 server (after 4l), over HTTP, with an
+  4m. the scripts on the second process's SD1.5 server, over HTTP, with an
      always-on recording script whose hooks must come out as planned for
      every generation and no hook error logged, and each request's B1, B2
      and B5 launches equal to the plan's: /scripts and /script-info; the
@@ -305,7 +305,7 @@ Phases, in order; any failure exits non-zero:
      weights negated) differ from Automatic's and equal those of a server
      serving the bundle; the main UI's postprocessing (Lanczos x2, a 1024²
      image, "Postprocessing: Upscale").
-  4n. saving and JPEG on the SD1.5 server (after 4m), its --outdir a
+  4n. saving and JPEG on the second process's server (after 4m), its --outdir a
      temporary directory: (a) txt2img batch 2 without and with
      save_images in turn (off, on, on, off; sdtpu_async_save on): two PNGs
      and a grid on disk, each equal in pixels and infotext to the
@@ -323,14 +323,15 @@ Phases, in order; any failure exits non-zero:
      logged: the seconds of each request and the host ms of the codecs at
      512² and 1024² (PNG level 1 and JPEG quality 80 encodes, JPEG decodes
      at quality 80 and 95, 4:2:0 and 4:4:4).
-  4o. the image formats after JPEG on the SD1.5 server (after 4n), its
+  4o. the image formats after JPEG on that server (after 4n), its
      --outdir a temporary directory: (a) img2img from the phase-3 image as
      lossless WebP, lossy WebP, lossy WebP with an ALPH chunk, GIF, BMP
      (24-bit and RLE8), TIFF (LZW with the predictor, Deflate), 16-bit and
      interlaced PNG (the variants the port never writes from
      tests/torch_image_files.py), each file's decode equal to its reference
-     pixels and its image within REPEAT_TOL of the img2img from a PNG of
-     those pixels; (b) txt2img saving with samples_format webp (lossy and
+     pixels, and the image of one file of each reference (an img2img from
+     every file would take the run past its limit) within REPEAT_TOL of the
+     img2img from a PNG of those pixels; (b) txt2img saving with samples_format webp (lossy and
      webp_lossless), gif, bmp and tiff: each file decoding to the
      response's pixels (exactly, or within WEBP_MEAN_TOL / GIF_MEAN_TOL
      levels on average), the WebP's infotext back through /png-info; (c) a
@@ -385,7 +386,7 @@ Phases, in order; any failure exits non-zero:
      TP_SD3_STEPS steps, each image within TP_SD3_TOL of one device's;
      every (data, model) shard launches B2 at (2, 4173, 24·64) and B5 as
      planned (TP_SD3_STEPS × 24 and × 96).
-  4s. the text on grids and cards (after 4q, on the phase-3 server): an
+  4s. the text on grids and cards (after 4d, on the phase-3 server): an
      X/Y/Z request with draw_legend (Prompt S/R over kerned words × Seed),
      its legend gutters inked, equal to the port's own redraw on the
      response's cells and unequal to a copy drawn without kerning; a
@@ -409,6 +410,30 @@ Phases, in order; any failure exits non-zero:
      ``save_image_with_geninfo``, each decoded equal to it (ICO's largest
      entry to its LANCZOS thumbnail, ICNS's to its BICUBIC 1024²), each
      writer's host ms.
+  4u. JPEG 2000 (after 4t, on the phase-3 server): (a) every committed
+     fixture of ``tests/fixtures/jpeg2000`` (``tools/write_jpeg2000_fixtures.py``:
+     every code-block style, SOP / EPH, POC, PPM / PPT, an ROI, 12- and
+     16-bit samples, subsampled sRGB and sYCC, a palette, and Pillow's
+     512² lossless and 9/7 files) decoded to Pillow's pixels (sYCC within
+     1 level), each decode's host ms; (c) phase 3's request again with
+     samples_format jp2: the writer saves its 512² image as a lossless
+     .jp2 (the encode's host ms); (b) img2img from that file within
+     REPEAT_TOL of the request from the PNG of its pixels, B1, B2 and B5
+     as 4t plans them; (c) txt2img at J2K_SAVE_SIDE², batch 2, with
+     samples_format jp2 and grid_format j2k, the three files decoded equal
+     to the response's images; (d) a PDF of an RGBA image of it, its
+     JPXDecode stream decoded to the image.
+Two processes share the card.  The first runs phases 0–2 alone, then
+starts the second (this script with --second-process), which serves
+phase 3 again on a server of its own and runs 4m, 4n, 4o and 4q on it,
+then 5, 6, 6b, 6c, 7, 4k(b, f) and 4j; meanwhile the first runs 3, 4, 4g,
+4c, 4d, 4s, 4t, 4u, 4e, 4f, 4h, 4i, 4a, 4b, 4k(a, c, d, e) and 4l.  The
+first then waits for the second, copies its log into its own, and runs
+4p alone (its profiled request's trace must lose no record).  Phase 1's
+kernel rows and phase 2's steps are timed before the second process
+starts; every later time shares the card and the host with the other
+process.  A failure in either ends the run; the second process ends
+with the first.
 Each phase's seconds are logged as it ends.  The last two lines are the
 kernels JSON and {"ok": true, "device": ...}.
 Needs a CUDA card; without one it exits 1 and prints no result.
@@ -434,6 +459,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 import torch.nn.functional as F
+
 
 # bf16 attention: max|Δ| / max|ref|.  Outputs of N(0, 1) inputs shrink as
 # sqrt(e / Skv), so an absolute bound would pass a dropped kv tile at
@@ -4816,6 +4842,8 @@ def phase_scripts(engine, model, phase3: dict, device):
 # each kernel of the kernels line: its TPU source line, its CUDA source and
 # the phase-1 row whose times it reports (its dominant main-path shape; for
 # B1, which serves only the VAE, the VAE row chosen in main())
+#: the kernels the main paths launch (B3 and B4 have entries of their own only)
+PATH_KERNELS = ("flash_attention", "flash_attention_packed", "layer_norm")
 KERNEL_ENTRIES = [
     ("flash_attention", "flash_attention.cu", "sdwebui_tpu/ops/flash_attention.py:112",
      None, None),
@@ -4871,8 +4899,9 @@ def codec_host_ms(image) -> dict:
 
 def phase_saving(engine, model, phase3: dict, directory: str):
     """4n: saving and JPEG on the phase-3 SD1.5 server, its --outdir a
-    temporary directory: (a) txt2img batch 2 in four arms, three times
-    each, interleaved: without save_images, with it but no file saved (the
+    temporary directory: (a) txt2img batch 2 in four arms, twice each (a
+    third round would take the run past its limit), interleaved: without
+    save_images, with it but no file saved (the
     same response), saving on the writer thread and saving inside the
     request, the files (two samples and the grid) equal in pixels and
     infotext to the response; (b) the same with
@@ -4932,7 +4961,7 @@ def phase_saving(engine, model, phase3: dict, directory: str):
                     "save_sync": {"save_images": True, "override_settings": {
                         "sdtpu_async_save": False}}}
             info["txt2img_s"] = {arm: [] for arm in arms}
-            order = list(arms) + list(arms)[::-1] + list(arms)
+            order = list(arms) + list(arms)[::-1]
             for arm in order:
                 before = set(_saved_files(outdir)) if os.path.isdir(outdir) else set()
                 res, images, dt = generate("txt2img", dict(base, **arms[arm]),
@@ -5266,7 +5295,15 @@ def phase_formats(engine, model, phase3: dict, directory: str):
                 _, images = generate("img2img", dict(i2i, init_images=[
                     base64.b64encode(data).decode()]), f"img2img from the {key} PNG", i2i_plan)
                 ref_out[key] = images[-1][0]
+            # one file of each reference PNG (every file's decode was checked
+            # equal to its pixels above; every file's img2img would take the
+            # run past its limit)
+            firsts = {}
             for name, (data, key) in files.items():
+                firsts.setdefault(key, name)
+            for name, (data, key) in files.items():
+                if firsts[key] != name:
+                    continue
                 _, images = generate("img2img", dict(i2i, init_images=[
                     base64.b64encode(data).decode()]), f"img2img from {name}", i2i_plan)
                 deltas[name] = int(abs(images[-1][0].astype(int)
@@ -6164,6 +6201,189 @@ def phase_rare_formats(engine, model, phase3: dict, directory: str):
     return results, info
 
 
+# --------------------------------------------------------------------------
+# 4u: JPEG 2000
+# --------------------------------------------------------------------------
+
+#: the committed JPEG 2000 files and Pillow's pixels of each
+J2K_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                            "jpeg2000")
+#: the size of txt2img (c)'s second request, batch 2: its samples and its j2k grid
+J2K_SAVE_SIDE = 64
+
+
+def _read_npz(path: str) -> dict:
+    """The arrays of an .npz written by numpy.savez_compressed, read with
+    the stdlib: {name: (shape, raw bytes)} (C order, little-endian)."""
+    import ast
+    import struct
+    import zipfile
+
+    out = {}
+    with zipfile.ZipFile(path) as z:
+        for member in z.namelist():
+            raw = z.read(member)
+            major = raw[6]
+            hlen = struct.unpack_from("<H" if major == 1 else "<I", raw, 8)[0]
+            start = 10 if major == 1 else 12
+            header = ast.literal_eval(raw[start:start + hlen].decode("latin1"))
+            out[member[:-4]] = (tuple(header["shape"]), raw[start + hlen:])
+    return out
+
+
+def phase_jpeg2000(engine, model, phase3: dict, directory: str):
+    """4u: (a) every committed JPEG 2000 fixture decoded equal to Pillow's
+    pixels (the two 512² files to their SHA-256; sYCC within 1 level), each
+    decode's host ms; (c) phase 3's request again with samples_format jp2,
+    its image saved by the writer as a lossless 512² .jp2 (the encode's host
+    ms, timed around the writer's encoder), and txt2img at J2K_SAVE_SIDE²,
+    batch 2, with samples_format jp2 and grid_format j2k, those three files
+    decoded equal to the response's images; (b) img2img from the 512² .jp2
+    within REPEAT_TOL of the same request from the PNG of its pixels,
+    launches as 4t plans them; (d) a PDF of an RGBA image of the batch-2
+    response, its JPXDecode stream decoded to its pixels.  Returns (results,
+    info)."""
+    import hashlib
+    import re
+
+    from sdwebui_tpu_torch.pipeline.img2img import setup_img2img_steps
+    from sdwebui_tpu_torch.utils import saving
+    from sdwebui_tpu_torch.utils.jpeg2000 import decode_jpeg2000
+    from sdwebui_tpu_torch.utils.pdf import encode_pdf
+    from sdwebui_tpu_torch.utils.png import decode_png, encode_png
+
+    info: dict = {}
+    t_phase = time.perf_counter()
+    # (a) the fixtures
+    decode_ms = {}
+    for name in sorted(os.listdir(J2K_FIXTURES)):
+        if name.endswith(".npz"):
+            continue
+        data = open(os.path.join(J2K_FIXTURES, name), "rb").read()
+        ref = _read_npz(os.path.join(J2K_FIXTURES, os.path.splitext(name)[0] + ".npz"))
+        t = time.perf_counter()
+        got = decode_jpeg2000(data)[0]
+        decode_ms[name] = (time.perf_counter() - t) * 1e3
+        if "pixels" in ref:
+            shape, raw = ref["pixels"]
+            want = torch.frombuffer(bytearray(raw), dtype=torch.uint8).reshape(shape)
+            bound = 1 if "sycc" in name else 0
+            if tuple(got.shape) != shape or (torch.from_numpy(got).int()
+                                             - want.int()).abs().max().item() > bound:
+                raise AssertionError(f"4u (a): {name} does not decode to Pillow's pixels")
+        elif hashlib.sha256(got.tobytes()).digest() != ref["sha256"][1] or \
+                list(got.shape) != list(torch.frombuffer(bytearray(ref["shape"][1]),
+                                                         dtype=torch.int64).tolist()):
+            raise AssertionError(f"4u (a): {name} does not decode to Pillow's pixels")
+    info["decode_ms"] = decode_ms
+    log("4u (a) " + f"{len(decode_ms)} fixtures decoded to Pillow's pixels; host ms: "
+        + json.dumps({k: round(v, 1) for k, v in decode_ms.items()}))
+
+    _, t_enc = setup_img2img_steps(STEPS, DENOISE)
+    t2i_plan = _plan(b1=1, b2=STEPS * launch_plan(model.unet_cfg, 64),
+                     b5=STEPS * ln_plan(model.unet_cfg, 64) + clip_ln_plan(model))
+    i2i_plan = _plan(b1=2, b2=(t_enc + 1) * launch_plan(model.unet_cfg, 64),
+                     b5=(t_enc + 1) * ln_plan(model.unet_cfg, 64) + clip_ln_plan(model))
+    results = []
+    outdir = os.path.join(directory, "outputs")
+    prev_outdir, engine.outdir = engine.outdir, outdir
+    encoder = saving.encode_jpeg2000
+    encodes = []
+
+    def timed_encoder(image, kind="jp2", **settings):
+        t0 = time.perf_counter()
+        out = encoder(image, kind, **settings)
+        encodes.append((tuple(image.shape), kind, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    saving.encode_jpeg2000 = timed_encoder       # the writer's encoder, timed
+    try:
+        with _server(engine) as url:
+            def generate(route, body, label, plan):
+                reset_counts()
+                t = time.perf_counter()
+                res = _post(f"{url}/{route}", body)
+                dt = time.perf_counter() - t
+                launches = read_counts()
+                log(f"4u {label}: {dt:.3f} s, launches {launches}")
+                if launches != plan:
+                    raise AssertionError(f"4u {label}: launches {launches} != planned {plan}")
+                results.append(dict(route=route, label=f"4u {label}", batch=body["batch_size"]
+                                    if "batch_size" in body else 1, seed=body["seed"],
+                                    seconds=dt, launches=launches))
+                saving.flush_saves()
+                return res, [decode_png(base64.b64decode(b))[0] for b in res["images"]]
+
+            # (c) phase 3's request saving its 512² image as .jp2
+            body = dict(SD15_BASE, seed=phase3["seed"], batch_size=1, save_images=True,
+                        override_settings=dict(samples_format="jp2"))
+            before = set(_saved_files(outdir)) if os.path.isdir(outdir) else set()
+            _, shown = generate("txt2img", body, "(c) phase 3's request saved as .jp2", t2i_plan)
+            written = sorted(set(_saved_files(outdir)) - before)
+            if [os.path.splitext(w)[1] for w in written] != [".jp2"] or len(encodes) != 1 \
+                    or encodes[0][0] != shown[0].shape:
+                raise AssertionError(f"4u (c): wrote {written}, encodes {encodes}")
+            jp2 = open(os.path.join(outdir, written[0]), "rb").read()
+            info["encode_512_ms"] = encodes[0][2]
+            log(f"4u (c) the writer saved the 512² image as {written[0]}: {len(jp2)} bytes, "
+                f"encode {info['encode_512_ms']:.1f} ms (host)")
+            # (b) img2img from that .jp2 and from the PNG of its pixels
+            i2i = dict(SD15_BASE, denoising_strength=DENOISE, seed=97531)
+            outs = {}
+            for name, data in (("png", encode_png(shown[0])), ("jp2", jp2)):
+                _, images = generate("img2img", dict(i2i, init_images=[
+                    base64.b64encode(data).decode()]), f"(b) img2img from the {name}", i2i_plan)
+                outs[name] = images[0]
+                if outs[name].std() < 1.0:
+                    raise AssertionError(f"4u (b): a flat image from the {name}")
+            delta = int(abs(outs["jp2"].astype(int) - outs["png"].astype(int)).max())
+            info["img2img_max_delta"] = delta
+            log(f"4u (b) max|Δ| against the PNG of the same pixels: {delta} "
+                f"(bound {REPEAT_TOL})")
+            if delta > REPEAT_TOL:
+                raise AssertionError(f"4u (b): img2img from the .jp2 differs from its PNG: {delta}")
+            # (c) samples as jp2 and the grid as j2k
+            body = dict(SD15_BASE, seed=8642, width=J2K_SAVE_SIDE, height=J2K_SAVE_SIDE,
+                        batch_size=2, save_images=True,
+                        override_settings=dict(samples_format="jp2", grid_format="j2k"))
+            before = set(_saved_files(outdir))
+            reset_counts()
+            res = _post(f"{url}/txt2img", body)
+            saving.flush_saves()
+            log(f"4u (c) txt2img {J2K_SAVE_SIDE}² batch 2 saving jp2 samples and a j2k grid, "
+                f"launches {read_counts()}")
+    finally:
+        engine.outdir = prev_outdir
+        saving.encode_jpeg2000 = encoder
+    shown = [decode_png(base64.b64decode(b))[0] for b in res["images"]]
+    written = sorted(set(_saved_files(outdir)) - before)
+    if sorted(os.path.splitext(w)[1] for w in written) != [".j2k", ".jp2", ".jp2"]:
+        raise AssertionError(f"4u (c): wrote {written}")
+    for name in written:
+        got = decode_jpeg2000(open(os.path.join(outdir, name), "rb").read())[0]
+        if not any(got.shape == s.shape and (got == s).all() for s in shown):
+            raise AssertionError(f"4u (c): {name} does not decode to an image of the response")
+    log(f"4u (c) {written} decode to the response's images")
+    # (d) a PDF of an RGBA image: JPXDecode with SMaskInData
+    last = torch.from_numpy(shown[-1])
+    rgba = torch.cat([last, last[:, :, 1:2]], dim=2).numpy()
+    pdf = encode_pdf(rgba, 80, os.path.join(directory, "rgba.pdf"))
+    m = re.search(rb"/Filter /JPXDecode\n/SMaskInData 1\n/Length (\d+)\n>>stream\n", pdf)
+    if m is None:
+        raise AssertionError("4u (d): no JPXDecode image with SMaskInData in the PDF")
+    stream = pdf[m.end():m.end() + int(m.group(1))]
+    got = decode_jpeg2000(stream)[0]
+    if got.shape != rgba.shape or not (got == rgba).all():
+        raise AssertionError("4u (d): the PDF's JPX stream does not decode to its RGBA image")
+    log(f"4u (d) a PDF of the RGBA {J2K_SAVE_SIDE}² image ({len(pdf)} bytes): its JPX stream "
+        f"decodes to its pixels")
+    info["decodes_512"] = sum(r["launches"]["flash_attention"] for r in results) \
+        - sum(r["route"] == "img2img" for r in results)
+    info["f32_encodes_512"] = sum(r["route"] == "img2img" for r in results)
+    info["phase_s"] = time.perf_counter() - t_phase
+    return results, info
+
+
 def phase_parallel(engine, model, device):
     """4q: the parallel runtime on meshes that name the card several times:
     (a) data=4 under the in-process server, batch 4, image i within
@@ -6192,103 +6412,114 @@ def phase_parallel(engine, model, device):
     return results, info
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
-              file=sys.stderr)
-        return 1
-    from sdwebui_tpu_torch.models.esrgan import register_esrgan_dir
-    from sdwebui_tpu_torch.pipeline.sd_model import create_random_sd15
-    from sdwebui_tpu_torch.postprocessing.upscalers import unregister_upscaler
-    from sdwebui_tpu_torch.server.app import Engine, random_models
+#: the argument that makes this script the second process (see main)
+SECOND = "--second-process"
+#: what a request's result keeps in the report (and in the second process's JSON)
+_UNREPORTED = ("image", "png_b64", "infotext", "extras", "all_images")
+
+
+def _reported(results: list) -> list:
+    return [{k: v for k, v in r.items() if k not in _UNREPORTED} for r in results]
+
+
+def _setup():
+    """What each process sets before its first phase; the card."""
     from sdwebui_tpu_torch.utils.options import opts
 
-    device = torch.device("cuda")
     # the library calls and plain versions of phase 1 in full fp32 (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_start = marks = time.perf_counter()
-    phase_s = {}
     # the persistent cond cache (on by default) would skip the CLIP encode of
     # every repeated prompt; the phases' plans count one encode a request,
     # and 4k turns the cache on for its own requests
     opts.data["persistent_cond_cache"] = False
+    return torch.device("cuda")
+
+
+def _marker():
+    """(mark, seconds): mark(phase) logs the seconds since the previous
+    mark under `phase` and keeps them in `seconds`."""
+    seconds = {}
+    t = {"start": time.perf_counter()}
+    t["last"] = t["start"]
 
     def mark(phase: str):
-        """The seconds since the previous mark, logged under `phase`."""
-        nonlocal marks
         now = time.perf_counter()
-        phase_s[phase] = now - marks
-        log(f"phase {phase}: {now - marks:.1f} s ({now - t_start:.1f} s in all)")
-        marks = now
+        seconds[phase] = now - t["last"]
+        log(f"phase {phase}: {now - t['last']:.1f} s ({now - t['start']:.1f} s in all)")
+        t["last"] = now
+    return mark, seconds
 
-    smi = phase_env()
-    mark("0 build")
-    rows = phase_kernel(device)
-    mark("1 kernels")
+
+def _check_no_jax():
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "sdwebui_tpu"))
+    if leaked:
+        raise AssertionError(f"the port imported JAX or the JAX package: {leaked[:5]}")
+
+
+def _start_second(directory: str):
+    """Start the second process (this script with SECOND); its output goes
+    to a file in `directory`, its result to another."""
+    log_path, out_path = (os.path.join(directory, n) for n in ("second.log", "second.json"))
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), SECOND, out_path],
+                                stdout=out, stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL,
+                                env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    log(f"started the second process (pid {proc.pid}): phases 3 again, 4m, 4n, 4o, 4q, 5, "
+        "6, 6b, 6c, 7, 4k(b, f) and 4j")
+    return proc, log_path, out_path
+
+
+def _join_second(second) -> dict:
+    """Wait for the second process, copy its log to ours; its result, or
+    an AssertionError naming the end of its log."""
+    proc, log_path, out_path = second
     t0 = time.perf_counter()
+    rc = proc.wait()
+    log(f"the second process ended with {rc} after {time.perf_counter() - t0:.1f} s of waiting")
+    with open(log_path) as f:
+        text = f.read()
+    log("---- the second process's log ----")
+    sys.stdout.write(text)
+    log("---- end of the second process's log ----")
+    if rc != 0:
+        raise AssertionError(f"the second process exited {rc}:\n"
+                             + "\n".join(text.splitlines()[-40:]))
+    with open(out_path) as f:
+        return json.load(f)
+
+
+def _exit_with_parent():
+    """End this (second) process when the first one is gone."""
+    parent = os.getppid()
+
+    def watch():
+        while os.getppid() == parent:
+            time.sleep(2)
+        os._exit(3)
+    threading.Thread(target=watch, daemon=True).start()
+
+
+def second_main(out_path: str) -> int:
+    """The second process: phase 3 again on a server of its own, then 4m,
+    4n, 4o and 4q on it, and SDXL (5, 6, 6b, 6c, 7, 4k(b, f)) and the
+    families of 4j, while the first process runs 3, 4s–4u and 4–4l.  What
+    the first process reports of these phases goes to `out_path` as JSON."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
+              file=sys.stderr)
+        return 1
+    _exit_with_parent()
+    from sdwebui_tpu_torch.pipeline.sd_model import create_random_sd15
+    from sdwebui_tpu_torch.server.app import Engine, random_models
+
+    device = _setup()
+    mark, phase_s = _marker()
     model = create_random_sd15(seed=0, device=device)
-    torch.cuda.synchronize()
-    log(f"random SD1.5 on the card in {time.perf_counter() - t0:.2f} s")
-    tower = random_tower(model.unet_cfg, 11, device)
-    unet = phase_unet(model, device, tower)
-    mark("2 SD1.5 UNet")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_upscalers_") as upscaler_dir:
-        t0 = time.perf_counter()
-        upscaler_paths = write_upscaler_files(upscaler_dir)
-        log(f"wrote the upscaler files {sorted(upscaler_paths)} in "
-            f"{time.perf_counter() - t0:.2f} s")
-        # the process's upscaler registry, as the server's --esrgan-models-path
-        # fills it; the files and their nets leave it with the directory
-        upscaler_names = register_esrgan_dir((upscaler_dir,), device=device)
-        try:
-            engine = Engine(model=model, device=device)
-            results = phase_serve(engine, model)
-            mark("3 config 1")
-            i2i_results, i2i_calls = phase_img2img(engine, model, results[0]["png_b64"])
-            mark("4 config 2")
-            with tempfile.TemporaryDirectory(prefix="chip_smoke_img2img_") as opt_dir:
-                opt_results, opt_info = phase_img2img_options(engine, model, results[0],
-                                                              opt_dir, device)
-            mark("4g img2img options")
-            hr_results, hr_info = phase_hires(engine, model, upscaler_paths)
-            b1_calls = hr_info.pop("b1_calls")     # {(phase-1 row, dtype): calls}
-            hr_info["profile"] = phase_profile(engine, hires_request(2024), "config 3",
-                                               wall=hr_info["latent_wall_s"])
-            mark("4c config 3")
-            extras = phase_extras(engine, [results[0]["png_b64"], results[1]["png_b64"]],
-                                  upscaler_paths)
-            mark("4d extras")
-        finally:
-            for name in upscaler_names:
-                unregister_upscaler(name)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_networks_") as network_dir:
-        c4_results, c4_info = phase_config4(engine, model, results[0], network_dir, tower)
-    mark("4e config 4")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_hybrid_") as hybrid_dir:
-        hy_results, hy_info = phase_hybrid(engine, model, results[0], hybrid_dir, device, tower)
-    del tower
-    gc.collect()
-    torch.cuda.empty_cache()
-    mark("4f hybrids")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_faces_") as face_dir:
-        face_results, face_info = phase_faces(engine, model, results, face_dir, device)
-    mark("4h job control and faces")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as zoo_root:
-        zoo_results, zoo_info = phase_zoo(engine, model, results, zoo_root, device)
-    mark("4i upscaler zoo")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
-        ckpt_engine, ckpt_results, ckpt_info = phase_checkpoint(model, device, results[0],
-                                                                ckpt_dir)
-    mark("4a checkpoints")
-    sampler_results = phase_samplers(ckpt_engine)
-    mark("4b samplers")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_options_") as opt4k_dir:
-        opt4k_results, opt4k_info = phase_options(engine, model, opt4k_dir, device)
-    mark("4k(a, c, d, e) options and openpose")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_training_") as train_dir:
-        train_results, train_info = phase_training(engine, model, results, train_dir, device)
-    mark("4l training and interrogation")
+    engine = Engine(model=model, device=device)
+    results = phase_serve(engine, model)
+    mark("3 config 1, again in the second process")
     script_results, script_info = phase_scripts(engine, model, results[0], device)
     mark("4m scripts")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_saving_") as save_dir:
@@ -6297,17 +6528,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_formats_") as formats_dir:
         format_results, format_info = phase_formats(engine, model, results[0], formats_dir)
     mark("4o image formats")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ui_") as ui_dir:
-        ui_results, ui_info = phase_ui(model, device, results[0], ui_dir)
-    mark("4p page and merger")
     par_results, par_info = phase_parallel(engine, model, device)
     mark("4q parallel")
-    text_results, text_info = phase_text(engine, model)
-    mark("4s text")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_rare_") as rare_dir:
-        rare_results, rare_info = phase_rare_formats(engine, model, results[0], rare_dir)
-    mark("4t rarer formats")
-    del model, engine, ckpt_engine
+    del model, engine
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6329,8 +6552,7 @@ def main() -> int:
     profile = phase_profile(engine, sdxl_request(1234, refiner.title), "SDXL")
     mark("7 SDXL profile")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_options_sdxl_") as opt4k_dir:
-        opt4k_xl_results, opt4k_info["sdxl"] = phase_options_sdxl(engine, base, opt4k_dir,
-                                                                  device)
+        opt4k_xl_results, opt4k_xl_info = phase_options_sdxl(engine, base, opt4k_dir, device)
     mark("4k(b, f) fp8 storage and a pruned SDXL file")
     del base, refiner, extra, engine
     gc.collect()
@@ -6338,23 +6560,168 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_families_") as family_dir:
         family_results, family_info = phase_families(family_dir, device)
     mark("4j SD3, unclip and AltDiffusion")
+    _check_no_jax()
+    family_info["b1_calls"] = [[*row, n] for row, n in family_info["b1_calls"].items()]
+    with open(out_path, "w") as f:
+        json.dump(dict(
+            phase_s=phase_s, serve=_reported(results),
+            scripts=[_reported(script_results), script_info],
+            saving=[_reported(save_results), save_info],
+            formats=[_reported(format_results), format_info],
+            parallel=[_reported(par_results), par_info],
+            sdxl_unet=sdxl_unet, sdxl=[_reported(sdxl_results), s_idx],
+            sdxl_hires=[_reported([sdxl_hr_result]), sdxl_hr_info],
+            sdxl_img2img=[_reported(sdxl_i2i_results), sdxl_i2i_info],
+            sdxl_profile=profile, options_sdxl=[_reported(opt4k_xl_results), opt4k_xl_info],
+            families=[_reported(family_results), family_info]), f)
+    return 0
 
-    leaked = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib", "flax", "sdwebui_tpu"))
-    if leaked:
-        raise AssertionError(f"the port imported JAX or the JAX package: {leaked[:5]}")
-    requests = [{k: v for k, v in r.items()
-                 if k not in ("image", "png_b64", "infotext", "extras", "all_images")}
-                for r in (results + i2i_results + opt_results + hr_results + c4_results
+
+def main() -> int:
+    """The first process: phases 0–2 alone, then 3, 4s–4u and 4–4l beside
+    the second process (second_main), then 4p alone, then the report."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
+              file=sys.stderr)
+        return 1
+    from sdwebui_tpu_torch.models.esrgan import register_esrgan_dir
+    from sdwebui_tpu_torch.pipeline.sd_model import create_random_sd15
+    from sdwebui_tpu_torch.postprocessing.upscalers import unregister_upscaler
+    from sdwebui_tpu_torch.server.app import Engine
+
+    device = _setup()
+    t_start = time.perf_counter()
+    mark, phase_s = _marker()
+    smi = phase_env()
+    mark("0 build")
+    rows = phase_kernel(device)
+    mark("1 kernels")
+    t0 = time.perf_counter()
+    model = create_random_sd15(seed=0, device=device)
+    torch.cuda.synchronize()
+    log(f"random SD1.5 on the card in {time.perf_counter() - t0:.2f} s")
+    tower = random_tower(model.unet_cfg, 11, device)
+    unet = phase_unet(model, device, tower)
+    mark("2 SD1.5 UNet")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_second_") as second_dir:
+        second = _start_second(second_dir)
+
+        def mark_beside(phase: str):
+            """mark, and end the run here if the second process failed."""
+            mark(phase)
+            if second[0].poll() not in (None, 0):
+                _join_second(second)     # logs its output and raises
+        try:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_upscalers_") as upscaler_dir:
+                t0 = time.perf_counter()
+                upscaler_paths = write_upscaler_files(upscaler_dir)
+                log(f"wrote the upscaler files {sorted(upscaler_paths)} in "
+                    f"{time.perf_counter() - t0:.2f} s")
+                # the process's upscaler registry, as the server's
+                # --esrgan-models-path fills it; the files and their nets leave
+                # it with the directory
+                upscaler_names = register_esrgan_dir((upscaler_dir,), device=device)
+                try:
+                    engine = Engine(model=model, device=device)
+                    results = phase_serve(engine, model)
+                    mark_beside("3 config 1")
+                    i2i_results, i2i_calls = phase_img2img(engine, model, results[0]["png_b64"])
+                    mark_beside("4 config 2")
+                    with tempfile.TemporaryDirectory(prefix="chip_smoke_img2img_") as opt_dir:
+                        opt_results, opt_info = phase_img2img_options(engine, model, results[0],
+                                                                      opt_dir, device)
+                    mark_beside("4g img2img options")
+                    hr_results, hr_info = phase_hires(engine, model, upscaler_paths)
+                    b1_calls = hr_info.pop("b1_calls")     # {(phase-1 row, dtype): calls}
+                    hr_info["profile"] = phase_profile(engine, hires_request(2024), "config 3",
+                                                       wall=hr_info["latent_wall_s"])
+                    mark_beside("4c config 3")
+                    extras = phase_extras(engine, [results[0]["png_b64"], results[1]["png_b64"]],
+                                          upscaler_paths)
+                    mark_beside("4d extras")
+                finally:
+                    for name in upscaler_names:
+                        unregister_upscaler(name)
+            text_results, text_info = phase_text(engine, model)
+            mark_beside("4s text")
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_rare_") as rare_dir:
+                rare_results, rare_info = phase_rare_formats(engine, model, results[0], rare_dir)
+            mark_beside("4t rarer formats")
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_j2k_") as j2k_dir:
+                j2k_results, j2k_info = phase_jpeg2000(engine, model, results[0], j2k_dir)
+            mark_beside("4u JPEG 2000")
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_networks_") as network_dir:
+                c4_results, c4_info = phase_config4(engine, model, results[0], network_dir, tower)
+            mark_beside("4e config 4")
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_hybrid_") as hybrid_dir:
+                hy_results, hy_info = phase_hybrid(engine, model, results[0], hybrid_dir, device,
+                                                   tower)
+            del tower
+            gc.collect()
+            torch.cuda.empty_cache()
+            mark_beside("4f hybrids")
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_faces_") as face_dir:
+                face_results, face_info = phase_faces(engine, model, results, face_dir, device)
+            mark_beside("4h job control and faces")
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as zoo_root:
+                zoo_results, zoo_info = phase_zoo(engine, model, results, zoo_root, device)
+            mark_beside("4i upscaler zoo")
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+                ckpt_engine, ckpt_results, ckpt_info = phase_checkpoint(model, device, results[0],
+                                                                        ckpt_dir)
+            mark_beside("4a checkpoints")
+            sampler_results = phase_samplers(ckpt_engine)
+            del ckpt_engine
+            mark_beside("4b samplers")
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_options_") as opt4k_dir:
+                opt4k_results, opt4k_info = phase_options(engine, model, opt4k_dir, device)
+            mark_beside("4k(a, c, d, e) options and openpose")
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_training_") as train_dir:
+                train_results, train_info = phase_training(engine, model, results, train_dir,
+                                                           device)
+            mark_beside("4l training and interrogation")
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+            other = _join_second(second)
+        except BaseException:
+            if second[0].poll() is None:
+                second[0].kill()
+                second[0].wait()
+                with open(second[1]) as f:
+                    tail = f.read().splitlines()[-40:]
+                log("\n".join(["---- the end of the second process's log, stopped ----",
+                                *tail]))
+            raise
+    mark("the second process joined")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ui_") as ui_dir:
+        ui_results, ui_info = phase_ui(model, device, results[0], ui_dir)
+    mark("4p page and merger")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the first phase to the report")
+    _check_no_jax()
+
+    script_results, script_info = other["scripts"]
+    save_results, save_info = other["saving"]
+    format_results, format_info = other["formats"]
+    par_results, par_info = other["parallel"]
+    sdxl_results, s_idx = other["sdxl"]
+    sdxl_hr_results, sdxl_hr_info = other["sdxl_hires"]
+    sdxl_i2i_results, sdxl_i2i_info = other["sdxl_img2img"]
+    opt4k_xl_results, opt4k_info["sdxl"] = other["options_sdxl"]
+    family_results, family_info = other["families"]
+    phase_s.update({f"second process: {k}": v for k, v in other["phase_s"].items()})
+    requests = (_reported(results + i2i_results + opt_results + hr_results + c4_results
                           + hy_results + face_results + zoo_results + ckpt_results
-                          + sampler_results + opt4k_results + train_results + script_results
-                          + save_results + format_results + ui_results + par_results
-                          + text_results + rare_results
-                          + sdxl_results
-                          + opt4k_xl_results
-                          + [sdxl_hr_result] + sdxl_i2i_results + family_results)]
+                          + sampler_results + opt4k_results + train_results + ui_results
+                          + text_results + rare_results + j2k_results)
+                + other["serve"] + script_results + save_results + format_results
+                + par_results + sdxl_results + opt4k_xl_results + sdxl_hr_results
+                + sdxl_i2i_results + family_results)
     log(json.dumps({"card": smi, "kernel_shapes": rows, "unet_step": unet,
-                    "sdxl_unet_step": sdxl_unet, "img2img_unet_calls": i2i_calls,
+                    "sdxl_unet_step": other["sdxl_unet"], "img2img_unet_calls": i2i_calls,
                     "sdxl_refiner_after_step": s_idx, "checkpoint": ckpt_info,
                     "hires": hr_info, "extras": extras, "sdxl_hires": sdxl_hr_info,
                     "config4": c4_info, "hybrid": hy_info, "img2img_options": opt_info,
@@ -6362,9 +6729,10 @@ def main() -> int:
                     "sdxl_img2img": sdxl_i2i_info, "options": opt4k_info,
                     "scripts": script_info, "saving": save_info, "formats": format_info,
                     "ui": ui_info, "parallel": par_info, "text": text_info,
-                    "rare_formats": rare_info,
+                    "rare_formats": rare_info, "jpeg2000": j2k_info,
                     "families": {k: v for k, v in family_info.items() if k != "b1_calls"},
-                    "requests": requests, "sdxl_profile": profile, "phase_s": phase_s}))
+                    "requests": requests, "sdxl_profile": other["sdxl_profile"],
+                    "phase_s": phase_s}))
 
     def row_of(name, shape, dtype):
         return next(r for r in rows if r["entry"] == name and r["name"] == shape
@@ -6390,12 +6758,14 @@ def main() -> int:
     b1_calls[("vae_mid_512_f32", "float32")] += format_info["f32_encodes_512"]
     b1_calls[("vae_mid_512", "bfloat16")] += rare_info["decodes_512"]
     b1_calls[("vae_mid_512_f32", "float32")] += rare_info["f32_encodes_512"]
+    b1_calls[("vae_mid_512", "bfloat16")] += j2k_info["decodes_512"]
+    b1_calls[("vae_mid_512_f32", "float32")] += j2k_info["f32_encodes_512"]
     b1_calls[("vae_mid_512", "bfloat16")] += len(ui_results)
     b1_calls[("vae_mid_512", "bfloat16")] += sum(r["launches"]["flash_attention"]
                                                  for r in text_results)
     b1_calls[("vae_mid_1024_f32", "float32")] += 1
-    for row, n in family_info["b1_calls"].items():
-        b1_calls[row] = b1_calls.get(row, 0) + n
+    for name, dtype, n in family_info["b1_calls"]:
+        b1_calls[(name, dtype)] = b1_calls.get((name, dtype), 0) + n
     b1_row = max(b1_calls, key=lambda c: b1_calls[c] * row_of("flash_attention", *c)["ms"])
 
     def entry(name, source, replaces, dominant, dtype):
@@ -6412,7 +6782,11 @@ def main() -> int:
     # img2img, hires fix and config 4, from the checkpoint files and with
     # every sampler, SDXL with and without hires fix); the times at each entry's
     # dominant shape; max_abs_err over all its compared shapes
-    print(json.dumps({"kernels": [entry(*e) for e in KERNEL_ENTRIES]}), flush=True)
+    kernels = [entry(*e) for e in KERNEL_ENTRIES]
+    idle = [k["name"] for k in kernels if k["name"] in PATH_KERNELS and not k["launches"]]
+    if idle:
+        raise AssertionError(f"the main paths never launched {idle}")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -6420,4 +6794,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(second_main(sys.argv[2]) if sys.argv[1:2] == [SECOND] else main())

@@ -19,7 +19,7 @@ generation routes write their images and grid with ``save_images``;
 ``/internal/save-images`` writes the posted images with a ``log.csv`` row
 and a zip (``server/ui_actions``); ``/internal/img2img-batch`` runs img2img
 over a directory of images (api.py:645-745).  Every image field reads
-what JAX's Pillow reads but AVIF and JPEG 2000 (``utils/image_io``).  Training and
+what JAX's Pillow reads but AVIF (``utils/image_io``).  Training and
 interrogation (``api.py:349-415,1206-1365``): ``interrogate``
 (DeepDanbooru, or the CLIP interrogator with BLIP's caption when BLIP is
 there; 501 naming what is absent), ``preprocess``, ``create/embedding``,

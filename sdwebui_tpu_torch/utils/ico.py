@@ -9,8 +9,9 @@ transparent), as Pillow's ``IcoFile.frame``.  CUR: the first entry, or a
 later one both wider and taller, read as its BMP with no mask.  ICNS: the
 largest size's entries (Pillow's ``bestsize``): PNG entries, or the
 RLE-packed ``it32`` / ``ih32`` / ``il32`` / ``is32`` RGB with its
-``t8mk`` / ``h8mk`` / ``l8mk`` / ``s8mk`` mask; a JPEG 2000 entry raises
-``UnsupportedImageFormat`` naming JPEG 2000.
+``t8mk`` / ``h8mk`` / ``l8mk`` / ``s8mk`` mask, or JPEG 2000 entries (read
+through ``utils/jpeg2000`` and converted to RGBA, as Pillow's
+``read_png_or_jpeg2000``).
 
 The writers follow Pillow's savers: ICO holds a PNG of each of Pillow's
 sizes (16 to 256) that fits the image, thumbnailed with LANCZOS and its
@@ -29,6 +30,7 @@ import numpy as np
 from sdwebui_tpu_torch.utils import images as images_util
 from sdwebui_tpu_torch.utils.bmp import decode_bmp
 from sdwebui_tpu_torch.utils.image_modes import NotThisFormat
+from sdwebui_tpu_torch.utils.jpeg2000 import decode_jpeg2000
 from sdwebui_tpu_torch.utils.png import decode_png, encode_png, unpack_bits
 
 _PNG = b"\x89PNG\r\n\x1a\n"
@@ -186,12 +188,21 @@ def _icns_rgb(data: bytes, pos: int, length: int, side: int) -> np.ndarray:
     return np.stack(planes, axis=1).reshape(side, side, 3)
 
 
+def _rgba(px: np.ndarray) -> np.ndarray:
+    """Decoded grey, grey + alpha, RGB or RGBA pixels → RGBA (``convert``)."""
+    c = px.shape[2]
+    if c == 4:
+        return px
+    alpha = px[:, :, 1:2] if c == 2 else np.full(px.shape[:2] + (1,), 255, np.uint8)
+    rgb = px[:, :, :1].repeat(3, axis=2) if c in (1, 2) else px
+    return np.concatenate([rgb, alpha], axis=2)
+
+
 def decode_icns(data: bytes) -> tuple[np.ndarray, dict]:
     """ICNS bytes → (uint8 (H, W, C) of the largest size, info with
     Pillow's ``sizes``)."""
     if len(data) < 8 or not accept_icns(data):
         raise NotThisFormat("not an icns file")
-    from sdwebui_tpu_torch.utils.image_io import UnsupportedImageFormat
 
     (filesize,) = struct.unpack_from(">I", data, 4)
     blocks = {}
@@ -227,7 +238,10 @@ def decode_icns(data: bytes) -> tuple[np.ndarray, dict]:
             if head.startswith(_PNG):
                 channels["RGBA"] = decode_png(data[pos:pos + length])[0]
             elif head.startswith(_J2K[:2]) or head == _J2K[2]:
-                raise UnsupportedImageFormat("JPEG 2000 (an ICNS entry)")
+                try:
+                    channels["RGBA"] = _rgba(decode_jpeg2000(data[pos:pos + length])[0])
+                except NotThisFormat as e:       # Pillow raises it at load, past the search
+                    raise ValueError(str(e)) from None
             else:
                 raise ValueError("unsupported icon subimage format")
     info = {"sizes": sizes}

@@ -14,7 +14,7 @@ in Pillow.
 The decoders give uint8 (H, W, C) pixels as Pillow's ``convert`` sees the
 mode ``Image.open`` gives (``utils/image_modes``: grey, grey + alpha, RGB or
 RGBA; palettes expanded) and the ``info`` Pillow fills.  The formats Pillow
-reads and the port does not (AVIF, JPEG 2000) and those Pillow opens but
+reads and the port does not (AVIF) and those Pillow opens but
 cannot load here (EPS without Ghostscript, WMF/EMF, MPEG, BUFR, GRIB and
 HDF5 stubs) raise ``UnsupportedImageFormat`` naming theirs."""
 
@@ -30,6 +30,7 @@ from sdwebui_tpu_torch.utils.bmp import decode_bmp
 from sdwebui_tpu_torch.utils.gif import decode_gif
 from sdwebui_tpu_torch.utils.image_modes import NotThisFormat
 from sdwebui_tpu_torch.utils.jpeg import decode_jpeg
+from sdwebui_tpu_torch.utils.jpeg2000 import decode_jpeg2000
 from sdwebui_tpu_torch.utils.png import decode_png
 from sdwebui_tpu_torch.utils.tiff import decode_tiff
 from sdwebui_tpu_torch.utils.webp import decode_webp
@@ -43,8 +44,8 @@ class UnsupportedImageFormat(ValueError):
 
     def __init__(self, fmt: str):
         super().__init__(f"a {fmt} image; the port reads every format Pillow reads here but "
-                         "AVIF and JPEG 2000, and Pillow itself cannot load EPS, WMF, EMF, "
-                         "MPEG, BUFR, GRIB or HDF5 images")
+                         "AVIF, and Pillow itself cannot load EPS, WMF, EMF, MPEG, BUFR, GRIB "
+                         "or HDF5 images")
         self.fmt = fmt
 
 
@@ -100,7 +101,7 @@ PLUGINS = (
     ("PNG", lambda p: p.startswith(b"\x89PNG\r\n\x1a\n"), decode_png),
     ("JPEG2000", lambda p: p.startswith((b"\xff\x4f\xff\x51",
                                          b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a")),
-     _refuse("JPEG 2000")),
+     decode_jpeg2000),
     ("ICNS", ico.accept_icns, ico.decode_icns),
     ("ICO", ico.accept_ico, ico.decode_ico),
     ("IM", None, im.decode_im),

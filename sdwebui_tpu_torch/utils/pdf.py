@@ -1,8 +1,10 @@
 """PDF and EPS writing, as Pillow's ``PdfImagePlugin`` (with its
-``PdfParser``) and ``EpsImagePlugin`` write a grey or RGB image.
+``PdfParser``) and ``EpsImagePlugin`` write an image.
 
 PDF: ``%PDF-1.4``, the catalog, the page tree, the image as a DCTDecode
-XObject (the JPEG of ``utils/jpeg.encode_jpeg`` at the quality given), the
+XObject (the JPEG of ``utils/jpeg.encode_jpeg`` at the quality given) for
+grey or RGB, or as a JPXDecode XObject with ``SMaskInData 1`` (the JP2 of
+``utils/jpeg2000.encode_jpeg2000``) for grey + alpha or RGBA, the
 page at 72 dpi, its content stream, the document information (the file's
 base name as its UTF-16 title, the creation and modification times), the
 cross-reference table and the trailer, in Pillow's object order and
@@ -17,6 +19,7 @@ import time
 import numpy as np
 
 from sdwebui_tpu_torch.utils.jpeg import encode_jpeg
+from sdwebui_tpu_torch.utils.jpeg2000 import encode_jpeg2000
 
 
 def _text(s: str) -> bytes:
@@ -30,19 +33,24 @@ def _date(t: time.struct_time) -> bytes:
 
 def encode_pdf(image: np.ndarray, quality: int, filename: str = "",
                now: time.struct_time | None = None) -> bytes:
-    """uint8 (H, W, 1|3) → Pillow's one-page PDF bytes; `filename` is the
+    """uint8 (H, W, 1|2|3|4) → Pillow's one-page PDF bytes; `filename` is the
     file written to (its base name is the title), `now` the creation time
     (default: the current UTC time, as Pillow takes it)."""
     a = np.asarray(image)
     if a.ndim == 2:
         a = a[:, :, None]
     h, w, c = a.shape
-    if c not in (1, 3):
-        raise NotImplementedError(f"a PDF of a {c}-channel image needs JPEG 2000 "
-                                  "(Pillow's JPXDecode), which is not ported")
+    if c not in (1, 2, 3, 4):
+        raise ValueError(f"cannot save a {c}-channel image as PDF")
     now = now or time.gmtime()
-    jpeg = encode_jpeg(a[:, :, 0] if c == 1 else a, int(quality))
-    space, procset = (b"/DeviceGray", b"/ImageB") if c == 1 else (b"/DeviceRGB", b"/ImageC")
+    procset = b"/ImageB" if c in (1, 2) else b"/ImageC"
+    if c in (2, 4):
+        stream = encode_jpeg2000(a, "j2k" if str(filename).endswith(".j2k") else "jp2")
+        image = b"/Filter /JPXDecode\n/SMaskInData 1\n"
+    else:
+        stream = encode_jpeg(a[:, :, 0] if c == 1 else a, int(quality))
+        image = b"/Filter /DCTDecode\n/BitsPerComponent 8\n/ColorSpace %s\n" % (
+            b"/DeviceGray" if c == 1 else b"/DeviceRGB")
     title = os.path.splitext(os.path.basename(filename))[0]
     out = bytearray(b"%PDF-1.4\n% created by Pillow PDF driver\n")
     offsets = {}
@@ -57,8 +65,7 @@ def encode_pdf(image: np.ndarray, quality: int, filename: str = "",
 
     obj(4, b"/Type /Catalog\n/Pages 5 0 R\n")
     obj(5, b"/Type /Pages\n/Count 1\n/Kids [ 2 0 R ]\n")
-    obj(1, b"/Type /XObject\n/Subtype /Image\n/Width %d\n/Height %d\n/Filter /DCTDecode\n"
-           b"/BitsPerComponent 8\n/ColorSpace %s\n" % (w, h, space), jpeg)
+    obj(1, b"/Type /XObject\n/Subtype /Image\n/Width %d\n/Height %d\n" % (w, h) + image, stream)
     size = (repr(float(w)).encode(), repr(float(h)).encode())
     obj(2, b"/Resources <<\n/ProcSet [ /PDF %s ]\n/XObject <<\n/image 1 0 R\n>>\n>>\n"
            b"/MediaBox [ 0 0 %s %s ]\n/Contents 3 0 R\n/Type /Page\n/Parent 5 0 R\n"

@@ -47,10 +47,13 @@ def _pad(device):
     launch mix lost 3 a trace 47 s into a process and 16 at 243 s; a
     request's trace 0 to 4 at 56 to 99 s and 0 to 14 at 197 to 238 s;
     ``tools/profiler_window_probe_cuda.py``).  Draining the card before the
-    trace opens, leaving it idle 50 ms after, or a profiler schedule's
-    warmup step did not stop the loss; traces of spin kernels alone lost
-    nothing.  So the trace opens on kernels it may lose, and the loss is
-    counted after (``_count_lost``)."""
+    trace opens, leaving it idle 50 ms after, or a warm-up step of the
+    profiler's schedule ahead of the generation (``schedule(wait=0,
+    warmup=1, active=1)``: 0 to 2 records lost a trace at 240 to 270 s into
+    the process, as many as with no pad; the probe's ``warmup`` arm) did
+    not stop the loss; traces of spin kernels alone lost nothing.  So the
+    trace opens on kernels it may lose, and the loss is counted after
+    (``_count_lost``)."""
     for _ in range(PAD_KERNELS):
         torch.cuda._sleep(0)
 

@@ -19,15 +19,16 @@ Pillow writes it: BMP, DIB, TIFF, JPEG's other names (``.jfif``, ``.jpe``)
 and MPO (a plain JPEG), APNG (a PNG), Netpbm (``utils/netpbm``: P6 or P5
 whatever the extension), TGA (``.tga``, ``.icb``, ``.vda``, ``.vst``), QOI,
 SGI (``.sgi``, ``.rgb``, ``.rgba``, ``.bw``), PCX, DDS, IM, ICO, ICNS, PDF
-and EPS / PS (``utils/pdf``); BLP, MSP, XBM and Palm raise what Pillow
+and EPS / PS (``utils/pdf``), JPEG 2000 (``utils/jpeg2000``: ``.jp2``,
+``.jpx``, ``.jpf``, ``.j2c`` and ``.jpc`` as JP2, ``.j2k`` alone as a raw
+codestream, as Pillow decides by the file name); BLP, MSP, XBM and Palm raise what Pillow
 raises for an RGB image, and the stub formats (HDF5, GRIB, BUFR, WMF/EMF)
 its "save handler not installed";
 then the ``export_for_4chan`` JPEG copy (resized with Pillow's LANCZOS,
 ``utils/images.resize``) and the ``.txt`` sidecar, on one background writer
 thread with ``sdtpu_async_save`` (``flush_saves`` joins it).  Images are
 uint8 (H, W, 3|4) or grey (H, W[, 1]) numpy arrays.  Other formats
-(``avif``, the JPEG 2000 family, ...) raise ``NotImplementedError`` naming
-the format.
+(``avif``, ...) raise ``NotImplementedError`` naming the format.
 
 The port's PNG encoder writes every row with filter None, so its files are
 not Pillow's bytes (the pixels and text chunks are the same): the
@@ -50,6 +51,7 @@ from sdwebui_tpu_torch.utils.gif import encode_gif
 from sdwebui_tpu_torch.utils.ico import encode_icns, encode_ico
 from sdwebui_tpu_torch.utils.im import encode_im
 from sdwebui_tpu_torch.utils.jpeg import encode_jpeg
+from sdwebui_tpu_torch.utils.jpeg2000 import encode_jpeg2000
 from sdwebui_tpu_torch.utils.netpbm import encode_netpbm
 from sdwebui_tpu_torch.utils.options import opts
 from sdwebui_tpu_torch.utils.pcx import encode_pcx
@@ -91,6 +93,9 @@ _GENERIC = {
     "icns": lambda image, filename, quality: encode_icns(image),
     "pdf": lambda image, filename, quality: encode_pdf(image, quality, filename),
     **dict.fromkeys(("eps", "ps"), lambda image, filename, quality: encode_eps(image)),
+    **dict.fromkeys(("jp2", "j2k", "jpx", "jpf", "j2c", "jpc"),
+                    lambda image, filename, quality: encode_jpeg2000(
+                        image, "j2k" if str(filename).endswith(".j2k") else "jp2")),
 }
 #: the extensions ``save_image`` writes
 FORMATS = ("png", "jpg", "jpeg", "jfif", "jpe", "webp", "gif", "bmp", "dib", "tif",

@@ -79,6 +79,11 @@ def _cases() -> dict:
     b7, _ = f.bc_blocks(rgba, "bc7")
     jp = encode_jpeg(rgb, 90)
     c = {
+        # JPEG 2000, refused before the port read it
+        "jpeg2000_jp2": lambda: _pillow(rgb, "JPEG2000"),
+        "jpeg2000_j2k": lambda: _pillow(rgb, "JPEG2000", no_jp2=True),
+        "icns_jpeg2000": lambda: f.icns_file(None, kind=b"icp4",
+                                             png=_pillow(rgb[:16, :16], "JPEG2000")),
         # Netpbm
         "ppm_P6": lambda: _pillow(rgb, "PPM"), "ppm_P5": lambda: _pillow(grey, "PPM"),
         "ppm_P4": lambda: _pillow(bits.astype(bool), "PPM"),
@@ -388,8 +393,6 @@ def _refused() -> dict:
     tiff = lambda code: f.tiff_file(rgb, tags={259: (3, [code])})  # noqa: E731
     return {
         "AVIF": _pillow(rgb, "AVIF"),
-        "JPEG 2000": _pillow(rgb, "JPEG2000"),
-        "JPEG 2000 codestream": _pillow(rgb, "JPEG2000", no_jp2=True),
         "EPS": _pillow(rgb, "EPS"),
         "WMF": b"\xd7\xcd\xc6\x9a\x00\x00" + bytes(40),
         "EMF": b"\x01\x00\x00\x00" + bytes(36) + b" EMF" + bytes(40),
@@ -398,7 +401,6 @@ def _refused() -> dict:
         "HDF5": b"\x89HDF\r\n\x1a\n" + bytes(8),
         "TIFF with WebP": tiff(50001), "TIFF with ThunderScan": tiff(32809),
         "TIFF with SGILog": tiff(34676), "TIFF with raw_16": tiff(32771),
-        "ICNS JPEG 2000": f.icns_file(None, kind=b"ic08", png=_pillow(rgb, "JPEG2000")),
     }
 
 
@@ -498,22 +500,23 @@ def test_dataset_directory_matches_jax(models, f32_policies, tmp_path):  # noqa:
         assert _rel(e.latent.numpy().transpose(1, 2, 0), r.latent) <= 1e-5
 
 
-@pytest.mark.parametrize("fmt", ["PSD", "QOI", "PPM", "TGA"])
+@pytest.mark.parametrize("fmt", ["PSD", "QOI", "PPM", "TGA", "JPEG2000"])
 @pytest.mark.parametrize("route,field", [("/sdapi/v1/img2img", "init_images"),
                                          ("/sdapi/v1/img2img", "mask"),
                                          ("/sdapi/v1/extra-single-image", "image"),
                                          ("/sdapi/v1/png-info", "image")])
 def test_rare_input_formats_are_read(port_api, route, field, fmt):
     """Each image field reads the format: the answer is the one the PNG of
-    the same pixels gets (PSD, QOI and PPM were refused before this port
-    read them)."""
+    the same pixels gets (PSD, QOI, PPM and JPEG 2000 were refused before
+    this port read them)."""
     img = _sample(64, 64, 3)[0]
     mask = np.zeros((64, 64, 3), np.uint8)
     mask[16:48, 16:48] = 255
     src = mask if field == "mask" else img
     data = {"PSD": lambda: f.psd_file(src.transpose(2, 0, 1), 3, packbits=True),
             "QOI": lambda: _pillow(src, "QOI"), "PPM": lambda: _pillow(src, "PPM"),
-            "TGA": lambda: f.tga_file(src, rle=True)}[fmt]()
+            "TGA": lambda: f.tga_file(src, rle=True),
+            "JPEG2000": lambda: _pillow(src, "JPEG2000")}[fmt]()
     answers = []
     for payload in (data, encode_png(src)):
         b64 = base64.b64encode(payload).decode()

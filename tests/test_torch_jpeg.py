@@ -281,8 +281,7 @@ def test_decode_in_bands_equals_pillow(monkeypatch, mode, band_pixels, idct_bloc
         _assert_decodes_like_pillow(data)
 
 
-@pytest.mark.parametrize("fmt,kw", [("AVIF", {}), ("JPEG 2000", {}),
-                                    ("JPEG 2000", {"no_jp2": True})])
+@pytest.mark.parametrize("fmt,kw", [("AVIF", {})])
 def test_other_formats_name_theirs(fmt, kw):
     buf = io.BytesIO()
     Image.fromarray(_photo(8, 8, 0)).save(buf, fmt.replace(" ", ""), **kw)
@@ -291,11 +290,13 @@ def test_other_formats_name_theirs(fmt, kw):
     assert e.value.fmt == fmt
 
 
-@pytest.mark.parametrize("fmt", ["PPM", "ICO", "QOI"])
+@pytest.mark.parametrize("fmt", ["PPM", "ICO", "QOI", "JPEG2000", "J2K"])
 def test_other_formats_are_read(fmt):
-    """PPM, ICO and QOI, refused before the port read them: Pillow's pixels."""
+    """PPM, ICO, QOI and JPEG 2000 (a JP2 file and a raw codestream),
+    refused before the port read them: Pillow's pixels."""
     buf = io.BytesIO()
-    Image.fromarray(_photo(24, 24, 0)).save(buf, fmt)
+    Image.fromarray(_photo(24, 24, 0)).save(buf, "JPEG2000" if fmt == "J2K" else fmt,
+                                            **({"no_jp2": True} if fmt == "J2K" else {}))
     with Image.open(io.BytesIO(buf.getvalue())) as im:
         want = np.asarray(im.convert("RGB"))
     np.testing.assert_array_equal(decode_image(buf.getvalue())[0][:, :, :3], want)

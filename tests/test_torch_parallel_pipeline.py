@@ -70,6 +70,9 @@ def f32_policies():
 @pytest.fixture(autouse=True)
 def _runtimes():
     jax_old = jax_mesh.get_runtime()
+    # JAX's cond cache keys on id(model): a replicated bundle may take the id
+    # of a freed one and get back conds placed on that one's mesh
+    jax_proc._COND_CACHE.clear()
     yield
     jax_mesh.set_runtime(jax_old)
     mesh.set_runtime(None)

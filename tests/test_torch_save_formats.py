@@ -11,8 +11,8 @@ encoder's (Pillow's zlib stream and filters differ; the layout, sizes and
 pixels are Pillow's).  BLP, MSP, XBM and Palm (which Pillow refuses for
 the images JAX hands it) and the stub formats raise what JAX raises, and a
 save on the background writer leaves what JAX's leaves.  ``check_format``
-passes every extension JAX's path takes, and names the JPEG 2000 family
-and AVIF."""
+passes every extension JAX's path takes (JPEG 2000's six among them), and
+names AVIF."""
 
 import torch_threads  # noqa: F401  (one thread share per xdist worker)
 from torch_jax_state import jax_vae_file_reset  # noqa: F401  (JAX's loaded-VAE global)
@@ -34,7 +34,8 @@ from sdwebui_tpu_torch.utils.png import decode_png
 from test_torch_saving import both, fixed_clock  # noqa: F401
 
 BYTES_EQUAL = ("ppm", "pgm", "pbm", "pnm", "pfm", "tga", "icb", "vda", "vst", "qoi", "sgi",
-               "rgb", "rgba", "bw", "pcx", "dds", "im", "mpo", "eps", "ps")
+               "rgb", "rgba", "bw", "pcx", "dds", "im", "mpo", "eps", "ps", "jp2", "j2k", "jpx",
+               "jpf", "j2c", "jpc")
 REFUSED = ("blp", "msp", "xbm", "palm", "h5", "hdf", "grib", "bufr", "wmf", "emf")
 
 
@@ -86,24 +87,17 @@ def test_writer_bytes_equal_jax(tmp_path, both, ext, mode):
         assert port_out == jax_out
 
 
-@pytest.mark.parametrize("mode", ["RGB", "L"])
+@pytest.mark.parametrize("mode", ["RGB", "L", "RGBA", "LA"])
 def test_pdf_bytes_equal_jax_but_the_times(tmp_path, both, mode):
-    """The PDF of a grey and an RGB image: Pillow's objects, the JPEG at
-    jpeg_quality, the title; the creation and modification times (the clock
-    at the write) are masked."""
+    """The PDF of a grey, an RGB, an RGBA and a grey + alpha image: Pillow's
+    objects, the JPEG at jpeg_quality (JPEG 2000 with SMaskInData for an
+    image with alpha), the title; the creation and modification times (the
+    clock at the write) are masked."""
     both(jpeg_quality=71)
     jax_out, port_out = _both(tmp_path, _image(mode), "pdf")
     mask = re.compile(rb"\(D:\d{14}Z\)")
     assert mask.sub(b"(D:)", port_out) == mask.sub(b"(D:)", jax_out)
     assert port_out.startswith(b"%PDF-1.4\n")
-
-
-@pytest.mark.parametrize("mode", ["RGBA", "LA"])
-def test_pdf_of_alpha_names_jpeg_2000(tmp_path, mode):
-    """Pillow writes an image with alpha into a PDF as JPEG 2000 (JPXDecode),
-    which the port does not write: it says so."""
-    with pytest.raises(NotImplementedError, match="JPEG 2000"):
-        saving.save_image_with_geninfo(_image(mode), None, str(tmp_path / "x.pdf"))
 
 
 @pytest.mark.parametrize("ext", ["ico", "icns"])
@@ -182,7 +176,7 @@ def test_check_format_takes_what_jax_writes(ext):
     saving.check_format("." + ext.upper(), "grid_format")
 
 
-@pytest.mark.parametrize("ext", ["avif", "avifs", "jp2", "j2k", "jpx", "jpf", "j2c", "jpc"])
+@pytest.mark.parametrize("ext", ["avif", "avifs"])
 def test_check_format_names_jpeg_2000_and_avif(ext):
     with pytest.raises(NotImplementedError, match=ext):
         saving.check_format(ext)

@@ -74,7 +74,7 @@ def _b64(data: bytes) -> str:
 
 
 def _other_format(fmt: str) -> bytes:
-    """A file in a format Pillow reads and the port does not (AVIF, JPEG 2000)."""
+    """A file in a format Pillow reads and the port does not (AVIF)."""
     buf = io.BytesIO()
     Image.fromarray(_smooth(1, 16)).save(buf, fmt.replace(" ", ""))
     return buf.getvalue()
@@ -331,14 +331,14 @@ def test_jpeg_controlnet_inputs_equal_their_png(port_api):
     assert outs[0] == outs[1]
 
 
-@pytest.mark.parametrize("fmt", ["AVIF", "JPEG 2000"])
+@pytest.mark.parametrize("fmt", ["AVIF"])
 @pytest.mark.parametrize("route,field", [("/sdapi/v1/img2img", "init_images"),
                                          ("/sdapi/v1/img2img", "mask"),
                                          ("/sdapi/v1/extra-single-image", "image"),
                                          ("/sdapi/v1/png-info", "image")])
 def test_other_input_formats_answer_400(port_api, route, field, fmt):
-    """AVIF and JPEG 2000, which the port does not read, answer 400 naming
-    the format (PSD, QOI and PPM are read: test_torch_formats_rare)."""
+    """AVIF, which the port does not read, answers 400 naming the format
+    (PSD, QOI, PPM and JPEG 2000 are read: test_torch_formats_rare)."""
     data = _b64(_other_format(fmt))
     body = {"init_images": [_b64(_png(_smooth(1)))], "steps": 1, "width": 64, "height": 64} \
         if route.endswith("img2img") else {"upscaler_1": "Lanczos"} if "extra" in route else {}

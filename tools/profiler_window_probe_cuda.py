@@ -2,6 +2,7 @@
 
     python3 tools/profiler_window_probe_cuda.py [TRACES]
     python3 tools/profiler_window_probe_cuda.py modules
+    python3 tools/profiler_window_probe_cuda.py warmup
 
 In one process, after a first trace, four sets of traces with the card's
 and the host's activity:
@@ -18,6 +19,12 @@ and the host's activity:
   but no pad, an untraced request between two traces;
 * ``late``: the same after LOAD_S seconds of untraced requests, to see
   whether the loss grows with the process's age.
+
+``warmup`` runs one arm instead: after the process is WARMUP_AGE_S old
+(untraced requests), REQUESTS traces of a request opened with no pad and
+REQUESTS opened on a warm-up step of the profiler's schedule
+(``schedule(wait=0, warmup=1, active=1)``, as ``utils/profiling`` with
+``WINDOW = "warmup"``), in turns (plain, warm-up, warm-up, plain, ...).
 
 ``modules`` runs one arm instead: the launch mix in two fresh child
 processes, one with ``CUDA_MODULE_LOADING=EAGER`` and one with ``LAZY``
@@ -59,6 +66,7 @@ MIX_ROUNDS = 40
 REQUESTS = 6
 LOAD_S = 90.0
 AGES_S = (50.0, 240.0)
+WARMUP_AGE_S = 200.0
 MODULE_TRACES = 4
 T0 = time.perf_counter()
 
@@ -120,6 +128,46 @@ def _traced(body) -> dict:
         body()
         torch.cuda.synchronize()
     return _lost(prof, time.perf_counter())
+
+
+def _traced_warmup(body) -> dict:
+    """A trace opened on a warm-up step of the profiler's schedule."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=False, profile_memory=False, with_stack=False,
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        torch.cuda.synchronize()
+        prof.step()
+        body()
+        torch.cuda.synchronize()
+        prof.step()
+    return _lost(prof, time.perf_counter())
+
+
+def _warmup() -> int:
+    """The ``warmup`` arm."""
+    from sdwebui_tpu_torch.pipeline.sd_model import create_random_sd15
+
+    model = create_random_sd15(seed=0, device=torch.device("cuda"))
+    n = 0
+    while time.perf_counter() - T0 < WARMUP_AGE_S:
+        _request(model, 300 + n)()
+        n += 1
+    print(json.dumps({"untraced_requests": n, "age_s": time.perf_counter() - T0}), flush=True)
+    rows = []
+    for i in range(2 * REQUESTS):
+        warm = i % 4 in (1, 2)
+        rows.append(dict(set="warmup" if warm else "plain",
+                         **(_traced_warmup if warm else _traced)(_request(model, 600 + i))))
+        print(json.dumps(rows[-1]), flush=True)
+    summary = {k: [r["lost"] for r in rows if r["set"] == k] for k in ("plain", "warmup")}
+    print(json.dumps({"summary": summary}), flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "profiler_warmup_probe.json"), "w") as f:
+        json.dump(rows, f, indent=1)
+    return 0
 
 
 def _spin(idle: bool):
@@ -230,6 +278,8 @@ def main() -> int:
 
     if sys.argv[1:] == ["modules"]:
         return _modules()
+    if sys.argv[1:] == ["warmup"]:
+        return _warmup()
     if sys.argv[1:] == ["modules-child"]:
         print(json.dumps(_modules_child()), flush=True)
         return 0
